@@ -1,6 +1,6 @@
 /* ----------------------------------------------------------------------------
  * This file was automatically generated by SWIG (https://www.swig.org).
- * Version 4.4.0
+ * Version 4.4.1
  *
  * Do not make changes to this file unless you know what you are doing - modify
  * the SWIG interface file instead.

@@ -1,13 +1,13 @@
 /* ----------------------------------------------------------------------------
  * This file was automatically generated by SWIG (https://www.swig.org).
- * Version 4.4.0
+ * Version 4.4.1
  *
  * Do not make changes to this file unless you know what you are doing - modify
  * the SWIG interface file instead.
  * ----------------------------------------------------------------------------- */
 
 
-#define SWIG_VERSION 0x040400
+#define SWIG_VERSION 0x040401
 #define SWIGJAVA
 
 /* -----------------------------------------------------------------------------
@@ -272,6 +272,13 @@ template <typename T> T SwigValueInit() {
 #endif
 
 #endif
+
+#if defined(__cplusplus) && (__cplusplus >=201103L)
+# define SWIG_OVERRIDE override
+#else
+# define SWIG_OVERRIDE
+#endif
+
 
 
 #include "../capi/c_api.h"
