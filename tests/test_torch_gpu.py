@@ -1,0 +1,131 @@
+"""Card-only tests of lightgbm_tpu_torch: each CUDA kernel against its
+plain PyTorch version, and training on the card against the CPU.
+
+Every test here needs an NVIDIA card; the ``cuda_device`` fixture skips
+them elsewhere. The file imports neither JAX nor lightgbm_tpu, so on a
+machine without JAX it runs as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances: K4 is a permutation of 32-bit words and must be bit-exact.
+K1's grad and hess lanes are f32 sums whose order follows atomic
+scheduling, so they agree with index_add_ to rtol = atol = 1e-4; its count
+lane sums exact integers and must be equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as tlgb
+from lightgbm_tpu_torch.ops.kernels import histogram as k1
+from lightgbm_tpu_torch.ops.kernels import partition as k4
+
+# these tests share the host with timing-sensitive tests in other
+# workers: one CPU thread for torch keeps them from bursting
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_bins,dtype,f", [
+    (64, torch.uint8, 28), (256, torch.uint8, 28), (64, torch.int16, 28),
+    (16, torch.int32, 11), (1024, torch.int32, 40)])
+def test_k1_matches_plain(cuda_device, num_bins, dtype, f):
+    r = np.random.RandomState(num_bins)
+    p = 100_003
+    codes = torch.from_numpy(r.randint(0, num_bins, size=(p, f))) \
+        .to(cuda_device, dtype)
+    gh = torch.from_numpy(np.stack(
+        [r.randn(p), r.rand(p), np.ones(p)], 1).astype(np.float32)) \
+        .to(cuda_device)
+    gh[99_000:] = 0.0
+    n0 = k1.launches
+    got = k1.build_histogram(codes, gh, num_bins)
+    torch.cuda.synchronize()
+    assert k1.launches == n0 + 1
+    want = k1.build_histogram_plain(codes, gh, num_bins)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[..., 2], want[..., 2])
+
+
+@pytest.mark.gpu
+def test_k1_on_packed_row_views(cuda_device):
+    # codes read in place from packed int32 rows (row stride 11 words)
+    r = np.random.RandomState(0)
+    p = 50_001
+    buf = torch.from_numpy(r.randint(0, 2**31, size=(p, 11))
+                           .astype(np.int32)).to(cuda_device)
+    buf[:, 7:10] = torch.from_numpy(np.stack(
+        [r.randn(p), r.rand(p), np.ones(p)], 1).astype(np.float32)) \
+        .to(cuda_device).view(torch.int32)
+    codes = buf.view(torch.uint8)[:, :28]
+    gh = buf.view(torch.float32)[:, 7:10]
+    got = k1.build_histogram(codes, gh, 256)
+    want = k1.build_histogram_plain(codes, gh, 256)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[..., 2], want[..., 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,d", [(1, 11), (1023, 11), (1025, 3),
+                                 (100_003, 11), (3, 1)])
+def test_k4_bit_exact(cuda_device, w, d):
+    r = np.random.RandomState(w)
+    win = torch.from_numpy(r.randint(0, 2**32, size=(w, d), dtype=np.uint32)
+                           .view(np.int32)).to(cuda_device)
+    key = torch.from_numpy(r.randint(0, 3, size=w).astype(np.int32)) \
+        .to(cuda_device)
+    n0 = k4.launches
+    got = k4.stable_partition3(win, key)
+    torch.cuda.synchronize()
+    assert k4.launches == n0 + 1
+    assert torch.equal(got, k4.stable_partition3_plain(win, key))
+
+
+@pytest.mark.gpu
+def test_k4_into_a_slice_of_the_spare_buffer(cuda_device):
+    r = np.random.RandomState(2)
+    spare = torch.zeros((5000, 11), dtype=torch.int32, device=cuda_device)
+    win = torch.from_numpy(r.randint(0, 2**31, size=(3000, 11))
+                           .astype(np.int32)).to(cuda_device)
+    key = torch.from_numpy((r.rand(3000) > 0.6).astype(np.int32)) \
+        .to(cuda_device)
+    k4.stable_partition3(win, key, spare[1000:4000])
+    assert torch.equal(spare[1000:4000], k4.stable_partition3_plain(win, key))
+    assert not spare[:1000].any() and not spare[4000:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_train_on_card_matches_cpu(cuda_device, objective):
+    r = np.random.RandomState(5)
+    n = 20_000
+    x = r.randn(n, 10)
+    x[r.rand(n) < 0.03, 2] = np.nan
+    y = x[:, 0] * 1.5 - x[:, 1] + 0.5 * x[:, 3] * x[:, 4] + 0.5 * r.randn(n)
+    if objective == "binary":
+        y = (y > 0).astype(np.float64)
+    params = {"objective": objective, "num_leaves": 31, "max_bin": 63,
+              "min_gain_to_split": 1e-3, "verbosity": -1}
+    n0 = (k1.launches, k4.launches)
+    card = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
+                      device=cuda_device)
+    assert k1.launches > n0[0] and k4.launches > n0[1]
+    cpu = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
+                     device="cpu")
+
+    def structure(b):
+        return [(list(t.split_feature[:t.num_leaves - 1]),
+                 list(t.left_child[:t.num_leaves - 1]),
+                 list(t.leaf_count[:t.num_leaves])) for t in b._gbdt.models]
+
+    assert structure(card) == structure(cpu)
+    np.testing.assert_allclose(card.predict(x, raw_score=True),
+                               cpu.predict(x, raw_score=True),
+                               rtol=1e-4, atol=1e-4)
