@@ -1,10 +1,11 @@
 """User-facing Dataset and Booster of the port.
 
-Port of lightgbm_tpu/basic.py for the slice this package covers: binary
-and L2 regression GBDT, serial learner, float gradients, no sampling, no
-categorical features. Every parameter outside that slice raises
-LightGBMError naming its key. Both classes run on the card unless the
-caller passes ``device="cpu"``.
+Port of lightgbm_tpu/basic.py for the slices this package covers: binary
+and L2 regression GBDT, serial learner, float or quantized gradients
+(``quantized_grad``, ``grad_bits``, ``quant_renew``), the compact and
+masked growth strategies, no sampling, no categorical features. Every
+parameter outside that slice raises LightGBMError naming its key. Both
+classes run on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ def check_supported(cfg: Config) -> None:
         bad = "feature_fraction_bynode=%g" % cfg.feature_fraction_bynode
     elif cfg.categorical_feature:
         bad = "categorical_feature"
-    elif cfg.quantized_grad:
-        bad = "quantized_grad"
+    elif cfg.quantized_grad and cfg.tree_learner != "serial":
+        bad = "quantized_grad with tree_learner=%s" % cfg.tree_learner
     elif cfg.tree_learner != "serial":
         bad = "tree_learner=%s" % cfg.tree_learner
     elif cfg.stream_mode != "off":
@@ -67,9 +68,9 @@ def check_supported(cfg: Config) -> None:
             bad = "metric=%s" % unknown[0]
     if bad is not None:
         raise LightGBMError("%s is not supported by lightgbm_tpu_torch yet "
-                            "(slice 1: binary/regression GBDT, serial "
-                            "learner, float gradients, no sampling, no "
-                            "categorical features)" % bad)
+                            "(binary/regression GBDT, serial learner, "
+                            "float or quantized gradients, no sampling, "
+                            "no categorical features)" % bad)
 
 
 class Dataset:

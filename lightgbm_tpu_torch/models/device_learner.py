@@ -1,28 +1,42 @@
-"""Leaf-wise tree learner on the compact core, in torch.
+"""Leaf-wise tree learner, in torch: the compact and the masked strategy.
 
-Port of lightgbm_tpu/models/device_learner.py for one case of its compact
-strategy (``grow_tree_compact_core``): float gradients, serial learner,
-dense histogram pool, numerical features, all-ones row weights. The
-reference's DataPartition (data_partition.hpp:20-205) becomes one packed
-(N, CW + 4) int32 working buffer -- bit-packed codes | three f32 gh words
-| row id -- that is physically reordered per split, so every read of a
-leaf (split decision, histogram input) is a contiguous slice.
+Port of lightgbm_tpu/models/device_learner.py for the serial, dense-pool,
+numerical-feature, all-ones-row-weight case of its two single-device
+strategies, each with float or quantized gradients.
 
-Per split:
+**Compact** (``grow_tree_compact_core``, JAX :808). The reference's
+DataPartition (data_partition.hpp:20-205) becomes one packed int32 working
+buffer -- bit-packed codes | gh section | row id -- that is physically
+reordered per split, so every read of a leaf (split decision, histogram
+input) is a contiguous slice. The gh section is three bitcast f32 words
+(grad, hess, weight) on the float path, one (qg << 16 | qh) word on the
+quantized path. Per split:
   1. the leaf with the best stored gain is chosen (argmax over the (L, 12)
      ``best`` array, the reference's best_split_per_leaf_);
   2. its window decodes the split feature and decides left/right;
   3. kernel K4 stably partitions the window into the other working buffer
      (the two buffers ping-pong: a leaf's rows live in exactly one of
      them, and a split moves the window to the other one);
-  4. kernel K1 builds the histogram of the smaller child from its
-     contiguous half of the window;
+  4. kernel K1 (float) or K3 (exact int32) builds the histogram of the
+     smaller child from its contiguous half of the window;
   5. the sibling is parent - child (FeatureHistogram::Subtract);
   6. both children are scanned in one batched pass and stored in ``best``.
 After the loop, the row -> leaf map comes from scattering the final
 position -> leaf map over the row-id column.
 
-Deltas from the JAX core: torch sizes are dynamic, so the window-size
+**Masked** (``grow_tree``, JAX :307), which ``auto`` picks below 65,536
+rows. Codes stay column-major (C, N); the row -> leaf map ``leaf_id`` is
+rewritten per split, and the left child's histogram is built over all N
+rows with the others' gh zeroed (kernel K2, or K3t when quantized); the
+right child is parent - left.
+
+Quantized gradients (ops/quantize.py): the iteration's (grad, hess) are
+rounded stochastically with the threefry port, so the integers, the
+int32 histograms and the pool are the JAX package's bit for bit; the
+scans read dequantized f32 copies. The compact core re-quantizes each
+leaf's operand at a leaf-local ratio when ``quant_renew`` is on.
+
+Deltas from the JAX cores: torch sizes are dynamic, so the window-size
 ladder (``_size_classes``), the ``lax.switch`` over it and the padding of
 the working buffer are gone -- every window is exactly the leaf. The price
 is that each split reads the chosen leaf's best row on the host (one
@@ -31,7 +45,7 @@ assembled on the host directly.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,11 +54,17 @@ from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import Dataset
 from ..ops import bundle as bundle_ops
+from ..ops import quantize as quant_ops
 from ..ops import split as split_ops
-from ..ops.histogram import build_histogram, subtract_histogram
+from ..ops.histogram import (build_histogram, build_histogram_quantized,
+                             subtract_histogram)
+from ..ops.kernels.histogram import (build_histogram_quantized_t,
+                                     build_histogram_t)
 from ..ops.kernels.partition import stable_partition3
 from ..ops.partition import decide_left
 from ..utils import log
+from ..utils import random as trandom
+from ..utils.envs import strategy_env
 from ..utils.log import LightGBMError
 from .tree import Tree
 
@@ -89,12 +109,15 @@ def plan_histogram_pool(config: Config, dataset: Dataset):
 
 def resolve_strategy(config: Config, dataset: Dataset,
                      forced: Optional[str] = None) -> str:
-    """The growth strategy. This port has the compact strategy only, at
-    every row count (the JAX package's ``auto`` picks its masked strategy
-    below 65,536 rows); anything else is refused."""
-    if forced not in (None, "auto", "compact"):
+    """The growth strategy: `forced`, else LGBM_TPU_STRATEGY, else auto --
+    compact at 65,536 rows and above, masked below (the JAX rule). The
+    chunk strategy and the LRU-capped histogram pool are refused."""
+    strat = forced or strategy_env()
+    if strat == "auto":
+        strat = "compact" if dataset.num_data >= 65536 else "masked"
+    if strat not in ("compact", "masked"):
         raise LightGBMError("strategy=%s is not supported by this port yet "
-                            "(only the compact strategy)" % forced)
+                            "(compact and masked only)" % strat)
     slot_bytes, pool_slots = plan_histogram_pool(config, dataset)
     if pool_slots > 0 or slot_bytes * int(config.num_leaves) \
             > _POOL_BYTE_LIMIT:
@@ -102,7 +125,7 @@ def resolve_strategy(config: Config, dataset: Dataset,
             "num_leaves=%d needs an LRU-capped histogram pool "
             "(histogram_pool_size), which this port does not have yet"
             % int(config.num_leaves))
-    return "compact"
+    return strat
 
 
 def _unpack_codes(words: torch.Tensor, c_cols: int,
@@ -116,15 +139,12 @@ def _unpack_codes(words: torch.Tensor, c_cols: int,
     return u.reshape(words.shape[0], words.shape[1] * per)[:, :c_cols]
 
 
-def packed_go_left(win: torch.Tensor, feat: int, thr: int, dleft: bool,
-                   meta: dict, *, item_bits: int) -> torch.Tensor:
-    """Decode feature `feat`'s codes from a packed int32 row window and
-    apply the split decision. The feature's metadata are host arrays in
-    `meta` (f_col, f_base, f_elide, f_numbins, f_missing, f_default)."""
-    per = 32 // item_bits
-    col_i = int(meta["f_col"][feat])
-    word, sub = col_i // per, col_i % per
-    col = (win[:, word] >> (sub * item_bits)) & ((1 << item_bits) - 1)
+def column_go_left(col: torch.Tensor, feat: int, thr: int, dleft: bool,
+                   meta: dict) -> torch.Tensor:
+    """The split decision over one column's raw codes: unmap feature
+    `feat`'s logical bins (EFB) and compare. The feature's metadata are
+    host arrays in `meta` (f_base, f_elide, f_numbins, f_missing,
+    f_default)."""
     nb = int(meta["f_numbins"][feat])
     default = int(meta["f_default"][feat])
     fbins = bundle_ops.logical_bins_for_feature(
@@ -132,6 +152,17 @@ def packed_go_left(win: torch.Tensor, feat: int, thr: int, dleft: bool,
         int(meta["f_elide"][feat]))
     return decide_left(fbins, thr, dleft, int(meta["f_missing"][feat]),
                        default, nb)
+
+
+def packed_go_left(win: torch.Tensor, feat: int, thr: int, dleft: bool,
+                   meta: dict, *, item_bits: int) -> torch.Tensor:
+    """Decode feature `feat`'s codes from a packed int32 row window and
+    apply the split decision."""
+    per = 32 // item_bits
+    col_i = int(meta["f_col"][feat])
+    word, sub = col_i // per, col_i % per
+    col = (win[:, word] >> (sub * item_bits)) & ((1 << item_bits) - 1)
+    return column_go_left(col, feat, thr, dleft, meta)
 
 
 def partition_window(win: torch.Tensor, key3: torch.Tensor,
@@ -229,6 +260,62 @@ class GrowStats:
         self.trees = 0
 
 
+def _next_split(best: torch.Tensor, stats: Optional[GrowStats]):
+    """The one host sync per split: the leaf with the best stored gain and
+    its best row, fetched together. Returns (l, row on the host, row on
+    the device), or None when no leaf has a positive gain."""
+    l_dev = torch.argmax(best[:, B_GAIN]).view(1)
+    row_dev = best.index_select(0, l_dev)[0]
+    fetched = torch.cat([l_dev.float(), row_dev]).cpu().numpy()
+    if stats is not None:
+        stats.host_syncs += 1
+    row = fetched[1:]
+    if not row[B_GAIN] > 1e-10:
+        return None
+    return int(fetched[0]), row, row_dev
+
+
+class QuantRows(NamedTuple):
+    """The quantized working rows' scales for one tree (compact core):
+    storage scales s_g, s_h (f32 scalars), the operand's bits and cap,
+    and -- under leaf re-quantization -- the root's max |stored int|."""
+    bits: int
+    qcap_op: int
+    s_g: torch.Tensor
+    s_h: torch.Tensor
+    root_max: Optional[torch.Tensor]       # (2,) f32, None = renew off
+
+
+def _quant_prepare(grad, hess, key, *, quant_bits: int, quant_renew: bool):
+    """Quantize one iteration's (grad, hess) for the growth cores (JAX
+    :711, single device, all-ones weights): split the key as the masked
+    strategy does, discretize at the storage resolution (16 bits under
+    leaf re-quantization, else grad_bits) and, when renewing, measure the
+    root's stored-int maxes. Returns (packed (N,) int32, s_g, s_h,
+    root_max (2,) f32 or None)."""
+    qkey = trandom.split(key)[1]
+    packed, s_g, s_h = quant_ops.quantize_gh_core(
+        grad, hess, qkey,
+        grad_bits=quant_ops.storage_bits(quant_bits, quant_renew))
+    if not quant_renew:
+        return packed, s_g, s_h, None
+    qg, qh = quant_ops.unpack_gh(packed)
+    m = torch.stack([qg.abs().max(), qh.abs().max()]).float()
+    return packed, s_g, s_h, m
+
+
+def _quant_side_maxes(win: torch.Tensor, go_left: torch.Tensor,
+                      *, cw: int) -> torch.Tensor:
+    """(2, 2) f32 [[max|qg|, max|qh|] left, [..] right] over a window:
+    each child's stored-int maxes, which seed its leaf-local ratio."""
+    qg, qh = quant_ops.unpack_gh(win[:, cw])
+    a = torch.stack([qg.abs(), qh.abs()], dim=1).float()
+    zero = torch.zeros((), dtype=torch.float32, device=win.device)
+    left = torch.where(go_left[:, None], a, zero).amax(dim=0)
+    right = torch.where(go_left[:, None], zero, a).amax(dim=0)
+    return torch.stack([left, right])
+
+
 def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
                            base_mask: torch.Tensor, meta: dict,
                            *, c_cols: int, item_bits: int, num_leaves: int,
@@ -236,14 +323,19 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
                            l2: float, max_delta_step: float,
                            min_data_in_leaf: int, min_sum_hessian: float,
                            min_gain_to_split: float,
+                           quant: Optional[QuantRows] = None,
                            stats: Optional[GrowStats] = None):
-    """Grow one tree over the packed working buffer `data` (N, CW + 4)
-    int32 -- codes | bitcast f32 grad, hess, weight | row id -- with
-    `spare` the second buffer of the same shape. Both are overwritten.
+    """Grow one tree over the packed working buffer `data` -- codes | gh
+    section | row id, int32 -- with `spare` the second buffer of the same
+    shape. Both are overwritten. The gh section is three bitcast f32 words
+    (grad, hess, weight), or with `quant` one packed (qg|qh) word; then
+    the histograms and the pool are exact int32 (kernel K3), and under
+    leaf re-quantization each split's operand is re-discretized at the
+    split leaf's ratio and the parent's pool entry rescaled to it.
 
     Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
     n, d_cols = data.shape
-    cw = d_cols - 4
+    cw = d_cols - (2 if quant is not None else 4)
     L = num_leaves
     dev = data.device
     scan, best_row = _tree_helpers(
@@ -254,35 +346,69 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
         min_sum_hessian=min_sum_hessian, min_gain_to_split=min_gain_to_split)
     search2 = search2_simple(scan, best_row)
     bufs = (data, spare)
-    gh_view = slice(cw, cw + 3)
+    renew = quant is not None and quant.root_max is not None
+    one = torch.ones((), dtype=torch.float32, device=dev)
 
-    def win_hist(rows: torch.Tensor) -> torch.Tensor:
-        """K1 over a contiguous row slice of a working buffer: the codes
-        are read in place through a byte (or 16-bit) view of the packed
-        words; 4-bit codes are unpacked first."""
+    def win_codes(rows: torch.Tensor) -> torch.Tensor:
+        """The codes of a contiguous row slice, read in place through a
+        byte (or 16-bit) view of the packed words; 4-bit codes are
+        unpacked first."""
         if item_bits == 8:
-            codes = rows.view(torch.uint8)[:, :c_cols]
-        elif item_bits == 16:
-            codes = rows.view(torch.int16)[:, :c_cols]
-        else:
-            codes = _unpack_codes(rows[:, :cw], c_cols, item_bits)
-        return build_histogram(codes, rows.view(torch.float32)[:, gh_view],
-                               col_bins)
+            return rows.view(torch.uint8)[:, :c_cols]
+        if item_bits == 16:
+            return rows.view(torch.int16)[:, :c_cols]
+        return _unpack_codes(rows[:, :cw], c_cols, item_bits)
+
+    def win_hist(rows: torch.Tensor, r) -> torch.Tensor:
+        """K1 (float) or K3 (at ratios r) over a contiguous row slice."""
+        if quant is None:
+            return build_histogram(win_codes(rows),
+                                   rows.view(torch.float32)[:, cw:cw + 3],
+                                   col_bins)
+        # the operand: every row's stored (qg|qh) word re-quantized to
+        # the leaf's ratios (every row of a port window is valid)
+        ghq = quant_ops.gh_operand_scaled(rows[:, cw], None, quant.bits,
+                                          quant.qcap_op, r[0], r[1])
+        return build_histogram_quantized(win_codes(rows), ghq, col_bins)
+
+    def for_scan(h: torch.Tensor, r) -> torch.Tensor:
+        """The f32 histogram the split scan reads: the int32 one
+        dequantized at the scales s * r."""
+        if quant is None:
+            return h
+        return h.float() * quant_ops.dequant_scale3(quant.s_g * r[0],
+                                                    quant.s_h * r[1])
+
+    def ratios(leaf_max_q):
+        if not renew:
+            return one, one
+        return (quant_ops.requant_ratio(leaf_max_q[0], quant.qcap_op),
+                quant_ops.requant_ratio(leaf_max_q[1], quant.qcap_op))
 
     # ---- root ------------------------------------------------------------
-    hist0 = win_hist(data)
-    totals = hist0[0].sum(dim=0)                        # (3,): sum_g, sum_h, cnt
+    r0 = ratios(quant.root_max if renew else None)
+    hist0 = win_hist(data, r0)
+    totals = for_scan(hist0[0].sum(dim=0), r0)   # (3,): sum_g, sum_h, cnt
     leaf_min = torch.full((L,), -np.inf, dtype=torch.float32, device=dev)
     leaf_max = torch.full((L,), np.inf, dtype=torch.float32, device=dev)
-    row0 = best_row(scan(hist0[None], totals[0:1], totals[1:2],
-                         totals[2:3], leaf_min[:1], leaf_max[:1],
-                         base_mask), 0)
+    row0 = best_row(scan(for_scan(hist0, r0)[None], totals[0:1],
+                         totals[1:2], totals[2:3], leaf_min[:1],
+                         leaf_max[:1], base_mask), 0)
     best = torch.full((L, 12), NEG_INF, dtype=torch.float32, device=dev)
     best[:, B_FEAT:] = 0.0
     best[0] = row0[0]
-    pool = torch.zeros((L,) + tuple(hist0.shape), dtype=torch.float32,
+    # the pool keeps the histograms' dtype: on the quantized path parent -
+    # child below is exact integer arithmetic
+    pool = torch.zeros((L,) + tuple(hist0.shape), dtype=hist0.dtype,
                        device=dev)
     pool[0] = hist0
+    if renew:
+        # per leaf: the ratio its pool entry was built at, and the max
+        # |stored int| over its rows (seeds the ratio of its own split)
+        scale_of = torch.ones((L, 2), dtype=torch.float32, device=dev)
+        scale_of[0] = torch.stack(r0)
+        leafmax = torch.zeros((L, 2), dtype=torch.float32, device=dev)
+        leafmax[0] = quant.root_max
     rec = np.zeros((L - 1, 13), dtype=np.float32)
     depth = [0] * L
     leaf_begin = [0] * L
@@ -294,16 +420,10 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
 
     k = 0
     while k < L - 1:
-        # the one host sync per split: the best leaf and its best row
-        l_dev = torch.argmax(best[:, B_GAIN]).view(1)
-        row_dev = best.index_select(0, l_dev)[0]
-        fetched = torch.cat([l_dev.float(), row_dev]).cpu().numpy()
-        if stats is not None:
-            stats.host_syncs += 1
-        row = fetched[1:]
-        if not row[B_GAIN] > 1e-10:
+        nxt = _next_split(best, stats)
+        if nxt is None:
             break
-        l = int(fetched[0])
+        l, row, row_dev = nxt
         new_id = k + 1
         feat = int(row[B_FEAT])
         begin, pcount, src = leaf_begin[l], leaf_phys[l], leaf_buf[l]
@@ -312,6 +432,9 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
         go_left = packed_go_left(win, feat, int(row[B_THR]),
                                  bool(row[B_DLEFT] > 0.5), meta,
                                  item_bits=item_bits)
+        rq = ratios(leafmax[l] if renew else None)
+        if renew:
+            qmax2 = _quant_side_maxes(win, go_left, cw=cw)
         key3 = (~go_left).to(torch.int32)             # 0 = left, 1 = right
         out = partition_window(win, key3, bufs[dst][begin:begin + pcount])
         # all-ones weights: below 2**24 rows the record's f32 count is
@@ -326,8 +449,14 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
 
         left_small = row[B_LCNT] <= row[B_RCNT]
         s_off, s_count = (0, lphys) if left_small else (lphys, rphys)
-        hist_small = win_hist(out[s_off:s_off + s_count])
-        sibling = subtract_histogram(pool[l], hist_small)
+        hist_small = win_hist(out[s_off:s_off + s_count], rq)
+        parent = pool[l]
+        if renew:
+            # re-express the parent in the split's ratio before the
+            # subtraction (counts pass through exact)
+            parent = quant_ops.rescale_histogram(
+                parent, rq[0] / scale_of[l, 0], rq[1] / scale_of[l, 1])
+        sibling = subtract_histogram(parent, hist_small)
         hist_l, hist_r = ((hist_small, sibling) if left_small
                           else (sibling, hist_small))
         pool[l] = hist_l
@@ -336,8 +465,12 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
         split_epilogue(k=k, l=l, new_id=new_id, row=row, row_dev=row_dev,
                        mono_f=int(meta["f_monotone"][feat]),
                        leaf_min=leaf_min, leaf_max=leaf_max, depth=depth,
-                       rec=rec, best=best, hist_l=hist_l, hist_r=hist_r,
-                       fmask=base_mask, search2=search2)
+                       rec=rec, best=best, hist_l=for_scan(hist_l, rq),
+                       hist_r=for_scan(hist_r, rq), fmask=base_mask,
+                       search2=search2)
+        if renew:
+            scale_of[l] = scale_of[new_id] = torch.stack(rq)
+            leafmax[l], leafmax[new_id] = qmax2[0], qmax2[1]
         leaf_begin[new_id] = begin + lphys
         leaf_phys[l], leaf_phys[new_id] = lphys, rphys
         leaf_buf[l] = leaf_buf[new_id] = dst
@@ -352,6 +485,90 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
                           data[:, d_cols - 1]).long()
     leaf_id = torch.empty(n, dtype=torch.int64, device=dev)
     leaf_id[row_ids] = pos_leaf
+    return rec, leaf_id, k
+
+
+def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
+              base_mask: torch.Tensor, meta: dict, *, num_leaves: int,
+              col_bins: int, max_depth: int, l1: float, l2: float,
+              max_delta_step: float, min_data_in_leaf: int,
+              min_sum_hessian: float, min_gain_to_split: float,
+              scale3: Optional[torch.Tensor] = None,
+              stats: Optional[GrowStats] = None):
+    """Grow one tree with the masked strategy over column-major codes
+    `codes_t` (C, N) and the (N, 3) histogram operand `gh`: f32 [grad,
+    hess, 1] (kernel K2), or with `scale3` the integer [qg, qh, 1]
+    (kernel K3t; the pool is exact int32 and the scan reads it times the
+    tree's fixed dequantization scales `scale3`). Each split rewrites the
+    device row -> leaf map and builds the left child's histogram over all
+    rows, the others' operand zeroed; the right child is parent - left.
+
+    Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
+    n = codes_t.shape[1]
+    L = num_leaves
+    dev = codes_t.device
+    hist_fn = build_histogram_t if scale3 is None \
+        else build_histogram_quantized_t
+
+    def for_scan(h: torch.Tensor) -> torch.Tensor:
+        return h if scale3 is None else h.float() * scale3
+
+    scan, best_row = _tree_helpers(
+        meta["t_numbins"], meta["t_missing"], meta["t_default"],
+        meta["t_monotone"], meta["t_penalty"], meta["t_elide"],
+        meta["t_hist_idx"], max_depth=max_depth, l1=l1, l2=l2,
+        max_delta_step=max_delta_step, min_data_in_leaf=min_data_in_leaf,
+        min_sum_hessian=min_sum_hessian, min_gain_to_split=min_gain_to_split)
+    search2 = search2_simple(scan, best_row)
+
+    # ---- root ------------------------------------------------------------
+    hist0 = hist_fn(codes_t, gh, col_bins)
+    totals = for_scan(hist0[0].sum(dim=0))        # (3,): sum_g, sum_h, cnt
+    leaf_min = torch.full((L,), -np.inf, dtype=torch.float32, device=dev)
+    leaf_max = torch.full((L,), np.inf, dtype=torch.float32, device=dev)
+    row0 = best_row(scan(for_scan(hist0)[None], totals[0:1], totals[1:2],
+                         totals[2:3], leaf_min[:1], leaf_max[:1],
+                         base_mask), 0)
+    best = torch.full((L, 12), NEG_INF, dtype=torch.float32, device=dev)
+    best[:, B_FEAT:] = 0.0
+    best[0] = row0[0]
+    pool = torch.zeros((L,) + tuple(hist0.shape), dtype=hist0.dtype,
+                       device=dev)
+    pool[0] = hist0
+    rec = np.zeros((L - 1, 13), dtype=np.float32)
+    depth = [0] * L
+    leaf_id = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    k = 0
+    while k < L - 1:
+        nxt = _next_split(best, stats)
+        if nxt is None:
+            break
+        l, row, row_dev = nxt
+        new_id = k + 1
+        feat = int(row[B_FEAT])
+        col = codes_t[int(meta["f_col"][feat])].long()
+        if codes_t.dtype == torch.int16:
+            col = col & 0xFFFF
+        go_left = column_go_left(col, feat, int(row[B_THR]),
+                                 bool(row[B_DLEFT] > 0.5), meta)
+        parent = leaf_id == l
+        leaf_id = torch.where(parent & ~go_left, new_id, leaf_id)
+        ghl = gh * (parent & go_left)[:, None].to(gh.dtype)
+        hist_l = hist_fn(codes_t, ghl, col_bins)
+        hist_r = subtract_histogram(pool[l], hist_l)
+        pool[l] = hist_l
+        pool[new_id] = hist_r
+
+        split_epilogue(k=k, l=l, new_id=new_id, row=row, row_dev=row_dev,
+                       mono_f=int(meta["f_monotone"][feat]),
+                       leaf_min=leaf_min, leaf_max=leaf_max, depth=depth,
+                       rec=rec, best=best, hist_l=for_scan(hist_l),
+                       hist_r=for_scan(hist_r), fmask=base_mask,
+                       search2=search2)
+        k += 1
+    if stats is not None:
+        stats.splits += k
     return rec, leaf_id, k
 
 
@@ -424,19 +641,34 @@ class DeviceTreeLearner:
             "t_hist_idx": t(hi2, torch.int64)}
 
         host_codes = np.asarray(host_codes)
-        if dataset.columns:
-            declared_bins = max(c.num_bins for c in dataset.columns)
-        else:
-            declared_bins = int(dataset.max_num_bins)
-        if host_codes.dtype.itemsize == 2:
-            self.item_bits = 16
-        elif declared_bins <= 16:
-            self.item_bits = 4
-        else:
-            self.item_bits = 8
         self.c_cols = host_codes.shape[1]
-        packed = self.pack_codes(host_codes)
-        self.codes_pack = torch.from_numpy(packed.view(np.int32)).to(dev)
+        # quantized-gradient training: grad_bits when on, else 0; renew =
+        # the compact core's leaf-wise re-quantization
+        self.quant_bits = config.quant_bits
+        self.quant_renew = bool(config.quant_renew)
+        self.codes_pack: Optional[torch.Tensor] = None
+        self.codes_t: Optional[torch.Tensor] = None
+        if self.strategy == "compact":
+            if dataset.columns:
+                declared_bins = max(c.num_bins for c in dataset.columns)
+            else:
+                declared_bins = int(dataset.max_num_bins)
+            if host_codes.dtype.itemsize == 2:
+                self.item_bits = 16
+            elif declared_bins <= 16:
+                self.item_bits = 4
+            else:
+                self.item_bits = 8
+            packed = self.pack_codes(host_codes)
+            self.codes_pack = torch.from_numpy(packed.view(np.int32)).to(dev)
+        else:
+            # the masked strategy's (C, N) column view; 16-bit codes ride
+            # as int16 and are read as uint16
+            self.item_bits = 8
+            ct = np.ascontiguousarray(host_codes.T)
+            if ct.dtype == np.uint16:
+                ct = ct.view(np.int16)
+            self.codes_t = torch.from_numpy(ct).to(dev)
         self._ones_mask = torch.ones(self.num_features, dtype=torch.bool,
                                      device=dev)
         self._spare: Optional[torch.Tensor] = None
@@ -492,27 +724,78 @@ class DeviceTreeLearner:
         return torch.cat([self.codes_pack, gh.view(torch.int32),
                           ids[:, None]], dim=1)
 
+    def quant_working_buffer(self, grad: torch.Tensor, hess: torch.Tensor,
+                             key: torch.Tensor):
+        """The compact core's quantized rows: (N, CW + 2) int32 -- packed
+        codes | one (qg << 16 | qh) word | row id -- and their QuantRows.
+        All-ones weights need no weight word (the JAX gw = 1 layout)."""
+        n = grad.shape[0]
+        packed, s_g, s_h, root_max = _quant_prepare(
+            grad, hess, key, quant_bits=self.quant_bits,
+            quant_renew=self.quant_renew)
+        ids = torch.arange(n, dtype=torch.int32, device=grad.device)
+        data = torch.cat([self.codes_pack, packed[:, None], ids[:, None]],
+                         dim=1)
+        return data, QuantRows(self.quant_bits,
+                               quant_ops.quant_max(self.quant_bits, n),
+                               s_g, s_h, root_max)
+
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
               bag_indices=None, iter_seed: int = 0) -> Tree:
         if bag_indices is not None:
             raise LightGBMError("bagging is not supported by this port yet")
-        cfg = self.config
-        rng = np.random.RandomState(
-            (cfg.feature_fraction_seed + iter_seed) % (2**31 - 1))
-        mask = self._feature_mask(rng)
-        base_mask = (self._ones_mask if mask.all()
-                     else torch.as_tensor(mask, device=self.device))
-        data = self.working_buffer(grad.float(), hess.float())
-        if self._spare is None or self._spare.shape != data.shape:
-            self._spare = torch.empty_like(data)
-        rec, leaf_id, k = grow_tree_compact_core(
-            data, self._spare, base_mask, self.meta, c_cols=self.c_cols,
-            item_bits=self.item_bits, stats=self.stats, **self._statics())
+        rec, leaf_id, k = self.grow(grad, hess, iter_seed)
         self.stats.trees += 1
         self.last_leaf_id = leaf_id
         if k == 0:
             log.warning("No further splits with positive gain")
         return self.replay_tree(rec, k)
+
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
+             iter_seed: int = 0):
+        """Grow one tree on the learner's strategy: the feature sample
+        from the host RandomState and the quantization key
+        prng_key(iter_seed), as in the JAX package's train. Returns (rec
+        (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
+        rng = np.random.RandomState(
+            (self.config.feature_fraction_seed + iter_seed) % (2**31 - 1))
+        mask = self._feature_mask(rng)
+        base_mask = (self._ones_mask if mask.all()
+                     else torch.as_tensor(mask, device=self.device))
+        key = trandom.prng_key(iter_seed)
+        grad, hess = grad.float(), hess.float()
+        if self.strategy == "masked":
+            return self._grow_masked(grad, hess, base_mask, key)
+        return self._grow_compact(grad, hess, base_mask, key)
+
+    def _grow_compact(self, grad, hess, base_mask, key):
+        quant = None
+        if self.quant_bits:
+            data, quant = self.quant_working_buffer(grad, hess, key)
+        else:
+            data = self.working_buffer(grad, hess)
+        if self._spare is None or self._spare.shape != data.shape:
+            self._spare = torch.empty_like(data)
+        return grow_tree_compact_core(
+            data, self._spare, base_mask, self.meta, c_cols=self.c_cols,
+            item_bits=self.item_bits, quant=quant, stats=self.stats,
+            **self._statics())
+
+    def _grow_masked(self, grad, hess, base_mask, key):
+        scale3 = None
+        if self.quant_bits:
+            packed, s_g, s_h, _ = _quant_prepare(
+                grad, hess, key, quant_bits=self.quant_bits,
+                quant_renew=False)
+            gh = quant_ops.gh_operand(
+                packed, torch.ones_like(packed, dtype=torch.bool),
+                self.quant_bits)
+            scale3 = quant_ops.dequant_scale3(s_g, s_h)
+        else:
+            gh = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
+        return grow_tree(self.codes_t, gh, base_mask, self.meta,
+                         scale3=scale3, stats=self.stats,
+                         **self._statics())
 
     def replay_tree(self, rec_h, k: int) -> Tree:
         """Materialize a host Tree from the (L-1, 13) split records."""
@@ -537,5 +820,6 @@ class DeviceTreeLearner:
         return tree
 
 
-__all__: List[str] = ["DeviceTreeLearner", "grow_tree_compact_core",
-                      "resolve_strategy", "padded_device_bins"]
+__all__: List[str] = ["DeviceTreeLearner", "grow_tree",
+                      "grow_tree_compact_core", "resolve_strategy",
+                      "padded_device_bins"]

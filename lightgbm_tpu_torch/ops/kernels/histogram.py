@@ -1,15 +1,29 @@
-"""K1: per-(feature, bin) histogram of [grad, hess, count].
+"""Histogram kernels: K1, K2 (float) and K3, K3t (exact integer).
 
-Port of lightgbm_tpu/ops/pallas/histogram_kernel.py::build_histogram_pallas
-(kernel body ``_hist_kernel``). The kernel itself is ``csrc/histogram.cu``
-(shared-memory atomics, see the note there); ``build_histogram_plain`` is
-the same function in plain PyTorch (``index_add_`` over flattened
-feature * B + bin slots).
+Ports of lightgbm_tpu/ops/pallas/histogram_kernel.py:
 
-``build_histogram`` takes the plain version for a tensor on the CPU and
-launches the kernel for a tensor on the card. Codes come as any (P, F)
-view with element strides, so the growth core hands the kernel the code
-bytes of its packed working rows without unpacking them.
+  * K1 ``build_histogram``: (P, F) codes + (P, 3) f32 [grad, hess, valid]
+    -> (F, B, 3) f32 (``build_histogram_pallas``, body ``_hist_kernel``);
+  * K2 ``build_histogram_t``: the same over column-major (F, P) codes
+    (``build_histogram_pallas_t``), the masked strategy's layout;
+  * K3 ``build_histogram_quantized``: (P, F) codes + (P, 3) int8/int32
+    [qg, qh, valid] -> exact (F, B, 3) int32
+    (``build_histogram_pallas_quantized``, body ``_hist_kernel_q``);
+  * K3t ``build_histogram_quantized_t``: the same over (F, P) codes
+    (``build_histogram_pallas_quantized_t``).
+
+All four launch the one kernel of ``csrc/histogram.cu`` (shared-memory
+atomics, templated on the code, operand and accumulator types; see the
+notes there); the (F, P) forms pass the transposed view's strides (row
+stride 1, column stride P), so consecutive threads read consecutive code
+bytes. Codes come
+as any view with element strides, so the compact core hands the kernels
+the code bytes of its packed working rows without unpacking them.
+
+Each ``*_plain`` function is the same function in plain PyTorch
+(``index_add_`` over flattened feature * B + bin slots; the (F, P) forms
+transpose first). A wrapper takes the plain version for a tensor on the
+CPU and launches its kernel for a tensor on the card.
 """
 from __future__ import annotations
 
@@ -19,29 +33,66 @@ import torch
 
 from . import build
 
-# wrapper-side launch count: +1 per kernel launch, read by chip_smoke.py
-launches = 0
+# launch counts, +1 right after each kernel launch, read by chip_smoke.py:
+launches = 0          # K1
+launches_t = 0        # K2
+launches_q = 0        # K3
+launches_qt = 0       # K3t
 
 _CODE_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
+# operand kinds of lgbt_hist_launch (the accumulator follows: f32 for
+# an f32 operand, int32 for an integer one)
+_OP_KIND = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
 _sm_count = {}
 
 
-def build_histogram_plain(codes: torch.Tensor, gh: torch.Tensor,
-                          num_bins: int) -> torch.Tensor:
-    """(P, F) codes + (P, 3) f32 gh -> (F, B, 3) f32, via one index_add_.
-    Codes outside [0, B) fall into a dump slot, as the one-hot drops them;
-    int16 codes are read as uint16 (the packed-row view of 16-bit bins)."""
+def _slots(codes: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """(P * F,) flat feature * B + bin slots; codes outside [0, B) go to
+    the dump slot F * B, as the one-hot drops them. int16 codes are read
+    as uint16 (the packed-row view of 16-bit bins)."""
     p, f = codes.shape
     c = codes.long()
     if codes.dtype == torch.int16:
         c = c & 0xFFFF
     slot = c + torch.arange(f, device=codes.device) * num_bins
-    slot = torch.where((c >= 0) & (c < num_bins), slot, f * num_bins)
+    return torch.where((c >= 0) & (c < num_bins), slot,
+                       f * num_bins).reshape(-1)
+
+
+def build_histogram_plain(codes: torch.Tensor, gh: torch.Tensor,
+                          num_bins: int) -> torch.Tensor:
+    """(P, F) codes + (P, 3) f32 gh -> (F, B, 3) f32, via one index_add_."""
+    f = codes.shape[1]
     out = torch.zeros((f * num_bins + 1, 3), dtype=torch.float32,
                       device=codes.device)
-    out.index_add_(0, slot.reshape(-1),
+    out.index_add_(0, _slots(codes, num_bins),
                    gh.float().repeat_interleave(f, dim=0))
     return out[:-1].view(f, num_bins, 3)
+
+
+def build_histogram_t_plain(codes_t: torch.Tensor, gh: torch.Tensor,
+                            num_bins: int) -> torch.Tensor:
+    """(F, P) codes + (P, 3) f32 gh -> (F, B, 3) f32."""
+    return build_histogram_plain(codes_t.t(), gh, num_bins)
+
+
+def build_histogram_quantized_plain(codes: torch.Tensor, ghq: torch.Tensor,
+                                    num_bins: int) -> torch.Tensor:
+    """(P, F) codes + (P, 3) int8/int32 ghq -> exact (F, B, 3) int32, via
+    one index_add_ into int64 slots."""
+    f = codes.shape[1]
+    out = torch.zeros((f * num_bins + 1, 3), dtype=torch.int64,
+                      device=codes.device)
+    out.index_add_(0, _slots(codes, num_bins),
+                   ghq.long().repeat_interleave(f, dim=0))
+    return out[:-1].view(f, num_bins, 3).to(torch.int32)
+
+
+def build_histogram_quantized_t_plain(codes_t: torch.Tensor,
+                                      ghq: torch.Tensor,
+                                      num_bins: int) -> torch.Tensor:
+    """(F, P) codes + (P, 3) int8/int32 ghq -> exact (F, B, 3) int32."""
+    return build_histogram_quantized_plain(codes_t.t(), ghq, num_bins)
 
 
 def _grid_x(dev: torch.device, p: int) -> int:
@@ -52,43 +103,87 @@ def _grid_x(dev: torch.device, p: int) -> int:
     return max(1, min(-(-p // 256), 2 * _sm_count[idx]))
 
 
-def build_histogram(codes: torch.Tensor, gh: torch.Tensor,
-                    num_bins: int) -> torch.Tensor:
-    """(P, F) codes (uint8 / int16 / int32, any strides) + (P, 3) f32 gh
-    with unit column stride -> (F, B, 3) f32 histogram. Rows that must not
-    count carry gh == 0."""
-    global launches
-    if codes.device.type == "cpu":
-        return build_histogram_plain(codes, gh, num_bins)
+def _check(name: str, codes: torch.Tensor, gh: torch.Tensor,
+           op_dtypes) -> None:
     if codes.device.type != "cuda" or gh.device != codes.device:
-        raise ValueError("build_histogram: codes and gh must share one "
-                         "CUDA device")
+        raise ValueError("%s: codes and gh must share one CUDA device"
+                         % name)
     if codes.dim() != 2 or gh.dim() != 2 or gh.shape != (codes.shape[0], 3):
-        raise ValueError("build_histogram: want (P, F) codes and (P, 3) gh, "
-                         "got %s and %s" % (tuple(codes.shape),
-                                            tuple(gh.shape)))
+        raise ValueError("%s: want (P, F) codes and (P, 3) gh, got %s and %s"
+                         % (name, tuple(codes.shape), tuple(gh.shape)))
     if codes.dtype not in _CODE_BYTES:
-        raise ValueError("build_histogram: codes dtype %s not supported"
-                         % codes.dtype)
-    if gh.dtype != torch.float32 or gh.stride(1) != 1:
-        raise ValueError("build_histogram: gh must be float32 with unit "
-                         "column stride")
+        raise ValueError("%s: codes dtype %s not supported"
+                         % (name, codes.dtype))
+    if gh.dtype not in op_dtypes or gh.stride(1) != 1:
+        raise ValueError("%s: gh must be %s with unit column stride, got %s"
+                         % (name, " or ".join(map(str, op_dtypes)),
+                            gh.dtype))
+
+
+def _launch(name: str, counter: str, codes: torch.Tensor, gh: torch.Tensor,
+            num_bins: int, op_dtypes) -> torch.Tensor:
+    """Check the inputs and launch the csrc/histogram.cu kernel once over
+    (P, F) codes; adds one to the module's launch count `counter` right
+    after the launch. An empty window launches nothing and counts
+    nothing."""
+    _check(name, codes, gh, op_dtypes)
     p, f = codes.shape
-    out = torch.zeros((f, num_bins, 3), dtype=torch.float32,
-                      device=codes.device)
+    acc = torch.float32 if gh.dtype == torch.float32 else torch.int32
+    out = torch.zeros((f, num_bins, 3), dtype=acc, device=codes.device)
     if p == 0 or f == 0:
         return out
-    lib = build.load("histogram")
-    fn = lib.lgbt_hist_launch
+    fn = build.load("histogram").lgbt_hist_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
     rc = fn(codes.data_ptr(), _CODE_BYTES[codes.dtype], p, f,
-            codes.stride(0), codes.stride(1), gh.data_ptr(), gh.stride(0),
-            num_bins, out.data_ptr(), _grid_x(codes.device, p),
+            codes.stride(0), codes.stride(1), gh.data_ptr(),
+            _OP_KIND[gh.dtype], gh.stride(0), num_bins, out.data_ptr(),
+            _grid_x(codes.device, p),
             torch.cuda.current_stream(codes.device).cuda_stream)
-    launches += 1
-    build.check(rc, "histogram kernel launch")
+    build.check(rc, name + " kernel launch")
+    globals()[counter] += 1
     return out
+
+
+def build_histogram(codes: torch.Tensor, gh: torch.Tensor,
+                    num_bins: int) -> torch.Tensor:
+    """K1: (P, F) codes (uint8 / int16 / int32, any strides) + (P, 3) f32
+    gh with unit column stride -> (F, B, 3) f32 histogram. Rows that must
+    not count carry gh == 0."""
+    if codes.device.type == "cpu":
+        return build_histogram_plain(codes, gh, num_bins)
+    return _launch("build_histogram", "launches", codes, gh, num_bins,
+                   (torch.float32,))
+
+
+def build_histogram_t(codes_t: torch.Tensor, gh: torch.Tensor,
+                      num_bins: int) -> torch.Tensor:
+    """K2: (F, P) codes + (P, 3) f32 gh -> (F, B, 3) f32 histogram."""
+    if codes_t.device.type == "cpu":
+        return build_histogram_t_plain(codes_t, gh, num_bins)
+    return _launch("build_histogram_t", "launches_t", codes_t.t(), gh,
+                   num_bins, (torch.float32,))
+
+
+def build_histogram_quantized(codes: torch.Tensor, ghq: torch.Tensor,
+                              num_bins: int) -> torch.Tensor:
+    """K3: (P, F) codes + (P, 3) int8/int32 [qg, qh, valid] with unit
+    column stride -> exact (F, B, 3) int32 histogram."""
+    if codes.device.type == "cpu":
+        return build_histogram_quantized_plain(codes, ghq, num_bins)
+    return _launch("build_histogram_quantized", "launches_q", codes, ghq,
+                   num_bins, (torch.int8, torch.int32))
+
+
+def build_histogram_quantized_t(codes_t: torch.Tensor, ghq: torch.Tensor,
+                                num_bins: int) -> torch.Tensor:
+    """K3t: (F, P) codes + (P, 3) int8/int32 ghq -> exact (F, B, 3)
+    int32 histogram."""
+    if codes_t.device.type == "cpu":
+        return build_histogram_quantized_t_plain(codes_t, ghq, num_bins)
+    return _launch("build_histogram_quantized_t", "launches_qt",
+                   codes_t.t(), ghq, num_bins, (torch.int8, torch.int32))

@@ -20,7 +20,7 @@ import torch
 
 from . import build
 
-# wrapper-side launch count: +1 per kernel launch, read by chip_smoke.py
+# launch count: +1 right after each kernel launch, read by chip_smoke.py
 launches = 0
 
 _tile = None
@@ -72,6 +72,6 @@ def stable_partition3(win: torch.Tensor, key3: torch.Tensor,
                    ctypes.c_void_p]
     rc = fn(win.data_ptr(), key3.data_ptr(), w, d, scratch.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(win.device).cuda_stream)
-    launches += 1
     build.check(rc, "partition kernel launch")
+    launches += 1
     return out

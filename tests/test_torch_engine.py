@@ -74,10 +74,10 @@ def trained(request):
     try:
         jb = jlgb.train(_params(objective), jlgb.Dataset(x, y),
                         num_boost_round=10, verbose_eval=False)
+        tb = tlgb.train(_params(objective), tlgb.Dataset(x, y),
+                        num_boost_round=10, device="cpu")
     finally:
         mp.undo()
-    tb = tlgb.train(_params(objective), tlgb.Dataset(x, y),
-                    num_boost_round=10, device="cpu")
     return objective, x, jb, tb
 
 
@@ -197,6 +197,36 @@ def test_out_of_slice_params_raise_naming_the_key(key, value):
     params = dict(_params("binary"), **{key: value})
     if key == "bagging_fraction":
         params["bagging_freq"] = 1
+    if key == "quantized_grad":
+        # quantized gradients run on the serial learner only
+        params["tree_learner"] = "data"
     with pytest.raises(LightGBMError, match=key):
         tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=1,
                    device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["compact", "masked"])
+def test_quantized_training_matches_jax(strategy, monkeypatch):
+    # compact forced through the environment, masked by auto (n < 65,536)
+    # on both sides; the same threefry draws quantize the same gradients,
+    # so the trees are the same, and the port's model text loads in the
+    # JAX package
+    x, y = _task("binary")
+    if strategy == "compact":
+        monkeypatch.setenv("LGBM_TPU_STRATEGY", "compact")
+    else:
+        monkeypatch.delenv("LGBM_TPU_STRATEGY", raising=False)
+    params = dict(_params("binary"), quantized_grad=True, grad_bits=8)
+    jb = jlgb.train(params, jlgb.Dataset(x, y), num_boost_round=10,
+                    verbose_eval=False)
+    tb = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=10,
+                    device="cpu")
+    assert tb._gbdt.learner.strategy == strategy
+    assert tb.num_trees() == jb.num_trees() == 10
+    _assert_same_splits(tb._gbdt.models, jb._gbdt.models, x)
+    want = tb.predict(x, raw_score=True)
+    np.testing.assert_allclose(want, jb.predict(x, raw_score=True),
+                               rtol=1e-4, atol=1e-4)
+    jback = jlgb.Booster(model_str=tb.model_to_string())
+    np.testing.assert_allclose(jback.predict(x, raw_score=True), want,
+                               rtol=0, atol=1e-6)

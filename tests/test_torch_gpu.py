@@ -7,10 +7,11 @@ machine without JAX it runs as
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: K4 is a permutation of 32-bit words and must be bit-exact.
-K1's grad and hess lanes are f32 sums whose order follows atomic
-scheduling, so they agree with index_add_ to rtol = atol = 1e-4; its count
-lane sums exact integers and must be equal.
+Tolerances: K4 is a permutation of 32-bit words and K3 / K3t sum
+integers, so they must be bit-exact. K1's (and K2's) grad and hess lanes
+are f32 sums whose order follows atomic scheduling, so they agree with
+index_add_ to rtol = atol = 1e-4; the count lane sums exact integers and
+must be equal.
 """
 import numpy as np
 import pytest
@@ -102,8 +103,104 @@ def test_k4_into_a_slice_of_the_spare_buffer(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bits,num_bins,dtype", [
+    (8, 64, torch.uint8), (8, 256, torch.uint8), (16, 256, torch.uint8),
+    (16, 64, torch.int16), (8, 16, torch.int32), (16, 1024, torch.int32)])
+def test_k3_and_k3t_bit_exact(cuda_device, bits, num_bins, dtype):
+    r = np.random.RandomState(num_bins + bits)
+    p, f = 100_003, 28
+    codes = torch.from_numpy(r.randint(0, num_bins, size=(p, f))) \
+        .to(cuda_device, dtype)
+    q = (1 << (bits - 1)) - 1
+    ghq = torch.from_numpy(np.stack(
+        [r.randint(-q, q + 1, p), r.randint(0, q + 1, p), np.ones(p)],
+        1)).to(cuda_device, torch.int8 if bits <= 8 else torch.int32)
+    ghq[99_000:] = 0
+    n0 = (k1.launches_q, k1.launches_qt)
+    got = k1.build_histogram_quantized(codes, ghq, num_bins)
+    codes_t = codes.t().contiguous()
+    got_t = k1.build_histogram_quantized_t(codes_t, ghq, num_bins)
+    torch.cuda.synchronize()
+    assert (k1.launches_q, k1.launches_qt) == (n0[0] + 1, n0[1] + 1)
+    want = k1.build_histogram_quantized_plain(codes, ghq, num_bins)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got_t, want)
+
+
+@pytest.mark.gpu
+def test_k3_on_packed_quantized_rows(cuda_device):
+    # codes read in place from the compact core's quantized rows (row
+    # stride 9 words); the operand comes from the packed (qg|qh) word
+    from lightgbm_tpu_torch.ops import quantize as q
+    r = np.random.RandomState(3)
+    p = 50_001
+    buf = torch.from_numpy(r.randint(0, 2**31, size=(p, 9))
+                           .astype(np.int32)).to(cuda_device)
+    ghq = q.gh_operand_scaled(buf[:, 7], None, 8, 127,
+                              torch.tensor(0.01, device=cuda_device),
+                              torch.tensor(0.02, device=cuda_device))
+    codes = buf.view(torch.uint8)[:, :28]
+    got = k1.build_histogram_quantized(codes, ghq, 256)
+    assert torch.equal(got, k1.build_histogram_quantized_plain(codes, ghq,
+                                                               256))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper,counter,op_dtype,acc_dtype,col_major", [
+    ("build_histogram", "launches", torch.float32, torch.float32, False),
+    ("build_histogram_t", "launches_t", torch.float32, torch.float32, True),
+    ("build_histogram_quantized", "launches_q", torch.int8, torch.int32,
+     False),
+    ("build_histogram_quantized_t", "launches_qt", torch.int32, torch.int32,
+     True)])
+def test_empty_window_launches_nothing(cuda_device, wrapper, counter,
+                                       op_dtype, acc_dtype, col_major):
+    # a zero-row window returns a zero histogram without a launch, so no
+    # launch count moves
+    codes = torch.zeros((0, 28), dtype=torch.uint8, device=cuda_device)
+    gh = torch.zeros((0, 3), dtype=op_dtype, device=cuda_device)
+    names = ("launches", "launches_t", "launches_q", "launches_qt")
+    n0 = {c: getattr(k1, c) for c in names}
+    got = getattr(k1, wrapper)(codes.t() if col_major else codes, gh, 64)
+    torch.cuda.synchronize()
+    assert {c: getattr(k1, c) for c in names} == n0
+    assert got.shape == (28, 64, 3) and got.dtype == acc_dtype
+    assert not got.any()
+    # the same wrapper on one row does launch, and counts on its own
+    # counter only
+    codes1 = torch.ones((1, 28), dtype=torch.uint8, device=cuda_device)
+    gh1 = torch.ones((1, 3), dtype=op_dtype, device=cuda_device)
+    getattr(k1, wrapper)(codes1.t() if col_major else codes1, gh1, 64)
+    torch.cuda.synchronize()
+    assert {c: getattr(k1, c) - n0[c] for c in names} == {
+        c: int(c == counter) for c in names}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_bins", [16, 64, 256])
+def test_k2_matches_plain(cuda_device, num_bins):
+    r = np.random.RandomState(num_bins)
+    f, p = 28, 60_001
+    codes_t = torch.from_numpy(r.randint(0, num_bins, size=(f, p))) \
+        .to(cuda_device, torch.uint8)
+    gh = torch.from_numpy(np.stack(
+        [r.randn(p), r.rand(p), np.ones(p)], 1).astype(np.float32)) \
+        .to(cuda_device)
+    gh[r.rand(p) < 0.5] = 0.0
+    n0 = (k1.launches, k1.launches_t)
+    got = k1.build_histogram_t(codes_t, gh, num_bins)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_t) == (n0[0], n0[1] + 1)
+    want = k1.build_histogram_t_plain(codes_t, gh, num_bins)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[..., 2], want[..., 2])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("objective", ["binary", "regression"])
-def test_train_on_card_matches_cpu(cuda_device, objective):
+def test_train_on_card_matches_cpu(cuda_device, objective, monkeypatch):
+    # the compact strategy (K1 and K4); auto would pick masked at 20k rows
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", "compact")
     r = np.random.RandomState(5)
     n = 20_000
     x = r.randn(n, 10)
@@ -117,6 +214,44 @@ def test_train_on_card_matches_cpu(cuda_device, objective):
     card = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
                       device=cuda_device)
     assert k1.launches > n0[0] and k4.launches > n0[1]
+    cpu = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
+                     device="cpu")
+
+    def structure(b):
+        return [(list(t.split_feature[:t.num_leaves - 1]),
+                 list(t.left_child[:t.num_leaves - 1]),
+                 list(t.leaf_count[:t.num_leaves])) for t in b._gbdt.models]
+
+    assert structure(card) == structure(cpu)
+    np.testing.assert_allclose(card.predict(x, raw_score=True),
+                               cpu.predict(x, raw_score=True),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,quant", [
+    ("masked", False), ("masked", True), ("compact", True)])
+def test_new_paths_on_card_match_cpu(cuda_device, strategy, quant,
+                                     monkeypatch):
+    # masked float (K2), masked quantized (K3t), compact quantized (K3,
+    # K4): the same trees on the card as on the CPU; quantized leaf sums
+    # come from exact integer histograms
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
+    r = np.random.RandomState(6)
+    n = 20_000
+    x = r.randn(n, 10)
+    y = (x[:, 0] * 1.5 - x[:, 1] + 0.5 * r.randn(n) > 0).astype(float)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "min_gain_to_split": 1e-3, "verbosity": -1,
+              "quantized_grad": quant}
+    counters = ("launches_t", "launches_q", "launches_qt")
+    n0 = {c: getattr(k1, c) for c in counters}
+    card = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
+                      device=cuda_device)
+    moved = {c for c in counters if getattr(k1, c) > n0[c]}
+    assert moved == {("masked", False): {"launches_t"},
+                     ("masked", True): {"launches_qt"},
+                     ("compact", True): {"launches_q"}}[(strategy, quant)]
     cpu = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
                      device="cpu")
 

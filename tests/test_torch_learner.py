@@ -1,5 +1,5 @@
 """The port's compact growth core vs the JAX package's, split record by
-split record.
+split record, with float and with quantized gradients.
 
 Both learners grow one tree from the same numpy gradients and hessians
 (n = 3000, num_leaves = 15). The JAX side runs its compact strategy (the
@@ -99,7 +99,7 @@ def test_records_and_leaf_ids_match_jax(case):
         jnp.ones(jds.num_features, bool), jax.random.PRNGKey(0))
     jrec, jleaf, jk = np.asarray(jrec), np.asarray(jleaf), int(jk)
 
-    tl = tdl.DeviceTreeLearner(tcfg, tds, device="cpu")
+    tl = tdl.DeviceTreeLearner(tcfg, tds, strategy="compact", device="cpu")
     data = tl.working_buffer(torch.from_numpy(g), torch.from_numpy(h))
     trec, tleaf, tk = tdl.grow_tree_compact_core(
         data, torch.empty_like(data), tl._ones_mask, tl.meta,
@@ -125,7 +125,7 @@ def test_train_returns_replayed_tree():
                    "verbosity": -1})
     tl = tdl.DeviceTreeLearner(cfg, TDataset(x, config=cfg,
                                              label=np.zeros(len(x))),
-                               device="cpu")
+                               strategy="compact", device="cpu")
     tree = tl.train(torch.from_numpy(g), torch.from_numpy(h))
     assert tree.num_leaves == 7
     # one host sync per split: the leaf's best row read before the split
@@ -133,3 +133,45 @@ def test_train_returns_replayed_tree():
         == (6, 6, 1)
     counts = np.bincount(tl.last_leaf_id.numpy(), minlength=7)
     np.testing.assert_array_equal(counts, tree.leaf_count[:7])
+
+
+@pytest.mark.parametrize("renew", [True, False])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantized_compact_matches_jax(renew, bits):
+    # the integer histograms, pool and leaf re-quantization are exact, so
+    # the records agree to the split scan's f32 arithmetic (rtol 1e-5)
+    # and the counts exactly
+    from test_torch_masked import FLOATS, INTS, grow_both
+    jrec, jleaf, jk, trec, tleaf, tk, tl = grow_both(
+        {"quantized_grad": True, "grad_bits": bits, "quant_renew": renew},
+        "compact")
+    assert tl.codes_t is None and tl.quant_renew == renew
+    assert tk == jk and tk > 3
+    np.testing.assert_array_equal(trec[:tk, INTS], jrec[:jk, INTS])
+    np.testing.assert_allclose(trec[:tk, FLOATS], jrec[:jk, FLOATS],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(trec[:tk, [tdl.R_LCNT, tdl.R_RCNT]],
+                                  jrec[:jk, [tdl.R_LCNT, tdl.R_RCNT]])
+    np.testing.assert_array_equal(tleaf, jleaf)
+
+
+def test_quantized_compact_renew_off_equals_masked():
+    # within the port (tests/test_quantized_rows.py's anchor): with renew
+    # off both strategies quantize with the same key and bits, and integer
+    # sums are order-free, so the records are bit-identical
+    x, g, h = _data("dense")
+    params = {"objective": "binary", "num_leaves": 15,
+              "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
+              "quantized_grad": True, "grad_bits": 8, "quant_renew": False,
+              "verbosity": -1}
+    cfg = TConfig(params)
+    ds = TDataset(x, config=cfg, label=np.zeros(len(x)))
+    out = {}
+    for strategy in ("compact", "masked"):
+        tl = tdl.DeviceTreeLearner(cfg, ds, strategy=strategy, device="cpu")
+        out[strategy] = tl.grow(torch.from_numpy(g), torch.from_numpy(h),
+                                iter_seed=4)
+    (crec, cleaf, ck), (mrec, mleaf, mk) = out["compact"], out["masked"]
+    assert ck == mk and ck > 3
+    np.testing.assert_array_equal(crec, mrec)
+    assert torch.equal(cleaf, mleaf)
