@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (lightgbm_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py            # the full-width run (1M x 28, 10 rounds)
+    python3 chip_smoke.py            # every phase (1M x 28, 10 rounds)
     python3 chip_smoke.py --rows 200000 --rounds 3   # a short first check
+    python3 chip_smoke.py --phases device,k1,k3      # only those phases
+    python3 chip_smoke.py --phases k1,k2,k3 --parent-src OLD
+        # beside each histogram case, OLD's kernel (another checkout of
+        # the repo, e.g. an earlier commit from `git archive`) on the
+        # same inputs in the same run
 
 Phases, one JSON line each:
   device       card name and power limit, and the kernels' build (one nvcc
                per source, started together; ptxas registers and shared
-               memory per kernel);
+               memory per kernel); per built library and kernel, the count
+               of each atomic opcode in its SASS (cuobjdump -sass; "not
+               measured" without cuobjdump);
   k1           the float histogram kernel vs its plain PyTorch version at
                the compact path's shapes (the root window of the packed
-               working rows, a child window, a ragged tail at 256 bins);
+               working rows, a child window, a ragged tail at 256 bins),
+               and a dynamic-range case held without the absolute term;
   k2           the same kernel over column-major (F, N) codes, the masked
                strategy's layout, at 60,000 and at the full row count;
   k3           the exact integer histogram kernel vs its plain version,
@@ -40,15 +48,27 @@ Phases, one JSON line each:
                Compact quantized may grow other trees only where its
                witness shows stored integers that differ between the
                devices from the same scores.
-Then the card's name and power limit, the kernels line, and last
-{"ok": true, "device": {...}}. Any failed check exits non-zero.
+Kernel times: `ms` is the mean over repeated launches between CUDA
+events, the host enqueuing as it goes (on a small launch this reads the
+wrapper's launch rate); `device_ms` puts a sleep kernel in front, which
+holds the stream until every launch is enqueued, so it reads the device
+alone.
+A run of every phase (the default) then prints the card's name and power
+limit and the kernels line; every run ends with {"ok": true, "device":
+{...}}. A phase that needs another's result (profile and train_quant need
+the float train run) runs it without printing it. Any failed check exits
+non-zero.
 
 The script needs the lightgbm_tpu_torch package beside it and a CUDA
 card; it imports nothing of JAX.
 """
 import argparse
+import contextlib
+import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -59,6 +79,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 # the integer adds of K3 run on the same CUDA cores; the published f32
 # rate is their bound here (int32 units are not faster)
+
+# ~50 ms of GPU clock cycles: longer than the host takes to enqueue one
+# timed run of launches
+SLEEP_CYCLES = 100_000_000
+# the grid --parent-src's kernel is launched at: two blocks per SM for
+# every operand, as the launcher before the fixed-point float kernel chose
+PARENT_BLOCKS_PER_SM = 2
+
+PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
+          "train_quant", "train_masked", "reference")
 
 
 def emit(obj):
@@ -97,12 +127,19 @@ def auc(y, s):
                  / (npos * nneg))
 
 
-def time_ms(torch, fn, reps, warmup=2):
+def time_ms(torch, fn, reps, warmup=2, hold=False):
+    """Mean ms per call of fn over reps calls, between CUDA events around
+    the calls as the host enqueues them: on a small launch this reads the
+    host's launch rate (a wrapper's Python costs tens of microseconds).
+    hold puts a sleep kernel in front, which holds the stream while the
+    host enqueues the calls, so that the events time the device alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(SLEEP_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
@@ -123,11 +160,69 @@ def errors(got, want):
     return float(d.max()), float(rel.max())
 
 
+_SASS_FUNC = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)")
+
+
+def sass_atomics(nvcc_path, libs):
+    """{library: {kernel: {opcode: count}}} of the atomic instructions
+    (shared-memory ATOMS.*, global ATOM.* / RED.*) in each built library's
+    SASS, read with cuobjdump -sass from nvcc's toolkit; "not measured"
+    where cuobjdump is absent."""
+    tool = os.path.join(os.path.dirname(nvcc_path), "cuobjdump") \
+        if nvcc_path else ""
+    if not os.path.isfile(tool):
+        tool = shutil.which("cuobjdump") or ""
+    if not tool:
+        return "not measured: no cuobjdump"
+    filt = os.path.join(os.path.dirname(tool), "cu++filt")
+    out = {}
+    for name, path in libs.items():
+        text = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, timeout=120).stdout
+        funcs, cur = {}, None
+        for ln in text.splitlines():
+            m = _SASS_FUNC.search(ln)
+            if m:
+                cur = funcs.setdefault(m.group(1), {})
+                continue
+            m = _SASS_OP.search(ln)
+            if cur is not None and m and m.group(1).startswith(
+                    ("ATOMS", "ATOM.", "ATOMG", "RED.")):
+                cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+        names = list(funcs)
+        if os.path.isfile(filt) and names:
+            dem = subprocess.run([filt], input="\n".join(names),
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()
+            if len(dem) == len(names):
+                funcs = {re.sub(r"^void |<unnamed>::|\(anonymous "
+                                r"namespace\)::", "", d).split("(")[0]:
+                         funcs[n] for n, d in zip(names, dem)}
+        out[name] = funcs
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phases to run (default: all): "
+                    + ",".join(PHASES))
+    ap.add_argument("--parent-src", default=None, metavar="DIR",
+                    help="another checkout of the repo: its "
+                    "csrc/histogram.cu is built and timed beside every "
+                    "case of the k1, k2 and k3 phases")
     args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown or not phases:
+        ap.error("unknown phases %s; choose from %s"
+                 % (unknown, ",".join(PHASES)))
+    run = set(phases)
+    every = run == set(PHASES)
 
     import torch
     if not torch.cuda.is_available():
@@ -151,31 +246,54 @@ def main():
         timeout=60).stdout.strip().splitlines()
     smi_line = smi[0] if smi else "not measured"
     t0 = time.time()
+    parent_build = None
+    if args.parent_src:
+        parent_lib = os.path.join(build.build_dir(),
+                                  "libparent_histogram_%d.so" % os.getpid())
+        os.makedirs(build.build_dir(), exist_ok=True)
+        parent_build = subprocess.Popen(
+            [build.nvcc()] + build.FLAGS + ["-o", parent_lib, os.path.join(
+                args.parent_src, "lightgbm_tpu_torch", "csrc",
+                "histogram.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     log = build.build_all(verbose=True)
+    parent = None
+    if parent_build is not None:
+        text, _ = parent_build.communicate()
+        if parent_build.returncode:
+            fail("nvcc failed for --parent-src's histogram.cu:\n" + text)
+        parent = ctypes.CDLL(parent_lib)
     build_s = time.time() - t0
-    ptxas = {name: [ln.strip() for ln in text.splitlines()
-                    if "registers" in ln or "Compiling entry" in ln
-                    or "spill" in ln]
-             for name, text in log.items()}
-    emit({"phase": "device", "nvidia_smi": smi_line,
-          "kind": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": round(build_s, 2),
-          "ptxas": ptxas})
+    if "device" in run:
+        ptxas = {name: [ln.strip() for ln in text.splitlines()
+                        if "registers" in ln or "Compiling entry" in ln
+                        or "spill" in ln]
+                 for name, text in log.items()}
+        emit({"phase": "device", "nvidia_smi": smi_line,
+              "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count(), "torch": torch.__version__,
+              "cuda": torch.version.cuda, "build_s": round(build_s, 2),
+              "ptxas": ptxas,
+              "sass_atomics": sass_atomics(
+                  build.nvcc(), {n: build.library_path(n)
+                                 for n in build.SOURCES})})
 
-    # ---- data and the main path's working rows --------------------------
+    # ---- data (built once, for the phases that need it) -----------------
     # auto picks the growth strategy by row count (compact at 1M rows,
     # masked at 60,000); the reference phase forces each in turn
     os.environ.pop("LGBM_TPU_STRATEGY", None)
     f = 28
-    t0 = time.time()
-    x, y, w_true = make_higgs_like(args.rows, f)
-    xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
               "learning_rate": 0.1, "min_data_in_leaf": 20,
               "verbosity": -1}
-    ds = lgb.Dataset(x, y, params=params)
-    ds.construct()
+    need_float = bool(run & {"train", "profile", "train_quant"})
+    need_data = need_float or bool(run & {"k1", "k2", "k3", "k4"})
+    t0 = time.time()
+    x, y, w_true = make_higgs_like(args.rows, f)
+    xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
+    if need_data:
+        ds = lgb.Dataset(x, y, params=params)
+        ds.construct()
     data_s = time.time() - t0
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.models.device_learner import (
@@ -183,203 +301,12 @@ def main():
         _quant_prepare)
     from lightgbm_tpu_torch.ops import quantize as quant_ops
     from lightgbm_tpu_torch.utils.random import prng_key
-    probe = DeviceTreeLearner(Config(params), ds._inner, device=dev)
-    r = np.random.RandomState(0)
-    g = torch.from_numpy(r.randn(args.rows).astype(np.float32)).to(dev)
-    h = torch.from_numpy((r.rand(args.rows) * 0.25).astype(np.float32)) \
-        .to(dev)
-    buf = probe.working_buffer(g, h)                     # (N, 7 + 4) int32
-    d_cols = buf.shape[1]
-    cw = d_cols - 4
-    b_root = probe.col_device_bins
-    c_cols = probe.c_cols
-    rt = np.random.RandomState(1)
 
-    def library_ms(pf, src, nb, reps):
-        """One index_add_ over precomputed flat slots: the library call
-        that computes the same histogram ((P, F) view `pf`)."""
-        p, ff = pf.shape
-        slot = (pf.long() + torch.arange(ff, device=dev) * nb).reshape(-1)
-        src_r = src.repeat_interleave(ff, dim=0)
-        out = torch.zeros((ff * nb, 3), dtype=src.dtype, device=dev)
-        try:
-            return time_ms(torch, lambda: out.index_add_(0, slot, src_r),
-                           reps), "index_add_ (%s)" % src.dtype
-        except RuntimeError as e:
-            return None, "none: index_add_ on %s raised %s" % (
-                src.dtype, str(e).splitlines()[0][:160])
-
-    # ---- K1 / K2 vs plain -------------------------------------------------
-    def float_case(rows, label, kernel, plain, codes, gh, nb, reps, pf):
-        got = kernel(codes, gh, nb)
-        want = plain(codes, gh, nb)
-        # f32 sums in two orders differ by up to ~eps * sqrt(n) * the bin's
-        # sum of |terms|; at 1M rows a bin sums ~15k gradients that cancel,
-        # so the tolerance adds 1e-5 * sum|terms| to rtol = atol = 1e-4
-        mag = plain(codes, gh.abs(), nb)
-        torch.cuda.synchronize()
-        ea, er = errors(got, want)
-        diff = (got - want).abs()
-        count_exact = bool(torch.equal(got[..., 2], want[..., 2]))
-        ok = bool((diff <= 1e-4 + 1e-4 * want.abs() + 1e-5 * mag).all()
-                  and count_exact)
-        err_vs_mag = float((diff / mag.clamp(min=1e-30)).max())
-        p, ff = pf.shape
-        kern = time_ms(torch, lambda: kernel(codes, gh, nb), reps)
-        plain_ms = time_ms(torch, lambda: plain(codes, gh, nb), 3, warmup=1)
-        lib, lib_note = library_ms(pf, gh, nb, reps)
-        bms, by = bound(p * ff * codes.element_size() + 12 * p
-                        + 12 * ff * nb, 3 * p * ff)
-        row = {"shape": label, "P": p, "F": ff, "B": nb,
-               "max_abs_err": ea, "max_rel_err": er,
-               "max_err_over_abs_sum": err_vs_mag, "ok": ok,
-               "count_exact": count_exact, "ms": kern,
-               "plain_ms": plain_ms, "library_ms": lib, "library": lib_note,
-               "bound_ms": bms, "bound_by": by}
-        rows.append(row)
-        return row
-
-    k1_rows = []
-    codes_root = buf.view(torch.uint8)[:, :c_cols]
-    gh_root = buf.view(torch.float32)[:, cw:cw + 3]
-    float_case(k1_rows, "root window (packed rows)", k1.build_histogram,
-               k1.build_histogram_plain, codes_root, gh_root, b_root, 20,
-               codes_root)
-    float_case(k1_rows, "child window (packed rows)", k1.build_histogram,
-               k1.build_histogram_plain, codes_root[:250_000],
-               gh_root[:250_000], b_root, 50, codes_root[:250_000])
-    tail_codes = torch.from_numpy(rt.randint(
-        0, 256, size=(args.rows + 3, f)).astype(np.uint8)).to(dev)
-    tail_gh = torch.from_numpy(np.stack(
-        [rt.randn(args.rows + 3), rt.rand(args.rows + 3),
-         np.ones(args.rows + 3)], 1).astype(np.float32)).to(dev)
-    float_case(k1_rows, "ragged tail, 256 bins", k1.build_histogram,
-               k1.build_histogram_plain, tail_codes, tail_gh, 256, 20,
-               tail_codes)
-    tolerance = ("|diff| <= 1e-4 + 1e-4*|plain| + 1e-5*sum|terms| per bin; "
-                 "count lane exact")
-    emit({"phase": "k1", "tolerance": tolerance, "cases": k1_rows})
-    if not all(rw["ok"] for rw in k1_rows):
-        fail("K1 disagrees with its plain version")
-
-    # the masked strategy's left-child operand: the rows outside the leaf
-    # (here a random half) carry gh == 0
-    k2_rows = []
-    codes_t_full = codes_root.t().contiguous()               # (F, N) uint8
-    gh_masked = gh_root.contiguous() * torch.from_numpy(
-        rt.rand(args.rows) < 0.5).to(dev)[:, None].float()
-    for n_cols, reps in ((60_000, 50), (args.rows, 20)):
-        ct = codes_t_full[:, :n_cols].contiguous()
-        float_case(k2_rows, "(F, N) column codes, masked left child", 
-                   k1.build_histogram_t, k1.build_histogram_t_plain, ct,
-                   gh_masked[:n_cols].contiguous(), b_root, reps, ct.t())
-        del ct
-    emit({"phase": "k2", "tolerance": tolerance, "cases": k2_rows})
-    if not all(rw["ok"] for rw in k2_rows):
-        fail("K2 disagrees with its plain version")
-
-    # ---- K3 / K3t vs plain -------------------------------------------------
-    def int_case(rows, label, kernel, plain, codes, ghq, nb, reps, pf):
-        got = kernel(codes, ghq, nb)
-        want = plain(codes, ghq, nb)
-        torch.cuda.synchronize()
-        exact = bool(got.dtype == torch.int32 and torch.equal(got, want))
-        p, ff = pf.shape
-        kern = time_ms(torch, lambda: kernel(codes, ghq, nb), reps)
-        plain_ms = time_ms(torch, lambda: plain(codes, ghq, nb), 3, warmup=1)
-        lib, lib_note = library_ms(pf, ghq.to(torch.int32), nb, reps)
-        bms, by = bound(p * ff * codes.element_size()
-                        + 3 * p * ghq.element_size() + 12 * ff * nb,
-                        3 * p * ff)
-        row = {"shape": label, "P": p, "F": ff, "B": nb,
-               "operand": str(ghq.dtype), "bit_exact": exact,
-               "max_abs_err": 0.0 if exact else float(
-                   (got.long() - want.long()).abs().max()),
-               "ms": kern, "plain_ms": plain_ms, "library_ms": lib,
-               "library": lib_note, "bound_ms": bms, "bound_by": by}
-        rows.append(row)
-        return row
-
-    qprobe = DeviceTreeLearner(Config(dict(params, quantized_grad=True,
-                                           grad_bits=8)),
-                               ds._inner, device=dev)
-    qbuf, qrows = qprobe.quant_working_buffer(g, h, prng_key(0))  # (N, 9)
-    qcw = qbuf.shape[1] - 2
-    r_g, r_h = (quant_ops.requant_ratio(qrows.root_max[i], qrows.qcap_op)
-                for i in (0, 1))
-    ghq_root = quant_ops.gh_operand_scaled(qbuf[:, qcw], None, 8,
-                                           qrows.qcap_op, r_g, r_h)
-    qcodes = qbuf.view(torch.uint8)[:, :c_cols]
-    k3_rows, k3t_rows = [], []
-    int_case(k3_rows, "root window (quantized packed rows, D=9)",
-             k1.build_histogram_quantized,
-             k1.build_histogram_quantized_plain, qcodes, ghq_root, b_root,
-             20, qcodes)
-    int_case(k3_rows, "child window (quantized packed rows)",
-             k1.build_histogram_quantized,
-             k1.build_histogram_quantized_plain, qcodes[:250_000],
-             ghq_root[:250_000], b_root, 50, qcodes[:250_000])
-    q16 = (1 << 15) - 1
-    tail_ghq = torch.from_numpy(np.stack(
-        [rt.randint(-q16, q16 + 1, args.rows + 3),
-         rt.randint(0, q16 + 1, args.rows + 3), np.ones(args.rows + 3)],
-        1).astype(np.int32)).to(dev)
-    int_case(k3_rows, "ragged tail, 256 bins, int32 operand (grad_bits 16)",
-             k1.build_histogram_quantized,
-             k1.build_histogram_quantized_plain, tail_codes, tail_ghq, 256,
-             20, tail_codes)
-    del tail_codes, tail_gh, tail_ghq
-    ct60 = codes_t_full[:, :60_000].contiguous()
-    ghq60 = ghq_root[:60_000] * torch.from_numpy(
-        rt.rand(60_000) < 0.5).to(dev)[:, None].to(torch.int8)
-    int_case(k3t_rows, "(F, N) column codes, masked left child",
-             k1.build_histogram_quantized_t,
-             k1.build_histogram_quantized_t_plain, ct60, ghq60, b_root, 50,
-             ct60.t())
-    emit({"phase": "k3", "tolerance": "bit-exact",
-          "cases": k3_rows + k3t_rows})
-    if not all(rw["bit_exact"] for rw in k3_rows + k3t_rows):
-        fail("K3 / K3t disagree with their plain version")
-    del codes_t_full, gh_masked, ct60, ghq60, qbuf, ghq_root, qcodes, qprobe
-
-    # ---- K4 vs plain ------------------------------------------------------
-    k4_rows = []
-
-    def k4_case(label, win, key, reps):
-        out = torch.empty_like(win)
-        got = k4.stable_partition3(win, key, out)
-        want = k4.stable_partition3_plain(win, key)
-        torch.cuda.synchronize()
-        exact = bool(torch.equal(got, want))
-        kern = time_ms(torch, lambda: k4.stable_partition3(win, key, out),
-                       reps)
-        plain = time_ms(torch, lambda: k4.stable_partition3_plain(win, key),
-                        3, warmup=1)
-        wn, dn = win.shape
-        bms, by = bound(wn * (8 * dn + 4), 0)
-        row = {"shape": label, "W": wn, "D": dn, "bit_exact": exact,
-               "max_abs_err": 0.0 if exact else float("inf"),
-               "ms": kern, "plain_ms": plain, "library_ms": None,
-               "library": "no single PyTorch call computes a stable "
-                          "3-way row partition", "bound_ms": bms,
-               "bound_by": by}
-        k4_rows.append(row)
-        return row
-
-    # the root split's window: rows keyed by a feature threshold
-    key_root = (codes_root[:, 0].to(torch.int32) > b_root // 3) \
-        .to(torch.int32).contiguous()
-    k4_case("root split window", buf, key_root, 20)
-    w2 = torch.from_numpy(rt.randint(0, 2**32, size=(args.rows + 3, d_cols),
-                                     dtype=np.uint32).view(np.int32)).to(dev)
-    key2 = torch.from_numpy(rt.randint(0, 3, size=args.rows + 3)
-                            .astype(np.int32)).to(dev)
-    k4_case("ragged, 3 keys", w2, key2, 20)
-    k4_case("quantized rows, D=9", w2[:, :9].contiguous(), key2, 20)
-    del w2, key2, buf, probe, key_root
-    emit({"phase": "k4", "tolerance": "bit-exact", "cases": k4_rows})
-    if not all(rw["bit_exact"] for rw in k4_rows):
-        fail("K4 disagrees with its plain version")
+    kernel_rows = {}
+    if run & {"k1", "k2", "k3", "k4"}:
+        kernel_rows = kernel_phases(
+            torch, dev, args, run, k1, k4, build, ds, params, Config,
+            DeviceTreeLearner, quant_ops, prng_key, parent)
 
     counters = {"k1": "launches", "k2": "launches_t", "k3": "launches_q",
                 "k3t": "launches_qt"}
@@ -417,39 +344,6 @@ def main():
             times.append(time.time() - t1)
         return float(np.median(times))
 
-    # ---- train: the main path (compact, float) ----------------------------
-    bst, launches, train_s, peak = timed_train(params, ds)
-    stats = bst._gbdt.learner.stats
-    pv = bst.predict(xv)
-    valid_auc = auc(yv, pv)
-    text = bst.model_to_string()
-    back = convert.booster_from_model_string(text)
-    rt_err = float(np.max(np.abs(back.predict(xv, raw_score=True)
-                                 - bst.predict(xv, raw_score=True))))
-    train = {"phase": "train", "rows": args.rows, "features": f,
-             "rounds": args.rounds, "params": params,
-             "strategy": bst._gbdt.learner.strategy,
-             "trees": bst.num_trees(), "launches": launches,
-             "splits_per_tree": stats.splits / max(stats.trees, 1),
-             "growth_host_syncs_per_tree":
-                 stats.host_syncs / max(stats.trees, 1),
-             "dataset_s": data_s, "train_s": train_s,
-             "s_per_iter_in_train": train_s / args.rounds,
-             "s_per_iter_steady": steady_s(bst),
-             "peak_device_bytes": peak, "valid_rows": len(yv),
-             "valid_auc": valid_auc, "model_text_roundtrip_max_abs": rt_err}
-    emit(train)
-    if train["strategy"] != "compact":
-        fail("the 1M-row run did not take the compact strategy")
-    if launches["k1"] <= 0 or launches["k4"] <= 0:
-        fail("a kernel of the main path was never launched: %s" % launches)
-    if not np.all(np.isfinite(pv)) or pv.shape != (len(yv),):
-        fail("predictions are not finite or of the wrong shape")
-    if valid_auc <= 0.7:
-        fail("held-out AUC %.4f <= 0.7" % valid_auc)
-    if rt_err > 1e-6:
-        fail("model-text round trip differs by %g" % rt_err)
-
     # ---- profile one more iteration ---------------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -479,60 +373,461 @@ def main():
                      "device_ms": e.self_device_time_total / 1e3,
                      "calls": e.count} for e in top]}
 
-    emit(dict({"phase": "profile"}, **profile_one(bst)))
-    del bst, back
+    # ---- train: the main path (compact, float) ----------------------------
+    launches = qlaunches = None
+    valid_auc = None
+    if need_float:
+        bst, launches, train_s, peak = timed_train(params, ds)
+        stats = bst._gbdt.learner.stats
+        pv = bst.predict(xv)
+        valid_auc = auc(yv, pv)
+        text = bst.model_to_string()
+        back = convert.booster_from_model_string(text)
+        rt_err = float(np.max(np.abs(back.predict(xv, raw_score=True)
+                                     - bst.predict(xv, raw_score=True))))
+        train = {"phase": "train", "rows": args.rows, "features": f,
+                 "rounds": args.rounds, "params": params,
+                 "strategy": bst._gbdt.learner.strategy,
+                 "trees": bst.num_trees(), "launches": launches,
+                 "splits_per_tree": stats.splits / max(stats.trees, 1),
+                 "growth_host_syncs_per_tree":
+                     stats.host_syncs / max(stats.trees, 1),
+                 "dataset_s": data_s, "train_s": train_s,
+                 "s_per_iter_in_train": train_s / args.rounds,
+                 "s_per_iter_steady": steady_s(bst),
+                 "peak_device_bytes": peak, "valid_rows": len(yv),
+                 "valid_auc": valid_auc,
+                 "model_text_roundtrip_max_abs": rt_err}
+        if "train" in run:
+            emit(train)
+        if train["strategy"] != "compact":
+            fail("the 1M-row run did not take the compact strategy")
+        if launches["k1"] <= 0 or launches["k4"] <= 0:
+            fail("a kernel of the main path was never launched: %s"
+                 % launches)
+        if not np.all(np.isfinite(pv)) or pv.shape != (len(yv),):
+            fail("predictions are not finite or of the wrong shape")
+        if valid_auc <= 0.7:
+            fail("held-out AUC %.4f <= 0.7" % valid_auc)
+        if rt_err > 1e-6:
+            fail("model-text round trip differs by %g" % rt_err)
+        if "profile" in run:
+            emit(dict({"phase": "profile"}, **profile_one(bst)))
+        del bst, back
 
     # ---- train_quant: the same data with quantized gradients --------------
-    qparams = dict(params, quantized_grad=True, grad_bits=8)
-    qbst, qlaunches, qtrain_s, qpeak = timed_train(qparams, ds)
-    qpv = qbst.predict(xv)
-    qauc = auc(yv, qpv)
-    train_quant = {
-        "phase": "train_quant", "rows": args.rows, "rounds": args.rounds,
-        "grad_bits": 8, "quant_renew": True,
-        "strategy": qbst._gbdt.learner.strategy, "launches": qlaunches,
-        "train_s": qtrain_s, "s_per_iter_in_train": qtrain_s / args.rounds,
-        "s_per_iter_steady": steady_s(qbst), "peak_device_bytes": qpeak,
-        "valid_auc": qauc, "float_valid_auc": valid_auc,
-        "auc_diff": qauc - valid_auc, "profile": profile_one(qbst)}
-    emit(train_quant)
-    if train_quant["strategy"] != "compact":
-        fail("the quantized 1M-row run did not take the compact strategy")
-    if qlaunches["k3"] <= 0 or qlaunches["k4"] <= 0 or qlaunches["k1"]:
-        fail("quantized run: K3 and K4 must launch and K1 must not: %s"
-             % qlaunches)
-    if not np.all(np.isfinite(qpv)) or qauc <= 0.7 \
-            or abs(qauc - valid_auc) > 0.005:
-        fail("quantized AUC %.5f vs float %.5f (want > 0.7, within 0.005)"
-             % (qauc, valid_auc))
-    del qbst, ds
+    if "train_quant" in run:
+        qparams = dict(params, quantized_grad=True, grad_bits=8)
+        qbst, qlaunches, qtrain_s, qpeak = timed_train(qparams, ds)
+        qpv = qbst.predict(xv)
+        qauc = auc(yv, qpv)
+        train_quant = {
+            "phase": "train_quant", "rows": args.rows,
+            "rounds": args.rounds, "grad_bits": 8, "quant_renew": True,
+            "strategy": qbst._gbdt.learner.strategy, "launches": qlaunches,
+            "train_s": qtrain_s,
+            "s_per_iter_in_train": qtrain_s / args.rounds,
+            "s_per_iter_steady": steady_s(qbst), "peak_device_bytes": qpeak,
+            "valid_auc": qauc, "float_valid_auc": valid_auc,
+            "auc_diff": qauc - valid_auc, "profile": profile_one(qbst)}
+        emit(train_quant)
+        if train_quant["strategy"] != "compact":
+            fail("the quantized 1M-row run did not take the compact "
+                 "strategy")
+        if qlaunches["k3"] <= 0 or qlaunches["k4"] <= 0 or qlaunches["k1"]:
+            fail("quantized run: K3 and K4 must launch and K1 must not: %s"
+                 % qlaunches)
+        if not np.all(np.isfinite(qpv)) or qauc <= 0.7 \
+                or abs(qauc - valid_auc) > 0.005:
+            fail("quantized AUC %.5f vs float %.5f (want > 0.7, within "
+                 "0.005)" % (qauc, valid_auc))
+        del qbst
+    if need_data:
+        del ds
 
     # ---- train_masked: 60,000 rows, float and quantized -------------------
-    xm, ym, _ = make_higgs_like(60_000, f, seed=23, w=w_true)
-    dsm = lgb.Dataset(xm, ym, params=params)
-    dsm.construct()
     masked_rows = []
-    for quant in (False, True):
-        mp = dict(params, quantized_grad=quant, grad_bits=8)
-        mb, mlaunches, ms_s, mpeak = timed_train(mp, dsm)
-        mauc = auc(yv, mb.predict(xv))
-        row = {"quantized_grad": quant,
-               "strategy": mb._gbdt.learner.strategy,
-               "launches": mlaunches, "train_s": ms_s,
-               "s_per_iter_in_train": ms_s / args.rounds,
-               "peak_device_bytes": mpeak, "valid_auc": mauc,
-               "profile": profile_one(mb)}
-        masked_rows.append(row)
-        want = "k3t" if quant else "k2"
-        if row["strategy"] != "masked" or mlaunches[want] <= 0 \
-                or mlaunches["k4"] or mauc <= 0.7:
-            emit({"phase": "train_masked", "runs": masked_rows})
-            fail("masked run (quantized=%s) did not go through %s or AUC "
-                 "%.4f <= 0.7" % (quant, want, mauc))
-        del mb
-    emit({"phase": "train_masked", "rows": 60_000, "rounds": args.rounds,
-          "runs": masked_rows})
+    if "train_masked" in run:
+        xm, ym, _ = make_higgs_like(60_000, f, seed=23, w=w_true)
+        dsm = lgb.Dataset(xm, ym, params=params)
+        dsm.construct()
+        for quant in (False, True):
+            mp = dict(params, quantized_grad=quant, grad_bits=8)
+            mb, mlaunches, ms_s, mpeak = timed_train(mp, dsm)
+            mauc = auc(yv, mb.predict(xv))
+            row = {"quantized_grad": quant,
+                   "strategy": mb._gbdt.learner.strategy,
+                   "launches": mlaunches, "train_s": ms_s,
+                   "s_per_iter_in_train": ms_s / args.rounds,
+                   "peak_device_bytes": mpeak, "valid_auc": mauc,
+                   "profile": profile_one(mb)}
+            masked_rows.append(row)
+            want = "k3t" if quant else "k2"
+            if row["strategy"] != "masked" or mlaunches[want] <= 0 \
+                    or mlaunches["k4"] or mauc <= 0.7:
+                emit({"phase": "train_masked", "runs": masked_rows})
+                fail("masked run (quantized=%s) did not go through %s or "
+                     "AUC %.4f <= 0.7" % (quant, want, mauc))
+            del mb
+        emit({"phase": "train_masked", "rows": 60_000,
+              "rounds": args.rounds, "runs": masked_rows})
 
+    if "reference" in run:
+        reference_phase(torch, dev, lgb, k1, params, f, Config,
+                        DeviceTreeLearner, _quant_prepare, quant_ops,
+                        prng_key, (R_DLEFT, R_FEAT, R_LCNT, R_LEAF, R_RCNT,
+                                   R_THR))
+
+    # ---- kernels line (a run of every phase) -----------------------------
+    if every:
+        def kernel_entry(name, source, replaces, n, rows, err_key):
+            r0 = rows[0]
+            return {"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": n,
+                    "max_abs_err": max(rw[err_key] for rw in rows),
+                    "ms": r0["ms"], "device_ms": r0["device_ms"],
+                    "plain_ms": r0["plain_ms"],
+                    "bound_ms": r0["bound_ms"], "bound_by": r0["bound_by"],
+                    "library_ms": r0["library_ms"]}
+
+        hk = "lightgbm_tpu/ops/pallas/histogram_kernel.py"
+        kr = kernel_rows
+        kernels = [
+            kernel_entry("K1 histogram",
+                         "lightgbm_tpu_torch/csrc/histogram.cu", hk + ":41",
+                         launches["k1"], kr["k1"], "max_abs_err"),
+            kernel_entry("K2 histogram, (F, N) codes",
+                         "lightgbm_tpu_torch/csrc/histogram.cu", hk + ":73",
+                         masked_rows[0]["launches"]["k2"], kr["k2"],
+                         "max_abs_err"),
+            kernel_entry("K3 integer histogram",
+                         "lightgbm_tpu_torch/csrc/histogram.cu",
+                         hk + ":114", qlaunches["k3"], kr["k3"],
+                         "max_abs_err"),
+            kernel_entry("K3t integer histogram, (F, N) codes",
+                         "lightgbm_tpu_torch/csrc/histogram.cu",
+                         hk + ":152", masked_rows[1]["launches"]["k3t"],
+                         kr["k3t"], "max_abs_err"),
+            kernel_entry("K4 stable partition",
+                         "lightgbm_tpu_torch/csrc/partition.cu",
+                         "lightgbm_tpu/ops/pallas/partition_kernel.py:48",
+                         launches["k4"], kr["k4"], "max_abs_err")]
+        print(smi_line, flush=True)
+        emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
+                  DeviceTreeLearner, quant_ops, prng_key, parent):
+    """The k1, k2, k3 and k4 phases that `run` names, on the main path's
+    working rows; {kernel: [case rows]} for the kernels line. `parent`,
+    where given, is another checkout's histogram library, checked and
+    timed through the same wrappers beside each histogram case. Every tensor made here is freed on
+    return, before the training phases."""
+    f = 28
+    probe = DeviceTreeLearner(Config(params), ds._inner, device=dev)
+    r = np.random.RandomState(0)
+    g = torch.from_numpy(r.randn(args.rows).astype(np.float32)).to(dev)
+    h = torch.from_numpy((r.rand(args.rows) * 0.25).astype(np.float32)) \
+        .to(dev)
+    buf = probe.working_buffer(g, h)                     # (N, 7 + 4) int32
+    d_cols = buf.shape[1]
+    cw = d_cols - 4
+    b_root = probe.col_device_bins
+    c_cols = probe.c_cols
+    codes_root = buf.view(torch.uint8)[:, :c_cols]
+    gh_root = buf.view(torch.float32)[:, cw:cw + 3]
+    # the ragged 256-bin codes of k1 and k3
+    tail_codes = None
+    if run & {"k1", "k3"}:
+        tail_codes = torch.from_numpy(np.random.RandomState(1).randint(
+            0, 256, size=(args.rows + 3, f)).astype(np.uint8)).to(dev)
+    out = {}
+
+    def library_ms(pf, src, nb, reps):
+        """One index_add_ over precomputed flat slots: the library call
+        that computes the same histogram ((P, F) view `pf`)."""
+        p, ff = pf.shape
+        slot = (pf.long() + torch.arange(ff, device=dev) * nb).reshape(-1)
+        src_r = src.repeat_interleave(ff, dim=0)
+        res = torch.zeros((ff * nb, 3), dtype=src.dtype, device=dev)
+        try:
+            return time_ms(torch, lambda: res.index_add_(0, slot, src_r),
+                           reps), "index_add_ (%s)" % src.dtype
+        except RuntimeError as e:
+            return None, "none: index_add_ on %s raised %s" % (
+                src.dtype, str(e).splitlines()[0][:160])
+
+    @contextlib.contextmanager
+    def parent_kernel():
+        """Inside, the histogram wrappers launch `parent`'s library (the
+        same entry) at its launcher's grid: the same Python path and
+        inputs, the other kernel."""
+        lib, per_sm = build.load("histogram"), dict(k1._BLOCKS_PER_SM)
+        build._libs["histogram"] = parent
+        k1._BLOCKS_PER_SM.update({kd: PARENT_BLOCKS_PER_SM for kd in per_sm})
+        try:
+            yield
+        finally:
+            build._libs["histogram"] = lib
+            k1._BLOCKS_PER_SM.update(per_sm)
+
+    def timings(row, fn, reps, with_parent):
+        """row's ms and device_ms of fn; with_parent (and a parent) also
+        parent_ms and parent_device_ms, the device times in the order
+        parent, change, change, parent."""
+        row["ms"] = time_ms(torch, fn, reps)
+        if parent is None or not with_parent:
+            row["device_ms"] = time_ms(torch, fn, reps, hold=True)
+            return
+        d = []
+        for on_parent in (True, False, False, True):
+            with parent_kernel() if on_parent else contextlib.nullcontext():
+                d.append(time_ms(torch, fn, reps, hold=True))
+        with parent_kernel():
+            row["parent_ms"] = time_ms(torch, fn, reps)
+        row["device_ms"] = (d[1] + d[2]) / 2
+        row["parent_device_ms"] = (d[0] + d[3]) / 2
+
+    # ---- K1 / K2 vs plain -------------------------------------------------
+    def float_case(rows, label, kernel, plain, codes, gh, nb, reps, pf,
+                   atol=1e-4):
+        got = kernel(codes, gh, nb)
+        again = kernel(codes, gh, nb)
+        want = plain(codes, gh, nb)
+        # f32 sums in two orders differ by up to ~eps * sqrt(n) * the bin's
+        # sum of |terms|; at 1M rows a bin sums ~15k gradients that cancel,
+        # so the tolerance adds 1e-5 * sum|terms| to rtol = atol = 1e-4
+        mag = plain(codes, gh.abs(), nb)
+        torch.cuda.synchronize()
+        ea, er = errors(got, want)
+
+        def within(res):
+            return bool(((res - want).abs() <= atol + 1e-4 * want.abs()
+                         + 1e-5 * mag).all()
+                        and torch.equal(res[..., 2], want[..., 2]))
+        diff = (got - want).abs()
+        count_exact = bool(torch.equal(got[..., 2], want[..., 2]))
+        ok = within(got)
+        err_vs_mag = float((diff / mag.clamp(min=1e-30)).max())
+        p, ff = pf.shape
+        extra = {}
+        if parent is not None:
+            with parent_kernel():
+                extra["parent_ok"] = within(kernel(codes, gh, nb))
+        timings(extra, lambda: kernel(codes, gh, nb), reps, True)
+        plain_ms = time_ms(torch, lambda: plain(codes, gh, nb), 3, warmup=1)
+        lib, lib_note = library_ms(pf, gh, nb, reps)
+        bms, by = bound(p * ff * codes.element_size() + 12 * p
+                        + 12 * ff * nb, 3 * p * ff)
+        row = {"shape": label, "P": p, "F": ff, "B": nb,
+               "max_abs_err": ea, "max_rel_err": er,
+               "max_err_over_abs_sum": err_vs_mag, "ok": ok,
+               "count_exact": count_exact,
+               "run_to_run_equal": bool(torch.equal(got, again)),
+               "plain_ms": plain_ms, "library_ms": lib,
+               "library": lib_note, "bound_ms": bms, "bound_by": by}
+        row.update(extra)
+        rows.append(row)
+        return row
+
+    tolerance = ("|diff| <= 1e-4 + 1e-4*|plain| + 1e-5*sum|terms| per bin; "
+                 "count lane exact")
+    if "k1" in run:
+        rk = np.random.RandomState(11)
+        k1_rows = []
+        float_case(k1_rows, "root window (packed rows)", k1.build_histogram,
+                   k1.build_histogram_plain, codes_root, gh_root, b_root, 20,
+                   codes_root)
+        float_case(k1_rows, "child window (packed rows)",
+                   k1.build_histogram, k1.build_histogram_plain,
+                   codes_root[:250_000], gh_root[:250_000], b_root, 50,
+                   codes_root[:250_000])
+        tail_gh = torch.from_numpy(np.stack(
+            [rk.randn(args.rows + 3), rk.rand(args.rows + 3),
+             np.ones(args.rows + 3)], 1).astype(np.float32)).to(dev)
+        float_case(k1_rows, "ragged tail, 256 bins", k1.build_histogram,
+                   k1.build_histogram_plain, tail_codes, tail_gh, 256, 20,
+                   tail_codes)
+        # dynamic range: feature 0's bin 7 holds hessians from 1e-7 to 0.25
+        # and gradients from 1e-6 to 1e3 (log-uniform, random signs), bin 8
+        # only the small ends of both, beside ordinary rows; held without
+        # the absolute term, so a sum that drops small terms fails
+        pd = min(args.rows, 200_003)
+        dc = rk.randint(0, b_root, size=(pd, f)).astype(np.uint8)
+        dg, dh = rk.randn(pd), rk.rand(pd) * 0.25
+        for code, (glo, ghi), (hlo, hhi) in ((7, (-6, 3), (-7, np.log10(
+                0.25))), (8, (-6, -4), (-7, -5))):
+            sel = dc[:, 0] == code
+            k = int(sel.sum())
+            dg[sel] = np.where(rk.rand(k) < 0.5, -1.0, 1.0) \
+                * 10.0 ** rk.uniform(glo, ghi, k)
+            dh[sel] = 10.0 ** rk.uniform(hlo, hhi, k)
+        dcodes = torch.from_numpy(dc).to(dev)
+        dgh = torch.from_numpy(np.stack([dg, dh, np.ones(pd)], 1)
+                               .astype(np.float32)).to(dev)
+        dyn = float_case(k1_rows, "dynamic range (bins 7, 8 of feature 0)",
+                         k1.build_histogram, k1.build_histogram_plain,
+                         dcodes, dgh, b_root, 20, dcodes, atol=0.0)
+        dyn["tolerance"] = ("|diff| <= 1e-4*|plain| + 1e-5*sum|terms| per "
+                            "bin; count lane exact")
+        emit({"phase": "k1", "tolerance": tolerance, "cases": k1_rows})
+        if not all(rw["ok"] for rw in k1_rows):
+            fail("K1 disagrees with its plain version")
+        out["k1"] = k1_rows
+        del tail_gh, dcodes, dgh
+
+    if "k2" in run:
+        # the masked strategy's left-child operand: the rows outside the
+        # leaf (here a random half) carry gh == 0
+        rk = np.random.RandomState(12)
+        k2_rows = []
+        codes_t_full = codes_root.t().contiguous()           # (F, N) uint8
+        gh_masked = gh_root.contiguous() * torch.from_numpy(
+            rk.rand(args.rows) < 0.5).to(dev)[:, None].float()
+        for n_cols, reps in ((60_000, 50), (args.rows, 20)):
+            ct = codes_t_full[:, :n_cols].contiguous()
+            float_case(k2_rows, "(F, N) column codes, masked left child",
+                       k1.build_histogram_t, k1.build_histogram_t_plain, ct,
+                       gh_masked[:n_cols].contiguous(), b_root, reps, ct.t())
+            del ct
+        emit({"phase": "k2", "tolerance": tolerance, "cases": k2_rows})
+        if not all(rw["ok"] for rw in k2_rows):
+            fail("K2 disagrees with its plain version")
+        out["k2"] = k2_rows
+        del codes_t_full, gh_masked
+
+    # ---- K3 / K3t vs plain -------------------------------------------------
+    def int_case(rows, label, kernel, plain, codes, ghq, nb, reps, pf):
+        got = kernel(codes, ghq, nb)
+        want = plain(codes, ghq, nb)
+        torch.cuda.synchronize()
+        exact = bool(got.dtype == torch.int32 and torch.equal(got, want))
+        p, ff = pf.shape
+        extra = {}
+        if parent is not None:
+            with parent_kernel():
+                extra["parent_bit_exact"] = bool(torch.equal(
+                    kernel(codes, ghq, nb), want))
+        timings(extra, lambda: kernel(codes, ghq, nb), reps, True)
+        plain_ms = time_ms(torch, lambda: plain(codes, ghq, nb), 3, warmup=1)
+        lib, lib_note = library_ms(pf, ghq.to(torch.int32), nb, reps)
+        bms, by = bound(p * ff * codes.element_size()
+                        + 3 * p * ghq.element_size() + 12 * ff * nb,
+                        3 * p * ff)
+        row = {"shape": label, "P": p, "F": ff, "B": nb,
+               "operand": str(ghq.dtype), "bit_exact": exact,
+               "max_abs_err": 0.0 if exact else float(
+                   (got.long() - want.long()).abs().max()),
+               "plain_ms": plain_ms, "library_ms": lib,
+               "library": lib_note, "bound_ms": bms, "bound_by": by}
+        row.update(extra)
+        rows.append(row)
+        return row
+
+    if "k3" in run:
+        rk = np.random.RandomState(13)
+        qprobe = DeviceTreeLearner(Config(dict(params, quantized_grad=True,
+                                               grad_bits=8)),
+                                   ds._inner, device=dev)
+        qbuf, qrows = qprobe.quant_working_buffer(g, h, prng_key(0))
+        qcw = qbuf.shape[1] - 2                              # (N, 9)
+        r_g, r_h = (quant_ops.requant_ratio(qrows.root_max[i], qrows.qcap_op)
+                    for i in (0, 1))
+        ghq_root = quant_ops.gh_operand_scaled(qbuf[:, qcw], None, 8,
+                                               qrows.qcap_op, r_g, r_h)
+        qcodes = qbuf.view(torch.uint8)[:, :c_cols]
+        k3_rows, k3t_rows = [], []
+        int_case(k3_rows, "root window (quantized packed rows, D=9)",
+                 k1.build_histogram_quantized,
+                 k1.build_histogram_quantized_plain, qcodes, ghq_root,
+                 b_root, 20, qcodes)
+        int_case(k3_rows, "child window (quantized packed rows)",
+                 k1.build_histogram_quantized,
+                 k1.build_histogram_quantized_plain, qcodes[:250_000],
+                 ghq_root[:250_000], b_root, 50, qcodes[:250_000])
+        q16 = (1 << 15) - 1
+        tail_ghq = torch.from_numpy(np.stack(
+            [rk.randint(-q16, q16 + 1, args.rows + 3),
+             rk.randint(0, q16 + 1, args.rows + 3), np.ones(args.rows + 3)],
+            1).astype(np.int32)).to(dev)
+        int_case(k3_rows,
+                 "ragged tail, 256 bins, int32 operand (grad_bits 16)",
+                 k1.build_histogram_quantized,
+                 k1.build_histogram_quantized_plain, tail_codes, tail_ghq,
+                 256, 20, tail_codes)
+        del tail_ghq
+        ct60 = codes_root[:60_000].t().contiguous()
+        ghq60 = ghq_root[:60_000] * torch.from_numpy(
+            rk.rand(60_000) < 0.5).to(dev)[:, None].to(torch.int8)
+        int_case(k3t_rows, "(F, N) column codes, masked left child",
+                 k1.build_histogram_quantized_t,
+                 k1.build_histogram_quantized_t_plain, ct60, ghq60, b_root,
+                 50, ct60.t())
+        emit({"phase": "k3", "tolerance": "bit-exact",
+              "cases": k3_rows + k3t_rows})
+        if not all(rw["bit_exact"] for rw in k3_rows + k3t_rows):
+            fail("K3 / K3t disagree with their plain version")
+        out["k3"], out["k3t"] = k3_rows, k3t_rows
+        del ct60, ghq60, qbuf, ghq_root, qcodes, qprobe
+
+    # ---- K4 vs plain ------------------------------------------------------
+    if "k4" in run:
+        rk = np.random.RandomState(14)
+        k4_rows = []
+
+        def k4_case(label, win, key, reps):
+            res = torch.empty_like(win)
+            got = k4.stable_partition3(win, key, res)
+            want = k4.stable_partition3_plain(win, key)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(got, want))
+            times = {}
+            timings(times, lambda: k4.stable_partition3(win, key, res), reps,
+                    False)
+            plain = time_ms(torch,
+                            lambda: k4.stable_partition3_plain(win, key),
+                            3, warmup=1)
+            wn, dn = win.shape
+            bms, by = bound(wn * (8 * dn + 4), 0)
+            row = {"shape": label, "W": wn, "D": dn, "bit_exact": exact,
+                   "max_abs_err": 0.0 if exact else float("inf"),
+                   "plain_ms": plain, "library_ms": None,
+                   "library": "no single PyTorch call computes a stable "
+                              "3-way row partition", "bound_ms": bms,
+                   "bound_by": by}
+            row.update(times)
+            k4_rows.append(row)
+            return row
+
+        # the root split's window: rows keyed by a feature threshold
+        key_root = (codes_root[:, 0].to(torch.int32) > b_root // 3) \
+            .to(torch.int32).contiguous()
+        k4_case("root split window", buf, key_root, 20)
+        w2 = torch.from_numpy(rk.randint(0, 2**32,
+                                         size=(args.rows + 3, d_cols),
+                                         dtype=np.uint32).view(np.int32)) \
+            .to(dev)
+        key2 = torch.from_numpy(rk.randint(0, 3, size=args.rows + 3)
+                                .astype(np.int32)).to(dev)
+        k4_case("ragged, 3 keys", w2, key2, 20)
+        k4_case("quantized rows, D=9", w2[:, :9].contiguous(), key2, 20)
+        emit({"phase": "k4", "tolerance": "bit-exact", "cases": k4_rows})
+        if not all(rw["bit_exact"] for rw in k4_rows):
+            fail("K4 disagrees with its plain version")
+        out["k4"] = k4_rows
+    return out
+
+
+def reference_phase(torch, dev, lgb, k1, params, f, Config,
+                    DeviceTreeLearner, _quant_prepare, quant_ops, prng_key,
+                    record_cols):
+    """The reference phase: small tasks trained on the card and on the
+    CPU, held to the same trees and raw scores within 1e-4."""
+    R_DLEFT, R_FEAT, R_LCNT, R_LEAF, R_RCNT, R_THR = record_cols
     # ---- reference: card vs CPU on small inputs ---------------------------
     xs, ys, w_small = make_higgs_like(20_000, f, seed=99)
     sp = dict(params, num_leaves=31, min_gain_to_split=1e-3)
@@ -698,42 +993,6 @@ def main():
           "runs": ref_rows})
     if not all(rw["ok"] for rw in ref_rows):
         fail("card and CPU runs disagree on the small reference tasks")
-
-    # ---- kernels line ------------------------------------------------------
-    def kernel_entry(name, source, replaces, n, rows, err_key):
-        r0 = rows[0]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n,
-                "max_abs_err": max(rw[err_key] for rw in rows),
-                "ms": r0["ms"], "plain_ms": r0["plain_ms"],
-                "bound_ms": r0["bound_ms"], "bound_by": r0["bound_by"],
-                "library_ms": r0["library_ms"]}
-
-    hk = "lightgbm_tpu/ops/pallas/histogram_kernel.py"
-    kernels = [
-        kernel_entry("K1 histogram", "lightgbm_tpu_torch/csrc/histogram.cu",
-                     hk + ":41", launches["k1"], k1_rows, "max_abs_err"),
-        kernel_entry("K2 histogram, (F, N) codes",
-                     "lightgbm_tpu_torch/csrc/histogram.cu", hk + ":73",
-                     masked_rows[0]["launches"]["k2"], k2_rows,
-                     "max_abs_err"),
-        kernel_entry("K3 integer histogram",
-                     "lightgbm_tpu_torch/csrc/histogram.cu", hk + ":114",
-                     qlaunches["k3"], k3_rows, "max_abs_err"),
-        kernel_entry("K3t integer histogram, (F, N) codes",
-                     "lightgbm_tpu_torch/csrc/histogram.cu", hk + ":152",
-                     masked_rows[1]["launches"]["k3t"], k3t_rows,
-                     "max_abs_err"),
-        kernel_entry("K4 stable partition",
-                     "lightgbm_tpu_torch/csrc/partition.cu",
-                     "lightgbm_tpu/ops/pallas/partition_kernel.py:48",
-                     launches["k4"], k4_rows, "max_abs_err")]
-    print(smi_line, flush=True)
-    emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
 
 
 if __name__ == "__main__":

@@ -12,11 +12,11 @@ Ports of lightgbm_tpu/ops/pallas/histogram_kernel.py:
   * K3t ``build_histogram_quantized_t``: the same over (F, P) codes
     (``build_histogram_pallas_quantized_t``).
 
-All four launch the one kernel of ``csrc/histogram.cu`` (shared-memory
-atomics, templated on the code, operand and accumulator types; see the
-notes there); the (F, P) forms pass the transposed view's strides (row
-stride 1, column stride P), so consecutive threads read consecutive code
-bytes. Codes come
+All four launch through one entry of ``csrc/histogram.cu`` (per-block
+shared-memory histograms on native int32 atomics; see the notes there):
+K1 / K2 its fixed-point float kernel, K3 / K3t its exact integer kernel.
+The (F, P) forms pass the transposed view's strides (row stride 1, column
+stride P), so consecutive threads read consecutive code bytes. Codes come
 as any view with element strides, so the compact core hands the kernels
 the code bytes of its packed working rows without unpacking them.
 
@@ -43,6 +43,13 @@ _CODE_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
 # operand kinds of lgbt_hist_launch (the accumulator follows: f32 for
 # an f32 operand, int32 for an integer one)
 _OP_KIND = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
+_THREADS = 256
+# blocks per SM of the grid, by operand kind: the float kernel does more
+# work per row between its atomics and runs best at four (PERF.md); the
+# integer kernel keeps two. The float kernel's launcher grows the grid
+# further where a block would walk more rows than its fixed-point words
+# allow (csrc/histogram.cu, kMaxRowsPerBlock).
+_BLOCKS_PER_SM = {0: 4, 1: 2, 2: 2}
 _sm_count = {}
 
 
@@ -95,12 +102,12 @@ def build_histogram_quantized_t_plain(codes_t: torch.Tensor,
     return build_histogram_quantized_plain(codes_t.t(), ghq, num_bins)
 
 
-def _grid_x(dev: torch.device, p: int) -> int:
+def _grid_x(dev: torch.device, p: int, per_sm: int) -> int:
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _sm_count:
         _sm_count[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
-    return max(1, min(-(-p // 256), 2 * _sm_count[idx]))
+    return max(1, min(-(-p // _THREADS), per_sm * _sm_count[idx]))
 
 
 def _check(name: str, codes: torch.Tensor, gh: torch.Tensor,
@@ -139,10 +146,11 @@ def _launch(name: str, counter: str, codes: torch.Tensor, gh: torch.Tensor,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
+    kind = _OP_KIND[gh.dtype]
     rc = fn(codes.data_ptr(), _CODE_BYTES[codes.dtype], p, f,
-            codes.stride(0), codes.stride(1), gh.data_ptr(),
-            _OP_KIND[gh.dtype], gh.stride(0), num_bins, out.data_ptr(),
-            _grid_x(codes.device, p),
+            codes.stride(0), codes.stride(1), gh.data_ptr(), kind,
+            gh.stride(0), num_bins, out.data_ptr(),
+            _grid_x(codes.device, p, _BLOCKS_PER_SM[kind]),
             torch.cuda.current_stream(codes.device).cuda_stream)
     build.check(rc, name + " kernel launch")
     globals()[counter] += 1

@@ -9,15 +9,21 @@ machine without JAX it runs as
 
 Tolerances: K4 is a permutation of 32-bit words and K3 / K3t sum
 integers, so they must be bit-exact. K1's (and K2's) grad and hess lanes
-are f32 sums whose order follows atomic scheduling, so they agree with
-index_add_ to rtol = atol = 1e-4; the count lane sums exact integers and
-must be equal.
+are fixed-point sums per block whose f32 block partials meet in global
+atomics in any order, so they agree with index_add_ to rtol = atol = 1e-4
+(at larger row counts chip_smoke.py's bar, which adds 1e-5 * the bin's
+sum of |terms|; without the absolute term for the dynamic-range case);
+the count lane sums exact integers and must be equal.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
 import lightgbm_tpu_torch as tlgb
+from lightgbm_tpu_torch.ops.kernels import build
 from lightgbm_tpu_torch.ops.kernels import histogram as k1
 from lightgbm_tpu_torch.ops.kernels import partition as k4
 
@@ -264,3 +270,122 @@ def test_new_paths_on_card_match_cpu(cuda_device, strategy, quant,
     np.testing.assert_allclose(card.predict(x, raw_score=True),
                                cpu.predict(x, raw_score=True),
                                rtol=1e-4, atol=1e-4)
+
+
+def _bar_ok(got, want, mag, atol=1e-4):
+    """chip_smoke.py's K1 / K2 bar: |diff| <= atol + 1e-4 |plain| + 1e-5
+    sum|terms| per bin."""
+    return bool(((got - want).abs()
+                 <= atol + 1e-4 * want.abs() + 1e-5 * mag).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["100k", "cap"])
+def test_k1_every_row_in_one_bin(cuda_device, size):
+    # the worst contention: every row adds to the one slot of each feature,
+    # all of one sign. "cap" takes one block more rows than the wrapper's
+    # grid holds at 65,536 rows per block (~35M rows on an H100), so the
+    # float kernel's launcher grows the grid and every block walks exactly
+    # kMaxRowsPerBlock rows: the widest fixed-point words it allows
+    with open(os.path.join(build.CSRC, "histogram.cu")) as fh:
+        cap = 1 << int(re.search(r"kMaxRowsPerBlock = 1ll << (\d+);",
+                                 fh.read()).group(1))
+    full = k1._grid_x(cuda_device, 1 << 40, k1._BLOCKS_PER_SM[0])
+    p = 100_003 if size == "100k" else (full + 1) * cap
+    if size == "cap":
+        grid = max(k1._grid_x(cuda_device, p, k1._BLOCKS_PER_SM[0]),
+                   -(-p // cap))
+        assert grid == full + 1 and p == grid * cap
+    r = np.random.RandomState(p % 1000)
+    codes = torch.full((p, 4), 5, dtype=torch.uint8, device=cuda_device)
+    gh = torch.from_numpy(np.stack(
+        [1e3 * r.rand(p), 0.25 * r.rand(p), np.ones(p)], 1)
+        .astype(np.float32)).to(cuda_device)
+    got = k1.build_histogram(codes, gh, 64)
+    torch.cuda.synchronize()
+    want = gh.double().sum(0)
+    for f in range(4):
+        torch.testing.assert_close(got[f, 5].double(), want, rtol=1e-5,
+                                   atol=0.0)
+    assert float(got[:, 5, 2].min()) == p == float(got[:, 5, 2].max())
+    others = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    others[5] = False
+    assert not got[:, others].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_bins", [16, 64, 256])
+@pytest.mark.parametrize("form", ["k1", "k1_packed_27", "k2"])
+def test_k1_k2_ragged_row_counts(cuda_device, num_bins, form):
+    # row counts that 256 does not divide; K1 over contiguous codes and
+    # over 27 code bytes of 44-byte packed rows (whole 32-bit code words
+    # and a byte tail), K2 over (F, N) codes
+    r = np.random.RandomState(num_bins + len(form))
+    p, f = 250_007, 28
+    codes = torch.from_numpy(r.randint(0, num_bins, size=(p, f))) \
+        .to(cuda_device, torch.uint8)
+    gh = torch.from_numpy(np.stack(
+        [r.randn(p), r.rand(p), np.ones(p)], 1).astype(np.float32)) \
+        .to(cuda_device)
+    gh[r.rand(p) < 0.3] = 0.0
+    if form == "k1_packed_27":
+        buf = torch.zeros((p, 11), dtype=torch.int32, device=cuda_device)
+        buf.view(torch.uint8)[:, :f] = codes
+        codes = buf.view(torch.uint8)[:, :27]
+    n0 = (k1.launches, k1.launches_t)
+    if form == "k2":
+        got = k1.build_histogram_t(codes.t().contiguous(), gh, num_bins)
+    else:
+        got = k1.build_histogram(codes, gh, num_bins)
+    torch.cuda.synchronize()
+    assert (k1.launches - n0[0], k1.launches_t - n0[1]) == (
+        (0, 1) if form == "k2" else (1, 0))
+    want = k1.build_histogram_plain(codes, gh, num_bins)
+    mag = k1.build_histogram_plain(codes, gh.abs(), num_bins)
+    assert _bar_ok(got, want, mag)
+    assert torch.equal(got[..., 2], want[..., 2])
+
+
+@pytest.mark.gpu
+def test_k1_dynamic_range(cuda_device):
+    # feature 0's bin 7: hessians 1e-7..0.25, gradients 1e-6..1e3; bin 8:
+    # only the small ends; held without the absolute term
+    r = np.random.RandomState(5)
+    p, f = 200_003, 28
+    dc = r.randint(0, 64, size=(p, f)).astype(np.uint8)
+    g, h = r.randn(p), r.rand(p) * 0.25
+    for code, (glo, ghi), (hlo, hhi) in ((7, (-6, 3), (-7, np.log10(0.25))),
+                                         (8, (-6, -4), (-7, -5))):
+        sel = dc[:, 0] == code
+        k = int(sel.sum())
+        g[sel] = np.where(r.rand(k) < 0.5, -1.0, 1.0) \
+            * 10.0 ** r.uniform(glo, ghi, k)
+        h[sel] = 10.0 ** r.uniform(hlo, hhi, k)
+    codes = torch.from_numpy(dc).to(cuda_device)
+    gh = torch.from_numpy(np.stack([g, h, np.ones(p)], 1)
+                          .astype(np.float32)).to(cuda_device)
+    got = k1.build_histogram(codes, gh, 64)
+    want = k1.build_histogram_plain(codes, gh, 64)
+    mag = k1.build_histogram_plain(codes, gh.abs(), 64)
+    assert _bar_ok(got, want, mag, atol=0.0)
+    assert torch.equal(got[..., 2], want[..., 2])
+
+
+@pytest.mark.gpu
+def test_k2_all_but_three_rows_zero(cuda_device):
+    # a deep leaf of the masked strategy: almost every block has no live
+    # row and adds nothing
+    r = np.random.RandomState(9)
+    f, p = 28, 60_001
+    codes_t = torch.from_numpy(r.randint(0, 64, size=(f, p))) \
+        .to(cuda_device, torch.uint8)
+    gh = torch.zeros((p, 3), dtype=torch.float32, device=cuda_device)
+    keep = torch.tensor([0, 31_337, p - 1], device=cuda_device)
+    gh[keep] = torch.tensor([[-0.37, 0.21, 1.0], [1.5e-6, 3e-7, 1.0],
+                             [812.5, 0.0625, 1.0]], device=cuda_device)
+    got = k1.build_histogram_t(codes_t, gh, 64)
+    want = k1.build_histogram_t_plain(codes_t, gh, 64)
+    mag = k1.build_histogram_t_plain(codes_t, gh.abs(), 64)
+    assert _bar_ok(got, want, mag, atol=0.0)
+    assert torch.equal(got[..., 2], want[..., 2])
+    assert int((got[..., 2] != 0).sum()) <= 3 * f
