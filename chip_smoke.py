@@ -4,10 +4,11 @@
     python3 chip_smoke.py            # every phase (1M x 28, 10 rounds)
     python3 chip_smoke.py --rows 200000 --rounds 3   # a short first check
     python3 chip_smoke.py --phases device,k1,k3      # only those phases
-    python3 chip_smoke.py --phases k1,k2,k3 --parent-src OLD
-        # beside each histogram case, OLD's kernel (another checkout of
-        # the repo, e.g. an earlier commit from `git archive`) on the
-        # same inputs in the same run
+    python3 chip_smoke.py --phases k1,k2,k3,k4,profile --parent-src OLD
+        # beside each histogram and partition case, OLD's kernel (another
+        # checkout of the repo, e.g. an earlier commit from `git archive`)
+        # on the same inputs in the same run, and one profiled iteration
+        # with OLD's partition kernel
 
 Phases, one JSON line each:
   device       card name and power limit, and the kernels' build (one nvcc
@@ -25,14 +26,22 @@ Phases, one JSON line each:
                bit-exact: packed quantized rows (int8 operand), a child
                window, a ragged tail at 256 bins with an int32 operand, and
                K3t over (F, N) codes at 60,000 rows;
-  k4           the stable partition kernel vs its plain version, bit-exact;
+  k4           the stable partition kernel vs its plain version, bit-exact:
+               the root split window (D = 11), a ragged 3-key window, the
+               quantized rows (D = 9), the compact core's child windows
+               (250k, 62k, 16k, 4k and 1k rows at D = 11 and D = 9), wide
+               rows (D = 260) and one tile more than the grid holds;
   train        lightgbm_tpu_torch.train on a Higgs-shaped 1,000,000 x 28
                binary task (num_leaves=255, max_bin=63, learning_rate=0.1,
                min_data_in_leaf=20) for 10 rounds on the compact strategy:
-               launches of every kernel during that run, host syncs per
+               launches of every kernel during that run, the partition
+               kernel's rows and its byte bound per tree, host syncs per
                tree, time, peak memory, held-out AUC, and a model-text
                round trip;
-  profile      one more float boosting iteration under torch.profiler;
+  profile      one more float boosting iteration under torch.profiler,
+               with the partition kernel's launches and device time summed
+               over its kernels (named from its library's SASS); with
+               --parent-src first one iteration on OLD's partition kernel;
   train_quant  the same data and parameters with quantized_grad (grad_bits
                8): K3 / K1 / K4 launches, time, peak memory, and held-out
                AUC > 0.7 and within 0.005 of the float run's; one more
@@ -83,9 +92,6 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 # ~50 ms of GPU clock cycles: longer than the host takes to enqueue one
 # timed run of launches
 SLEEP_CYCLES = 100_000_000
-# the grid --parent-src's kernel is launched at: two blocks per SM for
-# every operand, as the launcher before the fixed-point float kernel chose
-PARENT_BLOCKS_PER_SM = 2
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
           "train_quant", "train_masked", "reference")
@@ -165,43 +171,101 @@ _SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)")
 
 
-def sass_atomics(nvcc_path, libs):
-    """{library: {kernel: {opcode: count}}} of the atomic instructions
-    (shared-memory ATOMS.*, global ATOM.* / RED.*) in each built library's
-    SASS, read with cuobjdump -sass from nvcc's toolkit; "not measured"
-    where cuobjdump is absent."""
+def _cuobjdump(nvcc_path):
     tool = os.path.join(os.path.dirname(nvcc_path), "cuobjdump") \
         if nvcc_path else ""
     if not os.path.isfile(tool):
         tool = shutil.which("cuobjdump") or ""
+    return tool
+
+
+def sass_functions(nvcc_path, path):
+    """{kernel: {opcode: count}} of the atomic instructions (shared-memory
+    ATOMS.*, global ATOM.* / RED.*) of each kernel in one built library's
+    SASS, read with cuobjdump -sass from nvcc's toolkit; kernels by their
+    demangled names without namespace or arguments; {} where cuobjdump is
+    absent."""
+    tool = _cuobjdump(nvcc_path)
     if not tool:
-        return "not measured: no cuobjdump"
+        return {}
     filt = os.path.join(os.path.dirname(tool), "cu++filt")
-    out = {}
-    for name, path in libs.items():
-        text = subprocess.run([tool, "-sass", path], capture_output=True,
-                              text=True, timeout=120).stdout
-        funcs, cur = {}, None
-        for ln in text.splitlines():
-            m = _SASS_FUNC.search(ln)
-            if m:
-                cur = funcs.setdefault(m.group(1), {})
-                continue
-            m = _SASS_OP.search(ln)
-            if cur is not None and m and m.group(1).startswith(
-                    ("ATOMS", "ATOM.", "ATOMG", "RED.")):
-                cur[m.group(1)] = cur.get(m.group(1), 0) + 1
-        names = list(funcs)
-        if os.path.isfile(filt) and names:
-            dem = subprocess.run([filt], input="\n".join(names),
-                                 capture_output=True, text=True,
-                                 timeout=60).stdout.splitlines()
-            if len(dem) == len(names):
-                funcs = {re.sub(r"^void |<unnamed>::|\(anonymous "
-                                r"namespace\)::", "", d).split("(")[0]:
-                         funcs[n] for n, d in zip(names, dem)}
-        out[name] = funcs
-    return out
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=120).stdout
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        m = _SASS_FUNC.search(ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = _SASS_OP.search(ln)
+        if cur is not None and m and m.group(1).startswith(
+                ("ATOMS", "ATOM.", "ATOMG", "RED.")):
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+    names = list(funcs)
+    if os.path.isfile(filt) and names:
+        dem = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(dem) == len(names):
+            funcs = {re.sub(r"^void |<unnamed>::|\(anonymous "
+                            r"namespace\)::", "", d).split("(")[0]:
+                     funcs[n] for n, d in zip(names, dem)}
+    return funcs
+
+
+def sass_atomics(nvcc_path, libs):
+    """{library: sass_functions} for each built library; "not measured"
+    where cuobjdump is absent."""
+    if not _cuobjdump(nvcc_path):
+        return "not measured: no cuobjdump"
+    return {name: sass_functions(nvcc_path, path)
+            for name, path in libs.items()}
+
+
+@contextlib.contextmanager
+def parent_k4(torch, k4, lib):
+    """Inside, the partition wrapper, and the growth core that imports it
+    by name, launch `lib`, another checkout's partition library: through
+    the same wrapper where `lib` has this tree's C interface, else through
+    a launcher of the three-launch interface (count, scan, scatter) that
+    the kernel had before its cooperative form."""
+    from lightgbm_tpu_torch.models import device_learner
+    from lightgbm_tpu_torch.ops.kernels import build
+    if hasattr(lib, "lgbt_partition_max_grid"):
+        own = build.load("partition")
+        build._libs["partition"] = lib
+        try:
+            yield
+        finally:
+            build._libs["partition"] = own
+        return
+    lib.lgbt_partition_tile_rows.restype = ctypes.c_int
+    tile = int(lib.lgbt_partition_tile_rows())
+    fn = lib.lgbt_partition_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+
+    def launch(win, key3, out=None):
+        if out is None:
+            out = torch.empty_like(win)
+        w, d = win.shape
+        if w:
+            scratch = torch.empty(6 * -(-w // tile), dtype=torch.int32,
+                                  device=win.device)
+            build.check(fn(win.data_ptr(), key3.data_ptr(), w, d,
+                           scratch.data_ptr(), out.data_ptr(),
+                           torch.cuda.current_stream(win.device)
+                           .cuda_stream), "parent partition kernel launch")
+        return out
+
+    saved = (k4.stable_partition3, device_learner.stable_partition3)
+    k4.stable_partition3 = device_learner.stable_partition3 = launch
+    try:
+        yield
+    finally:
+        k4.stable_partition3, device_learner.stable_partition3 = saved
 
 
 def main():
@@ -213,8 +277,9 @@ def main():
                     + ",".join(PHASES))
     ap.add_argument("--parent-src", default=None, metavar="DIR",
                     help="another checkout of the repo: its "
-                    "csrc/histogram.cu is built and timed beside every "
-                    "case of the k1, k2 and k3 phases")
+                    "csrc/histogram.cu and csrc/partition.cu are built and "
+                    "timed beside every case of the k1, k2, k3 and k4 "
+                    "phases, and profiled with the partition kernel")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -246,23 +311,24 @@ def main():
         timeout=60).stdout.strip().splitlines()
     smi_line = smi[0] if smi else "not measured"
     t0 = time.time()
-    parent_build = None
+    parent_builds = {}
     if args.parent_src:
-        parent_lib = os.path.join(build.build_dir(),
-                                  "libparent_histogram_%d.so" % os.getpid())
         os.makedirs(build.build_dir(), exist_ok=True)
-        parent_build = subprocess.Popen(
-            [build.nvcc()] + build.FLAGS + ["-o", parent_lib, os.path.join(
-                args.parent_src, "lightgbm_tpu_torch", "csrc",
-                "histogram.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in build.SOURCES:
+            lib = os.path.join(build.build_dir(), "libparent_%s_%d.so"
+                               % (name, os.getpid()))
+            parent_builds[name] = (lib, subprocess.Popen(
+                [build.nvcc()] + build.FLAGS + ["-o", lib, os.path.join(
+                    args.parent_src, "lightgbm_tpu_torch", "csrc",
+                    name + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     log = build.build_all(verbose=True)
-    parent = None
-    if parent_build is not None:
-        text, _ = parent_build.communicate()
-        if parent_build.returncode:
-            fail("nvcc failed for --parent-src's histogram.cu:\n" + text)
-        parent = ctypes.CDLL(parent_lib)
+    parents = {}
+    for name, (lib, proc) in parent_builds.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            fail("nvcc failed for --parent-src's %s.cu:\n%s" % (name, text))
+        parents[name] = ctypes.CDLL(lib)
     build_s = time.time() - t0
     if "device" in run:
         ptxas = {name: [ln.strip() for ln in text.splitlines()
@@ -277,6 +343,11 @@ def main():
               "sass_atomics": sass_atomics(
                   build.nvcc(), {n: build.library_path(n)
                                  for n in build.SOURCES})})
+    # the partition kernel's kernels by name, for the profiles
+    k4_names = sorted(sass_functions(build.nvcc(),
+                                     build.library_path("partition")))
+    parent_k4_names = sorted(sass_functions(
+        build.nvcc(), parent_builds["partition"][0])) if parents else []
 
     # ---- data (built once, for the phases that need it) -----------------
     # auto picks the growth strategy by row count (compact at 1M rows,
@@ -306,7 +377,7 @@ def main():
     if run & {"k1", "k2", "k3", "k4"}:
         kernel_rows = kernel_phases(
             torch, dev, args, run, k1, k4, build, ds, params, Config,
-            DeviceTreeLearner, quant_ops, prng_key, parent)
+            DeviceTreeLearner, quant_ops, prng_key, parents)
 
     counters = {"k1": "launches", "k2": "launches_t", "k3": "launches_q",
                 "k3t": "launches_qt"}
@@ -314,12 +385,23 @@ def main():
     def reset_counts():
         for attr in counters.values():
             setattr(k1, attr, 0)
-        k4.launches = 0
+        k4.launches = k4.rows = 0
 
     def read_counts():
         out = {k: getattr(k1, attr) for k, attr in counters.items()}
-        out["k4"] = k4.launches
+        out["k4"], out["k4_rows"] = k4.launches, k4.rows
         return out
+
+    def k4_path(b, counts):
+        """The partition kernel over a run: rows and launches per tree, and
+        the byte bound of its windows per tree, sum W * (8D + 4) bytes."""
+        lr = b._gbdt.learner
+        d = lr.codes_pack.shape[1] + (2 if lr.quant_bits else 4)
+        trees = max(b.num_trees(), 1)
+        return {"D": d, "launches_per_tree": counts["k4"] / trees,
+                "rows_per_tree": counts["k4_rows"] / trees,
+                "bound_ms_per_tree": bound(counts["k4_rows"] * (8 * d + 4)
+                                           / trees, 0)[0]}
 
     def timed_train(p, dset):
         """Train from zeroed launch counts; (booster, counts, seconds,
@@ -348,9 +430,11 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_one(b):
+    def profile_one(b, k4_kernels=None):
         """One more boosting iteration of booster `b` under torch.profiler:
-        wall, device time and busy share, launches, the top kernels."""
+        wall, device time and busy share, launches, the top kernels, and
+        the partition kernel's (those named k4_kernels, default this
+        tree's) device time and launches summed."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -365,7 +449,19 @@ def main():
         total_us = sum(e.self_device_time_total for e in kern)
         top = sorted(kern, key=lambda e: e.self_device_time_total,
                      reverse=True)[:10]
+        names = k4_kernels or k4_names
+        if names:
+            pat = re.compile(r"(?:^|\s|::)(%s)\(" % "|".join(
+                re.escape(n) for n in names))
+            part = [e for e in kern if pat.search(e.key)]
+            k4_sum = {"kernels": [e.key[:90] for e in part],
+                      "device_ms": sum(e.self_device_time_total
+                                       for e in part) / 1e3,
+                      "launches": sum(e.count for e in part)}
+        else:
+            k4_sum = "not measured: no kernel names (no cuobjdump)"
         return {
+            "k4": k4_sum,
             "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / (wall * 1e3),
             "device_launches": sum(e.count for e in kern),
@@ -389,6 +485,7 @@ def main():
                  "rounds": args.rounds, "params": params,
                  "strategy": bst._gbdt.learner.strategy,
                  "trees": bst.num_trees(), "launches": launches,
+                 "k4_path": k4_path(bst, launches),
                  "splits_per_tree": stats.splits / max(stats.trees, 1),
                  "growth_host_syncs_per_tree":
                      stats.host_syncs / max(stats.trees, 1),
@@ -412,7 +509,12 @@ def main():
         if rt_err > 1e-6:
             fail("model-text round trip differs by %g" % rt_err)
         if "profile" in run:
-            emit(dict({"phase": "profile"}, **profile_one(bst)))
+            prof = {"phase": "profile"}
+            if parents:
+                with parent_k4(torch, k4, parents["partition"]):
+                    prof["parent_k4_iteration"] = profile_one(
+                        bst, parent_k4_names)["k4"]
+            emit(dict(prof, **profile_one(bst)))
         del bst, back
 
     # ---- train_quant: the same data with quantized gradients --------------
@@ -425,6 +527,7 @@ def main():
             "phase": "train_quant", "rows": args.rows,
             "rounds": args.rounds, "grad_bits": 8, "quant_renew": True,
             "strategy": qbst._gbdt.learner.strategy, "launches": qlaunches,
+            "k4_path": k4_path(qbst, qlaunches),
             "train_s": qtrain_s,
             "s_per_iter_in_train": qtrain_s / args.rounds,
             "s_per_iter_steady": steady_s(qbst), "peak_device_bytes": qpeak,
@@ -521,12 +624,12 @@ def main():
 
 
 def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
-                  DeviceTreeLearner, quant_ops, prng_key, parent):
+                  DeviceTreeLearner, quant_ops, prng_key, parents):
     """The k1, k2, k3 and k4 phases that `run` names, on the main path's
-    working rows; {kernel: [case rows]} for the kernels line. `parent`,
-    where given, is another checkout's histogram library, checked and
-    timed through the same wrappers beside each histogram case. Every tensor made here is freed on
-    return, before the training phases."""
+    working rows; {kernel: [case rows]} for the kernels line. `parents`,
+    where given, holds another checkout's histogram and partition
+    libraries, checked and timed beside each case. Every tensor made here
+    is freed on return, before the training phases."""
     f = 28
     probe = DeviceTreeLearner(Config(params), ds._inner, device=dev)
     r = np.random.RandomState(0)
@@ -563,31 +666,33 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
 
     @contextlib.contextmanager
     def parent_kernel():
-        """Inside, the histogram wrappers launch `parent`'s library (the
-        same entry) at its launcher's grid: the same Python path and
-        inputs, the other kernel."""
-        lib, per_sm = build.load("histogram"), dict(k1._BLOCKS_PER_SM)
-        build._libs["histogram"] = parent
-        k1._BLOCKS_PER_SM.update({kd: PARENT_BLOCKS_PER_SM for kd in per_sm})
+        """Inside, the histogram wrappers launch the parent's library (the
+        same entry) at this tree's grid: the same Python path and inputs,
+        the other kernel."""
+        lib = build.load("histogram")
+        build._libs["histogram"] = parents["histogram"]
         try:
             yield
         finally:
             build._libs["histogram"] = lib
-            k1._BLOCKS_PER_SM.update(per_sm)
 
-    def timings(row, fn, reps, with_parent):
-        """row's ms and device_ms of fn; with_parent (and a parent) also
-        parent_ms and parent_device_ms, the device times in the order
-        parent, change, change, parent."""
+    def k4_parent():
+        return parent_k4(torch, k4, parents["partition"])
+
+    def timings(row, fn, reps, on_parent):
+        """row's ms and device_ms of fn; with parents, also parent_ms and
+        parent_device_ms, fn run under on_parent() (the parent's kernel
+        in the same wrapper), the device times in the order parent,
+        change, change, parent."""
         row["ms"] = time_ms(torch, fn, reps)
-        if parent is None or not with_parent:
+        if not parents:
             row["device_ms"] = time_ms(torch, fn, reps, hold=True)
             return
         d = []
-        for on_parent in (True, False, False, True):
-            with parent_kernel() if on_parent else contextlib.nullcontext():
+        for par in (True, False, False, True):
+            with on_parent() if par else contextlib.nullcontext():
                 d.append(time_ms(torch, fn, reps, hold=True))
-        with parent_kernel():
+        with on_parent():
             row["parent_ms"] = time_ms(torch, fn, reps)
         row["device_ms"] = (d[1] + d[2]) / 2
         row["parent_device_ms"] = (d[0] + d[3]) / 2
@@ -615,10 +720,10 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
         err_vs_mag = float((diff / mag.clamp(min=1e-30)).max())
         p, ff = pf.shape
         extra = {}
-        if parent is not None:
+        if parents:
             with parent_kernel():
                 extra["parent_ok"] = within(kernel(codes, gh, nb))
-        timings(extra, lambda: kernel(codes, gh, nb), reps, True)
+        timings(extra, lambda: kernel(codes, gh, nb), reps, parent_kernel)
         plain_ms = time_ms(torch, lambda: plain(codes, gh, nb), 3, warmup=1)
         lib, lib_note = library_ms(pf, gh, nb, reps)
         bms, by = bound(p * ff * codes.element_size() + 12 * p
@@ -708,11 +813,11 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
         exact = bool(got.dtype == torch.int32 and torch.equal(got, want))
         p, ff = pf.shape
         extra = {}
-        if parent is not None:
+        if parents:
             with parent_kernel():
                 extra["parent_bit_exact"] = bool(torch.equal(
                     kernel(codes, ghq, nb), want))
-        timings(extra, lambda: kernel(codes, ghq, nb), reps, True)
+        timings(extra, lambda: kernel(codes, ghq, nb), reps, parent_kernel)
         plain_ms = time_ms(torch, lambda: plain(codes, ghq, nb), 3, warmup=1)
         lib, lib_note = library_ms(pf, ghq.to(torch.int32), nb, reps)
         bms, by = bound(p * ff * codes.element_size()
@@ -786,8 +891,12 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
             torch.cuda.synchronize()
             exact = bool(torch.equal(got, want))
             times = {}
+            if parents:
+                with k4_parent():
+                    times["parent_bit_exact"] = bool(torch.equal(
+                        k4.stable_partition3(win, key, res), want))
             timings(times, lambda: k4.stable_partition3(win, key, res), reps,
-                    False)
+                    k4_parent)
             plain = time_ms(torch,
                             lambda: k4.stable_partition3_plain(win, key),
                             3, warmup=1)
@@ -803,7 +912,7 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
             k4_rows.append(row)
             return row
 
-        # the root split's window: rows keyed by a feature threshold
+        # the root split window: rows keyed by a feature threshold
         key_root = (codes_root[:, 0].to(torch.int32) > b_root // 3) \
             .to(torch.int32).contiguous()
         k4_case("root split window", buf, key_root, 20)
@@ -814,9 +923,27 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
         key2 = torch.from_numpy(rk.randint(0, 3, size=args.rows + 3)
                                 .astype(np.int32)).to(dev)
         k4_case("ragged, 3 keys", w2, key2, 20)
-        k4_case("quantized rows, D=9", w2[:, :9].contiguous(), key2, 20)
+        q9 = w2[:, :9].contiguous()
+        k4_case("quantized rows, D=9", q9, key2, 20)
+        # the compact core's child windows: leading row slices of the
+        # working rows, a 0 / 1 key as the growth core passes
+        for wn in (250_000, 62_000, 16_000, 4_000, 1_000):
+            wn = min(wn, args.rows)
+            reps = 50 if wn > 100_000 else 200
+            k4_case("child window, D=11", buf[:wn], key_root[:wn], reps)
+            k4_case("child window, D=9", q9[:wn], key_root[:wn], reps)
+        ww = min(100_003, args.rows + 3)
+        wide = torch.from_numpy(rk.randint(0, 2**32, size=(ww, 260),
+                                           dtype=np.uint32).view(np.int32)) \
+            .to(dev)
+        k4_case("wide rows, D=260", wide, key2[:ww], 20)
+        del wide
+        # one tile more than the grid holds: one block moves two tiles
+        over = k4._launcher(dev, d_cols)[1] * k4.tile_rows(d_cols) + 1
+        k4_case("grid capacity + 1 tile", w2[:over], key2[:over], 50)
         emit({"phase": "k4", "tolerance": "bit-exact", "cases": k4_rows})
-        if not all(rw["bit_exact"] for rw in k4_rows):
+        if not all(rw["bit_exact"] and rw.get("parent_bit_exact", True)
+                   for rw in k4_rows):
             fail("K4 disagrees with its plain version")
         out["k4"] = k4_rows
     return out

@@ -2,28 +2,70 @@
 
 Port of lightgbm_tpu/ops/pallas/partition_kernel.py::stable_partition3
 (kernel body ``_partition_kernel``). The kernel itself is
-``csrc/partition.cu`` (block counts, one scan block, warp-ballot ranks and
-a row scatter, see the note there); ``stable_partition3_plain`` is the same
-function in plain PyTorch: ``index_select`` by ``argsort(key, stable)``.
+``csrc/partition.cu``: one cooperative launch that counts keys per block,
+meets at one grid barrier, and moves T-row tiles through shared memory in
+coalesced runs (see the note there); ``stable_partition3_plain`` is the
+same function in plain PyTorch: ``index_select`` by ``argsort(key,
+stable)``.
 
 ``stable_partition3`` takes the plain version for a tensor on the CPU and
 launches the kernel for a tensor on the card. It writes into ``out`` (a
 second buffer): the growth core ping-pongs two working buffers instead of
 copying the window back.
+
+The sizing below mirrors the constants of ``csrc/partition.cu`` (the tests
+read them from the source): rows per tile from the row width D, the
+kernel's shared memory, and the scratch a grid needs.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import build
 
-# launch count: +1 right after each kernel launch, read by chip_smoke.py
+# +1 right after each kernel launch, and the rows (W) of those launches;
+# read by chip_smoke.py
 launches = 0
+rows = 0
 
-_tile = None
+MAX_TILE = 256                  # kMaxTile: rows per tile
+MIN_TILE = 4                    # kMinTile
+STAGE_BYTES = 96 * 1024         # kStageBytes: both staged tiles, aimed at
+MAX_STAGE_BYTES = 192 * 1024    # kMaxStageBytes
+MAX_D = MAX_STAGE_BYTES // (8 * MIN_TILE)   # kMaxD: widest row, in words
+
+_max_grid: Dict[Tuple[int, int], int] = {}
+_fn = None
+
+
+def tile_rows(d: int) -> int:
+    """Rows per tile for rows of d 32-bit words (a multiple of 4); 0 where
+    the kernel does not take d."""
+    if d < 1 or d > MAX_D:
+        return 0
+    return max(MIN_TILE, min(MAX_TILE, (STAGE_BYTES // (8 * d)) & ~3))
+
+
+def smem_bytes(d: int) -> int:
+    """The kernel's dynamic shared memory at row width d: two staged tiles
+    (each widened to 16-byte chunks) and the slot -> row map."""
+    t = tile_rows(d)
+    return (2 * ((t * d + 6) & ~3) + t) * 4
+
+
+def scratch_ints(grid: int) -> int:
+    """int32 scratch of a launch on `grid` blocks: (key 0, key 1) counts
+    per block."""
+    return 2 * grid
+
+
+def grid_blocks(w: int, d: int, max_grid: int) -> int:
+    """Blocks of a launch over w rows: one per tile, at most max_grid (the
+    blocks the card holds at once, which a cooperative launch needs)."""
+    return min(-(-w // tile_rows(d)), max_grid)
 
 
 def stable_partition3_plain(win: torch.Tensor,
@@ -33,12 +75,36 @@ def stable_partition3_plain(win: torch.Tensor,
     return win.index_select(0, order)
 
 
+def _launcher(device: torch.device, d: int):
+    """The library's launch entry and the most blocks of d-word rows the
+    card holds at once (cached per device and width)."""
+    global _fn
+    lib = build.load("partition")
+    if _fn is None or _fn[0] is not lib:
+        fn = lib.lgbt_partition_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        _fn = (lib, fn)
+        _max_grid.clear()
+    cache_key = (device.index, d)
+    cap = _max_grid.get(cache_key)
+    if cap is None:
+        got = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            build.check(lib.lgbt_partition_max_grid(d, ctypes.byref(got)),
+                        "partition kernel occupancy query")
+        cap = _max_grid[cache_key] = got.value
+    return _fn[1], cap
+
+
 def stable_partition3(win: torch.Tensor, key3: torch.Tensor,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stably reorder `win` (W, D) int32 so that rows sort by key3 in
     {0, 1, 2}; the exact equal of take(win, argsort(key3, stable)). The
     result goes to `out` (W, D) when given (it must not overlap `win`)."""
-    global launches, _tile
+    global launches, rows
     if out is None:
         out = torch.empty_like(win)
     if win.device.type == "cpu":
@@ -59,19 +125,16 @@ def stable_partition3(win: torch.Tensor, key3: torch.Tensor,
         return out
     if w >= 2 ** 31:
         raise ValueError("stable_partition3: window too large")
-    lib = build.load("partition")
-    if _tile is None:
-        lib.lgbt_partition_tile_rows.restype = ctypes.c_int
-        _tile = int(lib.lgbt_partition_tile_rows())
-    nb = -(-w // _tile)
-    scratch = torch.empty(6 * nb, dtype=torch.int32, device=win.device)
-    fn = lib.lgbt_partition_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    rc = fn(win.data_ptr(), key3.data_ptr(), w, d, scratch.data_ptr(),
+    if not tile_rows(d):
+        raise ValueError("stable_partition3: rows of %d words; the kernel "
+                         "takes 1 to %d" % (d, MAX_D))
+    fn, cap = _launcher(win.device, d)
+    grid = grid_blocks(w, d, cap)
+    scratch = torch.empty(scratch_ints(grid), dtype=torch.int32,
+                          device=win.device)
+    rc = fn(win.data_ptr(), key3.data_ptr(), w, d, grid, scratch.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(win.device).cuda_stream)
     build.check(rc, "partition kernel launch")
     launches += 1
+    rows += w
     return out

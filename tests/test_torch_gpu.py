@@ -108,6 +108,133 @@ def test_k4_into_a_slice_of_the_spare_buffer(cuda_device):
     assert not spare[:1000].any() and not spare[4000:].any()
 
 
+def _k4_case(device, w, d, seed, key=None):
+    r = np.random.RandomState(seed)
+    win = torch.from_numpy(r.randint(0, 2**32, size=(w, d), dtype=np.uint32)
+                           .view(np.int32)).to(device)
+    if key is None:
+        key = r.randint(0, 3, size=w).astype(np.int32)
+    return win, torch.from_numpy(np.asarray(key, np.int32)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 9, 11, 260])
+@pytest.mark.parametrize("size", ["1", "31", "T-1", "T", "T+1", "cap+1"])
+def test_k4_window_sizes(cuda_device, size, d):
+    # around one tile (T rows for D-word rows), and one tile more than the
+    # grid holds, so that one block moves two tiles
+    t = k4.tile_rows(d)
+    cap = k4._launcher(cuda_device, d)[1]
+    w = {"1": 1, "31": 31, "T-1": t - 1, "T": t, "T+1": t + 1,
+         "cap+1": cap * t + 1}[size]
+    win, key = _k4_case(cuda_device, w, d, w + d)
+    n0, r0 = k4.launches, k4.rows
+    got = k4.stable_partition3(win, key)
+    torch.cuda.synchronize()
+    assert (k4.launches - n0, k4.rows - r0) == (1, w)
+    if size == "cap+1":
+        assert k4.grid_blocks(w, d, cap) == cap
+    assert torch.equal(got, k4.stable_partition3_plain(win, key))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["all 0", "all 1", "all 2",
+                                     "no 1 (empty middle stream)"])
+def test_k4_key_patterns(cuda_device, pattern):
+    w = 70_001
+    key = {"all 0": np.zeros(w), "all 1": np.ones(w),
+           "all 2": np.full(w, 2),
+           "no 1 (empty middle stream)": 2 * (np.arange(w) % 3 == 1)}[pattern]
+    win, key = _k4_case(cuda_device, w, 11, 3, key)
+    got = k4.stable_partition3(win, key)
+    assert torch.equal(got, k4.stable_partition3_plain(win, key))
+
+
+@pytest.mark.gpu
+def test_k4_back_to_back_on_one_stream(cuda_device):
+    # three calls queued without a wait: the second and third reuse the
+    # scratch block the caching allocator hands back, at another grid
+    a_win, a_key = _k4_case(cuda_device, 300_007, 11, 4)
+    b_win, b_key = _k4_case(cuda_device, 4_099, 11, 5)
+    got_a = k4.stable_partition3(a_win, a_key)
+    got_b = k4.stable_partition3(b_win, b_key)
+    got_a2 = k4.stable_partition3(a_win, a_key)
+    torch.cuda.synchronize()
+    want_a = k4.stable_partition3_plain(a_win, a_key)
+    assert torch.equal(got_a, want_a) and torch.equal(got_a2, want_a)
+    assert torch.equal(got_b, k4.stable_partition3_plain(b_win, b_key))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [9, 11])
+def test_k4_unaligned_slices(cuda_device, d):
+    # window and output are row slices at every 16-byte misalignment; the
+    # rows around the output slice stay untouched
+    src, _ = _k4_case(cuda_device, 20_000, d, 6)
+    for begin in (0, 1, 2, 3, 5):
+        win = src[begin:begin + 9_001]
+        key = torch.from_numpy(np.random.RandomState(begin).randint(
+            0, 2, 9_001).astype(np.int32)).to(cuda_device)
+        spare = torch.full((20_000, d), -7, dtype=torch.int32,
+                           device=cuda_device)
+        k4.stable_partition3(win, key, spare[begin + 3:begin + 9_004])
+        assert torch.equal(spare[begin + 3:begin + 9_004],
+                           k4.stable_partition3_plain(win, key))
+        assert bool((spare[:begin + 3] == -7).all())
+        assert bool((spare[begin + 9_004:] == -7).all())
+
+
+@pytest.mark.gpu
+def test_k4_run_to_run_equal(cuda_device):
+    win, key = _k4_case(cuda_device, 1_000_003, 11, 8)
+    first = k4.stable_partition3(win, key)
+    again = k4.stable_partition3(win, key)
+    assert torch.equal(first, again)
+    assert torch.equal(first, k4.stable_partition3_plain(win, key))
+
+
+@pytest.mark.gpu
+def test_k4_empty_window_launches_nothing(cuda_device):
+    win = torch.zeros((0, 11), dtype=torch.int32, device=cuda_device)
+    n0, r0 = k4.launches, k4.rows
+    got = k4.stable_partition3(win, torch.zeros(0, dtype=torch.int32,
+                                                device=cuda_device))
+    assert got.shape == (0, 11) and (k4.launches, k4.rows) == (n0, r0)
+
+
+@pytest.mark.gpu
+def test_k4_sizing_matches_the_library(cuda_device):
+    lib = build.load("partition")
+    for d in (1, 9, 11, 48, 49, 260, k4.MAX_D, k4.MAX_D + 1):
+        assert lib.lgbt_partition_tile_rows(d) == k4.tile_rows(d)
+        if k4.tile_rows(d):
+            assert lib.lgbt_partition_smem_bytes(d) == k4.smem_bytes(d)
+            assert k4._launcher(cuda_device, d)[1] >= \
+                torch.cuda.get_device_properties(cuda_device) \
+                .multi_processor_count
+
+
+@pytest.mark.gpu
+def test_k4_refused_launch_raises(cuda_device, monkeypatch):
+    # a grid larger than the card holds at once is refused by the
+    # cooperative launch: the wrapper raises and counts nothing; rows wider
+    # than the kernel stages are refused before any launch
+    d = 11
+    cap = k4._launcher(cuda_device, d)[1]
+    win, key = _k4_case(cuda_device, 2 * cap * k4.tile_rows(d), d, 9)
+    monkeypatch.setitem(k4._max_grid, (cuda_device.index or 0, d), 2 * cap)
+    n0 = k4.launches
+    with pytest.raises(RuntimeError, match="partition kernel launch"):
+        k4.stable_partition3(win, key)
+    assert k4.launches == n0
+    wide = torch.zeros((8, k4.MAX_D + 1), dtype=torch.int32,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="words"):
+        k4.stable_partition3(wide, torch.zeros(8, dtype=torch.int32,
+                                               device=cuda_device))
+    assert k4.launches == n0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits,num_bins,dtype", [
     (8, 64, torch.uint8), (8, 256, torch.uint8), (16, 256, torch.uint8),
