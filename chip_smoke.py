@@ -8,14 +8,16 @@
         # beside each histogram and partition case, OLD's kernel (another
         # checkout of the repo, e.g. an earlier commit from `git archive`)
         # on the same inputs in the same run, and one profiled iteration
-        # with OLD's partition kernel
+        # with OLD's partition kernel (train_quant: with OLD's quantized
+        # histograms, the operand built in torch and then OLD's K3)
 
 Phases, one JSON line each:
   device       card name and power limit, and the kernels' build (one nvcc
                per source, started together; ptxas registers and shared
                memory per kernel); per built library and kernel, the count
                of each atomic opcode in its SASS (cuobjdump -sass; "not
-               measured" without cuobjdump);
+               measured" without cuobjdump); the integer kernels'
+               registers, spills and shared-memory adds (ATOMS.ADD);
   k1           the float histogram kernel vs its plain PyTorch version at
                the compact path's shapes (the root window of the packed
                working rows, a child window, a ragged tail at 256 bins),
@@ -24,8 +26,13 @@ Phases, one JSON line each:
                strategy's layout, at 60,000 and at the full row count;
   k3           the exact integer histogram kernel vs its plain version,
                bit-exact: packed quantized rows (int8 operand), a child
-               window, a ragged tail at 256 bins with an int32 operand, and
-               K3t over (F, N) codes at 60,000 rows;
+               window, a ragged tail at 256 bins with an int32 operand,
+               K3t over (F, N) codes at 60,000 rows, and a flush probe
+               (one row per thread of the grid); then the packed-row entry
+               (the operand built in the kernel, as the compact core
+               calls it) at the root and the child windows of 250k, 62k,
+               16k, 4k and 1k rows, beside the two-step it replaces
+               (gh_operand_scaled, then K3) on this tree and the parent's;
   k4           the stable partition kernel vs its plain version, bit-exact:
                the root split window (D = 11), a ragged 3-key window, the
                quantized rows (D = 9), the compact core's child windows
@@ -45,7 +52,8 @@ Phases, one JSON line each:
   train_quant  the same data and parameters with quantized_grad (grad_bits
                8): K3 / K1 / K4 launches, time, peak memory, and held-out
                AUC > 0.7 and within 0.005 of the float run's; one more
-               iteration profiled;
+               iteration profiled, K3's kernels summed (with --parent-src
+               also one on the parent's two-step);
   train_masked 60,000 x 28 (the masked strategy, which auto picks below
                65,536 rows), float and quantized: K2 / K3t launches, AUC,
                time, one more iteration profiled;
@@ -179,6 +187,20 @@ def _cuobjdump(nvcc_path):
     return tool
 
 
+def _kernel_name(demangled):
+    """A demangled kernel signature without its return type, namespace and
+    parameter list (the first "(" outside the template arguments, which
+    cu++filt writes with casts such as "(bool)1")."""
+    name = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "",
+                  demangled)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
 def sass_functions(nvcc_path, path):
     """{kernel: {opcode: count}} of the atomic instructions (shared-memory
     ATOMS.*, global ATOM.* / RED.*) of each kernel in one built library's
@@ -207,9 +229,7 @@ def sass_functions(nvcc_path, path):
                              capture_output=True, text=True,
                              timeout=60).stdout.splitlines()
         if len(dem) == len(names):
-            funcs = {re.sub(r"^void |<unnamed>::|\(anonymous "
-                            r"namespace\)::", "", d).split("(")[0]:
-                     funcs[n] for n, d in zip(names, dem)}
+            funcs = {_kernel_name(d): funcs[n] for n, d in zip(names, dem)}
     return funcs
 
 
@@ -220,6 +240,41 @@ def sass_atomics(nvcc_path, libs):
         return "not measured: no cuobjdump"
     return {name: sass_functions(nvcc_path, path)
             for name, path in libs.items()}
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_kernels(text, nvcc_path, pattern):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from nvcc's
+    -Xptxas -v output for the entries whose mangled name contains
+    `pattern`, demangled with cu++filt where the toolkit has it."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = _PTXAS_ENTRY.search(ln)
+        if m:
+            cur = out.setdefault(m.group(1), {}) if pattern in m.group(1) \
+                else None
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = _PTXAS_REGS.search(ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    filt = os.path.join(os.path.dirname(_cuobjdump(nvcc_path)), "cu++filt")
+    names = list(out)
+    if os.path.isfile(filt) and names:
+        dem = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(dem) == len(names):
+            out = {_kernel_name(d): out[n] for n, d in zip(names, dem)}
+    return out
 
 
 @contextlib.contextmanager
@@ -266,6 +321,48 @@ def parent_k4(torch, k4, lib):
         yield
     finally:
         k4.stable_partition3, device_learner.stable_partition3 = saved
+
+
+def parent_histogram(src, lib):
+    """The histogram wrapper module of another checkout (its
+    lightgbm_tpu_torch imported as a package of its own,
+    parent_lightgbm_tpu_torch) launching `lib`, that checkout's built
+    histogram library: the parent's kernels as its own wrapper launched
+    them (its grid, its output)."""
+    import importlib.util
+    pkg = os.path.join(src, "lightgbm_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_lightgbm_tpu_torch", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    importlib.import_module(spec.name + ".ops.kernels.build")._libs[
+        "histogram"] = lib
+    return importlib.import_module(spec.name + ".ops.kernels.histogram")
+
+
+@contextlib.contextmanager
+def parent_two_step(k1, pk1):
+    """Inside, the compact core builds its quantized histograms as the
+    parent did: the (W, 3) operand by gh_operand_scaled, then K3 through
+    `pk1`, the parent's histogram wrapper."""
+    from lightgbm_tpu_torch.models import device_learner
+    from lightgbm_tpu_torch.ops import quantize as quant_ops
+    own = device_learner.build_histogram_quantized_rows
+
+    def two_step(rows, cw, c_cols, item_bits, r_g, r_h, qcap_op, grad_bits,
+                 num_bins):
+        ghq = quant_ops.gh_operand_scaled(rows[:, cw], None, grad_bits,
+                                          qcap_op, r_g, r_h)
+        return pk1.build_histogram_quantized(
+            k1.packed_codes(rows, cw, c_cols, item_bits), ghq, num_bins)
+
+    device_learner.build_histogram_quantized_rows = two_step
+    try:
+        yield
+    finally:
+        device_learner.build_histogram_quantized_rows = own
 
 
 def main():
@@ -329,25 +426,47 @@ def main():
         if proc.returncode:
             fail("nvcc failed for --parent-src's %s.cu:\n%s" % (name, text))
         parents[name] = ctypes.CDLL(lib)
+    if parents:
+        parents["histogram_wrapper"] = parent_histogram(
+            args.parent_src, parents["histogram"])
     build_s = time.time() - t0
     if "device" in run:
         ptxas = {name: [ln.strip() for ln in text.splitlines()
                         if "registers" in ln or "Compiling entry" in ln
                         or "spill" in ln]
                  for name, text in log.items()}
+        atomics = sass_atomics(build.nvcc(), {n: build.library_path(n)
+                                              for n in build.SOURCES})
+        # the integer kernels: registers, spills and shared-memory adds
+        int_kernels = {}
+        for kind in ("hist_int_kernel", "hist_rows_kernel"):
+            for name, info in ptxas_kernels(log.get("histogram", ""),
+                                            build.nvcc(), kind).items():
+                sass = atomics.get("histogram", {}).get(name, {}) \
+                    if isinstance(atomics, dict) else {}
+                int_kernels[name] = dict(
+                    info, atoms_add=sass.get("ATOMS.ADD", "not measured"))
         emit({"phase": "device", "nvidia_smi": smi_line,
               "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": round(build_s, 2),
-              "ptxas": ptxas,
-              "sass_atomics": sass_atomics(
-                  build.nvcc(), {n: build.library_path(n)
-                                 for n in build.SOURCES})})
-    # the partition kernel's kernels by name, for the profiles
+              "ptxas": ptxas, "sass_atomics": atomics,
+              "int_kernels": int_kernels or "not measured: no ptxas "
+                                            "output (library cached)"})
+    # the partition kernel's kernels and K3's (the integer histogram
+    # kernels) by name, for the profiles
     k4_names = sorted(sass_functions(build.nvcc(),
                                      build.library_path("partition")))
     parent_k4_names = sorted(sass_functions(
         build.nvcc(), parent_builds["partition"][0])) if parents else []
+
+    def int_hist_names(path):
+        # the integer kernels: every instantiation but the float one
+        return sorted(n for n in sass_functions(build.nvcc(), path)
+                      if n.startswith("hist_") and "fixed" not in n)
+    k3_names = int_hist_names(build.library_path("histogram"))
+    parent_k3_names = int_hist_names(parent_builds["histogram"][0]) \
+        if parents else []
 
     # ---- data (built once, for the phases that need it) -----------------
     # auto picks the growth strategy by row count (compact at 1M rows,
@@ -430,11 +549,12 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_one(b, k4_kernels=None):
+    def profile_one(b, k4_kernels=None, k3_kernels=None):
         """One more boosting iteration of booster `b` under torch.profiler:
         wall, device time and busy share, launches, the top kernels, and
-        the partition kernel's (those named k4_kernels, default this
-        tree's) device time and launches summed."""
+        the partition kernel's and K3's (those named k4_kernels and
+        k3_kernels, default this tree's) device time and launches
+        summed."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -449,19 +569,22 @@ def main():
         total_us = sum(e.self_device_time_total for e in kern)
         top = sorted(kern, key=lambda e: e.self_device_time_total,
                      reverse=True)[:10]
-        names = k4_kernels or k4_names
-        if names:
-            pat = re.compile(r"(?:^|\s|::)(%s)\(" % "|".join(
-                re.escape(n) for n in names))
+
+        def summed(names):
+            # by base name: the profiler writes template arguments as
+            # written in the source, cu++filt with casts
+            if not names:
+                return "not measured: no kernel names (no cuobjdump)"
+            pat = re.compile(r"(?:^|\s|::)(%s)[<(]" % "|".join(
+                sorted({re.escape(n.split("<")[0]) for n in names})))
             part = [e for e in kern if pat.search(e.key)]
-            k4_sum = {"kernels": [e.key[:90] for e in part],
-                      "device_ms": sum(e.self_device_time_total
-                                       for e in part) / 1e3,
-                      "launches": sum(e.count for e in part)}
-        else:
-            k4_sum = "not measured: no kernel names (no cuobjdump)"
+            return {"kernels": [e.key[:90] for e in part],
+                    "device_ms": sum(e.self_device_time_total
+                                     for e in part) / 1e3,
+                    "launches": sum(e.count for e in part)}
         return {
-            "k4": k4_sum,
+            "k4": summed(k4_kernels or k4_names),
+            "k3": summed(k3_kernels or k3_names),
             "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / (wall * 1e3),
             "device_launches": sum(e.count for e in kern),
@@ -533,6 +656,14 @@ def main():
             "s_per_iter_steady": steady_s(qbst), "peak_device_bytes": qpeak,
             "valid_auc": qauc, "float_valid_auc": valid_auc,
             "auc_diff": qauc - valid_auc, "profile": profile_one(qbst)}
+        if parents:
+            # the parent's path in this tree's loop: the operand built by
+            # gh_operand_scaled, then K3 on the parent's library
+            with parent_two_step(k1, parents["histogram_wrapper"]):
+                par = profile_one(qbst, k3_kernels=parent_k3_names)
+            train_quant["parent_iteration"] = {
+                key: par[key] for key in ("k3", "device_ms",
+                                          "device_launches", "wall_ms")}
         emit(train_quant)
         if train_quant["strategy"] != "compact":
             fail("the quantized 1M-row run did not take the compact "
@@ -603,10 +734,11 @@ def main():
                          "lightgbm_tpu_torch/csrc/histogram.cu", hk + ":73",
                          masked_rows[0]["launches"]["k2"], kr["k2"],
                          "max_abs_err"),
-            kernel_entry("K3 integer histogram",
+            # the compact path runs K3 through the packed-row entry
+            kernel_entry("K3 integer histogram (packed-row entry)",
                          "lightgbm_tpu_torch/csrc/histogram.cu",
-                         hk + ":114", qlaunches["k3"], kr["k3"],
-                         "max_abs_err"),
+                         hk + ":114", qlaunches["k3"],
+                         kr["k3_rows"] + kr["k3"], "max_abs_err"),
             kernel_entry("K3t integer histogram, (F, N) codes",
                          "lightgbm_tpu_torch/csrc/histogram.cu",
                          hk + ":152", masked_rows[1]["launches"]["k3t"],
@@ -628,7 +760,8 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
     """The k1, k2, k3 and k4 phases that `run` names, on the main path's
     working rows; {kernel: [case rows]} for the kernels line. `parents`,
     where given, holds another checkout's histogram and partition
-    libraries, checked and timed beside each case. Every tensor made here
+    libraries and its histogram wrapper module, checked and timed beside
+    each case. Every tensor made here
     is freed on return, before the training phases."""
     f = 28
     probe = DeviceTreeLearner(Config(params), ds._inner, device=dev)
@@ -664,36 +797,30 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
             return None, "none: index_add_ on %s raised %s" % (
                 src.dtype, str(e).splitlines()[0][:160])
 
-    @contextlib.contextmanager
-    def parent_kernel():
-        """Inside, the histogram wrappers launch the parent's library (the
-        same entry) at this tree's grid: the same Python path and inputs,
-        the other kernel."""
-        lib = build.load("histogram")
-        build._libs["histogram"] = parents["histogram"]
-        try:
-            yield
-        finally:
-            build._libs["histogram"] = lib
+    def parent_of(kernel):
+        """The parent's wrapper of the same name as `kernel`."""
+        return getattr(parents["histogram_wrapper"], kernel.__name__)
 
     def k4_parent():
         return parent_k4(torch, k4, parents["partition"])
 
-    def timings(row, fn, reps, on_parent):
+    def timings(row, fn, reps, parent_fn=None,
+                on_parent=contextlib.nullcontext):
         """row's ms and device_ms of fn; with parents, also parent_ms and
-        parent_device_ms, fn run under on_parent() (the parent's kernel
-        in the same wrapper), the device times in the order parent,
-        change, change, parent."""
+        parent_device_ms, parent_fn (default fn) run under on_parent(),
+        the device times in the order parent, change, change, parent."""
         row["ms"] = time_ms(torch, fn, reps)
         if not parents:
             row["device_ms"] = time_ms(torch, fn, reps, hold=True)
             return
+        pfn = parent_fn or fn
         d = []
         for par in (True, False, False, True):
             with on_parent() if par else contextlib.nullcontext():
-                d.append(time_ms(torch, fn, reps, hold=True))
+                d.append(time_ms(torch, pfn if par else fn, reps,
+                                 hold=True))
         with on_parent():
-            row["parent_ms"] = time_ms(torch, fn, reps)
+            row["parent_ms"] = time_ms(torch, pfn, reps)
         row["device_ms"] = (d[1] + d[2]) / 2
         row["parent_device_ms"] = (d[0] + d[3]) / 2
 
@@ -721,9 +848,9 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
         p, ff = pf.shape
         extra = {}
         if parents:
-            with parent_kernel():
-                extra["parent_ok"] = within(kernel(codes, gh, nb))
-        timings(extra, lambda: kernel(codes, gh, nb), reps, parent_kernel)
+            extra["parent_ok"] = within(parent_of(kernel)(codes, gh, nb))
+        timings(extra, lambda: kernel(codes, gh, nb), reps,
+                lambda: parent_of(kernel)(codes, gh, nb))
         plain_ms = time_ms(torch, lambda: plain(codes, gh, nb), 3, warmup=1)
         lib, lib_note = library_ms(pf, gh, nb, reps)
         bms, by = bound(p * ff * codes.element_size() + 12 * p
@@ -814,10 +941,10 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
         p, ff = pf.shape
         extra = {}
         if parents:
-            with parent_kernel():
-                extra["parent_bit_exact"] = bool(torch.equal(
-                    kernel(codes, ghq, nb), want))
-        timings(extra, lambda: kernel(codes, ghq, nb), reps, parent_kernel)
+            extra["parent_bit_exact"] = bool(torch.equal(
+                parent_of(kernel)(codes, ghq, nb), want))
+        timings(extra, lambda: kernel(codes, ghq, nb), reps,
+                lambda: parent_of(kernel)(codes, ghq, nb))
         plain_ms = time_ms(torch, lambda: plain(codes, ghq, nb), 3, warmup=1)
         lib, lib_note = library_ms(pf, ghq.to(torch.int32), nb, reps)
         bms, by = bound(p * ff * codes.element_size()
@@ -831,6 +958,50 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
                "library": lib_note, "bound_ms": bms, "bound_by": by}
         row.update(extra)
         rows.append(row)
+        return row
+
+    def rows_case(rows_out, label, rows, cw, qcap, r_g, r_h, nb, reps):
+        """The packed-row entry over `rows` (grad_bits 8) against its plain
+        version, bit-exact; the two-step it replaces timed beside it."""
+        kargs = (rows, cw, c_cols, 8, r_g, r_h, qcap, 8, nb)
+
+        def fn():
+            return k1.build_histogram_quantized_rows(*kargs)
+
+        def two_step(k3=k1.build_histogram_quantized):
+            ghq = quant_ops.gh_operand_scaled(rows[:, cw], None, 8, qcap,
+                                              r_g, r_h)
+            return k3(rows.view(torch.uint8)[:, :c_cols], ghq, nb)
+
+        def parent_two_step():
+            return two_step(parent_of(k1.build_histogram_quantized))
+        got = fn()
+        want = k1.build_histogram_quantized_rows_plain(*kargs)
+        torch.cuda.synchronize()
+        exact = bool(got.dtype == torch.int32 and torch.equal(got, want))
+        row = {"two_step_bit_exact": bool(torch.equal(two_step(), want))}
+        if parents:
+            row["parent_bit_exact"] = bool(torch.equal(parent_two_step(),
+                                                       want))
+        timings(row, fn, reps, parent_two_step)
+        row["two_step_ms"] = time_ms(torch, two_step, reps)
+        row["two_step_device_ms"] = time_ms(torch, two_step, reps,
+                                            hold=True)
+        w, d = rows.shape
+        bms, by = bound(w * 4 * d + 12 * c_cols * nb, 3 * w * c_cols)
+        row.update({
+            "shape": label, "W": w, "D": d, "F": c_cols, "B": nb,
+            "qcap_op": qcap, "bit_exact": exact,
+            "max_abs_err": 0.0 if exact else float(
+                (got.long() - want.long()).abs().max()),
+            "plain_ms": time_ms(torch, lambda: k1
+                                .build_histogram_quantized_rows_plain(
+                                    *kargs), 3, warmup=1),
+            "library_ms": None,
+            "library": "none: no single PyTorch call re-quantizes the "
+                       "rows and sums their histogram",
+            "bound_ms": bms, "bound_by": by})
+        rows_out.append(row)
         return row
 
     if "k3" in run:
@@ -872,11 +1043,31 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
                  k1.build_histogram_quantized_t,
                  k1.build_histogram_quantized_t_plain, ct60, ghq60, b_root,
                  50, ct60.t())
+        # the row walk cut short: one row per thread of the operand
+        # path's full grid, so the time is mostly the blocks' flush
+        grid = k1._grid_x(dev, 1 << 40, k1._BLOCKS_PER_SM)
+        pn = min(grid * k1._THREADS, args.rows)
+        int_case(k3_rows, "flush probe: one row per thread of the grid",
+                 k1.build_histogram_quantized,
+                 k1.build_histogram_quantized_plain, qcodes[:pn],
+                 ghq_root[:pn], b_root, 50, qcodes[:pn])
+        # the packed-row entry: the root and the compact core's child
+        # windows of the quantized rows, the operand built in the kernel;
+        # beside it the two-step (gh_operand_scaled, then K3), on this
+        # tree's library and, with parents, on the parent's
+        rows_rows = []
+        for wn in (args.rows, 250_000, 62_000, 16_000, 4_000, 1_000):
+            wn = min(wn, args.rows)
+            rows_case(rows_rows, "packed quantized rows, D=9", qbuf[:wn],
+                      qcw, qrows.qcap_op, r_g, r_h, b_root,
+                      20 if wn > 500_000 else 50 if wn > 100_000 else 200)
         emit({"phase": "k3", "tolerance": "bit-exact",
-              "cases": k3_rows + k3t_rows})
-        if not all(rw["bit_exact"] for rw in k3_rows + k3t_rows):
+              "cases": k3_rows + k3t_rows + rows_rows})
+        if not all(rw["bit_exact"] and rw.get("parent_bit_exact", True)
+                   and rw.get("two_step_bit_exact", True)
+                   for rw in k3_rows + k3t_rows + rows_rows):
             fail("K3 / K3t disagree with their plain version")
-        out["k3"], out["k3t"] = k3_rows, k3t_rows
+        out["k3"], out["k3t"], out["k3_rows"] = k3_rows, k3t_rows, rows_rows
         del ct60, ghq60, qbuf, ghq_root, qcodes, qprobe
 
     # ---- K4 vs plain ------------------------------------------------------
@@ -896,7 +1087,7 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
                     times["parent_bit_exact"] = bool(torch.equal(
                         k4.stable_partition3(win, key, res), want))
             timings(times, lambda: k4.stable_partition3(win, key, res), reps,
-                    k4_parent)
+                    on_parent=k4_parent)
             plain = time_ms(torch,
                             lambda: k4.stable_partition3_plain(win, key),
                             3, warmup=1)

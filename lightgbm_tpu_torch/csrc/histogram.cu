@@ -7,24 +7,26 @@
 //     sums (hist_fixed_kernel below);
 //   * _hist_kernel_q, the body of build_histogram_pallas_quantized (K3) and
 //     build_histogram_pallas_quantized_t (K3t): int8 (grad_bits <= 8) or
-//     int32 operand [qg, qh, valid], exact int32 sums (hist_kernel).
+//     int32 operand [qg, qh, valid], exact int32 sums (hist_int_kernel);
+//     and, counted as K3, the compact core's operand build fused into it:
+//     lightgbm_tpu/models/device_learner.py _quant_win_operand followed by
+//     K3 (hist_rows_kernel, which reads the packed quantized rows in place).
 // The TPU kernels build a one-hot tile in VMEM and contract it with the
 // operand on the MXU, because the TPU has no scatter atomics. Hopper has
-// fast shared-memory atomics, so both kernels here are the per-workgroup
+// fast shared-memory atomics, so every kernel here is the per-workgroup
 // local-memory histogram of the reference's histogram256.cl:
 //
-//   * each block zeroes a (feature tile x B x 3) histogram of int32 slots
-//     in shared memory (28 features x 64 bins x 12 B = 21.5 KB at the main
-//     path's shapes, twice that for the float kernel's hi and lo words; up
-//     to 96 KB as dynamic shared memory, 48 KB for the float kernel unless
-//     one feature needs more, feature-tiled over blockIdx.y when F
-//     features exceed that);
+//   * each block zeroes a (feature tile x B) histogram of int32 slot words
+//     in shared memory (up to 96 KB of them, more only where one feature
+//     needs more, feature-tiled over blockIdx.y when F features exceed
+//     that);
 //   * threads walk the rows grid-stride; a row whose operand is all zero
 //     (outside the leaf, on the masked strategy) is skipped before its
-//     codes are read; the others atomicAdd their lanes into the shared
-//     slots of each feature's bin;
-//   * each block then adds its nonzero slots into the global result with
-//     one atomicAdd per slot.
+//     codes are read; the others load the codes of up to 16 features
+//     (kCodeChunk) before their atomics, so those loads are in flight
+//     together, and atomicAdd their lanes into each feature's bin;
+//   * the blocks' tiles then meet in the global result (the integer
+//     kernels: see below).
 //
 // Why the float kernel sums in fixed point. In the SASS for sm_90a an
 // atomicAdd(float*) on shared memory is a compare-and-swap loop (21
@@ -64,105 +66,101 @@
 // differ in the last bits from run to run. The count lane runs the same arithmetic; with integer
 // weights (every caller passes 0 / 1) x = v * 2^s is an integer (s >= 13),
 // lo is 0, and the counts are exact. Operand values must be finite, as
-// gradients and hessians are. The integer kernel's lanes are associative,
-// so K3 / K3t are bit-exact in any launch and atomic order, against the
-// plain version and the TPU kernel; int32 cannot overflow, as quant_max
-// caps qmax * N at 2^30.
+// gradients and hessians are.
 //
-// Codes are uint8, uint16 or int32 with element strides, so one kernel
-// reads the byte view of the compact core's packed working rows ((P, F),
-// row stride = the row's byte count) and the masked strategy's
-// column-major codes ((F, P) seen as (P, F) with row stride 1 and column
-// stride P: consecutive threads read consecutive code bytes). The float
-// kernel reads a row's uint8 codes as whole 32-bit words where the row
-// stride and the base are 4-byte aligned (the packed rows: 44 bytes at
-// D = 11), and loads the codes of 16 features before their atomics, so
-// that up to 16 loads are in flight together (the (F, N) view reads one
-// byte per feature, each from another cache line).
+// The integer kernels (hist_int_kernel, hist_rows_kernel). Every lane is
+// an integer, so K3 / K3t and the packed-row entry are bit-exact in any
+// launch and atomic order, against the plain version and the TPU kernel.
+// What holds them is the rate of shared-memory atomics (a 64-bit one is a
+// CAS loop on sm_90a, so 32-bit words it is), then the row loads, which do
+// not overlap with the atomics (PERF.md); the design:
+//
+//   * Two atomics per (row, feature) where the lanes allow it. Where qg,
+//     qh lie in [-128, 127] -- the int8 operand, and the packed-row entry at
+//     qcap_op <= 127, whose count is 1 -- qg goes to one word of the slot
+//     and w = qh * 2^k + valid to another, k = kPackShift = 13, for a valid
+//     lane of 0 or 1 (every caller's: ops/quantize.py gh_operand,
+//     gh_operand_scaled). A row of the int8 operand whose valid lane is any
+//     other value (the contract takes any int8) adds qh * 2^k to w, and its
+//     valid, whole, to the slot's third word in a second walk that only a
+//     block holding such a row takes; the flush adds the third words of
+//     those blocks to the count. Over the n <= R rows of a block that hit
+//     the slot, w sums to W = H * 2^k + C with 0 <= C <= R and -128 R <= H
+//     <= 127 R. With R = kMaxPackedRowsPerBlock = 2,048 (8 rows per
+//     thread) that is H in [-2^18, 2^18) and C in [0, 2^11], so W stays
+//     inside int32 and the flush decodes it exactly: C is the low k bits
+//     sign-extended (their range [-2^12, 2^12) holds C), H = (W - C) >>
+//     k. The qg word and the third word sum to at most 2^18 in
+//     magnitude. The launcher grows the grid so that no block walks more
+//     than R rows. Negative hessians (a custom objective) need nothing
+//     more: the bound is on |qh|. The int32 operand (grad_bits 16: |q| up
+//     to quant_max, at most 2^30 / N) and the packed-row entry above 127
+//     keep three atomics; quant_max caps qmax * N at 2^30, so no int32 sum
+//     can overflow. Blocks' sums meet modulo 2^32, as the plain version's
+//     int64 sums cast to int32 do.
+//   * Slots of three words (a packing kernel uses two): the odd stride
+//     spreads a warp's adds to one feature's bins over all 32 banks, and a
+//     slot's words sit at immediate offsets from one address. The adds are
+//     not predicated on a nonzero lane (a zero adds nothing; the branch
+//     cost more than the add).
+//   * The flush of a packing kernel: blocks run in thread-block clusters
+//     of kCluster = 8, whose tiles meet in distributed shared memory; each
+//     block sums an eighth of the output words over the 8 tiles and adds
+//     each nonzero sum with one coalesced global atomic: at the root 62
+//     clusters add 5,376 words each, where 496 lone blocks would add 8
+//     times as many. A three-word kernel's tiles are large (two blocks per
+//     SM at 256 bins): clusters of them would leave SMs idle, so each of
+//     its blocks flushes alone.
+//   * The launcher owns the output's initialisation: a grid of one
+//     cluster (up to 2,048 rows when packing) stores every output word, a
+//     larger one adds into an output the launcher zeroes first
+//     (cudaMemsetAsync on the launch's stream), so the caller passes an
+//     uninitialised buffer.
+//   * One wave: the launcher cuts the grid to the clusters the card holds
+//     at once (cudaOccupancyMaxActiveClusters; a partial second wave of
+//     clusters costs more than fewer blocks walking more rows).
+//   * The packed-row entry (hist_rows_kernel) reads the compact core's
+//     working rows -- code words | (qg << 16 | qh) word | row id, D int32
+//     words -- in place: qg is the arithmetic high half of word cw, qh its
+//     sign-extended low half, each re-quantized as clamp(rint(q * r),
+//     -qcap_op, qcap_op) in f32 with round-half-even (rintf of one
+//     __fmul_rn, no contraction: torch.round of the f32 product), r read
+//     from device memory; the count is 1. Codes are the row's 4-, 8- or
+//     16-bit fields (code f is field f % (32 / bits) of word f / (32 /
+//     bits), low field first), read as whole 32-bit words. This replaces
+//     the ~18 separate tensor launches of the two-step operand build.
+//
+// Codes of K1 / K2 / K3 / K3t are uint8, uint16 or int32 with element
+// strides, so one kernel reads the byte view of the compact core's packed
+// working rows ((P, F), row stride = the row's byte count) and the masked
+// strategy's column-major codes ((F, P) seen as (P, F) with row stride 1
+// and column stride P: consecutive threads read consecutive code bytes).
+// A row's codes are read as whole 32-bit words where the row stride and
+// the base are 4-byte aligned (every packed row); the (F, N) view reads
+// one code per feature, each from another cache line, 16 loads at once.
 //
 // Bound on the H100: bytes. The function reads P*F code bytes and the
-// operand (12*P bytes f32, 3*P int8) once and writes 12*F*B bytes, against
-// 3*P*F adds; at F=28 that is under one add per byte, far below the card's
-// balance point. The design reads every code word once and the operand
-// twice (the float pre-pass; the second read mostly hits L2), with no
-// one-hot in device memory. The launcher's grid (ops/kernels/histogram.py)
-// holds two blocks per SM for the integer kernel and four for the float
-// one, whose longer work per row between atomics needs more warps in
-// flight (PERF.md has the times), so that the per-block flush (F*B*3
-// global atomics) stays small next to the row traffic.
+// operand (12*P bytes f32, 3*P int8, or the rows' 4*D*P) once and writes
+// 12*F*B bytes, against 3*P*F adds; at F=28 that is under one add per
+// byte, far below the card's balance point. The design reads every code
+// word once and the operand twice for the float kernel (its pre-pass; the
+// second read mostly hits L2), once for the integer ones, with no one-hot
+// in device memory. PERF.md has the times and the variants measured.
 //
 // Plain C interface (loaded with ctypes): launches on the given stream,
 // allocates nothing, returns cudaGetLastError().
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 96 * 1024;
-
-template <typename CodeT, typename OpT, typename AccT>
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const CodeT* __restrict__ codes, long long P, int F,
-            long long row_stride, long long col_stride,
-            const OpT* __restrict__ gh, long long gh_stride, int B,
-            int feat_tile, AccT* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char hist_smem[];
-  AccT* sh = reinterpret_cast<AccT*>(hist_smem);
-  const int f0 = blockIdx.y * feat_tile;
-  const int ft = min(feat_tile, F - f0);
-  const int slots = ft * B * 3;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) sh[i] = AccT(0);
-  __syncthreads();
-
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < P;
-       r += step) {
-    const OpT* g = gh + r * gh_stride;
-    const AccT gv = (AccT)g[0], hv = (AccT)g[1], cv = (AccT)g[2];
-    if (gv == AccT(0) && hv == AccT(0) && cv == AccT(0)) continue;
-    const CodeT* row = codes + r * row_stride + (long long)f0 * col_stride;
-    for (int f = 0; f < ft; ++f) {
-      const int code = (int)row[(long long)f * col_stride];
-      // codes outside [0, B) contribute nothing, as in the one-hot form
-      if (code >= 0 && code < B) {
-        AccT* s = sh + (f * B + code) * 3;
-        atomicAdd(s, gv);
-        atomicAdd(s + 1, hv);
-        atomicAdd(s + 2, cv);
-      }
-    }
-  }
-  __syncthreads();
-
-  AccT* o = out + (long long)f0 * B * 3;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
-    const AccT v = sh[i];
-    if (v != AccT(0)) atomicAdd(o + i, v);
-  }
-}
-
-template <typename CodeT, typename OpT, typename AccT>
-int launch(const void* codes, long long P, int F, long long row_stride,
-           long long col_stride, const void* gh, long long gh_stride, int B,
-           void* out, int grid_x, cudaStream_t stream) {
-  int feat_tile = kMaxSmemBytes / (B * 12);
-  if (feat_tile < 1) return (int)cudaErrorInvalidValue;
-  if (feat_tile > F) feat_tile = F;
-  const size_t smem = (size_t)feat_tile * B * 12;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hist_kernel<CodeT, OpT, AccT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(grid_x, (F + feat_tile - 1) / feat_tile);
-  hist_kernel<CodeT, OpT, AccT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const CodeT*>(codes), P, F, row_stride, col_stride,
-      static_cast<const OpT*>(gh), gh_stride, B, feat_tile,
-      static_cast<AccT*>(out));
-  return (int)cudaGetLastError();
-}
 
 // Splits v into the hi and lo words of its block's fixed point (see the
 // note at the top): x = v * 2^s, hi = rint(x), lo = rint((x - hi) * 2^L).
@@ -335,6 +333,9 @@ int launch_fixed(const void* codes, long long P, int F, long long row_stride,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  // the blocks add into out
+  const cudaError_t z = cudaMemsetAsync(out, 0, (size_t)F * B * 12, stream);
+  if (z != cudaSuccess) return (int)z;
   dim3 grid(grid_x, (F + feat_tile - 1) / feat_tile);
   hist_fixed_kernel<CodeT><<<grid, kThreads, smem, stream>>>(
       static_cast<const CodeT*>(codes), P, F, row_stride, col_stride,
@@ -343,24 +344,454 @@ int launch_fixed(const void* codes, long long P, int F, long long row_stride,
   return (int)cudaGetLastError();
 }
 
-template <typename OpT, typename AccT>
+// ---- the integer kernels ------------------------------------------------
+
+// a packed slot word is qh * 2^kPackShift + valid; rows one block of a
+// packing instantiation may walk (see the note at the top)
+constexpr int kPackShift = 13;
+constexpr long long kMaxPackedRowsPerBlock = 8 * kThreads;
+// blocks of one thread-block cluster of a packing kernel, which sum their
+// tiles through distributed shared memory before one global atomic per
+// output word; a three-word kernel's tiles are large (two blocks per SM at
+// 256 bins), clusters of them would leave SMs idle, and each of its blocks
+// flushes on its own (a cluster of one)
+constexpr int kCluster = 8;
+
+__host__ __device__ constexpr int cluster_size(bool pack) {
+  return pack ? kCluster : 1;
+}
+// blocks per SM the integer kernels' registers leave room for (the
+// wrapper's grid, ops/kernels/histogram.py _BLOCKS_PER_SM)
+constexpr int kIntBlocksPerSM = 4;
+
+// The codes of features [f, f + m) of one row of a strided view, m <=
+// kCodeChunk, into c (-1 past m): whole 32-bit words where `words` (unit
+// column stride, 4-byte aligned row starts) and the word holds only
+// features below m, else one element load each.
+template <typename CodeT>
+__device__ __forceinline__ void strided_codes(const CodeT* row,
+                                              long long col_stride,
+                                              bool words, int f, int m,
+                                              int (&c)[kCodeChunk]) {
+  constexpr int per = sizeof(CodeT) < 4 ? 4 / (int)sizeof(CodeT) : 1;
+  constexpr uint32_t mask = sizeof(CodeT) == 1 ? 0xffu : 0xffffu;
+#pragma unroll
+  for (int k = 0; k < kCodeChunk; k += per) {
+    if (per > 1 && words && k + per <= m) {
+      const uint32_t q =
+          reinterpret_cast<const uint32_t*>(row)[(f + k) / per];
+#pragma unroll
+      for (int t = 0; t < per; ++t)
+        c[k + t] = (int)((q >> (t * 8 * (int)sizeof(CodeT))) & mask);
+    } else {
+#pragma unroll
+      for (int t = 0; t < per; ++t)
+        c[k + t] = k + t < m
+                       ? (int)row[(long long)(f + k + t) * col_stride]
+                       : -1;
+    }
+  }
+}
+
+// The codes of features [f, f + m) from a packed row's code words of kBits
+// fields each (feature f0 of the tile at field 0 of codes[0]), into c (-1
+// past m). A word holding any feature below m lies in the row's code words.
+template <int kBits>
+__device__ __forceinline__ void word_codes(const uint32_t* codes, int f,
+                                           int m, int (&c)[kCodeChunk]) {
+  constexpr int per = 32 / kBits;
+  constexpr uint32_t mask = (1u << kBits) - 1u;
+#pragma unroll
+  for (int k = 0; k < kCodeChunk; k += per) {
+    const uint32_t q = k < m ? codes[(f + k) / per] : 0u;
+#pragma unroll
+    for (int t = 0; t < per; ++t)
+      c[k + t] = k + t < m ? (int)((q >> (t * kBits)) & mask) : -1;
+  }
+}
+
+// clamp(rint(q * r), -cap, cap) in f32, as torch.round(q.float() * r)
+// .clamp(-cap, cap): one rounded multiply (never contracted), then round
+// half to even
+__device__ __forceinline__ int requant(int q, float r, float cap) {
+  return (int)fminf(fmaxf(rintf(__fmul_rn((float)q, r)), -cap), cap);
+}
+
+// The rows of one block's walk (from r0 by step) whose valid lane is not 0
+// / 1 (no caller builds one): their valid, whole, into the third word of
+// each code's slot.
+template <typename RowOp, typename RowCodes>
+__device__ __forceinline__ void add_odd_valid(long long r0, long long step,
+                                           long long P, int ft, int B,
+                                           int* sh, RowOp row_op,
+                                           RowCodes row_codes) {
+  for (long long r = r0; r < P; r += step) {
+    int g, h, c;
+    if (!row_op(r, g, h, c) || (unsigned)c <= 1u) continue;
+    for (int f = 0; f < ft; f += kCodeChunk) {
+      int code[kCodeChunk];
+      row_codes(r, f, min(kCodeChunk, ft - f), code);
+#pragma unroll
+      for (int k = 0; k < kCodeChunk; ++k)
+        if ((unsigned)code[k] < (unsigned)B)
+          atomicAdd(sh + ((f + k) * B + code[k]) * 3 + 2, c);
+    }
+  }
+}
+
+// One block's part of an integer histogram over P rows: row_op(r, g, h, c)
+// gives a row's lanes (false: a zero row, whose codes are not read),
+// row_codes(r, f, m, code) its codes of tile features [f, f + m). A slot
+// is three int32 words (a packing kernel uses two of them, and the third
+// for a valid lane other than 0 / 1 where kOddValid): the odd stride
+// spreads a warp's adds to one feature's bins over all 32 banks, and the
+// lanes' words sit at immediate offsets from one address. One int after
+// the tile says whether the block met such a valid lane. `out` is the
+// tile's (ft, B, 3); where the grid is one cluster along x, every word of
+// it is stored, else added (the launcher zeroed it).
+template <bool kPack, bool kOddValid, typename RowOp, typename RowCodes>
+__device__ __forceinline__ void int_hist_body(long long P, int ft, int B,
+                                              int* __restrict__ sh,
+                                              int* __restrict__ out,
+                                              RowOp row_op,
+                                              RowCodes row_codes) {
+  constexpr int kWords = 3;
+  const int slots = ft * B;
+  int* odd_sh = sh + slots * kWords;
+  for (int i = threadIdx.x; i < slots * kWords; i += kThreads) sh[i] = 0;
+  __syncthreads();
+
+  const long long step = (long long)gridDim.x * kThreads;
+  const long long r0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  bool odd = false;
+  for (long long r = r0; r < P; r += step) {
+    int g, h, c;
+    if (!row_op(r, g, h, c)) continue;
+    // a valid lane of 0 or 1 rides in qh's word; another value is added
+    // after the walk
+    const int cp = kPack && (!kOddValid || (unsigned)c <= 1u) ? c : 0;
+    if (kOddValid) odd |= c != cp;
+    const int hc = kPack ? h * (1 << kPackShift) + cp : 0;
+    for (int f = 0; f < ft; f += kCodeChunk) {
+      int code[kCodeChunk];
+      row_codes(r, f, min(kCodeChunk, ft - f), code);
+#pragma unroll
+      for (int k = 0; k < kCodeChunk; ++k) {
+        // codes outside [0, B) contribute nothing, as in the one-hot form
+        if ((unsigned)code[k] >= (unsigned)B) continue;
+        int* s = sh + ((f + k) * B + code[k]) * 3;
+        atomicAdd(s, g);
+        if (kPack) {
+          atomicAdd(s + 1, hc);
+        } else {
+          atomicAdd(s + 1, h);
+          atomicAdd(s + 2, c);
+        }
+      }
+    }
+  }
+  if (kOddValid) {
+    const int any = __syncthreads_or(odd);
+    if (any) add_odd_valid(r0, step, P, ft, B, sh, row_op, row_codes);
+    if (threadIdx.x == 0) *odd_sh = any;
+  }
+
+  // the flush: the cluster's kCs tiles meet in distributed shared memory
+  // (a cluster of one reads its own); block `rank` sums output words
+  // rank * kThreads + t + k * kCs * kThreads over every tile (each tile's
+  // packed word decoded on its own) and adds each nonzero sum with one
+  // global atomic, so consecutive threads add consecutive words
+  constexpr int kCs = cluster_size(kPack);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (kCs > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  const int rank = kCs > 1 ? (int)cluster.block_rank() : 0;
+  const bool store = gridDim.x == kCs;
+  // the tiles whose third words hold valid lanes other than 0 / 1
+  unsigned odd_tiles = 0;
+  if (kOddValid) {
+#pragma unroll
+    for (int q = 0; q < kCs; ++q)
+      odd_tiles |= (unsigned)(*(kCs > 1 ? cluster.map_shared_rank(odd_sh, q)
+                                        : odd_sh) != 0) << q;
+  }
+#pragma unroll 4
+  for (int j = rank * kThreads + threadIdx.x; j < 3 * slots;
+       j += kCs * kThreads) {
+    const int slot = j / 3, lane = j - 3 * slot;
+    int v = 0;
+#pragma unroll
+    for (int q = 0; q < kCs; ++q) {
+      const int* t =
+          (kCs > 1 ? cluster.map_shared_rank(sh, q) : sh) + slot * kWords;
+      if (!kPack || lane == 0) {
+        v += t[lane];
+      } else {
+        const int w = t[1];
+        const int c =
+            (int)((unsigned)w << (32 - kPackShift)) >> (32 - kPackShift);
+        v += lane == 2 ? c : (w - c) >> kPackShift;
+      }
+    }
+    if (kOddValid && odd_tiles && lane == 2) {
+      for (int q = 0; q < kCs; ++q)
+        if ((odd_tiles >> q) & 1u)
+          v += (kCs > 1 ? cluster.map_shared_rank(sh, q)
+                        : sh)[slot * kWords + 2];
+    }
+    if (store)
+      out[j] = v;
+    else if (v)
+      atomicAdd(out + j, v);
+  }
+  // no block leaves while another reads its tile
+  if (kCs > 1) cluster.sync();
+}
+
+// K3 / K3t: (P, F) codes of any element strides + a (P, 3) operand.
+template <typename CodeT, typename OpT, bool kPack>
+__global__ void __launch_bounds__(kThreads, kIntBlocksPerSM)
+hist_int_kernel(const CodeT* __restrict__ codes, long long P, int F,
+                long long row_stride, long long col_stride,
+                const OpT* __restrict__ gh, long long gh_stride, int B,
+                int feat_tile, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char hist_smem[];
+  const int f0 = blockIdx.y * feat_tile;
+  const CodeT* base = codes + (long long)f0 * col_stride;
+  const bool words =
+      sizeof(CodeT) < 4 && col_stride == 1 &&
+      ((row_stride * (long long)sizeof(CodeT)) & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(base) & 3) == 0;
+  int_hist_body<kPack, kPack>(
+      P, min(feat_tile, F - f0), B, reinterpret_cast<int*>(hist_smem),
+      out + (long long)f0 * B * 3,
+      [=](long long r, int& g, int& h, int& c) {
+        const OpT* p = gh + r * gh_stride;
+        g = (int)p[0];
+        h = (int)p[1];
+        c = (int)p[2];
+        return (g | h | c) != 0;
+      },
+      [=](long long r, int f, int m, int (&cd)[kCodeChunk]) {
+        strided_codes(base + r * row_stride, col_stride, words, f, m, cd);
+      });
+}
+
+// The packed-row entry: (W, D) int32 rows, codes of kBits in words [0, cw),
+// the (qg << 16 | qh) word at cw; re-quantized at the ratios *r_g, *r_h.
+template <int kBits, bool kPack>
+__global__ void __launch_bounds__(kThreads, kIntBlocksPerSM)
+hist_rows_kernel(const int* __restrict__ rows, long long W, int D, int cw,
+                 int c_cols, const float* __restrict__ r_g,
+                 const float* __restrict__ r_h, int qcap_op, int B,
+                 int feat_tile, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char hist_smem[];
+  const int f0 = blockIdx.y * feat_tile;
+  const float rg = *r_g, rh = *r_h, cap = (float)qcap_op;
+  const uint32_t* words =
+      reinterpret_cast<const uint32_t*>(rows) + f0 / (32 / kBits);
+  int_hist_body<kPack, false>(
+      W, min(feat_tile, c_cols - f0), B, reinterpret_cast<int*>(hist_smem),
+      out + (long long)f0 * B * 3,
+      [=](long long r, int& g, int& h, int& c) {
+        const int w = rows[r * D + cw];
+        const int lo = w & 0xffff;
+        g = requant(w >> 16, rg, cap);
+        h = requant(lo >= 0x8000 ? lo - 0x10000 : lo, rh, cap);
+        c = 1;
+        return true;
+      },
+      [=](long long r, int f, int m, int (&cd)[kCodeChunk]) {
+        word_codes<kBits>(words + r * D, f, m, cd);
+      });
+}
+
+// The integer kernels' feature tile: at most kMaxSmemBytes of slot words,
+// a multiple of `align` features (whole code words of a packed row) where
+// F needs more than one tile, at least `align`; 0 where that and the 16
+// bytes after it (the block's flag) do not fit a block's shared memory.
+int int_feat_tile(int F, int B, int slot_bytes, int align) {
+  int t = kMaxSmemBytes / (B * slot_bytes);
+  if (t >= F) return F;
+  t = t >= 8 ? t & ~7 : t - t % align;
+  if (t < align) t = align;
+  if ((long long)t * B * slot_bytes + 16 > kMaxBlockSmemBytes) return 0;
+  return t;
+}
+
+// Clusters of `cs` blocks of `kernel` at `smem` bytes that the card holds
+// at once (cudaOccupancyMaxActiveClusters, cached per device, kernel and
+// size); 0 where the query fails.
+template <typename Kernel>
+int max_clusters(Kernel kernel, size_t smem, int cs) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t>, int> cache;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  const auto key = std::make_tuple(
+      dev, reinterpret_cast<const void*>(kernel), smem + ((size_t)cs << 40));
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    n = 0;
+  }
+  cache[key] = n;
+  return n;
+}
+
+// The launch shape of an integer kernel: feature tile, shared bytes, grid.
+// The grid along x is whole clusters: the wrapper's grid_x, cut to the
+// clusters the card holds at once (one wave: a partial second wave of
+// clusters costs more than fewer blocks walking more rows), but grown so
+// that a packing kernel's block walks at most kMaxPackedRowsPerBlock rows.
+// Returns a CUDA error, 0 on success.
+template <bool kPack, typename Kernel>
+int int_launch_shape(Kernel kernel, long long P, int F, int B, int align,
+                     int grid_x, int& feat_tile, size_t& smem, dim3& grid) {
+  feat_tile = int_feat_tile(F, B, 12, align);
+  if (feat_tile < 1) return (int)cudaErrorInvalidValue;
+  smem = (size_t)feat_tile * B * 12 + 16;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int tiles = (F + feat_tile - 1) / feat_tile;
+  const int cs = cluster_size(kPack);
+  grid_x = (grid_x + cs - 1) / cs * cs;
+  const int wave = max_clusters(kernel, smem, cs) / tiles * cs;
+  if (wave >= cs && grid_x > wave) grid_x = wave;
+  if (kPack) {
+    const long long min_grid =
+        (P + kMaxPackedRowsPerBlock - 1) / kMaxPackedRowsPerBlock;
+    if (grid_x < min_grid) grid_x = (int)min_grid;
+  }
+  grid_x = (grid_x + cs - 1) / cs * cs;
+  grid = dim3(grid_x, tiles);
+  return 0;
+}
+
+// Launches an integer kernel in clusters of `cs` blocks along x, into
+// `out` of `out_bytes`: a grid of more than one cluster adds into it, so
+// it is zeroed first on the same stream.
+template <typename... Params, typename... Args>
+int launch_clustered(void (*kernel)(Params...), dim3 grid, size_t smem,
+                     int cs, void* out, size_t out_bytes, cudaStream_t s,
+                     Args... args) {
+  if ((int)grid.x > cs) {
+    const cudaError_t e = cudaMemsetAsync(out, 0, out_bytes, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename CodeT, typename OpT, bool kPack>
+int launch_operand(const void* codes, long long P, int F,
+                   long long row_stride, long long col_stride,
+                   const void* gh, long long gh_stride, int B, void* out,
+                   int grid_x, cudaStream_t s) {
+  auto kernel = hist_int_kernel<CodeT, OpT, kPack>;
+  int feat_tile;
+  size_t smem;
+  dim3 grid;
+  const int e = int_launch_shape<kPack>(kernel, P, F, B, 1, grid_x,
+                                        feat_tile, smem, grid);
+  if (e) return e;
+  return launch_clustered(
+      kernel, grid, smem, cluster_size(kPack), out, (size_t)F * B * 12, s,
+      static_cast<const CodeT*>(codes), P, F,
+      row_stride, col_stride, static_cast<const OpT*>(gh), gh_stride, B,
+      feat_tile, static_cast<int*>(out));
+}
+
+// int8 operands pack, int32 ones do not
+template <typename OpT>
 int launch_codes(const void* codes, int code_bytes, long long P, int F,
                  long long row_stride, long long col_stride, const void* gh,
                  long long gh_stride, int B, void* out, int grid_x,
                  cudaStream_t s) {
+  constexpr bool pack = sizeof(OpT) == 1;
   switch (code_bytes) {
     case 1:
-      return launch<uint8_t, OpT, AccT>(codes, P, F, row_stride, col_stride,
-                                        gh, gh_stride, B, out, grid_x, s);
+      return launch_operand<uint8_t, OpT, pack>(codes, P, F, row_stride,
+                                                col_stride, gh, gh_stride, B,
+                                                out, grid_x, s);
     case 2:
-      return launch<uint16_t, OpT, AccT>(codes, P, F, row_stride, col_stride,
-                                         gh, gh_stride, B, out, grid_x, s);
+      return launch_operand<uint16_t, OpT, pack>(codes, P, F, row_stride,
+                                                 col_stride, gh, gh_stride,
+                                                 B, out, grid_x, s);
     case 4:
-      return launch<int32_t, OpT, AccT>(codes, P, F, row_stride, col_stride,
-                                        gh, gh_stride, B, out, grid_x, s);
+      return launch_operand<int32_t, OpT, pack>(codes, P, F, row_stride,
+                                                col_stride, gh, gh_stride, B,
+                                                out, grid_x, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int kBits, bool kPack>
+int launch_rows(const void* rows, long long W, int D, int cw, int c_cols,
+                const void* r_g, const void* r_h, int qcap_op, int B,
+                void* out, int grid_x, cudaStream_t s) {
+  auto kernel = hist_rows_kernel<kBits, kPack>;
+  int feat_tile;
+  size_t smem;
+  dim3 grid;
+  const int e = int_launch_shape<kPack>(kernel, W, c_cols, B, 32 / kBits,
+                                        grid_x, feat_tile, smem, grid);
+  if (e) return e;
+  return launch_clustered(
+      kernel, grid, smem, cluster_size(kPack), out, (size_t)c_cols * B * 12,
+      s, static_cast<const int*>(rows), W, D, cw,
+      c_cols, static_cast<const float*>(r_g), static_cast<const float*>(r_h),
+      qcap_op, B, feat_tile, static_cast<int*>(out));
+}
+
+template <int kBits>
+int launch_rows_bits(const void* rows, long long W, int D, int cw,
+                     int c_cols, const void* r_g, const void* r_h,
+                     int qcap_op, int B, void* out, int grid_x,
+                     cudaStream_t s) {
+  // lanes clamped to |q| <= qcap_op <= 127 pack, as the int8 operand does
+  if (qcap_op <= 127)
+    return launch_rows<kBits, true>(rows, W, D, cw, c_cols, r_g, r_h,
+                                    qcap_op, B, out, grid_x, s);
+  return launch_rows<kBits, false>(rows, W, D, cw, c_cols, r_g, r_h,
+                                   qcap_op, B, out, grid_x, s);
 }
 
 }  // namespace
@@ -369,7 +800,7 @@ int launch_codes(const void* codes, int code_bytes, long long P, int F,
 // 4: int32), element strides row_stride / col_stride. gh: (P, 3) operand
 // with unit column stride and row stride gh_stride, of kind `op_kind`:
 // 0 = f32 (out f32), 1 = int8 (out int32), 2 = int32 (out int32). out:
-// (F, B, 3), zeroed by the caller.
+// (F, B, 3), initialised by the launcher (any contents on entry).
 extern "C" int lgbt_hist_launch(const void* codes, int code_bytes, long long P,
                                 int F, long long row_stride,
                                 long long col_stride, const void* gh,
@@ -392,13 +823,38 @@ extern "C" int lgbt_hist_launch(const void* codes, int code_bytes, long long P,
           return (int)cudaErrorInvalidValue;
       }
     case 1:
-      return launch_codes<int8_t, int>(codes, code_bytes, P, F, row_stride,
-                                       col_stride, gh, gh_stride, B, out,
-                                       grid_x, s);
+      return launch_codes<int8_t>(codes, code_bytes, P, F, row_stride,
+                                  col_stride, gh, gh_stride, B, out, grid_x,
+                                  s);
     case 2:
-      return launch_codes<int32_t, int>(codes, code_bytes, P, F, row_stride,
-                                        col_stride, gh, gh_stride, B, out,
-                                        grid_x, s);
+      return launch_codes<int32_t>(codes, code_bytes, P, F, row_stride,
+                                   col_stride, gh, gh_stride, B, out, grid_x,
+                                   s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The packed-row entry: rows (W, D) int32, contiguous, codes of item_bits
+// (4, 8 or 16) in words [0, cw) with c_cols codes, the (qg << 16 | qh) word
+// at cw; r_g, r_h: device pointers to the f32 ratios; out: (c_cols, B, 3)
+// int32, initialised by the launcher.
+extern "C" int lgbt_hist_rows_launch(const void* rows, long long W, int D,
+                                     int cw, int c_cols, int item_bits,
+                                     const void* r_g, const void* r_h,
+                                     int qcap_op, int B, void* out,
+                                     int grid_x, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (item_bits) {
+    case 4:
+      return launch_rows_bits<4>(rows, W, D, cw, c_cols, r_g, r_h, qcap_op,
+                                 B, out, grid_x, s);
+    case 8:
+      return launch_rows_bits<8>(rows, W, D, cw, c_cols, r_g, r_h, qcap_op,
+                                 B, out, grid_x, s);
+    case 16:
+      return launch_rows_bits<16>(rows, W, D, cw, c_cols, r_g, r_h, qcap_op,
+                                  B, out, grid_x, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -56,10 +56,10 @@ from ..io.dataset import Dataset
 from ..ops import bundle as bundle_ops
 from ..ops import quantize as quant_ops
 from ..ops import split as split_ops
-from ..ops.histogram import (build_histogram, build_histogram_quantized,
-                             subtract_histogram)
-from ..ops.kernels.histogram import (build_histogram_quantized_t,
-                                     build_histogram_t)
+from ..ops.histogram import build_histogram, subtract_histogram
+from ..ops.kernels.histogram import (build_histogram_quantized_rows,
+                                     build_histogram_quantized_t,
+                                     build_histogram_t, packed_codes)
 from ..ops.kernels.partition import stable_partition3
 from ..ops.partition import decide_left
 from ..utils import log
@@ -126,17 +126,6 @@ def resolve_strategy(config: Config, dataset: Dataset,
             "(histogram_pool_size), which this port does not have yet"
             % int(config.num_leaves))
     return strat
-
-
-def _unpack_codes(words: torch.Tensor, c_cols: int,
-                  item_bits: int) -> torch.Tensor:
-    """(W, CW) int32 packed codes -> (W, c_cols) int32. int32 >> is
-    arithmetic, so every field is masked after its shift."""
-    per = 32 // item_bits
-    shifts = torch.arange(per, device=words.device, dtype=torch.int32) \
-        * item_bits
-    u = (words[:, :, None] >> shifts) & ((1 << item_bits) - 1)
-    return u.reshape(words.shape[0], words.shape[1] * per)[:, :c_cols]
 
 
 def column_go_left(col: torch.Tensor, feat: int, thr: int, dleft: bool,
@@ -349,27 +338,18 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
     renew = quant is not None and quant.root_max is not None
     one = torch.ones((), dtype=torch.float32, device=dev)
 
-    def win_codes(rows: torch.Tensor) -> torch.Tensor:
-        """The codes of a contiguous row slice, read in place through a
-        byte (or 16-bit) view of the packed words; 4-bit codes are
-        unpacked first."""
-        if item_bits == 8:
-            return rows.view(torch.uint8)[:, :c_cols]
-        if item_bits == 16:
-            return rows.view(torch.int16)[:, :c_cols]
-        return _unpack_codes(rows[:, :cw], c_cols, item_bits)
-
     def win_hist(rows: torch.Tensor, r) -> torch.Tensor:
-        """K1 (float) or K3 (at ratios r) over a contiguous row slice."""
+        """K1 (float) or K3 (at ratios r) over a contiguous row slice,
+        whose codes are read in place (4-bit codes unpacked for K1)."""
         if quant is None:
-            return build_histogram(win_codes(rows),
+            return build_histogram(packed_codes(rows, cw, c_cols, item_bits),
                                    rows.view(torch.float32)[:, cw:cw + 3],
                                    col_bins)
-        # the operand: every row's stored (qg|qh) word re-quantized to
-        # the leaf's ratios (every row of a port window is valid)
-        ghq = quant_ops.gh_operand_scaled(rows[:, cw], None, quant.bits,
-                                          quant.qcap_op, r[0], r[1])
-        return build_histogram_quantized(win_codes(rows), ghq, col_bins)
+        # K3 re-quantizes every row's stored (qg|qh) word to the leaf's
+        # ratios itself (every row of a port window is valid)
+        return build_histogram_quantized_rows(
+            rows, cw, c_cols, item_bits, r[0], r[1], quant.qcap_op,
+            quant.bits, col_bins)
 
     def for_scan(h: torch.Tensor, r) -> torch.Tensor:
         """The f32 histogram the split scan reads: the int32 one

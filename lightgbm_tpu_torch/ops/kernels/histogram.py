@@ -10,11 +10,16 @@ Ports of lightgbm_tpu/ops/pallas/histogram_kernel.py:
     [qg, qh, valid] -> exact (F, B, 3) int32
     (``build_histogram_pallas_quantized``, body ``_hist_kernel_q``);
   * K3t ``build_histogram_quantized_t``: the same over (F, P) codes
-    (``build_histogram_pallas_quantized_t``).
+    (``build_histogram_pallas_quantized_t``);
+  * counted as K3, ``build_histogram_quantized_rows``: the compact core's
+    operand build (``_quant_win_operand``, lightgbm_tpu/models/
+    device_learner.py) and K3 in one launch, over the packed quantized
+    working rows read in place.
 
-All four launch through one entry of ``csrc/histogram.cu`` (per-block
-shared-memory histograms on native int32 atomics; see the notes there):
-K1 / K2 its fixed-point float kernel, K3 / K3t its exact integer kernel.
+All launch through ``csrc/histogram.cu`` (per-block shared-memory
+histograms on native int32 atomics; see the notes there): K1 / K2 its
+fixed-point float kernel, K3 / K3t its exact integer kernel, the packed-row
+entry its row kernel.
 The (F, P) forms pass the transposed view's strides (row stride 1, column
 stride P), so consecutive threads read consecutive code bytes. Codes come
 as any view with element strides, so the compact core hands the kernels
@@ -31,12 +36,13 @@ import ctypes
 
 import torch
 
+from .. import quantize as quant_ops
 from . import build
 
 # launch counts, +1 right after each kernel launch, read by chip_smoke.py:
 launches = 0          # K1
 launches_t = 0        # K2
-launches_q = 0        # K3
+launches_q = 0        # K3, and the packed-row entry
 launches_qt = 0       # K3t
 
 _CODE_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
@@ -44,12 +50,14 @@ _CODE_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
 # an f32 operand, int32 for an integer one)
 _OP_KIND = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
 _THREADS = 256
-# blocks per SM of the grid, by operand kind: the float kernel does more
-# work per row between its atomics and runs best at four (PERF.md); the
-# integer kernel keeps two. The float kernel's launcher grows the grid
-# further where a block would walk more rows than its fixed-point words
-# allow (csrc/histogram.cu, kMaxRowsPerBlock).
-_BLOCKS_PER_SM = {0: 4, 1: 2, 2: 2}
+# blocks per SM of the grid the wrappers ask for, measured (PERF.md; the
+# integer kernels' register budget, csrc/histogram.cu kIntBlocksPerSM).
+# The launchers grow the grid where a block would walk more rows than its
+# sums allow (kMaxRowsPerBlock for the float kernel, kMaxPackedRowsPerBlock
+# for the integer kernels that pack two lanes into one word), cut the
+# integer kernels' grid to one wave of the clusters the card holds, and
+# initialise the output.
+_BLOCKS_PER_SM = 4
 _sm_count = {}
 
 
@@ -102,6 +110,38 @@ def build_histogram_quantized_t_plain(codes_t: torch.Tensor,
     return build_histogram_quantized_plain(codes_t.t(), ghq, num_bins)
 
 
+def packed_codes(rows: torch.Tensor, cw: int, c_cols: int,
+                 item_bits: int) -> torch.Tensor:
+    """(W, c_cols) codes of packed int32 rows whose words [0, cw) hold
+    item_bits-wide fields, low field first: a byte (or 16-bit) view in
+    place, 4-bit fields unpacked. int32 >> is arithmetic, so each field is
+    masked after its shift."""
+    if item_bits == 8:
+        return rows.view(torch.uint8)[:, :c_cols]
+    if item_bits == 16:
+        return rows.view(torch.int16)[:, :c_cols]
+    per = 32 // item_bits
+    shifts = torch.arange(per, device=rows.device, dtype=torch.int32) \
+        * item_bits
+    u = (rows[:, :cw, None] >> shifts) & ((1 << item_bits) - 1)
+    return u.reshape(rows.shape[0], cw * per)[:, :c_cols]
+
+
+def build_histogram_quantized_rows_plain(rows: torch.Tensor, cw: int,
+                                         c_cols: int, item_bits: int,
+                                         r_g: torch.Tensor,
+                                         r_h: torch.Tensor, qcap_op: int,
+                                         grad_bits: int,
+                                         num_bins: int) -> torch.Tensor:
+    """The packed-row entry in two steps: the (W, 3) operand re-quantized
+    from each row's (qg|qh) word (every row counts), then K3's plain
+    version over the rows' codes."""
+    ghq = quant_ops.gh_operand_scaled(rows[:, cw], None, grad_bits, qcap_op,
+                                      r_g, r_h)
+    return build_histogram_quantized_plain(
+        packed_codes(rows, cw, c_cols, item_bits), ghq, num_bins)
+
+
 def _grid_x(dev: torch.device, p: int, per_sm: int) -> int:
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _sm_count:
@@ -135,10 +175,12 @@ def _launch(name: str, counter: str, codes: torch.Tensor, gh: torch.Tensor,
     nothing."""
     _check(name, codes, gh, op_dtypes)
     p, f = codes.shape
-    acc = torch.float32 if gh.dtype == torch.float32 else torch.int32
-    out = torch.zeros((f, num_bins, 3), dtype=acc, device=codes.device)
+    kind = _OP_KIND[gh.dtype]
+    dtype = torch.float32 if kind == 0 else torch.int32
     if p == 0 or f == 0:
-        return out
+        return torch.zeros((f, num_bins, 3), dtype=dtype, device=codes.device)
+    # the launcher initialises the output
+    out = torch.empty((f, num_bins, 3), dtype=dtype, device=codes.device)
     fn = build.load("histogram").lgbt_hist_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -146,11 +188,10 @@ def _launch(name: str, counter: str, codes: torch.Tensor, gh: torch.Tensor,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
-    kind = _OP_KIND[gh.dtype]
     rc = fn(codes.data_ptr(), _CODE_BYTES[codes.dtype], p, f,
             codes.stride(0), codes.stride(1), gh.data_ptr(), kind,
             gh.stride(0), num_bins, out.data_ptr(),
-            _grid_x(codes.device, p, _BLOCKS_PER_SM[kind]),
+            _grid_x(codes.device, p, _BLOCKS_PER_SM),
             torch.cuda.current_stream(codes.device).cuda_stream)
     build.check(rc, name + " kernel launch")
     globals()[counter] += 1
@@ -195,3 +236,60 @@ def build_histogram_quantized_t(codes_t: torch.Tensor, ghq: torch.Tensor,
         return build_histogram_quantized_t_plain(codes_t, ghq, num_bins)
     return _launch("build_histogram_quantized_t", "launches_qt",
                    codes_t.t(), ghq, num_bins, (torch.int8, torch.int32))
+
+
+def build_histogram_quantized_rows(rows: torch.Tensor, cw: int, c_cols: int,
+                                   item_bits: int, r_g: torch.Tensor,
+                                   r_h: torch.Tensor, qcap_op: int,
+                                   grad_bits: int,
+                                   num_bins: int) -> torch.Tensor:
+    """K3 over the compact core's packed quantized rows, read in place:
+    `rows` is a contiguous (W, D) int32 slice of the working buffer (codes
+    of item_bits 4 / 8 / 16 in words [0, cw), the (qg << 16 | qh) word at
+    cw); each row's qg and qh are re-quantized at the 0-d f32 ratios r_g,
+    r_h (read on the device, no host sync) and clamped to +-qcap_op, and
+    count once. -> exact (c_cols, B, 3) int32, equal to
+    build_histogram_quantized_rows_plain. Counts in ``launches_q``."""
+    if rows.device.type == "cpu":
+        return build_histogram_quantized_rows_plain(
+            rows, cw, c_cols, item_bits, r_g, r_h, qcap_op, grad_bits,
+            num_bins)
+    name = "build_histogram_quantized_rows"
+    if rows.device.type != "cuda" or rows.dtype != torch.int32 \
+            or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError("%s: want contiguous (W, D) int32 rows on a CUDA "
+                         "device, got %s %s on %s" % (
+                             name, rows.dtype, tuple(rows.shape),
+                             rows.device))
+    w, d = rows.shape
+    if item_bits not in (4, 8, 16) or not 0 <= cw < d \
+            or c_cols > cw * (32 // item_bits):
+        raise ValueError("%s: %d codes of %d bits do not fit words [0, %d) "
+                         "of %d-word rows" % (name, c_cols, item_bits, cw, d))
+    ratios = []
+    for r in (r_g, r_h):
+        if r.device != rows.device or r.dtype != torch.float32 \
+                or r.numel() != 1:
+            raise ValueError("%s: ratios must be one-element f32 tensors on "
+                             "the rows' device" % name)
+        ratios.append(r.reshape(()).contiguous())
+    if w == 0 or c_cols == 0:
+        return torch.zeros((c_cols, num_bins, 3), dtype=torch.int32,
+                           device=rows.device)
+    out = torch.empty((c_cols, num_bins, 3), dtype=torch.int32,
+                      device=rows.device)      # initialised by the launcher
+    fn = build.load("histogram").lgbt_hist_rows_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    rc = fn(rows.data_ptr(), w, d, cw, c_cols, item_bits,
+            ratios[0].data_ptr(), ratios[1].data_ptr(), int(qcap_op),
+            num_bins, out.data_ptr(), _grid_x(rows.device, w, _BLOCKS_PER_SM),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    build.check(rc, name + " kernel launch")
+    global launches_q
+    launches_q += 1
+    return out

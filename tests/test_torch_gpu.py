@@ -7,8 +7,9 @@ machine without JAX it runs as
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: K4 is a permutation of 32-bit words and K3 / K3t sum
-integers, so they must be bit-exact. K1's (and K2's) grad and hess lanes
+Tolerances: K4 is a permutation of 32-bit words and K3 / K3t (and the
+packed-row entry, counted as K3) sum integers, so they must be
+bit-exact. K1's (and K2's) grad and hess lanes
 are fixed-point sums per block whose f32 block partials meet in global
 atomics in any order, so they agree with index_add_ to rtol = atol = 1e-4
 (at larger row counts chip_smoke.py's bar, which adds 1e-5 * the bin's
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as tlgb
+from lightgbm_tpu_torch.ops import quantize as quant_ops
 from lightgbm_tpu_torch.ops.kernels import build
 from lightgbm_tpu_torch.ops.kernels import histogram as k1
 from lightgbm_tpu_torch.ops.kernels import partition as k4
@@ -417,10 +419,10 @@ def test_k1_every_row_in_one_bin(cuda_device, size):
     with open(os.path.join(build.CSRC, "histogram.cu")) as fh:
         cap = 1 << int(re.search(r"kMaxRowsPerBlock = 1ll << (\d+);",
                                  fh.read()).group(1))
-    full = k1._grid_x(cuda_device, 1 << 40, k1._BLOCKS_PER_SM[0])
+    full = k1._grid_x(cuda_device, 1 << 40, k1._BLOCKS_PER_SM)
     p = 100_003 if size == "100k" else (full + 1) * cap
     if size == "cap":
-        grid = max(k1._grid_x(cuda_device, p, k1._BLOCKS_PER_SM[0]),
+        grid = max(k1._grid_x(cuda_device, p, k1._BLOCKS_PER_SM),
                    -(-p // cap))
         assert grid == full + 1 and p == grid * cap
     r = np.random.RandomState(p % 1000)
@@ -516,3 +518,214 @@ def test_k2_all_but_three_rows_zero(cuda_device):
     assert _bar_ok(got, want, mag, atol=0.0)
     assert torch.equal(got[..., 2], want[..., 2])
     assert int((got[..., 2] != 0).sum()) <= 3 * f
+
+
+def _packed_rows_cap():
+    """kMaxPackedRowsPerBlock of csrc/histogram.cu: the most rows a block
+    of a packing integer kernel walks."""
+    with open(os.path.join(build.CSRC, "histogram.cu")) as fh:
+        text = fh.read()
+    per = int(re.search(r"kMaxPackedRowsPerBlock = (\d+) \* kThreads;",
+                        text).group(1))
+    return per * int(re.search(r"constexpr int kThreads = (\d+);",
+                               text).group(1))
+
+
+def _quant_rows(device, w, item_bits, seed, c_cols=28):
+    """(W, cw + 2) int32 rows as the compact core packs them: random code
+    words (fields up to 2^item_bits - 1, so some codes fall past B), one
+    (qg << 16 | qh) word of 16-bit stored integers, a row id."""
+    r = np.random.RandomState(seed)
+    cw = -(-c_cols // (32 // item_bits))
+    words = r.randint(-2**31, 2**31, size=(w, cw), dtype=np.int64)
+    q = r.randint(-32767, 32768, size=(w, 2))
+    gh = quant_ops.pack_gh(torch.from_numpy(q[:, 0]),
+                           torch.from_numpy(q[:, 1]))
+    rows = torch.cat([torch.from_numpy(words.astype(np.int32)), gh[:, None],
+                      torch.arange(w, dtype=torch.int32)[:, None]], dim=1)
+    return rows.to(device), cw, c_cols
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("item_bits", [4, 8, 16])
+@pytest.mark.parametrize("size", ["1", "31", "255", "256", "257", "R-1",
+                                  "R", "R+1", "1M"])
+def test_k3_packed_rows_entry_bit_exact(cuda_device, size, item_bits):
+    # around one warp, one block's row stride and the rows-per-block cap R
+    # of the packed words, and the root window; grad_bits 8 (int8 lanes,
+    # packed words) and 16 (three words), at ratio 1 and at the root's
+    # requant_ratio
+    cap = _packed_rows_cap()
+    w = {"1": 1, "31": 31, "255": 255, "256": 256, "257": 257,
+         "R-1": cap - 1, "R": cap, "R+1": cap + 1, "1M": 1_000_003}[size]
+    rows, cw, c_cols = _quant_rows(cuda_device, w, item_bits, w + item_bits)
+    nb = {4: 16, 8: 64, 16: 256}[item_bits]
+    qg, qh = quant_ops.unpack_gh(rows[:, cw])
+    for grad_bits in (8, 16):
+        qcap = quant_ops.quant_max(grad_bits, w)
+        for ratios in ((torch.ones((), device=cuda_device),) * 2,
+                       tuple(quant_ops.requant_ratio(m.float(), qcap)
+                             for m in (qg.abs().max(), qh.abs().max()))):
+            args = (rows, cw, c_cols, item_bits) + ratios + (
+                qcap, grad_bits, nb)
+            n0 = k1.launches_q
+            got = k1.build_histogram_quantized_rows(*args)
+            torch.cuda.synchronize()
+            assert k1.launches_q == n0 + 1
+            want = k1.build_histogram_quantized_rows_plain(*args)
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", ["qg=+cap", "qg=-cap", "qh=-cap"])
+def test_k3_full_skew_packed_words(cuda_device, lanes):
+    # every row of every block in one bin of each feature, each lane at
+    # +-qcap_op (stored 16-bit integers clamped by the re-quantization), a
+    # negative hessian included: the packed words at their widest; the
+    # same through the int8 operand, with qh = -128 on every row
+    w = 1_000_003
+    qcap = quant_ops.quant_max(8, w)
+    q = {"qg=+cap": (32767, 5), "qg=-cap": (-32767, 5),
+         "qh=-cap": (3, -32767)}[lanes]
+    rows, cw, c_cols = _quant_rows(cuda_device, w, 8, 1)
+    rows[:, :cw] = 0x05050505
+    rows[:, cw] = int(quant_ops.pack_gh(torch.tensor([q[0]]),
+                                        torch.tensor([q[1]]))[0])
+    one = torch.ones((), device=cuda_device)
+    got = k1.build_histogram_quantized_rows(rows, cw, c_cols, 8, one, one,
+                                            qcap, 8, 64)
+    want = [max(-qcap, min(qcap, v)) * w for v in q] + [w]
+    assert got[:, 5].tolist() == [want] * c_cols
+    assert int(got.abs().sum()) == sum(abs(v) for v in want) * c_cols
+    codes = torch.full((w, 28), 5, dtype=torch.uint8, device=cuda_device)
+    ghq = torch.tensor([q[0] // abs(q[0]) * 127, -128, 1], dtype=torch.int8,
+                       device=cuda_device).repeat(w, 1)
+    got = k1.build_histogram_quantized(codes, ghq, 64)
+    assert torch.equal(got, k1.build_histogram_quantized_plain(codes, ghq,
+                                                               64))
+    assert got[0, 5].tolist() == [q[0] // abs(q[0]) * 127 * w, -128 * w, w]
+
+
+@pytest.mark.gpu
+def test_k3_packed_rows_counting_and_refused_launch(cuda_device):
+    # one launch counted per call, in launches_q only; none for an empty
+    # window; a launch the kernel refuses (a bin count whose one-feature
+    # tile exceeds a block's shared memory) raises and counts nothing
+    names = ("launches", "launches_t", "launches_q", "launches_qt")
+    one = torch.ones((), device=cuda_device)
+    rows, cw, c_cols = _quant_rows(cuda_device, 300, 8, 2)
+    n0 = {c: getattr(k1, c) for c in names}
+    empty = k1.build_histogram_quantized_rows(rows[:0], cw, c_cols, 8, one,
+                                              one, 127, 8, 64)
+    assert not empty.any() and empty.shape == (c_cols, 64, 3)
+    assert {c: getattr(k1, c) for c in names} == n0
+    k1.build_histogram_quantized_rows(rows, cw, c_cols, 8, one, one, 127, 8,
+                                      64)
+    torch.cuda.synchronize()
+    assert {c: getattr(k1, c) - n0[c] for c in names} == {
+        c: int(c == "launches_q") for c in names}
+    rows16, cw16, _ = _quant_rows(cuda_device, 300, 16, 3)
+    with pytest.raises(RuntimeError, match="kernel launch"):
+        k1.build_histogram_quantized_rows(rows16, cw16, 28, 16, one, one,
+                                          127, 8, 1 << 20)
+    codes = torch.zeros((300, 28), dtype=torch.uint8, device=cuda_device)
+    ghq = torch.ones((300, 3), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="kernel launch"):
+        k1.build_histogram_quantized(codes, ghq, 1 << 20)
+    assert k1.launches_q == n0["launches_q"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 256, 257, 2048, 2049])
+@pytest.mark.parametrize("num_bins,op_dtype,f", [
+    (64, torch.int8, 28), (256, torch.int8, 40), (1024, torch.int32, 40)])
+def test_k3_one_cluster_grids_store_every_word(cuda_device, p, num_bins,
+                                               op_dtype, f):
+    # the launcher owns the output's initialisation: a grid of one cluster
+    # (up to 2,048 rows for the int8 operand, one block of 256 for the
+    # int32 one) stores every output word, a larger one adds into what the
+    # launcher zeroes first. The wrapper hands it memory it does not zero:
+    # here memory the caching allocator hands back dirty. Several feature
+    # tiles at 1,024 bins; K3 and K3t
+    r = np.random.RandomState(p + num_bins)
+    codes = torch.from_numpy(r.randint(0, num_bins, size=(p, f))) \
+        .to(cuda_device, torch.int32)
+    q = 127 if op_dtype == torch.int8 else 30_000
+    ghq = torch.from_numpy(np.stack(
+        [r.randint(-q, q + 1, p), r.randint(-q, q + 1, p), np.ones(p)],
+        1)).to(cuda_device, op_dtype)
+    want = k1.build_histogram_quantized_plain(codes, ghq, num_bins)
+    for wrapper, c in ((k1.build_histogram_quantized, codes),
+                       (k1.build_histogram_quantized_t,
+                        codes.t().contiguous())):
+        junk = torch.full((f, num_bins, 3), -7, dtype=torch.int32,
+                          device=cuda_device)
+        ptr = junk.data_ptr()
+        del junk
+        got = wrapper(c, ghq, num_bins)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == ptr and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [2048, 2049, 1_000_003])
+def test_k3_int8_valid_lane_any_value(cuda_device, p):
+    # the contract takes any int8 operand: valid lanes other than 0 / 1
+    # (2, -1, 127, -128; no caller builds them) count exactly, through
+    # K3 and K3t, on a grid of one cluster (2,048 rows) and larger; and
+    # every row in one bin with valid 127 (the third word at its widest)
+    r = np.random.RandomState(p % 997)
+    codes = torch.from_numpy(r.randint(0, 70, size=(p, 28))) \
+        .to(cuda_device, torch.uint8)
+    valid = np.where(r.rand(p) < 0.5, r.rand(p) < 0.8,
+                     r.choice([2, -1, 127, -128], p))
+    ghq = torch.from_numpy(np.stack(
+        [r.randint(-128, 128, p), r.randint(-128, 128, p), valid], 1)
+        .astype(np.int8)).to(cuda_device)
+    ghq[torch.from_numpy(r.rand(p) < 0.1).to(cuda_device)] = 0
+    want = k1.build_histogram_quantized_plain(codes, ghq, 64)
+    assert torch.equal(k1.build_histogram_quantized(codes, ghq, 64), want)
+    assert torch.equal(k1.build_histogram_quantized_t(
+        codes.t().contiguous(), ghq, 64), want)
+    skew = torch.tensor([-128, 127, 127], dtype=torch.int8,
+                        device=cuda_device).repeat(p, 1)
+    one_bin = torch.full((p, 28), 5, dtype=torch.uint8, device=cuda_device)
+    got = k1.build_histogram_quantized(one_bin, skew, 64)
+    assert got[:, 5].tolist() == [[-128 * p, 127 * p, 127 * p]] * 28
+    assert int(got.abs().sum()) == 382 * p * 28
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("item_bits", [4, 8, 16])
+def test_k3_row_slices_at_every_misalignment(cuda_device, item_bits):
+    # the compact core's windows start at any row of its working buffer,
+    # so the rows (and the codes and operand views K3 reads) start at every
+    # 4-byte offset modulo 16 and end short of the buffer or at its end
+    rows, cw, c_cols = _quant_rows(cuda_device, 40_000, item_bits, 11)
+    nb = {4: 16, 8: 64, 16: 256}[item_bits]
+    qcap = quant_ops.quant_max(8, 40_000)
+    one = torch.ones((), device=cuda_device)
+    ratio = quant_ops.requant_ratio(torch.tensor(20_000.0,
+                                                 device=cuda_device), qcap)
+    for begin in (0, 1, 2, 3, 5):
+        for end in (begin + 9_001, 40_000):
+            win = rows[begin:end]
+            args = (win, cw, c_cols, item_bits, ratio, one, qcap, 8, nb)
+            got = k1.build_histogram_quantized_rows(*args)
+            assert torch.equal(
+                got, k1.build_histogram_quantized_rows_plain(*args))
+            if item_bits == 8:
+                ghq = quant_ops.gh_operand_scaled(win[:, cw], None, 8, qcap,
+                                                  ratio, one)
+                codes = win.view(torch.uint8)[:, :c_cols]
+                assert torch.equal(
+                    k1.build_histogram_quantized(codes, ghq, nb),
+                    k1.build_histogram_quantized_plain(codes, ghq, nb))
+                # an operand that is itself a strided row slice
+                wide = torch.zeros((end - begin + 7, 5), dtype=torch.int8,
+                                   device=cuda_device)
+                ghq_s = wide[3:3 + end - begin, 1:4]
+                ghq_s.copy_(ghq)
+                assert torch.equal(
+                    k1.build_histogram_quantized(codes, ghq_s, nb),
+                    k1.build_histogram_quantized_plain(codes, ghq, nb))

@@ -213,7 +213,173 @@ def test_launcher_caps_rows_per_block(p, monkeypatch):
     assert "(P + kMaxRowsPerBlock - 1) / kMaxRowsPerBlock" in text[
         text.index("int launch_fixed("):]
     monkeypatch.setitem(k1._sm_count, 0, 132)
-    g = max(k1._grid_x(torch.device("cuda", 0), p, k1._BLOCKS_PER_SM[0]),
+    g = max(k1._grid_x(torch.device("cuda", 0), p, k1._BLOCKS_PER_SM),
             -(-p // cap))
     per_block = k1._THREADS * -(-p // (g * k1._THREADS))
     assert min(per_block, p) <= cap
+
+
+# ---- the integer kernels' packed slot words, reproduced on the CPU ----
+# csrc/histogram.cu (int_hist_body) adds an int8 operand's (or the packed-
+# row entry's) lanes into two int32 words per slot: qg, and qh * 2^k +
+# valid for a valid lane of 0 or 1 (any other valid goes whole to the
+# slot's third word); a block walks at most kMaxPackedRowsPerBlock rows;
+# the flush takes valid's sum from the low k bits, sign-extended, plus the
+# third word, and qh's from the rest.
+
+
+def _cu_pack_constants():
+    """(kPackShift, kMaxPackedRowsPerBlock, kThreads, kCluster) of the
+    source."""
+    with open(_CU) as fh:
+        text = fh.read()
+    k = re.search(r"constexpr int kPackShift = (\d+);", text)
+    r = re.search(r"kMaxPackedRowsPerBlock = (\d+) \* kThreads;", text)
+    t = re.search(r"constexpr int kThreads = (\d+);", text)
+    c = re.search(r"constexpr int kCluster = (\d+);", text)
+    assert k and r and t and c, "packing constants not found in " + _CU
+    return (int(k.group(1)), int(r.group(1)) * int(t.group(1)),
+            int(t.group(1)), int(c.group(1)))
+
+
+def _wrap32(v):
+    """int64 values as the int32 words atomicAdd leaves (mod 2^32)."""
+    return ((np.asarray(v, np.int64) + 2**31) % 2**32) - 2**31
+
+
+def _unpack_word(w, k):
+    """The flush's decode of one packed word: (sum qh, sum valid)."""
+    w = np.asarray(w, np.int64)
+    c = ((w & ((1 << k) - 1)) ^ (1 << (k - 1))) - (1 << (k - 1))
+    return (w - c) >> k, c
+
+
+@pytest.mark.parametrize("h", [-128, -1, 127])
+@pytest.mark.parametrize("n", [1, 255, 1024, "cap"])
+def test_packed_words_cannot_overflow(n, h):
+    # the worst slot: every row a block may walk in it, each with an
+    # extreme qh of an int8 operand and valid 1; the word never leaves
+    # int32 and decodes to the exact sums, and the bound of the note at
+    # the top of the source holds: valid's sum inside the low k bits'
+    # signed range, qh's inside [-2^(31-k), 2^(31-k))
+    k, cap, threads, _ = _cu_pack_constants()
+    assert threads == k1._THREADS and cap % threads == 0
+    n = cap if n == "cap" else n
+    assert cap < 2 ** (k - 1)
+    assert -128 * cap >= -2 ** (31 - k) and 127 * cap < 2 ** (31 - k)
+    assert -2**31 <= n * (h * 2**k + 1) < 2**31
+    word = _wrap32(n * (h * 2**k + 1))
+    assert tuple(_unpack_word(word, k)) == (n * h, n)
+    # a slot hit by no valid row but by qh terms (valid 0, or a valid lane
+    # other than 0 / 1, which adds to the third word instead)
+    assert tuple(_unpack_word(_wrap32(n * h * 2**k), k)) == (n * h, 0)
+
+
+def _packed_block_hist(codes, ghq, num_bins, grid_x):
+    """The integer kernel's packing arithmetic: per block (grid-stride
+    rows, the launcher's grid), int32 words qg, qh * 2^k + valid (valid 0
+    or 1) and the other valids summed with wrap-around, decoded at the
+    flush, then the blocks' int32 sums added."""
+    k, cap, threads, _ = _cu_pack_constants()
+    p, f = codes.shape
+    grid_x = max(grid_x, -(-p // cap))
+    block = (np.arange(p) // threads) % grid_x
+    assert np.bincount(block).max() <= cap
+    g, h, c = (ghq[:, j].astype(np.int64) for j in range(3))
+    cp = np.where((c == 0) | (c == 1), c, 0)
+    out = np.zeros((f, num_bins, 3), np.int64)
+    for b in range(grid_x):
+        rows = np.nonzero(block == b)[0]
+        for j in range(f):
+            cj = codes[rows, j].astype(np.int64)
+            keep = (cj >= 0) & (cj < num_bins)
+            sl = cj[keep]
+
+            def word(v):
+                return _wrap32(np.bincount(sl, v[rows][keep], num_bins)
+                               .astype(np.int64))
+            hs, cs = _unpack_word(word(h * 2**k + cp), k)
+            out[j] += np.stack([word(g), hs, cs + word(c - cp)], axis=1)
+    return _wrap32(out)
+
+
+@pytest.mark.parametrize("grid_x", [1, 7, 64])
+def test_packed_block_sums_match_plain(grid_x):
+    # int8 operand lanes at their extremes (-128..127) with 0 / 1 valid,
+    # zero rows, codes past B; then valid lanes of any int8 value; and
+    # every row in one bin (full skew) with |q| = 127 of either sign and
+    # valid 1 or 127
+    r = np.random.RandomState(grid_x)
+    p, f = 20_003, 4
+    codes = r.randint(0, 70, size=(p, f)).astype(np.int32)
+    ghq = np.stack([r.randint(-128, 128, p), r.randint(-128, 128, p),
+                    r.rand(p) < 0.8], 1).astype(np.int8)
+    ghq[r.rand(p) < 0.1] = 0
+    odd = ghq.copy()
+    odd[:, 2] = np.where(r.rand(p) < 0.5, odd[:, 2],
+                         r.choice([2, -1, 127, -128], p))
+    for op in (ghq, odd):
+        want = k1.build_histogram_quantized_plain(
+            torch.from_numpy(codes), torch.from_numpy(op), 64).numpy()
+        np.testing.assert_array_equal(
+            _packed_block_hist(codes, op, 64, grid_x), want)
+    for sign in (1, -1):
+        for valid in (1, 127):
+            skew = np.stack([np.full(p, 127 * sign),
+                             np.full(p, -127 * sign), np.full(p, valid)],
+                            1).astype(np.int8)
+            got = _packed_block_hist(np.full((p, f), 5, np.int32), skew,
+                                     64, grid_x)
+            assert (got[:, 5] == [127 * sign * p, -127 * sign * p,
+                                  valid * p]).all()
+            assert not got[:, np.arange(64) != 5].any()
+
+
+def _int_launch_grid(grid_x, p, pack, wave, cs, cap):
+    """The grid along x of int_launch_shape in csrc/histogram.cu: the
+    wrapper's grid in whole clusters, cut to one wave of `wave` blocks,
+    raised to the rows cap where packing, in whole clusters."""
+    grid_x = -(-grid_x // cs) * cs
+    if wave >= cs and grid_x > wave:
+        grid_x = wave
+    if pack:
+        grid_x = max(grid_x, -(-p // cap))
+    return -(-grid_x // cs) * cs
+
+
+@pytest.mark.parametrize("p", [1, 2048, 2049, 256 * 528, 1_000_000,
+                               34_603_009, 10**9 + 7])
+def test_integer_launcher_caps_rows_per_block(p, monkeypatch):
+    # the integer kernels' launch (int_launch_shape in csrc/histogram.cu)
+    # rounds the wrapper's grid to whole clusters, cuts it to one wave of
+    # the clusters the card holds (62 clusters of 8 on an H100 at 64 bins;
+    # 0: the query failed) and raises a packing kernel's grid to
+    # ceil(P / kMaxPackedRowsPerBlock). With the grid-stride walk no block
+    # then walks more rows than the packed words hold (132 SMs, an H100).
+    # A grid of one cluster, which stores its output, takes every row; a
+    # larger one adds into the output the launcher zeroes first
+    k, cap, threads, cluster = _cu_pack_constants()
+    with open(_CU) as fh:
+        text = fh.read()
+    launcher = text[text.index("int int_launch_shape("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    for line in ("grid_x = (grid_x + cs - 1) / cs * cs;",
+                 "if (wave >= cs && grid_x > wave) grid_x = wave;",
+                 "(P + kMaxPackedRowsPerBlock - 1) / kMaxPackedRowsPerBlock",
+                 "if (grid_x < min_grid) grid_x = (int)min_grid;"):
+        assert line in launcher
+    assert "return pack ? kCluster : 1;" in text
+    launch = text[text.index("int launch_clustered("):]
+    assert "if ((int)grid.x > cs) {" in launch
+    assert "cudaMemsetAsync(out, 0, out_bytes, s)" in launch
+    monkeypatch.setitem(k1._sm_count, 0, 132)
+    hint = k1._grid_x(torch.device("cuda", 0), p, k1._BLOCKS_PER_SM)
+    for wave in (62 * cluster, 0):
+        g = _int_launch_grid(hint, p, True, wave, cluster, cap)
+        assert g % cluster == 0 and g >= -(-p // cap)
+        per_block = threads * -(-p // (g * threads))
+        assert min(per_block, p) <= cap
+        assert (g == cluster) == (p <= cluster * threads)
+        # three words per slot: clusters of one, no rows cap
+        g = _int_launch_grid(hint, p, False, wave, 1, cap)
+        assert g == (min(hint, wave) if wave else hint)

@@ -8,6 +8,10 @@ Bars, and why:
     same order, so the integers and the f32 scales must be equal.
   * K3 / K3t plain vs build_histogram_pallas_quantized(_t) in interpret
     mode: bit-exact. Integer sums do not depend on their order.
+  * The packed-row entry (K3 over the compact core's quantized rows, its
+    operand re-quantized in the kernel) vs the JAX package's
+    gh_operand_scaled followed by build_histogram_pallas_quantized in
+    interpret mode: bit-exact, for the same reasons.
   * K2 plain vs build_histogram_pallas_t: rtol = atol = 1e-4, the K1 bound
     of test_torch_histogram.py (the JAX kernel sums a bf16 hi/lo split);
     the count lane sums exact integers and must be equal.
@@ -23,6 +27,9 @@ from lightgbm_tpu.ops import quantize as jq
 from lightgbm_tpu.ops.pallas.histogram_kernel import (
     build_histogram_pallas_quantized, build_histogram_pallas_quantized_t,
     build_histogram_pallas_t)
+from lightgbm_tpu_torch.config import Config as TConfig
+from lightgbm_tpu_torch.io.dataset import Dataset as TDataset
+from lightgbm_tpu_torch.models import device_learner as tdl
 from lightgbm_tpu_torch.ops import histogram as thist
 from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.kernels import histogram as khist
@@ -146,3 +153,95 @@ def test_int32_subtraction_exact_and_dequantize():
                                    jnp.float32(37.5), jnp.float32(612.0))
     np.testing.assert_array_equal(
         tq.dequantize_histogram(parent, s_g, s_h).numpy(), np.asarray(want))
+
+
+def _quant_rows(item_bits, grad_bits, renew, n=3001, seed=0):
+    """The compact core's quantized working rows, built on the CPU by the
+    port's learner over 10 dense features whose codes are item_bits wide
+    (max_bin 15, 63 or 400), and the host codes they pack."""
+    r = np.random.RandomState(seed + item_bits + grad_bits)
+    x = r.randn(n, 10)
+    cfg = TConfig({"objective": "binary", "verbosity": -1,
+                   "max_bin": {4: 15, 8: 63, 16: 400}[item_bits],
+                   "quantized_grad": True, "grad_bits": grad_bits,
+                   "quant_renew": renew, "enable_bundle": False})
+    ds = TDataset(x, config=cfg, label=np.zeros(n))
+    tl = tdl.DeviceTreeLearner(cfg, ds, strategy="compact", device="cpu")
+    assert tl.item_bits == item_bits and ds.bundle_arrays() is None
+    g, h = _gh(n, seed=seed)
+    h[::7] *= -1.0                          # negative hessians too
+    data, qr = tl.quant_working_buffer(torch.from_numpy(g),
+                                       torch.from_numpy(h),
+                                       trandom.prng_key(seed))
+    return data, qr, tl.c_cols, np.asarray(ds.binned)
+
+
+def _jax_two_step(packed, codes, grad_bits, qcap, r_g, r_h, num_bins):
+    ghq = jq.gh_operand_scaled(jnp.asarray(packed),
+                               jnp.ones(len(packed), bool), grad_bits, qcap,
+                               jnp.float32(r_g), jnp.float32(r_h))
+    return np.asarray(build_histogram_pallas_quantized(
+        jnp.asarray(codes), ghq, num_bins, interpret=True))
+
+
+@pytest.mark.parametrize("grad_bits", [8, 16])
+@pytest.mark.parametrize("item_bits", [4, 8, 16])
+def test_packed_rows_entry_bit_exact_vs_jax(item_bits, grad_bits):
+    # a ragged row slice (2,897 rows from row 3) of the working rows,
+    # stored at 16 bits (renew) and at grad_bits (renew off, ratio 1); the
+    # ratios 1, the leaf's requant_ratio, and 0.5 / 1.5, at which every
+    # odd stored integer lands exactly on .5 (round half to even)
+    lo, hi = 3, 2900
+    for renew in (True, False):
+        data, qr, c_cols, host = _quant_rows(item_bits, grad_bits, renew)
+        cw = data.shape[1] - 2
+        rows, codes = data[lo:hi], host[lo:hi]
+        packed = rows[:, cw].numpy()
+        ratio_sets = [(1.0, 1.0)]
+        bins = [{4: 16, 8: 64, 16: 256}[item_bits]]
+        if renew:
+            ratio_sets += [tuple(float(tq.requant_ratio(qr.root_max[i],
+                                                        qr.qcap_op))
+                                 for i in (0, 1)), (0.5, 1.5)]
+            bins = [16, 64, 256]
+            qg, qh = tq.unpack_gh(rows[:, cw])
+            assert bool((qg % 2 == 1).any()) and bool((qh % 2 == 1).any())
+            assert bool((qh < 0).any())
+        for r_g, r_h in ratio_sets:
+            for nb in bins:
+                args = (rows, cw, c_cols, item_bits, torch.tensor(r_g),
+                        torch.tensor(r_h), qr.qcap_op, grad_bits, nb)
+                got = khist.build_histogram_quantized_rows(*args)
+                assert got.dtype == torch.int32
+                assert torch.equal(
+                    got, khist.build_histogram_quantized_rows_plain(*args))
+                want = _jax_two_step(packed, codes, grad_bits, qr.qcap_op,
+                                     r_g, r_h, nb)
+                np.testing.assert_array_equal(got.numpy(), want)
+                # every row counts once per feature whose code is below B
+                assert int(got[..., 2].sum()) == int((codes < nb).sum())
+
+
+def test_compact_core_builds_quantized_histograms_from_rows(monkeypatch):
+    # win_hist hands the packed-row entry its contiguous row slices and no
+    # operand: every K3 call of a compact quantized tree goes through it
+    calls = []
+    real = tdl.build_histogram_quantized_rows
+
+    def spy(rows, *a):
+        calls.append((rows.shape, rows.is_contiguous()))
+        return real(rows, *a)
+
+    monkeypatch.setattr(tdl, "build_histogram_quantized_rows", spy)
+    r = np.random.RandomState(4)
+    x = r.randn(3001, 10)
+    cfg = TConfig({"objective": "binary", "num_leaves": 7,
+                   "quantized_grad": True, "verbosity": -1})
+    tl = tdl.DeviceTreeLearner(cfg, TDataset(x, config=cfg,
+                                             label=np.zeros(3001)),
+                               strategy="compact", device="cpu")
+    g, h = _gh(3001, seed=4)
+    _, _, k = tl.grow(torch.from_numpy(g), torch.from_numpy(h))
+    assert k == 6 and len(calls) == k + 1
+    assert calls[0][0] == (3001, tl.codes_pack.shape[1] + 2)
+    assert all(contig for _, contig in calls)
