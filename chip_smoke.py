@@ -37,29 +37,53 @@ Phases, one JSON line each:
                the root split window (D = 11), a ragged 3-key window, the
                quantized rows (D = 9), the compact core's child windows
                (250k, 62k, 16k, 4k and 1k rows at D = 11 and D = 9), wide
-               rows (D = 260) and one tile more than the grid holds;
+               rows (D = 260) and one tile more than the grid holds; then
+               the device-window entries of the compact core's device loop
+               (the window read from the split descriptor), bit-exact or,
+               for K1, within K1's bar: the split-key kernel, K4's, K3's
+               and K1's window entries at the root and the child windows;
   train        lightgbm_tpu_torch.train on a Higgs-shaped 1,000,000 x 28
                binary task (num_leaves=255, max_bin=63, learning_rate=0.1,
-               min_data_in_leaf=20) for 10 rounds on the compact strategy:
-               launches of every kernel during that run, the partition
-               kernel's rows and its byte bound per tree, host syncs per
-               tree, time, peak memory, held-out AUC, and a model-text
-               round trip;
-  profile      one more float boosting iteration under torch.profiler,
-               with the partition kernel's launches and device time summed
-               over its kernels (named from its library's SASS); with
-               --parent-src first one iteration on OLD's partition kernel;
+               min_data_in_leaf=20) for 10 rounds on the compact strategy,
+               the main path: the fused iteration, whose tree grows in the
+               device loop (one captured split step replayed 254 times):
+               launches of every kernel during that run, per tree and per
+               captured step, the partition kernel's rows and its byte
+               bound per tree, host syncs per tree, time, peak memory,
+               held-out AUC, and a model-text round trip; beside it the
+               same 10 rounds on the host loop (the generic iteration and
+               grow_tree_compact_core, one host sync per split): its time,
+               launches and AUC, which the main path's must be within
+               0.001 of;
+  profile      one more float boosting iteration under torch.profiler on
+               each loop, the partition kernel's and the split-key kernel's
+               launches and device time summed over their kernels (named
+               from the libraries' SASS); with --parent-src first one
+               host-loop iteration on OLD's partition kernel;
   train_quant  the same data and parameters with quantized_grad (grad_bits
                8): K3 / K1 / K4 launches, time, peak memory, and held-out
-               AUC > 0.7 and within 0.005 of the float run's; one more
-               iteration profiled, K3's kernels summed (with --parent-src
-               also one on the parent's two-step);
+               AUC > 0.7 and within 0.005 of the float run's; beside it the
+               host loop, and the generic iteration on the device loop,
+               whose trees and AUC must equal the host loop's (the same
+               trees from the same gradients); one more iteration of each
+               loop profiled, K3's kernels summed (with --parent-src also
+               one host-loop iteration on the parent's two-step);
+  loop         20,000-row trees (31 leaves) grown by the captured device
+               loop on the card, by the same step run eagerly on the CPU
+               (the plain versions) and by the host loop on the card, float
+               and quantized, from the same gradients: against the CPU
+               equal leaf, feature and count columns and leaf ids, f32
+               columns within 1e-4;
+               quantized, records equal to the host loop's bit for bit; the
+               capture's time and launches per step, and a tree grown under
+               the sync debug mode "error";
   train_masked 60,000 x 28 (the masked strategy, which auto picks below
                65,536 rows), float and quantized: K2 / K3t launches, AUC,
                time, one more iteration profiled;
   reference    small tasks trained on the card and on the CPU (the plain
-               versions): compact float, compact quantized, masked float
-               and masked quantized. Every run gives raw scores within
+               versions): compact float and compact quantized on the device
+               loop (the fused iteration) and on the host loop, masked
+               float and masked quantized. Every run gives raw scores within
                1e-4 and the same trees; quantized runs also equal root
                histograms and the same trees from identical gradients.
                Compact quantized may grow other trees only where its
@@ -102,7 +126,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
-          "train_quant", "train_masked", "reference")
+          "train_quant", "train_masked", "loop", "reference")
 
 
 def emit(obj):
@@ -365,6 +389,44 @@ def parent_two_step(k1, pk1):
         device_learner.build_histogram_quantized_rows = own
 
 
+@contextlib.contextmanager
+def host_loop(torch, generic_only=False):
+    """Inside, training takes the generic iteration and, unless
+    generic_only, grows each compact tree with the host loop
+    (grow_tree_compact_core: one host sync per split, the kernels' host-int
+    entries) instead of the device loop: the path of the port before the
+    device loop, held beside it."""
+    from lightgbm_tpu_torch.models import device_learner as dl
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    from lightgbm_tpu_torch.utils.random import prng_key
+    own = (GBDT._fused_eligible, dl.DeviceTreeLearner.grow)
+
+    def grow(self, grad, hess, iter_seed=0):
+        if self.strategy != "compact":
+            return own[1](self, grad, hess, iter_seed)
+        grad, hess = grad.float(), hess.float()
+        quant = None
+        if self.quant_bits:
+            data, quant = self.quant_working_buffer(grad, hess,
+                                                    prng_key(iter_seed))
+        else:
+            data = self.working_buffer(grad, hess)
+        mask = self._base_mask(iter_seed)
+        return dl.grow_tree_compact_core(
+            data, torch.empty_like(data),
+            self._ones_mask if mask is None else mask, self.meta,
+            c_cols=self.c_cols, item_bits=self.item_bits, quant=quant,
+            stats=self.stats, **self._statics())
+
+    GBDT._fused_eligible = lambda self: False
+    if not generic_only:
+        dl.DeviceTreeLearner.grow = grow
+    try:
+        yield
+    finally:
+        GBDT._fused_eligible, dl.DeviceTreeLearner.grow = own
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -396,6 +458,7 @@ def main():
         from lightgbm_tpu_torch.ops.kernels import build
         from lightgbm_tpu_torch.ops.kernels import histogram as k1
         from lightgbm_tpu_torch.ops.kernels import partition as k4
+        from lightgbm_tpu_torch.ops.kernels import split_key as kkey
     except ImportError as e:
         fail("lightgbm_tpu_torch not importable beside chip_smoke.py: %s"
              % e)
@@ -411,7 +474,7 @@ def main():
     parent_builds = {}
     if args.parent_src:
         os.makedirs(build.build_dir(), exist_ok=True)
-        for name in build.SOURCES:
+        for name in ("histogram", "partition"):
             lib = os.path.join(build.build_dir(), "libparent_%s_%d.so"
                                % (name, os.getpid()))
             parent_builds[name] = (lib, subprocess.Popen(
@@ -465,6 +528,8 @@ def main():
         return sorted(n for n in sass_functions(build.nvcc(), path)
                       if n.startswith("hist_") and "fixed" not in n)
     k3_names = int_hist_names(build.library_path("histogram"))
+    key_names = sorted(sass_functions(build.nvcc(),
+                                      build.library_path("split_key")))
     parent_k3_names = int_hist_names(parent_builds["histogram"][0]) \
         if parents else []
 
@@ -498,42 +563,76 @@ def main():
             torch, dev, args, run, k1, k4, build, ds, params, Config,
             DeviceTreeLearner, quant_ops, prng_key, parents)
 
-    counters = {"k1": "launches", "k2": "launches_t", "k3": "launches_q",
-                "k3t": "launches_qt"}
+    # every kernel entry's launch count: (module, attribute); the device
+    # loop's window entries and the split key count apart from the
+    # host-int entries
+    counters = {"k1": (k1, "launches"), "k2": (k1, "launches_t"),
+                "k3": (k1, "launches_q"), "k3t": (k1, "launches_qt"),
+                "k4": (k4, "launches"), "k1_win": (k1, "launches_win"),
+                "k3_win": (k1, "launches_qwin"),
+                "k4_win": (k4, "launches_win"),
+                "split_key": (kkey, "launches"),
+                "k4_rows": (k4, "rows"), "k4_rows_win": (k4, "rows_win")}
 
     def reset_counts():
-        for attr in counters.values():
-            setattr(k1, attr, 0)
-        k4.launches = k4.rows = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
 
     def read_counts():
-        out = {k: getattr(k1, attr) for k, attr in counters.items()}
-        out["k4"], out["k4_rows"] = k4.launches, k4.rows
-        return out
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     def k4_path(b, counts):
-        """The partition kernel over a run: rows and launches per tree, and
-        the byte bound of its windows per tree, sum W * (8D + 4) bytes."""
+        """The partition kernel over a run (either entry): rows and
+        launches per tree, and the byte bound of its windows per tree, sum
+        W * (8D + 4) bytes."""
         lr = b._gbdt.learner
         d = lr.codes_pack.shape[1] + (2 if lr.quant_bits else 4)
         trees = max(b.num_trees(), 1)
-        return {"D": d, "launches_per_tree": counts["k4"] / trees,
-                "rows_per_tree": counts["k4_rows"] / trees,
-                "bound_ms_per_tree": bound(counts["k4_rows"] * (8 * d + 4)
-                                           / trees, 0)[0]}
+        rows = counts["k4_rows"] + counts["k4_rows_win"]
+        return {"D": d, "launches_per_tree":
+                (counts["k4"] + counts["k4_win"]) / trees,
+                "rows_per_tree": rows / trees,
+                "bound_ms_per_tree": bound(rows * (8 * d + 4) / trees,
+                                           0)[0]}
 
-    def timed_train(p, dset):
-        """Train from zeroed launch counts; (booster, counts, seconds,
-        peak device bytes)."""
+    def timed_train(p, dset, loop="device"):
+        """Train from zeroed launch counts on the device loop (the fused
+        iteration), the host loop, or the generic iteration over the
+        device loop; (booster, counts, seconds, peak device bytes)."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         torch.cuda.synchronize()
         t1 = time.time()
-        b = lgb.train(p, dset, num_boost_round=args.rounds)
+        with on_loop(loop):
+            b = lgb.train(p, dset, num_boost_round=args.rounds)
         torch.cuda.synchronize()
         secs = time.time() - t1
         return b, read_counts(), secs, int(torch.cuda.max_memory_allocated())
+
+    def on_loop(loop):
+        return {"device": contextlib.nullcontext, "host": lambda: host_loop(
+            torch), "generic": lambda: host_loop(torch, generic_only=True)
+        }[loop]()
+
+    def growth(b, counts, secs):
+        """How a run's trees grew: host syncs, splits and kernel launches
+        per tree, and the captured split step of the device loop."""
+        lr = b._gbdt.learner
+        trees = max(lr.stats.trees, 1)
+        out = {"host_syncs_per_tree": lr.stats.host_syncs / trees,
+               "splits_per_tree": lr.stats.splits / trees,
+               "launches_per_tree": {k: v / trees for k, v in counts.items()
+                                     if v and not k.endswith("rows")
+                                     and not k.endswith("rows_win")},
+               "s_per_iter_in_train": secs / args.rounds}
+        if lr._loop is not None and lr._loop.graph is not None:
+            out["captured_step_launches"] = {
+                k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]: v
+                for k, v in lr._loop.launches_per_step.items()}
+            out["replays_per_tree"] = lr._loop.num_steps
+            out["capture_s"] = lr._loop.capture_s
+        return out
 
     def steady_s(b):
         times = []
@@ -585,6 +684,7 @@ def main():
         return {
             "k4": summed(k4_kernels or k4_names),
             "k3": summed(k3_kernels or k3_names),
+            "split_key": summed(key_names),
             "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / (wall * 1e3),
             "device_launches": sum(e.count for e in kern),
@@ -592,53 +692,75 @@ def main():
                      "device_ms": e.self_device_time_total / 1e3,
                      "calls": e.count} for e in top]}
 
+    def host_side(p, dset):
+        """The same training on the host loop, beside the main path."""
+        hb, hl, hs, hp = timed_train(p, dset, loop="host")
+        # of the timed rounds, before the steady ones
+        out = dict(growth(hb, hl, hs), train_s=hs, peak_device_bytes=hp,
+                   launches=hl, valid_auc=auc(yv, hb.predict(xv)),
+                   k4_path=k4_path(hb, hl))
+        with host_loop(torch):
+            out["s_per_iter_steady"] = steady_s(hb)
+        return hb, hl, out
+
     # ---- train: the main path (compact, float) ----------------------------
-    launches = qlaunches = None
+    launches = qlaunches = host_launches = qhost_launches = None
     valid_auc = None
     if need_float:
         bst, launches, train_s, peak = timed_train(params, ds)
-        stats = bst._gbdt.learner.stats
         pv = bst.predict(xv)
         valid_auc = auc(yv, pv)
         text = bst.model_to_string()
         back = convert.booster_from_model_string(text)
         rt_err = float(np.max(np.abs(back.predict(xv, raw_score=True)
                                      - bst.predict(xv, raw_score=True))))
-        train = {"phase": "train", "rows": args.rows, "features": f,
-                 "rounds": args.rounds, "params": params,
-                 "strategy": bst._gbdt.learner.strategy,
-                 "trees": bst.num_trees(), "launches": launches,
-                 "k4_path": k4_path(bst, launches),
-                 "splits_per_tree": stats.splits / max(stats.trees, 1),
-                 "growth_host_syncs_per_tree":
-                     stats.host_syncs / max(stats.trees, 1),
-                 "dataset_s": data_s, "train_s": train_s,
-                 "s_per_iter_in_train": train_s / args.rounds,
-                 "s_per_iter_steady": steady_s(bst),
-                 "peak_device_bytes": peak, "valid_rows": len(yv),
-                 "valid_auc": valid_auc,
-                 "model_text_roundtrip_max_abs": rt_err}
+        hbst, host_launches, host = host_side(params, ds)
+        train = dict({"phase": "train", "rows": args.rows, "features": f,
+                      "rounds": args.rounds, "params": params,
+                      "strategy": bst._gbdt.learner.strategy,
+                      "growth": "device loop, fused iteration",
+                      "trees": bst.num_trees(), "launches": launches,
+                      "k4_path": k4_path(bst, launches)},
+                     **growth(bst, launches, train_s))
+        train.update({
+            "dataset_s": data_s, "train_s": train_s,
+            "s_per_iter_steady": steady_s(bst), "peak_device_bytes": peak,
+            "valid_rows": len(yv), "valid_auc": valid_auc,
+            "model_text_roundtrip_max_abs": rt_err,
+            "host_loop": host,
+            "auc_minus_host_loop": valid_auc - host["valid_auc"]})
         if "train" in run:
             emit(train)
         if train["strategy"] != "compact":
             fail("the 1M-row run did not take the compact strategy")
-        if launches["k1"] <= 0 or launches["k4"] <= 0:
-            fail("a kernel of the main path was never launched: %s"
-                 % launches)
+        if min(launches[k] for k in ("k1_win", "k4_win", "split_key")) <= 0 \
+                or launches["k1"] or launches["k4"]:
+            fail("the main path did not go through the device loop's "
+                 "kernels (K1's and K4's window entries, the split key): "
+                 "%s" % launches)
+        if host_launches["k1"] <= 0 or host_launches["k4"] <= 0:
+            fail("the host loop did not launch K1 and K4: %s"
+                 % host_launches)
+        if train["host_syncs_per_tree"] != 1:
+            fail("the device loop made %s host syncs per tree"
+                 % train["host_syncs_per_tree"])
         if not np.all(np.isfinite(pv)) or pv.shape != (len(yv),):
             fail("predictions are not finite or of the wrong shape")
-        if valid_auc <= 0.7:
-            fail("held-out AUC %.4f <= 0.7" % valid_auc)
+        if valid_auc <= 0.7 or abs(train["auc_minus_host_loop"]) > 0.001:
+            fail("held-out AUC %.5f (want > 0.7 and within 0.001 of the "
+                 "host loop's %.5f)" % (valid_auc, host["valid_auc"]))
         if rt_err > 1e-6:
             fail("model-text round trip differs by %g" % rt_err)
         if "profile" in run:
             prof = {"phase": "profile"}
-            if parents:
-                with parent_k4(torch, k4, parents["partition"]):
-                    prof["parent_k4_iteration"] = profile_one(
-                        bst, parent_k4_names)["k4"]
+            with host_loop(torch):
+                if parents:
+                    with parent_k4(torch, k4, parents["partition"]):
+                        prof["parent_k4_iteration"] = profile_one(
+                            hbst, parent_k4_names)["k4"]
+                prof["host_loop"] = profile_one(hbst)
             emit(dict(prof, **profile_one(bst)))
-        del bst, back
+        del bst, back, hbst
 
     # ---- train_quant: the same data with quantized gradients --------------
     if "train_quant" in run:
@@ -646,36 +768,65 @@ def main():
         qbst, qlaunches, qtrain_s, qpeak = timed_train(qparams, ds)
         qpv = qbst.predict(xv)
         qauc = auc(yv, qpv)
-        train_quant = {
+        qhbst, qhost_launches, qhost = host_side(qparams, ds)
+        # the generic iteration over the device loop: the host loop's
+        # scores, so its trees must be the host loop's
+        qgbst, qglaunches, qg_s, _ = timed_train(qparams, ds, loop="generic")
+        # (the host loop's booster has grown its steady rounds since)
+        same_trees = [t.to_string() for t in qgbst._gbdt.models] \
+            == [t.to_string() for t in qhbst._gbdt.models[:args.rounds]]
+        qgauc = auc(yv, qgbst.predict(xv))
+        train_quant = dict({
             "phase": "train_quant", "rows": args.rows,
             "rounds": args.rounds, "grad_bits": 8, "quant_renew": True,
-            "strategy": qbst._gbdt.learner.strategy, "launches": qlaunches,
-            "k4_path": k4_path(qbst, qlaunches),
-            "train_s": qtrain_s,
-            "s_per_iter_in_train": qtrain_s / args.rounds,
-            "s_per_iter_steady": steady_s(qbst), "peak_device_bytes": qpeak,
-            "valid_auc": qauc, "float_valid_auc": valid_auc,
-            "auc_diff": qauc - valid_auc, "profile": profile_one(qbst)}
-        if parents:
-            # the parent's path in this tree's loop: the operand built by
-            # gh_operand_scaled, then K3 on the parent's library
-            with parent_two_step(k1, parents["histogram_wrapper"]):
-                par = profile_one(qbst, k3_kernels=parent_k3_names)
-            train_quant["parent_iteration"] = {
-                key: par[key] for key in ("k3", "device_ms",
-                                          "device_launches", "wall_ms")}
+            "strategy": qbst._gbdt.learner.strategy,
+            "growth": "device loop, fused iteration", "launches": qlaunches,
+            "k4_path": k4_path(qbst, qlaunches)},
+            **growth(qbst, qlaunches, qtrain_s))
+        train_quant.update({
+            "train_s": qtrain_s, "s_per_iter_steady": steady_s(qbst),
+            "peak_device_bytes": qpeak, "valid_auc": qauc,
+            "float_valid_auc": valid_auc, "auc_diff": qauc - valid_auc,
+            "profile": profile_one(qbst), "host_loop": qhost,
+            "auc_minus_host_loop": qauc - qhost["valid_auc"],
+            "generic_on_device_loop": {
+                "train_s": qg_s, "valid_auc": qgauc,
+                "same_trees_as_host_loop": same_trees,
+                "launches": qglaunches}})
+        with host_loop(torch):
+            qhost["profile"] = profile_one(qhbst)
+            if parents:
+                # the parent's path in the host loop: the operand built by
+                # gh_operand_scaled, then K3 on the parent's library
+                with parent_two_step(k1, parents["histogram_wrapper"]):
+                    par = profile_one(qhbst, k3_kernels=parent_k3_names)
+                qhost["parent_iteration"] = {
+                    key: par[key] for key in ("k3", "device_ms",
+                                              "device_launches", "wall_ms")}
         emit(train_quant)
         if train_quant["strategy"] != "compact":
             fail("the quantized 1M-row run did not take the compact "
                  "strategy")
-        if qlaunches["k3"] <= 0 or qlaunches["k4"] <= 0 or qlaunches["k1"]:
-            fail("quantized run: K3 and K4 must launch and K1 must not: %s"
-                 % qlaunches)
+        if qlaunches["k3_win"] <= 0 or qlaunches["k4_win"] <= 0 \
+                or qlaunches["split_key"] <= 0 or qlaunches["k1_win"] \
+                or qlaunches["k3"] or qlaunches["k4"]:
+            fail("quantized run: K3's and K4's window entries and the split "
+                 "key must launch, and nothing else: %s" % qlaunches)
+        if qhost_launches["k3"] <= 0 or qhost_launches["k4"] <= 0:
+            fail("the quantized host loop did not launch K3 and K4: %s"
+                 % qhost_launches)
+        if train_quant["host_syncs_per_tree"] != 1:
+            fail("the quantized device loop made %s host syncs per tree"
+                 % train_quant["host_syncs_per_tree"])
+        if not same_trees or round(qgauc, 7) != round(qhost["valid_auc"], 7):
+            fail("the device loop grew other quantized trees than the host "
+                 "loop from the same scores (AUC %.7f vs %.7f)"
+                 % (qgauc, qhost["valid_auc"]))
         if not np.all(np.isfinite(qpv)) or qauc <= 0.7 \
                 or abs(qauc - valid_auc) > 0.005:
             fail("quantized AUC %.5f vs float %.5f (want > 0.7, within "
                  "0.005)" % (qauc, valid_auc))
-        del qbst
+        del qbst, qhbst, qgbst
     if need_data:
         del ds
 
@@ -698,13 +849,18 @@ def main():
             masked_rows.append(row)
             want = "k3t" if quant else "k2"
             if row["strategy"] != "masked" or mlaunches[want] <= 0 \
-                    or mlaunches["k4"] or mauc <= 0.7:
+                    or mlaunches["k4"] or mlaunches["k4_win"] \
+                    or mauc <= 0.7:
                 emit({"phase": "train_masked", "runs": masked_rows})
                 fail("masked run (quantized=%s) did not go through %s or "
                      "AUC %.4f <= 0.7" % (quant, want, mauc))
             del mb
         emit({"phase": "train_masked", "rows": 60_000,
               "rounds": args.rounds, "runs": masked_rows})
+
+    if "loop" in run:
+        loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
+                   (R_LCNT, R_RCNT))
 
     if "reference" in run:
         reference_phase(torch, dev, lgb, k1, params, f, Config,
@@ -725,28 +881,41 @@ def main():
                     "library_ms": r0["library_ms"]}
 
         hk = "lightgbm_tpu/ops/pallas/histogram_kernel.py"
+        pk = "lightgbm_tpu/ops/pallas/partition_kernel.py:48"
+        hcu = "lightgbm_tpu_torch/csrc/histogram.cu"
+        pcu = "lightgbm_tpu_torch/csrc/partition.cu"
         kr = kernel_rows
+        # launches: each entry's path, run from zeroed counts -- the main
+        # path (the device loop) for the window entries and the split key,
+        # the host loop beside it for the host-int entries of K1, K3, K4,
+        # the masked strategy for K2 / K3t
         kernels = [
-            kernel_entry("K1 histogram",
-                         "lightgbm_tpu_torch/csrc/histogram.cu", hk + ":41",
-                         launches["k1"], kr["k1"], "max_abs_err"),
-            kernel_entry("K2 histogram, (F, N) codes",
-                         "lightgbm_tpu_torch/csrc/histogram.cu", hk + ":73",
+            kernel_entry("K1 histogram, device-window entry", hcu,
+                         hk + ":41", launches["k1_win"], kr["k1_win"],
+                         "max_abs_err"),
+            kernel_entry("K1 histogram, host-int entry", hcu, hk + ":41",
+                         host_launches["k1"], kr["k1"], "max_abs_err"),
+            kernel_entry("K2 histogram, (F, N) codes", hcu, hk + ":73",
                          masked_rows[0]["launches"]["k2"], kr["k2"],
                          "max_abs_err"),
-            # the compact path runs K3 through the packed-row entry
-            kernel_entry("K3 integer histogram (packed-row entry)",
-                         "lightgbm_tpu_torch/csrc/histogram.cu",
-                         hk + ":114", qlaunches["k3"],
+            kernel_entry("K3 integer histogram, device-window entry", hcu,
+                         hk + ":114", qlaunches["k3_win"], kr["k3_win"],
+                         "max_abs_err"),
+            kernel_entry("K3 integer histogram, packed-row entry", hcu,
+                         hk + ":114", qhost_launches["k3"],
                          kr["k3_rows"] + kr["k3"], "max_abs_err"),
-            kernel_entry("K3t integer histogram, (F, N) codes",
-                         "lightgbm_tpu_torch/csrc/histogram.cu",
+            kernel_entry("K3t integer histogram, (F, N) codes", hcu,
                          hk + ":152", masked_rows[1]["launches"]["k3t"],
                          kr["k3t"], "max_abs_err"),
-            kernel_entry("K4 stable partition",
-                         "lightgbm_tpu_torch/csrc/partition.cu",
-                         "lightgbm_tpu/ops/pallas/partition_kernel.py:48",
-                         launches["k4"], kr["k4"], "max_abs_err")]
+            kernel_entry("K4 stable partition, device-window entry", pcu, pk,
+                         launches["k4_win"], kr["k4_win"], "max_abs_err"),
+            kernel_entry("K4 stable partition, host-int entry", pcu, pk,
+                         host_launches["k4"], kr["k4"], "max_abs_err"),
+            # no Pallas kernel: XLA fuses the JAX core's window decode
+            kernel_entry("split key", "lightgbm_tpu_torch/csrc/split_key.cu",
+                         "lightgbm_tpu/models/device_learner.py:2083",
+                         launches["split_key"], kr["split_key"],
+                         "max_abs_err")]
         print(smi_line, flush=True)
         emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -823,6 +992,51 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
             row["parent_ms"] = time_ms(torch, pfn, reps)
         row["device_ms"] = (d[1] + d[2]) / 2
         row["parent_device_ms"] = (d[0] + d[3]) / 2
+
+    # the device-window entries: their window comes from a split
+    # descriptor; buffer 0 is `buf` (or the quantized rows), buffer 1 a
+    # second buffer of the same shape
+    from lightgbm_tpu_torch.ops.kernels import desc as dsc
+    from lightgbm_tpu_torch.ops.kernels import split_key as kkey
+    spare = torch.empty_like(buf)
+    windows = [min(wn, args.rows) for wn in (args.rows, 250_000, 62_000,
+                                             16_000, 4_000, 1_000)]
+
+    def reps_for(wn):
+        return 20 if wn > 500_000 else 50 if wn > 100_000 else 200
+
+    def desc_for(**fields):
+        d = torch.zeros(dsc.SIZE, dtype=torch.int32)
+        for name, v in fields.items():
+            d[getattr(dsc, name)] = int(v)
+        return d.to(dev)
+
+    def hist_desc(wn):
+        """The histogram window of rows [0, wn) of buffer 0, as a split
+        whose left child (the smaller) they are."""
+        return desc_for(GO=1, SRC=1, BEGIN=0, COUNT=wn, LPHYS=wn,
+                        LEFT_SMALL=1)
+
+    def window_case(rows_out, label, check, fn, plain_fn, reps, nbytes,
+                    nops=0, host_fn=None, library=None):
+        """A device-window entry against its plain version: check() ->
+        (ok, max_abs_err) on the same inputs, then fn (one launch) timed
+        on both timers, plain_fn, and host_fn (the host-int entry over the
+        same window) on the device timer."""
+        ok, err = check()
+        row = {"shape": label, "ok": bool(ok), "max_abs_err": float(err),
+               "ms": time_ms(torch, fn, reps),
+               "device_ms": time_ms(torch, fn, reps, hold=True),
+               "plain_ms": time_ms(torch, plain_fn, 3, warmup=1)}
+        if host_fn is not None:
+            row["host_entry_device_ms"] = time_ms(torch, host_fn, reps,
+                                                  hold=True)
+        bms, by = bound(nbytes, nops)
+        lib, note = library or (None, "none: no single PyTorch call "
+                                      "computes it")
+        row.update(bound_ms=bms, bound_by=by, library_ms=lib, library=note)
+        rows_out.append(row)
+        return row
 
     # ---- K1 / K2 vs plain -------------------------------------------------
     def float_case(rows, label, kernel, plain, codes, gh, nb, reps, pf,
@@ -906,10 +1120,36 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
                          dcodes, dgh, b_root, 20, dcodes, atol=0.0)
         dyn["tolerance"] = ("|diff| <= 1e-4*|plain| + 1e-5*sum|terms| per "
                             "bin; count lane exact")
-        emit({"phase": "k1", "tolerance": tolerance, "cases": k1_rows})
-        if not all(rw["ok"] for rw in k1_rows):
+        # K1's device-window entry over rows [0, W) of the working rows
+        k1w_rows = []
+        for wn in windows:
+            hd = hist_desc(wn)
+            wargs = (buf, spare, hd, cw, c_cols, 8, b_root)
+
+            def check():
+                got = k1.build_histogram_window(*wargs)
+                want = k1.build_histogram_window_plain(*wargs)
+                mag = k1.build_histogram_plain(codes_root[:wn],
+                                               gh_root[:wn].abs(), b_root)
+                ok = bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()
+                           + 1e-5 * mag).all()) \
+                    and torch.equal(got[..., 2], want[..., 2])
+                return ok, (got - want).abs().max()
+            window_case(
+                k1w_rows, "device-window entry, rows [0, %d) (D=11)" % wn,
+                check, lambda: k1.build_histogram_window(*wargs),
+                lambda: k1.build_histogram_window_plain(*wargs),
+                reps_for(wn), wn * (c_cols + 12) + 12 * c_cols * b_root,
+                3 * wn * c_cols,
+                host_fn=lambda: k1.build_histogram(
+                    codes_root[:wn], gh_root[:wn], b_root),
+                library=library_ms(codes_root[:wn], gh_root[:wn], b_root,
+                                   reps_for(wn)))
+        emit({"phase": "k1", "tolerance": tolerance,
+              "cases": k1_rows + k1w_rows})
+        if not all(rw["ok"] for rw in k1_rows + k1w_rows):
             fail("K1 disagrees with its plain version")
-        out["k1"] = k1_rows
+        out["k1"], out["k1_win"] = k1_rows, k1w_rows
         del tail_gh, dcodes, dgh
 
     if "k2" in run:
@@ -1061,14 +1301,38 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
             rows_case(rows_rows, "packed quantized rows, D=9", qbuf[:wn],
                       qcw, qrows.qcap_op, r_g, r_h, b_root,
                       20 if wn > 500_000 else 50 if wn > 100_000 else 200)
+        # K3's device-window entry over rows [0, W) of the quantized rows
+        k3w_rows = []
+        qspare = torch.empty_like(qbuf)
+        for wn in windows:
+            hd = hist_desc(wn)
+            wargs = (qbuf, qspare, hd, qcw, c_cols, 8, r_g, r_h,
+                     qrows.qcap_op, 8, b_root)
+
+            def check():
+                got = k1.build_histogram_quantized_window(*wargs)
+                want = k1.build_histogram_quantized_window_plain(*wargs)
+                return torch.equal(got, want), \
+                    (got.long() - want.long()).abs().max()
+            window_case(
+                k3w_rows, "device-window entry, rows [0, %d) (D=9)" % wn,
+                check, lambda: k1.build_histogram_quantized_window(*wargs),
+                lambda: k1.build_histogram_quantized_window_plain(*wargs),
+                reps_for(wn), wn * 4 * qbuf.shape[1] + 12 * c_cols * b_root,
+                3 * wn * c_cols,
+                host_fn=lambda: k1.build_histogram_quantized_rows(
+                    qbuf[:wn], qcw, c_cols, 8, r_g, r_h, qrows.qcap_op, 8,
+                    b_root))
         emit({"phase": "k3", "tolerance": "bit-exact",
-              "cases": k3_rows + k3t_rows + rows_rows})
+              "cases": k3_rows + k3t_rows + rows_rows + k3w_rows})
         if not all(rw["bit_exact"] and rw.get("parent_bit_exact", True)
                    and rw.get("two_step_bit_exact", True)
-                   for rw in k3_rows + k3t_rows + rows_rows):
+                   for rw in k3_rows + k3t_rows + rows_rows) \
+                or not all(rw["ok"] for rw in k3w_rows):
             fail("K3 / K3t disagree with their plain version")
         out["k3"], out["k3t"], out["k3_rows"] = k3_rows, k3t_rows, rows_rows
-        del ct60, ghq60, qbuf, ghq_root, qcodes, qprobe
+        out["k3_win"] = k3w_rows
+        del ct60, ghq60, qbuf, qspare, ghq_root, qcodes, qprobe
 
     # ---- K4 vs plain ------------------------------------------------------
     if "k4" in run:
@@ -1132,12 +1396,169 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
         # one tile more than the grid holds: one block moves two tiles
         over = k4._launcher(dev, d_cols)[1] * k4.tile_rows(d_cols) + 1
         k4_case("grid capacity + 1 tile", w2[:over], key2[:over], 50)
-        emit({"phase": "k4", "tolerance": "bit-exact", "cases": k4_rows})
+        # K4's device-window entry: rows [0, W) of buffer 0 into buffer 1
+        # (D = 11, and D = 9 with the quantized width)
+        k4w_rows, key_rows = [], []
+        for src_buf, dn in ((buf, d_cols), (q9[:args.rows], 9)):
+            dst_buf, plain_dst = torch.empty_like(src_buf), \
+                torch.empty_like(src_buf)
+            for wn in windows:
+                wd = desc_for(GO=1, SRC=0, BEGIN=0, COUNT=wn)
+
+                def check():
+                    k4.stable_partition3_window(src_buf, dst_buf, key_root,
+                                                wd)
+                    k4.stable_partition3_window_plain(src_buf, plain_dst,
+                                                      key_root, wd)
+                    same = torch.equal(dst_buf[:wn], plain_dst[:wn])
+                    return same, 0.0 if same else float("inf")
+                window_case(
+                    k4w_rows, "device-window entry, rows [0, %d) (D=%d)"
+                    % (wn, dn), check,
+                    lambda: k4.stable_partition3_window(src_buf, dst_buf,
+                                                        key_root, wd),
+                    lambda: k4.stable_partition3_window_plain(
+                        src_buf, plain_dst, key_root, wd),
+                    reps_for(wn), wn * (8 * dn + 4),
+                    host_fn=lambda: k4.stable_partition3(
+                        src_buf[:wn], key_root[:wn], dst_buf[:wn]))
+            del dst_buf, plain_dst
+        # the split key over the same windows: feature 0's decision on the
+        # float rows, and with the side maxes on the quantized rows (D = 9)
+        qprobe = DeviceTreeLearner(Config(dict(params, quantized_grad=True,
+                                               grad_bits=8)),
+                                   ds._inner, device=dev)
+        qrows_buf, _ = qprobe.quant_working_buffer(g, h, prng_key(0))
+        feat = probe.meta["t_feature_table"][0].tolist()
+        for rows_buf, renew in ((buf, False), (qrows_buf, True)):
+            kcw = rows_buf.shape[1] - (2 if renew else 4)
+            other = spare if rows_buf is buf else torch.empty_like(rows_buf)
+            for wn in windows:
+                kd = desc_for(GO=1, SRC=0, BEGIN=0, COUNT=wn,
+                              THR=b_root // 3, DLEFT=1, COL=feat[0],
+                              BASE=feat[1], ELIDE=feat[2], NUMBINS=feat[3],
+                              MISSING=feat[4], DEFAULT=feat[5])
+                kw = dict(item_bits=8, cw=kcw, renew=renew)
+                key_t, key_p = torch.empty_like(key_root), \
+                    torch.empty_like(key_root)
+                # the timed launches add into their own descriptors' counts
+                kd_t, kd_p = kd.clone(), kd.clone()
+
+                def check():
+                    d1, d2 = kd.clone(), kd.clone()
+                    kkey.split_key(rows_buf, other, d1, key_t, **kw)
+                    kkey.split_key_plain(rows_buf, other, d2, key_p, **kw)
+                    same = torch.equal(key_t[:wn], key_p[:wn]) \
+                        and torch.equal(d1, d2)
+                    return same, 0.0 if same else float("inf")
+                window_case(
+                    key_rows, "rows [0, %d) (D=%d%s)" % (
+                        wn, rows_buf.shape[1], ", side maxes" if renew
+                        else ""), check,
+                    lambda: kkey.split_key(rows_buf, other, kd_t, key_t,
+                                           **kw),
+                    lambda: kkey.split_key_plain(rows_buf, other, kd_p,
+                                                 key_p, **kw),
+                    reps_for(wn), wn * (12 if renew else 8))
+        del qprobe, qrows_buf
+        emit({"phase": "k4", "tolerance": "bit-exact",
+              "cases": k4_rows + k4w_rows, "split_key_cases": key_rows})
         if not all(rw["bit_exact"] and rw.get("parent_bit_exact", True)
-                   for rw in k4_rows):
-            fail("K4 disagrees with its plain version")
-        out["k4"] = k4_rows
+                   for rw in k4_rows) \
+                or not all(rw["ok"] for rw in k4w_rows + key_rows):
+            fail("K4 or the split key disagrees with its plain version")
+        out["k4"], out["k4_win"], out["split_key"] = \
+            k4_rows, k4w_rows, key_rows
     return out
+
+
+def loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
+               count_cols):
+    """The loop phase: 20,000-row trees (31 leaves) grown by the captured
+    device loop on the card, by the same step run eagerly on the CPU (the
+    kernels' plain versions) and by the host loop on the card, from the
+    same numpy gradients, float and quantized. Against the CPU: equal
+    leaf, feature and count columns and leaf ids, f32 columns within 1e-4
+    (the split scan's f32 prefix sums, and K1's, run in another order on
+    the card: the reference phase's bound).
+    Quantized, against the host loop on the same card: equal records,
+    bit for bit. Also the capture's time and launches per step, and one
+    tree grown on the card under the sync debug mode "error" (any
+    synchronisation inside raises)."""
+    R_LCNT, R_RCNT = count_cols
+    xs, ys, w = make_higgs_like(20_000, f, seed=31)
+    prob = 1.0 / (1.0 + np.exp(-0.3 * (xs @ w)))
+    g = torch.from_numpy((prob - ys).astype(np.float32))
+    h = torch.from_numpy((prob * (1.0 - prob)).astype(np.float32))
+    # leaf, feature, counts; two thresholds with no training row between
+    # them split alike (f32 rounding picks one), the leaf ids hold the
+    # rows' routing
+    ints = [0, 1, R_LCNT, R_RCNT]
+    runs = []
+    for quant in (False, True):
+        p = dict(params, num_leaves=31, min_gain_to_split=1e-3,
+                 quantized_grad=quant, grad_bits=8)
+        inner = lgb.Dataset(xs, ys, params=p).construct()._inner
+        card = DeviceTreeLearner(Config(p), inner, strategy="compact",
+                                 device=dev)
+        cpu = DeviceTreeLearner(Config(p), inner, strategy="compact",
+                                device="cpu")
+        gc, hc = g.to(dev), h.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        card._device_state()                 # the carry and the capture
+        torch.cuda.synchronize()
+        capture_s = time.time() - t1
+        trees = []
+        floats = [c for c in range(13) if c not in ints and c not in (2, 3)]
+        for seed in range(2):
+            rc, lc, kc = card.grow(gc, hc, iter_seed=seed)
+            rp, lp, kp = cpu.grow(g, h, iter_seed=seed)
+            with host_loop(torch):
+                rh, lh, kh = card.grow(gc, hc, iter_seed=seed)
+            trees.append({
+                "splits": [kc, kp, kh],
+                "ints_equal": bool(np.array_equal(rc[:, ints], rp[:, ints])),
+                "floats_close": bool(np.allclose(rc[:, floats],
+                                                 rp[:, floats], rtol=1e-4,
+                                                 atol=1e-4)),
+                "max_rel_diff": float(np.max(
+                    np.abs(rc[:, floats] - rp[:, floats])
+                    / np.maximum(np.abs(rp[:, floats]), 1e-3))),
+                "leaf_ids_equal": bool(torch.equal(lc.cpu(), lp)),
+                "host_loop_records_equal": bool(np.array_equal(rc, rh)),
+                "host_loop_leaf_ids_equal": bool(torch.equal(lc, lh))})
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card.grow_compact(gc, hc, iter_seed=2)
+            no_sync = True
+        except RuntimeError as e:
+            no_sync = str(e)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ok = no_sync is True and all(
+            t["ints_equal"] and t["leaf_ids_equal"] and t["floats_close"]
+            and t["splits"][0] > 1 and (not quant or (
+                t["host_loop_records_equal"]
+                and t["host_loop_leaf_ids_equal"]))
+            for t in trees)
+        runs.append({"quantized_grad": quant, "ok": ok, "trees": trees,
+                     "capture_s": capture_s,
+                     "captured_step_launches": {
+                         k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]:
+                         v for k, v in card._loop.launches_per_step.items()},
+                     "replays_per_tree": card._loop.num_steps,
+                     "capture_s_in_loop": card._loop.capture_s,
+                     "no_sync_inside_tree": no_sync,
+                     "peak_device_bytes":
+                         int(torch.cuda.max_memory_allocated())})
+    emit({"phase": "loop", "rows": 20_000, "num_leaves": 31, "runs": runs})
+    if not all(r["ok"] for r in runs):
+        fail("the captured device loop disagrees with the same step on the "
+             "CPU or with the host loop, or synchronised inside a tree")
 
 
 def reference_phase(torch, dev, lgb, k1, params, f, Config,
@@ -1270,9 +1691,7 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
     # integer differs between the devices from the same scores. The
     # grower itself (quantization, K3 / K3t, the split scan) is held to
     # the same trees from identical gradients.
-    ref_rows = []
-    for strategy, quant in (("compact", False), ("compact", True),
-                            ("masked", False), ("masked", True)):
+    def reference_row(strategy, quant):
         os.environ["LGBM_TPU_STRATEGY"] = strategy
         qp = dict(sp, quantized_grad=quant, grad_bits=8)
         on_card = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=5)
@@ -1305,6 +1724,20 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
             row["root_hist_equal"] = bool(torch.equal(card_root, cpu_root))
             row["ok"] = (row["ok"] and row["root_hist_equal"]
                          and row["same_trees_from_fixed_gradients"])
+        return row
+
+    ref_rows = []
+    for strategy, quant, growth in (
+            ("compact", False, "device loop"),
+            ("compact", True, "device loop"),
+            ("compact", False, "host loop"), ("compact", True, "host loop"),
+            ("masked", False, "host loop"), ("masked", True, "host loop")):
+        # the compact strategy's host loop: the generic iteration over
+        # grow_tree_compact_core, on both devices
+        with host_loop(torch) if strategy == "compact" \
+                and growth == "host loop" else contextlib.nullcontext():
+            row = reference_row(strategy, quant)
+        row["growth"] = growth
         ref_rows.append(row)
     os.environ.pop("LGBM_TPU_STRATEGY", None)
     emit({"phase": "reference", "rows": 20_000, "rounds": 5,

@@ -50,8 +50,6 @@ def check_supported(cfg: Config) -> None:
         bad = "tree_learner=%s" % cfg.tree_learner
     elif cfg.stream_mode != "off":
         bad = "stream_mode=%s" % cfg.stream_mode
-    elif cfg.grow_program != "per_split":
-        bad = "grow_program=%s" % cfg.grow_program
     elif cfg.forcedsplits_filename:
         bad = "forcedsplits_filename"
     elif cfg.cegb_tradeoff > 0 and (

@@ -161,6 +161,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 96 * 1024;
+// split descriptor fields read by the device-window entries
+// (ops/kernels/desc.py; the tests read these)
+constexpr int kDescGo = 0;
+constexpr int kDescSrc = 1;
+constexpr int kDescBegin = 2;
+constexpr int kDescCount = 3;
+constexpr int kDescLphys = 4;
+constexpr int kDescLeftSmall = 5;
 
 // Splits v into the hi and lo words of its block's fixed point (see the
 // note at the top): x = v * 2^s, hi = rint(x), lo = rint((x - hi) * 2^L).
@@ -183,15 +191,17 @@ constexpr int kCodeChunk = 16;
 // (see the note at the top)
 constexpr long long kMaxRowsPerBlock = 1ll << 16;
 
-template <typename CodeT>
-__global__ void __launch_bounds__(kThreads)
-hist_fixed_kernel(const CodeT* __restrict__ codes, long long P, int F,
-                  long long row_stride, long long col_stride,
-                  const float* __restrict__ gh, long long gh_stride, int B,
-                  int feat_tile, float* __restrict__ out) {
+// One block's part of a float histogram over P rows: row_gh(r, g, h, c)
+// gives a row's three f32 lanes, row_codes(r, f, m, code) its codes of
+// tile features [f, f + m) (-1 past m). `out` is the tile's (ft, B, 3),
+// zeroed by the launcher; feat_tile sizes the shared-memory tile.
+template <typename RowGh, typename RowCodes>
+__device__ __forceinline__ void fixed_hist_body(long long P, int ft, int B,
+                                                int feat_tile,
+                                                float* __restrict__ out,
+                                                RowGh row_gh,
+                                                RowCodes row_codes) {
   extern __shared__ __align__(16) unsigned char hist_smem[];
-  const int f0 = blockIdx.y * feat_tile;
-  const int ft = min(feat_tile, F - f0);
   const int slots = ft * B * 3;
   // dynamic shared memory: hi words, lo words, then the pre-pass's
   // per-warp sums (3 floats, 1 int each)
@@ -209,8 +219,8 @@ hist_fixed_kernel(const CodeT* __restrict__ codes, long long P, int F,
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
   int live = 0;
   for (long long r = r0; r < P; r += step) {
-    const float* g = gh + r * gh_stride;
-    const float gv = g[0], hv = g[1], cv = g[2];
+    float gv, hv, cv;
+    row_gh(r, gv, hv, cv);
     if (gv == 0.f && hv == 0.f && cv == 0.f) continue;
     a0 += fabsf(gv);
     a1 += fabsf(hv);
@@ -248,18 +258,14 @@ hist_fixed_kernel(const CodeT* __restrict__ codes, long long P, int F,
 
   // the row walk: per live row, three hi / lo pairs; per feature, their
   // nonzero words into the code's slot
-  const bool words = sizeof(CodeT) == 1 && col_stride == 1 &&
-                     (row_stride & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(codes + f0) & 3) == 0;
   for (long long r = r0; r < P; r += step) {
-    const float* g = gh + r * gh_stride;
-    const float gv = g[0], hv = g[1], cv = g[2];
+    float gv, hv, cv;
+    row_gh(r, gv, hv, cv);
     if (gv == 0.f && hv == 0.f && cv == 0.f) continue;
     int h0, h1, h2, l0, l1, l2;
     fixed_split(gv, sc[0], L, h0, l0);
     fixed_split(hv, sc[1], L, h1, l1);
     fixed_split(cv, sc[2], L, h2, l2);
-    const CodeT* row = codes + r * row_stride + (long long)f0 * col_stride;
     auto add = [&](int f, int code) {
       // codes outside [0, B) contribute nothing, as in the one-hot form
       if (code < 0 || code >= B) return;
@@ -272,43 +278,66 @@ hist_fixed_kernel(const CodeT* __restrict__ codes, long long P, int F,
       if (l2) atomicAdd(lo_sh + i + 2, l2);
     };
     // the codes of up to kCodeChunk features are loaded before their
-    // atomics, so that their loads are in flight together (the (F, N)
-    // view reads one byte per feature, each from another cache line)
+    // atomics, so that their loads are in flight together
     for (int f = 0; f < ft; f += kCodeChunk) {
-      const int m = min(kCodeChunk, ft - f);
       int c[kCodeChunk];
-#pragma unroll
-      for (int k = 0; k < kCodeChunk; k += 4) {
-        if (words && k + 4 <= m) {
-          const uint32_t q =
-              reinterpret_cast<const uint32_t*>(row)[(f + k) >> 2];
-          c[k] = q & 0xff;
-          c[k + 1] = (q >> 8) & 0xff;
-          c[k + 2] = (q >> 16) & 0xff;
-          c[k + 3] = q >> 24;
-        } else {
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-            c[k + t] = k + t < m
-                           ? (int)row[(long long)(f + k + t) * col_stride]
-                           : -1;
-        }
-      }
+      row_codes(r, f, min(kCodeChunk, ft - f), c);
 #pragma unroll
       for (int k = 0; k < kCodeChunk; ++k) add(f + k, c[k]);
     }
   }
   __syncthreads();
 
-  float* o = out + (long long)f0 * B * 3;
   for (int i = threadIdx.x; i < slots; i += blockDim.x) {
     const int h = hi_sh[i], l = lo_sh[i];
     if (h == 0 && l == 0) continue;
     const long long t = (long long)h * (1ll << L) + l;
     const int j = i % 3;
     const int sj = j == 0 ? sc[0] : (j == 1 ? sc[1] : sc[2]);
-    atomicAdd(o + i, ldexpf(__ll2float_rn(t), -(sj + L)));
+    atomicAdd(out + i, ldexpf(__ll2float_rn(t), -(sj + L)));
   }
+}
+
+template <typename CodeT>
+__global__ void __launch_bounds__(kThreads)
+hist_fixed_kernel(const CodeT* __restrict__ codes, long long P, int F,
+                  long long row_stride, long long col_stride,
+                  const float* __restrict__ gh, long long gh_stride, int B,
+                  int feat_tile, float* __restrict__ out) {
+  const int f0 = blockIdx.y * feat_tile;
+  const bool words = sizeof(CodeT) == 1 && col_stride == 1 &&
+                     (row_stride & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(codes + f0) & 3) == 0;
+  fixed_hist_body(
+      P, min(feat_tile, F - f0), B, feat_tile, out + (long long)f0 * B * 3,
+      [=](long long r, float& gv, float& hv, float& cv) {
+        const float* g = gh + r * gh_stride;
+        gv = g[0];
+        hv = g[1];
+        cv = g[2];
+      },
+      // the (F, N) view reads one byte per feature, each from another
+      // cache line
+      [=](long long r, int f, int m, int (&c)[kCodeChunk]) {
+        const CodeT* row = codes + r * row_stride + (long long)f0 * col_stride;
+#pragma unroll
+        for (int k = 0; k < kCodeChunk; k += 4) {
+          if (words && k + 4 <= m) {
+            const uint32_t q =
+                reinterpret_cast<const uint32_t*>(row)[(f + k) >> 2];
+            c[k] = q & 0xff;
+            c[k + 1] = (q >> 8) & 0xff;
+            c[k + 2] = (q >> 16) & 0xff;
+            c[k + 3] = q >> 24;
+          } else {
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              c[k + t] = k + t < m
+                             ? (int)row[(long long)(f + k + t) * col_stride]
+                             : -1;
+          }
+        }
+      });
 }
 
 template <typename CodeT>
@@ -583,11 +612,10 @@ hist_int_kernel(const CodeT* __restrict__ codes, long long P, int F,
 // The packed-row entry: (W, D) int32 rows, codes of kBits in words [0, cw),
 // the (qg << 16 | qh) word at cw; re-quantized at the ratios *r_g, *r_h.
 template <int kBits, bool kPack>
-__global__ void __launch_bounds__(kThreads, kIntBlocksPerSM)
-hist_rows_kernel(const int* __restrict__ rows, long long W, int D, int cw,
-                 int c_cols, const float* __restrict__ r_g,
-                 const float* __restrict__ r_h, int qcap_op, int B,
-                 int feat_tile, int* __restrict__ out) {
+__device__ __forceinline__ void rows_hist_body(
+    const int* __restrict__ rows, long long W, int D, int cw, int c_cols,
+    const float* __restrict__ r_g, const float* __restrict__ r_h,
+    int qcap_op, int B, int feat_tile, int* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char hist_smem[];
   const int f0 = blockIdx.y * feat_tile;
   const float rg = *r_g, rh = *r_h, cap = (float)qcap_op;
@@ -606,6 +634,79 @@ hist_rows_kernel(const int* __restrict__ rows, long long W, int D, int cw,
       },
       [=](long long r, int f, int m, int (&cd)[kCodeChunk]) {
         word_codes<kBits>(words + r * D, f, m, cd);
+      });
+}
+
+template <int kBits, bool kPack>
+__global__ void __launch_bounds__(kThreads, kIntBlocksPerSM)
+hist_rows_kernel(const int* __restrict__ rows, long long W, int D, int cw,
+                 int c_cols, const float* __restrict__ r_g,
+                 const float* __restrict__ r_h, int qcap_op, int B,
+                 int feat_tile, int* __restrict__ out) {
+  rows_hist_body<kBits, kPack>(rows, W, D, cw, c_cols, r_g, r_h, qcap_op, B,
+                               feat_tile, out);
+}
+
+// The device-window entries read their rows from the split descriptor
+// (ops/kernels/desc.py): the smaller child of the split, which the
+// partition kernel has just moved to the other buffer -- rows [begin +
+// (left_small ? 0 : lphys), + (left_small ? lphys : count - lphys)) of
+// buffer 1 - src. A descriptor whose go is 0 returns at once (every block
+// alike); the root's descriptor names all rows of buffer 0.
+struct DescWindow {
+  const int* rows;
+  long long n;
+};
+
+__device__ __forceinline__ DescWindow desc_window(const int* buf0,
+                                                  const int* buf1,
+                                                  const int* desc, int D) {
+  const long long begin = desc[kDescBegin], count = desc[kDescCount];
+  const long long lphys = desc[kDescLphys];
+  const bool left_small = desc[kDescLeftSmall] != 0;
+  const long long off = begin + (left_small ? 0 : lphys);
+  return {(desc[kDescSrc] ? buf0 : buf1) + off * D,
+          left_small ? lphys : count - lphys};
+}
+
+template <int kBits, bool kPack>
+__global__ void __launch_bounds__(kThreads, kIntBlocksPerSM)
+hist_rows_window_kernel(const int* buf0, const int* buf1,
+                        const int* __restrict__ desc, int D, int cw,
+                        int c_cols, const float* __restrict__ r_g,
+                        const float* __restrict__ r_h, int qcap_op, int B,
+                        int feat_tile, int* __restrict__ out) {
+  if (!desc[kDescGo]) return;
+  const DescWindow win = desc_window(buf0, buf1, desc, D);
+  rows_hist_body<kBits, kPack>(win.rows, win.n, D, cw, c_cols, r_g, r_h,
+                               qcap_op, B, feat_tile, out);
+}
+
+// K1 over the same window: codes of kBits in words [0, cw), the f32
+// (grad, hess, weight) at words cw .. cw + 2.
+template <int kBits>
+__global__ void __launch_bounds__(kThreads)
+hist_fixed_window_kernel(const int* buf0, const int* buf1,
+                         const int* __restrict__ desc, int D, int cw,
+                         int c_cols, int B, int feat_tile,
+                         float* __restrict__ out) {
+  if (!desc[kDescGo]) return;
+  const DescWindow win = desc_window(buf0, buf1, desc, D);
+  const int* rows = win.rows;
+  const int f0 = blockIdx.y * feat_tile;
+  const uint32_t* words =
+      reinterpret_cast<const uint32_t*>(rows) + f0 / (32 / kBits);
+  fixed_hist_body(
+      win.n, min(feat_tile, c_cols - f0), B, feat_tile,
+      out + (long long)f0 * B * 3,
+      [=](long long r, float& gv, float& hv, float& cv) {
+        const float* g = reinterpret_cast<const float*>(rows + r * D + cw);
+        gv = g[0];
+        hv = g[1];
+        cv = g[2];
+      },
+      [=](long long r, int f, int m, int (&c)[kCodeChunk]) {
+        word_codes<kBits>(words + r * D, f, m, c);
       });
 }
 
@@ -794,6 +895,74 @@ int launch_rows_bits(const void* rows, long long W, int D, int cw,
                                    qcap_op, B, out, grid_x, s);
 }
 
+// The integer window entry at the shape of the largest window, n_max
+// rows: packing kernels grow the grid so that no block walks more than
+// kMaxPackedRowsPerBlock of them.
+template <int kBits, bool kPack>
+int launch_rows_window(const void* buf0, const void* buf1, const void* desc,
+                       long long n_max, int D, int cw, int c_cols,
+                       const void* r_g, const void* r_h, int qcap_op, int B,
+                       void* out, int grid_x, cudaStream_t s) {
+  auto kernel = hist_rows_window_kernel<kBits, kPack>;
+  int feat_tile;
+  size_t smem;
+  dim3 grid;
+  const int e = int_launch_shape<kPack>(kernel, n_max, c_cols, B, 32 / kBits,
+                                        grid_x, feat_tile, smem, grid);
+  if (e) return e;
+  return launch_clustered(
+      kernel, grid, smem, cluster_size(kPack), out, (size_t)c_cols * B * 12,
+      s, static_cast<const int*>(buf0), static_cast<const int*>(buf1),
+      static_cast<const int*>(desc), D, cw, c_cols,
+      static_cast<const float*>(r_g), static_cast<const float*>(r_h), qcap_op,
+      B, feat_tile, static_cast<int*>(out));
+}
+
+template <int kBits>
+int launch_window_bits(const void* buf0, const void* buf1, const void* desc,
+                       long long n_max, int D, int cw, int c_cols, int quant,
+                       const void* r_g, const void* r_h, int qcap_op, int B,
+                       void* out, int grid_x, cudaStream_t s) {
+  if (quant) {
+    // lanes clamped to |q| <= qcap_op <= 127 pack, as the int8 operand does
+    if (qcap_op <= 127)
+      return launch_rows_window<kBits, true>(buf0, buf1, desc, n_max, D, cw,
+                                             c_cols, r_g, r_h, qcap_op, B,
+                                             out, grid_x, s);
+    return launch_rows_window<kBits, false>(buf0, buf1, desc, n_max, D, cw,
+                                            c_cols, r_g, r_h, qcap_op, B, out,
+                                            grid_x, s);
+  }
+  const int align = 32 / kBits;
+  // the float kernel's feature tile: whole code words where F needs more
+  // than one tile
+  int feat_tile = kFixedTileBytes / (B * 24);
+  if (feat_tile >= c_cols) {
+    feat_tile = c_cols;
+  } else {
+    feat_tile -= feat_tile % align;
+    if (feat_tile < align) feat_tile = align;
+  }
+  const size_t smem = (size_t)feat_tile * B * 24 + kWarps * 16;
+  if (smem > (size_t)kMaxBlockSmemBytes) return (int)cudaErrorInvalidValue;
+  const long long min_grid = (n_max + kMaxRowsPerBlock - 1) / kMaxRowsPerBlock;
+  if (grid_x < min_grid) grid_x = (int)min_grid;
+  auto kernel = hist_fixed_window_kernel<kBits>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // the blocks add into out
+  const cudaError_t z = cudaMemsetAsync(out, 0, (size_t)c_cols * B * 12, s);
+  if (z != cudaSuccess) return (int)z;
+  kernel<<<dim3(grid_x, (c_cols + feat_tile - 1) / feat_tile), kThreads, smem,
+           s>>>(static_cast<const int*>(buf0), static_cast<const int*>(buf1),
+                static_cast<const int*>(desc), D, cw, c_cols, B, feat_tile,
+                static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // codes: (P, F) bin codes of `code_bytes` bytes each (1: uint8, 2: uint16,
@@ -855,6 +1024,39 @@ extern "C" int lgbt_hist_rows_launch(const void* rows, long long W, int D,
     case 16:
       return launch_rows_bits<16>(rows, W, D, cw, c_cols, r_g, r_h, qcap_op,
                                   B, out, grid_x, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The device-window entries: K1 (quant = 0: f32 out) or K3's packed-row
+// entry (quant = 1: int32 out, re-quantized at *r_g, *r_h) over the window
+// the split descriptor `desc` names in buf0 / buf1, the compact core's two
+// (N, D) int32 working buffers; n_max: the most rows a window can have
+// (N), which sizes the grid. The grid is fixed whatever the window, so the
+// launch replays from a CUDA graph; the launcher always zeroes out
+// (c_cols, B, 3) first.
+extern "C" int lgbt_hist_window_launch(const void* buf0, const void* buf1,
+                                       const void* desc, long long n_max,
+                                       int D, int cw, int c_cols,
+                                       int item_bits, int quant,
+                                       const void* r_g, const void* r_h,
+                                       int qcap_op, int B, void* out,
+                                       int grid_x, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (item_bits) {
+    case 4:
+      return launch_window_bits<4>(buf0, buf1, desc, n_max, D, cw, c_cols,
+                                   quant, r_g, r_h, qcap_op, B, out, grid_x,
+                                   s);
+    case 8:
+      return launch_window_bits<8>(buf0, buf1, desc, n_max, D, cw, c_cols,
+                                   quant, r_g, r_h, qcap_op, B, out, grid_x,
+                                   s);
+    case 16:
+      return launch_window_bits<16>(buf0, buf1, desc, n_max, D, cw, c_cols,
+                                    quant, r_g, r_h, qcap_op, B, out, grid_x,
+                                    s);
     default:
       return (int)cudaErrorInvalidValue;
   }

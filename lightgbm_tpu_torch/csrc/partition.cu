@@ -43,6 +43,14 @@
 // Keys must lie in {0, 1, 2}. The output is a second buffer (out-of-place):
 // the caller ping-pongs two working buffers.
 //
+// Two entries launch it: one takes the window as host ints (pointers, W);
+// the device-window entry reads it from the split descriptor in device
+// memory (which buffer, first row, row count, go) on a fixed grid of the
+// most blocks the card holds, so the compact core's split step, captured
+// as a CUDA graph, replays one launch at every split. Its blocks share
+// out the window's tiles; at small windows most of them only count and
+// meet the barrier, a fixed cost of the full wave.
+//
 // Plain C interface (loaded with ctypes): launches on the given stream,
 // allocates nothing (the caller passes 2 * grid int32 of scratch),
 // returns the launch's CUDA error (a refused cooperative launch included).
@@ -61,6 +69,12 @@ constexpr int kMinTile = 4;                  // keeps tile starts 16-byte aligne
 constexpr int kStageBytes = 96 * 1024;       // both staged tiles, aimed at
 constexpr int kMaxStageBytes = 192 * 1024;   // ... and at most
 constexpr int kMaxD = kMaxStageBytes / (8 * kMinTile);
+// split descriptor fields read by the device-window entry
+// (ops/kernels/desc.py; the tests read these)
+constexpr int kDescGo = 0;
+constexpr int kDescSrc = 1;
+constexpr int kDescBegin = 2;
+constexpr int kDescCount = 3;
 
 // rows per tile for D-word rows, a multiple of 4; 0 where D is not taken
 __host__ __device__ inline int tile_rows(int D) {
@@ -107,10 +121,11 @@ __device__ __forceinline__ void load_tile(int* stage, const int4* win16,
   cp_async_commit();
 }
 
-__global__ void __launch_bounds__(kThreads)
-partition_kernel(const int32_t* __restrict__ win,
-                 const int32_t* __restrict__ key, int W, int D, int T,
-                 int* counts, int32_t* __restrict__ out) {
+// One launch's work over the window win -> out; every block of the grid
+// calls it (a block with no tile still counts and meets the barrier).
+__device__ __forceinline__ void partition_body(
+    const int32_t* __restrict__ win, const int32_t* __restrict__ key, int W,
+    int D, int T, int* counts, int32_t* __restrict__ out) {
   extern __shared__ __align__(16) int smem[];
   __shared__ int red[4][kWarps];
   __shared__ int wsum[kWarps];
@@ -127,9 +142,13 @@ partition_kernel(const int32_t* __restrict__ win,
   const int a = (int)((reinterpret_cast<uintptr_t>(win) >> 2) & 3);
   const int4* win16 = reinterpret_cast<const int4*>(win - a);
 
-  load_tile(smem, win16, r_lo, min(T, W - r_lo), D, a);
-  // the first tile's keys, in flight through the count and the barrier
-  int k_next = tid < min(T, W - r_lo) ? key[r_lo + tid] : -1;
+  // the first tile's rows and keys, in flight through the count and the
+  // barrier (a block of the device-window entry may have no tile)
+  int k_next = -1;
+  if (t_lo < t_hi) {
+    load_tile(smem, win16, r_lo, min(T, W - r_lo), D, a);
+    k_next = tid < min(T, W - r_lo) ? key[r_lo + tid] : -1;
+  }
 
   // ---- A: count this block's keys ------------------------------------
   int c0 = 0, c1 = 0;
@@ -255,6 +274,29 @@ partition_kernel(const int32_t* __restrict__ win,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+partition_kernel(const int32_t* __restrict__ win,
+                 const int32_t* __restrict__ key, int W, int D, int T,
+                 int* counts, int32_t* __restrict__ out) {
+  partition_body(win, key, W, D, T, counts, out);
+}
+
+// The device-window entry: the window is rows [begin, begin + count) of
+// the buffer the descriptor names (src), moved to the same rows of the
+// other buffer; a descriptor whose go is 0 returns at once (every block
+// alike, so none waits at the barrier).
+__global__ void __launch_bounds__(kThreads)
+partition_window_kernel(int32_t* buf0, int32_t* buf1,
+                        const int* __restrict__ desc,
+                        const int32_t* __restrict__ key, int D, int T,
+                        int* counts) {
+  if (!desc[kDescGo]) return;
+  const long long off = (long long)desc[kDescBegin] * D;
+  const bool src = desc[kDescSrc] != 0;
+  partition_body((src ? buf1 : buf0) + off, key, desc[kDescCount], D, T,
+                 counts, (src ? buf0 : buf1) + off);
+}
+
 }  // namespace
 
 extern "C" int lgbt_partition_tile_rows(int D) { return tile_rows(D); }
@@ -263,28 +305,38 @@ extern "C" int lgbt_partition_smem_bytes(int D) {
   return tile_rows(D) ? smem_bytes(D) : 0;
 }
 
-static cudaError_t set_smem(int smem) {
+template <typename Kernel>
+static cudaError_t set_smem(Kernel kernel, int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(partition_kernel,
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
 }
 
-// *grid = the most blocks of D-word rows that can be resident at once on
-// the current device: the cooperative launch's limit
-extern "C" int lgbt_partition_max_grid(int D, int* grid) {
+// *grid = the most blocks of `kernel` over D-word rows that can be
+// resident at once on the current device: the cooperative launch's limit
+template <typename Kernel>
+static int max_grid(Kernel kernel, int D, int* grid) {
   if (!tile_rows(D)) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = set_smem(smem_bytes(D));
+  if (e == cudaSuccess) e = set_smem(kernel, smem_bytes(D));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, partition_kernel,
-                                                      kThreads,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads,
                                                       smem_bytes(D));
   *grid = per * sms;
   return (int)e;
+}
+
+extern "C" int lgbt_partition_max_grid(int D, int* grid) {
+  return max_grid(partition_kernel, D, grid);
+}
+
+// the same for the device-window entry (its grid, fixed at every split)
+extern "C" int lgbt_partition_window_max_grid(int D, int* grid) {
+  return max_grid(partition_window_kernel, D, grid);
 }
 
 // win: (W, D) int32 rows, contiguous. key: (W,) int32 in {0, 1, 2}.
@@ -297,12 +349,46 @@ extern "C" int lgbt_partition_launch(const int32_t* win, const int32_t* key,
   if (!T || W < 1 || grid < 1 || (long long)grid * T >= (long long)W + T)
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(D);
-  cudaError_t e = set_smem(smem);
+  cudaError_t e = set_smem(partition_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&win, &key, &W, &D, &T, &scratch, &out};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(partition_kernel),
                                   dim3(grid), dim3(kThreads), args, smem,
                                   static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// The device-window entry, whose window is read from the split descriptor
+// in device memory (ops/kernels/desc.py): go, src, begin, count. The same
+// arguments and grid serve every split, so the launch replays from a CUDA
+// graph: grid = lgbt_partition_window_max_grid(D), and the blocks take the
+// window's tiles as they come (blocks past the last tile only count and
+// meet the barrier). Launched with cudaLaunchKernelEx and the cooperative
+// attribute, which stream capture records. key: the window's keys at
+// key[0, count). scratch: 2 * grid int32.
+extern "C" int lgbt_partition_window_launch(int32_t* buf0, int32_t* buf1,
+                                            const int* desc,
+                                            const int32_t* key, int D,
+                                            int grid, int* scratch,
+                                            void* stream) {
+  int T = tile_rows(D);
+  if (!T || grid < 1) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(D);
+  cudaError_t e = set_smem(partition_window_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, partition_window_kernel, buf0, buf1, desc,
+                         key, D, T, scratch);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }

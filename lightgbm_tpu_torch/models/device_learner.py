@@ -36,12 +36,28 @@ int32 histograms and the pool are the JAX package's bit for bit; the
 scans read dequantized f32 copies. The compact core re-quantizes each
 leaf's operand at a leaf-local ratio when ``quant_renew`` is on.
 
-Deltas from the JAX cores: torch sizes are dynamic, so the window-size
-ladder (``_size_classes``), the ``lax.switch`` over it and the padding of
-the working buffer are gone -- every window is exactly the leaf. The price
-is that each split reads the chosen leaf's best row on the host (one
-device->host sync per split) to slice its window; split records are then
-assembled on the host directly.
+**The compact core on the device** (``grow_compact``, what ``grow`` and
+the fused iteration run). As in the JAX package, the whole tree grows
+without a host sync: the state lives in device tensors allocated once per
+learner (``DeviceCarry``, the JAX ``_CarryC`` without LRU pool slots and
+categorical fields), and ``split_step`` is the core's split body over it,
+every write gated on the step's ``go``. ``ops/fused.py::SplitLoop`` runs
+it num_leaves - 1 times per tree: replays of one CUDA graph on the card,
+eager steps on the CPU. The kernels of the step read the split's window
+from the split descriptor in device memory (ops/kernels/desc.py) on grids
+that do not depend on it, so the JAX core's window-size ladder
+(``_size_classes``, a ``lax.switch`` over padded windows) has no
+counterpart: each kernel walks exactly the leaf's rows. The tree's split
+records, its split count k and the row -> leaf map stay on the device; the
+caller fetches records and k in one copy.
+
+``grow_tree_compact_core`` is the same core as a host loop (one host sync
+per split to slice each window with host ints). It is kept as the oracle
+the device loop's records are held against, and no parameter reaches it.
+
+``make_fused_step`` ports the JAX single-program boosting iteration:
+gradients, the working rows, the tree, its leaf values from the records
+and the score update, all on the device.
 """
 from __future__ import annotations
 
@@ -56,11 +72,20 @@ from ..io.dataset import Dataset
 from ..ops import bundle as bundle_ops
 from ..ops import quantize as quant_ops
 from ..ops import split as split_ops
+from ..ops.fused import SplitLoop, leaf_values_from_rec
 from ..ops.histogram import build_histogram, subtract_histogram
+from ..ops.kernels import desc as dsc
+from ..ops.kernels import histogram as khist
+from ..ops.kernels import partition as kpart
+from ..ops.kernels import split_key as kkey
 from ..ops.kernels.histogram import (build_histogram_quantized_rows,
                                      build_histogram_quantized_t,
-                                     build_histogram_t, packed_codes)
-from ..ops.kernels.partition import stable_partition3
+                                     build_histogram_quantized_window,
+                                     build_histogram_t,
+                                     build_histogram_window, packed_codes)
+from ..ops.kernels.partition import (stable_partition3,
+                                     stable_partition3_window)
+from ..ops.kernels.split_key import split_key
 from ..ops.partition import decide_left
 from ..utils import log
 from ..utils import random as trandom
@@ -184,10 +209,15 @@ def _tree_helpers(f_numbins, f_missing, f_default, f_monotone, f_penalty,
             feat, rel, t, use_m1, prefix, sg, sh, cnt, mn, mx,
             l1=l1, l2=l2, max_delta_step=max_delta_step)
 
-    def best_row(res: split_ops.SplitResult, child_depth: int):
+    def best_row(res: split_ops.SplitResult, child_depth):
+        # child_depth: a host int, or a 0-d device tensor (device loop)
         gain = res.gain
-        if max_depth > 0 and child_depth >= max_depth:
-            gain = torch.full_like(gain, NEG_INF)
+        if max_depth > 0:
+            deep = child_depth >= max_depth
+            if torch.is_tensor(deep):
+                gain = torch.where(deep, NEG_INF, gain)
+            elif deep:
+                gain = torch.full_like(gain, NEG_INF)
         return torch.stack([
             gain, res.feature.float(), res.threshold.float(),
             res.default_left.float(), res.left_sum_grad,
@@ -291,18 +321,6 @@ def _quant_prepare(grad, hess, key, *, quant_bits: int, quant_renew: bool):
     qg, qh = quant_ops.unpack_gh(packed)
     m = torch.stack([qg.abs().max(), qh.abs().max()]).float()
     return packed, s_g, s_h, m
-
-
-def _quant_side_maxes(win: torch.Tensor, go_left: torch.Tensor,
-                      *, cw: int) -> torch.Tensor:
-    """(2, 2) f32 [[max|qg|, max|qh|] left, [..] right] over a window:
-    each child's stored-int maxes, which seed its leaf-local ratio."""
-    qg, qh = quant_ops.unpack_gh(win[:, cw])
-    a = torch.stack([qg.abs(), qh.abs()], dim=1).float()
-    zero = torch.zeros((), dtype=torch.float32, device=win.device)
-    left = torch.where(go_left[:, None], a, zero).amax(dim=0)
-    right = torch.where(go_left[:, None], zero, a).amax(dim=0)
-    return torch.stack([left, right])
 
 
 def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
@@ -414,7 +432,8 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
                                  item_bits=item_bits)
         rq = ratios(leafmax[l] if renew else None)
         if renew:
-            qmax2 = _quant_side_maxes(win, go_left, cw=cw)
+            # each child's max |stored int|, which seeds its ratio
+            qmax2 = kkey.side_maxes(win, go_left, cw).float().view(2, 2)
         key3 = (~go_left).to(torch.int32)             # 0 = left, 1 = right
         out = partition_window(win, key3, bufs[dst][begin:begin + pcount])
         # all-ones weights: below 2**24 rows the record's f32 count is
@@ -466,6 +485,194 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
     leaf_id = torch.empty(n, dtype=torch.int64, device=dev)
     leaf_id[row_ids] = pos_leaf
     return rec, leaf_id, k
+
+
+def _get(t: torch.Tensor, i1: torch.Tensor) -> torch.Tensor:
+    """t[i] for a (1,) int64 device index, without a host sync (indexing
+    with a 0-d tensor reads it on the host)."""
+    return t.index_select(0, i1)[0]
+
+
+def _put(t: torch.Tensor, i1: torch.Tensor, v: torch.Tensor,
+         go: torch.Tensor) -> None:
+    """t[i] = v where go, else unchanged: the gated write of the step."""
+    t.index_copy_(0, i1, torch.where(go, v, _get(t, i1))[None])
+
+
+class DeviceCarry:
+    """The compact core's state on the device, allocated once per learner
+    at fixed addresses (a captured step replays against them): the JAX
+    _CarryC without the LRU pool's slot fields and the categorical ones.
+
+    data, spare   the two (N, D) int32 working buffers; a leaf's rows lie
+                  in one of them (leaf_buf), rows [leaf_begin, + leaf_phys)
+    key           (N,) int32: the split window's key3 (split-key -> K4)
+    desc          the split descriptor (ops/kernels/desc.py); root_desc
+                  names all rows of data, for the root's histogram
+    k             0-d int32: splits made; best (L, 12), pool (L, C, B, 3),
+                  depth, leaf_min / leaf_max, rec (L-1, 13) as in the core
+    base_mask     (F,) bool feature sample of the tree
+    s_g, s_h      0-d f32 storage scales (quantized); scale_of / leafmax
+                  (L, 2) per-leaf ratios and max |stored int| (renew)
+    """
+
+    def __init__(self, n: int, d_cols: int, num_leaves: int, pool_shape,
+                 pool_dtype: torch.dtype, num_features: int, device):
+        L = num_leaves
+        i32 = dict(dtype=torch.int32, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.data = torch.zeros((n, d_cols), **i32)
+        self.spare = torch.zeros((n, d_cols), **i32)
+        self.key = torch.zeros(n, **i32)
+        self.desc = torch.zeros(dsc.SIZE, **i32)
+        self.root_desc = dsc.root(n, device)
+        self.k = torch.zeros((), **i32)
+        self.best = torch.zeros((L, 12), **f32)
+        self.pool = torch.zeros((L,) + tuple(pool_shape), dtype=pool_dtype,
+                                device=device)
+        self.leaf_begin = torch.zeros(L, **i32)
+        self.leaf_phys = torch.zeros(L, **i32)
+        self.leaf_buf = torch.zeros(L, **i32)
+        self.depth = torch.zeros(L, **i32)
+        self.leaf_min = torch.zeros(L, **f32)
+        self.leaf_max = torch.zeros(L, **f32)
+        self.rec = torch.zeros((L - 1, 13), **f32)
+        self.base_mask = torch.ones(num_features, dtype=torch.bool,
+                                    device=device)
+        self.s_g = torch.ones((), **f32)
+        self.s_h = torch.ones((), **f32)
+        self.scale_of = torch.ones((L, 2), **f32)
+        self.leafmax = torch.zeros((L, 2), **f32)
+        self.one = torch.ones((), **f32)
+        self.zero1 = torch.zeros(1, **i32)
+        self.zero4 = torch.zeros(4, **i32)
+
+
+def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
+               f_monotone: torch.Tensor, search2, c_cols: int,
+               item_bits: int, col_bins: int, num_leaves: int,
+               quant_bits: int = 0, qcap_op: int = 0,
+               renew: bool = False) -> None:
+    """One split of the compact core over the device state `c`: the JAX
+    core's body with its split_epilogue, at fixed shapes and with no host
+    sync. quant_bits > 0: the quantized rows, operand cap qcap_op, leaf
+    re-quantization when renew; the scales are the carry's. Every state
+    write is gated on go = (best gain > 1e-10) & (k < L - 1), and the
+    kernels return at once when the descriptor's GO is 0, so a step after
+    the tree stopped changes nothing."""
+    L = num_leaves
+    d_cols = c.data.shape[1]
+    cw = d_cols - (2 if quant_bits else 4)
+    l1 = torch.argmax(c.best[:, B_GAIN]).view(1)
+    row = _get(c.best, l1)
+    k = c.k.long()
+    go = (row[B_GAIN].double() > 1e-10) & (k < L - 1)
+    # indices stay in range when the tree is full (gated writes there)
+    new1 = torch.clamp(k + 1, max=L - 1).view(1)
+    k1 = torch.clamp(k, max=L - 2).view(1)
+    feat1 = torch.clamp(row[B_FEAT].long(), 0,
+                        meta_table.shape[0] - 1).view(1)
+    src = _get(c.leaf_buf, l1)
+    begin = _get(c.leaf_begin, l1)
+    pcount = _get(c.leaf_phys, l1)
+    left_small = row[B_LCNT] <= row[B_RCNT]
+
+    # the descriptor: the window and the decision; the left count and the
+    # side maxes start at 0 for the split-key kernel to add into
+    c.desc.copy_(torch.cat([
+        torch.stack([go.int(), src, begin, pcount]), c.zero1,
+        torch.stack([left_small.int(), row[B_THR].int(),
+                     (row[B_DLEFT] > 0.5).int()]),
+        _get(meta_table, feat1), c.zero4]))
+    split_key(c.data, c.spare, c.desc, c.key, item_bits=item_bits, cw=cw,
+              renew=renew)
+    stable_partition3_window(c.data, c.spare, c.key, c.desc)
+    if renew:
+        lm = _get(c.leafmax, l1)
+        rq = (quant_ops.requant_ratio(lm[0], qcap_op),
+              quant_ops.requant_ratio(lm[1], qcap_op))
+    else:
+        rq = (c.one, c.one)
+    if quant_bits:
+        hist_small = build_histogram_quantized_window(
+            c.data, c.spare, c.desc, cw, c_cols, item_bits, rq[0], rq[1],
+            qcap_op, quant_bits, col_bins)
+    else:
+        hist_small = build_histogram_window(c.data, c.spare, c.desc, cw,
+                                            c_cols, item_bits, col_bins)
+    lphys = c.desc[dsc.LPHYS]
+    rphys = pcount - lphys
+    parent = _get(c.pool, l1)
+    if renew:
+        sc = _get(c.scale_of, l1)
+        parent = quant_ops.rescale_histogram(parent, rq[0] / sc[0],
+                                             rq[1] / sc[1])
+    sibling = subtract_histogram(parent, hist_small)
+    hist_l = torch.where(left_small, hist_small, sibling)
+    hist_r = torch.where(left_small, sibling, hist_small)
+    _put(c.pool, l1, hist_l, go)
+    _put(c.pool, new1, hist_r, go)
+
+    # split_epilogue: monotone bounds, depth, the record, the re-scan
+    mono_f = _get(f_monotone, feat1)
+    mid = (row[B_LOUT] + row[B_ROUT]) * 0.5
+    pmin, pmax = _get(c.leaf_min, l1), _get(c.leaf_max, l1)
+    lo_mid, hi_mid = torch.maximum(pmin, mid), torch.minimum(pmax, mid)
+    lmin = torch.where(mono_f < 0, lo_mid, pmin)
+    lmax = torch.where(mono_f > 0, hi_mid, pmax)
+    rmin = torch.where(mono_f > 0, lo_mid, pmin)
+    rmax = torch.where(mono_f < 0, hi_mid, pmax)
+    mn2, mx2 = torch.stack([lmin, rmin]), torch.stack([lmax, rmax])
+    _put(c.leaf_min, l1, lmin, go)
+    _put(c.leaf_min, new1, rmin, go)
+    _put(c.leaf_max, l1, lmax, go)
+    _put(c.leaf_max, new1, rmax, go)
+    child_depth = _get(c.depth, l1) + 1
+    _put(c.depth, l1, child_depth, go)
+    _put(c.depth, new1, child_depth, go)
+    _put(c.rec, k1, torch.cat([
+        torch.stack([l1[0].float(), row[B_FEAT], row[B_THR], row[B_DLEFT],
+                     row[B_GAIN]]), row[B_LSG:]]), go)
+    if not quant_bits:
+        hist_l_s, hist_r_s = hist_l, hist_r
+    else:
+        scale3 = quant_ops.dequant_scale3(c.s_g * rq[0], c.s_h * rq[1])
+        hist_l_s, hist_r_s = hist_l.float() * scale3, hist_r.float() * scale3
+    rows2 = search2(torch.stack([hist_l_s, hist_r_s]), row[B_LSG::3][:2],
+                    row[B_LSH::3][:2], row[B_LCNT::3][:2], mn2, mx2,
+                    c.base_mask, child_depth)
+    _put(c.best, l1, rows2[0], go)
+    _put(c.best, new1, rows2[1], go)
+    if renew:
+        rq2 = torch.stack(rq)
+        side = c.desc[dsc.SIDE_MAX:].float().view(2, 2)
+        _put(c.scale_of, l1, rq2, go)
+        _put(c.scale_of, new1, rq2, go)
+        _put(c.leafmax, l1, side[0], go)
+        _put(c.leafmax, new1, side[1], go)
+    _put(c.leaf_begin, new1, begin + lphys, go)
+    _put(c.leaf_phys, l1, lphys, go)
+    _put(c.leaf_phys, new1, rphys, go)
+    _put(c.leaf_buf, l1, 1 - src, go)
+    _put(c.leaf_buf, new1, 1 - src, go)
+    c.k.copy_(c.k + go.int())
+
+
+def leaf_map(c: DeviceCarry) -> torch.Tensor:
+    """(N,) int64 row -> leaf map of the grown tree, from the leaves'
+    windows (begin, rows, buffer) with fixed-shape ops: each position's
+    leaf and buffer in window order, then scattered onto the row ids of
+    the final column (leaves not made have no rows)."""
+    n, d_cols = c.data.shape
+    order = torch.argsort(c.leaf_begin, stable=True)
+    rows = c.leaf_phys.index_select(0, order).long()
+    pos_leaf = torch.repeat_interleave(order, rows, output_size=n)
+    pos_buf = torch.repeat_interleave(c.leaf_buf.index_select(0, order),
+                                      rows, output_size=n)
+    row_ids = torch.where(pos_buf == 1, c.spare[:, d_cols - 1],
+                          c.data[:, d_cols - 1]).long()
+    return torch.empty(n, dtype=torch.int64, device=c.data.device) \
+        .scatter_(0, row_ids, pos_leaf)
 
 
 def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
@@ -618,7 +825,10 @@ class DeviceTreeLearner:
             "t_monotone": t(mono, torch.int32),
             "t_penalty": t(pen, torch.float32),
             "t_elide": t(f_elide, torch.int32),
-            "t_hist_idx": t(hi2, torch.int64)}
+            "t_hist_idx": t(hi2, torch.int64),
+            # the split descriptor's feature fields, per feature
+            "t_feature_table": t(np.stack([f_col, f_base, f_elide, nb, mt,
+                                           db], axis=1), torch.int32)}
 
         host_codes = np.asarray(host_codes)
         self.c_cols = host_codes.shape[1]
@@ -641,6 +851,8 @@ class DeviceTreeLearner:
                 self.item_bits = 8
             packed = self.pack_codes(host_codes)
             self.codes_pack = torch.from_numpy(packed.view(np.int32)).to(dev)
+            self._row_ids = torch.arange(dataset.num_data, dtype=torch.int32,
+                                         device=dev)
         else:
             # the masked strategy's (C, N) column view; 16-bit codes ride
             # as int16 and are read as uint16
@@ -651,7 +863,8 @@ class DeviceTreeLearner:
             self.codes_t = torch.from_numpy(ct).to(dev)
         self._ones_mask = torch.ones(self.num_features, dtype=torch.bool,
                                      device=dev)
-        self._spare: Optional[torch.Tensor] = None
+        self._carry: Optional[DeviceCarry] = None
+        self._loop: Optional[SplitLoop] = None
         self.last_leaf_id: Optional[torch.Tensor] = None
         self.stats = GrowStats()
 
@@ -694,31 +907,43 @@ class DeviceTreeLearner:
             mask[chosen] = True
         return mask
 
-    def working_buffer(self, grad: torch.Tensor,
-                       hess: torch.Tensor) -> torch.Tensor:
+    def working_buffer(self, grad: torch.Tensor, hess: torch.Tensor,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(N, CW + 4) int32: packed codes | bitcast f32 grad, hess,
-        weight (all ones) | row id."""
-        n = grad.shape[0]
-        gh = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
-        ids = torch.arange(n, dtype=torch.int32, device=grad.device)
-        return torch.cat([self.codes_pack, gh.view(torch.int32),
-                          ids[:, None]], dim=1)
+        weight (all ones) | row id, written into `out` (a new tensor when
+        None)."""
+        n, cw = self.codes_pack.shape
+        if out is None:
+            out = torch.empty((n, cw + 4), dtype=torch.int32,
+                              device=grad.device)
+        out[:, :cw] = self.codes_pack
+        f = out.view(torch.float32)
+        f[:, cw] = grad
+        f[:, cw + 1] = hess
+        f[:, cw + 2] = 1.0
+        out[:, cw + 3] = self._row_ids
+        return out
 
     def quant_working_buffer(self, grad: torch.Tensor, hess: torch.Tensor,
-                             key: torch.Tensor):
+                             key: torch.Tensor,
+                             out: Optional[torch.Tensor] = None):
         """The compact core's quantized rows: (N, CW + 2) int32 -- packed
-        codes | one (qg << 16 | qh) word | row id -- and their QuantRows.
-        All-ones weights need no weight word (the JAX gw = 1 layout)."""
-        n = grad.shape[0]
+        codes | one (qg << 16 | qh) word | row id -- written into `out` (a
+        new tensor when None), and their QuantRows. All-ones weights need
+        no weight word (the JAX gw = 1 layout)."""
+        n, cw = self.codes_pack.shape
         packed, s_g, s_h, root_max = _quant_prepare(
             grad, hess, key, quant_bits=self.quant_bits,
             quant_renew=self.quant_renew)
-        ids = torch.arange(n, dtype=torch.int32, device=grad.device)
-        data = torch.cat([self.codes_pack, packed[:, None], ids[:, None]],
-                         dim=1)
-        return data, QuantRows(self.quant_bits,
-                               quant_ops.quant_max(self.quant_bits, n),
-                               s_g, s_h, root_max)
+        if out is None:
+            out = torch.empty((n, cw + 2), dtype=torch.int32,
+                              device=grad.device)
+        out[:, :cw] = self.codes_pack
+        out[:, cw] = packed
+        out[:, cw + 1] = self._row_ids
+        return out, QuantRows(self.quant_bits,
+                              quant_ops.quant_max(self.quant_bits, n),
+                              s_g, s_h, root_max)
 
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
               bag_indices=None, iter_seed: int = 0) -> Tree:
@@ -731,35 +956,178 @@ class DeviceTreeLearner:
             log.warning("No further splits with positive gain")
         return self.replay_tree(rec, k)
 
+    def _base_mask(self, iter_seed: int) -> torch.Tensor:
+        """The tree's feature sample from the host RandomState, as in the
+        JAX package's train (None: every feature)."""
+        rng = np.random.RandomState(
+            (self.config.feature_fraction_seed + iter_seed) % (2**31 - 1))
+        mask = self._feature_mask(rng)
+        return None if mask.all() else torch.as_tensor(mask,
+                                                       device=self.device)
+
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              iter_seed: int = 0):
         """Grow one tree on the learner's strategy: the feature sample
         from the host RandomState and the quantization key
         prng_key(iter_seed), as in the JAX package's train. Returns (rec
         (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
-        rng = np.random.RandomState(
-            (self.config.feature_fraction_seed + iter_seed) % (2**31 - 1))
-        mask = self._feature_mask(rng)
-        base_mask = (self._ones_mask if mask.all()
-                     else torch.as_tensor(mask, device=self.device))
-        key = trandom.prng_key(iter_seed)
         grad, hess = grad.float(), hess.float()
         if self.strategy == "masked":
-            return self._grow_masked(grad, hess, base_mask, key)
-        return self._grow_compact(grad, hess, base_mask, key)
+            mask = self._base_mask(iter_seed)
+            return self._grow_masked(
+                grad, hess, self._ones_mask if mask is None else mask,
+                trandom.prng_key(iter_seed))
+        rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed)
+        rec_h, k, _ = self.fetch_tree(rec, k)
+        return rec_h, leaf_id, k
 
-    def _grow_compact(self, grad, hess, base_mask, key):
-        quant = None
-        if self.quant_bits:
-            data, quant = self.quant_working_buffer(grad, hess, key)
+    def fetch_tree(self, rec: torch.Tensor, k: torch.Tensor, *flags):
+        """The tree's one device->host copy: its records, k and any 0-d
+        `flags`, packed into one tensor. Returns (rec (L-1, 13) f32 numpy,
+        k, flags as floats); counts the sync, the splits and the rows K4's
+        window entry moved (each split's window: its two children)."""
+        parts = [rec.reshape(-1), k.float().view(1)] \
+            + [f.float().view(1) for f in flags]
+        host = torch.cat(parts).cpu().numpy()
+        self.stats.host_syncs += 1
+        m = rec.numel()
+        rec_h = host[:m].reshape(rec.shape)
+        k = int(host[m])
+        self.stats.splits += k
+        kpart.rows_win += int(round(float(
+            rec_h[:k, R_LCNT].sum(dtype=np.float64)
+            + rec_h[:k, R_RCNT].sum(dtype=np.float64))))
+        return rec_h, k, [float(v) for v in host[m + 1:]]
+
+    def _device_state(self):
+        """The compact core's DeviceCarry and its SplitLoop, made at the
+        first tree: the step is captured (on the card) while the carry is
+        idle, k = L - 1."""
+        if self._carry is not None:
+            return self._carry, self._loop
+        st = self._statics()
+        L, n = st["num_leaves"], self.dataset.num_data
+        d_cols = self.codes_pack.shape[1] + (2 if self.quant_bits else 4)
+        c = DeviceCarry(n, d_cols, L, (self.c_cols, st["col_bins"], 3),
+                        torch.int32 if self.quant_bits else torch.float32,
+                        self.num_features, self.device)
+        scan, best_row = _tree_helpers(
+            self.meta["t_numbins"], self.meta["t_missing"],
+            self.meta["t_default"], self.meta["t_monotone"],
+            self.meta["t_penalty"], self.meta["t_elide"],
+            self.meta["t_hist_idx"], max_depth=st["max_depth"], l1=st["l1"],
+            l2=st["l2"], max_delta_step=st["max_delta_step"],
+            min_data_in_leaf=st["min_data_in_leaf"],
+            min_sum_hessian=st["min_sum_hessian"],
+            min_gain_to_split=st["min_gain_to_split"])
+        search2 = search2_simple(scan, best_row)
+        self._scan = (scan, best_row)
+
+        def step():
+            split_step(c, meta_table=self.meta["t_feature_table"],
+                       f_monotone=self.meta["t_monotone"], search2=search2,
+                       c_cols=self.c_cols, item_bits=self.item_bits,
+                       col_bins=st["col_bins"], num_leaves=L,
+                       quant_bits=self.quant_bits,
+                       qcap_op=quant_ops.quant_max(self.quant_bits, n)
+                       if self.quant_bits else 0,
+                       renew=bool(self.quant_bits) and self.quant_renew)
+
+        loop = SplitLoop(step, L - 1, self.device, (
+            (kkey, "launches"), (kpart, "launches_win"),
+            (khist, "launches_win"), (khist, "launches_qwin")))
+        if self.device.type == "cuda":
+            c.k.fill_(L - 1)
+            loop.capture()
+        self._carry, self._loop = c, loop
+        return c, loop
+
+    def grow_compact(self, grad: torch.Tensor, hess: torch.Tensor,
+                     iter_seed: int = 0):
+        """Grow one tree with the compact core on the device: the working
+        rows, the root, the split loop and the row -> leaf map, with no
+        host sync. Returns the carry's (L-1, 13) f32 records and 0-d int32
+        k (valid until the next tree) and the (N,) int64 leaf_id."""
+        c, loop = self._device_state()
+        st = self._statics()
+        mask = self._base_mask(iter_seed)
+        if mask is None:
+            c.base_mask.fill_(True)
         else:
-            data = self.working_buffer(grad, hess)
-        if self._spare is None or self._spare.shape != data.shape:
-            self._spare = torch.empty_like(data)
-        return grow_tree_compact_core(
-            data, self._spare, base_mask, self.meta, c_cols=self.c_cols,
-            item_bits=self.item_bits, quant=quant, stats=self.stats,
-            **self._statics())
+            c.base_mask.copy_(mask)
+        scan, best_row = self._scan
+        cw = self.codes_pack.shape[1]
+        if self.quant_bits:
+            _, quant = self.quant_working_buffer(
+                grad.float(), hess.float(), trandom.prng_key(iter_seed),
+                out=c.data)
+            c.s_g.copy_(quant.s_g)
+            c.s_h.copy_(quant.s_h)
+            renew = quant.root_max is not None
+            r0 = ((quant_ops.requant_ratio(quant.root_max[0], quant.qcap_op),
+                   quant_ops.requant_ratio(quant.root_max[1], quant.qcap_op))
+                  if renew else (c.one, c.one))
+            hist0 = build_histogram_quantized_window(
+                c.data, c.spare, c.root_desc, cw, self.c_cols,
+                self.item_bits, r0[0], r0[1], quant.qcap_op, quant.bits,
+                st["col_bins"])
+            scale3 = quant_ops.dequant_scale3(c.s_g * r0[0], c.s_h * r0[1])
+            hist0_s = hist0.float() * scale3
+            totals = hist0[0].sum(dim=0).float() * scale3
+            c.scale_of.fill_(1.0)
+            c.leafmax.zero_()
+            if renew:
+                c.scale_of[0] = torch.stack(r0)
+                c.leafmax[0] = quant.root_max
+        else:
+            self.working_buffer(grad.float(), hess.float(), out=c.data)
+            hist0 = hist0_s = build_histogram_window(
+                c.data, c.spare, c.root_desc, cw, self.c_cols,
+                self.item_bits, st["col_bins"])
+            totals = hist0[0].sum(dim=0)          # (3,): sum_g, sum_h, cnt
+        c.leaf_min.fill_(-np.inf)
+        c.leaf_max.fill_(np.inf)
+        row0 = best_row(scan(hist0_s[None], totals[0:1], totals[1:2],
+                             totals[2:3], c.leaf_min[:1], c.leaf_max[:1],
+                             c.base_mask), 0)
+        c.best.fill_(NEG_INF)
+        c.best[:, B_FEAT:] = 0.0
+        c.best[0] = row0[0]
+        c.pool.zero_()
+        c.pool[0] = hist0
+        c.rec.zero_()
+        c.k.zero_()
+        c.depth.zero_()
+        c.leaf_begin.zero_()
+        c.leaf_buf.zero_()
+        c.leaf_phys.zero_()
+        # (a fill: `t[0] = n` on the card copies n from the host, a sync)
+        c.leaf_phys[:1].fill_(c.data.shape[0])
+        loop.run()
+        return c.rec, leaf_map(c), c.k
+
+    def make_fused_step(self, objective):
+        """One boosting iteration as one device program (the JAX package's
+        DeviceTreeLearner.make_fused_step, without bagging and GOSS, which
+        the port refuses): gradients at score + init_score, the tree, its
+        leaf values from the records and the score update, with no host
+        sync. Returns step(score_row, iter_seed, shrinkage, init_score) ->
+        (new_score, rec, leaf_id, k, finite): the delta is 0 when k == 0,
+        and finite says every updated score is finite."""
+        L = int(self.config.num_leaves)
+
+        def step(score_row: torch.Tensor, iter_seed: int, shrinkage: float,
+                 init_score: float = 0.0):
+            score = score_row + init_score
+            grad, hess = objective.get_gradients(score)
+            rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed)
+            lv = leaf_values_from_rec(rec, k, L)
+            delta = lv.index_select(0, leaf_id) * shrinkage
+            new_score = score + torch.where(k > 0, delta,
+                                            torch.zeros_like(delta))
+            return (new_score, rec, leaf_id, k,
+                    torch.isfinite(new_score).all())
+        return step
 
     def _grow_masked(self, grad, hess, base_mask, key):
         scale3 = None

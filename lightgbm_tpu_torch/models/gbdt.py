@@ -1,11 +1,19 @@
 """GBDT boosting loop.
 
-Port of the generic iteration of lightgbm_tpu/models/gbdt.py (reference:
-src/boosting/gbdt.cpp GBDT::TrainOneIter, gbdt_model_text.cpp): boost from
-average on the first iteration, objective gradients, one tree, shrinkage,
-score update from the learner's row -> leaf map, model text and
-prediction. Scores and gradients live on the booster's device as (1, N)
-f32 tensors; trees and split records live on the host.
+Port of lightgbm_tpu/models/gbdt.py (reference: src/boosting/gbdt.cpp
+GBDT::TrainOneIter, gbdt_model_text.cpp): boost from average on the first
+iteration, objective gradients, one tree, shrinkage, score update from the
+learner's row -> leaf map, model text and prediction. Scores and gradients
+live on the booster's device as (1, N) f32 tensors; trees and split
+records live on the host.
+
+Two iterations, as in the JAX package: the fused one (``_fused_eligible``:
+plain GBDT, one tree per iteration, the compact strategy) runs the
+learner's single-program step -- gradients, tree, leaf values and score
+update on the device -- and makes one device->host copy, the split
+records, k and the finite flag; the generic one runs otherwise, and takes
+over an iteration whose fused tree has no split (the stop bookkeeping).
+The JAX package's pipelined form of the fused iteration is not ported.
 """
 from __future__ import annotations
 
@@ -98,6 +106,7 @@ class GBDT:
                                   for k in range(self.num_class)]
         self.feature_names = train_set.feature_names
         self.max_feature_idx = train_set.num_total_features - 1
+        self._fused_step = None
 
     # ------------------------------------------------------------------
     def _boost_from_average(self, class_id: int, update_scorer: bool) -> float:
@@ -123,7 +132,55 @@ class GBDT:
     def train_one_iter(self) -> bool:
         """One boosting iteration; True when training should stop (no tree
         with more than one leaf was produced)."""
+        if self._fused_eligible():
+            return self._train_one_iter_fused()
         return self._train_one_iter_generic()
+
+    def _fused_eligible(self) -> bool:
+        """Whether the single-program device iteration applies: one tree
+        per iteration that trains, on the compact strategy (the masked one
+        keeps its host loop). The port's boosting is plain GBDT only."""
+        return (self.num_tree_per_iteration == 1
+                and self._class_need_train[0]
+                and self.train_set.num_features > 0
+                and self.learner.strategy == "compact")
+
+    def _train_one_iter_fused(self) -> bool:
+        """One boosting iteration as one device program and one small
+        fetch (DeviceTreeLearner.make_fused_step). The first iteration's
+        boost-from-average score is added inside the step, so an iteration
+        without a split leaves the score as it was and the generic path
+        redoes it with the reference's stop bookkeeping."""
+        init_score = self._boost_from_average(0, False)
+        if self._fused_step is None:
+            self._fused_step = self.learner.make_fused_step(self.objective)
+        new_score, rec, leaf_id, k, finite = self._fused_step(
+            self.score_updater.score[0], self.iter, self.shrinkage_rate,
+            init_score)
+        rec_h, k, (finite,) = self.learner.fetch_tree(rec, k, finite)
+        if self._materialize_one(rec_h, k, leaf_id, init_score):
+            return self._train_one_iter_generic()
+        if not finite:
+            log.warning("Non-finite training scores after iteration %d",
+                        self.iter)
+        self.score_updater.score = new_score[None]
+        self.iter += 1
+        return False
+
+    def _materialize_one(self, rec_h: np.ndarray, k: int,
+                         leaf_id: torch.Tensor, init_score: float) -> bool:
+        """Replay a fused iteration's records into a host tree and append
+        it; True (and nothing appended) when the tree has no split."""
+        if k == 0:
+            return True
+        tree = self.learner.replay_tree(rec_h, k)
+        tree.apply_shrinkage(self.shrinkage_rate)
+        if abs(init_score) > K_EPSILON:
+            tree.add_bias(init_score)
+        self.learner.last_leaf_id = leaf_id
+        self.learner.stats.trees += 1
+        self.models.append(tree)
+        return False
 
     def _train_one_iter_generic(self) -> bool:
         init_scores = [self._boost_from_average(k, True)

@@ -1,0 +1,48 @@
+"""The split descriptor: one split's window and decision, in device memory.
+
+The compact core's device loop (models/device_learner.py) writes one small
+int32 tensor per split step with tensor ops, and the device-window entries
+of the kernels it launches read their window from it instead of taking it
+as host ints: the split-key kernel (ops/kernels/split_key.py), K4's window
+entry (ops/kernels/partition.py) and the K1 / K3 window entries
+(ops/kernels/histogram.py). Their launches then have the same arguments at
+every split, so the step replays from one CUDA graph. The CUDA sources
+repeat the field numbers they read (``kDesc*`` in csrc/*.cu; the tests
+hold them equal to these).
+
+Fields (int32):
+  GO          1 while the tree grows; 0 makes every kernel return at once
+  SRC         the working buffer (0 or 1) that holds the split leaf's rows;
+              the partition moves them to the other one
+  BEGIN       the leaf's first row, COUNT its rows
+  LPHYS       rows going left, added by the split-key kernel
+  LEFT_SMALL  1 when the left child is the smaller (its histogram is built)
+  THR, DLEFT  the split's bin threshold and default-left flag
+  COL, BASE, ELIDE, NUMBINS, MISSING, DEFAULT
+              the split feature's column, EFB base and elide flag, bin
+              count, missing type and default bin
+  SIDE_MAX    four ints: max |qg|, |qh| of the left rows, then the right
+              rows' (leaf re-quantization), maxed in by the split-key kernel
+"""
+from __future__ import annotations
+
+import torch
+
+(GO, SRC, BEGIN, COUNT, LPHYS, LEFT_SMALL, THR, DLEFT, COL, BASE, ELIDE,
+ NUMBINS, MISSING, DEFAULT, SIDE_MAX) = range(15)
+SIZE = SIDE_MAX + 4
+
+
+def root(n: int, device) -> torch.Tensor:
+    """The descriptor whose histogram window is all n rows of buffer 0:
+    the root's (a window entry reads buffer 1 - SRC, from row BEGIN, the
+    LPHYS rows of a left-small split)."""
+    d = torch.zeros(SIZE, dtype=torch.int32)
+    d[GO], d[SRC], d[COUNT], d[LPHYS], d[LEFT_SMALL] = 1, 1, n, n, 1
+    return d.to(device)
+
+
+def fields(desc: torch.Tensor):
+    """The descriptor's ints on the host (the plain versions on the CPU
+    read it this way)."""
+    return [int(v) for v in desc.tolist()]

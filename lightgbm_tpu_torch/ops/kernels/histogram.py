@@ -14,7 +14,14 @@ Ports of lightgbm_tpu/ops/pallas/histogram_kernel.py:
   * counted as K3, ``build_histogram_quantized_rows``: the compact core's
     operand build (``_quant_win_operand``, lightgbm_tpu/models/
     device_learner.py) and K3 in one launch, over the packed quantized
-    working rows read in place.
+    working rows read in place;
+  * the device-window entries of the compact core's device loop,
+    ``build_histogram_window`` (K1) and ``build_histogram_quantized_window``
+    (K3's packed-row entry): the same kernels over the packed rows of the
+    window that the split descriptor (ops/kernels/desc.py) names -- the
+    split's smaller child, or all rows at the root -- read from device
+    memory on a grid fixed for every split, so their launches replay from
+    a CUDA graph. K1 decodes 4-, 8- and 16-bit codes there as K3 does.
 
 All launch through ``csrc/histogram.cu`` (per-block shared-memory
 histograms on native int32 atomics; see the notes there): K1 / K2 its
@@ -38,12 +45,15 @@ import torch
 
 from .. import quantize as quant_ops
 from . import build
+from . import desc as dsc
 
 # launch counts, +1 right after each kernel launch, read by chip_smoke.py:
 launches = 0          # K1
 launches_t = 0        # K2
 launches_q = 0        # K3, and the packed-row entry
 launches_qt = 0       # K3t
+launches_win = 0      # K1's device-window entry
+launches_qwin = 0     # K3's device-window entry
 
 _CODE_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
 # operand kinds of lgbt_hist_launch (the accumulator follows: f32 for
@@ -293,3 +303,131 @@ def build_histogram_quantized_rows(rows: torch.Tensor, cw: int, c_cols: int,
     global launches_q
     launches_q += 1
     return out
+
+
+def window_rows(data: torch.Tensor, spare: torch.Tensor,
+                desc: torch.Tensor) -> torch.Tensor:
+    """The rows a device-window entry reads, on the host's reading of the
+    descriptor: the split's smaller child in buffer 1 - SRC (data = 0,
+    spare = 1), from BEGIN (plus LPHYS for a right child); None when GO is
+    0."""
+    f = dsc.fields(desc)
+    if not f[dsc.GO]:
+        return None
+    rows = data if f[dsc.SRC] else spare
+    lphys, count = f[dsc.LPHYS], f[dsc.COUNT]
+    off = f[dsc.BEGIN] + (0 if f[dsc.LEFT_SMALL] else lphys)
+    return rows[off:off + (lphys if f[dsc.LEFT_SMALL] else count - lphys)]
+
+
+def build_histogram_window_plain(data: torch.Tensor, spare: torch.Tensor,
+                                 desc: torch.Tensor, cw: int, c_cols: int,
+                                 item_bits: int,
+                                 num_bins: int) -> torch.Tensor:
+    """K1's window entry in plain PyTorch: the window's codes unpacked
+    and its f32 (grad, hess, weight) words at cw, through
+    build_histogram_plain; zeros when GO is 0."""
+    rows = window_rows(data, spare, desc)
+    if rows is None:
+        return torch.zeros((c_cols, num_bins, 3), dtype=torch.float32,
+                           device=data.device)
+    return build_histogram_plain(packed_codes(rows, cw, c_cols, item_bits),
+                                 rows.view(torch.float32)[:, cw:cw + 3],
+                                 num_bins)
+
+
+def build_histogram_quantized_window_plain(
+        data: torch.Tensor, spare: torch.Tensor, desc: torch.Tensor,
+        cw: int, c_cols: int, item_bits: int, r_g: torch.Tensor,
+        r_h: torch.Tensor, qcap_op: int, grad_bits: int,
+        num_bins: int) -> torch.Tensor:
+    """K3's window entry in plain PyTorch: the packed-row entry's plain
+    version over the window; zeros when GO is 0."""
+    rows = window_rows(data, spare, desc)
+    if rows is None:
+        return torch.zeros((c_cols, num_bins, 3), dtype=torch.int32,
+                           device=data.device)
+    return build_histogram_quantized_rows_plain(
+        rows, cw, c_cols, item_bits, r_g, r_h, qcap_op, grad_bits, num_bins)
+
+
+def _window_launch(name: str, counter: str, data, spare, desc, cw, c_cols,
+                   item_bits, quant, r_g, r_h, qcap_op,
+                   num_bins) -> torch.Tensor:
+    for t in (spare, desc):
+        if t.device != data.device or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError("%s: want contiguous int32 tensors on the "
+                             "buffers' CUDA device" % name)
+    if data.dim() != 2 or data.dtype != torch.int32 \
+            or not data.is_contiguous() or spare.shape != data.shape \
+            or desc.shape != (dsc.SIZE,):
+        raise ValueError("%s: want two (N, D) int32 buffers and a (%d,) "
+                         "descriptor" % (name, dsc.SIZE))
+    n, d = data.shape
+    lanes = 2 if quant else 4
+    if item_bits not in (4, 8, 16) or not 0 <= cw <= d - lanes \
+            or c_cols > cw * (32 // item_bits):
+        raise ValueError("%s: %d codes of %d bits do not fit words [0, %d) "
+                         "of %d-word rows" % (name, c_cols, item_bits, cw, d))
+    ratios = [None, None]                # the float kernel has none
+    if quant:
+        for i, r in enumerate((r_g, r_h)):
+            if r.device != data.device or r.dtype != torch.float32 \
+                    or r.numel() != 1 or not r.is_contiguous():
+                raise ValueError("%s: ratios must be one-element f32 "
+                                 "tensors on the buffers' device" % name)
+            ratios[i] = r.data_ptr()
+    out = torch.empty((c_cols, num_bins, 3),
+                      dtype=torch.int32 if quant else torch.float32,
+                      device=data.device)      # zeroed by the launcher
+    fn = build.load("histogram").lgbt_hist_window_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    rc = fn(data.data_ptr(), spare.data_ptr(), desc.data_ptr(), n, d, cw,
+            c_cols, item_bits, int(quant), ratios[0], ratios[1],
+            int(qcap_op), num_bins, out.data_ptr(),
+            _grid_x(data.device, n, _BLOCKS_PER_SM),
+            torch.cuda.current_stream(data.device).cuda_stream)
+    build.check(rc, name + " kernel launch")
+    globals()[counter] += 1
+    return out
+
+
+def build_histogram_window(data: torch.Tensor, spare: torch.Tensor,
+                           desc: torch.Tensor, cw: int, c_cols: int,
+                           item_bits: int, num_bins: int) -> torch.Tensor:
+    """K1 over the window the split descriptor names in the compact core's
+    two (N, D) int32 working buffers (codes of item_bits 4 / 8 / 16 in
+    words [0, cw), bitcast f32 grad, hess, weight at cw .. cw + 2) ->
+    (c_cols, B, 3) f32, within K1's tolerance of
+    build_histogram_window_plain; zeros when GO is 0. The grid is fixed
+    by N; counted in ``launches_win``."""
+    if data.device.type == "cpu":
+        return build_histogram_window_plain(data, spare, desc, cw, c_cols,
+                                            item_bits, num_bins)
+    return _window_launch("build_histogram_window", "launches_win", data,
+                          spare, desc, cw, c_cols, item_bits, False, None,
+                          None, 0, num_bins)
+
+
+def build_histogram_quantized_window(
+        data: torch.Tensor, spare: torch.Tensor, desc: torch.Tensor,
+        cw: int, c_cols: int, item_bits: int, r_g: torch.Tensor,
+        r_h: torch.Tensor, qcap_op: int, grad_bits: int,
+        num_bins: int) -> torch.Tensor:
+    """K3's packed-row entry over the window the split descriptor names
+    (the (qg << 16 | qh) word at cw, re-quantized at the 0-d f32 ratios
+    r_g, r_h read on the device) -> exact (c_cols, B, 3) int32, equal to
+    build_histogram_quantized_window_plain; zeros when GO is 0. The grid is
+    fixed by N; counted in ``launches_qwin``."""
+    if data.device.type == "cpu":
+        return build_histogram_quantized_window_plain(
+            data, spare, desc, cw, c_cols, item_bits, r_g, r_h, qcap_op,
+            grad_bits, num_bins)
+    return _window_launch("build_histogram_quantized_window",
+                          "launches_qwin", data, spare, desc, cw, c_cols,
+                          item_bits, True, r_g.reshape(()), r_h.reshape(()),
+                          qcap_op, num_bins)

@@ -44,8 +44,9 @@ def gh_scales(grad: torch.Tensor, hess: torch.Tensor, grad_bits: int,
               n: int):
     """(s_g, s_h) f32 scalars mapping this iteration's grad/hess onto
     [-qcap, qcap] (max-abs scaling)."""
-    qcap = torch.tensor(float(quant_max(grad_bits, n)), dtype=torch.float32,
-                        device=grad.device)
+    # a fill on the device: a host tensor copied there would synchronise
+    qcap = torch.full((), float(quant_max(grad_bits, n)),
+                      dtype=torch.float32, device=grad.device)
     s_g = qcap / (torch.max(torch.abs(grad)) + _EPS)
     s_h = qcap / (torch.max(torch.abs(hess)) + _EPS)
     return s_g, s_h

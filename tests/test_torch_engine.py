@@ -191,7 +191,7 @@ def test_weights_and_init_score_match_jax(monkeypatch):
     ("objective", "multiclass"), ("bagging_fraction", 0.5),
     ("feature_fraction", 0.8), ("quantized_grad", True),
     ("tree_learner", "data"), ("boosting", "dart"),
-    ("grow_program", "fused_tree"), ("stream_mode", "chunked")])
+    ("two_round", True), ("stream_mode", "chunked")])
 def test_out_of_slice_params_raise_naming_the_key(key, value):
     x, y = _task("binary", n=200)
     params = dict(_params("binary"), **{key: value})

@@ -9,9 +9,11 @@ machine without JAX it runs as
 
 Tolerances: K4 is a permutation of 32-bit words and K3 / K3t (and the
 packed-row entry, counted as K3) sum integers, so they must be
-bit-exact. K1's (and K2's) grad and hess lanes
-are fixed-point sums per block whose f32 block partials meet in global
-atomics in any order, so they agree with index_add_ to rtol = atol = 1e-4
+bit-exact; so must the split-key kernel and the device-window entries of
+K3 and K4 (which read their window from the split descriptor). K1's
+(and K2's) grad and hess lanes are fixed-point sums per block whose f32
+block partials meet in global atomics in any order, so they agree with
+index_add_ to rtol = atol = 1e-4
 (at larger row counts chip_smoke.py's bar, which adds 1e-5 * the bin's
 sum of |terms|; without the absolute term for the dynamic-range case);
 the count lane sums exact integers and must be equal.
@@ -24,10 +26,14 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as tlgb
+from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.models import device_learner as tdl
 from lightgbm_tpu_torch.ops import quantize as quant_ops
 from lightgbm_tpu_torch.ops.kernels import build
+from lightgbm_tpu_torch.ops.kernels import desc as dsc
 from lightgbm_tpu_torch.ops.kernels import histogram as k1
 from lightgbm_tpu_torch.ops.kernels import partition as k4
+from lightgbm_tpu_torch.ops.kernels import split_key as kkey
 
 # these tests share the host with timing-sensitive tests in other
 # workers: one CPU thread for torch keeps them from bursting
@@ -345,10 +351,13 @@ def test_train_on_card_matches_cpu(cuda_device, objective, monkeypatch):
         y = (y > 0).astype(np.float64)
     params = {"objective": objective, "num_leaves": 31, "max_bin": 63,
               "min_gain_to_split": 1e-3, "verbosity": -1}
-    n0 = (k1.launches, k4.launches)
+    # the compact core's device loop: K1's and K4's window entries and the
+    # split-key kernel
+    n0 = (k1.launches_win, k4.launches_win, kkey.launches)
     card = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
                       device=cuda_device)
-    assert k1.launches > n0[0] and k4.launches > n0[1]
+    assert k1.launches_win > n0[0] and k4.launches_win > n0[1] \
+        and kkey.launches > n0[2]
     cpu = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
                      device="cpu")
 
@@ -368,9 +377,9 @@ def test_train_on_card_matches_cpu(cuda_device, objective, monkeypatch):
     ("masked", False), ("masked", True), ("compact", True)])
 def test_new_paths_on_card_match_cpu(cuda_device, strategy, quant,
                                      monkeypatch):
-    # masked float (K2), masked quantized (K3t), compact quantized (K3,
-    # K4): the same trees on the card as on the CPU; quantized leaf sums
-    # come from exact integer histograms
+    # masked float (K2), masked quantized (K3t), compact quantized (K3's
+    # and K4's window entries): the same trees on the card as on the CPU;
+    # quantized leaf sums come from exact integer histograms
     monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
     r = np.random.RandomState(6)
     n = 20_000
@@ -379,14 +388,15 @@ def test_new_paths_on_card_match_cpu(cuda_device, strategy, quant,
     params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
               "min_gain_to_split": 1e-3, "verbosity": -1,
               "quantized_grad": quant}
-    counters = ("launches_t", "launches_q", "launches_qt")
+    counters = ("launches_t", "launches_q", "launches_qt", "launches_qwin")
     n0 = {c: getattr(k1, c) for c in counters}
     card = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
                       device=cuda_device)
     moved = {c for c in counters if getattr(k1, c) > n0[c]}
     assert moved == {("masked", False): {"launches_t"},
                      ("masked", True): {"launches_qt"},
-                     ("compact", True): {"launches_q"}}[(strategy, quant)]
+                     ("compact", True): {"launches_qwin"}}[(strategy,
+                                                             quant)]
     cpu = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
                      device="cpu")
 
@@ -729,3 +739,284 @@ def test_k3_row_slices_at_every_misalignment(cuda_device, item_bits):
                 assert torch.equal(
                     k1.build_histogram_quantized(codes, ghq_s, nb),
                     k1.build_histogram_quantized_plain(codes, ghq, nb))
+
+
+# ---- the compact core's device loop ---------------------------------------
+
+def _buffers(device, n, d, seed):
+    """Two (n, d) int32 working buffers of random words whose last column
+    is the row id."""
+    r = np.random.RandomState(seed)
+    out = []
+    for _ in range(2):
+        b = torch.from_numpy(r.randint(-2**31, 2**31, size=(n, d),
+                                       dtype=np.int64).astype(np.int32))
+        b[:, d - 1] = torch.arange(n, dtype=torch.int32)
+        out.append(b.to(device))
+    return out
+
+
+def _desc(device, **fields):
+    d = torch.zeros(dsc.SIZE, dtype=torch.int32)
+    for name, v in fields.items():
+        d[getattr(dsc, name)] = int(v)
+    return d.to(device)
+
+
+# windows: (src, begin, count) in buffers of 300,007 rows
+_WINDOWS = [(0, 0, 300_007), (1, 17, 1), (0, 1_001, 31), (1, 4_095, 257),
+            (0, 123_457, 65_537)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("item_bits", [4, 8, 16])
+@pytest.mark.parametrize("renew", [False, True])
+def test_split_key_matches_plain(cuda_device, item_bits, renew):
+    n, per = 300_007, 32 // item_bits
+    data, spare = _buffers(cuda_device, n, 9, item_bits)
+    r = np.random.RandomState(item_bits + renew)
+    nb = min(1 << item_bits, 200)
+    mixed = 0
+    for i, (src, begin, count) in enumerate(_WINDOWS):
+        elide = i % 2
+        fields = dict(GO=1, SRC=src, BEGIN=begin, COUNT=count,
+                      THR=r.randint(0, nb), DLEFT=i % 2,
+                      COL=r.randint(0, 7 * per), BASE=r.randint(0, 5),
+                      ELIDE=elide, NUMBINS=nb, MISSING=i % 3,
+                      DEFAULT=r.randint(0, nb))
+        got_d, want_d = _desc(cuda_device, **fields), _desc("cpu", **fields)
+        got_k = torch.full((n,), -7, dtype=torch.int32, device=cuda_device)
+        want_k = got_k.cpu()
+        n0 = kkey.launches
+        kkey.split_key(data, spare, got_d, got_k, item_bits=item_bits,
+                       cw=7, renew=renew)
+        torch.cuda.synchronize()
+        assert kkey.launches == n0 + 1
+        kkey.split_key_plain(data.cpu(), spare.cpu(), want_d, want_k,
+                             item_bits=item_bits, cw=7, renew=renew)
+        assert torch.equal(got_k.cpu(), want_k)
+        assert torch.equal(got_d.cpu(), want_d)
+        mixed += 0 < int(want_d[dsc.LPHYS]) < count
+    assert mixed >= 2                  # windows with rows on both sides
+    # GO = 0: nothing is written
+    d0 = _desc(cuda_device, GO=0, SRC=0, BEGIN=0, COUNT=n, NUMBINS=nb)
+    key = torch.full((n,), -7, dtype=torch.int32, device=cuda_device)
+    kkey.split_key(data, spare, d0, key, item_bits=item_bits, cw=7,
+                   renew=renew)
+    assert torch.equal(d0.cpu(), _desc("cpu", GO=0, COUNT=n, NUMBINS=nb))
+    assert bool((key == -7).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [9, 11])
+def test_k4_window_entry_bit_exact(cuda_device, d):
+    n = 300_007
+    r = np.random.RandomState(d)
+    data, spare = _buffers(cuda_device, n, d, d)
+    for src, begin, count in _WINDOWS + [(1, 0, 1)]:
+        key = torch.from_numpy(r.randint(0, 2, size=n).astype(np.int32)) \
+            .to(cuda_device)
+        desc = _desc(cuda_device, GO=1, SRC=src, BEGIN=begin, COUNT=count)
+        want = [data.cpu(), spare.cpu()]
+        k4.stable_partition3_window_plain(want[0], want[1], key.cpu(),
+                                          desc.cpu())
+        n0 = k4.launches_win
+        k4.stable_partition3_window(data, spare, key, desc)
+        torch.cuda.synchronize()
+        assert k4.launches_win == n0 + 1
+        assert torch.equal(data.cpu(), want[0])
+        assert torch.equal(spare.cpu(), want[1])
+    before = (data.clone(), spare.clone())
+    k4.stable_partition3_window(data, spare, key, _desc(
+        cuda_device, GO=0, SRC=0, BEGIN=0, COUNT=n))
+    assert torch.equal(data, before[0]) and torch.equal(spare, before[1])
+
+
+def _window_descs(device):
+    """Descriptors of split windows: (src, begin, count, lphys,
+    left_small), the histogram reading buffer 1 - src."""
+    for src, begin, count in _WINDOWS:
+        for left_small in (0, 1):
+            lphys = count // 3 if left_small else count - count // 3
+            yield _desc(device, GO=1, SRC=src, BEGIN=begin, COUNT=count,
+                        LPHYS=lphys, LEFT_SMALL=left_small)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("item_bits", [4, 8, 16])
+@pytest.mark.parametrize("grad_bits", [8, 16])
+def test_k3_window_entry_bit_exact(cuda_device, item_bits, grad_bits):
+    n = 300_007
+    rows, cw, c_cols = _quant_rows(cuda_device, n, item_bits, item_bits)
+    data = rows
+    spare, _ = _quant_rows(cuda_device, n, item_bits, item_bits + 1)[:2]
+    nb = {4: 16, 8: 64, 16: 256}[item_bits]
+    qcap = quant_ops.quant_max(grad_bits, n)
+    ratios = (torch.full((), 0.37, device=cuda_device),
+              torch.full((), 0.0051, device=cuda_device))
+    for desc in _window_descs(cuda_device):
+        args = (cw, c_cols, item_bits) + ratios + (qcap, grad_bits, nb)
+        n0 = k1.launches_qwin
+        got = k1.build_histogram_quantized_window(data, spare, desc, *args)
+        torch.cuda.synchronize()
+        assert k1.launches_qwin == n0 + 1
+        want = k1.build_histogram_quantized_window_plain(data, spare, desc,
+                                                         *args)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("item_bits", [4, 8, 16])
+def test_k1_window_entry_matches_plain(cuda_device, item_bits):
+    n = 300_007
+    r = np.random.RandomState(item_bits)
+    per = 32 // item_bits
+    cw = -(-28 // per)
+    bufs = _buffers(cuda_device, n, cw + 4, item_bits)
+    for b in bufs:
+        b.view(torch.float32)[:, cw:cw + 3] = torch.from_numpy(np.stack(
+            [r.randn(n), r.rand(n), np.ones(n)], 1).astype(np.float32)) \
+            .to(cuda_device)
+    nb = {4: 16, 8: 64, 16: 256}[item_bits]
+    for desc in _window_descs(cuda_device):
+        n0 = k1.launches_win
+        got = k1.build_histogram_window(bufs[0], bufs[1], desc, cw, 28,
+                                        item_bits, nb)
+        torch.cuda.synchronize()
+        assert k1.launches_win == n0 + 1
+        want = k1.build_histogram_window_plain(bufs[0], bufs[1], desc, cw,
+                                               28, item_bits, nb)
+        rows = k1.window_rows(bufs[0], bufs[1], desc.cpu())
+        mag = k1.build_histogram_plain(
+            k1.packed_codes(rows, cw, 28, item_bits),
+            rows.view(torch.float32)[:, cw:cw + 3].abs(), nb)
+        assert _bar_ok(got, want, mag)
+
+
+@pytest.mark.gpu
+def test_window_entries_replay_from_a_graph(cuda_device):
+    # split key, K4 and K3's window entry captured once, then replayed
+    # after the descriptor is rewritten: the cooperative and the cluster
+    # launches record into the graph, and each replay reads the new window
+    n = 300_007
+    data, cw, c_cols = _quant_rows(cuda_device, n, 8, 3)
+    spare = torch.empty_like(data)
+    key = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    desc = _desc(cuda_device, GO=1, SRC=0, BEGIN=0, COUNT=n, THR=40,
+                 COL=5, NUMBINS=64)
+    one = torch.ones((), device=cuda_device)
+    qcap = quant_ops.quant_max(8, n)
+
+    def step():
+        desc[dsc.LPHYS:dsc.LPHYS + 1].zero_()     # a fill, not a copy
+        kkey.split_key(data, spare, desc, key, item_bits=8, cw=cw,
+                       renew=False)
+        k4.stable_partition3_window(data, spare, key, desc)
+        return k1.build_histogram_quantized_window(
+            data, spare, desc, cw, c_cols, 8, one, one, qcap, 8, 64)
+
+    step()                                   # warm-up outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hist = step()
+    for src, begin, count in _WINDOWS[1:]:
+        for t in (data, spare):
+            t[:, cw + 1] = torch.arange(n, dtype=torch.int32,
+                                        device=cuda_device)
+        want = [data.cpu(), spare.cpu()]
+        wdesc = _desc("cpu", GO=1, SRC=src, BEGIN=begin, COUNT=count,
+                      THR=40, COL=5, NUMBINS=64, LEFT_SMALL=1)
+        desc.copy_(wdesc.to(cuda_device))
+        wkey = torch.zeros(n, dtype=torch.int32)
+        kkey.split_key_plain(want[0], want[1], wdesc, wkey, item_bits=8,
+                             cw=cw, renew=False)
+        k4.stable_partition3_window_plain(want[0], want[1], wkey, wdesc)
+        want_h = k1.build_histogram_quantized_window_plain(
+            want[0], want[1], wdesc, cw, c_cols, 8, one.cpu(), one.cpu(),
+            qcap, 8, 64)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(desc.cpu(), wdesc)
+        assert torch.equal(data.cpu(), want[0])
+        assert torch.equal(spare.cpu(), want[1])
+        assert torch.equal(hist.cpu(), want_h)
+
+
+def _compact_learner(device, n, params, seed=9):
+    """A compact-strategy learner over n rows of 12 features, and fixed
+    gradients with signal, on `device`."""
+    r = np.random.RandomState(seed)
+    x = r.randn(n, 12)
+    x[r.rand(n) < 0.03, 2] = np.nan
+    params = dict({"objective": "binary", "num_leaves": 31, "max_bin": 63,
+                   "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
+                   "verbosity": -1}, **params)
+    ds = tlgb.Dataset(x, (x[:, 0] > 0).astype(float), params=params) \
+        .construct()._inner
+    lr = tdl.DeviceTreeLearner(Config(params), ds, strategy="compact",
+                               device=device)
+    g = (x[:, 0] > 0.3) - 0.5 + 0.3 * r.randn(n) \
+        + 0.2 * np.nan_to_num(x[:, 2])
+    h = 0.1 + r.rand(n)
+    return lr, (torch.from_numpy(g.astype(np.float32)).to(device),
+                torch.from_numpy(h.astype(np.float32)).to(device))
+
+
+class _L2:
+    """L2 gradients towards the labels y (a device tensor)."""
+
+    def __init__(self, y):
+        self.y = y
+
+    def get_gradients(self, score):
+        return score - self.y, torch.ones_like(score)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_compact_tree_grows_without_a_host_sync(cuda_device, quant):
+    # a tree, and a fused boosting iteration, under the sync debug mode
+    # "error": any device->host copy or synchronisation inside raises
+    lr, (g, h) = _compact_learner(cuda_device, 70_000,
+                                  {"quantized_grad": quant})
+    lr.grow(g, h, iter_seed=0)          # captures the step (synchronises)
+    step = lr.make_fused_step(_L2(g))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rec, leaf_id, k = lr.grow_compact(g, h, iter_seed=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rec_h, k, _ = lr.fetch_tree(rec, k)
+    assert k == 30 and int(leaf_id.max()) == 30
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new_score, rec, leaf_id, k, finite = step(torch.zeros_like(g), 2,
+                                                  0.1, 0.25)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert lr.fetch_tree(rec, k, finite)[1:] == (30, [1.0])
+    assert int(leaf_id.max()) == 30
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("renew", [False, True])
+@pytest.mark.parametrize("grad_bits", [8, 16])
+def test_quantized_device_loop_equals_host_loop(cuda_device, renew,
+                                                grad_bits):
+    # from the same gradients on the card: the device loop's records and
+    # leaf ids equal the host loop's (integer histograms, exact partition)
+    lr, (g, h) = _compact_learner(
+        cuda_device, 70_000, {"quantized_grad": True, "grad_bits": grad_bits,
+                              "quant_renew": renew})
+    for seed in (0, 1):
+        rec, leaf, k = lr.grow(g, h, iter_seed=seed)
+        data, quant = lr.quant_working_buffer(g, h, tdl.trandom.prng_key(
+            seed))
+        hrec, hleaf, hk = tdl.grow_tree_compact_core(
+            data, torch.empty_like(data), lr._ones_mask, lr.meta,
+            c_cols=lr.c_cols, item_bits=lr.item_bits, quant=quant,
+            **lr._statics())
+        assert k == hk == 30
+        np.testing.assert_array_equal(rec, hrec)
+        assert torch.equal(leaf, hleaf)

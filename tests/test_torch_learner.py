@@ -128,9 +128,10 @@ def test_train_returns_replayed_tree():
                                strategy="compact", device="cpu")
     tree = tl.train(torch.from_numpy(g), torch.from_numpy(h))
     assert tree.num_leaves == 7
-    # one host sync per split: the leaf's best row read before the split
+    # one host sync per tree: the split records and k, fetched together
+    # after the device loop
     assert (tl.stats.host_syncs, tl.stats.splits, tl.stats.trees) \
-        == (6, 6, 1)
+        == (1, 6, 1)
     counts = np.bincount(tl.last_leaf_id.numpy(), minlength=7)
     np.testing.assert_array_equal(counts, tree.leaf_count[:7])
 

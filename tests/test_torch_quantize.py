@@ -223,16 +223,17 @@ def test_packed_rows_entry_bit_exact_vs_jax(item_bits, grad_bits):
 
 
 def test_compact_core_builds_quantized_histograms_from_rows(monkeypatch):
-    # win_hist hands the packed-row entry its contiguous row slices and no
-    # operand: every K3 call of a compact quantized tree goes through it
+    # the device loop hands K3's window entry the packed working rows and
+    # no operand: every K3 call of a compact quantized tree (the root, then
+    # one per split step) goes through it
     calls = []
-    real = tdl.build_histogram_quantized_rows
+    real = tdl.build_histogram_quantized_window
 
     def spy(rows, *a):
         calls.append((rows.shape, rows.is_contiguous()))
         return real(rows, *a)
 
-    monkeypatch.setattr(tdl, "build_histogram_quantized_rows", spy)
+    monkeypatch.setattr(tdl, "build_histogram_quantized_window", spy)
     r = np.random.RandomState(4)
     x = r.randn(3001, 10)
     cfg = TConfig({"objective": "binary", "num_leaves": 7,
