@@ -23,7 +23,12 @@ Phases, one JSON line each:
                working rows, a child window, a ragged tail at 256 bins),
                and a dynamic-range case held without the absolute term;
   k2           the same kernel over column-major (F, N) codes, the masked
-               strategy's layout, at 60,000 and at the full row count;
+               strategy's layout, at 60,000 and at the full row count; then
+               the split key's column entry (the masked core's decode and
+               row update) vs its plain version, bit-exact in leaf ids and
+               the left operand: 60,000 rows, the full row count and a
+               ragged count, uint8 and 16-bit codes, f32, int8 and int32
+               operands, and a GO = 0 descriptor that changes nothing;
   k3           the exact integer histogram kernel vs its plain version,
                bit-exact: packed quantized rows (int8 operand), a child
                window, a ragged tail at 256 bins with an int32 operand,
@@ -68,24 +73,34 @@ Phases, one JSON line each:
                trees from the same gradients); one more iteration of each
                loop profiled, K3's kernels summed (with --parent-src also
                one host-loop iteration on the parent's two-step);
-  loop         20,000-row trees (31 leaves) grown by the captured device
-               loop on the card, by the same step run eagerly on the CPU
-               (the plain versions) and by the host loop on the card, float
-               and quantized, from the same gradients: against the CPU
-               equal leaf, feature and count columns and leaf ids, f32
-               columns within 1e-4;
-               quantized, records equal to the host loop's bit for bit; the
-               capture's time and launches per step, and a tree grown under
-               the sync debug mode "error";
+  loop         20,000-row trees (31 leaves) of each strategy grown by its
+               captured device loop on the card, by the same step run
+               eagerly on the CPU (the plain versions) and by its host
+               loop on the card, float and quantized, from the same
+               gradients: against the CPU equal leaf, feature and count
+               columns and leaf ids, f32 columns within 1e-4; quantized,
+               records equal to the host loop's bit for bit; the capture's
+               time and launches per step, and a tree grown under the sync
+               debug mode "error";
   train_masked 60,000 x 28 (the masked strategy, which auto picks below
-               65,536 rows), float and quantized: K2 / K3t launches, AUC,
-               time, one more iteration profiled;
+               65,536 rows), float and quantized, 10 rounds on the fused
+               iteration, whose tree grows in the masked core's device loop
+               (the column split key and K2 / K3t replayed 254 times per
+               tree): launches per tree and per captured step, host syncs
+               per tree (1), capture time, time, steady s per iteration,
+               peak memory and held-out AUC; beside it the same rounds on
+               the masked host loop (grow_tree, one host sync per split),
+               whose float AUC the device loop's must be within 0.001 of;
+               quantized, also the generic iteration on the device loop,
+               whose trees must equal the host loop's; one more iteration
+               of each loop profiled;
   reference    small tasks trained on the card and on the CPU (the plain
                versions): compact float and compact quantized on the device
                loop (the fused iteration) and on the host loop, masked
-               float and masked quantized. Every run gives raw scores within
-               1e-4 and the same trees; quantized runs also equal root
-               histograms and the same trees from identical gradients.
+               float and masked quantized on the device loop. Every run
+               gives raw scores within 1e-4 and the same trees; quantized
+               runs also equal root histograms and the same trees from
+               identical gradients.
                Compact quantized may grow other trees only where its
                witness shows stored integers that differ between the
                devices from the same scores.
@@ -392,29 +407,33 @@ def parent_two_step(k1, pk1):
 @contextlib.contextmanager
 def host_loop(torch, generic_only=False):
     """Inside, training takes the generic iteration and, unless
-    generic_only, grows each compact tree with the host loop
-    (grow_tree_compact_core: one host sync per split, the kernels' host-int
-    entries) instead of the device loop: the path of the port before the
-    device loop, held beside it."""
+    generic_only, grows each tree with the strategy's host loop
+    (grow_tree_compact_core or grow_tree: one host sync per split, the
+    compact core on the kernels' host-int entries) instead of its device
+    loop: the path of the port before the device loops, held beside
+    them."""
     from lightgbm_tpu_torch.models import device_learner as dl
     from lightgbm_tpu_torch.models.gbdt import GBDT
     from lightgbm_tpu_torch.utils.random import prng_key
     own = (GBDT._fused_eligible, dl.DeviceTreeLearner.grow)
 
     def grow(self, grad, hess, iter_seed=0):
-        if self.strategy != "compact":
-            return own[1](self, grad, hess, iter_seed)
         grad, hess = grad.float(), hess.float()
+        mask = self._base_mask(iter_seed)
+        mask = self._ones_mask if mask is None else mask
+        if self.strategy == "masked":
+            gh, scale3 = self.masked_operand(grad, hess, iter_seed)
+            return dl.grow_tree(self.codes_t, gh, mask, self.meta,
+                                scale3=scale3, stats=self.stats,
+                                **self._statics())
         quant = None
         if self.quant_bits:
             data, quant = self.quant_working_buffer(grad, hess,
                                                     prng_key(iter_seed))
         else:
             data = self.working_buffer(grad, hess)
-        mask = self._base_mask(iter_seed)
         return dl.grow_tree_compact_core(
-            data, torch.empty_like(data),
-            self._ones_mask if mask is None else mask, self.meta,
+            data, torch.empty_like(data), mask, self.meta,
             c_cols=self.c_cols, item_bits=self.item_bits, quant=quant,
             stats=self.stats, **self._statics())
 
@@ -530,6 +549,11 @@ def main():
     k3_names = int_hist_names(build.library_path("histogram"))
     key_names = sorted(sass_functions(build.nvcc(),
                                       build.library_path("split_key")))
+    # K1 / K2: the float kernels of the histogram library
+    float_hist_names = sorted(
+        n for n in sass_functions(build.nvcc(),
+                                  build.library_path("histogram"))
+        if n.startswith("hist_fixed"))
     parent_k3_names = int_hist_names(parent_builds["histogram"][0]) \
         if parents else []
 
@@ -572,6 +596,7 @@ def main():
                 "k3_win": (k1, "launches_qwin"),
                 "k4_win": (k4, "launches_win"),
                 "split_key": (kkey, "launches"),
+                "split_key_col": (kkey, "launches_col"),
                 "k4_rows": (k4, "rows"), "k4_rows_win": (k4, "rows_win")}
 
     def reset_counts():
@@ -684,6 +709,7 @@ def main():
         return {
             "k4": summed(k4_kernels or k4_names),
             "k3": summed(k3_kernels or k3_names),
+            "k1": summed(float_hist_names),
             "split_key": summed(key_names),
             "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / (wall * 1e3),
@@ -697,8 +723,9 @@ def main():
         hb, hl, hs, hp = timed_train(p, dset, loop="host")
         # of the timed rounds, before the steady ones
         out = dict(growth(hb, hl, hs), train_s=hs, peak_device_bytes=hp,
-                   launches=hl, valid_auc=auc(yv, hb.predict(xv)),
-                   k4_path=k4_path(hb, hl))
+                   launches=hl, valid_auc=auc(yv, hb.predict(xv)))
+        if hb._gbdt.learner.strategy == "compact":
+            out["k4_path"] = k4_path(hb, hl)
         with host_loop(torch):
             out["s_per_iter_steady"] = steady_s(hb)
         return hb, hl, out
@@ -839,22 +866,71 @@ def main():
         for quant in (False, True):
             mp = dict(params, quantized_grad=quant, grad_bits=8)
             mb, mlaunches, ms_s, mpeak = timed_train(mp, dsm)
-            mauc = auc(yv, mb.predict(xv))
-            row = {"quantized_grad": quant,
-                   "strategy": mb._gbdt.learner.strategy,
-                   "launches": mlaunches, "train_s": ms_s,
-                   "s_per_iter_in_train": ms_s / args.rounds,
-                   "peak_device_bytes": mpeak, "valid_auc": mauc,
-                   "profile": profile_one(mb)}
+            mpv = mb.predict(xv)
+            mauc = auc(yv, mpv)
+            row = dict({"quantized_grad": quant,
+                        "strategy": mb._gbdt.learner.strategy,
+                        "growth": "device loop, fused iteration",
+                        "fused": mb._gbdt._fused_step is not None,
+                        "launches": mlaunches},
+                       **growth(mb, mlaunches, ms_s))
+            row.update({"train_s": ms_s, "s_per_iter_steady": steady_s(mb),
+                        "peak_device_bytes": mpeak, "valid_auc": mauc,
+                        "profile": profile_one(mb)})
+            mhb, mhl, mhost = host_side(mp, dsm)
+            with host_loop(torch):
+                mhost["profile"] = profile_one(mhb)
+            row["host_loop"] = mhost
+            row["auc_minus_host_loop"] = mauc - mhost["valid_auc"]
+            if quant:
+                # the generic iteration over the device loop: the host
+                # loop's scores, so its trees must be the host loop's
+                gb, gl, g_s, _ = timed_train(mp, dsm, loop="generic")
+                gauc = auc(yv, gb.predict(xv))
+                row["generic_on_device_loop"] = {
+                    "train_s": g_s, "valid_auc": gauc, "launches": gl,
+                    "same_trees_as_host_loop":
+                        [t.to_string() for t in gb._gbdt.models]
+                        == [t.to_string()
+                            for t in mhb._gbdt.models[:args.rounds]]}
+                del gb
             masked_rows.append(row)
             want = "k3t" if quant else "k2"
-            if row["strategy"] != "masked" or mlaunches[want] <= 0 \
-                    or mlaunches["k4"] or mlaunches["k4_win"] \
-                    or mauc <= 0.7:
+            step = row.get("captured_step_launches", {})
+            hist_key = "histogram." + ("launches_qt" if quant
+                                       else "launches_t")
+            problems = []
+            if row["strategy"] != "masked" or not row["fused"]:
+                problems.append("not the masked strategy's fused iteration")
+            if mlaunches[want] <= 0 or mlaunches["split_key_col"] <= 0 \
+                    or step.get(hist_key) != 1 \
+                    or step.get("split_key.launches_col") != 1:
+                problems.append("%s and the column split key not launched "
+                                "from the replayed step" % want)
+            if any(mlaunches[k] for k in ("k1", "k3", "k4", "k1_win",
+                                          "k3_win", "k4_win", "split_key")):
+                problems.append("a compact core's kernel launched")
+            if row["host_syncs_per_tree"] != 1:
+                problems.append("%s host syncs per tree"
+                                % row["host_syncs_per_tree"])
+            if not np.all(np.isfinite(mpv)) or mauc <= 0.7:
+                problems.append("AUC %.5f" % mauc)
+            if not quant and abs(row["auc_minus_host_loop"]) > 0.001:
+                problems.append("AUC %.5f not within 0.001 of the host "
+                                "loop's %.5f" % (mauc, mhost["valid_auc"]))
+            if quant:
+                gen = row["generic_on_device_loop"]
+                if not gen["same_trees_as_host_loop"] \
+                        or round(gen["valid_auc"], 7) \
+                        != round(mhost["valid_auc"], 7):
+                    problems.append("the device loop grew other quantized "
+                                    "trees than the host loop from the "
+                                    "same scores")
+            if problems:
                 emit({"phase": "train_masked", "runs": masked_rows})
-                fail("masked run (quantized=%s) did not go through %s or "
-                     "AUC %.4f <= 0.7" % (quant, want, mauc))
-            del mb
+                fail("masked run (quantized=%s): %s"
+                     % (quant, "; ".join(problems)))
+            del mb, mhb
         emit({"phase": "train_masked", "rows": 60_000,
               "rounds": args.rounds, "runs": masked_rows})
 
@@ -888,7 +964,8 @@ def main():
         # launches: each entry's path, run from zeroed counts -- the main
         # path (the device loop) for the window entries and the split key,
         # the host loop beside it for the host-int entries of K1, K3, K4,
-        # the masked strategy for K2 / K3t
+        # the masked strategy's device loop (float, quantized for K3t) for
+        # K2 / K3t and the column split key
         kernels = [
             kernel_entry("K1 histogram, device-window entry", hcu,
                          hk + ":41", launches["k1_win"], kr["k1_win"],
@@ -915,7 +992,14 @@ def main():
             kernel_entry("split key", "lightgbm_tpu_torch/csrc/split_key.cu",
                          "lightgbm_tpu/models/device_learner.py:2083",
                          launches["split_key"], kr["split_key"],
-                         "max_abs_err")]
+                         "max_abs_err"),
+            # the masked core's decode and row update (device_learner.py
+            # :402-419), in XLA too
+            kernel_entry("split key, column entry",
+                         "lightgbm_tpu_torch/csrc/split_key.cu",
+                         "lightgbm_tpu/models/device_learner.py:402",
+                         masked_rows[0]["launches"]["split_key_col"],
+                         kr["split_key_col"], "max_abs_err")]
         print(smi_line, flush=True)
         emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1166,10 +1250,16 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
                        k1.build_histogram_t, k1.build_histogram_t_plain, ct,
                        gh_masked[:n_cols].contiguous(), b_root, reps, ct.t())
             del ct
-        emit({"phase": "k2", "tolerance": tolerance, "cases": k2_rows})
-        if not all(rw["ok"] for rw in k2_rows):
-            fail("K2 disagrees with its plain version")
-        out["k2"] = k2_rows
+        col_rows = split_key_column_cases(
+            torch, dev, k1, kkey, dsc, desc_for, window_case, reps_for,
+            codes_t_full, probe.meta["t_feature_table"][0].tolist(),
+            args.rows)
+        emit({"phase": "k2", "tolerance": tolerance, "cases": k2_rows,
+              "split_key_column_cases": col_rows})
+        if not all(rw["ok"] for rw in k2_rows + col_rows):
+            fail("K2 or the column split key disagrees with its plain "
+                 "version")
+        out["k2"], out["split_key_col"] = k2_rows, col_rows
         del codes_t_full, gh_masked
 
     # ---- K3 / K3t vs plain -------------------------------------------------
@@ -1472,15 +1562,90 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
     return out
 
 
+def split_key_column_cases(torch, dev, k1, kkey, dsc, desc_for, window_case,
+                           reps_for, codes_t_full, feat, rows):
+    """The split key's column entry (the masked core's) against its plain
+    version, bit-exact in leaf ids and the left operand (an f32 operand as
+    its int32 words): the main path's (F, N) codes at 60,000 rows, at the
+    full row count and at a ragged count, uint8 and 16-bit codes, f32,
+    int8 and int32 operands, and a GO = 0 descriptor that must change
+    nothing. Each case is the first split of a tree: every row in leaf 0,
+    the middle of the feature's bins as threshold. Timed with NEW_ID = LEAF, so
+    that every timed launch finds the same rows; the byte bound counts
+    each row's leaf id read, its code read, the gh read of the rows going
+    left, the operand row written and the leaf id written of the rows
+    going right."""
+    r = np.random.RandomState(21)
+    out = []
+    for n in (60_000, rows, 100_003):
+        n = min(n, codes_t_full.shape[1])
+        c8 = codes_t_full[:, :n].contiguous()
+        # 16-bit codes: the same bins spread by m (above 32767 too, where
+        # the int16 view is negative), and the split's bins with them
+        m = 1031
+        c16 = (c8.to(torch.int32) * m).to(torch.int16)
+        for codes_t, cbytes, mul in ((c8, 1, 1), (c16, 2, m)):
+            leaf0 = torch.zeros(n, dtype=torch.int32, device=dev)
+            for op in (torch.float32, torch.int8, torch.int32):
+                if op == torch.float32:
+                    gh = torch.from_numpy(r.randn(n, 3).astype(np.float32))
+                else:
+                    gh = torch.from_numpy(r.randint(-127, 128, (n, 3))).to(op)
+                gh = gh.to(dev)
+                fields = dict(GO=1, THR=(feat[3] // 2) * mul, DLEFT=1,
+                              COL=feat[0], BASE=feat[1] * mul,
+                              ELIDE=feat[2], NUMBINS=feat[3] * mul,
+                              MISSING=feat[4], DEFAULT=feat[5] * mul,
+                              LEAF=0)
+                check_desc = desc_for(NEW_ID=1, **fields)
+                time_desc = desc_for(NEW_ID=0, **fields)
+                got_l, want_l = leaf0.clone(), leaf0.clone()
+                got_g, want_g = torch.empty_like(gh), torch.empty_like(gh)
+
+                def words(t):
+                    return t.view(torch.int32) if t.dtype == torch.float32 \
+                        else t
+
+                def check():
+                    kkey.split_key_column(codes_t, check_desc, got_l, gh,
+                                          got_g)
+                    kkey.split_key_column_plain(codes_t, check_desc, want_l,
+                                                gh, want_g)
+                    same = torch.equal(got_l, want_l) \
+                        and torch.equal(words(got_g), words(want_g))
+                    # GO = 0 writes nothing
+                    l0, g0 = got_l.clone(), got_g.clone()
+                    kkey.split_key_column(codes_t, desc_for(GO=0), got_l,
+                                          gh, got_g)
+                    same = same and torch.equal(got_l, l0) \
+                        and torch.equal(words(got_g), words(g0))
+                    return same, 0.0 if same else float("inf")
+                tl, tg = leaf0.clone(), torch.empty_like(gh)
+                row = window_case(
+                    out, "(28, %d) codes of %d bytes, %s operand"
+                    % (n, cbytes, str(op).split(".")[-1]), check,
+                    lambda: kkey.split_key_column(codes_t, time_desc, tl,
+                                                  gh, tg),
+                    lambda: kkey.split_key_column_plain(codes_t, time_desc,
+                                                        tl, gh, tg),
+                    reps_for(n), 0)
+                left = int((want_l == 0).sum())
+                ob = 3 * gh.element_size()
+                nbytes = n * (4 + cbytes + ob) + left * ob + (n - left) * 4
+                row["left_rows"] = left
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
+    return out
+
+
 def loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
                count_cols):
-    """The loop phase: 20,000-row trees (31 leaves) grown by the captured
-    device loop on the card, by the same step run eagerly on the CPU (the
-    kernels' plain versions) and by the host loop on the card, from the
-    same numpy gradients, float and quantized. Against the CPU: equal
-    leaf, feature and count columns and leaf ids, f32 columns within 1e-4
-    (the split scan's f32 prefix sums, and K1's, run in another order on
-    the card: the reference phase's bound).
+    """The loop phase: 20,000-row trees (31 leaves) of each strategy grown
+    by its captured device loop on the card, by the same step run eagerly
+    on the CPU (the kernels' plain versions) and by its host loop on the
+    card, from the same numpy gradients, float and quantized. Against the
+    CPU: equal leaf, feature and count columns and leaf ids, f32 columns
+    within 1e-4 (the split scan's f32 prefix sums, and K1's / K2's, run in
+    another order on the card: the reference phase's bound).
     Quantized, against the host loop on the same card: equal records,
     bit for bit. Also the capture's time and launches per step, and one
     tree grown on the card under the sync debug mode "error" (any
@@ -1495,69 +1660,79 @@ def loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
     # rows' routing
     ints = [0, 1, R_LCNT, R_RCNT]
     runs = []
-    for quant in (False, True):
-        p = dict(params, num_leaves=31, min_gain_to_split=1e-3,
-                 quantized_grad=quant, grad_bits=8)
-        inner = lgb.Dataset(xs, ys, params=p).construct()._inner
-        card = DeviceTreeLearner(Config(p), inner, strategy="compact",
-                                 device=dev)
-        cpu = DeviceTreeLearner(Config(p), inner, strategy="compact",
-                                device="cpu")
-        gc, hc = g.to(dev), h.to(dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t1 = time.time()
-        card._device_state()                 # the carry and the capture
-        torch.cuda.synchronize()
-        capture_s = time.time() - t1
-        trees = []
-        floats = [c for c in range(13) if c not in ints and c not in (2, 3)]
-        for seed in range(2):
-            rc, lc, kc = card.grow(gc, hc, iter_seed=seed)
-            rp, lp, kp = cpu.grow(g, h, iter_seed=seed)
-            with host_loop(torch):
-                rh, lh, kh = card.grow(gc, hc, iter_seed=seed)
-            trees.append({
-                "splits": [kc, kp, kh],
-                "ints_equal": bool(np.array_equal(rc[:, ints], rp[:, ints])),
-                "floats_close": bool(np.allclose(rc[:, floats],
-                                                 rp[:, floats], rtol=1e-4,
-                                                 atol=1e-4)),
-                "max_rel_diff": float(np.max(
-                    np.abs(rc[:, floats] - rp[:, floats])
-                    / np.maximum(np.abs(rp[:, floats]), 1e-3))),
-                "leaf_ids_equal": bool(torch.equal(lc.cpu(), lp)),
-                "host_loop_records_equal": bool(np.array_equal(rc, rh)),
-                "host_loop_leaf_ids_equal": bool(torch.equal(lc, lh))})
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            card.grow_compact(gc, hc, iter_seed=2)
-            no_sync = True
-        except RuntimeError as e:
-            no_sync = str(e)[:200]
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        ok = no_sync is True and all(
-            t["ints_equal"] and t["leaf_ids_equal"] and t["floats_close"]
-            and t["splits"][0] > 1 and (not quant or (
-                t["host_loop_records_equal"]
-                and t["host_loop_leaf_ids_equal"]))
-            for t in trees)
-        runs.append({"quantized_grad": quant, "ok": ok, "trees": trees,
-                     "capture_s": capture_s,
-                     "captured_step_launches": {
-                         k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]:
-                         v for k, v in card._loop.launches_per_step.items()},
-                     "replays_per_tree": card._loop.num_steps,
-                     "capture_s_in_loop": card._loop.capture_s,
-                     "no_sync_inside_tree": no_sync,
-                     "peak_device_bytes":
-                         int(torch.cuda.max_memory_allocated())})
+    for strategy in ("compact", "masked"):
+        for quant in (False, True):
+            p = dict(params, num_leaves=31, min_gain_to_split=1e-3,
+                     quantized_grad=quant, grad_bits=8)
+            inner = lgb.Dataset(xs, ys, params=p).construct()._inner
+            card = DeviceTreeLearner(Config(p), inner, strategy=strategy,
+                                     device=dev)
+            cpu = DeviceTreeLearner(Config(p), inner, strategy=strategy,
+                                    device="cpu")
+            on_device = card.grow_masked if strategy == "masked" \
+                else card.grow_compact
+            gc, hc = g.to(dev), h.to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.time()
+            # the carry and the capture
+            if strategy == "masked":
+                card._masked_state()
+            else:
+                card._device_state()
+            torch.cuda.synchronize()
+            capture_s = time.time() - t1
+            trees = []
+            floats = [c for c in range(13)
+                      if c not in ints and c not in (2, 3)]
+            for seed in range(2):
+                rc, lc, kc = card.grow(gc, hc, iter_seed=seed)
+                rp, lp, kp = cpu.grow(g, h, iter_seed=seed)
+                with host_loop(torch):
+                    rh, lh, kh = card.grow(gc, hc, iter_seed=seed)
+                trees.append({
+                    "splits": [kc, kp, kh],
+                    "ints_equal": bool(np.array_equal(rc[:, ints],
+                                                      rp[:, ints])),
+                    "floats_close": bool(np.allclose(
+                        rc[:, floats], rp[:, floats], rtol=1e-4,
+                        atol=1e-4)),
+                    "max_rel_diff": float(np.max(
+                        np.abs(rc[:, floats] - rp[:, floats])
+                        / np.maximum(np.abs(rp[:, floats]), 1e-3))),
+                    "leaf_ids_equal": bool(torch.equal(lc.cpu(), lp)),
+                    "host_loop_records_equal": bool(np.array_equal(rc,
+                                                                   rh)),
+                    "host_loop_leaf_ids_equal": bool(torch.equal(lc, lh))})
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                on_device(gc, hc, iter_seed=2)
+                no_sync = True
+            except RuntimeError as e:
+                no_sync = str(e)[:200]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ok = no_sync is True and all(
+                t["ints_equal"] and t["leaf_ids_equal"]
+                and t["floats_close"] and t["splits"][0] > 1
+                and (not quant or (t["host_loop_records_equal"]
+                                   and t["host_loop_leaf_ids_equal"]))
+                for t in trees)
+            runs.append({
+                "strategy": strategy, "quantized_grad": quant, "ok": ok,
+                "trees": trees, "capture_s": capture_s,
+                "captured_step_launches": {
+                    k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]: v
+                    for k, v in card._loop.launches_per_step.items()},
+                "replays_per_tree": card._loop.num_steps,
+                "capture_s_in_loop": card._loop.capture_s,
+                "no_sync_inside_tree": no_sync,
+                "peak_device_bytes": int(torch.cuda.max_memory_allocated())})
     emit({"phase": "loop", "rows": 20_000, "num_leaves": 31, "runs": runs})
     if not all(r["ok"] for r in runs):
-        fail("the captured device loop disagrees with the same step on the "
+        fail("a captured device loop disagrees with the same step on the "
              "CPU or with the host loop, or synchronised inside a tree")
 
 
@@ -1731,11 +1906,12 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
             ("compact", False, "device loop"),
             ("compact", True, "device loop"),
             ("compact", False, "host loop"), ("compact", True, "host loop"),
-            ("masked", False, "host loop"), ("masked", True, "host loop")):
-        # the compact strategy's host loop: the generic iteration over
-        # grow_tree_compact_core, on both devices
-        with host_loop(torch) if strategy == "compact" \
-                and growth == "host loop" else contextlib.nullcontext():
+            ("masked", False, "device loop"),
+            ("masked", True, "device loop")):
+        # a host-loop run: the generic iteration over the strategy's host
+        # loop, on both devices
+        with host_loop(torch) if growth == "host loop" \
+                else contextlib.nullcontext():
             row = reference_row(strategy, quant)
         row["growth"] = growth
         ref_rows.append(row)

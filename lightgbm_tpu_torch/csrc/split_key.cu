@@ -1,34 +1,52 @@
-// Split key: each row's side of a split over one window of the compact
-// core's packed rows, for Hopper.
+// Split key: each row's side of a split, for Hopper, in two entries.
 //
-// Replaces the window decode that the JAX compact core runs inside its
-// growth program (lightgbm_tpu/models/device_learner.py packed_go_left,
-// with ops/bundle.py logical_bins_for_feature and ops/partition.py
-// decide_left, and _quant_side_maxes under leaf re-quantization; XLA fuses
-// them, there is no Pallas kernel). Per row of the window it decodes the
-// split feature's code from its packed word, unmaps the feature's logical
-// bin from an EFB bundle column, applies the numerical decision with the
-// missing bin sent to the default side, and writes key3 (0 = left,
-// 1 = right) for the partition kernel. It also counts the rows that go
-// left -- the exact physical count that places the children's windows --
-// and, under re-quantization, each side's max |qg| and |qh| of the rows'
-// stored (qg << 16 | qh) words, which seed the children's ratios.
+// The packed entry (split_key_kernel) works on one window of the compact
+// core's packed rows. It replaces the window decode that the JAX compact
+// core runs inside its growth program (lightgbm_tpu/models/
+// device_learner.py packed_go_left, with ops/bundle.py
+// logical_bins_for_feature and ops/partition.py decide_left, and
+// _quant_side_maxes under leaf re-quantization; XLA fuses them, there is
+// no Pallas kernel). Per row of the window it decodes the split feature's
+// code from its packed word, unmaps the feature's logical bin from an EFB
+// bundle column, applies the numerical decision with the missing bin sent
+// to the default side, and writes key3 (0 = left, 1 = right) for the
+// partition kernel. It also counts the rows that go left -- the exact
+// physical count that places the children's windows -- and, under
+// re-quantization, each side's max |qg| and |qh| of the rows' stored
+// (qg << 16 | qh) words, which seed the children's ratios.
 //
-// Everything it needs is read from the split descriptor in device memory
-// (ops/kernels/desc.py: go, the buffer holding the leaf, its first row and
-// row count, the threshold, default_left and the feature's column, base,
-// elide flag, bin count, missing type and default bin), so the launch has
-// the same arguments and grid at every split and replays from a CUDA
-// graph. A descriptor whose go is 0 (the tree has stopped) returns at once.
-// The left count and the side maxes are added into the descriptor with
-// atomics; the step zeroes those fields when it writes the descriptor.
+// The column entry (split_key_column_kernel) serves the masked core. It
+// replaces the split body's decode and row update of the JAX grow_tree
+// (lightgbm_tpu/models/device_learner.py:402-419: the same
+// logical_bins_for_feature and decide_left over the split feature's
+// column of the (C, N) codes, the leaf_id rewrite and gh * lmask). Per row
+// of all N rows: a row of the split leaf reads its code from the column,
+// is decided by the same device function, and moves to the new leaf id
+// when it goes right; the left child's histogram operand gets the row's
+// gh when the row is in the split leaf and goes left, else 0.
 //
-// Bound on the H100: bytes. Per row it reads one code word (and the gh
-// word under re-quantization) and writes one key: 8 (12) bytes, 8 MB at
-// 1M rows, 0.0024 ms at 3.35 TB/s. Rows are D words apart, so each read
-// pulls a 32-byte sector for 4 useful bytes; the kernel is one grid-stride
-// pass with a block reduction and makes no attempt to do better (fusing it
-// into the partition kernel, which reads every row anyway, is later work).
+// Everything both entries need is read from the split descriptor in
+// device memory (ops/kernels/desc.py: go, the threshold, default_left and
+// the feature's column, base, elide flag, bin count, missing type and
+// default bin; the packed entry also the buffer holding the leaf, its
+// first row and row count, the column entry the leaf and the new id), so
+// each launch has the same arguments and grid at every split and replays
+// from a CUDA graph. A descriptor whose go is 0 (the tree has stopped)
+// returns at once. The packed entry adds the left count and the side
+// maxes into the descriptor with atomics; the step zeroes those fields
+// when it writes the descriptor.
+//
+// Bound on the H100: bytes. Packed entry: per row one code word (and the
+// gh word under re-quantization) read and one key written, 8 (12) bytes,
+// 8 MB at 1M rows, 0.0024 ms at 3.35 TB/s. Rows are D words apart, so
+// each read pulls a 32-byte sector for 4 useful bytes; the kernel is one
+// grid-stride pass with a block reduction and makes no attempt to do
+// better (fusing it into the partition kernel, which reads every row
+// anyway, is later work). Column entry: per row the leaf id (4 bytes),
+// the code (1 or 2), the gh operand (12, 3 or 12 bytes for f32, int8 and
+// int32) read and the operand row written, each row read and written
+// once in a coalesced grid-stride pass; at 60,000 rows ~1.8 MB, ~0.55 us,
+// under the launch's own cost.
 //
 // Plain C interface (loaded with ctypes): launches on the given stream,
 // allocates nothing, returns the launch's CUDA error.
@@ -56,6 +74,41 @@ constexpr int kDescMissing = 12;
 constexpr int kDescDefault = 13;
 // left |qg|, left |qh|, right |qg|, right |qh|
 constexpr int kDescSideMax = 14;
+constexpr int kDescLeaf = 18;
+constexpr int kDescNewId = 19;
+
+// One split's decision, read from the descriptor.
+struct Split {
+  int thr, col, base, nb, missing, def;
+  bool dleft, elide;
+};
+
+__device__ __forceinline__ Split read_split(const int* desc) {
+  Split s;
+  s.thr = desc[kDescThr];
+  s.dleft = desc[kDescDleft] != 0;
+  s.col = desc[kDescCol];
+  s.base = desc[kDescBase];
+  s.elide = desc[kDescElide] != 0;
+  s.nb = desc[kDescNumBins];
+  s.missing = desc[kDescMissing];
+  s.def = desc[kDescDefault];
+  return s;
+}
+
+// The decision of a row from its raw code: a bundle member's codes [base,
+// base + nb - 2] are its non-default bins, anything else is the feature at
+// its default bin; the missing bin goes to the default side, any other
+// bin left iff bin <= thr.
+__device__ __forceinline__ bool goes_left(int bin, const Split& s) {
+  if (s.elide) {
+    const int j = bin - s.base;
+    bin = (j >= 0 && j < s.nb - 1) ? j + (j >= s.def) : s.def;
+  }
+  const bool is_missing =
+      (s.missing == 1 && bin == s.def) || (s.missing == 2 && bin == s.nb - 1);
+  return is_missing ? s.dleft : bin <= s.thr;
+}
 
 template <int kBits, bool kRenew>
 __global__ void __launch_bounds__(kThreads)
@@ -64,32 +117,19 @@ split_key_kernel(const int32_t* __restrict__ buf0,
                  int32_t* __restrict__ key, int D, int cw) {
   if (!desc[kDescGo]) return;
   const int count = desc[kDescCount];
-  const int thr = desc[kDescThr];
-  const bool dleft = desc[kDescDleft] != 0;
-  const int col = desc[kDescCol], base = desc[kDescBase];
-  const bool elide = desc[kDescElide] != 0;
-  const int nb = desc[kDescNumBins], missing = desc[kDescMissing];
-  const int def = desc[kDescDefault];
+  const Split sp = read_split(desc);
   const int32_t* rows = (desc[kDescSrc] ? buf1 : buf0)
                         + (long long)desc[kDescBegin] * D;
   constexpr int per = 32 / kBits;
   constexpr uint32_t mask = (1u << kBits) - 1u;
-  const int word = col / per, shift = (col % per) * kBits;
+  const int word = sp.col / per, shift = (sp.col % per) * kBits;
 
   int nleft = 0, lg = 0, lh = 0, rg = 0, rh = 0;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < count;
        i += gridDim.x * kThreads) {
     const int32_t* row = rows + (long long)i * D;
-    int bin = (int)(((uint32_t)row[word] >> shift) & mask);
-    if (elide) {
-      // a bundle member: codes [base, base + nb - 2] are its non-default
-      // bins, anything else is the feature at its default bin
-      const int j = bin - base;
-      bin = (j >= 0 && j < nb - 1) ? j + (j >= def) : def;
-    }
-    const bool is_missing =
-        (missing == 1 && bin == def) || (missing == 2 && bin == nb - 1);
-    const bool left = is_missing ? dleft : bin <= thr;
+    const bool left =
+        goes_left((int)(((uint32_t)row[word] >> shift) & mask), sp);
     key[i] = left ? 0 : 1;
     nleft += left;
     if (kRenew) {
@@ -141,6 +181,70 @@ split_key_kernel(const int32_t* __restrict__ buf0,
   }
 }
 
+// The column entry: all n rows of the masked core, codes_t the (C, n)
+// column codes (uint8, or 16-bit codes read as uint16), leaf_id (n,) the
+// row -> leaf map (rows of leaf LEAF going right get NEW_ID), gh / ghl
+// (n, 3) the tree's operand and the left child's, row-major.
+template <typename CodeT, typename OpT>
+__global__ void __launch_bounds__(kThreads)
+split_key_column_kernel(const CodeT* __restrict__ codes_t, long long n,
+                        const int* __restrict__ desc,
+                        int32_t* __restrict__ leaf_id,
+                        const OpT* __restrict__ gh, OpT* __restrict__ ghl) {
+  if (!desc[kDescGo]) return;
+  const Split sp = read_split(desc);
+  const int leaf = desc[kDescLeaf], new_id = desc[kDescNewId];
+  const CodeT* __restrict__ col = codes_t + (long long)sp.col * n;
+  for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < n;
+       r += (long long)gridDim.x * kThreads) {
+    bool left = false;
+    if (leaf_id[r] == leaf) {
+      left = goes_left((int)col[r], sp);
+      if (!left) leaf_id[r] = new_id;
+    }
+    OpT* out = ghl + 3 * r;
+    if (left) {
+      const OpT* in = gh + 3 * r;
+      out[0] = in[0];
+      out[1] = in[1];
+      out[2] = in[2];
+    } else {
+      out[0] = OpT(0);
+      out[1] = OpT(0);
+      out[2] = OpT(0);
+    }
+  }
+}
+
+template <typename CodeT, typename OpT>
+int launch_column(const void* codes_t, long long n, const int* desc,
+                  int32_t* leaf_id, const void* gh, void* ghl, int grid,
+                  cudaStream_t s) {
+  split_key_column_kernel<CodeT, OpT><<<grid, kThreads, 0, s>>>(
+      static_cast<const CodeT*>(codes_t), n, desc, leaf_id,
+      static_cast<const OpT*>(gh), static_cast<OpT*>(ghl));
+  return (int)cudaGetLastError();
+}
+
+template <typename CodeT>
+int launch_column_op(const void* codes_t, long long n, const int* desc,
+                     int32_t* leaf_id, const void* gh, void* ghl,
+                     int op_kind, int grid, cudaStream_t s) {
+  switch (op_kind) {
+    case 0:
+      return launch_column<CodeT, float>(codes_t, n, desc, leaf_id, gh, ghl,
+                                         grid, s);
+    case 1:
+      return launch_column<CodeT, int8_t>(codes_t, n, desc, leaf_id, gh,
+                                          ghl, grid, s);
+    case 2:
+      return launch_column<CodeT, int32_t>(codes_t, n, desc, leaf_id, gh,
+                                           ghl, grid, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int kBits>
 int launch_bits(const int32_t* buf0, const int32_t* buf1, int* desc,
                 int32_t* key, int D, int cw, int renew, int grid,
@@ -175,6 +279,32 @@ extern "C" int lgbt_split_key_launch(const int32_t* buf0, const int32_t* buf1,
       return launch_bits<8>(buf0, buf1, desc, key, D, cw, renew, grid, s);
     case 16:
       return launch_bits<16>(buf0, buf1, desc, key, D, cw, renew, grid, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The column entry. codes_t: (C, n) column codes of code_bytes 1 (uint8)
+// or 2 (16 bits, read unsigned); desc: the split descriptor (go, the
+// decision's fields, the leaf and the new id read); leaf_id: n int32,
+// rewritten; gh, ghl: (n, 3) row-major operands of op_kind 0 (f32), 1
+// (int8) or 2 (int32), ghl written in full. grid: any number of blocks of
+// 256 threads.
+extern "C" int lgbt_split_key_column_launch(const void* codes_t,
+                                            int code_bytes, long long n,
+                                            const int* desc, int32_t* leaf_id,
+                                            const void* gh, void* ghl,
+                                            int op_kind, int grid,
+                                            void* stream) {
+  if (grid < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (code_bytes) {
+    case 1:
+      return launch_column_op<uint8_t>(codes_t, n, desc, leaf_id, gh, ghl,
+                                       op_kind, grid, s);
+    case 2:
+      return launch_column_op<uint16_t>(codes_t, n, desc, leaf_id, gh, ghl,
+                                        op_kind, grid, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,7 +24,7 @@ quantized path. Per split:
 After the loop, the row -> leaf map comes from scattering the final
 position -> leaf map over the row-id column.
 
-**Masked** (``grow_tree``, JAX :307), which ``auto`` picks below 65,536
+**Masked** (JAX ``grow_tree`` :307), which ``auto`` picks below 65,536
 rows. Codes stay column-major (C, N); the row -> leaf map ``leaf_id`` is
 rewritten per split, and the left child's histogram is built over all N
 rows with the others' gh zeroed (kernel K2, or K3t when quantized); the
@@ -34,30 +34,36 @@ Quantized gradients (ops/quantize.py): the iteration's (grad, hess) are
 rounded stochastically with the threefry port, so the integers, the
 int32 histograms and the pool are the JAX package's bit for bit; the
 scans read dequantized f32 copies. The compact core re-quantizes each
-leaf's operand at a leaf-local ratio when ``quant_renew`` is on.
+leaf's operand at a leaf-local ratio when ``quant_renew`` is on; the
+masked core keeps one ratio per tree.
 
-**The compact core on the device** (``grow_compact``, what ``grow`` and
-the fused iteration run). As in the JAX package, the whole tree grows
-without a host sync: the state lives in device tensors allocated once per
-learner (``DeviceCarry``, the JAX ``_CarryC`` without LRU pool slots and
-categorical fields), and ``split_step`` is the core's split body over it,
-every write gated on the step's ``go``. ``ops/fused.py::SplitLoop`` runs
-it num_leaves - 1 times per tree: replays of one CUDA graph on the card,
-eager steps on the CPU. The kernels of the step read the split's window
-from the split descriptor in device memory (ops/kernels/desc.py) on grids
-that do not depend on it, so the JAX core's window-size ladder
-(``_size_classes``, a ``lax.switch`` over padded windows) has no
-counterpart: each kernel walks exactly the leaf's rows. The tree's split
-records, its split count k and the row -> leaf map stay on the device; the
-caller fetches records and k in one copy.
+**Both cores on the device** (``grow_compact`` and ``grow_masked``, what
+``grow`` and the fused iteration run). As in the JAX package, the whole
+tree grows without a host sync: the state lives in device tensors
+allocated once per learner (``DeviceCarry``, the JAX ``_CarryC`` without
+LRU pool slots and categorical fields; ``MaskedCarry``, the JAX
+``_Carry``), and ``split_step`` / ``masked_split_step`` is the core's
+split body over it, every write gated on the step's ``go``, with the
+bookkeeping both share in ``split_epilogue_device``.
+``ops/fused.py::SplitLoop`` runs the step num_leaves - 1 times per tree:
+replays of one CUDA graph on the card, eager steps on the CPU. The
+kernels of a step read the split from the split descriptor in device
+memory (ops/kernels/desc.py) on grids that do not depend on it: the
+compact core's kernels walk exactly the leaf's window, so the JAX core's
+window-size ladder (``_size_classes``, a ``lax.switch`` over padded
+windows) has no counterpart; the masked core's split key (column entry)
+and K2 / K3t walk all N rows, as the JAX body does. The tree's split
+records, its split count k and the row -> leaf map stay on the device;
+the caller fetches records and k in one copy.
 
-``grow_tree_compact_core`` is the same core as a host loop (one host sync
-per split to slice each window with host ints). It is kept as the oracle
-the device loop's records are held against, and no parameter reaches it.
+``grow_tree_compact_core`` and ``grow_tree`` are the same cores as host
+loops (one host sync per split, to read the chosen leaf's best row and
+slice each window with host ints). They are kept as the oracles the
+device loops' records are held against, and no parameter reaches them.
 
 ``make_fused_step`` ports the JAX single-program boosting iteration:
-gradients, the working rows, the tree, its leaf values from the records
-and the score update, all on the device.
+gradients, the working rows or operand, the tree, its leaf values from
+the records and the score update, all on the device.
 """
 from __future__ import annotations
 
@@ -85,7 +91,7 @@ from ..ops.kernels.histogram import (build_histogram_quantized_rows,
                                      build_histogram_window, packed_codes)
 from ..ops.kernels.partition import (stable_partition3,
                                      stable_partition3_window)
-from ..ops.kernels.split_key import split_key
+from ..ops.kernels.split_key import split_key, split_key_column
 from ..ops.partition import decide_left
 from ..utils import log
 from ..utils import random as trandom
@@ -499,6 +505,40 @@ def _put(t: torch.Tensor, i1: torch.Tensor, v: torch.Tensor,
     t.index_copy_(0, i1, torch.where(go, v, _get(t, i1))[None])
 
 
+def split_epilogue_device(c, *, l1, new1, k1, go, row, mono_f, hist_l,
+                          hist_r, search2) -> None:
+    """The split bookkeeping of every device loop (the JAX split_epilogue,
+    which serves every core), over a carry `c` with leaf_min, leaf_max,
+    depth, rec, best and base_mask: the monotone bounds (basic mode), the
+    children's depth, the split record and the two children's re-scan
+    from their f32 histograms hist_l, hist_r. l1, new1, k1: (1,) int64
+    device indices of the leaf, its new sibling and the record; every
+    write gated on the 0-d bool `go`; no host sync."""
+    mid = (row[B_LOUT] + row[B_ROUT]) * 0.5
+    pmin, pmax = _get(c.leaf_min, l1), _get(c.leaf_max, l1)
+    lo_mid, hi_mid = torch.maximum(pmin, mid), torch.minimum(pmax, mid)
+    lmin = torch.where(mono_f < 0, lo_mid, pmin)
+    lmax = torch.where(mono_f > 0, hi_mid, pmax)
+    rmin = torch.where(mono_f > 0, lo_mid, pmin)
+    rmax = torch.where(mono_f < 0, hi_mid, pmax)
+    mn2, mx2 = torch.stack([lmin, rmin]), torch.stack([lmax, rmax])
+    _put(c.leaf_min, l1, lmin, go)
+    _put(c.leaf_min, new1, rmin, go)
+    _put(c.leaf_max, l1, lmax, go)
+    _put(c.leaf_max, new1, rmax, go)
+    child_depth = _get(c.depth, l1) + 1
+    _put(c.depth, l1, child_depth, go)
+    _put(c.depth, new1, child_depth, go)
+    _put(c.rec, k1, torch.cat([
+        torch.stack([l1[0].float(), row[B_FEAT], row[B_THR], row[B_DLEFT],
+                     row[B_GAIN]]), row[B_LSG:]]), go)
+    rows2 = search2(torch.stack([hist_l, hist_r]), row[B_LSG::3][:2],
+                    row[B_LSH::3][:2], row[B_LCNT::3][:2], mn2, mx2,
+                    c.base_mask, child_depth)
+    _put(c.best, l1, rows2[0], go)
+    _put(c.best, new1, rows2[1], go)
+
+
 class DeviceCarry:
     """The compact core's state on the device, allocated once per learner
     at fixed addresses (a captured step replays against them): the JAX
@@ -545,7 +585,8 @@ class DeviceCarry:
         self.leafmax = torch.zeros((L, 2), **f32)
         self.one = torch.ones((), **f32)
         self.zero1 = torch.zeros(1, **i32)
-        self.zero4 = torch.zeros(4, **i32)
+        # the descriptor's side maxes, and the masked core's fields
+        self.zero_tail = torch.zeros(dsc.SIZE - dsc.SIDE_MAX, **i32)
 
 
 def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
@@ -583,7 +624,7 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
         torch.stack([go.int(), src, begin, pcount]), c.zero1,
         torch.stack([left_small.int(), row[B_THR].int(),
                      (row[B_DLEFT] > 0.5).int()]),
-        _get(meta_table, feat1), c.zero4]))
+        _get(meta_table, feat1), c.zero_tail]))
     split_key(c.data, c.spare, c.desc, c.key, item_bits=item_bits, cw=cw,
               renew=renew)
     stable_partition3_window(c.data, c.spare, c.key, c.desc)
@@ -612,40 +653,15 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
     hist_r = torch.where(left_small, sibling, hist_small)
     _put(c.pool, l1, hist_l, go)
     _put(c.pool, new1, hist_r, go)
-
-    # split_epilogue: monotone bounds, depth, the record, the re-scan
-    mono_f = _get(f_monotone, feat1)
-    mid = (row[B_LOUT] + row[B_ROUT]) * 0.5
-    pmin, pmax = _get(c.leaf_min, l1), _get(c.leaf_max, l1)
-    lo_mid, hi_mid = torch.maximum(pmin, mid), torch.minimum(pmax, mid)
-    lmin = torch.where(mono_f < 0, lo_mid, pmin)
-    lmax = torch.where(mono_f > 0, hi_mid, pmax)
-    rmin = torch.where(mono_f > 0, lo_mid, pmin)
-    rmax = torch.where(mono_f < 0, hi_mid, pmax)
-    mn2, mx2 = torch.stack([lmin, rmin]), torch.stack([lmax, rmax])
-    _put(c.leaf_min, l1, lmin, go)
-    _put(c.leaf_min, new1, rmin, go)
-    _put(c.leaf_max, l1, lmax, go)
-    _put(c.leaf_max, new1, rmax, go)
-    child_depth = _get(c.depth, l1) + 1
-    _put(c.depth, l1, child_depth, go)
-    _put(c.depth, new1, child_depth, go)
-    _put(c.rec, k1, torch.cat([
-        torch.stack([l1[0].float(), row[B_FEAT], row[B_THR], row[B_DLEFT],
-                     row[B_GAIN]]), row[B_LSG:]]), go)
-    if not quant_bits:
-        hist_l_s, hist_r_s = hist_l, hist_r
-    else:
+    if quant_bits:
         scale3 = quant_ops.dequant_scale3(c.s_g * rq[0], c.s_h * rq[1])
-        hist_l_s, hist_r_s = hist_l.float() * scale3, hist_r.float() * scale3
-    rows2 = search2(torch.stack([hist_l_s, hist_r_s]), row[B_LSG::3][:2],
-                    row[B_LSH::3][:2], row[B_LCNT::3][:2], mn2, mx2,
-                    c.base_mask, child_depth)
-    _put(c.best, l1, rows2[0], go)
-    _put(c.best, new1, rows2[1], go)
+        hist_l, hist_r = hist_l.float() * scale3, hist_r.float() * scale3
+    split_epilogue_device(c, l1=l1, new1=new1, k1=k1, go=go, row=row,
+                          mono_f=_get(f_monotone, feat1), hist_l=hist_l,
+                          hist_r=hist_r, search2=search2)
     if renew:
         rq2 = torch.stack(rq)
-        side = c.desc[dsc.SIDE_MAX:].float().view(2, 2)
+        side = c.desc[dsc.SIDE_MAX:dsc.LEAF].float().view(2, 2)
         _put(c.scale_of, l1, rq2, go)
         _put(c.scale_of, new1, rq2, go)
         _put(c.leafmax, l1, side[0], go)
@@ -759,6 +775,95 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
     return rec, leaf_id, k
 
 
+class MaskedCarry:
+    """The masked core's state on the device, allocated once per learner
+    at fixed addresses (the JAX _Carry without the categorical fields and
+    the by-node key).
+
+    k             0-d int32: splits made
+    leaf_id       (N,) int32 row -> leaf map, rewritten per split
+    pool          (L, C, B, 3) f32 (float) or int32 (quantized) histograms
+    depth, leaf_min, leaf_max, best (L, 12), rec (L-1, 13) as in the core
+    desc          the split descriptor (ops/kernels/desc.py)
+    gh            (N, 3) the tree's histogram operand: f32 [grad, hess, 1]
+                  or int8 / int32 [qg, qh, 1]
+    ghl           (N, 3) the left child's operand, of gh's dtype
+    base_mask     (F,) bool feature sample of the tree
+    scale3        (3,) f32 the tree's dequantization scales (quantized;
+                  the masked core keeps one ratio for the tree)
+    """
+
+    def __init__(self, n: int, num_leaves: int, pool_shape,
+                 pool_dtype: torch.dtype, gh_dtype: torch.dtype,
+                 num_features: int, device):
+        L = num_leaves
+        i32 = dict(dtype=torch.int32, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.k = torch.zeros((), **i32)
+        self.leaf_id = torch.zeros(n, **i32)
+        self.pool = torch.zeros((L,) + tuple(pool_shape), dtype=pool_dtype,
+                                device=device)
+        self.depth = torch.zeros(L, **i32)
+        self.leaf_min = torch.zeros(L, **f32)
+        self.leaf_max = torch.zeros(L, **f32)
+        self.best = torch.zeros((L, 12), **f32)
+        self.rec = torch.zeros((L - 1, 13), **f32)
+        self.desc = torch.zeros(dsc.SIZE, **i32)
+        self.gh = torch.zeros((n, 3), dtype=gh_dtype, device=device)
+        self.ghl = torch.zeros((n, 3), dtype=gh_dtype, device=device)
+        self.base_mask = torch.ones(num_features, dtype=torch.bool,
+                                    device=device)
+        self.scale3 = torch.ones(3, **f32)
+        self.zero5 = torch.zeros(5, **i32)
+        self.zero4 = torch.zeros(4, **i32)
+
+
+def masked_split_step(c: MaskedCarry, codes_t: torch.Tensor, *,
+                      meta_table: torch.Tensor, f_monotone: torch.Tensor,
+                      search2, col_bins: int, num_leaves: int,
+                      quant: bool) -> None:
+    """One split of the masked core over the device state `c`: the JAX
+    grow_tree body at fixed shapes and with no host sync. The split key's
+    column entry rewrites the split leaf's row -> leaf map and writes the
+    left child's operand, K2 (or K3t when quantized) builds the left
+    child's histogram over all N rows, the right child is parent - left.
+    Every state write is gated on go = (best gain > 1e-10) & (k < L - 1),
+    and the split key returns at once when the descriptor's GO is 0 (K2 /
+    K3t then sum a stale operand that nothing reads), so a step after the
+    tree stopped changes nothing."""
+    L = num_leaves
+    l1 = torch.argmax(c.best[:, B_GAIN]).view(1)
+    row = _get(c.best, l1)
+    k = c.k.long()
+    go = (row[B_GAIN].double() > 1e-10) & (k < L - 1)
+    # indices stay in range when the tree is full (gated writes there)
+    new1 = torch.clamp(k + 1, max=L - 1).view(1)
+    k1 = torch.clamp(k, max=L - 2).view(1)
+    feat1 = torch.clamp(row[B_FEAT].long(), 0,
+                        meta_table.shape[0] - 1).view(1)
+
+    # the descriptor: go, the decision, the leaf and the new id (the
+    # window and side-max fields are the compact core's)
+    c.desc.copy_(torch.cat([
+        go.int().view(1), c.zero5,
+        torch.stack([row[B_THR].int(), (row[B_DLEFT] > 0.5).int()]),
+        _get(meta_table, feat1), c.zero4, l1.int(), new1.int()]))
+    split_key_column(codes_t, c.desc, c.leaf_id, c.gh, c.ghl)
+    if quant:
+        hist_l = build_histogram_quantized_t(codes_t, c.ghl, col_bins)
+    else:
+        hist_l = build_histogram_t(codes_t, c.ghl, col_bins)
+    hist_r = subtract_histogram(_get(c.pool, l1), hist_l)
+    _put(c.pool, l1, hist_l, go)
+    _put(c.pool, new1, hist_r, go)
+    if quant:
+        hist_l, hist_r = hist_l.float() * c.scale3, hist_r.float() * c.scale3
+    split_epilogue_device(c, l1=l1, new1=new1, k1=k1, go=go, row=row,
+                          mono_f=_get(f_monotone, feat1), hist_l=hist_l,
+                          hist_r=hist_r, search2=search2)
+    c.k.copy_(c.k + go.int())
+
+
 class DeviceTreeLearner:
     """Tree learner whose growth runs on `device` (the card, or the CPU
     through the kernels' plain versions)."""
@@ -863,8 +968,9 @@ class DeviceTreeLearner:
             self.codes_t = torch.from_numpy(ct).to(dev)
         self._ones_mask = torch.ones(self.num_features, dtype=torch.bool,
                                      device=dev)
-        self._carry: Optional[DeviceCarry] = None
+        self._carry = None             # DeviceCarry or MaskedCarry
         self._loop: Optional[SplitLoop] = None
+        self._scan = None
         self.last_leaf_id: Optional[torch.Tensor] = None
         self.stats = GrowStats()
 
@@ -967,25 +1073,24 @@ class DeviceTreeLearner:
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              iter_seed: int = 0):
-        """Grow one tree on the learner's strategy: the feature sample
-        from the host RandomState and the quantization key
-        prng_key(iter_seed), as in the JAX package's train. Returns (rec
-        (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
+        """Grow one tree on the learner's strategy, in its device loop,
+        and fetch it: the feature sample from the host RandomState and the
+        quantization key prng_key(iter_seed), as in the JAX package's
+        train. Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64
+        tensor, k)."""
         grad, hess = grad.float(), hess.float()
-        if self.strategy == "masked":
-            mask = self._base_mask(iter_seed)
-            return self._grow_masked(
-                grad, hess, self._ones_mask if mask is None else mask,
-                trandom.prng_key(iter_seed))
-        rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed)
+        grow = self.grow_masked if self.strategy == "masked" \
+            else self.grow_compact
+        rec, leaf_id, k = grow(grad, hess, iter_seed)
         rec_h, k, _ = self.fetch_tree(rec, k)
         return rec_h, leaf_id, k
 
     def fetch_tree(self, rec: torch.Tensor, k: torch.Tensor, *flags):
         """The tree's one device->host copy: its records, k and any 0-d
         `flags`, packed into one tensor. Returns (rec (L-1, 13) f32 numpy,
-        k, flags as floats); counts the sync, the splits and the rows K4's
-        window entry moved (each split's window: its two children)."""
+        k, flags as floats); counts the sync, the splits and, on the
+        compact strategy, the rows K4's window entry moved (each split's
+        window: its two children)."""
         parts = [rec.reshape(-1), k.float().view(1)] \
             + [f.float().view(1) for f in flags]
         host = torch.cat(parts).cpu().numpy()
@@ -994,15 +1099,46 @@ class DeviceTreeLearner:
         rec_h = host[:m].reshape(rec.shape)
         k = int(host[m])
         self.stats.splits += k
-        kpart.rows_win += int(round(float(
-            rec_h[:k, R_LCNT].sum(dtype=np.float64)
-            + rec_h[:k, R_RCNT].sum(dtype=np.float64))))
+        if self.strategy == "compact":
+            kpart.rows_win += int(round(float(
+                rec_h[:k, R_LCNT].sum(dtype=np.float64)
+                + rec_h[:k, R_RCNT].sum(dtype=np.float64))))
         return rec_h, k, [float(v) for v in host[m + 1:]]
+
+    def _search(self):
+        """The split scan of this learner's settings: (scan, best_row,
+        search2), made once."""
+        if self._scan is None:
+            st = self._statics()
+            scan, best_row = _tree_helpers(
+                self.meta["t_numbins"], self.meta["t_missing"],
+                self.meta["t_default"], self.meta["t_monotone"],
+                self.meta["t_penalty"], self.meta["t_elide"],
+                self.meta["t_hist_idx"], max_depth=st["max_depth"],
+                l1=st["l1"], l2=st["l2"],
+                max_delta_step=st["max_delta_step"],
+                min_data_in_leaf=st["min_data_in_leaf"],
+                min_sum_hessian=st["min_sum_hessian"],
+                min_gain_to_split=st["min_gain_to_split"])
+            self._scan = (scan, best_row, search2_simple(scan, best_row))
+        return self._scan
+
+    def _capture(self, c, step, counters):
+        """The carry's SplitLoop over `step`; on the card the step is
+        captured while the carry is idle, k = L - 1. The step must not
+        refer to the learner: the learner holds the loop, and a cycle
+        would leave a dropped learner's graph to the cyclic collector."""
+        L = int(self.config.num_leaves)
+        loop = SplitLoop(step, L - 1, self.device, counters)
+        if self.device.type == "cuda":
+            c.k.fill_(L - 1)
+            loop.capture()
+        self._carry, self._loop = c, loop
+        return c, loop
 
     def _device_state(self):
         """The compact core's DeviceCarry and its SplitLoop, made at the
-        first tree: the step is captured (on the card) while the carry is
-        idle, k = L - 1."""
+        first tree."""
         if self._carry is not None:
             return self._carry, self._loop
         st = self._statics()
@@ -1011,36 +1147,47 @@ class DeviceTreeLearner:
         c = DeviceCarry(n, d_cols, L, (self.c_cols, st["col_bins"], 3),
                         torch.int32 if self.quant_bits else torch.float32,
                         self.num_features, self.device)
-        scan, best_row = _tree_helpers(
-            self.meta["t_numbins"], self.meta["t_missing"],
-            self.meta["t_default"], self.meta["t_monotone"],
-            self.meta["t_penalty"], self.meta["t_elide"],
-            self.meta["t_hist_idx"], max_depth=st["max_depth"], l1=st["l1"],
-            l2=st["l2"], max_delta_step=st["max_delta_step"],
-            min_data_in_leaf=st["min_data_in_leaf"],
-            min_sum_hessian=st["min_sum_hessian"],
-            min_gain_to_split=st["min_gain_to_split"])
-        search2 = search2_simple(scan, best_row)
-        self._scan = (scan, best_row)
+        # the step holds no reference to the learner (see _capture)
+        kw = dict(meta_table=self.meta["t_feature_table"],
+                  f_monotone=self.meta["t_monotone"],
+                  search2=self._search()[2], c_cols=self.c_cols,
+                  item_bits=self.item_bits, col_bins=st["col_bins"],
+                  num_leaves=L, quant_bits=self.quant_bits,
+                  qcap_op=quant_ops.quant_max(self.quant_bits, n)
+                  if self.quant_bits else 0,
+                  renew=bool(self.quant_bits) and self.quant_renew)
 
         def step():
-            split_step(c, meta_table=self.meta["t_feature_table"],
-                       f_monotone=self.meta["t_monotone"], search2=search2,
-                       c_cols=self.c_cols, item_bits=self.item_bits,
-                       col_bins=st["col_bins"], num_leaves=L,
-                       quant_bits=self.quant_bits,
-                       qcap_op=quant_ops.quant_max(self.quant_bits, n)
-                       if self.quant_bits else 0,
-                       renew=bool(self.quant_bits) and self.quant_renew)
+            split_step(c, **kw)
 
-        loop = SplitLoop(step, L - 1, self.device, (
+        return self._capture(c, step, (
             (kkey, "launches"), (kpart, "launches_win"),
             (khist, "launches_win"), (khist, "launches_qwin")))
-        if self.device.type == "cuda":
-            c.k.fill_(L - 1)
-            loop.capture()
-        self._carry, self._loop = c, loop
-        return c, loop
+
+    def _set_base_mask(self, c, iter_seed: int) -> None:
+        mask = self._base_mask(iter_seed)
+        if mask is None:
+            c.base_mask.fill_(True)
+        else:
+            c.base_mask.copy_(mask)
+
+    def _root(self, c, hist0, hist0_s, totals) -> None:
+        """The root's best row and pool entry into the carry, and the
+        state every tree starts from."""
+        scan, best_row, _ = self._search()
+        c.leaf_min.fill_(-np.inf)
+        c.leaf_max.fill_(np.inf)
+        row0 = best_row(scan(hist0_s[None], totals[0:1], totals[1:2],
+                             totals[2:3], c.leaf_min[:1], c.leaf_max[:1],
+                             c.base_mask), 0)
+        c.best.fill_(NEG_INF)
+        c.best[:, B_FEAT:] = 0.0
+        c.best[0] = row0[0]
+        c.pool.zero_()
+        c.pool[0] = hist0
+        c.rec.zero_()
+        c.k.zero_()
+        c.depth.zero_()
 
     def grow_compact(self, grad: torch.Tensor, hess: torch.Tensor,
                      iter_seed: int = 0):
@@ -1050,12 +1197,7 @@ class DeviceTreeLearner:
         k (valid until the next tree) and the (N,) int64 leaf_id."""
         c, loop = self._device_state()
         st = self._statics()
-        mask = self._base_mask(iter_seed)
-        if mask is None:
-            c.base_mask.fill_(True)
-        else:
-            c.base_mask.copy_(mask)
-        scan, best_row = self._scan
+        self._set_base_mask(c, iter_seed)
         cw = self.codes_pack.shape[1]
         if self.quant_bits:
             _, quant = self.quant_working_buffer(
@@ -1085,19 +1227,7 @@ class DeviceTreeLearner:
                 c.data, c.spare, c.root_desc, cw, self.c_cols,
                 self.item_bits, st["col_bins"])
             totals = hist0[0].sum(dim=0)          # (3,): sum_g, sum_h, cnt
-        c.leaf_min.fill_(-np.inf)
-        c.leaf_max.fill_(np.inf)
-        row0 = best_row(scan(hist0_s[None], totals[0:1], totals[1:2],
-                             totals[2:3], c.leaf_min[:1], c.leaf_max[:1],
-                             c.base_mask), 0)
-        c.best.fill_(NEG_INF)
-        c.best[:, B_FEAT:] = 0.0
-        c.best[0] = row0[0]
-        c.pool.zero_()
-        c.pool[0] = hist0
-        c.rec.zero_()
-        c.k.zero_()
-        c.depth.zero_()
+        self._root(c, hist0, hist0_s, totals)
         c.leaf_begin.zero_()
         c.leaf_buf.zero_()
         c.leaf_phys.zero_()
@@ -1106,21 +1236,93 @@ class DeviceTreeLearner:
         loop.run()
         return c.rec, leaf_map(c), c.k
 
+    def masked_operand(self, grad: torch.Tensor, hess: torch.Tensor,
+                       iter_seed: int = 0):
+        """The masked core's (N, 3) histogram operand of one tree and its
+        dequantization scales: f32 [grad, hess, 1] and None, or, with
+        quantized gradients (key prng_key(iter_seed), the tree's one
+        ratio), the integer [qg, qh, 1] and (3,) f32 scale3."""
+        if not self.quant_bits:
+            return torch.stack([grad, hess, torch.ones_like(grad)],
+                               dim=1), None
+        packed, s_g, s_h, _ = _quant_prepare(
+            grad, hess, trandom.prng_key(iter_seed),
+            quant_bits=self.quant_bits, quant_renew=False)
+        gh = quant_ops.gh_operand(
+            packed, torch.ones_like(packed, dtype=torch.bool),
+            self.quant_bits)
+        return gh, quant_ops.dequant_scale3(s_g, s_h)
+
+    def _masked_state(self):
+        """The masked core's MaskedCarry and its SplitLoop, made at the
+        first tree."""
+        if self._carry is not None:
+            return self._carry, self._loop
+        st = self._statics()
+        L, n = st["num_leaves"], self.dataset.num_data
+        quant = bool(self.quant_bits)
+        c = MaskedCarry(
+            n, L, (self.c_cols, st["col_bins"], 3),
+            torch.int32 if quant else torch.float32,
+            quant_ops.operand_dtype(self.quant_bits) if quant
+            else torch.float32, self.num_features, self.device)
+        # the step holds no reference to the learner (see _capture)
+        codes_t = self.codes_t
+        kw = dict(meta_table=self.meta["t_feature_table"],
+                  f_monotone=self.meta["t_monotone"],
+                  search2=self._search()[2], col_bins=st["col_bins"],
+                  num_leaves=L, quant=quant)
+
+        def step():
+            masked_split_step(c, codes_t, **kw)
+
+        return self._capture(c, step, (
+            (kkey, "launches_col"), (khist, "launches_t"),
+            (khist, "launches_qt")))
+
+    def grow_masked(self, grad: torch.Tensor, hess: torch.Tensor,
+                    iter_seed: int = 0):
+        """Grow one tree with the masked core on the device: the operand,
+        the root (K2 / K3t over all rows), the split loop, with no host
+        sync. Returns the carry's (L-1, 13) f32 records and 0-d int32 k
+        (valid until the next tree) and the (N,) int64 leaf_id."""
+        c, loop = self._masked_state()
+        self._set_base_mask(c, iter_seed)
+        gh, scale3 = self.masked_operand(grad.float(), hess.float(),
+                                         iter_seed)
+        c.gh.copy_(gh)
+        col_bins = self.col_device_bins
+        if scale3 is None:
+            hist0 = hist0_s = build_histogram_t(self.codes_t, c.gh, col_bins)
+            totals = hist0[0].sum(dim=0)          # (3,): sum_g, sum_h, cnt
+        else:
+            c.scale3.copy_(scale3)
+            hist0 = build_histogram_quantized_t(self.codes_t, c.gh, col_bins)
+            hist0_s = hist0.float() * c.scale3
+            totals = hist0[0].sum(dim=0).float() * c.scale3
+        self._root(c, hist0, hist0_s, totals)
+        c.leaf_id.zero_()
+        loop.run()
+        return c.rec, c.leaf_id.long(), c.k
+
     def make_fused_step(self, objective):
         """One boosting iteration as one device program (the JAX package's
         DeviceTreeLearner.make_fused_step, without bagging and GOSS, which
-        the port refuses): gradients at score + init_score, the tree, its
-        leaf values from the records and the score update, with no host
-        sync. Returns step(score_row, iter_seed, shrinkage, init_score) ->
+        the port refuses), on either strategy: gradients at score +
+        init_score, the tree in the strategy's device loop, its leaf
+        values from the records and the score update, with no host sync.
+        Returns step(score_row, iter_seed, shrinkage, init_score) ->
         (new_score, rec, leaf_id, k, finite): the delta is 0 when k == 0,
         and finite says every updated score is finite."""
         L = int(self.config.num_leaves)
+        grow = self.grow_masked if self.strategy == "masked" \
+            else self.grow_compact
 
         def step(score_row: torch.Tensor, iter_seed: int, shrinkage: float,
                  init_score: float = 0.0):
             score = score_row + init_score
             grad, hess = objective.get_gradients(score)
-            rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed)
+            rec, leaf_id, k = grow(grad, hess, iter_seed)
             lv = leaf_values_from_rec(rec, k, L)
             delta = lv.index_select(0, leaf_id) * shrinkage
             new_score = score + torch.where(k > 0, delta,
@@ -1128,22 +1330,6 @@ class DeviceTreeLearner:
             return (new_score, rec, leaf_id, k,
                     torch.isfinite(new_score).all())
         return step
-
-    def _grow_masked(self, grad, hess, base_mask, key):
-        scale3 = None
-        if self.quant_bits:
-            packed, s_g, s_h, _ = _quant_prepare(
-                grad, hess, key, quant_bits=self.quant_bits,
-                quant_renew=False)
-            gh = quant_ops.gh_operand(
-                packed, torch.ones_like(packed, dtype=torch.bool),
-                self.quant_bits)
-            scale3 = quant_ops.dequant_scale3(s_g, s_h)
-        else:
-            gh = torch.stack([grad, hess, torch.ones_like(grad)], dim=1)
-        return grow_tree(self.codes_t, gh, base_mask, self.meta,
-                         scale3=scale3, stats=self.stats,
-                         **self._statics())
 
     def replay_tree(self, rec_h, k: int) -> Tree:
         """Materialize a host Tree from the (L-1, 13) split records."""

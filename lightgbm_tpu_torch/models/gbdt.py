@@ -8,11 +8,11 @@ live on the booster's device as (1, N) f32 tensors; trees and split
 records live on the host.
 
 Two iterations, as in the JAX package: the fused one (``_fused_eligible``:
-plain GBDT, one tree per iteration, the compact strategy) runs the
-learner's single-program step -- gradients, tree, leaf values and score
-update on the device -- and makes one device->host copy, the split
-records, k and the finite flag; the generic one runs otherwise, and takes
-over an iteration whose fused tree has no split (the stop bookkeeping).
+plain GBDT, one tree per iteration, either strategy) runs the learner's
+single-program step -- gradients, tree, leaf values and score update on
+the device -- and makes one device->host copy, the split records, k and
+the finite flag; the generic one runs otherwise, and takes over an
+iteration whose fused tree has no split (the stop bookkeeping).
 The JAX package's pipelined form of the fused iteration is not ported.
 """
 from __future__ import annotations
@@ -138,12 +138,12 @@ class GBDT:
 
     def _fused_eligible(self) -> bool:
         """Whether the single-program device iteration applies: one tree
-        per iteration that trains, on the compact strategy (the masked one
-        keeps its host loop). The port's boosting is plain GBDT only."""
+        per iteration that trains, on either strategy (each grows its tree
+        in its device loop), as in the JAX package. The port's boosting is
+        plain GBDT only."""
         return (self.num_tree_per_iteration == 1
                 and self._class_need_train[0]
-                and self.train_set.num_features > 0
-                and self.learner.strategy == "compact")
+                and self.train_set.num_features > 0)
 
     def _train_one_iter_fused(self) -> bool:
         """One boosting iteration as one device program and one small

@@ -1,28 +1,35 @@
-"""The compact core's split loop on the device, and a tree's leaf values
+"""The growth cores' split loop on the device, and a tree's leaf values
 from its split records.
 
 Port of lightgbm_tpu/ops/fused.py::run_split_loop and lightgbm_tpu/models/
 device_learner.py::leaf_values_from_rec.
 
-The JAX package runs a growth core's split body as one device program per
-tree: a ``lax.while_loop`` that exits when no leaf has a positive gain
-(``grow_program=per_split``), or a fixed-trip ``lax.scan`` of num_leaves - 1
-steps whose body is gated by ``lax.cond`` (``fused_tree``), both with the
-same records. The port has the fixed-trip form only, for both settings: an
-early exit cannot be seen on the host without a device->host sync. Its
-step is a function over the learner's device-resident state that gates
-every write on the step's own ``go`` flag (tensor ops with
-``torch.where``), and whose kernels return at once when the split
-descriptor's GO field is 0, so a stopped tree's state passes through the
-remaining steps untouched.
+The JAX package runs a growth core's split body -- the compact core's
+and the masked core's alike -- as one device program per tree: a
+``lax.while_loop`` that exits when no leaf has a positive gain
+(``grow_program=per_split``), or a fixed-trip ``lax.scan`` of
+num_leaves - 1 steps whose body is gated by ``lax.cond`` (``fused_tree``),
+both with the same records. The port has the fixed-trip form only, for
+both settings: an early exit cannot be seen on the host without a
+device->host sync. Its step is a function over the learner's
+device-resident state that gates every write on the step's own ``go``
+flag (tensor ops with ``torch.where``), and whose kernels return at once
+when the split descriptor's GO field is 0 (or, where a kernel must run,
+sum what no gated write reads), so a stopped tree's state passes through
+the remaining steps untouched.
 
 On the card ``SplitLoop`` captures the step once as a CUDA graph and
 replays it num_leaves - 1 times per tree, with no host sync in between; on
 the CPU it runs the same step eagerly (the kernels' plain versions), which
-is what the tests hold against the JAX package.
+is what the tests hold against the JAX package. The learner
+(models/device_learner.py) makes one per learner: over the compact core's
+``split_step`` (split key, K4's and K1's / K3's window entries) or the
+masked core's ``masked_split_step`` (the split key's column entry, K2 /
+K3t over all rows).
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Sequence, Tuple
 
@@ -60,8 +67,18 @@ class SplitLoop:
         torch.cuda.synchronize(self.device)
         before = [getattr(m, a) for m, a in self.counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.step()
+        # a graph freed while another captures invalidates that capture
+        # (its reset is not permitted then); a graph held by a dead
+        # reference cycle is freed by the cyclic collector, whenever it
+        # runs: not during the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.step()
+        finally:
+            if collecting:
+                gc.enable()
         for (m, a), b in zip(self.counters, before):
             self.launches_per_step["%s.%s" % (m.__name__, a)] = \
                 getattr(m, a) - b

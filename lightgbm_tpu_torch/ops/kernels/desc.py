@@ -1,11 +1,12 @@
 """The split descriptor: one split's window and decision, in device memory.
 
-The compact core's device loop (models/device_learner.py) writes one small
-int32 tensor per split step with tensor ops, and the device-window entries
-of the kernels it launches read their window from it instead of taking it
-as host ints: the split-key kernel (ops/kernels/split_key.py), K4's window
-entry (ops/kernels/partition.py) and the K1 / K3 window entries
-(ops/kernels/histogram.py). Their launches then have the same arguments at
+The device loops of the compact and the masked core (models/
+device_learner.py) write one small int32 tensor per split step with tensor
+ops, and the kernels they launch read the split from it instead of taking
+it as host ints: the compact core's split-key kernel (ops/kernels/
+split_key.py), K4's window entry (ops/kernels/partition.py) and the K1 /
+K3 window entries (ops/kernels/histogram.py); the masked core's column
+entry of the split key. Their launches then have the same arguments at
 every split, so the step replays from one CUDA graph. The CUDA sources
 repeat the field numbers they read (``kDesc*`` in csrc/*.cu; the tests
 hold them equal to these).
@@ -23,6 +24,8 @@ Fields (int32):
               count, missing type and default bin
   SIDE_MAX    four ints: max |qg|, |qh| of the left rows, then the right
               rows' (leaf re-quantization), maxed in by the split-key kernel
+  LEAF        the split leaf (masked core: rows whose leaf id it is split)
+  NEW_ID      the right child's leaf id, k + 1 (masked core)
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ import torch
 
 (GO, SRC, BEGIN, COUNT, LPHYS, LEFT_SMALL, THR, DLEFT, COL, BASE, ELIDE,
  NUMBINS, MISSING, DEFAULT, SIDE_MAX) = range(15)
-SIZE = SIDE_MAX + 4
+LEAF = SIDE_MAX + 4
+NEW_ID = LEAF + 1
+SIZE = NEW_ID + 1
 
 
 def root(n: int, device) -> torch.Tensor:

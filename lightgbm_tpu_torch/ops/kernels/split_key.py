@@ -1,19 +1,28 @@
-"""Split key: each row's side of a split over one window of packed rows.
+"""Split key: each row's side of a split, in two entries.
 
-The compact core's device loop runs it before K4 at every split. It stands
-for the window decode that the JAX compact core does in XLA around its
-partition (lightgbm_tpu/models/device_learner.py ``packed_go_left`` with
-``logical_bins_for_feature`` and ``decide_left``, and ``_quant_side_maxes``
-under leaf re-quantization): per row of the split leaf's window, decode the
-split feature's code from its packed word, unmap its EFB logical bin and
-decide left or right. It writes key3 (0 = left, 1 = right) for K4, and
-into the split descriptor (ops/kernels/desc.py) the exact count of rows
-going left and, under re-quantization, each side's max |qg| and |qh|.
+``split_key``, the packed entry: the compact core's device loop runs it
+before K4 at every split. It stands for the window decode that the JAX
+compact core does in XLA around its partition (lightgbm_tpu/models/
+device_learner.py ``packed_go_left`` with ``logical_bins_for_feature`` and
+``decide_left``, and ``_quant_side_maxes`` under leaf re-quantization): per
+row of the split leaf's window, decode the split feature's code from its
+packed word, unmap its EFB logical bin and decide left or right. It writes
+key3 (0 = left, 1 = right) for K4, and into the split descriptor
+(ops/kernels/desc.py) the exact count of rows going left and, under
+re-quantization, each side's max |qg| and |qh|.
 
-``split_key`` launches ``csrc/split_key.cu`` for tensors on the card, and
-takes ``split_key_plain``, the same function in plain PyTorch, for tensors
-on the CPU. Both read the window and the feature from the descriptor and do
-nothing when its GO field is 0.
+``split_key_column``, the column entry: the masked core's device loop runs
+it before K2 / K3t at every split. It stands for the decode and row update
+of the JAX masked body (lightgbm_tpu/models/device_learner.py grow_tree,
+:402-419): over all N rows, the split leaf's rows read the feature's code
+from its column of the (C, N) codes, are decided the same way, and move to
+the new leaf id when they go right; the left child's histogram operand
+gets the gh of the rows that go left, 0 for every other row.
+
+Each wrapper launches ``csrc/split_key.cu`` for tensors on the card, and
+takes its ``*_plain`` version, the same function in plain PyTorch, for
+tensors on the CPU. Both read the split from the descriptor and do nothing
+when its GO field is 0.
 """
 from __future__ import annotations
 
@@ -26,10 +35,24 @@ from ..partition import decide_left
 from ..quantize import unpack_gh
 from . import build
 from . import desc as dsc
-from .histogram import _BLOCKS_PER_SM, _grid_x
+from .histogram import _BLOCKS_PER_SM, _OP_KIND, _grid_x
 
 # +1 right after each kernel launch; read by chip_smoke.py
-launches = 0
+launches = 0          # the packed entry
+launches_col = 0      # the column entry
+
+# the column entry's code widths; its operand kinds are the histogram's
+_CODE_BYTES = {torch.uint8: 1, torch.int16: 2}
+
+
+def _decide(col: torch.Tensor, f) -> torch.Tensor:
+    """Bool split decision of the raw codes `col` of the split feature's
+    column under the descriptor ints `f`: its EFB logical bins, then the
+    numerical decision."""
+    bins = bundle_ops.logical_bins_for_feature(
+        col, f[dsc.BASE], f[dsc.DEFAULT], f[dsc.NUMBINS], f[dsc.ELIDE])
+    return decide_left(bins, f[dsc.THR], bool(f[dsc.DLEFT]),
+                       f[dsc.MISSING], f[dsc.DEFAULT], f[dsc.NUMBINS])
 
 
 def _go_left(win: torch.Tensor, f, item_bits: int) -> torch.Tensor:
@@ -38,10 +61,7 @@ def _go_left(win: torch.Tensor, f, item_bits: int) -> torch.Tensor:
     per = 32 // item_bits
     col = (win[:, f[dsc.COL] // per] >> ((f[dsc.COL] % per) * item_bits)) \
         & ((1 << item_bits) - 1)
-    bins = bundle_ops.logical_bins_for_feature(
-        col, f[dsc.BASE], f[dsc.DEFAULT], f[dsc.NUMBINS], f[dsc.ELIDE])
-    return decide_left(bins, f[dsc.THR], bool(f[dsc.DLEFT]),
-                       f[dsc.MISSING], f[dsc.DEFAULT], f[dsc.NUMBINS])
+    return _decide(col, f)
 
 
 def side_maxes(win: torch.Tensor, go_left: torch.Tensor,
@@ -70,8 +90,8 @@ def split_key_plain(data: torch.Tensor, spare: torch.Tensor,
     key[:count] = (~go_left).to(torch.int32)
     desc[dsc.LPHYS] += int(go_left.sum())
     if renew:
-        desc[dsc.SIDE_MAX:] = torch.maximum(desc[dsc.SIDE_MAX:],
-                                            side_maxes(win, go_left, cw))
+        side = desc[dsc.SIDE_MAX:dsc.LEAF]
+        side.copy_(torch.maximum(side, side_maxes(win, go_left, cw)))
 
 
 def split_key(data: torch.Tensor, spare: torch.Tensor, desc: torch.Tensor,
@@ -109,3 +129,66 @@ def split_key(data: torch.Tensor, spare: torch.Tensor, desc: torch.Tensor,
             torch.cuda.current_stream(data.device).cuda_stream)
     build.check(rc, "split key kernel launch")
     launches += 1
+
+
+def split_key_column_plain(codes_t: torch.Tensor, desc: torch.Tensor,
+                           leaf_id: torch.Tensor, gh: torch.Tensor,
+                           ghl: torch.Tensor) -> None:
+    """The column entry in plain PyTorch: rewrites leaf_id and writes ghl
+    in full, as the kernel does; nothing when GO is 0."""
+    f = dsc.fields(desc)
+    if not f[dsc.GO]:
+        return
+    col = codes_t[f[dsc.COL]].long()
+    if codes_t.dtype == torch.int16:
+        col = col & 0xFFFF
+    go_left = _decide(col, f)
+    parent = leaf_id == f[dsc.LEAF]
+    leaf_id.masked_fill_(parent & ~go_left, f[dsc.NEW_ID])
+    ghl.copy_(torch.where((parent & go_left)[:, None], gh, gh.new_zeros(())))
+
+
+def split_key_column(codes_t: torch.Tensor, desc: torch.Tensor,
+                     leaf_id: torch.Tensor, gh: torch.Tensor,
+                     ghl: torch.Tensor) -> None:
+    """The masked core's split over all N rows: rows of leaf LEAF that go
+    right get leaf id NEW_ID in leaf_id, and ghl (the left child's
+    histogram operand) gets gh's row where the row is in the leaf and goes
+    left, else 0. codes_t: contiguous (C, N) uint8 or int16 codes (16-bit
+    codes read as uint16); leaf_id: (N,) int32; gh, ghl: contiguous (N, 3)
+    f32, int8 or int32 of one dtype. The grid is fixed by N; counted in
+    ``launches_col``."""
+    global launches_col
+    if codes_t.device.type == "cpu":
+        split_key_column_plain(codes_t, desc, leaf_id, gh, ghl)
+        return
+    for t in (desc, leaf_id, gh, ghl):
+        if t.device != codes_t.device or not t.is_contiguous():
+            raise ValueError("split_key_column: want contiguous tensors on "
+                             "the codes' CUDA device")
+    if codes_t.dim() != 2 or codes_t.dtype not in _CODE_BYTES \
+            or not codes_t.is_contiguous():
+        raise ValueError("split_key_column: want contiguous (C, N) uint8 or "
+                         "int16 codes, got %s %s" % (codes_t.dtype,
+                                                     tuple(codes_t.shape)))
+    n = codes_t.shape[1]
+    if desc.dtype != torch.int32 or desc.shape != (dsc.SIZE,) \
+            or leaf_id.dtype != torch.int32 or leaf_id.shape != (n,) \
+            or gh.dtype not in _OP_KIND or ghl.dtype != gh.dtype \
+            or gh.shape != (n, 3) or ghl.shape != (n, 3):
+        raise ValueError("split_key_column: want a (%d,) int32 descriptor, "
+                         "an (N,) int32 leaf_id and two (N, 3) operands of "
+                         "one dtype (f32, int8 or int32)" % dsc.SIZE)
+    if n == 0:
+        return
+    fn = build.load("split_key").lgbt_split_key_column_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    rc = fn(codes_t.data_ptr(), _CODE_BYTES[codes_t.dtype], n,
+            desc.data_ptr(), leaf_id.data_ptr(), gh.data_ptr(),
+            ghl.data_ptr(), _OP_KIND[gh.dtype],
+            _grid_x(codes_t.device, n, _BLOCKS_PER_SM),
+            torch.cuda.current_stream(codes_t.device).cuda_stream)
+    build.check(rc, "split key column kernel launch")
+    launches_col += 1

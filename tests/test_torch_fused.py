@@ -3,20 +3,22 @@ CPU, against the port's host loop and against the JAX package.
 
 The device loop (``DeviceTreeLearner.grow_compact``: one split step, run
 num_leaves - 1 times with every write gated) runs here eagerly through
-the kernels' plain versions. It must give the host loop's
+the kernels' plain versions (the masked core's device loop has its own
+tests in test_torch_masked.py). It must give the host loop's
 (``grow_tree_compact_core``) records and row -> leaf map exactly, float
 and quantized, also for a tree that stops early (a large
 min_gain_to_split), where the gated steps after the stop must change
 nothing. The split-key kernel's plain version is held bit for bit against
 the JAX package's window decode (``packed_go_left``, ``decide_left``,
 ``_quant_side_maxes``), ``leaf_values_from_rec`` against the JAX replay,
-and ten rounds of ``train`` on the fused iteration against
-``lightgbm_tpu.train`` (whose binary path is fused too) within the bounds
-of test_torch_engine.py. n = 3000, num_leaves = 15, as in
+and ten rounds of ``train`` on the fused iteration, on either strategy,
+against ``lightgbm_tpu.train`` (whose binary path is fused too) within the
+bounds of test_torch_engine.py. n = 3000, num_leaves = 15, as in
 test_torch_learner.py.
 """
 import os
 import re
+import weakref
 
 import numpy as np
 import pytest
@@ -33,6 +35,7 @@ from lightgbm_tpu.models import device_learner as jdl
 from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.io.dataset import Dataset as TDataset
 from lightgbm_tpu_torch.models import device_learner as tdl
+from lightgbm_tpu_torch.models.gbdt import GBDT
 from lightgbm_tpu_torch.ops import fused
 from lightgbm_tpu_torch.ops import quantize as quant_ops
 from lightgbm_tpu_torch.ops.kernels import build
@@ -164,7 +167,8 @@ def test_split_key_plain_matches_jax(item_bits):
         desc = torch.tensor([1, 1, begin, count, 0, 0, thr, dleft,
                              f_col[feat], f_base[feat], f_elide[feat],
                              f_numbins[feat], f_missing[feat],
-                             f_default[feat], 0, 0, 0, 0], dtype=torch.int32)
+                             f_default[feat], 0, 0, 0, 0, 0, 0],
+                            dtype=torch.int32)
         assert desc.shape == (dsc.SIZE,)
         key = torch.full((len(data),), -1, dtype=torch.int32)
         kkey.split_key(data, spare, desc, key, item_bits=item_bits, cw=7,
@@ -178,7 +182,7 @@ def test_split_key_plain_matches_jax(item_bits):
         maxes = jdl._quant_side_maxes(jwin, go_left, jnp.ones(count, bool),
                                       cw=7, gw=1)
         np.testing.assert_array_equal(
-            desc[dsc.SIDE_MAX:].numpy().astype(np.float32),
+            desc[dsc.SIDE_MAX:dsc.LEAF].numpy().astype(np.float32),
             np.asarray(maxes).reshape(-1))
     # GO = 0 changes nothing
     desc[dsc.GO] = 0
@@ -203,11 +207,10 @@ def test_leaf_values_from_rec_matches_jax():
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("grow_program", ["per_split", "fused_tree"])
-def test_fused_train_matches_jax(grow_program, monkeypatch):
+def _fused_against_jax(strategy, grow_program, monkeypatch):
     # ten rounds on the fused iteration, against the JAX package's fused
     # binary path: the same split structure, raw scores within 1e-4
-    monkeypatch.setenv("LGBM_TPU_STRATEGY", "compact")
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
     x, y = _task("binary")
     params = dict(_params("binary"), grow_program=grow_program)
     jb = jlgb.train(params, jlgb.Dataset(x, y), num_boost_round=10,
@@ -215,6 +218,7 @@ def test_fused_train_matches_jax(grow_program, monkeypatch):
     tb = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=10,
                     device="cpu")
     gb = tb._gbdt
+    assert gb.learner.strategy == jb._gbdt.learner.strategy == strategy
     assert gb._fused_eligible() and gb._fused_step is not None
     assert gb.learner.stats.host_syncs == gb.learner.stats.trees == 10
     assert tb.num_trees() == jb.num_trees() == 10
@@ -224,26 +228,43 @@ def test_fused_train_matches_jax(grow_program, monkeypatch):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("grow_program", ["per_split", "fused_tree"])
+def test_fused_train_matches_jax(grow_program, monkeypatch):
+    _fused_against_jax("compact", grow_program, monkeypatch)
+
+
+@pytest.mark.parametrize("grow_program", ["per_split", "fused_tree"])
+def test_fused_masked_train_matches_jax(grow_program, monkeypatch):
+    # the masked strategy's device loop under the fused iteration (the JAX
+    # package's fused step covers the masked core too)
+    _fused_against_jax("masked", grow_program, monkeypatch)
+
+
 def test_fused_first_iteration_without_split(monkeypatch):
     # no split at the first iteration: the generic iteration takes over and
     # leaves the boost-from-average constant tree; the fused attempt
-    # committed nothing, so the model and the training scores are those of
-    # a run on the generic iteration alone (the masked strategy)
+    # committed nothing, so on either strategy the model and the training
+    # scores are those of a run on the generic iteration alone
     x, y = _task("binary", n=600)
     params = dict(_params("binary"), min_gain_to_split=1e6)
-    out = {}
     for strategy in ("compact", "masked"):
         monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
-        out[strategy] = tlgb.train(params, tlgb.Dataset(x, y),
-                                   num_boost_round=3, device="cpu")
-    fb, gb = out["compact"]._gbdt, out["masked"]._gbdt
-    assert fb._fused_step is not None and gb._fused_step is None
-    assert fb.num_trees() == gb.num_trees() == 1
-    assert fb.models[0].num_leaves == 1
-    assert torch.equal(fb.score_updater.score, gb.score_updater.score)
-    np.testing.assert_allclose(out["compact"].predict(x, raw_score=True),
-                               fb.objective.boost_from_score(0), rtol=0,
-                               atol=1e-6)
+        fused = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=3,
+                           device="cpu")
+        with monkeypatch.context() as m:
+            m.setattr(GBDT, "_fused_eligible",
+                      lambda self: False)
+            generic = tlgb.train(params, tlgb.Dataset(x, y),
+                                 num_boost_round=3, device="cpu")
+        fb, gb = fused._gbdt, generic._gbdt
+        assert fb.learner.strategy == strategy
+        assert fb._fused_step is not None and gb._fused_step is None
+        assert fb.num_trees() == gb.num_trees() == 1
+        assert fb.models[0].num_leaves == 1
+        assert torch.equal(fb.score_updater.score, gb.score_updater.score)
+        np.testing.assert_allclose(fused.predict(x, raw_score=True),
+                                   fb.objective.boost_from_score(0),
+                                   rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("source", ["split_key", "partition", "histogram"])
@@ -255,7 +276,25 @@ def test_descriptor_fields_match_the_sources(source):
              "Lphys": "LPHYS", "LeftSmall": "LEFT_SMALL", "Thr": "THR",
              "Dleft": "DLEFT", "Col": "COL", "Base": "BASE",
              "Elide": "ELIDE", "NumBins": "NUMBINS", "Missing": "MISSING",
-             "Default": "DEFAULT", "SideMax": "SIDE_MAX"}
+             "Default": "DEFAULT", "SideMax": "SIDE_MAX", "Leaf": "LEAF",
+             "NewId": "NEW_ID"}
     assert len(found) >= 4
     for name, value in found:
         assert getattr(dsc, names[name]) == int(value), name
+
+
+@pytest.mark.parametrize("strategy", ["compact", "masked"])
+def test_dropped_learner_is_freed_at_once(strategy):
+    # the split loop's step holds no reference to its learner, so a
+    # dropped learner (and on the card its CUDA graph) is freed by
+    # reference counting, never later by the cyclic collector while
+    # another learner captures its step
+    _, tl, g, h = _learner(*CASES["dense63"])
+    if strategy == "masked":
+        tl = tdl.DeviceTreeLearner(tl.config, tl.dataset, strategy="masked",
+                                   device="cpu")
+    tl.grow(g, h)
+    assert tl._loop is not None
+    gone = weakref.ref(tl)
+    del tl
+    assert gone() is None

@@ -9,8 +9,10 @@ machine without JAX it runs as
 
 Tolerances: K4 is a permutation of 32-bit words and K3 / K3t (and the
 packed-row entry, counted as K3) sum integers, so they must be
-bit-exact; so must the split-key kernel and the device-window entries of
-K3 and K4 (which read their window from the split descriptor). K1's
+bit-exact; so must the split-key kernel (both entries: the compact core's
+packed one and the masked core's column one, which copies operand rows)
+and the device-window entries of K3 and K4 (which read their window from
+the split descriptor). K1's
 (and K2's) grad and hess lanes are fixed-point sums per block whose f32
 block partials meet in global atomics in any order, so they agree with
 index_add_ to rtol = atol = 1e-4
@@ -18,8 +20,10 @@ index_add_ to rtol = atol = 1e-4
 sum of |terms|; without the absolute term for the dynamic-range case);
 the count lane sums exact integers and must be equal.
 """
+import gc
 import os
 import re
+import weakref
 
 import numpy as np
 import pytest
@@ -942,8 +946,8 @@ def test_window_entries_replay_from_a_graph(cuda_device):
         assert torch.equal(hist.cpu(), want_h)
 
 
-def _compact_learner(device, n, params, seed=9):
-    """A compact-strategy learner over n rows of 12 features, and fixed
+def _compact_learner(device, n, params, seed=9, strategy="compact"):
+    """A learner of `strategy` over n rows of 12 features, and fixed
     gradients with signal, on `device`."""
     r = np.random.RandomState(seed)
     x = r.randn(n, 12)
@@ -953,7 +957,7 @@ def _compact_learner(device, n, params, seed=9):
                    "verbosity": -1}, **params)
     ds = tlgb.Dataset(x, (x[:, 0] > 0).astype(float), params=params) \
         .construct()._inner
-    lr = tdl.DeviceTreeLearner(Config(params), ds, strategy="compact",
+    lr = tdl.DeviceTreeLearner(Config(params), ds, strategy=strategy,
                                device=device)
     g = (x[:, 0] > 0.3) - 0.5 + 0.3 * r.randn(n) \
         + 0.2 * np.nan_to_num(x[:, 2])
@@ -1020,3 +1024,182 @@ def test_quantized_device_loop_equals_host_loop(cuda_device, renew,
         assert k == hk == 30
         np.testing.assert_array_equal(rec, hrec)
         assert torch.equal(leaf, hleaf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", [torch.float32, torch.int8, torch.int32])
+@pytest.mark.parametrize("code_bits", [8, 16])
+@pytest.mark.parametrize("n", [60_000, 1_000_000, 100_003])
+def test_split_key_column_matches_plain(cuda_device, n, code_bits, op):
+    # the masked core's column entry: leaf ids and the left operand bit
+    # for bit (an f32 operand compared as its int32 words), an EFB member
+    # and a plain feature, each missing type, and GO = 0
+    r = np.random.RandomState(n % 997 + code_bits)
+    c, nb = 6, 200
+    codes = r.randint(0, 2 * nb, size=(c, n))
+    if code_bits == 16:
+        # a tenth of the codes above 32767: negative as int16
+        big = r.rand(c, n) < 0.1
+        codes[big] = r.randint(32_768, 65_536, int(big.sum()))
+    codes_t = torch.from_numpy(codes.astype(np.uint8) if code_bits == 8
+                               else codes.astype(np.uint16).view(np.int16)) \
+        .to(cuda_device)
+    leaf0 = torch.from_numpy(r.randint(0, 5, n).astype(np.int32)) \
+        .to(cuda_device)
+    if op == torch.float32:
+        gh = torch.from_numpy(r.randn(n, 3).astype(np.float32))
+    else:
+        gh = torch.from_numpy(r.randint(-127, 128, (n, 3))).to(op)
+    gh = gh.to(cuda_device)
+    mixed = 0
+    for i in range(6):
+        fields = dict(GO=1, THR=r.randint(0, nb), DLEFT=i % 2,
+                      COL=r.randint(0, c), BASE=r.randint(0, 40),
+                      ELIDE=i % 2, NUMBINS=nb, MISSING=i % 3,
+                      DEFAULT=r.randint(0, nb), LEAF=i % 5, NEW_ID=5 + i)
+        desc = _desc(cuda_device, **fields)
+        got_l, want_l = leaf0.clone(), leaf0.clone()
+        got_g = torch.full_like(gh, 7)
+        want_g = got_g.clone()
+        n0 = kkey.launches_col
+        kkey.split_key_column(codes_t, desc, got_l, gh, got_g)
+        torch.cuda.synchronize()
+        assert kkey.launches_col == n0 + 1
+        kkey.split_key_column_plain(codes_t, desc, want_l, gh, want_g)
+        assert torch.equal(got_l, want_l)
+        mixed += 0 < int((got_l != leaf0).sum()) \
+            < int((leaf0 == i % 5).sum())
+        words = (lambda t: t.view(torch.int32)) if op == torch.float32 \
+            else (lambda t: t)
+        assert torch.equal(words(got_g), words(want_g))
+    assert mixed >= 3                  # splits with rows on both sides
+    before = (got_l.clone(), got_g.clone())
+    kkey.split_key_column(codes_t, _desc(cuda_device, GO=0, LEAF=0,
+                                         NEW_ID=9), got_l, gh, got_g)
+    torch.cuda.synchronize()
+    assert torch.equal(got_l, before[0]) and torch.equal(got_g, before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_masked_captured_tree_matches_cpu(cuda_device, quant):
+    # the masked core's captured step on the card against the same step
+    # run eagerly on the CPU from the same gradients: leaf, feature and
+    # count columns and leaf ids equal; K2 and the split scan's prefix
+    # sums add f32 in another order, so the children's sums are held to
+    # K1's bar, the outputs within 1e-4, and the gain, a difference of
+    # terms G^2 / H far larger than itself, within 1e-4 of those terms.
+    # Quantized, records equal to the masked host loop's on the card bit
+    # for bit (exact integer histograms)
+    params = {"quantized_grad": quant, "min_gain_to_split": 1e-3}
+    lr, (g, h) = _compact_learner(cuda_device, 20_000, params,
+                                  strategy="masked")
+    cpu, _ = _compact_learner("cpu", 20_000, params, strategy="masked")
+    ints = [tdl.R_LEAF, tdl.R_FEAT, tdl.R_LCNT, tdl.R_RCNT]
+    floats = [tdl.R_LOUT, tdl.R_ROUT]
+    gmax, hmax = float(g.abs().max()), float(h.abs().max())
+    for seed in (0, 1):
+        rec, leaf, k = lr.grow(g, h, iter_seed=seed)
+        crec, cleaf, ck = cpu.grow(g.cpu(), h.cpu(), iter_seed=seed)
+        assert k == ck == 30
+        np.testing.assert_array_equal(rec[:, ints], crec[:, ints])
+        # a child's sums come from the parent's histogram (the right
+        # child's as parent - left): K1's bar, 1e-4 relative plus 1e-5 of
+        # the parent's sum of |terms|, which its count * max|term| bounds
+        parent = crec[:, tdl.R_LCNT] + crec[:, tdl.R_RCNT]
+        for col, top in ((tdl.R_LSG, gmax), (tdl.R_LSH, hmax),
+                         (tdl.R_RSG, gmax), (tdl.R_RSH, hmax)):
+            assert (np.abs(rec[:, col] - crec[:, col])
+                    <= 1e-4 * np.abs(crec[:, col])
+                    + 1e-5 * parent * top).all(), col
+        np.testing.assert_allclose(rec[:, floats], crec[:, floats],
+                                   rtol=1e-4, atol=1e-4)
+        terms = crec[:, tdl.R_LSG] ** 2 / crec[:, tdl.R_LSH] \
+            + crec[:, tdl.R_RSG] ** 2 / crec[:, tdl.R_RSH]
+        assert (np.abs(rec[:, tdl.R_GAIN] - crec[:, tdl.R_GAIN])
+                <= 1e-4 * (1.0 + terms)).all()
+        assert torch.equal(leaf.cpu(), cleaf)
+        if quant:
+            gh, scale3 = lr.masked_operand(g, h, seed)
+            hrec, hleaf, hk = tdl.grow_tree(lr.codes_t, gh, lr._ones_mask,
+                                            lr.meta, scale3=scale3,
+                                            **lr._statics())
+            assert hk == k
+            np.testing.assert_array_equal(rec, hrec)
+            assert torch.equal(leaf, hleaf)
+    assert lr._loop.graph is not None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_masked_tree_grows_without_a_host_sync(cuda_device, quant):
+    # a masked tree, and a fused iteration on it, under the sync debug
+    # mode "error"; a tree that stops early (large min_gain_to_split)
+    # replays the remaining steps with nothing written
+    lr, (g, h) = _compact_learner(cuda_device, 20_000,
+                                  {"quantized_grad": quant},
+                                  strategy="masked")
+    lr.grow(g, h, iter_seed=0)          # captures the step (synchronises)
+    step = lr.make_fused_step(_L2(g))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rec, leaf_id, k = lr.grow_masked(g, h, iter_seed=1)
+        new_score, rec2, leaf2, k2, finite = step(torch.zeros_like(g), 2,
+                                                  0.1, 0.25)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert lr.fetch_tree(rec2, k2, finite)[1:] == (30, [1.0])
+    assert int(leaf2.max()) == 30
+    early, (g, h) = _compact_learner(
+        cuda_device, 20_000, {"quantized_grad": quant,
+                              "min_gain_to_split": 30.0}, strategy="masked")
+    rec, leaf, k = early.grow(g, h, iter_seed=0)
+    assert 1 < k < 30 and not rec[k:].any()
+    assert int(leaf.max()) == k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_masked_launches_per_replay(cuda_device, quant):
+    # the captured step launches the column split key and K2 (or K3t)
+    # once each; a tree adds them per replay, plus the root's K2 / K3t,
+    # and nothing of the compact core's kernels
+    lr, (g, h) = _compact_learner(cuda_device, 20_000,
+                                  {"quantized_grad": quant},
+                                  strategy="masked")
+    lr.grow(g, h, iter_seed=0)
+    hist = "launches_qt" if quant else "launches_t"
+    other = "launches_t" if quant else "launches_qt"
+    assert {k.rsplit(".", 1)[-1]: v
+            for k, v in lr._loop.launches_per_step.items()} == {
+        "launches_col": 1, hist: 1, other: 0}
+    names = ("launches", "launches_win", "launches_qwin", "launches_q")
+    n0 = (kkey.launches_col, getattr(k1, hist), getattr(k1, other),
+          kkey.launches, k4.launches_win, k4.launches,
+          [getattr(k1, a) for a in names])
+    lr.grow(g, h, iter_seed=1)
+    torch.cuda.synchronize()
+    assert kkey.launches_col - n0[0] == 30
+    assert getattr(k1, hist) - n0[1] == 31
+    assert (getattr(k1, other), kkey.launches, k4.launches_win,
+            k4.launches, [getattr(k1, a) for a in names]) == n0[2:]
+
+
+@pytest.mark.gpu
+def test_capture_after_a_dropped_learner(cuda_device):
+    # a dropped learner frees its CUDA graph at once (no reference cycle
+    # leaves it to the cyclic collector, which could free it while the
+    # next learner captures), and the next learner captures and grows
+    for strategy in ("masked", "compact"):
+        old, (g, h) = _compact_learner(cuda_device, 70_000, {},
+                                       strategy=strategy)
+        old.grow(g, h)
+        assert old._loop.graph is not None
+        gone = weakref.ref(old)
+        del old
+        assert gone() is None
+        new, _ = _compact_learner(cuda_device, 70_000, {},
+                                  strategy=strategy)
+        rec, leaf, k = new.grow(g, h)
+        assert k == 30 and new._loop.graph is not None and gc.isenabled()
