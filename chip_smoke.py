@@ -47,6 +47,11 @@ Phases, one JSON line each:
                (the window read from the split descriptor), bit-exact or,
                for K1, within K1's bar: the split-key kernel, K4's, K3's
                and K1's window entries at the root and the child windows;
+               then the split key's router entry (the out-of-bag rows'
+               leaves from a tree's records), bit-exact: the records of a
+               255-leaf tree over the main path's 8-bit codes, random
+               records over 4-bit and 16-bit codes, M = 200,000 and a
+               ragged M, k = L - 1 and k = 0;
   train        lightgbm_tpu_torch.train on a Higgs-shaped 1,000,000 x 28
                binary task (num_leaves=255, max_bin=63, learning_rate=0.1,
                min_data_in_leaf=20) for 10 rounds on the compact strategy,
@@ -55,7 +60,9 @@ Phases, one JSON line each:
                launches of every kernel during that run, per tree and per
                captured step, the partition kernel's rows and its byte
                bound per tree, host syncs per tree, time, peak memory,
-               held-out AUC, and a model-text round trip; beside it the
+               held-out AUC, a model-text round trip, and the training
+               scores against predict on the training rows (apart from
+               those an f32 threshold of predict moves); beside it the
                same 10 rounds on the host loop (the generic iteration and
                grow_tree_compact_core, one host sync per split): its time,
                launches and AUC, which the main path's must be within
@@ -81,7 +88,11 @@ Phases, one JSON line each:
                columns and leaf ids, f32 columns within 1e-4; quantized,
                records equal to the host loop's bit for bit; the capture's
                time and launches per step, and a tree grown under the sync
-               debug mode "error";
+               debug mode "error"; then the compact core's bag carry (a
+               14,000-row bag of the 20,000 rows), float and quantized,
+               against the same step on the CPU from the same bag, every
+               row's leaf equal (the router's for the out-of-bag rows),
+               and one bagged tree under the sync debug mode "error";
   train_masked 60,000 x 28 (the masked strategy, which auto picks below
                65,536 rows), float and quantized, 10 rounds on the fused
                iteration, whose tree grows in the masked core's device loop
@@ -94,6 +105,23 @@ Phases, one JSON line each:
                quantized, also the generic iteration on the device loop,
                whose trees must equal the host loop's; one more iteration
                of each loop profiled;
+  train_bag    lightgbm_tpu_torch.train with row sampling: the 1M-row task
+               with bagging_fraction 0.8 (bagging_freq 1), float and
+               quantized, and with GOSS (top_rate 0.2, other_rate 0.1; 10
+               rounds of warm-up and --rounds / 2 sampled), all on the fused
+               iteration (the compact core's bag carry and the router);
+               the 60,000-row masked task with the same bagging, float and
+               quantized (fused), and with pos/neg bagging 0.5 / 0.5 (the
+               generic iteration, a host bag). Per case: time, steady s per
+               iteration, host syncs and launches per tree (the router's
+               among them), K4's window rows per tree (bag rows), each
+               carry's capture time, peak memory, held-out AUC. Fails
+               unless 1 host sync per tree, the training scores equal
+               predict(raw_score=True) on the training rows within 1e-5,
+               the AUC is > 0.7 and at most 0.005 below the unbagged float
+               run's on the same data (the train / train_masked phase's,
+               else one made here), one router launch per sampled compact
+               tree, and GOSS ran both its fused steps;
   reference    small tasks trained on the card and on the CPU (the plain
                versions): compact float and compact quantized on the device
                loop (the fused iteration) and on the host loop, masked
@@ -103,7 +131,12 @@ Phases, one JSON line each:
                identical gradients.
                Compact quantized may grow other trees only where its
                witness shows stored integers that differ between the
-               devices from the same scores.
+               devices from the same scores. Then bagged (0.7) and GOSS
+               (learning_rate 0.5: 3 sampled trees) runs of each strategy,
+               float and quantized, held to the same trees and raw scores
+               within 1e-4, or, where a tied threshold sends out-of-bag
+               rows each device's way, within 1e-4 on the other rows (at
+               most 2 % so separated).
 Kernel times: `ms` is the mean over repeated launches between CUDA
 events, the host enqueuing as it goes (on a small launch this reads the
 wrapper's launch rate); `device_ms` puts a sleep kernel in front, which
@@ -141,7 +174,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
-          "train_quant", "train_masked", "loop", "reference")
+          "train_quant", "train_masked", "train_bag", "loop", "reference")
 
 
 def emit(obj):
@@ -417,7 +450,9 @@ def host_loop(torch, generic_only=False):
     from lightgbm_tpu_torch.utils.random import prng_key
     own = (GBDT._fused_eligible, dl.DeviceTreeLearner.grow)
 
-    def grow(self, grad, hess, iter_seed=0):
+    def grow(self, grad, hess, iter_seed=0, bag_indices=None):
+        if bag_indices is not None:
+            raise RuntimeError("the host loops grow on every row")
         grad, hess = grad.float(), hess.float()
         mask = self._base_mask(iter_seed)
         mask = self._ones_mask if mask is None else mask
@@ -566,7 +601,8 @@ def main():
               "learning_rate": 0.1, "min_data_in_leaf": 20,
               "verbosity": -1}
     need_float = bool(run & {"train", "profile", "train_quant"})
-    need_data = need_float or bool(run & {"k1", "k2", "k3", "k4"})
+    need_data = need_float or bool(run & {"k1", "k2", "k3", "k4",
+                                          "train_bag"})
     t0 = time.time()
     x, y, w_true = make_higgs_like(args.rows, f)
     xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
@@ -597,6 +633,7 @@ def main():
                 "k4_win": (k4, "launches_win"),
                 "split_key": (kkey, "launches"),
                 "split_key_col": (kkey, "launches_col"),
+                "route": (kkey, "launches_route"),
                 "k4_rows": (k4, "rows"), "k4_rows_win": (k4, "rows_win")}
 
     def reset_counts():
@@ -620,17 +657,18 @@ def main():
                 "bound_ms_per_tree": bound(rows * (8 * d + 4) / trees,
                                            0)[0]}
 
-    def timed_train(p, dset, loop="device"):
+    def timed_train(p, dset, loop="device", rounds=None):
         """Train from zeroed launch counts on the device loop (the fused
         iteration), the host loop, or the generic iteration over the
-        device loop; (booster, counts, seconds, peak device bytes)."""
+        device loop, for `rounds` (default --rounds) rounds; (booster,
+        counts, seconds, peak device bytes)."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         torch.cuda.synchronize()
         t1 = time.time()
         with on_loop(loop):
-            b = lgb.train(p, dset, num_boost_round=args.rounds)
+            b = lgb.train(p, dset, num_boost_round=rounds or args.rounds)
         torch.cuda.synchronize()
         secs = time.time() - t1
         return b, read_counts(), secs, int(torch.cuda.max_memory_allocated())
@@ -650,7 +688,7 @@ def main():
                "launches_per_tree": {k: v / trees for k, v in counts.items()
                                      if v and not k.endswith("rows")
                                      and not k.endswith("rows_win")},
-               "s_per_iter_in_train": secs / args.rounds}
+               "s_per_iter_in_train": secs / max(b.current_iteration(), 1)}
         if lr._loop is not None and lr._loop.graph is not None:
             out["captured_step_launches"] = {
                 k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]: v
@@ -710,7 +748,10 @@ def main():
             "k4": summed(k4_kernels or k4_names),
             "k3": summed(k3_kernels or k3_names),
             "k1": summed(float_hist_names),
-            "split_key": summed(key_names),
+            "split_key": summed([n for n in key_names
+                                 if not n.startswith("route_rows")]),
+            "router": summed([n for n in key_names
+                              if n.startswith("route_rows")]),
             "wall_ms": wall * 1e3, "device_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / (wall * 1e3),
             "device_launches": sum(e.count for e in kern),
@@ -741,6 +782,9 @@ def main():
         back = convert.booster_from_model_string(text)
         rt_err = float(np.max(np.abs(back.predict(xv, raw_score=True)
                                      - bst.predict(xv, raw_score=True))))
+        tdiff = np.abs(bst._gbdt.score_updater.score[0].cpu().numpy()
+                       - bst.predict(x, raw_score=True))
+        tmoved = f32_threshold_rows(ds._inner, x)
         hbst, host_launches, host = host_side(params, ds)
         train = dict({"phase": "train", "rows": args.rows, "features": f,
                       "rounds": args.rounds, "params": params,
@@ -754,6 +798,12 @@ def main():
             "s_per_iter_steady": steady_s(bst), "peak_device_bytes": peak,
             "valid_rows": len(yv), "valid_auc": valid_auc,
             "model_text_roundtrip_max_abs": rt_err,
+            # the training scores against predict on the training rows:
+            # the rows f32 thresholds move, and the others
+            "train_score_vs_predict": {
+                "f32_threshold_rows": int(tmoved.sum()),
+                "their_max_abs": float(np.max(tdiff[tmoved], initial=0.0)),
+                "other_rows_max_abs": float(np.max(tdiff[~tmoved]))},
             "host_loop": host,
             "auc_minus_host_loop": valid_auc - host["valid_auc"]})
         if "train" in run:
@@ -854,15 +904,14 @@ def main():
             fail("quantized AUC %.5f vs float %.5f (want > 0.7, within "
                  "0.005)" % (qauc, valid_auc))
         del qbst, qhbst, qgbst
-    if need_data:
-        del ds
-
     # ---- train_masked: 60,000 rows, float and quantized -------------------
     masked_rows = []
-    if "train_masked" in run:
+    xm = ym = dsm = None
+    if run & {"train_masked", "train_bag"}:
         xm, ym, _ = make_higgs_like(60_000, f, seed=23, w=w_true)
         dsm = lgb.Dataset(xm, ym, params=params)
         dsm.construct()
+    if "train_masked" in run:
         for quant in (False, True):
             mp = dict(params, quantized_grad=quant, grad_bits=8)
             mb, mlaunches, ms_s, mpeak = timed_train(mp, dsm)
@@ -934,6 +983,61 @@ def main():
         emit({"phase": "train_masked", "rows": 60_000,
               "rounds": args.rounds, "runs": masked_rows})
 
+    # ---- train_bag: bagging, GOSS and pos/neg bagging ----------------------
+    bag_rows = []
+    if "train_bag" in run:
+        # every sampling key set in every case: a Booster updates its
+        # Dataset's config with its parameters, and the next Booster on
+        # the same Dataset would inherit what it does not set
+        plain = {"boosting": "gbdt", "quantized_grad": False, "grad_bits": 8,
+                 "bagging_fraction": 1.0, "bagging_freq": 0,
+                 "pos_bagging_fraction": 1.0, "neg_bagging_fraction": 1.0}
+
+        def unbagged_auc(dset, known):
+            # the unbagged float run of the same data: the train /
+            # train_masked phase's, else one made here
+            if known is not None:
+                return known
+            ub, _, _, _ = timed_train(dict(params, **plain), dset)
+            out = auc(yv, ub.predict(xv))
+            del ub
+            return out
+
+        base_1m = unbagged_auc(ds, valid_auc)
+        base_60k = unbagged_auc(dsm, masked_rows[0]["valid_auc"]
+                                if masked_rows else None)
+        bag = {"bagging_fraction": 0.8, "bagging_freq": 1}
+        # GOSS samples after 1 / learning_rate = 10 warm-up iterations
+        goss = {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1}
+        pos_neg = {"pos_bagging_fraction": 0.5, "neg_bagging_fraction": 0.5,
+                   "bagging_freq": 1}
+        for name, extra, rounds, dset, xt, base in (
+                ("higgs-1m bagging 0.8", bag, args.rounds, ds, x, base_1m),
+                ("higgs-1m-quant bagging 0.8",
+                 dict(bag, quantized_grad=True, grad_bits=8), args.rounds,
+                 ds, x, base_1m),
+                ("higgs-1m goss", goss,
+                 int(1.0 / params["learning_rate"]) + max(1, args.rounds // 2),
+                 ds, x, base_1m),
+                ("higgs-60k-masked bagging 0.8", bag, args.rounds, dsm, xm,
+                 base_60k),
+                ("higgs-60k-masked-quant bagging 0.8",
+                 dict(bag, quantized_grad=True, grad_bits=8), args.rounds,
+                 dsm, xm, base_60k),
+                ("higgs-60k-masked pos/neg bagging 0.5", pos_neg,
+                 args.rounds, dsm, xm, base_60k)):
+            row, problems = bag_case(
+                torch, name, dict(params, **dict(plain, **extra)), extra,
+                rounds, dset, xt, base, timed_train, growth, k4_path, steady_s,
+                lambda b: auc(yv, b.predict(xv)), profile_one)
+            bag_rows.append(row)
+            if problems:
+                emit({"phase": "train_bag", "runs": bag_rows})
+                fail("train_bag %s: %s" % (name, "; ".join(problems)))
+        emit({"phase": "train_bag", "runs": bag_rows})
+    if need_data:
+        del ds
+
     if "loop" in run:
         loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
                    (R_LCNT, R_RCNT))
@@ -999,13 +1103,111 @@ def main():
                          "lightgbm_tpu_torch/csrc/split_key.cu",
                          "lightgbm_tpu/models/device_learner.py:402",
                          masked_rows[0]["launches"]["split_key_col"],
-                         kr["split_key_col"], "max_abs_err")]
+                         kr["split_key_col"], "max_abs_err"),
+            # the out-of-bag rows' leaves of a bagged compact tree
+            # (route_rows_by_rec, a fori_loop in XLA); launches from the
+            # 1M-row bagged run of train_bag; its first case is that
+            # run's shape (200,000 out-of-bag rows, a 255-leaf tree)
+            kernel_entry("split key, router entry",
+                         "lightgbm_tpu_torch/csrc/split_key.cu",
+                         "lightgbm_tpu/models/device_learner.py:2174",
+                         bag_rows[0]["launches"]["route"], kr["route"],
+                         "max_abs_err")]
         print(smi_line, flush=True)
         emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def f32_threshold_rows(inner, x):
+    """(N,) bool: the training rows that lie between a bin's upper bound
+    (f64: what the bins, and so the training scores, split at) and its
+    f32 rounding (what predict compares raw values with, as in the JAX
+    package): predict may send them to the other side of a split on that
+    bin, with or without sampling."""
+    out = np.zeros(len(x), bool)
+    for f, mapper in enumerate(inner.bin_mappers):
+        ub = np.asarray(mapper.bin_upper_bound, dtype=np.float64)[:-1]
+        ub32 = ub.astype(np.float32).astype(np.float64)
+        keep = ub != ub32
+        lo, hi = np.minimum(ub, ub32)[keep], np.maximum(ub, ub32)[keep]
+        if not len(hi):
+            continue
+        col = x[:, f].astype(np.float64)
+        i = np.minimum(np.searchsorted(hi, col, side="left"), len(hi) - 1)
+        out |= (col > lo[i]) & (col <= hi[i])
+    return out
+
+
+def bag_case(torch, name, p, extra, rounds, dset, x_train, base_auc,
+             timed_train, growth, k4_path, steady_s, valid_auc_of,
+             profile_one):
+    """One train_bag run: `rounds` rounds of the main path's entry point
+    with the sampling settings `extra`; (row, problems). The row: time,
+    steady s per iteration, host syncs and launches per tree (the router's
+    among them), K4's window rows per tree, each carry's capture time,
+    peak memory, held-out AUC beside the unbagged float run's, and the
+    largest gap between the training scores and predict(raw_score=True)
+    on the training rows (out-of-bag rows score through the router),
+    and one more iteration profiled,
+    over the rows whose values no f32 threshold of predict moves across a
+    bin boundary (f32_threshold_rows: a dozen of 1M rows, on the
+    unsampled path too)."""
+    b, counts, secs, peak = timed_train(p, dset, rounds=rounds)
+    gb = b._gbdt
+    lr = gb.learner
+    diff = np.abs(gb.score_updater.score[0].cpu().numpy()
+                  - b.predict(x_train, raw_score=True))
+    moved = f32_threshold_rows(dset._inner, x_train)
+    gap = float(np.max(diff[~moved]))
+    vauc = valid_auc_of(b)
+    row = dict({"case": name, "settings": extra, "rounds": rounds,
+                "strategy": lr.strategy,
+                "iteration": "fused" if gb._fused_step else "generic",
+                "fused_steps": sorted("goss" if k else "plain"
+                                      for k in gb._fused_step or {}),
+                "launches": counts}, **growth(b, counts, secs))
+    row["carries"] = {"%d rows, qcap_op %d" % key if key != "masked"
+                      else key: {"capture_s": loop.capture_s}
+                      for key, (_, loop) in lr._states.items()}
+    if lr.strategy == "compact":
+        row["k4_path"] = k4_path(b, counts)
+    row.update(train_s=secs, peak_device_bytes=peak, valid_auc=vauc,
+               unbagged_float_auc=base_auc,
+               auc_minus_unbagged=vauc - base_auc,
+               train_score_vs_predict_max_abs=gap,
+               f32_threshold_rows=int(moved.sum()),
+               their_max_abs=float(np.max(diff[moved], initial=0.0)),
+               s_per_iter_steady=steady_s(b), profile=profile_one(b))
+    problems = []
+    if row["host_syncs_per_tree"] != 1:
+        problems.append("%s host syncs per tree" % row["host_syncs_per_tree"])
+    if not gap <= 1e-5:
+        problems.append("training scores differ from predict by %g" % gap)
+    if not vauc > 0.7 or vauc < base_auc - 0.005:
+        problems.append("AUC %.5f (want > 0.7 and at most 0.005 below the "
+                        "unbagged %.5f)" % (vauc, base_auc))
+    pos_neg = p.get("pos_bagging_fraction", 1.0) < 1.0
+    if row["iteration"] != ("generic" if pos_neg else "fused"):
+        problems.append("took the %s iteration" % row["iteration"])
+    if p.get("boosting") == "goss" and row["fused_steps"] != ["goss",
+                                                              "plain"]:
+        problems.append("GOSS ran the fused steps %s" % row["fused_steps"])
+    # one router launch per sampled compact tree (GOSS samples after its
+    # 1 / learning_rate warm-up)
+    sampled = rounds - (int(1.0 / p["learning_rate"])
+                        if p.get("boosting") == "goss" else 0)
+    if lr.strategy == "compact" and (counts["route"] != sampled
+                                     or counts["split_key_col"]):
+        problems.append("%d router launches for %d sampled trees"
+                        % (counts["route"], sampled))
+    if lr.strategy == "masked" and (counts["route"] or counts["split_key"]
+                                    or counts["split_key_col"] <= 0):
+        problems.append("the masked loop's kernels did not run alone")
+    del b
+    return row, problems
 
 
 def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
@@ -1551,14 +1753,77 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
                                                  key_p, **kw),
                     reps_for(wn), wn * (12 if renew else 8))
         del qprobe, qrows_buf
+        route_rows_out = router_cases(torch, dev, kkey, probe, g, h,
+                                      window_case, args.rows)
         emit({"phase": "k4", "tolerance": "bit-exact",
-              "cases": k4_rows + k4w_rows, "split_key_cases": key_rows})
+              "cases": k4_rows + k4w_rows, "split_key_cases": key_rows,
+              "router_cases": route_rows_out})
         if not all(rw["bit_exact"] and rw.get("parent_bit_exact", True)
                    for rw in k4_rows) \
-                or not all(rw["ok"] for rw in k4w_rows + key_rows):
-            fail("K4 or the split key disagrees with its plain version")
+                or not all(rw["ok"] for rw in k4w_rows + key_rows
+                           + route_rows_out):
+            fail("K4, the split key or the router disagrees with its plain "
+                 "version")
         out["k4"], out["k4_win"], out["split_key"] = \
             k4_rows, k4w_rows, key_rows
+        out["route"] = route_rows_out
+    return out
+
+
+def router_cases(torch, dev, kkey, probe, g, h, window_case, rows):
+    """The split key's router entry against its plain version, bit-exact
+    in every row's leaf: the records of one 255-leaf tree grown by the
+    main path's learner over the main path's packed 8-bit codes, and
+    random records over random packed rows of 4-bit and 16-bit codes (28
+    features, EFB bundle columns and plain ones, each missing type); M =
+    200,000 rows and a ragged M; k = 0 (every row in leaf 0) and k = L - 1.
+    The byte bound: the rows, the records and the feature table read once,
+    one leaf id written per row."""
+    rec, _, k = probe.grow_compact(g, h, 0)
+    sets = [("8-bit codes of the main path, the records of its tree",
+             probe.codes_pack, rec, k, probe.meta["t_feature_table"], 8)]
+    r = np.random.RandomState(22)
+    for bits in (4, 16):
+        per, nb, cw, f, L = 32 // bits, 1 << bits, 7, 28, 255
+        rws = torch.from_numpy(r.randint(-2**31, 2**31, size=(rows, cw),
+                                         dtype=np.int64).astype(np.int32))
+        nbins = r.randint(3, min(nb, 256), f)
+        elide = np.arange(f) % 3 == 0
+        table = torch.from_numpy(np.stack([
+            r.randint(0, cw * per, f),
+            np.where(elide, r.randint(0, nb // 2, f), 0), elide, nbins,
+            np.arange(f) % 3, r.randint(0, 100, f) % nbins],
+            axis=1).astype(np.int32))
+        rr = np.zeros((L - 1, 13), np.float32)
+        feats = r.randint(0, f, L - 1)
+        rr[:, 0] = [r.randint(0, i + 1) for i in range(L - 1)]
+        rr[:, 1], rr[:, 2] = feats, r.randint(0, nbins[feats])
+        rr[:, 3] = r.randint(0, 2, L - 1)
+        sets.append(("random %d-bit codes and records" % bits, rws.to(dev),
+                     torch.from_numpy(rr).to(dev),
+                     torch.tensor(L - 1, dtype=torch.int32, device=dev),
+                     table.to(dev), bits))
+    out = []
+    for label, codes, recs, k_full, table, bits in sets:
+        for m in (min(200_000, rows), min(100_003, rows)):
+            rws = codes[:m].contiguous()
+            for k in (k_full, torch.zeros_like(k_full)):
+                kw = dict(item_bits=bits)
+
+                def check():
+                    got = kkey.route_rows(rws, recs, k, table, **kw)
+                    want = kkey.route_rows_plain(rws, recs, k, table, **kw)
+                    same = torch.equal(got, want)
+                    return same, 0.0 if same else float(
+                        (got - want).abs().max())
+                nbytes = rws.numel() * 4 + recs.numel() * 4 \
+                    + table.numel() * 4 + 4 * m
+                row = window_case(
+                    out, "%s, M=%d, k=%d" % (label, m, int(k)), check,
+                    lambda: kkey.route_rows(rws, recs, k, table, **kw),
+                    lambda: kkey.route_rows_plain(rws, recs, k, table, **kw),
+                    200, nbytes)
+                row.update(M=m, CW=rws.shape[1], k=int(k), item_bits=bits)
     return out
 
 
@@ -1730,10 +1995,83 @@ def loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
                 "capture_s_in_loop": card._loop.capture_s,
                 "no_sync_inside_tree": no_sync,
                 "peak_device_bytes": int(torch.cuda.max_memory_allocated())})
+    runs += bag_loop_runs(torch, dev, lgb, params, xs, ys, g, h, Config,
+                          DeviceTreeLearner, ints, count_cols)
     emit({"phase": "loop", "rows": 20_000, "num_leaves": 31, "runs": runs})
     if not all(r["ok"] for r in runs):
         fail("a captured device loop disagrees with the same step on the "
              "CPU or with the host loop, or synchronised inside a tree")
+
+
+def bag_loop_runs(torch, dev, lgb, params, xs, ys, g, h, Config,
+                  DeviceTreeLearner, ints, count_cols):
+    """The loop phase's bag carry: 20,000-row compact trees grown on a
+    fused iteration's bag of 14,000 rows (exact_k_bag_weights, the in-bag
+    rows first), float and quantized, by the bag's captured step on the
+    card and the same step eagerly on the CPU, from the same gradients and
+    bag: equal leaf, feature and count columns and leaf ids of every row
+    (the out-of-bag rows' from the router and its plain version), f32
+    columns within 1e-4; and one bagged tree grown under the sync debug
+    mode "error"."""
+    from lightgbm_tpu_torch.models import device_learner as dl
+    R_LCNT, R_RCNT = count_cols
+    n, bag_k = len(ys), 14_000
+
+    def bag(seed):
+        w = dl.exact_k_bag_weights(dl.trandom.prng_key(seed), n, bag_k, dev)
+        order = torch.argsort((w <= 0).to(torch.int32), stable=True)
+        return order[:bag_k], order[bag_k:]
+
+    floats = [c for c in range(13) if c not in ints and c not in (2, 3)]
+    runs = []
+    for quant in (False, True):
+        p = dict(params, num_leaves=31, min_gain_to_split=1e-3,
+                 quantized_grad=quant, grad_bits=8)
+        inner = lgb.Dataset(xs, ys, params=p).construct()._inner
+        card = DeviceTreeLearner(Config(p), inner, strategy="compact",
+                                 device=dev)
+        cpu = DeviceTreeLearner(Config(p), inner, strategy="compact",
+                                device="cpu")
+        gc, hc = g.to(dev), h.to(dev)
+        trees = []
+        for seed in range(2):
+            bi, oi = bag(seed)
+            rc, lc, kc = card.grow_compact(gc, hc, seed, bi, oi)
+            rc, kc, _ = card.fetch_tree(rc, kc)
+            rp, lp, kp = cpu.grow_compact(g, h, seed, bi.cpu(), oi.cpu())
+            rp, kp, _ = cpu.fetch_tree(rp, kp)
+            trees.append({
+                "splits": [kc, kp],
+                "bag_rows": int(rp[0, R_LCNT] + rp[0, R_RCNT]),
+                "ints_equal": bool(np.array_equal(rc[:, ints], rp[:, ints])),
+                "floats_close": bool(np.allclose(
+                    rc[:, floats], rp[:, floats], rtol=1e-4, atol=1e-4)),
+                "leaf_ids_equal": bool(torch.equal(lc.cpu(), lp))})
+        bi, oi = bag(2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card.grow_compact(gc, hc, 2, bi, oi)
+            no_sync = True
+        except RuntimeError as e:
+            no_sync = str(e)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ok = no_sync is True and all(
+            t["ints_equal"] and t["leaf_ids_equal"] and t["floats_close"]
+            and t["splits"][0] > 1 and t["bag_rows"] == bag_k
+            for t in trees)
+        runs.append({
+            "strategy": "compact", "bag": "%d of %d rows" % (bag_k, n),
+            "quantized_grad": quant, "ok": ok, "trees": trees,
+            "carries": [list(key) for key in card._states],
+            "captured_step_launches": {
+                k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]: v
+                for k, v in card._loop.launches_per_step.items()},
+            "capture_s_in_loop": card._loop.capture_s,
+            "no_sync_inside_tree": no_sync})
+    return runs
 
 
 def reference_phase(torch, dev, lgb, k1, params, f, Config,
@@ -1914,6 +2252,114 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
                 else contextlib.nullcontext():
             row = reference_row(strategy, quant)
         row["growth"] = growth
+        ref_rows.append(row)
+
+    def tie_separated(ba, bb):
+        """Rows that reach another leaf of some tree on the two devices."""
+        sep = np.zeros(len(xs), bool)
+        for ta, tb in zip(ba._gbdt.models, bb._gbdt.models):
+            sep |= np.array([ta.predict_leaf_row(rw) != tb.predict_leaf_row(rw)
+                             for rw in xs])
+        return sep
+
+    def goss_witness(qp, first):
+        """At the first sampled iteration whose trees differ between the
+        devices, the GOSS sample each device draws from its own run's
+        scores (both runs trained `first` rounds, whose trees are equal),
+        under the iteration's bag key: the rows whose place in the sample
+        differs (the order of |g * h| over all rows decides which rows the
+        uniforms pick, so f32 noise in the scores or a last-ulp difference
+        in the gradients moves the sample); and the card's sampler from the
+        CPU's gradients, which must give the CPU's sample bit for bit."""
+        from lightgbm_tpu_torch.models import device_learner as dl
+        card_b = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=first)
+        cpu_b = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=first,
+                          device="cpu")
+        gb = cpu_b._gbdt
+        top_k, other_k, mult = gb._goss_params()
+        sd = card_b._gbdt.score_updater.score[0]
+        sc = gb.score_updater.score[0]
+        gd, hd = card_b._gbdt.objective.get_gradients(sd)
+        gc, hc = gb.objective.get_gradients(sc)
+        key = prng_key((gb.config.bagging_seed + first) % (2**31 - 1))
+        args = (key, len(ys), top_k, other_k, mult)
+        want = dl.goss_sample(gc, hc, *args)
+        own = dl.goss_sample(gd, hd, *args)
+        same = dl.goss_sample(gc.to(dev), hc.to(dev), *args)
+        return {"iteration": first,
+                "trees_before_equal": shape_of(card_b) == shape_of(cpu_b),
+                "max_abs_score_diff": float((sd.cpu() - sc).abs().max()),
+                "grad_rows_differ": int((gd.cpu() != gc).sum()),
+                "bag_rows_differ": int((own[3].cpu() != want[3]).sum()),
+                "sampler_equal_from_same_gradients": all(
+                    torch.equal(a.cpu(), b) for a, b in zip(same, want))}
+
+    # sampled runs on the fused iteration: the bag drawn on each device
+    # from the same key. Held to the same trees (their leaf counts are the
+    # in-bag rows') and raw scores within 1e-4; where two thresholds tie
+    # for a leaf's in-bag rows, f32 rounding picks one on each device and
+    # the out-of-bag rows between them go each device's way (ROADMAP
+    # section 3), so raw scores are then held on the other rows, with at
+    # most 2 % of the rows so separated. Compact quantized keeps its
+    # witness exemption. GOSS may grow other sampled trees only where its
+    # own witness shows that the devices' samples differ from the same
+    # scores, with its warm-up trees equal and its sampler bit-exact from
+    # the same gradients.
+    goss = {"boosting": "goss", "learning_rate": 0.5}
+    for strategy, quant, name, extra in (
+            ("compact", False, "bagging", {"bagging_fraction": 0.7,
+                                           "bagging_freq": 1}),
+            ("compact", True, "bagging", {"bagging_fraction": 0.7,
+                                          "bagging_freq": 1}),
+            ("compact", False, "goss", goss), ("compact", True, "goss", goss),
+            ("masked", False, "bagging", {"bagging_fraction": 0.7,
+                                          "bagging_freq": 1}),
+            ("masked", True, "bagging", {"bagging_fraction": 0.7,
+                                         "bagging_freq": 1}),
+            ("masked", False, "goss", goss), ("masked", True, "goss", goss)):
+        os.environ["LGBM_TPU_STRATEGY"] = strategy
+        qp = dict(sp, quantized_grad=quant, grad_bits=8, **extra)
+        on_card = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=5)
+        on_cpu = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=5,
+                           device="cpu")
+        diff = np.abs(on_card.predict(xs, raw_score=True)
+                      - on_cpu.predict(xs, raw_score=True))
+        lr = on_card._gbdt.learner
+        row = {"strategy": strategy, "quantized_grad": quant,
+               "growth": "device loop", "sampling": name, "settings": extra,
+               "fused_steps": len(on_card._gbdt._fused_step or {}),
+               "host_syncs_per_tree": lr.stats.host_syncs
+               / max(lr.stats.trees, 1),
+               "same_trees": shape_of(on_card) == shape_of(on_cpu),
+               "max_abs_raw_diff": float(diff.max()), "raw_tolerance": 1e-4}
+        ok = row["same_trees"] and row["max_abs_raw_diff"] <= 1e-4
+        if row["same_trees"] and not ok:
+            sep = tie_separated(on_card, on_cpu)
+            row["tie_separated_rows"] = int(sep.sum())
+            row["max_abs_raw_diff_other_rows"] = float(diff[~sep].max())
+            ok = sep.mean() <= 0.02 \
+                and row["max_abs_raw_diff_other_rows"] <= 1e-4
+        if not row["same_trees"] and name == "goss":
+            # the first iteration whose tree differs; GOSS samples from
+            # iteration 2 on (learning_rate 0.5)
+            first = next(i for i, (a, b) in enumerate(zip(
+                shape_of(on_card), shape_of(on_cpu))) if a != b)
+            wit = goss_witness(qp, first)
+            row["goss_witness"] = wit
+            row["other_trees_allowed"] = ok = bool(
+                first >= 2 and wit["trees_before_equal"]
+                and wit["bag_rows_differ"] > 0
+                and wit["sampler_equal_from_same_gradients"])
+        elif not row["same_trees"] and strategy == "compact" and quant:
+            wit = gradient_witness(on_card, qp, strategy)
+            row["gradient_witness"] = wit
+            row["witness_stored_rows_differ"] = sum(
+                w["stored_rows_differ"] for w in wit)
+            row["other_trees_allowed"] = ok = \
+                row["witness_stored_rows_differ"] > 0
+        row["ok"] = bool(ok and row["host_syncs_per_tree"] == 1
+                         and row["fused_steps"] == (2 if name == "goss"
+                                                    else 1))
         ref_rows.append(row)
     os.environ.pop("LGBM_TPU_STRATEGY", None)
     emit({"phase": "reference", "rows": 20_000, "rounds": 5,

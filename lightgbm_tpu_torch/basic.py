@@ -1,11 +1,14 @@
 """User-facing Dataset and Booster of the port.
 
 Port of lightgbm_tpu/basic.py for the slices this package covers: binary
-and L2 regression GBDT, serial learner, float or quantized gradients
-(``quantized_grad``, ``grad_bits``, ``quant_renew``), the compact and
-masked growth strategies, no sampling, no categorical features. Every
-parameter outside that slice raises LightGBMError naming its key. Both
-classes run on the card unless the caller passes ``device="cpu"``.
+and L2 regression GBDT and GOSS, serial learner, float or quantized
+gradients (``quantized_grad``, ``grad_bits``, ``quant_renew``), the
+compact and masked growth strategies, row sampling (``bagging_fraction``
+with ``bagging_freq``, ``pos_bagging_fraction`` / ``neg_bagging_fraction``,
+``boosting=goss``) and per-tree feature sampling (``feature_fraction``),
+no categorical features. Every parameter outside that slice raises
+LightGBMError naming its key. Both classes run on the card unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as np
 from .config import Config
 from .io.dataset import Dataset as _InnerDataset
 from .metrics import METRIC_NAMES
-from .models.gbdt import GBDT
+from .models.gbdt import GBDT, create_boosting
 from .objectives import OBJECTIVE_NAMES
 from .utils.device import resolve_device
 from .utils.log import LightGBMError
@@ -28,18 +31,10 @@ def check_supported(cfg: Config) -> None:
     bad = None
     if cfg.objective not in OBJECTIVE_NAMES:
         bad = "objective=%s" % cfg.objective
-    elif cfg.boosting not in ("gbdt", "gbrt", "plain"):
+    elif cfg.boosting not in ("gbdt", "gbrt", "plain", "goss"):
         bad = "boosting=%s" % cfg.boosting
     elif cfg.num_class > 1:
         bad = "num_class=%d" % cfg.num_class
-    elif cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0:
-        bad = "bagging_fraction=%g" % cfg.bagging_fraction
-    elif cfg.bagging_freq > 0 and cfg.pos_bagging_fraction < 1.0:
-        bad = "pos_bagging_fraction=%g" % cfg.pos_bagging_fraction
-    elif cfg.bagging_freq > 0 and cfg.neg_bagging_fraction < 1.0:
-        bad = "neg_bagging_fraction=%g" % cfg.neg_bagging_fraction
-    elif cfg.feature_fraction < 1.0:
-        bad = "feature_fraction=%g" % cfg.feature_fraction
     elif cfg.feature_fraction_bynode < 1.0:
         bad = "feature_fraction_bynode=%g" % cfg.feature_fraction_bynode
     elif cfg.categorical_feature:
@@ -66,9 +61,10 @@ def check_supported(cfg: Config) -> None:
             bad = "metric=%s" % unknown[0]
     if bad is not None:
         raise LightGBMError("%s is not supported by lightgbm_tpu_torch yet "
-                            "(binary/regression GBDT, serial learner, "
-                            "float or quantized gradients, no sampling, "
-                            "no categorical features)" % bad)
+                            "(binary/regression GBDT or GOSS, serial "
+                            "learner, float or quantized gradients, "
+                            "bagging and feature_fraction but no by-node "
+                            "sampling, no categorical features)" % bad)
 
 
 class Dataset:
@@ -126,7 +122,8 @@ class Booster:
             cfg = train_set._inner.config
             cfg.update(self.params)
             check_supported(cfg)
-            self._gbdt = GBDT(cfg, train_set._inner, device=self.device)
+            self._gbdt = create_boosting(cfg, train_set._inner,
+                                         device=self.device)
             self.train_set = train_set
         elif model_file is not None or model_str is not None:
             if model_file is not None:

@@ -1,4 +1,4 @@
-// Split key: each row's side of a split, for Hopper, in two entries.
+// Split key: each row's side of a split, for Hopper, in three entries.
 //
 // The packed entry (split_key_kernel) works on one window of the compact
 // core's packed rows. It replaces the window decode that the JAX compact
@@ -25,10 +25,21 @@
 // when it goes right; the left child's histogram operand gets the row's
 // gh when the row is in the split leaf and goes left, else 0.
 //
-// Everything both entries need is read from the split descriptor in
-// device memory (ops/kernels/desc.py: go, the threshold, default_left and
-// the feature's column, base, elide flag, bin count, missing type and
-// default bin; the packed entry also the buffer holding the leaf, its
+// The router entry (route_rows_kernel) serves bagged compact trees. It
+// replaces the JAX route_rows_by_rec (lightgbm_tpu/models/
+// device_learner.py:2174, a fori_loop of packed_go_left over the split
+// records; no Pallas kernel): the rows left out of a tree's bag still need
+// their leaf. Per packed row (one thread each), it walks the tree's first k
+// split records in order and moves the row to leaf i + 1 where it sits in
+// record i's leaf and goes right, with the same decode as the packed entry
+// (read through make_split / goes_left, so the partition and the router
+// cannot drift apart). The records and k stay in device memory; each block
+// stages its chunk of records, turned into decisions, in shared memory.
+//
+// Everything the first two entries need is read from the split
+// descriptor in device memory (ops/kernels/desc.py: go, the threshold,
+// default_left and the feature's column, base, elide flag, bin count,
+// missing type and default bin; the packed entry also the buffer holding the leaf, its
 // first row and row count, the column entry the leaf and the new id), so
 // each launch has the same arguments and grid at every split and replays
 // from a CUDA graph. A descriptor whose go is 0 (the tree has stopped)
@@ -47,6 +58,11 @@
 // int32) read and the operand row written, each row read and written
 // once in a coalesced grid-stride pass; at 60,000 rows ~1.8 MB, ~0.55 us,
 // under the launch's own cost.
+//
+// Router: per row its CW code words read (only the words of the split
+// features on its path are touched, through L1) and one leaf id written,
+// so the byte bound is M * (4 * CW + 4); its work, O(M * k) comparisons
+// in registers against the staged records, is far below the f32 rate.
 //
 // Plain C interface (loaded with ctypes): launches on the given stream,
 // allocates nothing, returns the launch's CUDA error.
@@ -83,17 +99,25 @@ struct Split {
   bool dleft, elide;
 };
 
-__device__ __forceinline__ Split read_split(const int* desc) {
+// A split from its threshold, default-left flag and the feature's six
+// fields (column, EFB base, elide flag, bin count, missing type, default
+// bin), in the order of the descriptor and of the learner's feature table.
+__device__ __forceinline__ Split make_split(int thr, bool dleft,
+                                            const int* feat) {
   Split s;
-  s.thr = desc[kDescThr];
-  s.dleft = desc[kDescDleft] != 0;
-  s.col = desc[kDescCol];
-  s.base = desc[kDescBase];
-  s.elide = desc[kDescElide] != 0;
-  s.nb = desc[kDescNumBins];
-  s.missing = desc[kDescMissing];
-  s.def = desc[kDescDefault];
+  s.thr = thr;
+  s.dleft = dleft;
+  s.col = feat[0];
+  s.base = feat[1];
+  s.elide = feat[2] != 0;
+  s.nb = feat[3];
+  s.missing = feat[4];
+  s.def = feat[5];
   return s;
+}
+
+__device__ __forceinline__ Split read_split(const int* desc) {
+  return make_split(desc[kDescThr], desc[kDescDleft] != 0, desc + kDescCol);
 }
 
 // The decision of a row from its raw code: a bundle member's codes [base,
@@ -245,6 +269,68 @@ int launch_column_op(const void* codes_t, long long n, const int* desc,
   }
 }
 
+// split record columns (models/device_learner.py R_*) read by the router
+constexpr int kRecCols = 13;
+constexpr int kRecLeaf = 0;
+constexpr int kRecFeat = 1;
+constexpr int kRecThr = 2;
+constexpr int kRecDleft = 3;
+constexpr int kFeatFields = 6;
+// records staged per block and pass
+constexpr int kRecChunk = 256;
+
+// The router: rows (m, cw) packed code words, one row per thread; rec the
+// tree's (max_rec, 13) f32 split records of which the first *k_ptr are
+// real; table (num_features, 6) the feature fields; leaf (m,) written.
+template <int kBits>
+__global__ void __launch_bounds__(kThreads)
+route_rows_kernel(const int32_t* __restrict__ rows, long long m, int cw,
+                  const float* __restrict__ rec, const int* __restrict__ k_ptr,
+                  int max_rec, const int* __restrict__ table,
+                  int num_features, int32_t* __restrict__ leaf_out) {
+  __shared__ Split s_split[kRecChunk];
+  __shared__ int s_leaf[kRecChunk];
+  constexpr int per = 32 / kBits;
+  constexpr uint32_t mask = (1u << kBits) - 1u;
+  const int k = min(*k_ptr, max_rec);
+  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int32_t* row = rows + (r < m ? r : 0) * (long long)cw;
+  int leaf = 0;
+  for (int base = 0; base < k; base += kRecChunk) {
+    const int nc = min(kRecChunk, k - base);
+    __syncthreads();
+    for (int j = threadIdx.x; j < nc; j += kThreads) {
+      const float* rc = rec + (long long)(base + j) * kRecCols;
+      const int feat =
+          min(max((int)rc[kRecFeat], 0), num_features - 1);
+      s_split[j] = make_split((int)rc[kRecThr], rc[kRecDleft] > 0.5f,
+                              table + feat * kFeatFields);
+      s_leaf[j] = (int)rc[kRecLeaf];
+    }
+    __syncthreads();
+    if (r < m) {
+      for (int j = 0; j < nc; ++j) {
+        if (s_leaf[j] != leaf) continue;
+        const Split sp = s_split[j];
+        const uint32_t word = (uint32_t)__ldg(row + sp.col / per);
+        const int code = (int)((word >> ((sp.col % per) * kBits)) & mask);
+        if (!goes_left(code, sp)) leaf = base + j + 1;
+      }
+    }
+  }
+  if (r < m) leaf_out[r] = leaf;
+}
+
+template <int kBits>
+int launch_route(const int32_t* rows, long long m, int cw, const float* rec,
+                 const int* k_ptr, int max_rec, const int* table,
+                 int num_features, int32_t* leaf, cudaStream_t s) {
+  const long long grid = (m + kThreads - 1) / kThreads;
+  route_rows_kernel<kBits><<<(unsigned)grid, kThreads, 0, s>>>(
+      rows, m, cw, rec, k_ptr, max_rec, table, num_features, leaf);
+  return (int)cudaGetLastError();
+}
+
 template <int kBits>
 int launch_bits(const int32_t* buf0, const int32_t* buf1, int* desc,
                 int32_t* key, int D, int cw, int renew, int grid,
@@ -305,6 +391,35 @@ extern "C" int lgbt_split_key_column_launch(const void* codes_t,
     case 2:
       return launch_column_op<uint16_t>(codes_t, n, desc, leaf_id, gh, ghl,
                                         op_kind, grid, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The router. rows: (m, cw) int32 packed code rows, item_bits 4, 8 or 16
+// bits per code; rec: (max_rec, 13) f32 split records in device memory, of
+// which the first *k (an int in device memory) are walked; table:
+// (num_features, 6) int32 feature fields; leaf: m int32, written. The grid
+// is fixed by m: one thread per row.
+extern "C" int lgbt_route_rows_launch(const int32_t* rows, long long m, int cw,
+                                      int item_bits, const float* rec,
+                                      const int* k, int max_rec,
+                                      const int* table, int num_features,
+                                      int32_t* leaf, void* stream) {
+  if (m < 1 || cw < 1 || max_rec < 0 || num_features < 1 ||
+      (m + kThreads - 1) / kThreads > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (item_bits) {
+    case 4:
+      return launch_route<4>(rows, m, cw, rec, k, max_rec, table,
+                             num_features, leaf, s);
+    case 8:
+      return launch_route<8>(rows, m, cw, rec, k, max_rec, table,
+                             num_features, leaf, s);
+    case 16:
+      return launch_route<16>(rows, m, cw, rec, k, max_rec, table,
+                              num_features, leaf, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

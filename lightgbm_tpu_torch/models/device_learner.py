@@ -1,8 +1,8 @@
 """Leaf-wise tree learner, in torch: the compact and the masked strategy.
 
 Port of lightgbm_tpu/models/device_learner.py for the serial, dense-pool,
-numerical-feature, all-ones-row-weight case of its two single-device
-strategies, each with float or quantized gradients.
+numerical-feature case of its two single-device strategies, each with
+float or quantized gradients, with the row sampling of bagging and GOSS.
 
 **Compact** (``grow_tree_compact_core``, JAX :808). The reference's
 DataPartition (data_partition.hpp:20-205) becomes one packed int32 working
@@ -62,8 +62,22 @@ slice each window with host ints). They are kept as the oracles the
 device loops' records are held against, and no parameter reaches them.
 
 ``make_fused_step`` ports the JAX single-program boosting iteration:
-gradients, the working rows or operand, the tree, its leaf values from
-the records and the score update, all on the device.
+gradients, the row sample, the working rows or operand, the tree, its
+leaf values from the records and the score update, all on the device.
+
+**Row sampling** (bagging, GOSS). A bag is 0/1 row weights in the JAX
+package. The masked core takes them as they are: its operand is [g * w,
+h * w, w]. The compact core compacts the bag instead (the JAX fused
+iteration's bag compaction): the bag's rows are gathered into a carry of
+their own, and after the tree the router (``route_rows``, the JAX
+``route_rows_by_rec``) gives each out-of-bag row its leaf from the split
+records. That gives the records of the JAX weighted layout: a 0-weight row
+adds nothing to a histogram's sums or count, its gradient quantizes to 0
+and so changes no stored-int max, and the records' weighted counts are
+the bag's physical counts. The same holds for the generic iteration's
+host bag (``train(..., bag_indices)``), which quantizes grad * w over all
+N rows before the gather, as JAX does; so the port has no two-word gh
+section (the JAX gw = 2 layout).
 """
 from __future__ import annotations
 
@@ -91,7 +105,7 @@ from ..ops.kernels.histogram import (build_histogram_quantized_rows,
                                      build_histogram_window, packed_codes)
 from ..ops.kernels.partition import (stable_partition3,
                                      stable_partition3_window)
-from ..ops.kernels.split_key import split_key, split_key_column
+from ..ops.kernels.split_key import route_rows, split_key, split_key_column
 from ..ops.partition import decide_left
 from ..utils import log
 from ..utils import random as trandom
@@ -327,6 +341,42 @@ def _quant_prepare(grad, hess, key, *, quant_bits: int, quant_renew: bool):
     qg, qh = quant_ops.unpack_gh(packed)
     m = torch.stack([qg.abs().max(), qh.abs().max()]).float()
     return packed, s_g, s_h, m
+
+
+def exact_k_bag_weights(bag_key: torch.Tensor, n: int, bag_k: int,
+                        device) -> torch.Tensor:
+    """(n,) f32 0/1 bagging weights with bag_k ones (more only where
+    uniforms tie at the cut), deterministic per key: the JAX package's
+    exact_k_bag_weights (reference Bagging, gbdt.cpp:210-276). The key is
+    a host tensor; the uniforms are drawn on `device`. The cut comes from
+    a full sort, as in JAX: on the card `torch.kthvalue` selects in one
+    block (5.1 ms of a 126 ms bagged iteration at 1M rows, NVIDIA H100;
+    PERF.md)."""
+    u = trandom.uniform(bag_key, n, device)
+    cut = torch.sort(u).values[bag_k - 1]
+    return (u <= cut).float()
+
+
+def goss_sample(g: torch.Tensor, h: torch.Tensor, bag_key: torch.Tensor,
+                n: int, top_k: int, other_k: int, multiply: float):
+    """In-program GOSS (reference goss.hpp:60-117), the JAX package's
+    goss_sample: the top_k rows by |g * h| (a stable sort, so ties keep
+    row order), other_k of the rest taken by a stable sort of uniforms,
+    their gradients amplified by `multiply`. Returns (g, h, w, bag_idx,
+    oob_idx): amplified gradients, 0/1 weights, and the in-bag (top rows
+    first) and out-of-bag row ids."""
+    ridx = torch.argsort(-(g * h).abs(), stable=True)
+    top_idx, rest = ridx[:top_k], ridx[top_k:]
+    perm = torch.argsort(trandom.uniform(bag_key, n - top_k, g.device),
+                         stable=True)
+    other_idx = rest.index_select(0, perm[:other_k])
+    oob_idx = rest.index_select(0, perm[other_k:])
+    bag_idx = torch.cat([top_idx, other_idx])
+    amp = torch.ones(n, dtype=torch.float32, device=g.device) \
+        .index_fill_(0, other_idx, float(multiply))
+    w = torch.zeros(n, dtype=torch.float32, device=g.device) \
+        .index_fill_(0, bag_idx, 1.0)
+    return g * amp, h * amp, w, bag_idx, oob_idx
 
 
 def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
@@ -674,11 +724,14 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
     c.k.copy_(c.k + go.int())
 
 
-def leaf_map(c: DeviceCarry) -> torch.Tensor:
-    """(N,) int64 row -> leaf map of the grown tree, from the leaves'
-    windows (begin, rows, buffer) with fixed-shape ops: each position's
-    leaf and buffer in window order, then scattered onto the row ids of
-    the final column (leaves not made have no rows)."""
+def leaf_map(c: DeviceCarry, n_total: Optional[int] = None) -> torch.Tensor:
+    """(n_total,) int64 row -> leaf map of the grown tree, from the
+    leaves' windows (begin, rows, buffer) with fixed-shape ops: each
+    position's leaf and buffer in window order, then scattered onto the
+    row ids of the final column (leaves not made have no rows). n_total
+    (default: the carry's rows) is the row count of the ids; a bag
+    carry's rows hold the original ids of the bag, and the entries of the
+    rows outside it are left for the caller to write."""
     n, d_cols = c.data.shape
     order = torch.argsort(c.leaf_begin, stable=True)
     rows = c.leaf_phys.index_select(0, order).long()
@@ -687,8 +740,8 @@ def leaf_map(c: DeviceCarry) -> torch.Tensor:
                                       rows, output_size=n)
     row_ids = torch.where(pos_buf == 1, c.spare[:, d_cols - 1],
                           c.data[:, d_cols - 1]).long()
-    return torch.empty(n, dtype=torch.int64, device=c.data.device) \
-        .scatter_(0, row_ids, pos_leaf)
+    return torch.empty(n if n_total is None else n_total, dtype=torch.int64,
+                       device=c.data.device).scatter_(0, row_ids, pos_leaf)
 
 
 def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
@@ -968,8 +1021,12 @@ class DeviceTreeLearner:
             self.codes_t = torch.from_numpy(ct).to(dev)
         self._ones_mask = torch.ones(self.num_features, dtype=torch.bool,
                                      device=dev)
-        self._carry = None             # DeviceCarry or MaskedCarry
+        # the last tree's DeviceCarry or MaskedCarry and its SplitLoop; every
+        # carry made, kept alive with its captured graph, by (rows, qcap_op)
+        # on compact (all rows, and the bag), under "masked" on masked
+        self._carry = None
         self._loop: Optional[SplitLoop] = None
+        self._states = {}
         self._scan = None
         self.last_leaf_id: Optional[torch.Tensor] = None
         self.stats = GrowStats()
@@ -1013,49 +1070,85 @@ class DeviceTreeLearner:
             mask[chosen] = True
         return mask
 
+    def _rows_of(self, bag_idx: Optional[torch.Tensor]):
+        """The working rows' packed codes and row ids: every row's, or
+        those of the bag's rows, gathered in bag order (original ids)."""
+        if bag_idx is None:
+            return self.codes_pack, self._row_ids
+        return (self.codes_pack.index_select(0, bag_idx),
+                bag_idx.to(torch.int32))
+
     def working_buffer(self, grad: torch.Tensor, hess: torch.Tensor,
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(N, CW + 4) int32: packed codes | bitcast f32 grad, hess,
+                       out: Optional[torch.Tensor] = None,
+                       bag_idx: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """(R, CW + 4) int32: packed codes | bitcast f32 grad, hess,
         weight (all ones) | row id, written into `out` (a new tensor when
-        None)."""
-        n, cw = self.codes_pack.shape
+        None). R = N, or with `bag_idx` the bag's rows: the bag compacted,
+        so that an out-of-bag row is no row of the tree (the JAX weighted
+        layout's 0-weight rows add nothing to a histogram either)."""
+        codes, ids = self._rows_of(bag_idx)
+        if bag_idx is not None:
+            grad, hess = grad.index_select(0, bag_idx), \
+                hess.index_select(0, bag_idx)
+        n, cw = codes.shape
         if out is None:
             out = torch.empty((n, cw + 4), dtype=torch.int32,
                               device=grad.device)
-        out[:, :cw] = self.codes_pack
+        out[:, :cw] = codes
         f = out.view(torch.float32)
         f[:, cw] = grad
         f[:, cw + 1] = hess
         f[:, cw + 2] = 1.0
-        out[:, cw + 3] = self._row_ids
+        out[:, cw + 3] = ids
         return out
 
     def quant_working_buffer(self, grad: torch.Tensor, hess: torch.Tensor,
                              key: torch.Tensor,
-                             out: Optional[torch.Tensor] = None):
-        """The compact core's quantized rows: (N, CW + 2) int32 -- packed
+                             out: Optional[torch.Tensor] = None,
+                             bag_idx: Optional[torch.Tensor] = None,
+                             n_total: Optional[int] = None):
+        """The compact core's quantized rows: (R, CW + 2) int32 -- packed
         codes | one (qg << 16 | qh) word | row id -- written into `out` (a
-        new tensor when None), and their QuantRows. All-ones weights need
-        no weight word (the JAX gw = 1 layout)."""
-        n, cw = self.codes_pack.shape
-        packed, s_g, s_h, root_max = _quant_prepare(
-            grad, hess, key, quant_bits=self.quant_bits,
-            quant_renew=self.quant_renew)
+        new tensor when None), and their QuantRows. R = N, or with
+        `bag_idx` the bag's rows (compacted). Where the quantization runs
+        is the JAX package's: over the bag's gathered rows, the operand
+        cap from R (n_total None: the fused iteration, whose grower gets
+        the gathered bag), or over all n_total = N rows as grad * w, the
+        out-of-bag rows at 0, before the gather, the cap from N (the
+        generic iteration's host bag: the integers of the JAX weighted
+        layout). Every working row counts, so no weight word (the JAX
+        gw = 1 layout)."""
+        codes, ids = self._rows_of(bag_idx)
+        n, cw = codes.shape
+        kw = dict(quant_bits=self.quant_bits, quant_renew=self.quant_renew)
+        if bag_idx is not None and n_total is not None:
+            w = torch.zeros_like(grad).index_fill_(0, bag_idx, 1.0)
+            packed, s_g, s_h, root_max = _quant_prepare(
+                grad * w, hess * w, key, **kw)
+            packed = packed.index_select(0, bag_idx)
+        else:
+            if bag_idx is not None:
+                grad, hess = grad.index_select(0, bag_idx), \
+                    hess.index_select(0, bag_idx)
+            packed, s_g, s_h, root_max = _quant_prepare(grad, hess, key, **kw)
         if out is None:
             out = torch.empty((n, cw + 2), dtype=torch.int32,
                               device=grad.device)
-        out[:, :cw] = self.codes_pack
+        out[:, :cw] = codes
         out[:, cw] = packed
-        out[:, cw + 1] = self._row_ids
+        out[:, cw + 1] = ids
         return out, QuantRows(self.quant_bits,
-                              quant_ops.quant_max(self.quant_bits, n),
+                              quant_ops.quant_max(self.quant_bits,
+                                                  n_total or n),
                               s_g, s_h, root_max)
 
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
               bag_indices=None, iter_seed: int = 0) -> Tree:
-        if bag_indices is not None:
-            raise LightGBMError("bagging is not supported by this port yet")
-        rec, leaf_id, k = self.grow(grad, hess, iter_seed)
+        """One tree from (N,) gradients, on the rows `bag_indices` (host
+        ints; None: every row), as the JAX package's train; the row ->
+        leaf map of every row, bagged or not, in last_leaf_id."""
+        rec, leaf_id, k = self.grow(grad, hess, iter_seed, bag_indices)
         self.stats.trees += 1
         self.last_leaf_id = leaf_id
         if k == 0:
@@ -1072,16 +1165,33 @@ class DeviceTreeLearner:
                                                        device=self.device)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
-             iter_seed: int = 0):
+             iter_seed: int = 0, bag_indices=None):
         """Grow one tree on the learner's strategy, in its device loop,
         and fetch it: the feature sample from the host RandomState and the
         quantization key prng_key(iter_seed), as in the JAX package's
-        train. Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64
-        tensor, k)."""
+        train. A host bag (`bag_indices`, the generic iteration's) gives
+        the JAX package's 0/1 weights: the compact strategy compacts the
+        bag and routes the other rows by the records, its quantization
+        over all N rows; the masked strategy weights its operand. Returns
+        (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
         grad, hess = grad.float(), hess.float()
-        grow = self.grow_masked if self.strategy == "masked" \
-            else self.grow_compact
-        rec, leaf_id, k = grow(grad, hess, iter_seed)
+        n = self.dataset.num_data
+        inbag = None
+        if bag_indices is not None:
+            inbag = np.zeros(n, dtype=bool)
+            inbag[np.asarray(bag_indices, dtype=np.int64)] = True
+        if self.strategy == "masked":
+            w = None if inbag is None else torch.as_tensor(
+                inbag.astype(np.float32), device=grad.device)
+            rec, leaf_id, k = self.grow_masked(grad, hess, iter_seed, w)
+        elif inbag is None or inbag.all():
+            rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed)
+        else:
+            bag_idx, oob_idx = (torch.as_tensor(np.flatnonzero(m),
+                                                device=grad.device)
+                                for m in (inbag, ~inbag))
+            rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed,
+                                                bag_idx, oob_idx, n_total=n)
         rec_h, k, _ = self.fetch_tree(rec, k)
         return rec_h, leaf_id, k
 
@@ -1123,26 +1233,41 @@ class DeviceTreeLearner:
             self._scan = (scan, best_row, search2_simple(scan, best_row))
         return self._scan
 
-    def _capture(self, c, step, counters):
-        """The carry's SplitLoop over `step`; on the card the step is
-        captured while the carry is idle, k = L - 1. The step must not
-        refer to the learner: the learner holds the loop, and a cycle
-        would leave a dropped learner's graph to the cyclic collector."""
+    def _capture(self, key, c, step, counters):
+        """The carry's SplitLoop over `step`, kept under `key`; on the
+        card the step is captured while the carry is idle, k = L - 1. The
+        step must not refer to the learner: the learner holds the loop,
+        and a cycle would leave a dropped learner's graph to the cyclic
+        collector. Every carry stays alive with its graph: a graph freed
+        while another is captured breaks that capture."""
         L = int(self.config.num_leaves)
         loop = SplitLoop(step, L - 1, self.device, counters)
         if self.device.type == "cuda":
             c.k.fill_(L - 1)
             loop.capture()
+        self._states[key] = (c, loop)
         self._carry, self._loop = c, loop
         return c, loop
 
-    def _device_state(self):
-        """The compact core's DeviceCarry and its SplitLoop, made at the
-        first tree."""
-        if self._carry is not None:
-            return self._carry, self._loop
+    def _device_state(self, rows: Optional[int] = None,
+                      qcap_op: Optional[int] = None):
+        """The compact core's DeviceCarry and its SplitLoop over `rows`
+        working rows (default N; fewer for a bag) with the quantized
+        operand cap qcap_op (default: from `rows`), made at its first
+        tree. The cap is a constant of the captured step, so a bag of the
+        fused iteration (cap from the bag) and a host bag of the same size
+        (cap from N) have carries of their own."""
         st = self._statics()
-        L, n = st["num_leaves"], self.dataset.num_data
+        L = st["num_leaves"]
+        n = self.dataset.num_data if rows is None else rows
+        if not self.quant_bits:
+            qcap_op = 0
+        elif qcap_op is None:
+            qcap_op = quant_ops.quant_max(self.quant_bits, n)
+        hit = self._states.get((n, qcap_op))
+        if hit is not None:
+            self._carry, self._loop = hit
+            return hit
         d_cols = self.codes_pack.shape[1] + (2 if self.quant_bits else 4)
         c = DeviceCarry(n, d_cols, L, (self.c_cols, st["col_bins"], 3),
                         torch.int32 if self.quant_bits else torch.float32,
@@ -1152,15 +1277,13 @@ class DeviceTreeLearner:
                   f_monotone=self.meta["t_monotone"],
                   search2=self._search()[2], c_cols=self.c_cols,
                   item_bits=self.item_bits, col_bins=st["col_bins"],
-                  num_leaves=L, quant_bits=self.quant_bits,
-                  qcap_op=quant_ops.quant_max(self.quant_bits, n)
-                  if self.quant_bits else 0,
+                  num_leaves=L, quant_bits=self.quant_bits, qcap_op=qcap_op,
                   renew=bool(self.quant_bits) and self.quant_renew)
 
         def step():
             split_step(c, **kw)
 
-        return self._capture(c, step, (
+        return self._capture((n, qcap_op), c, step, (
             (kkey, "launches"), (kpart, "launches_win"),
             (khist, "launches_win"), (khist, "launches_qwin")))
 
@@ -1190,19 +1313,33 @@ class DeviceTreeLearner:
         c.depth.zero_()
 
     def grow_compact(self, grad: torch.Tensor, hess: torch.Tensor,
-                     iter_seed: int = 0):
+                     iter_seed: int = 0,
+                     bag_idx: Optional[torch.Tensor] = None,
+                     oob_idx: Optional[torch.Tensor] = None,
+                     n_total: Optional[int] = None):
         """Grow one tree with the compact core on the device: the working
         rows, the root, the split loop and the row -> leaf map, with no
-        host sync. Returns the carry's (L-1, 13) f32 records and 0-d int32
-        k (valid until the next tree) and the (N,) int64 leaf_id."""
-        c, loop = self._device_state()
+        host sync. With a bag (device row ids bag_idx, and oob_idx the
+        others) the tree grows on the bag's rows alone, gathered into the
+        bag's carry (the JAX package's bag compaction), and the router
+        gives the out-of-bag rows their leaf from the records; n_total is
+        where the quantization runs (quant_working_buffer: None, the
+        gathered rows; N, every row before the gather). Returns the
+        carry's (L-1, 13) f32 records and 0-d int32 k (valid until the
+        next tree) and the (N,) int64 leaf_id."""
+        grad, hess = grad.float(), hess.float()
+        rows = None if bag_idx is None else bag_idx.shape[0]
+        qcap_op = None
+        if self.quant_bits and rows is not None:
+            qcap_op = quant_ops.quant_max(self.quant_bits, n_total or rows)
+        c, loop = self._device_state(rows, qcap_op)
         st = self._statics()
         self._set_base_mask(c, iter_seed)
         cw = self.codes_pack.shape[1]
         if self.quant_bits:
             _, quant = self.quant_working_buffer(
-                grad.float(), hess.float(), trandom.prng_key(iter_seed),
-                out=c.data)
+                grad, hess, trandom.prng_key(iter_seed), out=c.data,
+                bag_idx=bag_idx, n_total=n_total)
             c.s_g.copy_(quant.s_g)
             c.s_h.copy_(quant.s_h)
             renew = quant.root_max is not None
@@ -1222,7 +1359,7 @@ class DeviceTreeLearner:
                 c.scale_of[0] = torch.stack(r0)
                 c.leafmax[0] = quant.root_max
         else:
-            self.working_buffer(grad.float(), hess.float(), out=c.data)
+            self.working_buffer(grad, hess, out=c.data, bag_idx=bag_idx)
             hist0 = hist0_s = build_histogram_window(
                 c.data, c.spare, c.root_desc, cw, self.c_cols,
                 self.item_bits, st["col_bins"])
@@ -1234,30 +1371,40 @@ class DeviceTreeLearner:
         # (a fill: `t[0] = n` on the card copies n from the host, a sync)
         c.leaf_phys[:1].fill_(c.data.shape[0])
         loop.run()
-        return c.rec, leaf_map(c), c.k
+        if bag_idx is None:
+            return c.rec, leaf_map(c), c.k
+        leaf_id = leaf_map(c, self.dataset.num_data)
+        routed = route_rows(self.codes_pack.index_select(0, oob_idx), c.rec,
+                            c.k, self.meta["t_feature_table"],
+                            item_bits=self.item_bits)
+        return c.rec, leaf_id.index_copy_(0, oob_idx, routed.long()), c.k
 
     def masked_operand(self, grad: torch.Tensor, hess: torch.Tensor,
-                       iter_seed: int = 0):
+                       iter_seed: int = 0,
+                       w: Optional[torch.Tensor] = None):
         """The masked core's (N, 3) histogram operand of one tree and its
-        dequantization scales: f32 [grad, hess, 1] and None, or, with
-        quantized gradients (key prng_key(iter_seed), the tree's one
-        ratio), the integer [qg, qh, 1] and (3,) f32 scale3."""
+        dequantization scales, under the (N,) 0/1 row weights w (None:
+        all ones), as the JAX grow_tree builds it: f32 [grad * w, hess *
+        w, w] and None, or, with quantized gradients (key
+        prng_key(iter_seed), the tree's one ratio), grad * w and hess * w
+        quantized, the integer [qg, qh, w > 0] and (3,) f32 scale3."""
+        if w is None:
+            w = torch.ones_like(grad)
+        else:
+            grad, hess = grad * w, hess * w
         if not self.quant_bits:
-            return torch.stack([grad, hess, torch.ones_like(grad)],
-                               dim=1), None
+            return torch.stack([grad, hess, w], dim=1), None
         packed, s_g, s_h, _ = _quant_prepare(
             grad, hess, trandom.prng_key(iter_seed),
             quant_bits=self.quant_bits, quant_renew=False)
-        gh = quant_ops.gh_operand(
-            packed, torch.ones_like(packed, dtype=torch.bool),
-            self.quant_bits)
+        gh = quant_ops.gh_operand(packed, w > 0, self.quant_bits)
         return gh, quant_ops.dequant_scale3(s_g, s_h)
 
     def _masked_state(self):
         """The masked core's MaskedCarry and its SplitLoop, made at the
         first tree."""
-        if self._carry is not None:
-            return self._carry, self._loop
+        if "masked" in self._states:
+            return self._states["masked"]
         st = self._statics()
         L, n = st["num_leaves"], self.dataset.num_data
         quant = bool(self.quant_bits)
@@ -1276,20 +1423,22 @@ class DeviceTreeLearner:
         def step():
             masked_split_step(c, codes_t, **kw)
 
-        return self._capture(c, step, (
+        return self._capture("masked", c, step, (
             (kkey, "launches_col"), (khist, "launches_t"),
             (khist, "launches_qt")))
 
     def grow_masked(self, grad: torch.Tensor, hess: torch.Tensor,
-                    iter_seed: int = 0):
-        """Grow one tree with the masked core on the device: the operand,
-        the root (K2 / K3t over all rows), the split loop, with no host
-        sync. Returns the carry's (L-1, 13) f32 records and 0-d int32 k
-        (valid until the next tree) and the (N,) int64 leaf_id."""
+                    iter_seed: int = 0, w: Optional[torch.Tensor] = None):
+        """Grow one tree with the masked core on the device: the operand
+        (under the 0/1 row weights w, None: all ones; an out-of-bag row
+        carries a zero operand and is routed like every other row), the
+        root (K2 / K3t over all rows), the split loop, with no host sync.
+        Returns the carry's (L-1, 13) f32 records and 0-d int32 k (valid
+        until the next tree) and the (N,) int64 leaf_id."""
         c, loop = self._masked_state()
         self._set_base_mask(c, iter_seed)
         gh, scale3 = self.masked_operand(grad.float(), hess.float(),
-                                         iter_seed)
+                                         iter_seed, w)
         c.gh.copy_(gh)
         col_bins = self.col_device_bins
         if scale3 is None:
@@ -1305,24 +1454,66 @@ class DeviceTreeLearner:
         loop.run()
         return c.rec, c.leaf_id.long(), c.k
 
-    def make_fused_step(self, objective):
+    def make_fused_step(self, objective, goss=None, bagging: bool = True):
         """One boosting iteration as one device program (the JAX package's
-        DeviceTreeLearner.make_fused_step, without bagging and GOSS, which
-        the port refuses), on either strategy: gradients at score +
-        init_score, the tree in the strategy's device loop, its leaf
-        values from the records and the score update, with no host sync.
-        Returns step(score_row, iter_seed, shrinkage, init_score) ->
-        (new_score, rec, leaf_id, k, finite): the delta is 0 when k == 0,
-        and finite says every updated score is finite."""
-        L = int(self.config.num_leaves)
-        grow = self.grow_masked if self.strategy == "masked" \
-            else self.grow_compact
+        DeviceTreeLearner.make_fused_step), on either strategy: gradients
+        at score + init_score; the row sample; the tree in the strategy's
+        device loop; its leaf values from the records and the score
+        update, with no host sync.
+
+        The sample: goss = (top_k, other_k, multiply) samples by GOSS
+        (goss_sample); else, when `bagging` and bagging_freq > 0 and
+        bagging_fraction < 1, bag_k = max(1, int(N * bagging_fraction))
+        rows by exact_k_bag_weights (bagging=False: GOSS's warm-up, every
+        row even under bagging settings). Both draw from prng_key of the
+        step's bag seed. The compact strategy compacts a bag of fewer than
+        N rows: its rows gathered in the JAX order (GOSS: top rows first;
+        bagging: a stable sort of in-bag first) into the bag's carry, the
+        other rows routed by the records; the masked strategy weights its
+        operand, with GOSS's amplified gradients.
+
+        Returns step(score_row, iter_seed, shrinkage, init_score,
+        bag_seed) -> (new_score, rec, leaf_id, k, finite): the delta is 0
+        when k == 0, and finite says every updated score is finite."""
+        cfg = self.config
+        n = self.dataset.num_data
+        L = int(cfg.num_leaves)
+        if goss is not None:
+            top_k, other_k, multiply = goss
+            bag_on, bag_k = True, min(n, top_k + other_k)
+        elif not bagging:
+            bag_on, bag_k = False, n
+        else:
+            bag_on = cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
+            bag_k = max(1, int(n * cfg.bagging_fraction))
+        compact = self.strategy == "compact"
+        bag_compact = compact and bag_on and bag_k < n
 
         def step(score_row: torch.Tensor, iter_seed: int, shrinkage: float,
-                 init_score: float = 0.0):
+                 init_score: float = 0.0, bag_seed: int = 0):
             score = score_row + init_score
             grad, hess = objective.get_gradients(score)
-            rec, leaf_id, k = grow(grad, hess, iter_seed)
+            w = bag_idx = oob_idx = None
+            if bag_on:
+                # a host key: its words are read on the host (no sync)
+                key = trandom.prng_key(bag_seed)
+                if goss is not None:
+                    grad, hess, w, bag_idx, oob_idx = goss_sample(
+                        grad, hess, key, n, top_k, other_k, multiply)
+                else:
+                    w = exact_k_bag_weights(key, n, bag_k, grad.device)
+            if bag_compact:
+                if bag_idx is None:
+                    order = torch.argsort((w <= 0).to(torch.int32),
+                                          stable=True)
+                    bag_idx, oob_idx = order[:bag_k], order[bag_k:]
+                rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed,
+                                                    bag_idx, oob_idx)
+            elif compact:
+                # a bag of every row: all-ones weights
+                rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed)
+            else:
+                rec, leaf_id, k = self.grow_masked(grad, hess, iter_seed, w)
             lv = leaf_values_from_rec(rec, k, L)
             delta = lv.index_select(0, leaf_id) * shrinkage
             new_score = score + torch.where(k > 0, delta,

@@ -8,12 +8,16 @@ live on the booster's device as (1, N) f32 tensors; trees and split
 records live on the host.
 
 Two iterations, as in the JAX package: the fused one (``_fused_eligible``:
-plain GBDT, one tree per iteration, either strategy) runs the learner's
-single-program step -- gradients, tree, leaf values and score update on
-the device -- and makes one device->host copy, the split records, k and
-the finite flag; the generic one runs otherwise, and takes over an
-iteration whose fused tree has no split (the stop bookkeeping).
-The JAX package's pipelined form of the fused iteration is not ported.
+GBDT or GOSS, one tree per iteration, either strategy, no pos/neg
+bagging) runs the learner's single-program step -- gradients, the row
+sample (bagging or GOSS, drawn on the device), tree, leaf values and
+score update on the device -- and makes one device->host copy, the split
+records, k and the finite flag; the generic one runs otherwise (pos/neg
+bagging), and takes over an iteration whose fused tree has no split (the
+stop bookkeeping). It samples on the host (``_bagging``, with
+``np.random.RandomState``, and ``GOSS._goss_sample``), as the JAX
+package's generic iteration does. The JAX package's pipelined form of the
+fused iteration is not ported; DART and RF are not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from ..metrics import create_metrics
 from ..objectives import create_objective
 from ..ops import predict as predict_ops
 from ..utils import log
+from ..utils.log import LightGBMError
 from .device_learner import DeviceTreeLearner
 from .tree import Tree
 
@@ -106,7 +111,10 @@ class GBDT:
                                   for k in range(self.num_class)]
         self.feature_names = train_set.feature_names
         self.max_feature_idx = train_set.num_total_features - 1
-        self._fused_step = None
+        self._bag_rng = np.random.RandomState(cfg.bagging_seed % (2**31 - 1))
+        self._bag_indices: Optional[np.ndarray] = None
+        # the fused steps, by whether they sample by GOSS
+        self._fused_step: Optional[Dict[bool, object]] = None
 
     # ------------------------------------------------------------------
     def _boost_from_average(self, class_id: int, update_scorer: bool) -> float:
@@ -136,27 +144,78 @@ class GBDT:
             return self._train_one_iter_fused()
         return self._train_one_iter_generic()
 
+    def _bagging(self, iteration: int) -> Optional[np.ndarray]:
+        """The generic iteration's row sample on the host (reference
+        gbdt.cpp:210-276, the JAX package's GBDT._bagging): sorted row ids,
+        drawn anew every bagging_freq iterations, per class under pos/neg
+        bagging on a binary objective; None without bagging."""
+        cfg = self.config
+        n = self.num_data
+        pos_neg = cfg.pos_bagging_fraction < 1.0 \
+            or cfg.neg_bagging_fraction < 1.0
+        if cfg.bagging_freq <= 0 or (cfg.bagging_fraction >= 1.0
+                                     and not pos_neg):
+            return None
+        if iteration % cfg.bagging_freq != 0 \
+                and self._bag_indices is not None:
+            return self._bag_indices
+        if pos_neg and self.objective is not None \
+                and self.objective.name == "binary":
+            pos = np.nonzero(self.train_set.label > 0)[0]
+            neg = np.nonzero(self.train_set.label <= 0)[0]
+            kp = max(1, int(len(pos) * cfg.pos_bagging_fraction))
+            kn = max(1, int(len(neg) * cfg.neg_bagging_fraction))
+            idx = np.concatenate([
+                self._bag_rng.choice(pos, kp, replace=False),
+                self._bag_rng.choice(neg, kn, replace=False)])
+        else:
+            k = max(1, int(n * cfg.bagging_fraction))
+            idx = self._bag_rng.choice(n, k, replace=False)
+        idx = np.sort(idx).astype(np.int32)
+        self._bag_indices = idx
+        return idx
+
     def _fused_eligible(self) -> bool:
-        """Whether the single-program device iteration applies: one tree
-        per iteration that trains, on either strategy (each grows its tree
-        in its device loop), as in the JAX package. The port's boosting is
-        plain GBDT only."""
-        return (self.num_tree_per_iteration == 1
+        """Whether the single-program device iteration applies: GBDT or
+        GOSS, one tree per iteration that trains, on either strategy (each
+        grows its tree in its device loop), and no pos/neg bagging (its
+        bag is drawn on the host), as in the JAX package."""
+        return (self.__class__ in (GBDT, GOSS)
+                and self.num_tree_per_iteration == 1
                 and self._class_need_train[0]
-                and self.train_set.num_features > 0)
+                and self.train_set.num_features > 0
+                and self.config.pos_bagging_fraction >= 1.0
+                and self.config.neg_bagging_fraction >= 1.0)
+
+    def _fused_goss(self):
+        """GOSS's sampling parameters for the fused step; None for GBDT
+        (GOSS overrides)."""
+        return None
 
     def _train_one_iter_fused(self) -> bool:
         """One boosting iteration as one device program and one small
         fetch (DeviceTreeLearner.make_fused_step). The first iteration's
         boost-from-average score is added inside the step, so an iteration
         without a split leaves the score as it was and the generic path
-        redoes it with the reference's stop bookkeeping."""
+        redoes it with the reference's stop bookkeeping. The bag seed is
+        the JAX package's: bagging_seed + iter // bagging_freq (a bag kept
+        for bagging_freq iterations), + iter under GOSS."""
+        cfg = self.config
         init_score = self._boost_from_average(0, False)
+        goss_params = self._fused_goss()
         if self._fused_step is None:
-            self._fused_step = self.learner.make_fused_step(self.objective)
-        new_score, rec, leaf_id, k, finite = self._fused_step(
+            self._fused_step = {}
+        fkey = goss_params is not None
+        if fkey not in self._fused_step:
+            # GOSS replaces bagging: its warm-up trains on every row
+            self._fused_step[fkey] = self.learner.make_fused_step(
+                self.objective, goss=goss_params,
+                bagging=not isinstance(self, GOSS))
+        freq = 1 if goss_params is not None else max(cfg.bagging_freq, 1)
+        bag_seed = (cfg.bagging_seed + self.iter // freq) % (2**31 - 1)
+        new_score, rec, leaf_id, k, finite = self._fused_step[fkey](
             self.score_updater.score[0], self.iter, self.shrinkage_rate,
-            init_score)
+            init_score, bag_seed)
         rec_h, k, (finite,) = self.learner.fetch_tree(rec, k, finite)
         if self._materialize_one(rec_h, k, leaf_id, init_score):
             return self._train_one_iter_generic()
@@ -186,12 +245,13 @@ class GBDT:
         init_scores = [self._boost_from_average(k, True)
                        for k in range(self.num_tree_per_iteration)]
         grad, hess = self._compute_gradients()
+        grad, hess, bag_indices = self._sample(grad, hess)
         should_continue = False
         for k in range(self.num_tree_per_iteration):
             new_tree = Tree(2)
             if self._class_need_train[k] and self.train_set.num_features > 0:
                 new_tree = self.learner.train(
-                    grad[k], hess[k],
+                    grad[k], hess[k], bag_indices,
                     iter_seed=self.iter * self.num_tree_per_iteration + k)
             if new_tree.num_leaves > 1:
                 should_continue = True
@@ -214,6 +274,11 @@ class GBDT:
             return True
         self.iter += 1
         return False
+
+    def _sample(self, grad, hess):
+        """The generic iteration's rows: (grad, hess, bag_indices) by
+        _bagging (GOSS overrides)."""
+        return grad, hess, self._bagging(self.iter)
 
     def _update_score(self, tree: Tree, class_id: int) -> None:
         self.score_updater.add_tree_by_leaf_id(
@@ -379,3 +444,61 @@ class GBDT:
             body = chunk.split("\n", 1)[1] if "\n" in chunk else ""
             booster.models.append(Tree.from_string(body))
         return booster
+
+
+class GOSS(GBDT):
+    """Gradient-based one-side sampling (reference src/boosting/goss.hpp;
+    the JAX package's GOSS). The fused iteration samples on the device
+    (``goss_sample``); the generic one, which takes over an iteration
+    without a split, samples on the host."""
+
+    def _goss_params(self):
+        cfg = self.config
+        n = self.num_data
+        top_k = max(1, int(n * cfg.top_rate))
+        other_k = max(1, int(n * cfg.other_rate))
+        return top_k, other_k, float((n - top_k) / max(other_k, 1))
+
+    def _fused_goss(self):
+        # every row for the first 1 / learning_rate iterations
+        # (goss.hpp:143-144)
+        if self.iter < int(1.0 / max(self.config.learning_rate, 1e-12)):
+            return None
+        return self._goss_params()
+
+    def _goss_sample(self, grad, hess):
+        """The host sample (goss.hpp:91 BaggingHelper): the top rows by
+        |g * h| and other_k of the rest from the bagging RandomState.
+        Returns (sorted bag row ids, the sampled other rows, multiply)."""
+        top_k, other_k, multiply = self._goss_params()
+        g = np.abs(grad.cpu().numpy() * hess.cpu().numpy()).sum(axis=0)
+        order = np.argsort(-g, kind="stable")
+        top_idx, rest = order[:top_k], order[top_k:]
+        sampled = self._bag_rng.choice(len(rest), min(other_k, len(rest)),
+                                       replace=False)
+        other_idx = rest[sampled]
+        idx = np.sort(np.concatenate([top_idx, other_idx])).astype(np.int32)
+        return idx, other_idx, multiply
+
+    def _sample(self, grad, hess):
+        """GOSS replaces bagging: every row during the warm-up, else the
+        host sample with the other rows' gradients amplified."""
+        if self._fused_goss() is None:
+            return grad, hess, None
+        idx, other_idx, multiply = self._goss_sample(grad, hess)
+        amp = torch.ones(self.num_data, dtype=torch.float32,
+                         device=grad.device)
+        amp[torch.as_tensor(other_idx, device=grad.device)] = multiply
+        return grad * amp[None, :], hess * amp[None, :], idx
+
+
+def create_boosting(config: Config, train_set: Optional[Dataset],
+                    device="cpu") -> GBDT:
+    """The boosting engine of config.boosting (reference boosting.cpp:35
+    CreateBoosting): GBDT or GOSS; DART and RF are not ported."""
+    if config.boosting in ("gbdt", "gbrt", "plain"):
+        return GBDT(config, train_set, device=device)
+    if config.boosting == "goss":
+        return GOSS(config, train_set, device=device)
+    raise LightGBMError("boosting=%s is not supported by lightgbm_tpu_torch "
+                        "yet" % config.boosting)

@@ -1,4 +1,4 @@
-"""Split key: each row's side of a split, in two entries.
+"""Split key: each row's side of a split, in three entries.
 
 ``split_key``, the packed entry: the compact core's device loop runs it
 before K4 at every split. It stands for the window decode that the JAX
@@ -19,10 +19,18 @@ from its column of the (C, N) codes, are decided the same way, and move to
 the new leaf id when they go right; the left child's histogram operand
 gets the gh of the rows that go left, 0 for every other row.
 
+``route_rows``, the router: the compact core runs it once per bagged
+tree, for the rows left out of the bag. It stands for the JAX
+``route_rows_by_rec`` (lightgbm_tpu/models/device_learner.py:2174): each
+packed row walks the tree's split records in order and takes leaf i + 1
+where it sits in record i's leaf and goes right, decoded as the packed
+entry decodes it.
+
 Each wrapper launches ``csrc/split_key.cu`` for tensors on the card, and
 takes its ``*_plain`` version, the same function in plain PyTorch, for
-tensors on the CPU. Both read the split from the descriptor and do nothing
-when its GO field is 0.
+tensors on the CPU. The first two read the split from the descriptor and
+do nothing when its GO field is 0; the router reads the records and their
+count k from device memory.
 """
 from __future__ import annotations
 
@@ -40,6 +48,10 @@ from .histogram import _BLOCKS_PER_SM, _OP_KIND, _grid_x
 # +1 right after each kernel launch; read by chip_smoke.py
 launches = 0          # the packed entry
 launches_col = 0      # the column entry
+launches_route = 0    # the router
+
+# split-record columns the router reads (models/device_learner.py R_*)
+_R_LEAF, _R_FEAT, _R_THR, _R_DLEFT = range(4)
 
 # the column entry's code widths; its operand kinds are the histogram's
 _CODE_BYTES = {torch.uint8: 1, torch.int16: 2}
@@ -192,3 +204,64 @@ def split_key_column(codes_t: torch.Tensor, desc: torch.Tensor,
             torch.cuda.current_stream(codes_t.device).cuda_stream)
     build.check(rc, "split key column kernel launch")
     launches_col += 1
+
+
+def route_rows_plain(rows: torch.Tensor, rec: torch.Tensor, k: torch.Tensor,
+                     table: torch.Tensor, *, item_bits: int) -> torch.Tensor:
+    """The router in plain PyTorch: the JAX loop over the first k records,
+    each row moved to leaf i + 1 where it is in record i's leaf and goes
+    right."""
+    leaf = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    f = [0] * dsc.SIZE
+    for i in range(int(k)):
+        r = rec[i].tolist()
+        feat = min(max(int(r[_R_FEAT]), 0), table.shape[0] - 1)
+        f[dsc.THR], f[dsc.DLEFT] = int(r[_R_THR]), int(r[_R_DLEFT] > 0.5)
+        f[dsc.COL:dsc.DEFAULT + 1] = table[feat].tolist()
+        right = (leaf == int(r[_R_LEAF])) & ~_go_left(rows, f, item_bits)
+        leaf = torch.where(right, i + 1, leaf)
+    return leaf
+
+
+def route_rows(rows: torch.Tensor, rec: torch.Tensor, k: torch.Tensor,
+               table: torch.Tensor, *, item_bits: int) -> torch.Tensor:
+    """(M,) int32 leaf of each of the (M, CW) int32 packed code rows
+    `rows` under a tree's (L-1, 13) f32 split records `rec`, of which the
+    first k (a 0-d int32 tensor, read on the device) are real; `table`
+    the (F, 6) int32 feature fields (column, EFB base, elide flag, bin
+    count, missing type, default bin). One launch on a grid fixed by M,
+    counted in ``launches_route``."""
+    global launches_route
+    if rows.device.type == "cpu":
+        return route_rows_plain(rows, rec, k, table, item_bits=item_bits)
+    m = rows.shape[0] if rows.dim() == 2 else -1
+    if rows.dtype != torch.int32 or m < 0 or not rows.is_contiguous() \
+            or rec.dtype != torch.float32 or rec.dim() != 2 \
+            or rec.shape[1] != 13 or not rec.is_contiguous() \
+            or k.dtype != torch.int32 or k.numel() != 1 \
+            or table.dtype != torch.int32 or table.dim() != 2 \
+            or table.shape[1] != 6 or not table.is_contiguous():
+        raise ValueError("route_rows: want (M, CW) int32 rows, (L-1, 13) f32 "
+                         "records, a 0-d int32 k and an (F, 6) int32 table")
+    for t in (rec, k, table):
+        if t.device != rows.device:
+            raise ValueError("route_rows: want every tensor on the rows' "
+                             "CUDA device")
+    if item_bits not in (4, 8, 16):
+        raise ValueError("route_rows: item_bits must be 4, 8 or 16")
+    leaf = torch.empty(m, dtype=torch.int32, device=rows.device)
+    if m == 0:
+        return leaf
+    fn = build.load("split_key").lgbt_route_rows_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    rc = fn(rows.data_ptr(), m, rows.shape[1], item_bits, rec.data_ptr(),
+            k.data_ptr(), rec.shape[0], table.data_ptr(), table.shape[0],
+            leaf.data_ptr(),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    build.check(rc, "router kernel launch")
+    launches_route += 1
+    return leaf

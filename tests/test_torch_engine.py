@@ -188,15 +188,16 @@ def test_weights_and_init_score_match_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("objective", "multiclass"), ("bagging_fraction", 0.5),
-    ("feature_fraction", 0.8), ("quantized_grad", True),
+    ("objective", "multiclass"), ("feature_fraction_bynode", 0.5),
+    ("boosting", "rf"), ("quantized_grad", True),
     ("tree_learner", "data"), ("boosting", "dart"),
     ("two_round", True), ("stream_mode", "chunked")])
 def test_out_of_slice_params_raise_naming_the_key(key, value):
     x, y = _task("binary", n=200)
     params = dict(_params("binary"), **{key: value})
-    if key == "bagging_fraction":
-        params["bagging_freq"] = 1
+    if value == "rf":
+        # random forest needs bagging
+        params.update(bagging_fraction=0.5, bagging_freq=1)
     if key == "quantized_grad":
         # quantized gradients run on the serial learner only
         params["tree_learner"] = "data"

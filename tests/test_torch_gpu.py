@@ -1203,3 +1203,141 @@ def test_capture_after_a_dropped_learner(cuda_device):
                                   strategy=strategy)
         rec, leaf, k = new.grow(g, h)
         assert k == 30 and new._loop.graph is not None and gc.isenabled()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("item_bits", [4, 8, 16])
+@pytest.mark.parametrize("m", [200_000, 100_003])
+def test_route_rows_matches_plain(cuda_device, item_bits, m):
+    # the router over random packed rows and random records of a 255-leaf
+    # tree (k = 0: every row in leaf 0; k = 254: every record), bit-exact
+    r = np.random.RandomState(item_bits + m)
+    per, nb = 32 // item_bits, 1 << item_bits
+    cw, f, L = 7, 28, 255
+    rows = torch.from_numpy(r.randint(-2**31, 2**31, size=(m, cw),
+                                      dtype=np.int64).astype(np.int32))
+    f_numbins = r.randint(3, min(nb, 256), f)
+    f_elide = np.arange(f) % 3 == 0
+    table = torch.from_numpy(np.stack([
+        r.randint(0, cw * per, f), np.where(f_elide, r.randint(0, nb // 2, f),
+                                            0),
+        f_elide, f_numbins, np.arange(f) % 3,
+        r.randint(0, 100, f) % f_numbins], axis=1).astype(np.int32))
+    rec = np.zeros((L - 1, 13), np.float32)
+    feats = r.randint(0, f, L - 1)
+    rec[:, tdl.R_LEAF] = [r.randint(0, i + 1) for i in range(L - 1)]
+    rec[:, tdl.R_FEAT] = feats
+    rec[:, tdl.R_THR] = r.randint(0, f_numbins[feats])
+    rec[:, tdl.R_DLEFT] = r.randint(0, 2, L - 1)
+    dev = [t.to(cuda_device) for t in (rows, torch.from_numpy(rec), table)]
+    for k in (0, L - 1):
+        kt = torch.tensor(k, dtype=torch.int32)
+        n0 = kkey.launches_route
+        got = kkey.route_rows(dev[0], dev[1], kt.to(cuda_device), dev[2],
+                              item_bits=item_bits)
+        torch.cuda.synchronize()
+        assert kkey.launches_route == n0 + 1
+        want = kkey.route_rows_plain(rows, torch.from_numpy(rec), kt, table,
+                                     item_bits=item_bits)
+        assert torch.equal(got.cpu(), want)
+        assert (k == 0) == (not bool(want.any()))
+
+
+def _bag(device, n, frac, seed):
+    """A fused iteration's bag of n rows: (bag_idx, oob_idx) on device,
+    the in-bag rows first in row order."""
+    bag_k = max(1, int(n * frac))
+    w = tdl.exact_k_bag_weights(tdl.trandom.prng_key(seed), n, bag_k, device)
+    order = torch.argsort((w <= 0).to(torch.int32), stable=True)
+    return order[:bag_k], order[bag_k:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_bag_carry_captured_tree_matches_cpu(cuda_device, quant):
+    # the bag's carry, captured on the card, against the same step run
+    # eagerly on the CPU from the same gradients and bag: leaf, feature
+    # and count columns equal, the outputs within 1e-4 and the gain within
+    # 1e-4 of its terms (the split scan's prefix sums and K1 add in
+    # another order), every row's leaf
+    # equal (the out-of-bag rows' from the router on the card and its
+    # plain version on the CPU)
+    params = {"quantized_grad": quant, "bagging_fraction": 0.7,
+              "bagging_freq": 1}
+    lr, (g, h) = _compact_learner(cuda_device, 70_000, params)
+    cpu, _ = _compact_learner("cpu", 70_000, params)
+    ints = [tdl.R_LEAF, tdl.R_FEAT, tdl.R_LCNT, tdl.R_RCNT]
+    floats = [tdl.R_LOUT, tdl.R_ROUT]
+    for seed in (0, 1):
+        bag_idx, oob_idx = _bag(cuda_device, 70_000, 0.7, seed)
+        rec, leaf, k = lr.grow_compact(g, h, seed, bag_idx, oob_idx)
+        rec_h, k, _ = lr.fetch_tree(rec, k)
+        crec, cleaf, ck = cpu.grow_compact(g.cpu(), h.cpu(), seed,
+                                           bag_idx.cpu(), oob_idx.cpu())
+        crec_h, ck, _ = cpu.fetch_tree(crec, ck)
+        assert k == ck == 30
+        np.testing.assert_array_equal(rec_h[:, ints], crec_h[:, ints])
+        np.testing.assert_allclose(rec_h[:, floats], crec_h[:, floats],
+                                   rtol=1e-4, atol=1e-4)
+        # the gain, a difference of terms G^2 / H far larger than itself,
+        # within 1e-4 of those terms (test_masked_captured_tree_matches_cpu)
+        terms = crec_h[:, tdl.R_LSG] ** 2 / crec_h[:, tdl.R_LSH] \
+            + crec_h[:, tdl.R_RSG] ** 2 / crec_h[:, tdl.R_RSH]
+        assert (np.abs(rec_h[:, tdl.R_GAIN] - crec_h[:, tdl.R_GAIN])
+                <= 1e-4 * (1.0 + terms)).all()
+        assert crec_h[0, tdl.R_LCNT] + crec_h[0, tdl.R_RCNT] == 49_000
+        assert torch.equal(leaf.cpu(), cleaf)
+    # the bag's carry, the only one made
+    assert list(lr._states) == [(49_000, quant_ops.quant_max(8, 49_000)
+                                 if quant else 0)]
+    assert lr._loop.graph is not None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["compact", "masked"])
+def test_bagged_iteration_without_a_host_sync(cuda_device, strategy):
+    # a bagged fused iteration and a GOSS one under the sync debug mode
+    # "error": the bag drawn, gathered (compact: the bag's carry and the
+    # router; masked: the weighted operand), the tree, the score update
+    lr, (g, h) = _compact_learner(cuda_device, 70_000,
+                                  {"bagging_fraction": 0.8,
+                                   "bagging_freq": 1}, strategy=strategy)
+    bag_step = lr.make_fused_step(_L2(g))
+    goss_step = lr.make_fused_step(_L2(g), goss=(14_000, 7_000, 8.0))
+    score = torch.zeros_like(g)
+    for step in (bag_step, goss_step):
+        step(score, 0, 0.1, 0.25, 3)    # captures the carry's step
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            new_score, rec, leaf_id, k, finite = step(score, 1, 0.1, 0.25, 4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert lr.fetch_tree(rec, k, finite)[1:] == (30, [1.0])
+        assert int(leaf_id.max()) == 30 and int(leaf_id.min()) == 0
+    if strategy == "compact":
+        # the two bags' carries
+        assert sorted(lr._states) == [(21_000, 0), (56_000, 0)]
+
+
+@pytest.mark.gpu
+def test_bag_launches_per_replay(cuda_device):
+    # the bag's captured step launches what the full carry's does: the
+    # split key, K4's and K1's window entries once each; a bagged tree
+    # adds them per replay, plus the root's K1 and one router launch
+    lr, (g, h) = _compact_learner(cuda_device, 70_000, {})
+    lr.grow(g, h, iter_seed=0)
+    full = dict(lr._loop.launches_per_step)
+    bag_idx, oob_idx = _bag(cuda_device, 70_000, 0.6, 0)
+    lr.grow_compact(g, h, 0, bag_idx, oob_idx)
+    assert lr._loop.launches_per_step == full
+    assert {k.rsplit(".", 1)[-1]: v for k, v in full.items()} == {
+        "launches": 1, "launches_win": 1, "launches_qwin": 0}
+    n0 = (kkey.launches, k4.launches_win, k1.launches_win,
+          kkey.launches_route, k1.launches_qwin, k4.launches, k1.launches)
+    rec, leaf, k = lr.grow_compact(g, h, 1, bag_idx, oob_idx)
+    torch.cuda.synchronize()
+    assert (kkey.launches - n0[0], k4.launches_win - n0[1],
+            k1.launches_win - n0[2], kkey.launches_route - n0[3]) \
+        == (30, 30, 31, 1)
+    assert (k1.launches_qwin, k4.launches, k1.launches) == n0[4:]
