@@ -122,6 +122,21 @@ Phases, one JSON line each:
                run's on the same data (the train / train_masked phase's,
                else one made here), one router launch per sampled compact
                tree, and GOSS ran both its fused steps;
+  train_valid  lightgbm_tpu_torch.train on the train phase's 1M-row task
+               with its 100,000 held-out rows as a validation set (binned
+               by reference), metric auc and binary_logloss, early stopping
+               (5 rounds) and evals_result, on the fused iteration: host
+               syncs per tree (1), the validation set's scores (the binned
+               walk of each tree) against predict(raw_score=True) within
+               1e-5 apart from the rows an f32 threshold moves (counted),
+               the recorded last validation AUC against the AUC of those
+               scores; steady s per iteration (update and evaluation),
+               eval ms per iteration (and one iteration's taken apart:
+               each dataset's fetch, each metric) and device fetches per
+               iteration,
+               beside the train phase's steady s per iteration; the
+               validation update's device ms and launches per tree
+               (profiled);
   reference    small tasks trained on the card and on the CPU (the plain
                versions): compact float and compact quantized on the device
                loop (the fused iteration) and on the host loop, masked
@@ -174,7 +189,8 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
-          "train_quant", "train_masked", "train_bag", "loop", "reference")
+          "train_quant", "train_masked", "train_bag", "train_valid", "loop",
+          "reference")
 
 
 def emit(obj):
@@ -602,7 +618,7 @@ def main():
               "verbosity": -1}
     need_float = bool(run & {"train", "profile", "train_quant"})
     need_data = need_float or bool(run & {"k1", "k2", "k3", "k4",
-                                          "train_bag"})
+                                          "train_bag", "train_valid"})
     t0 = time.time()
     x, y, w_true = make_higgs_like(args.rows, f)
     xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
@@ -773,7 +789,7 @@ def main():
 
     # ---- train: the main path (compact, float) ----------------------------
     launches = qlaunches = host_launches = qhost_launches = None
-    valid_auc = None
+    valid_auc = train = None
     if need_float:
         bst, launches, train_s, peak = timed_train(params, ds)
         pv = bst.predict(xv)
@@ -1035,6 +1051,15 @@ def main():
                 emit({"phase": "train_bag", "runs": bag_rows})
                 fail("train_bag %s: %s" % (name, "; ".join(problems)))
         emit({"phase": "train_bag", "runs": bag_rows})
+
+    # ---- train_valid: a validation set, evaluation, early stopping --------
+    if "train_valid" in run:
+        row, problems = train_valid_phase(
+            torch, lgb, params, ds, xv, yv, args.rounds, train, growth,
+            profile, reset_counts, read_counts)
+        emit(row)
+        if problems:
+            fail("train_valid: %s" % "; ".join(problems))
     if need_data:
         del ds
 
@@ -1206,6 +1231,134 @@ def bag_case(torch, name, p, extra, rounds, dset, x_train, base_auc,
     if lr.strategy == "masked" and (counts["route"] or counts["split_key"]
                                     or counts["split_key_col"] <= 0):
         problems.append("the masked loop's kernels did not run alone")
+    del b
+    return row, problems
+
+
+def train_valid_phase(torch, lgb, params, ds, xv, yv, rounds, train,
+                      growth, profile, reset_counts, read_counts):
+    """The train_valid phase: the main path with the held-out rows as a
+    validation set, evaluated every iteration, under early stopping;
+    (row, problems)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from lightgbm_tpu_torch.models.gbdt import ScoreUpdater
+    # every sampling key set: the Dataset's config keeps what earlier
+    # phases' Boosters set
+    p = dict(params, boosting="gbdt", quantized_grad=False,
+             bagging_fraction=1.0, bagging_freq=0, pos_bagging_fraction=1.0,
+             neg_bagging_fraction=1.0, metric=["auc", "binary_logloss"])
+    dv = ds.create_valid(xv, yv)
+    ev = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b = lgb.train(p, ds, num_boost_round=rounds, valid_sets=[dv],
+                  valid_names=["valid"], early_stopping_rounds=5,
+                  evals_result=ev, verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    counts = read_counts()
+    gb = b._gbdt
+    lr = gb.learner
+    vu = gb.valid_updaters[0]
+    row = dict({"phase": "train_valid", "rows": ds.num_data(),
+                "valid_rows": len(yv), "rounds": rounds,
+                "metric": p["metric"], "early_stopping_rounds": 5,
+                "iteration": "fused" if gb._fused_step else "generic",
+                "best_iteration": b.best_iteration, "trees": b.num_trees(),
+                "train_s": train_s, "launches": counts,
+                "peak_device_bytes": int(torch.cuda.max_memory_allocated())},
+               **growth(b, counts, train_s))
+    vs = vu.score[0].cpu().numpy()
+    pr = b.predict(xv, raw_score=True, num_iteration=-1)
+    moved = f32_threshold_rows(ds._inner, xv)
+    gap = float(np.max(np.abs(vs - pr)[~moved]))
+    rec_auc = ev["valid"]["auc"][-1]
+    row.update(valid_score_vs_predict_max_abs=gap,
+               f32_threshold_rows=int(moved.sum()),
+               recorded_valid_auc=rec_auc,
+               auc_of_valid_scores=auc(yv, vs),
+               valid_history={m: v for m, v in ev["valid"].items()})
+
+    # steady iterations as train() runs them: the update, then the
+    # training and validation metrics (host numpy over fetched scores)
+    ups = [gb.score_updater] + gb.valid_updaters
+    s0, f0 = lr.stats.host_syncs, sum(u.fetches for u in ups)
+    upd, evl = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        b.update()
+        torch.cuda.synchronize()
+        t2 = time.time()
+        b.eval_train()
+        b.eval_valid()
+        t3 = time.time()
+        upd.append(t2 - t1)
+        evl.append(t3 - t2)
+    both = [a + c for a, c in zip(upd, evl)]
+    # one more iteration's evaluation taken apart: each dataset's fetch
+    # (the f64 host copy) and each metric on it
+    b.update()
+    torch.cuda.synchronize()
+    parts = {}
+    for dname, su, metrics in [("training", gb.score_updater,
+                                gb.train_metrics)] + list(zip(
+                                    gb.valid_names, gb.valid_updaters,
+                                    gb.valid_metrics)):
+        t1 = time.time()
+        host = su.host_scores()[0]
+        parts["%s fetch" % dname] = (time.time() - t1) * 1e3
+        for m in metrics:
+            t1 = time.time()
+            m.eval(host, gb.objective)
+            parts["%s %s" % (dname, m.name)] = (time.time() - t1) * 1e3
+    row.update({
+        "s_per_iter_steady": float(np.median(both)),
+        "update_s_per_iter_steady": float(np.median(upd)),
+        "eval_ms_per_iter": float(np.median(evl)) * 1e3,
+        "eval_breakdown_ms": parts,
+        "fetches_per_iter": (lr.stats.host_syncs - s0
+                             + sum(u.fetches for u in ups) - f0) / 4,
+        "train_phase_s_per_iter_steady": train["s_per_iter_steady"]
+        if train else "not measured: train phase not run"})
+
+    # the validation update alone: each tree walked over the validation
+    # codes, into a fresh updater, profiled
+    fresh = ScoreUpdater(dv._inner, 1, vu.score.device)
+    fresh.add_tree(gb.models[0], 0)
+    torch.cuda.synchronize()
+    trees = gb.models[1:]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        for t in trees:
+            fresh.add_tree(t, 0)
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    row["valid_update_per_tree"] = {
+        "device_ms": sum(e.self_device_time_total for e in kern)
+        / 1e3 / len(trees),
+        "launches": sum(e.count for e in kern) / len(trees),
+        "wall_ms": wall * 1e3 / len(trees),
+        "depth": float(np.mean([t.depth() for t in trees]))}
+    problems = []
+    if row["iteration"] != "fused":
+        problems.append("took the generic iteration")
+    if row["host_syncs_per_tree"] != 1:
+        problems.append("%s host syncs per tree" % row["host_syncs_per_tree"])
+    if not gap <= 1e-5:
+        problems.append("validation scores differ from predict by %g" % gap)
+    if not abs(rec_auc - row["auc_of_valid_scores"]) <= 1e-9:
+        problems.append("recorded AUC %.9f, AUC of the scores %.9f"
+                        % (rec_auc, row["auc_of_valid_scores"]))
+    if not rec_auc > 0.7 or not np.all(np.isfinite(vs)):
+        problems.append("validation AUC %.5f" % rec_auc)
     del b
     return row, problems
 
@@ -2361,11 +2514,113 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
                          and row["fused_steps"] == (2 if name == "goss"
                                                     else 1))
         ref_rows.append(row)
+    ref_rows += valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of)
     os.environ.pop("LGBM_TPU_STRATEGY", None)
     emit({"phase": "reference", "rows": 20_000, "rounds": 5,
           "runs": ref_rows})
     if not all(rw["ok"] for rw in ref_rows):
         fail("card and CPU runs disagree on the small reference tasks")
+
+
+def valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of):
+    """The reference phase's validation-set runs, card against CPU on the
+    20,000-row task: early stopping with a 5,000-row validation set on
+    each strategy, a lambda_l2 reset at iteration 2 on each strategy, and a
+    3-fold cv of 3 rounds. Each row carries "ok"."""
+    xv, yv, _ = make_higgs_like(5_000, xs.shape[1], seed=100, w=w_small)
+    rows = []
+
+    def leaves(b, x):
+        return np.array([[t.predict_leaf_row(r) for t in b._gbdt.models]
+                         for r in x])
+
+    # early stopping: learning_rate 0.5 overfits the 31-leaf trees within
+    # the 40 rounds
+    es = dict(sp, learning_rate=0.5, metric=["binary_logloss", "auc"])
+    for strategy in ("compact", "masked"):
+        os.environ["LGBM_TPU_STRATEGY"] = strategy
+        runs = []
+        for device in (None, "cpu"):
+            dtr = lgb.Dataset(xs, ys)
+            ev = {}
+            b = lgb.train(es, dtr, 40, valid_sets=[dtr.create_valid(xv, yv)],
+                          valid_names=["valid"], early_stopping_rounds=5,
+                          evals_result=ev, verbose_eval=False, device=device)
+            runs.append((b, ev))
+        (card, cev), (cpu, pev) = runs
+        diffs = {m: float(np.max(np.abs(np.array(cev["valid"][m])
+                                        - np.array(pev["valid"][m]))))
+                 for m in pev["valid"]}
+        row = {"case": "early stopping", "strategy": strategy,
+               "best_iteration": [card.best_iteration, cpu.best_iteration],
+               "history_len": len(cev["valid"]["auc"]),
+               "valid_history_max_abs_diff": diffs,
+               "training_history_max_abs_diff": float(np.max(np.abs(
+                   np.array(cev["training"]["binary_logloss"])
+                   - np.array(pev["training"]["binary_logloss"])))),
+               "host_syncs_per_tree": card._gbdt.learner.stats.host_syncs
+               / max(card._gbdt.learner.stats.trees, 1)}
+        ok = (card.best_iteration == cpu.best_iteration > 0
+              and card.best_iteration < 35
+              and row["training_history_max_abs_diff"] <= 1e-4
+              and row["host_syncs_per_tree"] == 1)
+        if max(diffs.values()) > 1e-4 and shape_of(card) == shape_of(cpu):
+            # validation rows that reach another leaf on the two devices
+            # (tied thresholds, see the bagged rows above): the metrics
+            # on the others, every iteration
+            sep = (leaves(card, xv) != leaves(cpu, xv)).any(axis=1)
+            row["tie_separated_rows"] = int(sep.sum())
+            other = 0.0
+            for it in range(1, row["history_len"] + 1):
+                a, c = (auc(yv[~sep], b.predict(xv[~sep], raw_score=True,
+                                                 num_iteration=it))
+                        for b in (card, cpu))
+                other = max(other, abs(a - c))
+            row["valid_auc_max_abs_diff_other_rows"] = other
+            ok = ok and sep.mean() <= 0.02 and other <= 1e-4
+        elif max(diffs.values()) > 1e-4:
+            ok = False
+        row["ok"] = bool(ok)
+        rows.append(row)
+
+    # a lambda_l2 reset at iteration 2: one more capture, the CPU's trees
+    l2 = [0.0, 0.0, 50.0, 50.0, 50.0]
+    rp = dict(sp, lambda_l2=0.0)
+    for strategy in ("compact", "masked"):
+        os.environ["LGBM_TPU_STRATEGY"] = strategy
+        runs = []
+        for device in (None, "cpu"):
+            caps = []
+            b = lgb.train(rp, lgb.Dataset(xs, ys), 5, device=device,
+                          verbose_eval=False, callbacks=[
+                              lgb.reset_parameter(lambda_l2=l2),
+                              lambda env: caps.append(
+                                  env.model._gbdt.learner.stats.captures)])
+            runs.append((b, caps))
+        (card, ccaps), (cpu, _) = runs
+        diff = float(np.max(np.abs(card.predict(xs, raw_score=True)
+                                   - cpu.predict(xs, raw_score=True))))
+        row = {"case": "reset lambda_l2 at iteration 2",
+               "strategy": strategy, "captures_after_each_iteration": ccaps,
+               "graph_captured": card._gbdt.learner._loop.graph is not None,
+               "same_trees": shape_of(card) == shape_of(cpu),
+               "max_abs_raw_diff": diff}
+        row["ok"] = bool(ccaps == [1, 1, 2, 2, 2] and row["same_trees"]
+                         and row["graph_captured"] and diff <= 1e-4)
+        rows.append(row)
+
+    # cv: three learners capture their loops in turn
+    os.environ.pop("LGBM_TPU_STRATEGY", None)
+    cp = dict(sp, metric=["binary_logloss", "auc"])
+    card = lgb.cv(cp, lgb.Dataset(xs, ys), 3, nfold=3)
+    cpu = lgb.cv(cp, lgb.Dataset(xs, ys), 3, nfold=3, device="cpu")
+    diffs = {k: float(np.max(np.abs(np.array(card[k]) - np.array(cpu[k]))))
+             for k in cpu}
+    rows.append({"case": "cv 3-fold, 3 rounds", "keys": sorted(card),
+                 "max_abs_diff": diffs,
+                 "ok": bool(sorted(card) == sorted(cpu)
+                            and max(diffs.values()) <= 1e-4)})
+    return rows
 
 
 if __name__ == "__main__":

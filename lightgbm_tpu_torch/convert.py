@@ -29,6 +29,7 @@ def ensemble_from_arrays(arrays: Mapping[str, Any],
     arrays._asdict().items()}``); feed the result to
     ops.predict.predict_raw_ensemble."""
     return ensemble_from_numpy(
-        *(arrays[k] for k in ("split_feature", "threshold", "decision_type",
-                              "left_child", "right_child", "leaf_value")),
+        *(arrays[k] for k in ("split_feature", "threshold", "threshold_bin",
+                              "decision_type", "left_child", "right_child",
+                              "leaf_value")),
         max_depth=int(arrays["max_depth"]), device=resolve_device(device))

@@ -7,6 +7,7 @@ bundle maps) are host arrays that the learner copies to its device.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -77,6 +78,7 @@ class Dataset:
                  label=None, weight=None, init_score=None,
                  feature_names: Optional[List[str]] = None,
                  categorical_feature: Optional[Sequence] = None,
+                 reference: Optional["Dataset"] = None,
                  params: Optional[Dict[str, Any]] = None):
         self.config = config or Config(params or {})
         data, sparse = self._prep_data(data)
@@ -89,17 +91,28 @@ class Dataset:
         self.metadata.set_init_score(init_score)
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(self.num_total_features)])
-        cat_idx = self._resolve_categorical(categorical_feature)
-        self.bin_mappers = (
-            self._build_mappers_sparse(sparse, cat_idx)
-            if sparse is not None
-            else self._build_mappers(data, cat_idx))
-        self.used_features = [i for i, m in enumerate(self.bin_mappers)
-                              if not m.is_trivial]
-        if not self.used_features:
-            log.warning("All features are trivial (constant); nothing to train on")
-        self.max_num_bins = max(
-            [self.bin_mappers[i].num_bin for i in self.used_features], default=1)
+        self.reference = reference
+        if reference is not None:
+            # a validation set: the reference's mappers bin it, so that its
+            # codes mean what the training codes mean
+            self.bin_mappers = reference.bin_mappers
+            self.used_features = reference.used_features
+            self.max_num_bins = reference.max_num_bins
+            self.feature_names = reference.feature_names
+        else:
+            cat_idx = self._resolve_categorical(categorical_feature)
+            self.bin_mappers = (
+                self._build_mappers_sparse(sparse, cat_idx)
+                if sparse is not None
+                else self._build_mappers(data, cat_idx))
+            self.used_features = [i for i, m in enumerate(self.bin_mappers)
+                                  if not m.is_trivial]
+            if not self.used_features:
+                log.warning("All features are trivial (constant); nothing "
+                            "to train on")
+            self.max_num_bins = max(
+                [self.bin_mappers[i].num_bin for i in self.used_features],
+                default=1)
 
         self.binned = (self._bin_data_sparse(sparse) if sparse is not None
                        else self._bin_data(data))
@@ -107,7 +120,8 @@ class Dataset:
         # (reference: dataset.cpp:69-225 FindGroups/FastFeatureBundling).
         # self.binned stays the logical per-feature view for generic
         # consumers; the device learner trains on the narrower bundle view.
-        self.columns = self._plan_bundles()
+        self.columns = (reference.columns if reference is not None
+                        else self._plan_bundles())
         self.bundled = self._encode_bundles() if self.columns else None
         # derived arrays, built on first use
         self._cache: Dict[str, Any] = {}
@@ -307,6 +321,39 @@ class Dataset:
         """Bin threshold -> stored real threshold (reference
         Dataset::RealThreshold -> BinMapper::BinToValue)."""
         return self.bin_mappers[self.used_features[inner_feature]].bin_to_value(bin_thr)
+
+    def create_valid(self, data, label=None, weight=None,
+                     init_score=None) -> "Dataset":
+        """Validation set binned with this dataset's mappers
+        (reference: Dataset::CreateValid / CheckAlign)."""
+        return Dataset(data, config=self.config, label=label, weight=weight,
+                       init_score=init_score, reference=self)
+
+    def subset(self, rows: np.ndarray) -> "Dataset":
+        """The dataset of the given (sorted) rows: the same mappers and
+        bundles, the rows' codes and metadata, a config of its own."""
+        sub = copy.copy(self)
+        sub.config = copy.deepcopy(self.config)
+        sub.binned = self.binned[rows]
+        if self.bundled is not None:
+            sub.bundled = self.bundled[rows]
+        sub.num_data = len(rows)
+        md = Metadata(sub.num_data)
+        src = self.metadata
+        if src.label is not None:
+            md.label = src.label[rows]
+        if src.weight is not None:
+            md.weight = src.weight[rows]
+        if src.init_score is not None:
+            isc = np.asarray(src.init_score)
+            # a flat multiclass layout is class-major (K, N)
+            md.init_score = (isc[rows] if isc.size == self.num_data else
+                             isc.reshape(-1, self.num_data)[:, rows]
+                             .reshape(-1))
+        sub.metadata = md
+        sub.reference = self
+        sub._cache = {}
+        return sub
 
     def feature_infos(self) -> List[str]:
         return [m.feature_info() for m in self.bin_mappers]

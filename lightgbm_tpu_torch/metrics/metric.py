@@ -1,9 +1,12 @@
-"""Evaluation metrics of the port: l2, rmse, binary_logloss and auc.
+"""Evaluation metrics of the port: the pointwise ones.
 
-The subset of lightgbm_tpu/metrics/metric.py that the binary and
-regression objectives use (reference: src/metric/{regression,binary}_
-metric.hpp). Scores come
-in raw; metrics apply the objective's ConvertOutput exactly like the
+The pointwise metrics of lightgbm_tpu/metrics/metric.py (reference:
+src/metric/{regression,binary,xentropy}_metric.hpp): l1, l2, rmse,
+quantile, huber, fair, poisson, mape, gamma, gamma_deviance, tweedie,
+binary_logloss, binary_error, auc, cross_entropy, cross_entropy_lambda
+and kldiv. multi_logloss, multi_error, ndcg and map wait for their
+objectives: basic.check_supported refuses them by name. Scores come in
+raw; metrics apply the objective's ConvertOutput exactly like the
 reference's Metric::Eval(score, objective) contract.
 
 Port of lightgbm_tpu/metrics/metric.py: the reductions are host numpy on
@@ -84,6 +87,85 @@ class RMSEMetric(L2Metric):
         return math.sqrt(v)
 
 
+class L1Metric(_PointwiseRegression):
+    name = "l1"
+
+    def point_loss(self, y, p):
+        return np.abs(y - p)
+
+
+class QuantileMetric(_PointwiseRegression):
+    name = "quantile"
+
+    def point_loss(self, y, p):
+        a = self.config.alpha
+        d = y - p
+        return np.where(d >= 0, a * d, (a - 1.0) * d)
+
+
+class HuberMetric(_PointwiseRegression):
+    name = "huber"
+
+    def point_loss(self, y, p):
+        a = self.config.alpha
+        d = np.abs(y - p)
+        return np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
+
+
+class FairMetric(_PointwiseRegression):
+    name = "fair"
+
+    def point_loss(self, y, p):
+        c = self.config.fair_c
+        x = np.abs(y - p)
+        return c * x - c * c * np.log1p(x / c)
+
+
+class PoissonMetric(_PointwiseRegression):
+    name = "poisson"
+
+    def point_loss(self, y, p):
+        eps = 1e-10
+        return p - y * np.log(np.maximum(p, eps))
+
+
+class MAPEMetric(_PointwiseRegression):
+    name = "mape"
+
+    def point_loss(self, y, p):
+        return np.abs((y - p) / np.maximum(1.0, np.abs(y)))
+
+
+class GammaMetric(_PointwiseRegression):
+    name = "gamma"
+
+    def point_loss(self, y, p):
+        eps = 1e-10
+        psafe = np.maximum(p, eps)
+        return y / psafe + np.log(psafe)  # negative log-likelihood (shape=1)
+
+
+class GammaDevianceMetric(_PointwiseRegression):
+    name = "gamma_deviance"
+
+    def point_loss(self, y, p):
+        eps = 1e-10
+        frac = y / np.maximum(p, eps)
+        return 2.0 * (frac - np.log(np.maximum(frac, eps)) - 1.0)
+
+
+class TweedieMetric(_PointwiseRegression):
+    name = "tweedie"
+
+    def point_loss(self, y, p):
+        rho = self.config.tweedie_variance_power
+        eps = 1e-10
+        psafe = np.maximum(p, eps)
+        a = y * np.power(psafe, 1.0 - rho) / (1.0 - rho)
+        b = np.power(psafe, 2.0 - rho) / (2.0 - rho)
+        return -a + b
+
+
 class BinaryLoglossMetric(Metric):
     name = "binary_logloss"
 
@@ -92,6 +174,16 @@ class BinaryLoglossMetric(Metric):
         y = (self.label > 0).astype(np.float64)
         loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
         return [_weighted_mean(loss, self.weight)]
+
+
+class BinaryErrorMetric(Metric):
+    name = "binary_error"
+
+    def eval(self, score, objective):
+        p = self._convert(score, objective).reshape(-1)
+        y = (self.label > 0).astype(np.float64)
+        err = ((p > 0.5) != (y > 0)).astype(np.float64)
+        return [_weighted_mean(err, self.weight)]
 
 
 class AUCMetric(Metric):
@@ -123,15 +215,62 @@ class AUCMetric(Metric):
         return [1.0 - auc_sum / (total_pos * total_neg)]
 
 
+class CrossEntropyMetric(Metric):
+    name = "cross_entropy"
+
+    def eval(self, score, objective):
+        p = np.clip(self._convert(score, objective).reshape(-1), 1e-15, 1 - 1e-15)
+        y = self.label
+        loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
+        return [_weighted_mean(loss, self.weight)]
+
+
+class CrossEntropyLambdaMetric(Metric):
+    name = "cross_entropy_lambda"
+
+    def eval(self, score, objective):
+        # score -> lambda parameterization (reference xentropy_metric.hpp:166)
+        s = np.asarray(score).reshape(-1)
+        hhat = np.log1p(np.exp(s))
+        w = self.weight if self.weight is not None else np.ones_like(s)
+        z = np.clip(1.0 - np.exp(-w * hhat), 1e-15, 1 - 1e-15)
+        y = self.label
+        loss = -(y * np.log(z) + (1 - y) * np.log(1 - z))
+        return [float(np.mean(loss))]
+
+
+class KLDivMetric(Metric):
+    name = "kldiv"
+
+    def eval(self, score, objective):
+        p = np.clip(self._convert(score, objective).reshape(-1), 1e-15, 1 - 1e-15)
+        y = np.clip(self.label, 1e-15, 1 - 1e-15)
+        kl = (y * np.log(y / p) + (1 - y) * np.log((1 - y) / (1 - p)))
+        return [_weighted_mean(kl, self.weight)]
+
+
 _CLASSES = {
-    "l2": L2Metric, "rmse": RMSEMetric,
-    "binary_logloss": BinaryLoglossMetric, "auc": AUCMetric,
+    "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
+    "quantile": QuantileMetric, "huber": HuberMetric, "fair": FairMetric,
+    "poisson": PoissonMetric, "mape": MAPEMetric, "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
+    "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric, "cross_entropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric, "kldiv": KLDivMetric,
 }
 
 METRIC_NAMES = sorted(_CLASSES)
 
 # objective name -> default metric (reference: config metric defaulting)
-_DEFAULT_FOR_OBJECTIVE = {"regression": "l2", "binary": "binary_logloss"}
+_DEFAULT_FOR_OBJECTIVE = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss", "multiclass": "multi_logloss",
+    "multiclassova": "multi_logloss", "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda", "lambdarank": "ndcg",
+}
+
 
 
 def create_metric(name: str, config) -> Optional[Metric]:

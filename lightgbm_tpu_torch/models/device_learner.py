@@ -81,6 +81,7 @@ section (the JAX gw = 2 layout).
 """
 from __future__ import annotations
 
+import gc
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -291,12 +292,14 @@ def split_epilogue(*, k, l, new_id, row, row_dev, mono_f, leaf_min,
 
 class GrowStats:
     """Counters of the growth loop, summed over the trees a learner grew:
-    device->host syncs, splits and trees."""
+    device->host syncs, splits and trees; and the carries it made, each
+    with its split loop (on the card, a captured graph)."""
 
     def __init__(self):
         self.host_syncs = 0
         self.splits = 0
         self.trees = 0
+        self.captures = 0
 
 
 def _next_split(best: torch.Tensor, stats: Optional[GrowStats]):
@@ -1215,9 +1218,26 @@ class DeviceTreeLearner:
                 + rec_h[:k, R_RCNT].sum(dtype=np.float64))))
         return rec_h, k, [float(v) for v in host[m + 1:]]
 
+    def reset_config(self) -> None:
+        """Drop what was made from the config's values, after a parameter
+        reset: the split scan (its constants -- lambda_l1 / l2,
+        min_data_in_leaf, min_gain_to_split and the rest -- are Python
+        floats baked into it) and every carry with its split loop, whose
+        captured step holds the scan and whose shapes hold num_leaves. The
+        next tree makes and captures them anew. A graph freed while another
+        is being captured breaks that capture, so the old graphs are freed
+        (a collection for any held by a cycle) and the card synchronized
+        here, between trees."""
+        self._scan = None
+        self._states = {}
+        self._carry = self._loop = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _search(self):
         """The split scan of this learner's settings: (scan, best_row,
-        search2), made once."""
+        search2), made once (until reset_config)."""
         if self._scan is None:
             st = self._statics()
             scan, best_row = _tree_helpers(
@@ -1245,6 +1265,7 @@ class DeviceTreeLearner:
         if self.device.type == "cuda":
             c.k.fill_(L - 1)
             loop.capture()
+        self.stats.captures += 1
         self._states[key] = (c, loop)
         self._carry, self._loop = c, loop
         return c, loop

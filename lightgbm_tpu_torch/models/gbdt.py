@@ -5,7 +5,10 @@ GBDT::TrainOneIter, gbdt_model_text.cpp): boost from average on the first
 iteration, objective gradients, one tree, shrinkage, score update from the
 learner's row -> leaf map, model text and prediction. Scores and gradients
 live on the booster's device as (1, N) f32 tensors; trees and split
-records live on the host.
+records live on the host. Validation sets (``add_valid``) get each tree
+by a walk over their binned codes, and are evaluated, with the training
+set, by host metrics over fetched scores; ``rollback_one_iter`` takes an
+iteration back out of every score.
 
 Two iterations, as in the JAX package: the fused one (``_fused_eligible``:
 GBDT or GOSS, one tree per iteration, either strategy, no pos/neg
@@ -41,9 +44,13 @@ MODEL_VERSION = "v3"
 
 
 class ScoreUpdater:
-    """Per-dataset raw scores (reference: src/boosting/score_updater.hpp)."""
+    """Per-dataset raw scores (reference: src/boosting/score_updater.hpp):
+    a (K, N) f32 tensor on the booster's device, and its f64 host copy,
+    fetched once per score version (every change of the scores drops it,
+    so a multi-metric eval of one iteration fetches once)."""
 
     def __init__(self, dataset: Dataset, num_class: int, device):
+        self.dataset = dataset
         n = dataset.num_data
         init = np.zeros((num_class, n), dtype=np.float32)
         self.has_init_score = dataset.metadata.init_score is not None
@@ -53,10 +60,47 @@ class ScoreUpdater:
                 init = s.reshape(num_class, n)
             else:
                 init = np.tile(s.reshape(1, n), (num_class, 1))
-        self.score = torch.as_tensor(init, device=device)
+        self._score = torch.as_tensor(init, device=device)
+        self._host: Optional[np.ndarray] = None
+        self._binned: Optional[torch.Tensor] = None
+        self.fetches = 0            # device -> host copies of the scores
+
+    @property
+    def score(self) -> torch.Tensor:
+        return self._score
+
+    @score.setter
+    def score(self, value: torch.Tensor) -> None:
+        self._score = value
+        self._host = None
+
+    def _add(self, class_id: int, delta) -> None:
+        self._score[class_id] += delta
+        self._host = None
 
     def add_constant(self, val: float, class_id: int) -> None:
-        self.score[class_id] += float(val)
+        self._add(class_id, float(val))
+
+    def add_tree(self, tree: Tree, class_id: int) -> None:
+        """Score update by walking `tree` over the dataset's logical binned
+        codes (a validation set, a continued model's trees); a tree read
+        from model text gets its bin thresholds from this dataset's
+        mappers first."""
+        if not tree.inner_valid:
+            tree.rebin_inner(self.dataset)
+        ds = self.dataset
+        if self._binned is None:
+            codes = np.asarray(ds.binned)
+            if codes.dtype != np.uint8:
+                codes = codes.astype(np.int32)
+            self._binned = torch.from_numpy(codes).to(self._score.device)
+            self._real_to_inner = np.full(ds.num_total_features, -1,
+                                          dtype=np.int64)
+            self._real_to_inner[ds.used_features] = np.arange(
+                len(ds.used_features))
+        nb, _, db, _, _ = ds.feature_meta_arrays()
+        self._add(class_id, predict_ops.predict_binned_tree_values(
+            self._binned, self._real_to_inner, db, nb, tree))
 
     def add_tree_by_leaf_id(self, tree: Tree, leaf_id: torch.Tensor,
                             class_id: int) -> None:
@@ -65,12 +109,15 @@ class ScoreUpdater:
         path, score_updater.hpp:84)."""
         leaf_vals = torch.as_tensor(
             np.asarray(tree.leaf_value[:max(tree.num_leaves, 1)],
-                       dtype=np.float32), device=self.score.device)
-        self.score[class_id] += leaf_vals[
-            leaf_id.clamp(0, tree.num_leaves - 1)]
+                       dtype=np.float32), device=self._score.device)
+        self._add(class_id, leaf_vals[leaf_id.clamp(0, tree.num_leaves - 1)])
 
     def host_scores(self) -> np.ndarray:
-        return self.score.cpu().numpy().astype(np.float64)
+        """The f64 host copy of the scores (read-only)."""
+        if self._host is None:
+            self._host = self._score.cpu().numpy().astype(np.float64)
+            self.fetches += 1
+        return self._host
 
 
 class GBDT:
@@ -85,8 +132,12 @@ class GBDT:
         self.device = torch.device(device)
         self.models: List[Tree] = []
         self.iter = 0
+        self.num_init_iteration = 0
         self.shrinkage_rate = config.learning_rate
         self.objective = None
+        self.valid_names: List[str] = []
+        self.valid_updaters: List[ScoreUpdater] = []
+        self.valid_metrics: List[List] = []
         self.train_metrics: List = []
         self.label_idx = 0
         self._ensemble_cache: Dict = {}
@@ -95,10 +146,14 @@ class GBDT:
 
     def _init_train(self, train_set: Dataset) -> None:
         cfg = self.config
+        # None for a custom objective: the caller passes the gradients
         self.objective = create_objective(cfg.objective, cfg)
-        self.objective.init(train_set.metadata, train_set.num_data,
-                            self.device)
-        self.num_class = self.objective.num_model_per_iteration
+        if self.objective is not None:
+            self.objective.init(train_set.metadata, train_set.num_data,
+                                self.device)
+            self.num_class = self.objective.num_model_per_iteration
+        else:
+            self.num_class = max(1, cfg.num_class)
         self.num_tree_per_iteration = self.num_class
         self.learner = DeviceTreeLearner(cfg, train_set, device=self.device)
         self.score_updater = ScoreUpdater(train_set, self.num_class,
@@ -107,14 +162,34 @@ class GBDT:
         self.train_metrics = create_metrics(cfg.metric, cfg, cfg.objective)
         for m in self.train_metrics:
             m.init(train_set.metadata, train_set.num_data)
-        self._class_need_train = [self.objective.class_need_train(k)
-                                  for k in range(self.num_class)]
+        self._class_need_train = [
+            self.objective.class_need_train(k) if self.objective else True
+            for k in range(self.num_class)]
         self.feature_names = train_set.feature_names
         self.max_feature_idx = train_set.num_total_features - 1
         self._bag_rng = np.random.RandomState(cfg.bagging_seed % (2**31 - 1))
         self._bag_indices: Optional[np.ndarray] = None
+        # the last iteration's row -> leaf maps, by class, for rollback
+        self._last_leaf_ids: Dict[int, torch.Tensor] = {}
+        self._last_leaf_ids_iter = -1
         # the fused steps, by whether they sample by GOSS
         self._fused_step: Optional[Dict[bool, object]] = None
+
+    def add_valid(self, valid_set: Dataset, name: str) -> None:
+        """Evaluate `valid_set` (binned by the training set's mappers) every
+        iteration; the trees that already exist go into its scores."""
+        self.valid_names.append(name)
+        vu = ScoreUpdater(valid_set, self.num_class, self.device)
+        per = max(self.num_tree_per_iteration, 1)
+        for it in range(len(self.models) // per):
+            for k in range(per):
+                vu.add_tree(self.models[it * per + k], k)
+        self.valid_updaters.append(vu)
+        metrics = create_metrics(self.config.metric, self.config,
+                                 self.config.objective)
+        for m in metrics:
+            m.init(valid_set.metadata, valid_set.num_data)
+        self.valid_metrics.append(metrics)
 
     # ------------------------------------------------------------------
     def _boost_from_average(self, class_id: int, update_scorer: bool) -> float:
@@ -128,6 +203,8 @@ class GBDT:
         if abs(init_score) > K_EPSILON:
             if update_scorer:
                 self.score_updater.add_constant(init_score, class_id)
+                for vu in self.valid_updaters:
+                    vu.add_constant(init_score, class_id)
             log.info("Start training from score %f", init_score)
             return init_score
         return 0.0
@@ -137,12 +214,14 @@ class GBDT:
         g, h = self.objective.get_gradients(self.score_updater.score[0])
         return g[None, :], h[None, :]
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration; True when training should stop (no tree
-        with more than one leaf was produced)."""
-        if self._fused_eligible():
+        with more than one leaf was produced). External (K * N,)
+        gradients and hessians (a custom objective's) take the generic
+        iteration."""
+        if gradients is None and hessians is None and self._fused_eligible():
             return self._train_one_iter_fused()
-        return self._train_one_iter_generic()
+        return self._train_one_iter_generic(gradients, hessians)
 
     def _bagging(self, iteration: int) -> Optional[np.ndarray]:
         """The generic iteration's row sample on the host (reference
@@ -181,6 +260,7 @@ class GBDT:
         grows its tree in its device loop), and no pos/neg bagging (its
         bag is drawn on the host), as in the JAX package."""
         return (self.__class__ in (GBDT, GOSS)
+                and self.objective is not None
                 and self.num_tree_per_iteration == 1
                 and self._class_need_train[0]
                 and self.train_set.num_features > 0
@@ -199,7 +279,9 @@ class GBDT:
         without a split leaves the score as it was and the generic path
         redoes it with the reference's stop bookkeeping. The bag seed is
         the JAX package's: bagging_seed + iter // bagging_freq (a bag kept
-        for bagging_freq iterations), + iter under GOSS."""
+        for bagging_freq iterations), + iter under GOSS. The validation
+        sets get the tree with that score as its bias, at
+        materialization."""
         cfg = self.config
         init_score = self._boost_from_average(0, False)
         goss_params = self._fused_goss()
@@ -238,13 +320,24 @@ class GBDT:
             tree.add_bias(init_score)
         self.learner.last_leaf_id = leaf_id
         self.learner.stats.trees += 1
+        self._last_leaf_ids[0] = leaf_id
+        self._last_leaf_ids_iter = self.iter
+        for vu in self.valid_updaters:
+            vu.add_tree(tree, 0)
         self.models.append(tree)
         return False
 
-    def _train_one_iter_generic(self) -> bool:
-        init_scores = [self._boost_from_average(k, True)
-                       for k in range(self.num_tree_per_iteration)]
-        grad, hess = self._compute_gradients()
+    def _train_one_iter_generic(self, gradients=None, hessians=None) -> bool:
+        k_trees, n = self.num_tree_per_iteration, self.num_data
+        if gradients is None or hessians is None:
+            init_scores = [self._boost_from_average(k, True)
+                           for k in range(k_trees)]
+            grad, hess = self._compute_gradients()
+        else:
+            init_scores = [0.0] * k_trees
+            grad, hess = (torch.as_tensor(np.asarray(
+                a, dtype=np.float32).reshape(k_trees, n), device=self.device)
+                for a in (gradients, hessians))
         grad, hess, bag_indices = self._sample(grad, hess)
         should_continue = False
         for k in range(self.num_tree_per_iteration):
@@ -260,10 +353,14 @@ class GBDT:
                 if abs(init_scores[k]) > K_EPSILON:
                     new_tree.add_bias(init_scores[k])
             elif len(self.models) < self.num_tree_per_iteration:
-                output = (init_scores[k] if self._class_need_train[k]
-                          else self.objective.boost_from_score(k))
+                output = (self.objective.boost_from_score(k)
+                          if not self._class_need_train[k]
+                          and self.objective is not None
+                          else init_scores[k])
                 new_tree.as_constant_tree(output)
                 self.score_updater.add_constant(output, k)
+                for vu in self.valid_updaters:
+                    vu.add_constant(output, k)
             self.models.append(new_tree)
 
         if not should_continue:
@@ -281,19 +378,56 @@ class GBDT:
         return grad, hess, self._bagging(self.iter)
 
     def _update_score(self, tree: Tree, class_id: int) -> None:
-        self.score_updater.add_tree_by_leaf_id(
-            tree, self.learner.last_leaf_id, class_id)
+        """The training scores from the learner's row -> leaf map (kept for
+        rollback: it routes exactly as the partition did), the validation
+        sets' by walking the tree."""
+        leaf_id = self.learner.last_leaf_id
+        self.score_updater.add_tree_by_leaf_id(tree, leaf_id, class_id)
+        self._last_leaf_ids[class_id] = leaf_id
+        self._last_leaf_ids_iter = self.iter
+        for vu in self.valid_updaters:
+            vu.add_tree(tree, class_id)
+
+    def rollback_one_iter(self) -> None:
+        """Take the last iteration's trees out of the model and the scores
+        (reference gbdt.cpp:453 RollbackOneIter)."""
+        if self.iter <= 0:
+            return
+        self._ensemble_cache = {}
+        per = self.num_tree_per_iteration
+        for k in range(per):
+            tree = self.models[len(self.models) - per + k]
+            tree.apply_shrinkage(-1.0)
+            leaf_id = (self._last_leaf_ids.get(k)
+                       if self._last_leaf_ids_iter == self.iter - 1 else None)
+            if leaf_id is not None and tree.num_leaves > 1:
+                self.score_updater.add_tree_by_leaf_id(tree, leaf_id, k)
+            else:
+                self.score_updater.add_tree(tree, k)
+            for vu in self.valid_updaters:
+                vu.add_tree(tree, k)
+        self._last_leaf_ids.clear()
+        del self.models[-per:]
+        self.iter -= 1
 
     # ------------------------------------------------------------------
-    def eval_metrics(self):
+    def eval_metrics(self, only: Optional[str] = None):
         """(dataset_name, metric_name, value, higher_better) tuples of the
-        training metrics."""
+        training metrics, then of each validation set's (`only`: of the
+        dataset of that name alone); metrics run on the host over each
+        dataset's fetched scores."""
         out = []
-        if self.train_metrics:
-            s = self.score_updater.host_scores()[0]
-            for m in self.train_metrics:
+        sets = [("training", self.score_updater, self.train_metrics)]
+        sets += zip(self.valid_names, self.valid_updaters,
+                    self.valid_metrics)
+        for dname, updater, metrics in sets:
+            if not metrics or only not in (None, dname):
+                continue
+            scores = updater.host_scores()
+            s = scores[0] if self.num_class == 1 else scores
+            for m in metrics:
                 for name, val in zip(m.names, m.eval(s, self.objective)):
-                    out.append(("training", name, val, m.higher_better))
+                    out.append((dname, name, val, m.higher_better))
         return out
 
     def num_trees(self) -> int:
@@ -443,6 +577,8 @@ class GBDT:
                 continue
             body = chunk.split("\n", 1)[1] if "\n" in chunk else ""
             booster.models.append(Tree.from_string(body))
+        booster.num_init_iteration = (len(booster.models)
+                                      // max(booster.num_tree_per_iteration, 1))
         return booster
 
 

@@ -1341,3 +1341,138 @@ def test_bag_launches_per_replay(cuda_device):
             k1.launches_win - n0[2], kkey.launches_route - n0[3]) \
         == (30, 30, 31, 1)
     assert (k1.launches_qwin, k4.launches, k1.launches) == n0[4:]
+
+
+def _valid_task(n, seed):
+    r = np.random.RandomState(seed)
+    x = r.randn(n, 8)
+    x[r.rand(n) < 0.03, 2] = np.nan
+    y = (x[:, 0] * 1.5 - x[:, 1] + 0.5 * x[:, 3] * x[:, 4]
+         + 0.5 * r.randn(n) > 0).astype(np.float64)
+    return x, y
+
+
+def _higgs_like(n, seed, w=None):
+    # chip_smoke.py's generator: 28 features, informative and noise
+    r = np.random.RandomState(seed)
+    x = r.randn(n, 28).astype(np.float32)
+    if w is None:
+        w = r.randn(28) * (r.rand(28) > 0.4)
+    logit = x @ w * 0.3 + 0.2 * x[:, 0] * x[:, 1] - 0.1 * x[:, 2] ** 2
+    return x, (logit + r.randn(n) * 1.5 > 0).astype(np.float64), w
+
+
+def _f32_threshold_rows(inner, x):
+    # chip_smoke.py's f32_threshold_rows: rows between a bin's f64 upper
+    # bound (where the bins split) and its f32 rounding (what predict
+    # compares with)
+    out = np.zeros(len(x), bool)
+    for f, mapper in enumerate(inner.bin_mappers):
+        ub = np.asarray(mapper.bin_upper_bound, dtype=np.float64)[:-1]
+        ub32 = ub.astype(np.float32).astype(np.float64)
+        keep = ub != ub32
+        lo, hi = np.minimum(ub, ub32)[keep], np.maximum(ub, ub32)[keep]
+        if len(hi):
+            col = x[:, f].astype(np.float64)
+            i = np.minimum(np.searchsorted(hi, col), len(hi) - 1)
+            out |= (col > lo[i]) & (col <= hi[i])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["compact", "masked"])
+def test_valid_set_and_early_stopping_card_matches_cpu(cuda_device,
+                                                       strategy,
+                                                       monkeypatch):
+    # chip_smoke's reference run at test size: a validation set binned by
+    # reference and early stopping on the fused iteration (learning_rate
+    # 0.5 overfits the 31-leaf trees within the rounds); the same best
+    # iteration and eval history as on the CPU, the validation scores
+    # equal predict, 1 learner sync per tree (the validation update adds
+    # none). Each iteration past the first few risks a gain near-tie
+    # that the card's f32 sums break the other way (ROADMAP section 3),
+    # so the run is kept as short as the reference phase's.
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
+    xt, yt, w = _higgs_like(20_000, 99)
+    xv, yv, _ = _higgs_like(5_000, 100, w)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "learning_rate": 0.5, "min_data_in_leaf": 20,
+         "min_gain_to_split": 1e-3, "metric": ["binary_logloss", "auc"],
+         "verbosity": -1}
+    out = []
+    for device in ("cuda", "cpu"):
+        ds = tlgb.Dataset(xt, yt)
+        ev = {}
+        b = tlgb.train(p, ds, 40, valid_sets=[ds.create_valid(xv, yv)],
+                       valid_names=["v"], evals_result=ev,
+                       early_stopping_rounds=5, verbose_eval=False,
+                       device=device)
+        out.append((b, ev))
+    (card, cev), (cpu, pev) = out
+    assert 1 <= card.best_iteration == cpu.best_iteration < 35
+    for d in pev:
+        for m in pev[d]:
+            np.testing.assert_allclose(cev[d][m], pev[d][m], rtol=1e-4,
+                                       atol=1e-4)
+    gb = card._gbdt
+    assert gb.learner.stats.host_syncs == gb.learner.stats.trees
+    moved = _f32_threshold_rows(gb.learner.dataset, xv)
+    assert moved.mean() < 0.01
+    np.testing.assert_allclose(
+        gb.valid_updaters[0].score[0].cpu().numpy()[~moved],
+        card.predict(xv, raw_score=True, num_iteration=-1)[~moved],
+        rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["compact", "masked"])
+def test_reset_parameter_recaptures_on_card(cuda_device, strategy,
+                                            monkeypatch):
+    # lambda_l2 changes at iteration 2: the learner frees its captured
+    # loop and captures a new one at the next tree (one more capture),
+    # and the card's trees equal the CPU's
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
+    x, y = _valid_task(70_000, 5)
+    p = {"objective": "binary", "num_leaves": 15, "lambda_l2": 0.0,
+         "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
+         "verbosity": -1}
+    out = []
+    for device in ("cuda", "cpu"):
+        captures = []
+        b = tlgb.train(p, tlgb.Dataset(x, y), 5, device=device,
+                       callbacks=[
+                           tlgb.reset_parameter(
+                               lambda_l2=[0.0, 0.0, 50.0, 50.0, 50.0]),
+                           lambda env: captures.append(
+                               env.model._gbdt.learner.stats.captures)])
+        out.append(b)
+        assert captures == [1, 1, 2, 2, 2]
+    card, cpu = out
+    assert card._gbdt.learner._loop.graph is not None
+    def shape(b):
+        return [(list(t.split_feature[:t.num_leaves - 1]),
+                 list(t.threshold_in_bin[:t.num_leaves - 1]),
+                 list(t.left_child[:t.num_leaves - 1]),
+                 list(t.leaf_count[:t.num_leaves])) for t in b._gbdt.models]
+    assert shape(card) == shape(cpu)
+    np.testing.assert_allclose(card.predict(x, raw_score=True),
+                               cpu.predict(x, raw_score=True),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cv_card_matches_cpu(cuda_device):
+    # three learners capture their loops in turn, between the others'
+    # replays
+    x, y = _valid_task(30_000, 5)
+    p = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
+         "metric": ["binary_logloss", "auc"], "verbosity": -1}
+    card = tlgb.cv(p, tlgb.Dataset(x, y), 3, nfold=3,
+                   return_cvbooster=True)
+    cpu = tlgb.cv(p, tlgb.Dataset(x, y), 3, nfold=3, device="cpu")
+    boosters = card.pop("cvbooster").boosters
+    assert sorted(card) == sorted(cpu)
+    for key in cpu:
+        np.testing.assert_allclose(card[key], cpu[key], rtol=1e-4,
+                                   atol=1e-4)
+    assert all(b._gbdt.learner._loop.graph is not None for b in boosters)
