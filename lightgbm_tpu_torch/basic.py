@@ -1,7 +1,9 @@
 """User-facing Dataset and Booster of the port.
 
-Port of lightgbm_tpu/basic.py for the slices this package covers: binary
-and L2 regression GBDT and GOSS, serial learner, float or quantized
+Port of lightgbm_tpu/basic.py for the slices this package covers: GBDT
+and GOSS with every objective of the JAX package but lambdarank (the
+pointwise ones, multiclass and multiclassova with ``num_class`` trees per
+iteration: ``predict`` gives (N, K)), serial learner, float or quantized
 gradients (``quantized_grad``, ``grad_bits``, ``quant_renew``), the
 compact and masked growth strategies, row sampling (``bagging_fraction``
 with ``bagging_freq``, ``pos_bagging_fraction`` / ``neg_bagging_fraction``,
@@ -31,12 +33,19 @@ from .utils.log import LightGBMError
 def check_supported(cfg: Config) -> None:
     """Raise LightGBMError for the first parameter outside the slice."""
     bad = None
+    multi = cfg.objective in ("multiclass", "multiclassova")
     if cfg.objective not in OBJECTIVE_NAMES + ["none"]:
         bad = "objective=%s" % cfg.objective
+    elif multi and cfg.num_class < 2:
+        # the reference: "Number of classes should be specified and
+        # greater than 1 for multiclass training"
+        raise LightGBMError("objective=%s needs num_class > 1, got %d"
+                            % (cfg.objective, cfg.num_class))
     elif cfg.boosting not in ("gbdt", "gbrt", "plain", "goss"):
         bad = "boosting=%s" % cfg.boosting
-    elif cfg.num_class > 1:
-        bad = "num_class=%d" % cfg.num_class
+    elif cfg.num_class > 1 and not multi:
+        bad = "num_class=%d with objective=%s" % (cfg.num_class,
+                                                  cfg.objective)
     elif cfg.feature_fraction_bynode < 1.0:
         bad = "feature_fraction_bynode=%g" % cfg.feature_fraction_bynode
     elif cfg.categorical_feature:
@@ -64,10 +73,11 @@ def check_supported(cfg: Config) -> None:
             bad = "metric=%s" % unknown[0]
     if bad is not None:
         raise LightGBMError("%s is not supported by lightgbm_tpu_torch yet "
-                            "(binary/regression GBDT or GOSS, serial "
-                            "learner, float or quantized gradients, "
-                            "bagging and feature_fraction but no by-node "
-                            "sampling, no categorical features)" % bad)
+                            "(GBDT or GOSS with any objective but "
+                            "lambdarank, serial learner, float or quantized "
+                            "gradients, bagging and feature_fraction but no "
+                            "by-node sampling, no categorical features)"
+                            % bad)
 
 
 class Dataset:

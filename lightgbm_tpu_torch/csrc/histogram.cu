@@ -18,15 +18,16 @@
 //
 //   * each block zeroes a (feature tile x B) histogram of int32 slot words
 //     in shared memory (up to 96 KB of them, more only where one feature
-//     needs more, feature-tiled over blockIdx.y when F features exceed
-//     that);
+//     needs more; feature-tiled over blockIdx.y when F features exceed that
+//     -- the float kernel walks its tiles in turn instead, see below);
 //   * threads walk the rows grid-stride; a row whose operand is all zero
 //     (outside the leaf, on the masked strategy) is skipped before its
 //     codes are read; the others load the codes of up to 16 features
 //     (kCodeChunk) before their atomics, so those loads are in flight
 //     together, and atomicAdd their lanes into each feature's bin;
-//   * the blocks' tiles then meet in the global result (the integer
-//     kernels: see below).
+//   * the blocks' tiles then meet in the global result (the float kernel
+//     in a fixed-point sum that no order changes; the integer kernels:
+//     see below).
 //
 // Why the float kernel sums in fixed point. In the SASS for sm_90a an
 // atomicAdd(float*) on shared memory is a compare-and-swap loop (21
@@ -35,38 +36,70 @@
 // atomicAdd(int*) is one native ATOMS.ADD; with the same walk, grid and
 // contention the int32 form ran 5.5x faster (0.0565 against 0.3108 ms at
 // P=1M, F=28, B=64 on an H100 80GB HBM3 at 700 W, chip_smoke.py phases
-// k1, k3). So hist_fixed_kernel adds f32 values as integers:
+// k1, k3). So hist_fixed_kernel adds f32 values as integers, in one
+// cooperative launch (every block resident; two grid-wide barriers). The
+// grid is the wrapper's, cut to the blocks the card holds at once; every
+// block walks every feature tile in turn, so any (P, F) launches:
 //
 //   * a pre-pass over the block's own rows counts its live rows n and sums
-//     |v| per lane (grad, hess, count) into S, in a fixed order;
+//     |v| per lane (grad, hess, count) into S in f64, in a fixed order,
+//     and stores S in the block's entry of the scratch;
+//   * barrier 1. Every block sums the blocks' S per lane over the scratch
+//     in one fixed order (so every block gets the same bits): the
+//     window's Sw < 2^Ew, and the window's grid G = 61 - Ew;
 //   * per lane, s = 30 - E where S < 2^E (frexp): x = v * 2^s is exact
 //     (a power-of-two scale) and |x| < 2^30. The hi word is rint(x); the
 //     residual x - hi is exact and at most 1/2, and the lo word is
-//     rint((x - hi) * 2^L) with L = 31 - ceil(log2 n). Both are native
-//     int32 shared atomics; a zero word is not added;
-//   * at the flush each slot forms hi * 2^L + lo in int64, rounds it once
-//     to f32 and scales it by 2^-(s + L), then adds it to the global
-//     (F, B, 3) result with one native f32 global atomicAdd (RED.ADD.F32).
+//     rint((x - hi) * 2^L) with L = 31 - ceil(log2 m), m = min(n,
+//     kMaxRowsPerBlock). Both are native int32 shared atomics; a zero word
+//     is not added;
+//   * per feature tile, the block walks its rows in chunks of at most
+//     kMaxRowsPerBlock = 2^16 (256 grid strides); after each chunk it
+//     moves each slot's t = hi * 2^L + lo (int64, exact) from its scale
+//     2^-(s + L) to 2^-G: shifted left where G >= s + L, else rounded
+//     (half up) by an arithmetic right shift; the result is added to the
+//     slot's int64 word of the (F, B, 3) accumulator in the scratch with a
+//     native 64-bit global atomic (RED.ADD.64), overlapping the other
+//     blocks' walks, and the chunk's words start again from 0. Integer
+//     addition is associative, so the accumulator's value is the same in
+//     any order of the blocks;
+//   * barrier 2. The blocks convert the accumulator to f32, one rounding
+//     per slot (__ll2float_rn, then an exact power-of-two scale by
+//     2^-G), into the output; the accumulator was zeroed by the blocks
+//     before barrier 1.
 //
-// No int32 slot can overflow: a slot gets at most one term per live row,
-// so its hi words sum to at most S * 2^s + n / 2 < 2^30 (1 + 2^-15) + n / 2
-// (S is an f32 sum of at most 2^16 terms: relative error < 2^-15) and its
-// lo words to at most n * 2^(L-1) <= 2^30; launch_fixed grows the grid so
-// that no block walks more than kMaxRowsPerBlock = 2^16 rows, which also
-// keeps L >= 15.
+// No int32 slot can overflow: a slot gets at most one term per live row
+// of a chunk, so its hi words sum to at most S * 2^s + m / 2 < 2^30 (1 +
+// 2^-19) + 2^15 (S is an f64 sum of fewer than 2^33 terms per thread -- a
+// 12-byte-per-row operand in 80 GB holds fewer rows -- so its relative
+// error is under 2^-19) and its lo words to at most m * 2^(L-1) <= 2^30;
+// L >= 15. Nor can the int64 accumulator: Sw >= S of every block (a sum
+// of non-negative values rounded to nearest never falls below a term), so
+// the shift left is at most 31 - L <= 16 bits, and the slot's words sum
+// to at most 2^G Sw (1 + 2^-19) < 2^61 (1 + 2^-19), plus the lo words'
+// rounding (at most m * 2^(30 - L) <= 2^31 per chunk, under 2^17 chunks
+// of 2^16 rows and one partial chunk per block) and one half per chunk's
+// flush: < 2^62.
 //
 // Numerics of the float kernel: each term is kept to 2^-(s + L + 1) =
-// 2^(E + ceil(log2 n) - 62) absolute, at most 2^(ceil(log2 n) - 60) of the
-// block's sum of |v| (2^-49 at the main path's ~1,900 rows per block),
-// whatever the term's own size: the integer analogue of the TPU kernel's
-// bf16 hi/lo split (lightgbm_tpu/ops/histogram.py:65-78), and finer than
-// an f32 running sum, whose error grows with the slot's partial sum.
-// Within a block the sums are integers and so independent of order; the
-// blocks' f32 partials meet in global atomics in any order, so results may
-// differ in the last bits from run to run. The count lane runs the same arithmetic; with integer
-// weights (every caller passes 0 / 1) x = v * 2^s is an integer (s >= 13),
-// lo is 0, and the counts are exact. Operand values must be finite, as
-// gradients and hessians are.
+// 2^(E + ceil(log2 m) - 62) absolute, at most 2^(ceil(log2 m) - 61) of its
+// block's sum of |v| (2^-50 at the main path's ~1,900 rows per block, 2^-45
+// at the most, m = 2^16), whatever the term's own size; each chunk's slot
+// is then rounded once to the window's grid, 2^-(G + 1) = 2^(Ew - 62) <=
+// 2^-61 of the window's sum of |v| (with 528 blocks under 2^-51 of it per
+// slot in all); the f32 result is that sum rounded once. All of it is far
+// finer than an f32 running sum, whose error grows with the slot's partial
+// sum, and than the TPU kernel's bf16 hi/lo split
+// (lightgbm_tpu/ops/histogram.py:65-78). The result is the same bits in
+// every launch on the same inputs and grid (the grid is the wrapper's, cut
+// to the card's resident blocks: fixed per device, kernel and row count),
+// and agrees with an f64 sum rounded once to f32 (the plain version) on
+// every slot whose exact sum is not within those bounds of an f32 rounding
+// boundary. The count lane runs the same arithmetic; with integer weights
+// (every caller passes 0 / 1) S = n exactly, x = v * 2^s is a multiple of
+// 2^s, lo is exact while s + L >= 0 (n < 2^45), the shift to 2^-G is exact
+// while G >= 0 (fewer than 2^61 live rows), and the counts are exact.
+// Operand values must be finite, as gradients and hessians are.
 //
 // The integer kernels (hist_int_kernel, hist_rows_kernel). Every lane is
 // an integer, so K3 / K3t and the packed-row entry are bit-exact in any
@@ -153,6 +186,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -181,217 +215,38 @@ __device__ __forceinline__ void fixed_split(float v, int s, int L, int& hi,
 
 constexpr int kWarps = kThreads / 32;
 // the float kernel's feature tile: 48 KB of hi / lo words, so that four
-// blocks fit on an SM (the launcher's grid for it)
+// blocks fit on an SM (the wrapper's grid for it)
 constexpr int kFixedTileBytes = 48 * 1024;
 constexpr int kMaxBlockSmemBytes = 227 * 1024;
+// shared bytes of the float kernel's two reductions: per warp three f64
+// sums of |v| and an int64 count of live rows
+constexpr int kFixedWarpBytes = kWarps * 32;
 // features whose codes one thread loads ahead of their atomics (a multiple
 // of 4: whole 32-bit code words)
 constexpr int kCodeChunk = 16;
-// rows one block of the float kernel may walk: bounds its fixed-point words
-// (see the note at the top)
+// rows of one block's walk between two flushes of its fixed-point words
+// (see the note at the top); a multiple of kThreads
 constexpr long long kMaxRowsPerBlock = 1ll << 16;
 
-// One block's part of a float histogram over P rows: row_gh(r, g, h, c)
-// gives a row's three f32 lanes, row_codes(r, f, m, code) its codes of
-// tile features [f, f + m) (-1 past m). `out` is the tile's (ft, B, 3),
-// zeroed by the launcher; feat_tile sizes the shared-memory tile.
-template <typename RowGh, typename RowCodes>
-__device__ __forceinline__ void fixed_hist_body(long long P, int ft, int B,
-                                                int feat_tile,
-                                                float* __restrict__ out,
-                                                RowGh row_gh,
-                                                RowCodes row_codes) {
-  extern __shared__ __align__(16) unsigned char hist_smem[];
-  const int slots = ft * B * 3;
-  // dynamic shared memory: hi words, lo words, then the pre-pass's
-  // per-warp sums (3 floats, 1 int each)
-  int* hi_sh = reinterpret_cast<int*>(hist_smem);
-  int* lo_sh = hi_sh + feat_tile * B * 3;
-  float* warp_abs = reinterpret_cast<float*>(lo_sh + feat_tile * B * 3);
-  int* warp_live = reinterpret_cast<int*>(warp_abs + 3 * kWarps);
-  for (int i = threadIdx.x; i < 2 * feat_tile * B * 3; i += blockDim.x)
-    hi_sh[i] = 0;
-
-  // pre-pass: the block's live rows and per-lane sums of |v|, reduced in a
-  // fixed order (thread, then warp shuffle, then warps in turn)
-  const long long step = (long long)gridDim.x * blockDim.x;
-  const long long r0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  int live = 0;
-  for (long long r = r0; r < P; r += step) {
-    float gv, hv, cv;
-    row_gh(r, gv, hv, cv);
-    if (gv == 0.f && hv == 0.f && cv == 0.f) continue;
-    a0 += fabsf(gv);
-    a1 += fabsf(hv);
-    a2 += fabsf(cv);
-    ++live;
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    a0 += __shfl_xor_sync(0xffffffffu, a0, o);
-    a1 += __shfl_xor_sync(0xffffffffu, a1, o);
-    a2 += __shfl_xor_sync(0xffffffffu, a2, o);
-    live += __shfl_xor_sync(0xffffffffu, live, o);
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    warp_abs[3 * warp] = a0;
-    warp_abs[3 * warp + 1] = a1;
-    warp_abs[3 * warp + 2] = a2;
-    warp_live[warp] = live;
-  }
-  __syncthreads();
-  float S[3] = {0.f, 0.f, 0.f};
-  int n = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    for (int j = 0; j < 3; ++j) S[j] += warp_abs[3 * w + j];
-    n += warp_live[w];
-  }
-  if (n == 0) return;  // every row of this block is zero: nothing to add
-  const int L = 31 - (n > 1 ? 32 - __clz(n - 1) : 0);
-  int sc[3];
-  for (int j = 0; j < 3; ++j) {
-    int E;
-    frexpf(S[j], &E);
-    sc[j] = 30 - E;
-  }
-
-  // the row walk: per live row, three hi / lo pairs; per feature, their
-  // nonzero words into the code's slot
-  for (long long r = r0; r < P; r += step) {
-    float gv, hv, cv;
-    row_gh(r, gv, hv, cv);
-    if (gv == 0.f && hv == 0.f && cv == 0.f) continue;
-    int h0, h1, h2, l0, l1, l2;
-    fixed_split(gv, sc[0], L, h0, l0);
-    fixed_split(hv, sc[1], L, h1, l1);
-    fixed_split(cv, sc[2], L, h2, l2);
-    auto add = [&](int f, int code) {
-      // codes outside [0, B) contribute nothing, as in the one-hot form
-      if (code < 0 || code >= B) return;
-      const int i = (f * B + code) * 3;
-      if (h0) atomicAdd(hi_sh + i, h0);
-      if (h1) atomicAdd(hi_sh + i + 1, h1);
-      if (h2) atomicAdd(hi_sh + i + 2, h2);
-      if (l0) atomicAdd(lo_sh + i, l0);
-      if (l1) atomicAdd(lo_sh + i + 1, l1);
-      if (l2) atomicAdd(lo_sh + i + 2, l2);
-    };
-    // the codes of up to kCodeChunk features are loaded before their
-    // atomics, so that their loads are in flight together
-    for (int f = 0; f < ft; f += kCodeChunk) {
-      int c[kCodeChunk];
-      row_codes(r, f, min(kCodeChunk, ft - f), c);
-#pragma unroll
-      for (int k = 0; k < kCodeChunk; ++k) add(f + k, c[k]);
-    }
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
-    const int h = hi_sh[i], l = lo_sh[i];
-    if (h == 0 && l == 0) continue;
-    const long long t = (long long)h * (1ll << L) + l;
-    const int j = i % 3;
-    const int sj = j == 0 ? sc[0] : (j == 1 ? sc[1] : sc[2]);
-    atomicAdd(out + i, ldexpf(__ll2float_rn(t), -(sj + L)));
-  }
+// A float kernel's scratch, in int64 words (the wrapper allocates it,
+// ops/kernels/histogram.py _fixed_scratch): the (F, B, 3) accumulator,
+// then four words per block of a grid of at most grid_x blocks (the
+// pre-pass's f64 sum of |v| per lane).
+__host__ __device__ constexpr long long fixed_acc_words(int F, int B) {
+  return (long long)F * B * 3;
+}
+__host__ __device__ constexpr long long fixed_scratch_words(int F, int B,
+                                                           int grid_x) {
+  return fixed_acc_words(F, B) + 4ll * grid_x;
 }
 
-template <typename CodeT>
-__global__ void __launch_bounds__(kThreads)
-hist_fixed_kernel(const CodeT* __restrict__ codes, long long P, int F,
-                  long long row_stride, long long col_stride,
-                  const float* __restrict__ gh, long long gh_stride, int B,
-                  int feat_tile, float* __restrict__ out) {
-  const int f0 = blockIdx.y * feat_tile;
-  const bool words = sizeof(CodeT) == 1 && col_stride == 1 &&
-                     (row_stride & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(codes + f0) & 3) == 0;
-  fixed_hist_body(
-      P, min(feat_tile, F - f0), B, feat_tile, out + (long long)f0 * B * 3,
-      [=](long long r, float& gv, float& hv, float& cv) {
-        const float* g = gh + r * gh_stride;
-        gv = g[0];
-        hv = g[1];
-        cv = g[2];
-      },
-      // the (F, N) view reads one byte per feature, each from another
-      // cache line
-      [=](long long r, int f, int m, int (&c)[kCodeChunk]) {
-        const CodeT* row = codes + r * row_stride + (long long)f0 * col_stride;
-#pragma unroll
-        for (int k = 0; k < kCodeChunk; k += 4) {
-          if (words && k + 4 <= m) {
-            const uint32_t q =
-                reinterpret_cast<const uint32_t*>(row)[(f + k) >> 2];
-            c[k] = q & 0xff;
-            c[k + 1] = (q >> 8) & 0xff;
-            c[k + 2] = (q >> 16) & 0xff;
-            c[k + 3] = q >> 24;
-          } else {
-#pragma unroll
-            for (int t = 0; t < 4; ++t)
-              c[k + t] = k + t < m
-                             ? (int)row[(long long)(f + k + t) * col_stride]
-                             : -1;
-          }
-        }
-      });
+// v * 2^k for an int64 v and a shift k in any range: exact to the left
+// (the caller bounds the result), rounded half up to the right
+__device__ __forceinline__ long long shift_round(long long v, int k) {
+  if (k >= 0) return (long long)((unsigned long long)v << k);
+  if (k <= -63) return 0;  // |v| < 2^62: rounds to 0
+  return (v + (1ll << (-k - 1))) >> (-k);
 }
-
-template <typename CodeT>
-int launch_fixed(const void* codes, long long P, int F, long long row_stride,
-                 long long col_stride, const void* gh, long long gh_stride,
-                 int B, void* out, int grid_x, cudaStream_t stream) {
-  // a tile of hi and lo words: 24 bytes per (feature, bin), at least one
-  // feature, at most what a block may hold; whole 32-bit code words per
-  // tile where four features fit
-  const int tile_bytes = max(kFixedTileBytes, B * 24);
-  if (tile_bytes + kWarps * 16 > kMaxBlockSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  int feat_tile = tile_bytes / (B * 24);
-  if (feat_tile > F) feat_tile = F;
-  if (feat_tile < F && feat_tile >= 4) feat_tile &= ~3;
-  const size_t smem = (size_t)feat_tile * B * 24 + kWarps * 16;
-  const long long min_grid = (P + kMaxRowsPerBlock - 1) / kMaxRowsPerBlock;
-  if (grid_x < min_grid) grid_x = (int)min_grid;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hist_fixed_kernel<CodeT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  // the blocks add into out
-  const cudaError_t z = cudaMemsetAsync(out, 0, (size_t)F * B * 12, stream);
-  if (z != cudaSuccess) return (int)z;
-  dim3 grid(grid_x, (F + feat_tile - 1) / feat_tile);
-  hist_fixed_kernel<CodeT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const CodeT*>(codes), P, F, row_stride, col_stride,
-      static_cast<const float*>(gh), gh_stride, B, feat_tile,
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
-}
-
-// ---- the integer kernels ------------------------------------------------
-
-// a packed slot word is qh * 2^kPackShift + valid; rows one block of a
-// packing instantiation may walk (see the note at the top)
-constexpr int kPackShift = 13;
-constexpr long long kMaxPackedRowsPerBlock = 8 * kThreads;
-// blocks of one thread-block cluster of a packing kernel, which sum their
-// tiles through distributed shared memory before one global atomic per
-// output word; a three-word kernel's tiles are large (two blocks per SM at
-// 256 bins), clusters of them would leave SMs idle, and each of its blocks
-// flushes on its own (a cluster of one)
-constexpr int kCluster = 8;
-
-__host__ __device__ constexpr int cluster_size(bool pack) {
-  return pack ? kCluster : 1;
-}
-// blocks per SM the integer kernels' registers leave room for (the
-// wrapper's grid, ops/kernels/histogram.py _BLOCKS_PER_SM)
-constexpr int kIntBlocksPerSM = 4;
 
 // The codes of features [f, f + m) of one row of a strided view, m <=
 // kCodeChunk, into c (-1 past m): whole 32-bit words where `words` (unit
@@ -421,6 +276,323 @@ __device__ __forceinline__ void strided_codes(const CodeT* row,
     }
   }
 }
+
+// A float histogram over P rows and F features, one block's part of it:
+// row_gh(r, g, h, c) gives a row's three f32 lanes; tile_codes(f0) gives
+// the reader of the tile from feature f0, codes(r, f, m, c) the row's
+// codes of tile features [f, f + m) (-1 past m). `out` is the (F, B, 3)
+// result, `scratch` the accumulator and the blocks' entries;
+// feat_tile sizes the shared-memory tile. Every block of the grid must
+// call it (it meets two grid-wide barriers).
+template <typename RowGh, typename TileCodes>
+__device__ __forceinline__ void fixed_hist_body(long long P, int F, int B,
+                                                int feat_tile,
+                                                float* __restrict__ out,
+                                                long long* __restrict__ scratch,
+                                                RowGh row_gh,
+                                                TileCodes tile_codes) {
+  extern __shared__ __align__(16) unsigned char hist_smem[];
+  // dynamic shared memory: hi words, lo words, then the per-warp sums of
+  // the two reductions
+  int* hi_sh = reinterpret_cast<int*>(hist_smem);
+  int* lo_sh = hi_sh + feat_tile * B * 3;
+  double* warp_abs = reinterpret_cast<double*>(lo_sh + feat_tile * B * 3);
+  long long* warp_live = reinterpret_cast<long long*>(warp_abs + 3 * kWarps);
+  long long* acc = scratch;
+  double* sums = reinterpret_cast<double*>(scratch + fixed_acc_words(F, B));
+  // the accumulator starts at 0 (ordered before every add by barrier 1)
+  const long long total = (long long)F * B * 3;
+  const long long gstride = (long long)gridDim.x * blockDim.x;
+  const long long g0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = g0; i < total; i += gstride) acc[i] = 0;
+
+  // pre-pass: the block's live rows and per-lane sums of |v|, reduced in a
+  // fixed order (thread, then warp shuffle, then warps in turn)
+  double a0 = 0.0, a1 = 0.0, a2 = 0.0;
+  long long live = 0;
+  for (long long r = g0; r < P; r += gstride) {
+    float gv, hv, cv;
+    row_gh(r, gv, hv, cv);
+    if (gv == 0.f && hv == 0.f && cv == 0.f) continue;
+    a0 += fabsf(gv);
+    a1 += fabsf(hv);
+    a2 += fabsf(cv);
+    ++live;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    a0 += __shfl_xor_sync(0xffffffffu, a0, o);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+    a2 += __shfl_xor_sync(0xffffffffu, a2, o);
+    live += __shfl_xor_sync(0xffffffffu, live, o);
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    warp_abs[3 * warp] = a0;
+    warp_abs[3 * warp + 1] = a1;
+    warp_abs[3 * warp + 2] = a2;
+    warp_live[warp] = live;
+  }
+  __syncthreads();
+  double S[3] = {0.0, 0.0, 0.0};
+  long long n = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    for (int j = 0; j < 3; ++j) S[j] += warp_abs[3 * w + j];
+    n += warp_live[w];
+  }
+  if (threadIdx.x == 0)
+    for (int j = 0; j < 3; ++j) sums[4ll * blockIdx.x + j] = S[j];
+  const long long m = n < kMaxRowsPerBlock ? n : kMaxRowsPerBlock;
+  const int L = 31 - (m > 1 ? 64 - __clzll(m - 1) : 0);
+  int sc[3];
+  for (int j = 0; j < 3; ++j) {
+    int E;
+    frexp(S[j], &E);
+    sc[j] = 30 - E;
+  }
+  cooperative_groups::this_grid().sync();  // barrier 1
+
+  // the window's sum of |v| per lane over the blocks' entries, in one
+  // fixed order (thread, warp shuffle, warps in turn): the same bits in
+  // every block
+  double w0 = 0.0, w1 = 0.0, w2 = 0.0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x) {
+    w0 += __ldcg(sums + 4ll * b);
+    w1 += __ldcg(sums + 4ll * b + 1);
+    w2 += __ldcg(sums + 4ll * b + 2);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    w0 += __shfl_xor_sync(0xffffffffu, w0, o);
+    w1 += __shfl_xor_sync(0xffffffffu, w1, o);
+    w2 += __shfl_xor_sync(0xffffffffu, w2, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    warp_abs[3 * warp] = w0;
+    warp_abs[3 * warp + 1] = w1;
+    warp_abs[3 * warp + 2] = w2;
+  }
+  __syncthreads();
+  int G[3];
+  for (int j = 0; j < 3; ++j) {
+    double sw = 0.0;
+    for (int w = 0; w < kWarps; ++w) sw += warp_abs[3 * w + j];
+    int E;
+    frexp(sw, &E);
+    G[j] = 61 - E;
+  }
+
+  // the row walk, per feature tile in turn and per chunk of at most
+  // kMaxRowsPerBlock of the block's rows: per live row, three hi / lo
+  // pairs; per feature, their nonzero words into the code's slot; then
+  // the chunk's slots, moved to the window's grid, into the accumulator (a
+  // block without live rows walks nothing)
+  constexpr long long kChunkStrides = kMaxRowsPerBlock / kThreads;
+  const long long first = (long long)blockIdx.x * blockDim.x;
+  for (int f0 = n ? 0 : F; f0 < F; f0 += feat_tile) {
+    const int ft = min(feat_tile, F - f0);
+    const int slots = ft * B * 3;
+    const auto row_codes = tile_codes(f0);
+    long long* tile_acc = acc + (long long)f0 * B * 3;
+    for (long long k0 = 0; first + k0 * gstride < P; k0 += kChunkStrides) {
+      for (int i = threadIdx.x; i < slots; i += blockDim.x)
+        hi_sh[i] = lo_sh[i] = 0;
+      __syncthreads();
+      const long long stop = g0 + (k0 + kChunkStrides) * gstride;
+      for (long long r = g0 + k0 * gstride; r < P && r < stop;
+           r += gstride) {
+        float gv, hv, cv;
+        row_gh(r, gv, hv, cv);
+        if (gv == 0.f && hv == 0.f && cv == 0.f) continue;
+        int h0, h1, h2, l0, l1, l2;
+        fixed_split(gv, sc[0], L, h0, l0);
+        fixed_split(hv, sc[1], L, h1, l1);
+        fixed_split(cv, sc[2], L, h2, l2);
+        auto add = [&](int f, int code) {
+          // codes outside [0, B) contribute nothing, as in the one-hot form
+          if (code < 0 || code >= B) return;
+          const int i = (f * B + code) * 3;
+          if (h0) atomicAdd(hi_sh + i, h0);
+          if (h1) atomicAdd(hi_sh + i + 1, h1);
+          if (h2) atomicAdd(hi_sh + i + 2, h2);
+          if (l0) atomicAdd(lo_sh + i, l0);
+          if (l1) atomicAdd(lo_sh + i + 1, l1);
+          if (l2) atomicAdd(lo_sh + i + 2, l2);
+        };
+        // the codes of up to kCodeChunk features are loaded before their
+        // atomics, so that their loads are in flight together
+        for (int f = 0; f < ft; f += kCodeChunk) {
+          int c[kCodeChunk];
+          row_codes(r, f, min(kCodeChunk, ft - f), c);
+#pragma unroll
+          for (int k = 0; k < kCodeChunk; ++k) add(f + k, c[k]);
+        }
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < slots; i += blockDim.x) {
+        const int h = hi_sh[i], l = lo_sh[i];
+        if (h == 0 && l == 0) continue;
+        const int j = i % 3;
+        const int sj = j == 0 ? sc[0] : (j == 1 ? sc[1] : sc[2]);
+        const int gj = j == 0 ? G[0] : (j == 1 ? G[1] : G[2]);
+        const long long v = shift_round((long long)h * (1ll << L) + l,
+                                        gj - sj - L);
+        if (v)
+          atomicAdd(reinterpret_cast<unsigned long long*>(tile_acc) + i,
+                    (unsigned long long)v);
+      }
+      __syncthreads();  // the words are read before the next chunk's zero
+    }
+  }
+  cooperative_groups::this_grid().sync();  // barrier 2
+
+  // the f32 result: one rounding per slot, then an exact scale
+  for (long long i = g0; i < total; i += gstride) {
+    const int j = (int)(i % 3);
+    const int gj = j == 0 ? G[0] : (j == 1 ? G[1] : G[2]);
+    out[i] = ldexpf(__ll2float_rn(__ldcg(acc + i)), -gj);
+  }
+}
+
+template <typename CodeT>
+__global__ void __launch_bounds__(kThreads)
+hist_fixed_kernel(const CodeT* __restrict__ codes, long long P, int F,
+                  long long row_stride, long long col_stride,
+                  const float* __restrict__ gh, long long gh_stride, int B,
+                  int feat_tile, float* __restrict__ out,
+                  long long* __restrict__ scratch) {
+  const bool aligned = sizeof(CodeT) < 4 && col_stride == 1 &&
+                       ((row_stride * (long long)sizeof(CodeT)) & 3) == 0;
+  fixed_hist_body(
+      P, F, B, feat_tile, out, scratch,
+      [=](long long r, float& gv, float& hv, float& cv) {
+        const float* g = gh + r * gh_stride;
+        gv = g[0];
+        hv = g[1];
+        cv = g[2];
+      },
+      // whole 32-bit code words where the tile's rows start 4-byte
+      // aligned; the (F, N) view reads one code per feature, each from
+      // another cache line
+      [=](int f0) {
+        const CodeT* base = codes + (long long)f0 * col_stride;
+        const bool words =
+            aligned && (reinterpret_cast<uintptr_t>(base) & 3) == 0;
+        return [=](long long r, int f, int m, int (&c)[kCodeChunk]) {
+          strided_codes(base + r * row_stride, col_stride, words, f, m, c);
+        };
+      });
+}
+
+// Blocks of `kernel` at `smem` bytes that the card holds at once (the
+// cooperative launch's limit; cached per device, kernel and size); 0
+// where the query fails.
+template <typename Kernel>
+int max_resident(Kernel kernel, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t>, int> cache;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  const auto key =
+      std::make_tuple(dev, reinterpret_cast<const void*>(kernel), smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  int sms = 0, per = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads,
+                                                    smem) != cudaSuccess) {
+    cudaGetLastError();
+    sms = per = 0;
+  }
+  cache[key] = per * sms;
+  return per * sms;
+}
+
+// The float kernels' launch: the wrapper's grid_x (which sized the
+// scratch), cut to the blocks the card holds at once (the grid-wide
+// barriers need every block resident). Every block walks every feature
+// tile and flushes every kMaxRowsPerBlock rows, so any grid of at least
+// one block serves any (P, F); only a failed occupancy query refuses.
+template <typename... Params, typename... Args>
+int launch_fixed_grid(void (*kernel)(Params...), size_t smem, int grid_x,
+                      cudaStream_t s, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int gx = std::min(grid_x, max_resident(kernel, smem));
+  if (gx < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)gx);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// The float kernel's feature tile: 24 bytes of hi and lo words per
+// (feature, bin), kFixedTileBytes of them or one feature's if more; where
+// F needs more than one tile, a multiple of `align` features (whole code
+// words) where that many fit, and at least `align` where `whole` (a packed
+// row's tile starts at a code word); 0 where it does not fit a block's
+// shared memory.
+int fixed_feat_tile(int F, int B, int align, bool whole) {
+  int t = std::max(kFixedTileBytes, B * 24) / (B * 24);
+  if (t >= F) return F;
+  if (t >= align)
+    t -= t % align;
+  else if (whole)
+    t = align;
+  if ((long long)t * B * 24 + kFixedWarpBytes > kMaxBlockSmemBytes) return 0;
+  return t;
+}
+
+template <typename CodeT>
+int launch_fixed(const void* codes, long long P, int F, long long row_stride,
+                 long long col_stride, const void* gh, long long gh_stride,
+                 int B, void* out, void* scratch, int grid_x,
+                 cudaStream_t stream) {
+  const int feat_tile = fixed_feat_tile(F, B, 4, false);
+  if (feat_tile < 1 || !scratch) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)feat_tile * B * 24 + kFixedWarpBytes;
+  // the kernel writes every word of out
+  return launch_fixed_grid(
+      hist_fixed_kernel<CodeT>, smem, grid_x, stream,
+      static_cast<const CodeT*>(codes), P, F, row_stride, col_stride,
+      static_cast<const float*>(gh), gh_stride, B, feat_tile,
+      static_cast<float*>(out), static_cast<long long*>(scratch));
+}
+
+// ---- the integer kernels ------------------------------------------------
+
+// a packed slot word is qh * 2^kPackShift + valid; rows one block of a
+// packing instantiation may walk (see the note at the top)
+constexpr int kPackShift = 13;
+constexpr long long kMaxPackedRowsPerBlock = 8 * kThreads;
+// blocks of one thread-block cluster of a packing kernel, which sum their
+// tiles through distributed shared memory before one global atomic per
+// output word; a three-word kernel's tiles are large (two blocks per SM at
+// 256 bins), clusters of them would leave SMs idle, and each of its blocks
+// flushes on its own (a cluster of one)
+constexpr int kCluster = 8;
+
+__host__ __device__ constexpr int cluster_size(bool pack) {
+  return pack ? kCluster : 1;
+}
+// blocks per SM the integer kernels' registers leave room for (the
+// wrapper's grid, ops/kernels/histogram.py _BLOCKS_PER_SM)
+constexpr int kIntBlocksPerSM = 4;
 
 // The codes of features [f, f + m) from a packed row's code words of kBits
 // fields each (feature f0 of the tile at field 0 of codes[0]), into c (-1
@@ -683,30 +855,37 @@ hist_rows_window_kernel(const int* buf0, const int* buf1,
 }
 
 // K1 over the same window: codes of kBits in words [0, cw), the f32
-// (grad, hess, weight) at words cw .. cw + 2.
+// (grad, hess, weight) at words cw .. cw + 2. A descriptor whose go is 0
+// gives zeros.
 template <int kBits>
 __global__ void __launch_bounds__(kThreads)
 hist_fixed_window_kernel(const int* buf0, const int* buf1,
                          const int* __restrict__ desc, int D, int cw,
                          int c_cols, int B, int feat_tile,
-                         float* __restrict__ out) {
-  if (!desc[kDescGo]) return;
+                         float* __restrict__ out,
+                         long long* __restrict__ scratch) {
+  if (!desc[kDescGo]) {  // every block alike: no barrier is met
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < (long long)c_cols * B * 3; i += (long long)gridDim.x * blockDim.x)
+      out[i] = 0.f;
+    return;
+  }
   const DescWindow win = desc_window(buf0, buf1, desc, D);
   const int* rows = win.rows;
-  const int f0 = blockIdx.y * feat_tile;
-  const uint32_t* words =
-      reinterpret_cast<const uint32_t*>(rows) + f0 / (32 / kBits);
   fixed_hist_body(
-      win.n, min(feat_tile, c_cols - f0), B, feat_tile,
-      out + (long long)f0 * B * 3,
+      win.n, c_cols, B, feat_tile, out, scratch,
       [=](long long r, float& gv, float& hv, float& cv) {
         const float* g = reinterpret_cast<const float*>(rows + r * D + cw);
         gv = g[0];
         hv = g[1];
         cv = g[2];
       },
-      [=](long long r, int f, int m, int (&c)[kCodeChunk]) {
-        word_codes<kBits>(words + r * D, f, m, c);
+      [=](int f0) {
+        const uint32_t* words =
+            reinterpret_cast<const uint32_t*>(rows) + f0 / (32 / kBits);
+        return [=](long long r, int f, int m, int (&c)[kCodeChunk]) {
+          word_codes<kBits>(words + r * D, f, m, c);
+        };
       });
 }
 
@@ -922,7 +1101,8 @@ template <int kBits>
 int launch_window_bits(const void* buf0, const void* buf1, const void* desc,
                        long long n_max, int D, int cw, int c_cols, int quant,
                        const void* r_g, const void* r_h, int qcap_op, int B,
-                       void* out, int grid_x, cudaStream_t s) {
+                       void* out, void* scratch, int grid_x,
+                       cudaStream_t s) {
   if (quant) {
     // lanes clamped to |q| <= qcap_op <= 127 pack, as the int8 operand does
     if (qcap_op <= 127)
@@ -933,61 +1113,56 @@ int launch_window_bits(const void* buf0, const void* buf1, const void* desc,
                                             c_cols, r_g, r_h, qcap_op, B, out,
                                             grid_x, s);
   }
-  const int align = 32 / kBits;
-  // the float kernel's feature tile: whole code words where F needs more
-  // than one tile
-  int feat_tile = kFixedTileBytes / (B * 24);
-  if (feat_tile >= c_cols) {
-    feat_tile = c_cols;
-  } else {
-    feat_tile -= feat_tile % align;
-    if (feat_tile < align) feat_tile = align;
-  }
-  const size_t smem = (size_t)feat_tile * B * 24 + kWarps * 16;
-  if (smem > (size_t)kMaxBlockSmemBytes) return (int)cudaErrorInvalidValue;
-  const long long min_grid = (n_max + kMaxRowsPerBlock - 1) / kMaxRowsPerBlock;
-  if (grid_x < min_grid) grid_x = (int)min_grid;
-  auto kernel = hist_fixed_window_kernel<kBits>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  // the blocks add into out
-  const cudaError_t z = cudaMemsetAsync(out, 0, (size_t)c_cols * B * 12, s);
-  if (z != cudaSuccess) return (int)z;
-  kernel<<<dim3(grid_x, (c_cols + feat_tile - 1) / feat_tile), kThreads, smem,
-           s>>>(static_cast<const int*>(buf0), static_cast<const int*>(buf1),
-                static_cast<const int*>(desc), D, cw, c_cols, B, feat_tile,
-                static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  const int feat_tile = fixed_feat_tile(c_cols, B, 32 / kBits, true);
+  if (feat_tile < 1 || !scratch) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)feat_tile * B * 24 + kFixedWarpBytes;
+  // the kernel writes every word of out
+  return launch_fixed_grid(
+      hist_fixed_window_kernel<kBits>, smem, grid_x, s,
+      static_cast<const int*>(buf0), static_cast<const int*>(buf1),
+      static_cast<const int*>(desc), D, cw, c_cols, B, feat_tile,
+      static_cast<float*>(out), static_cast<long long*>(scratch));
 }
 
 }  // namespace
+
+// int64 words of the float kernels' scratch for F features of B bins,
+// for a launch asked for at grid_x blocks (the launcher runs at most that
+// many; the wrapper allocates it; any contents on entry)
+extern "C" long long lgbt_hist_fixed_scratch_words(int F, int B,
+                                                   int grid_x) {
+  return fixed_scratch_words(F, B, grid_x);
+}
 
 // codes: (P, F) bin codes of `code_bytes` bytes each (1: uint8, 2: uint16,
 // 4: int32), element strides row_stride / col_stride. gh: (P, 3) operand
 // with unit column stride and row stride gh_stride, of kind `op_kind`:
 // 0 = f32 (out f32), 1 = int8 (out int32), 2 = int32 (out int32). out:
 // (F, B, 3), initialised by the launcher (any contents on entry).
+// scratch: the f32 kernel's, lgbt_hist_fixed_scratch_words(F, B, grid_x)
+// int64 words (the integer kernels take none: NULL).
 extern "C" int lgbt_hist_launch(const void* codes, int code_bytes, long long P,
                                 int F, long long row_stride,
                                 long long col_stride, const void* gh,
                                 int op_kind, long long gh_stride, int B,
-                                void* out, int grid_x, void* stream) {
+                                void* out, void* scratch, int grid_x,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (op_kind) {
     case 0:  // f32: the fixed-point kernel
       switch (code_bytes) {
         case 1:
           return launch_fixed<uint8_t>(codes, P, F, row_stride, col_stride,
-                                       gh, gh_stride, B, out, grid_x, s);
+                                       gh, gh_stride, B, out, scratch,
+                                       grid_x, s);
         case 2:
           return launch_fixed<uint16_t>(codes, P, F, row_stride, col_stride,
-                                        gh, gh_stride, B, out, grid_x, s);
+                                        gh, gh_stride, B, out, scratch,
+                                        grid_x, s);
         case 4:
           return launch_fixed<int32_t>(codes, P, F, row_stride, col_stride,
-                                       gh, gh_stride, B, out, grid_x, s);
+                                       gh, gh_stride, B, out, scratch,
+                                       grid_x, s);
         default:
           return (int)cudaErrorInvalidValue;
       }
@@ -1034,29 +1209,31 @@ extern "C" int lgbt_hist_rows_launch(const void* rows, long long W, int D,
 // the split descriptor `desc` names in buf0 / buf1, the compact core's two
 // (N, D) int32 working buffers; n_max: the most rows a window can have
 // (N), which sizes the grid. The grid is fixed whatever the window, so the
-// launch replays from a CUDA graph; the launcher always zeroes out
-// (c_cols, B, 3) first.
+// launch replays from a CUDA graph; out (c_cols, B, 3) is written whole
+// (zeros for a descriptor whose go is 0). scratch: K1's, as for
+// lgbt_hist_launch (K3's entry takes none).
 extern "C" int lgbt_hist_window_launch(const void* buf0, const void* buf1,
                                        const void* desc, long long n_max,
                                        int D, int cw, int c_cols,
                                        int item_bits, int quant,
                                        const void* r_g, const void* r_h,
                                        int qcap_op, int B, void* out,
-                                       int grid_x, void* stream) {
+                                       void* scratch, int grid_x,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (item_bits) {
     case 4:
       return launch_window_bits<4>(buf0, buf1, desc, n_max, D, cw, c_cols,
-                                   quant, r_g, r_h, qcap_op, B, out, grid_x,
-                                   s);
+                                   quant, r_g, r_h, qcap_op, B, out, scratch,
+                                   grid_x, s);
     case 8:
       return launch_window_bits<8>(buf0, buf1, desc, n_max, D, cw, c_cols,
-                                   quant, r_g, r_h, qcap_op, B, out, grid_x,
-                                   s);
+                                   quant, r_g, r_h, qcap_op, B, out, scratch,
+                                   grid_x, s);
     case 16:
       return launch_window_bits<16>(buf0, buf1, desc, n_max, D, cw, c_cols,
-                                    quant, r_g, r_h, qcap_op, B, out, grid_x,
-                                    s);
+                                    quant, r_g, r_h, qcap_op, B, out, scratch,
+                                    grid_x, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,11 +1,12 @@
-"""Evaluation metrics of the port: the pointwise ones.
+"""Evaluation metrics of the port: all but the ranking ones.
 
-The pointwise metrics of lightgbm_tpu/metrics/metric.py (reference:
-src/metric/{regression,binary,xentropy}_metric.hpp): l1, l2, rmse,
-quantile, huber, fair, poisson, mape, gamma, gamma_deviance, tweedie,
-binary_logloss, binary_error, auc, cross_entropy, cross_entropy_lambda
-and kldiv. multi_logloss, multi_error, ndcg and map wait for their
-objectives: basic.check_supported refuses them by name. Scores come in
+The metrics of lightgbm_tpu/metrics/metric.py (reference:
+src/metric/{regression,binary,multiclass,xentropy}_metric.hpp): l1, l2,
+rmse, quantile, huber, fair, poisson, mape, gamma, gamma_deviance,
+tweedie, binary_logloss, binary_error, auc, multi_logloss, multi_error
+(over (K, N) scores), cross_entropy, cross_entropy_lambda and kldiv. ndcg
+and map wait for lambdarank: basic.check_supported refuses them by name.
+Scores come in
 raw; metrics apply the objective's ConvertOutput exactly like the
 reference's Metric::Eval(score, objective) contract.
 
@@ -215,6 +216,26 @@ class AUCMetric(Metric):
         return [1.0 - auc_sum / (total_pos * total_neg)]
 
 
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, score, objective):
+        p = self._convert(score, objective)  # (K, N)
+        y = self.label.astype(np.int64)
+        py = np.clip(p[y, np.arange(len(y))], 1e-15, None)
+        return [_weighted_mean(-np.log(py), self.weight)]
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval(self, score, objective):
+        p = self._convert(score, objective)
+        pred = np.argmax(p, axis=0)
+        err = (pred != self.label.astype(np.int64)).astype(np.float64)
+        return [_weighted_mean(err, self.weight)]
+
+
 class CrossEntropyMetric(Metric):
     name = "cross_entropy"
 
@@ -255,7 +276,8 @@ _CLASSES = {
     "poisson": PoissonMetric, "mape": MAPEMetric, "gamma": GammaMetric,
     "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
-    "auc": AUCMetric, "cross_entropy": CrossEntropyMetric,
+    "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric, "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric, "kldiv": KLDivMetric,
 }
 

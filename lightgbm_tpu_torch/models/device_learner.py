@@ -1032,6 +1032,11 @@ class DeviceTreeLearner:
         self._states = {}
         self._scan = None
         self.last_leaf_id: Optional[torch.Tensor] = None
+        # train()'s bag (its row ids, sorted as the generic iteration's
+        # samplers give them; None: every row) and the rows of each leaf
+        # of its tree, grouped at the first leaf_rows call
+        self._bag_rows: Optional[np.ndarray] = None
+        self._leaf_rows = None
         self.stats = GrowStats()
 
     def pack_codes(self, host_codes: np.ndarray) -> np.ndarray:
@@ -1154,9 +1159,34 @@ class DeviceTreeLearner:
         rec, leaf_id, k = self.grow(grad, hess, iter_seed, bag_indices)
         self.stats.trees += 1
         self.last_leaf_id = leaf_id
+        self._bag_rows = None if bag_indices is None \
+            else np.asarray(bag_indices, dtype=np.int64)
+        self._leaf_rows = None
         if k == 0:
             log.warning("No further splits with positive gain")
         return self.replay_tree(rec, k)
+
+    def leaf_rows(self, leaf: int) -> np.ndarray:
+        """The in-bag rows of a leaf of the last tree train() grew, in
+        ascending order (leaf renewal; the JAX package's leaf_rows): every
+        row without a bag, else the bag's rows (GOSS: its sampled rows).
+        The first call after a tree fetches its leaf map once (one host
+        sync, counted) and groups the rows by leaf."""
+        if self._leaf_rows is None:
+            leaf_id = self.last_leaf_id.cpu().numpy()
+            self.stats.host_syncs += 1
+            rows = np.arange(len(leaf_id)) if self._bag_rows is None \
+                else self._bag_rows
+            # 16-bit leaf ids sort by radix (a 1M-row tree's in ~20 ms)
+            ids = leaf_id[rows].astype(
+                np.int16 if self.config.num_leaves < 2**15 else np.int32)
+            order = np.argsort(ids, kind="stable")
+            bounds = np.searchsorted(ids[order],
+                                     np.arange(int(self.config.num_leaves)
+                                               + 1))
+            self._leaf_rows = (rows[order], bounds)
+        rows, bounds = self._leaf_rows
+        return rows[bounds[leaf]:bounds[leaf + 1]]
 
     def _base_mask(self, iter_seed: int) -> torch.Tensor:
         """The tree's feature sample from the host RandomState, as in the

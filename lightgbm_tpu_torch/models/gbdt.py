@@ -2,21 +2,24 @@
 
 Port of lightgbm_tpu/models/gbdt.py (reference: src/boosting/gbdt.cpp
 GBDT::TrainOneIter, gbdt_model_text.cpp): boost from average on the first
-iteration, objective gradients, one tree, shrinkage, score update from the
-learner's row -> leaf map, model text and prediction. Scores and gradients
-live on the booster's device as (1, N) f32 tensors; trees and split
-records live on the host. Validation sets (``add_valid``) get each tree
+iteration, objective gradients, one tree per class (K = num_class for
+multiclass and multiclassova, grown one after another by the same
+learner), leaf renewal for the L1 family (``_renew_tree_output``: each
+leaf refit to a percentile of its in-bag residuals on the host),
+shrinkage, score update from the learner's row -> leaf map, model text
+and prediction. Scores and gradients live on the booster's device as
+(K, N) f32 tensors; trees and split records live on the host. Validation sets (``add_valid``) get each tree
 by a walk over their binned codes, and are evaluated, with the training
 set, by host metrics over fetched scores; ``rollback_one_iter`` takes an
 iteration back out of every score.
 
 Two iterations, as in the JAX package: the fused one (``_fused_eligible``:
-GBDT or GOSS, one tree per iteration, either strategy, no pos/neg
-bagging) runs the learner's single-program step -- gradients, the row
+GBDT or GOSS, one tree per iteration, either strategy, no leaf renewal,
+no pos/neg bagging) runs the learner's single-program step -- gradients, the row
 sample (bagging or GOSS, drawn on the device), tree, leaf values and
 score update on the device -- and makes one device->host copy, the split
-records, k and the finite flag; the generic one runs otherwise (pos/neg
-bagging), and takes over an iteration whose fused tree has no split (the
+records, k and the finite flag; the generic one runs otherwise (K
+classes, leaf renewal, pos/neg bagging), and takes over an iteration whose fused tree has no split (the
 stop bookkeeping). It samples on the host (``_bagging``, with
 ``np.random.RandomState``, and ``GOSS._goss_sample``), as the JAX
 package's generic iteration does. The JAX package's pipelined form of the
@@ -210,8 +213,13 @@ class GBDT:
         return 0.0
 
     def _compute_gradients(self):
-        """objective->GetGradients over the (1, N) score tensor."""
-        g, h = self.objective.get_gradients(self.score_updater.score[0])
+        """objective->GetGradients over the (K, N) score tensor: (K, N)
+        gradients and hessians (a one-class objective sees the (N,)
+        row)."""
+        score = self.score_updater.score
+        if self.num_class > 1:
+            return self.objective.get_gradients(score)
+        g, h = self.objective.get_gradients(score[0])
         return g[None, :], h[None, :]
 
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
@@ -257,10 +265,12 @@ class GBDT:
     def _fused_eligible(self) -> bool:
         """Whether the single-program device iteration applies: GBDT or
         GOSS, one tree per iteration that trains, on either strategy (each
-        grows its tree in its device loop), and no pos/neg bagging (its
-        bag is drawn on the host), as in the JAX package."""
+        grows its tree in its device loop), no leaf renewal (its
+        percentiles run on the host) and no pos/neg bagging (its bag is
+        drawn on the host), as in the JAX package."""
         return (self.__class__ in (GBDT, GOSS)
                 and self.objective is not None
+                and not self.objective.is_renew_tree_output
                 and self.num_tree_per_iteration == 1
                 and self._class_need_train[0]
                 and self.train_set.num_features > 0
@@ -348,6 +358,9 @@ class GBDT:
                     iter_seed=self.iter * self.num_tree_per_iteration + k)
             if new_tree.num_leaves > 1:
                 should_continue = True
+                if (self.objective is not None
+                        and self.objective.is_renew_tree_output):
+                    self._renew_tree_output(new_tree, k)
                 new_tree.apply_shrinkage(self.shrinkage_rate)
                 self._update_score(new_tree, k)
                 if abs(init_scores[k]) > K_EPSILON:
@@ -387,6 +400,27 @@ class GBDT:
         self._last_leaf_ids_iter = self.iter
         for vu in self.valid_updaters:
             vu.add_tree(tree, class_id)
+
+    def _renew_tree_output(self, tree: Tree, class_id: int) -> None:
+        """Leaf re-fit of the L1 family (reference
+        serial_tree_learner.cpp:855-893 RenewTreeOutput; the JAX package's
+        GBDT._renew_tree_output): each leaf's value becomes the objective's
+        percentile of its in-bag rows' residuals label - score, in f64 from
+        the f32 training scores before the tree is added (one fetch of the
+        scores, counted in the updater's fetches; the learner's leaf map,
+        one more host sync). MAPE weighs rows by its leaf_renew_weight,
+        the others by the dataset's weights."""
+        scores = self.score_updater.host_scores()[class_id]
+        label = np.asarray(self.train_set.label, dtype=np.float64)
+        weights = getattr(self.objective, "leaf_renew_weight",
+                          self.train_set.metadata.weight)
+        for leaf in range(tree.num_leaves):
+            rows = self.learner.leaf_rows(leaf)
+            if len(rows) == 0:
+                continue
+            tree.set_leaf_output(leaf, self.objective.renew_leaf_output(
+                label[rows] - scores[rows],
+                weights[rows] if weights is not None else None))
 
     def rollback_one_iter(self) -> None:
         """Take the last iteration's trees out of the model and the scores

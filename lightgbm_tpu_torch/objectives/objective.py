@@ -1,10 +1,16 @@
 """Objective functions as torch tensor math.
 
-Port of the binary and L2 objectives of lightgbm_tpu/objectives/
-objective.py (reference: src/objective/{regression,binary}_objective.hpp):
-the same gradients and hessians, boost-from-score, output transform and
-model-text name. Labels and weights live on the device the objective is
-initialised for; scores arrive there as (N,) f32 tensors.
+Port of lightgbm_tpu/objectives/objective.py (reference:
+src/objective/{regression,binary,multiclass,xentropy}_objective.hpp) but
+lambdarank: the same gradients and hessians, boost-from-score, output
+transform, leaf renewal (regression_l1, quantile, mape: the weighted
+percentile ``_percentile`` in f64 on the host) and model-text string.
+Labels and weights live on the device the objective is initialised for;
+scores arrive there as (N,) f32 tensors, or (K, N) for the two multiclass
+objectives (class-major, as the reference's num_data * k + i). A scalar
+divided by a tensor is written as a 0-d tensor over it: torch's
+``scalar / tensor`` multiplies by the reciprocal, which rounds otherwise
+than the division XLA makes.
 """
 from __future__ import annotations
 
@@ -17,6 +23,55 @@ import torch
 from ..utils import log
 
 K_EPSILON = 1e-15
+
+
+def _percentile(values: np.ndarray, weights: Optional[np.ndarray],
+                alpha: float) -> float:
+    """Weighted percentile, reference semantics (regression_objective.hpp:20-76
+    PercentileFun/WeightedPercentileFun)."""
+    n = len(values)
+    if n == 0:
+        return 0.0
+    if weights is None:
+        if n <= 1:
+            return float(values[0])
+        order = np.argsort(values, kind="stable")
+        float_pos = (1.0 - alpha) * n
+        pos = int(math.floor(float_pos))
+        if pos < 1:
+            return float(values[order[0]])
+        if pos >= n:
+            return float(values[order[n - 1]])
+        bias = float_pos - pos
+        v1 = float(values[order[pos - 1]])
+        v2 = float(values[order[pos]])
+        return v1 * (1.0 - bias) + v2 * bias
+    order = np.argsort(values, kind="stable")
+    w = weights[order]
+    v = values[order]
+    cum = np.cumsum(w) - 0.5 * w
+    threshold = alpha * np.sum(w)
+    idx = int(np.searchsorted(cum, threshold, side="left"))
+    idx = min(max(idx, 0), n - 1)
+    if idx > 0 and cum[idx] > threshold:
+        # interpolate like the reference's weighted percentile
+        c1, c2 = cum[idx - 1], cum[idx]
+        if c2 > c1:
+            t = (threshold - c1) / (c2 - c1)
+            return float(v[idx - 1] * (1 - t) + v[idx] * t)
+    return float(v[idx])
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x))."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _softmax(score: torch.Tensor) -> torch.Tensor:
+    """Softmax over the class axis 0 of (K, N), as jax.nn.softmax forms
+    it: exp(x - max) over its sum."""
+    e = torch.exp(score - score.max(dim=0, keepdim=True).values)
+    return e / e.sum(dim=0, keepdim=True)
 
 
 class Objective:
@@ -56,6 +111,14 @@ class Objective:
     @property
     def num_model_per_iteration(self) -> int:
         return self.num_class
+
+    @property
+    def is_renew_tree_output(self) -> bool:
+        return False
+
+    def renew_leaf_output(self, residuals: np.ndarray,
+                          weights: Optional[np.ndarray]) -> float:
+        raise NotImplementedError
 
     def class_need_train(self, class_id: int) -> bool:
         return True
@@ -104,6 +167,167 @@ class RegressionL2(Objective):
 
     def to_string(self):
         return f"{self.name} sqrt" if self.sqrt else self.name
+
+
+class RegressionL1(RegressionL2):
+    """reference: regression_objective.hpp:189 RegressionL1loss."""
+    name = "regression_l1"
+
+    def get_gradients(self, score):
+        grad = torch.sign(score - self._label_dev)
+        return self._apply_weight(grad, torch.ones_like(score))
+
+    def boost_from_score(self, class_id):
+        return _percentile(np.asarray(self.label, dtype=np.float64),
+                           self.weight, 0.5)
+
+    @property
+    def is_renew_tree_output(self) -> bool:
+        return True
+
+    def renew_leaf_output(self, residuals, weights):
+        return _percentile(residuals, weights, 0.5)
+
+
+class Huber(RegressionL2):
+    """reference: regression_objective.hpp:275 RegressionHuberLoss."""
+    name = "huber"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.alpha = float(config.alpha)
+
+    def get_gradients(self, score):
+        diff = score - self._label_dev
+        grad = torch.where(diff.abs() <= self.alpha, diff,
+                           torch.sign(diff) * self.alpha)
+        return self._apply_weight(grad, torch.ones_like(score))
+
+
+class Fair(RegressionL2):
+    """reference: regression_objective.hpp:337 RegressionFairLoss."""
+    name = "fair"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.c = float(config.fair_c)
+
+    def get_gradients(self, score):
+        x = score - self._label_dev
+        ax = x.abs()
+        grad = self.c * x / (ax + self.c)
+        hess = score.new_tensor(self.c * self.c) / ((ax + self.c) ** 2)
+        return self._apply_weight(grad, hess)
+
+
+class Poisson(RegressionL2):
+    """reference: regression_objective.hpp:384 RegressionPoissonLoss (log
+    link)."""
+    name = "poisson"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.max_delta_step = float(config.poisson_max_delta_step)
+
+    def init(self, metadata, num_data, device=None):
+        super().init(metadata, num_data, device)
+        if np.any(self.label < 0):
+            log.fatal("[%s]: at least one target label is negative",
+                      self.name)
+
+    def get_gradients(self, score):
+        grad = torch.exp(score) - self._label_dev
+        hess = torch.exp(score + self.max_delta_step)
+        return self._apply_weight(grad, hess)
+
+    def boost_from_score(self, class_id):
+        mean = RegressionL2.boost_from_score(self, class_id)
+        return math.log(max(mean, 1e-20))
+
+    def convert_output(self, scores):
+        return torch.exp(scores)
+
+
+class Quantile(RegressionL2):
+    """reference: regression_objective.hpp:464 RegressionQuantileloss."""
+    name = "quantile"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.alpha = float(config.alpha)
+
+    def get_gradients(self, score):
+        delta = score - self._label_dev
+        grad = torch.where(delta >= 0, torch.full_like(score, 1.0 - self.alpha),
+                           torch.full_like(score, -self.alpha))
+        return self._apply_weight(grad, torch.ones_like(score))
+
+    def boost_from_score(self, class_id):
+        return _percentile(np.asarray(self.label, dtype=np.float64),
+                           self.weight, self.alpha)
+
+    @property
+    def is_renew_tree_output(self) -> bool:
+        return True
+
+    def renew_leaf_output(self, residuals, weights):
+        return _percentile(residuals, weights, self.alpha)
+
+
+class MAPE(RegressionL1):
+    """reference: regression_objective.hpp:562 RegressionMAPELOSS. Its
+    gradients carry the MAPE weights (and the dataset's) already; leaf
+    renewal weighs each row by them too (``leaf_renew_weight``)."""
+    name = "mape"
+
+    def init(self, metadata, num_data, device=None):
+        super().init(metadata, num_data, device)
+        label = np.asarray(self.label, dtype=np.float64)
+        w = 1.0 / np.maximum(1.0, np.abs(label))
+        if self.weight is not None:
+            w = w * self.weight
+        self._mape_w = w
+        self._mape_w_dev = self._to_dev(w)
+
+    def get_gradients(self, score):
+        diff = score - self._label_dev
+        return torch.sign(diff) * self._mape_w_dev, self._mape_w_dev.clone()
+
+    def boost_from_score(self, class_id):
+        return _percentile(np.asarray(self.label, dtype=np.float64),
+                           self._mape_w, 0.5)
+
+    @property
+    def leaf_renew_weight(self) -> np.ndarray:
+        return self._mape_w
+
+
+class Gamma(Poisson):
+    """reference: regression_objective.hpp:661 RegressionGammaLoss."""
+    name = "gamma"
+
+    def get_gradients(self, score):
+        inv = torch.exp(-score)
+        grad = 1.0 - self._label_dev * inv
+        hess = self._label_dev * inv
+        return self._apply_weight(grad, hess)
+
+
+class Tweedie(Poisson):
+    """reference: regression_objective.hpp:696 RegressionTweedieLoss."""
+    name = "tweedie"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.rho = float(config.tweedie_variance_power)
+
+    def get_gradients(self, score):
+        e1 = torch.exp((1.0 - self.rho) * score)
+        e2 = torch.exp((2.0 - self.rho) * score)
+        grad = -self._label_dev * e1 + e2
+        hess = (-self._label_dev * (1.0 - self.rho) * e1
+                + (2.0 - self.rho) * e2)
+        return self._apply_weight(grad, hess)
 
 
 class BinaryLogloss(Objective):
@@ -163,9 +387,172 @@ class BinaryLogloss(Objective):
         return f"{self.name} sigmoid:{self.sigmoid:g}"
 
 
+class CrossEntropy(Objective):
+    """reference: xentropy_objective.hpp:44 CrossEntropy."""
+    name = "cross_entropy"
+
+    def init(self, metadata, num_data, device=None):
+        super().init(metadata, num_data, device)
+        if np.any((self.label < 0) | (self.label > 1)):
+            log.fatal("[%s]: label must be in [0, 1]", self.name)
+
+    def get_gradients(self, score):
+        z = _sigmoid(score)
+        return self._apply_weight(z - self._label_dev, z * (1.0 - z))
+
+    def boost_from_score(self, class_id):
+        if self.weight is not None:
+            pavg = float(np.sum(self.label * self.weight)
+                         / np.sum(self.weight))
+        else:
+            pavg = float(np.mean(self.label))
+        pavg = min(max(pavg, K_EPSILON), 1.0 - K_EPSILON)
+        return math.log(pavg / (1.0 - pavg))
+
+    def convert_output(self, scores):
+        return _sigmoid(scores)
+
+
+class CrossEntropyLambda(CrossEntropy):
+    """reference: xentropy_objective.hpp:148 CrossEntropyLambda: the
+    unweighted gradients are cross_entropy's; weights enter through the
+    lambda parameterization, not as a product."""
+    name = "cross_entropy_lambda"
+
+    def get_gradients(self, score):
+        if self._weight_dev is None:
+            z = _sigmoid(score)
+            return z - self._label_dev, z * (1.0 - z)
+        w = self._weight_dev
+        y = self._label_dev
+        epf = torch.exp(score)
+        hhat = torch.log1p(epf)
+        z = 1.0 - torch.exp(-w * hhat)
+        enf = 1.0 / epf
+        grad = (1.0 - y / z) * w / (1.0 + enf)
+        c = 1.0 / (1.0 - z)
+        d = 1.0 + epf
+        a = w * epf / (d * d)
+        d2 = c - 1.0
+        b = (c / (d2 * d2)) * (1.0 + w * epf - c)
+        return grad, a * (1.0 + y * b)
+
+    def boost_from_score(self, class_id):
+        if self.weight is not None:
+            havg = float(np.sum(self.label * self.weight)
+                         / np.sum(self.weight))
+        else:
+            havg = float(np.mean(self.label))
+        return math.log(max(math.exp(havg) - 1.0, K_EPSILON))
+
+    def convert_output(self, scores):
+        return torch.log1p(torch.exp(scores))
+
+
+class MulticlassSoftmax(Objective):
+    """reference: multiclass_objective.hpp:24 MulticlassSoftmax; gradients
+    over the (K, N) scores."""
+    name = "multiclass"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.num_class = int(config.num_class)
+
+    def init(self, metadata, num_data, device=None):
+        super().init(metadata, num_data, device)
+        label_int = self.label.astype(np.int32)
+        if np.any((label_int < 0) | (label_int >= self.num_class)):
+            log.fatal("Label must be in [0, %d) for multiclass",
+                      self.num_class)
+        self._onehot = torch.as_tensor(
+            np.arange(self.num_class)[:, None] == label_int[None, :],
+            device=self.device)
+        counts = np.bincount(label_int, minlength=self.num_class,
+                             weights=self.weight)
+        self._class_probs = counts / max(counts.sum(), 1e-10)
+
+    def get_gradients(self, score):
+        p = _softmax(score)
+        grad = p - self._onehot.float()
+        hess = 2.0 * p * (1.0 - p)
+        if self._weight_dev is not None:
+            grad = grad * self._weight_dev[None, :]
+            hess = hess * self._weight_dev[None, :]
+        return grad, hess
+
+    def boost_from_score(self, class_id):
+        return math.log(max(K_EPSILON, self._class_probs[class_id]))
+
+    def convert_output(self, scores):
+        return _softmax(scores)
+
+    def class_need_train(self, class_id):
+        p = self._class_probs[class_id]
+        return K_EPSILON < abs(p) < 1.0 - K_EPSILON
+
+    def to_string(self):
+        return f"{self.name} num_class:{self.num_class}"
+
+
+class MulticlassOVA(Objective):
+    """reference: multiclass_objective.hpp:180 MulticlassOVA: K binary
+    objectives, class k's on the labels == k."""
+    name = "multiclassova"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.num_class = int(config.num_class)
+        self.sigmoid = float(config.sigmoid)
+        self._binary = [BinaryLogloss(config) for _ in range(self.num_class)]
+
+    def init(self, metadata, num_data, device=None):
+        super().init(metadata, num_data, device)
+        label_int = self.label.astype(np.int32)
+        onehot = (np.arange(self.num_class)[:, None]
+                  == label_int[None, :]).astype(np.float32)
+        for k, b in enumerate(self._binary):
+            b.init(_Labels(onehot[k], self.weight), num_data, self.device)
+
+    def get_gradients(self, score):
+        pairs = [b.get_gradients(score[k])
+                 for k, b in enumerate(self._binary)]
+        return (torch.stack([g for g, _ in pairs]),
+                torch.stack([h for _, h in pairs]))
+
+    def boost_from_score(self, class_id):
+        return self._binary[class_id].boost_from_score(0)
+
+    def convert_output(self, scores):
+        return _sigmoid(self.sigmoid * scores)
+
+    def to_string(self):
+        return (f"{self.name} num_class:{self.num_class} "
+                f"sigmoid:{self.sigmoid:g}")
+
+
+class _Labels:
+    """The metadata one of OVA's binary objectives sees."""
+
+    def __init__(self, label, weight):
+        self.label = label
+        self.weight = weight
+
+
 _CLASSES = {
     "regression": RegressionL2,
+    "regression_l1": RegressionL1,
+    "huber": Huber,
+    "fair": Fair,
+    "poisson": Poisson,
+    "quantile": Quantile,
+    "mape": MAPE,
+    "gamma": Gamma,
+    "tweedie": Tweedie,
     "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
 }
 
 OBJECTIVE_NAMES = sorted(_CLASSES)
@@ -186,14 +573,19 @@ def create_objective(name: str, config) -> Optional[Objective]:
 
 def parse_objective_from_model(text: str, config) -> Optional[Objective]:
     """Recreate an objective from its model-file string, e.g.
-    'binary sigmoid:1'."""
+    'binary sigmoid:1', 'multiclass num_class:3' or 'regression sqrt':
+    every parameter a to_string writes."""
     parts = text.strip().split()
     if not parts:
         return None
     name = parts[0]
     for tok in parts[1:]:
-        if ":" in tok:
+        if tok == "sqrt":
+            config.reg_sqrt = True
+        elif ":" in tok:
             k, v = tok.split(":", 1)
-            if k == "sigmoid":
+            if k == "num_class":
+                config.num_class = int(v)
+            elif k == "sigmoid":
                 config.sigmoid = float(v)
     return create_objective(name, config)

@@ -40,6 +40,7 @@ CPU and launches its kernel for a tensor on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,11 +63,10 @@ _OP_KIND = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
 _THREADS = 256
 # blocks per SM of the grid the wrappers ask for, measured (PERF.md; the
 # integer kernels' register budget, csrc/histogram.cu kIntBlocksPerSM).
-# The launchers grow the grid where a block would walk more rows than its
-# sums allow (kMaxRowsPerBlock for the float kernel, kMaxPackedRowsPerBlock
-# for the integer kernels that pack two lanes into one word), cut the
-# integer kernels' grid to one wave of the clusters the card holds, and
-# initialise the output.
+# The launchers cut the float kernel's grid to the blocks the card holds at
+# once (its cooperative launch), grow the integer kernels' where a block
+# would walk more rows than kMaxPackedRowsPerBlock, cut theirs to one wave
+# of the clusters the card holds, and initialise the output.
 _BLOCKS_PER_SM = 4
 _sm_count = {}
 
@@ -86,13 +86,17 @@ def _slots(codes: torch.Tensor, num_bins: int) -> torch.Tensor:
 
 def build_histogram_plain(codes: torch.Tensor, gh: torch.Tensor,
                           num_bins: int) -> torch.Tensor:
-    """(P, F) codes + (P, 3) f32 gh -> (F, B, 3) f32, via one index_add_."""
+    """(P, F) codes + (P, 3) f32 gh -> (F, B, 3) f32, via one index_add_
+    into f64 slots rounded once to f32 (as the kernel rounds its exact
+    fixed-point sum once: the two agree bit for bit but on a slot whose
+    sum lies within ~2^-50 of its terms' magnitude of an f32 rounding
+    boundary)."""
     f = codes.shape[1]
-    out = torch.zeros((f * num_bins + 1, 3), dtype=torch.float32,
+    out = torch.zeros((f * num_bins + 1, 3), dtype=torch.float64,
                       device=codes.device)
     out.index_add_(0, _slots(codes, num_bins),
-                   gh.float().repeat_interleave(f, dim=0))
-    return out[:-1].view(f, num_bins, 3)
+                   gh.double().repeat_interleave(f, dim=0))
+    return out[:-1].view(f, num_bins, 3).float()
 
 
 def build_histogram_t_plain(codes_t: torch.Tensor, gh: torch.Tensor,
@@ -152,12 +156,34 @@ def build_histogram_quantized_rows_plain(rows: torch.Tensor, cw: int,
         packed_codes(rows, cw, c_cols, item_bits), ghq, num_bins)
 
 
-def _grid_x(dev: torch.device, p: int, per_sm: int) -> int:
+def _sms(dev: torch.device) -> int:
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _sm_count:
         _sm_count[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
-    return max(1, min(-(-p // _THREADS), per_sm * _sm_count[idx]))
+    return _sm_count[idx]
+
+
+def _grid_x(dev: torch.device, p: int, per_sm: int) -> int:
+    return max(1, min(-(-p // _THREADS), per_sm * _sms(dev)))
+
+
+@functools.lru_cache(maxsize=None)
+def _fixed_scratch_words(f: int, num_bins: int, grid_x: int) -> int:
+    fn = build.load("histogram").lgbt_hist_fixed_scratch_words
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(f, num_bins, grid_x)
+
+
+def _fixed_scratch(dev: torch.device, f: int, num_bins: int,
+                   grid_x: int) -> torch.Tensor:
+    """The float kernel's scratch (its int64 accumulator and the blocks'
+    pre-pass sums) for a launch asked for at grid_x blocks, from the
+    caching allocator on the launch's stream (in a capture, from the
+    graph's pool)."""
+    return torch.empty(_fixed_scratch_words(f, num_bins, grid_x),
+                       dtype=torch.int64, device=dev)
 
 
 def _check(name: str, codes: torch.Tensor, gh: torch.Tensor,
@@ -191,17 +217,20 @@ def _launch(name: str, counter: str, codes: torch.Tensor, gh: torch.Tensor,
         return torch.zeros((f, num_bins, 3), dtype=dtype, device=codes.device)
     # the launcher initialises the output
     out = torch.empty((f, num_bins, 3), dtype=dtype, device=codes.device)
+    grid_x = _grid_x(codes.device, p, _BLOCKS_PER_SM)
+    scratch = _fixed_scratch(codes.device, f, num_bins, grid_x) \
+        if kind == 0 else None
     fn = build.load("histogram").lgbt_hist_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
     rc = fn(codes.data_ptr(), _CODE_BYTES[codes.dtype], p, f,
             codes.stride(0), codes.stride(1), gh.data_ptr(), kind,
             gh.stride(0), num_bins, out.data_ptr(),
-            _grid_x(codes.device, p, _BLOCKS_PER_SM),
+            None if scratch is None else scratch.data_ptr(), grid_x,
             torch.cuda.current_stream(codes.device).cuda_stream)
     build.check(rc, name + " kernel launch")
     globals()[counter] += 1
@@ -380,16 +409,19 @@ def _window_launch(name: str, counter: str, data, spare, desc, cw, c_cols,
             ratios[i] = r.data_ptr()
     out = torch.empty((c_cols, num_bins, 3),
                       dtype=torch.int32 if quant else torch.float32,
-                      device=data.device)      # zeroed by the launcher
+                      device=data.device)      # written whole by the launch
+    grid_x = _grid_x(data.device, n, _BLOCKS_PER_SM)
+    scratch = None if quant \
+        else _fixed_scratch(data.device, c_cols, num_bins, grid_x)
     fn = build.load("histogram").lgbt_hist_window_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     rc = fn(data.data_ptr(), spare.data_ptr(), desc.data_ptr(), n, d, cw,
             c_cols, item_bits, int(quant), ratios[0], ratios[1],
             int(qcap_op), num_bins, out.data_ptr(),
-            _grid_x(data.device, n, _BLOCKS_PER_SM),
+            None if scratch is None else scratch.data_ptr(), grid_x,
             torch.cuda.current_stream(data.device).cuda_stream)
     build.check(rc, name + " kernel launch")
     globals()[counter] += 1

@@ -13,12 +13,13 @@ bit-exact; so must the split-key kernel (both entries: the compact core's
 packed one and the masked core's column one, which copies operand rows)
 and the device-window entries of K3 and K4 (which read their window from
 the split descriptor). K1's
-(and K2's) grad and hess lanes are fixed-point sums per block whose f32
-block partials meet in global atomics in any order, so they agree with
-index_add_ to rtol = atol = 1e-4
-(at larger row counts chip_smoke.py's bar, which adds 1e-5 * the bin's
-sum of |terms|; without the absolute term for the dynamic-range case);
-the count lane sums exact integers and must be equal.
+(and K2's) grad and hess lanes are fixed-point sums per block that meet
+in an int64 accumulator and round once to f32: the same bits in every
+launch, and within rtol = atol = 1e-4 of the plain version's f64 sum
+rounded once (at larger row counts chip_smoke.py's bar, which adds 1e-5 *
+the bin's sum of |terms|; without the absolute term for the
+dynamic-range case); the count lane sums exact integers and must be
+equal.
 """
 import gc
 import os
@@ -426,19 +427,16 @@ def _bar_ok(got, want, mag, atol=1e-4):
 @pytest.mark.parametrize("size", ["100k", "cap"])
 def test_k1_every_row_in_one_bin(cuda_device, size):
     # the worst contention: every row adds to the one slot of each feature,
-    # all of one sign. "cap" takes one block more rows than the wrapper's
-    # grid holds at 65,536 rows per block (~35M rows on an H100), so the
-    # float kernel's launcher grows the grid and every block walks exactly
-    # kMaxRowsPerBlock rows: the widest fixed-point words it allows
+    # all of one sign. "cap" gives every block of the wrapper's grid (cut
+    # to the blocks the card holds at once) a walk longer than
+    # kMaxRowsPerBlock (~554M rows on an H100), so each block flushes its
+    # words after a full chunk -- the widest fixed-point words it allows --
+    # and again after the rest
     with open(os.path.join(build.CSRC, "histogram.cu")) as fh:
         cap = 1 << int(re.search(r"kMaxRowsPerBlock = 1ll << (\d+);",
                                  fh.read()).group(1))
     full = k1._grid_x(cuda_device, 1 << 40, k1._BLOCKS_PER_SM)
     p = 100_003 if size == "100k" else (full + 1) * cap
-    if size == "cap":
-        grid = max(k1._grid_x(cuda_device, p, k1._BLOCKS_PER_SM),
-                   -(-p // cap))
-        assert grid == full + 1 and p == grid * cap
     r = np.random.RandomState(p % 1000)
     codes = torch.full((p, 4), 5, dtype=torch.uint8, device=cuda_device)
     gh = torch.from_numpy(np.stack(
@@ -454,6 +452,41 @@ def test_k1_every_row_in_one_bin(cuda_device, size):
     others = torch.ones(64, dtype=torch.bool, device=cuda_device)
     others[5] = False
     assert not got[:, others].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["wide F", "one block, chunked walk"])
+def test_k1_wide_and_long_windows(cuda_device, case, monkeypatch):
+    # shapes whose grid could not all be resident when the feature tiles
+    # lay along the grid and a block walked at most the cap: 4,500
+    # features of 256 bins (563 tiles walked in turn by every block), and
+    # a grid of one block over 2^20 + 4,099 rows (17 chunks of at most
+    # kMaxRowsPerBlock = 2^16, 17 flushes), which must give the bits of
+    # the CPU model of the kernel (tests/test_torch_histogram.py)
+    r = np.random.RandomState(len(case))
+    if case == "wide F":
+        p, f, nb = 20_003, 4_500, 256
+    else:
+        p, f, nb = (1 << 20) + 4_099, 28, 64
+        monkeypatch.setattr(k1, "_grid_x", lambda dev, rows, per_sm: 1)
+    codes = torch.from_numpy(r.randint(0, nb, size=(p, f))
+                             .astype(np.uint8)).to(cuda_device)
+    gh = torch.from_numpy(np.stack([r.randn(p), r.rand(p), np.ones(p)], 1)
+                          .astype(np.float32)).to(cuda_device)
+    gh[torch.from_numpy(r.rand(p) < 0.2).to(cuda_device)] = 0.0
+    outs = [k1.build_histogram(codes, gh, nb) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    want = k1.build_histogram_plain(codes, gh, nb)
+    mag = k1.build_histogram_plain(codes, gh.abs(), nb)
+    assert _bar_ok(outs[0], want, mag)
+    assert torch.equal(outs[0][..., 2], want[..., 2])
+    if case == "wide F":
+        assert int((outs[0] != want).sum()) <= want.numel() // 100
+    else:
+        from test_torch_histogram import _fixed_point_hist
+        model, _, _ = _fixed_point_hist(codes.cpu(), gh.cpu(), nb, 1)
+        assert torch.equal(outs[0].cpu(), model)
 
 
 @pytest.mark.gpu
@@ -1476,3 +1509,117 @@ def test_cv_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(card[key], cpu[key], rtol=1e-4,
                                    atol=1e-4)
     assert all(b._gbdt.learner._loop.graph is not None for b in boosters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["host-int", "device-window", "K2"])
+def test_k1_k2_repeat_bit_for_bit(cuda_device, entry):
+    # the blocks' fixed-point sums meet in an int64 accumulator, which no
+    # order of the blocks changes, and round once: 20 launches on one
+    # input give the same bits, and nearly every slot equals the plain
+    # version's f64 sum rounded once
+    n = 300_007
+    r = np.random.RandomState(21)
+    bufs = _buffers(cuda_device, n, 11, 21)
+    for b in bufs:
+        b.view(torch.float32)[:, 7:10] = torch.from_numpy(np.stack(
+            [r.randn(n), r.rand(n), np.ones(n)], 1).astype(np.float32)) \
+            .to(cuda_device)
+    codes = bufs[0].view(torch.uint8)[:, :28]
+    gh = bufs[0].view(torch.float32)[:, 7:10]
+    if entry == "host-int":
+        def run():
+            return k1.build_histogram(codes, gh, 64)
+        want = k1.build_histogram_plain(codes, gh, 64)
+    elif entry == "device-window":
+        desc = _desc(cuda_device, GO=1, SRC=1, BEGIN=0, COUNT=n, LPHYS=n,
+                     LEFT_SMALL=1)
+
+        def run():
+            return k1.build_histogram_window(bufs[0], bufs[1], desc, 7, 28,
+                                             8, 64)
+        want = k1.build_histogram_window_plain(bufs[0], bufs[1], desc, 7,
+                                               28, 8, 64)
+    else:
+        codes_t = codes.t().contiguous()
+        gh_half = gh.contiguous() * torch.from_numpy(
+            r.rand(n) < 0.5).to(cuda_device)[:, None].float()
+
+        def run():
+            return k1.build_histogram_t(codes_t, gh_half, 64)
+        want = k1.build_histogram_t_plain(codes_t, gh_half, 64)
+    outs = [run() for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert int((outs[0] != want).sum()) <= want.numel() // 100
+    assert torch.equal(outs[0][..., 2], want[..., 2])
+
+
+def _objective_task(objective, n, seed):
+    """(x, y): chip_smoke.py's targets for each objective from one margin."""
+    r = np.random.RandomState(seed)
+    x = r.randn(n, 12)
+    margin = x[:, 0] * 1.5 - x[:, 1] + 0.5 * x[:, 3] * x[:, 4]
+    if objective == "poisson":
+        y = r.poisson(np.exp(0.5 * margin)).astype(np.float64)
+    elif objective == "multiclass":
+        y = np.digitize(margin + 0.5 * r.randn(n), [-1.0, 1.0]) \
+            .astype(np.float64)
+    else:
+        y = margin + 1.5 * r.randn(n)
+    return x, y
+
+
+def _shape(b):
+    # features, children and leaf counts (chip_smoke.py's shape_of): where
+    # a leaf has no row in the bins between two thresholds both split it
+    # alike and f32 rounding picks one on each device (ROADMAP section 3)
+    return [(list(t.split_feature[:t.num_leaves - 1]),
+             list(t.left_child[:t.num_leaves - 1]),
+             list(t.leaf_count[:t.num_leaves])) for t in b._gbdt.models]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("objective", ["regression_l1", "poisson"])
+def test_objective_card_matches_cpu(cuda_device, objective, monkeypatch):
+    # regression_l1 renews its leaves on the host (the generic iteration,
+    # 2 learner syncs per tree: the records and the leaf map); poisson
+    # runs the fused iteration (1): the card's trees are the CPU's
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", "compact")
+    x, y = _objective_task(objective, 20_000, 31)
+    p = {"objective": objective, "num_leaves": 15, "max_bin": 63,
+         "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
+         "verbosity": -1}
+    card, cpu = (tlgb.train(p, tlgb.Dataset(x, y), 5, device=d)
+                 for d in ("cuda", "cpu"))
+    lr = card._gbdt.learner
+    renew = objective == "regression_l1"
+    assert (card._gbdt._fused_step is None) == renew
+    assert lr.stats.host_syncs == (2 if renew else 1) * lr.stats.trees
+    assert _shape(card) == _shape(cpu)
+    np.testing.assert_allclose(card.predict(x, raw_score=True),
+                               cpu.predict(x, raw_score=True),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["compact", "masked"])
+def test_multiclass_card_matches_cpu(cuda_device, strategy, monkeypatch):
+    # 3 classes on the per-class loop: one learner grows all three trees
+    # of an iteration in its device loop, capturing its step once
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
+    x, y = _objective_task("multiclass", 20_000, 32)
+    p = {"objective": "multiclass", "num_class": 3, "num_leaves": 15,
+         "max_bin": 63, "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
+         "verbosity": -1}
+    card, cpu = (tlgb.train(p, tlgb.Dataset(x, y), 4, device=d)
+                 for d in ("cuda", "cpu"))
+    lr = card._gbdt.learner
+    assert card.num_trees() == cpu.num_trees() == 12
+    assert lr.stats.captures == 1 and lr.stats.trees == 12
+    assert lr.stats.host_syncs == lr.stats.trees
+    assert _shape(card) == _shape(cpu)
+    got = card.predict(x)
+    assert got.shape == (20_000, 3)
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, cpu.predict(x), rtol=1e-4, atol=1e-4)

@@ -14,9 +14,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-from lightgbm_tpu.ops.pallas.histogram_kernel import build_histogram_pallas
 from lightgbm_tpu_torch.ops.kernels import build
 from lightgbm_tpu_torch.ops.kernels import histogram as k1
 
@@ -48,6 +45,11 @@ def _oracle(codes, gh, num_bins):
 
 @pytest.mark.parametrize("num_bins", [16, 64, 256])
 def test_plain_matches_jax_kernel_and_oracle(num_bins):
+    # JAX is imported here: test_torch_gpu.py imports this file's model of
+    # the CUDA kernel on a card's host, which has no JAX
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.pallas.histogram_kernel import \
+        build_histogram_pallas
     codes, gh = _case(num_bins, seed=num_bins)
     got = k1.build_histogram(torch.from_numpy(codes), torch.from_numpy(gh),
                              num_bins).numpy()
@@ -85,23 +87,43 @@ def test_out_of_range_codes_dropped():
 
 # ---- the CUDA float kernel's fixed-point sums, reproduced on the CPU ----
 # csrc/histogram.cu (hist_fixed_kernel) sums f32 values as int32 hi / lo
-# words per block: per lane s = 30 - E with the block's sum of |v| < 2^E,
-# L = 31 - ceil(log2 n) for n live rows; hi = rint(v * 2^s), lo =
-# rint((v * 2^s - hi) * 2^L); a slot's block value is the f32 rounding of
-# hi_sum * 2^L + lo_sum, times 2^-(s + L). The block sums of |v| are taken
-# in float64 here (the kernel's f32 sum can only move E at an exact power
-# of two, which the widths' margin covers).
+# words per block: per lane s = 30 - E with the block's f64 sum of |v| <
+# 2^E, L = 31 - ceil(log2 m) for m = min(n, kMaxRowsPerBlock), n the
+# block's live rows; hi = rint(v * 2^s), lo = rint((v * 2^s - hi) * 2^L);
+# after each chunk of at most kMaxRowsPerBlock of the block's rows (4,096
+# grid strides) a slot's value t = hi_sum * 2^L + lo_sum (int64, in units
+# of 2^-(s + L)) moves to the window's grid 2^-G, G = 61 - Ew with the
+# window's sum of |v| < 2^Ew (shifted left, or rounded half up by an
+# arithmetic right shift), the chunks' values add in int64, and the
+# slot's f32 is that sum rounded once, times 2^-G.
 
 _CU = os.path.join(build.CSRC, "histogram.cu")
 
 
-def _cu_max_rows_per_block():
-    """kMaxRowsPerBlock of csrc/histogram.cu: the most rows the float
-    kernel's launcher lets one block walk."""
+def _cu_text():
     with open(_CU) as fh:
-        m = re.search(r"kMaxRowsPerBlock = 1ll << (\d+);", fh.read())
+        return fh.read()
+
+
+def _cu_max_rows_per_block():
+    """kMaxRowsPerBlock of csrc/histogram.cu: the most rows of one block's
+    walk between two flushes of its fixed-point words."""
+    m = re.search(r"kMaxRowsPerBlock = 1ll << (\d+);", _cu_text())
     assert m, "kMaxRowsPerBlock not found in " + _CU
     return 1 << int(m.group(1))
+
+
+def _cu_fixed_tile_constants():
+    """(kFixedTileBytes, kMaxBlockSmemBytes, kFixedWarpBytes) of
+    csrc/histogram.cu, in bytes."""
+    text = _cu_text()
+    tile = int(re.search(r"kFixedTileBytes = (\d+) \* 1024;", text)
+               .group(1)) * 1024
+    most = int(re.search(r"kMaxBlockSmemBytes = (\d+) \* 1024;", text)
+               .group(1)) * 1024
+    warps = k1._THREADS // 32 * int(re.search(
+        r"kFixedWarpBytes = kWarps \* (\d+);", text).group(1))
+    return tile, most, warps
 
 def _dynamic_range_case(p=20_003, f=6, num_bins=64, seed=5):
     """Ordinary rows, plus feature 0's bin 7 with hessians from 1e-7 to
@@ -122,44 +144,59 @@ def _dynamic_range_case(p=20_003, f=6, num_bins=64, seed=5):
     return torch.from_numpy(codes), torch.from_numpy(gh)
 
 
-def _fixed_point_hist(codes, gh, num_bins, grid_x, keep_lo=True):
-    """The kernel's block-wise fixed-point histogram in int64 torch ops;
-    also returns the largest |hi| and |lo| slot sum of any block."""
+def _shift_round(t, k):
+    """t * 2^k elementwise for int64 t and int64 shifts k: exact to the
+    left, rounded half up to the right (csrc/histogram.cu shift_round)."""
+    left = t << k.clamp(min=0)
+    rk = (-k).clamp(min=1, max=62)
+    right = (t + (torch.ones_like(t) << (rk - 1))) >> rk
+    return torch.where(k >= 0, left,
+                       torch.where(k <= -63, torch.zeros_like(t), right))
+
+
+def _fixed_point_hist(codes, gh, num_bins, grid_x, keep_lo=True, cap=None):
+    """The kernel's block-wise fixed-point histogram in int64 torch ops,
+    flushed every `cap` rows of a block's walk (kMaxRowsPerBlock unless
+    given); also returns the largest |hi| and |lo| slot sum of any chunk
+    and the largest |accumulator| word."""
+    cap = cap or _cu_max_rows_per_block()
     p, f = codes.shape
-    block = (torch.arange(p) // k1._THREADS) % grid_x   # grid-stride rows
+    r = torch.arange(p)
+    block = (r // k1._THREADS) % grid_x                 # grid-stride rows
+    chunk = r // (k1._THREADS * grid_x) // (cap // k1._THREADS)
     live = (gh != 0).any(dim=1)
-    slot = (block[:, None] * (f * num_bins)
-            + torch.arange(f) * num_bins + codes.long())
-    out = torch.zeros((f * num_bins, 3), dtype=torch.float32)
-    worst = 0
-    for b in range(grid_x):
-        rows = (block == b) & live
-        n = int(rows.sum())
-        if n == 0:
-            continue
-        L = 31 - (n - 1).bit_length()                  # 31 - ceil(log2 n)
-        v = gh[rows].double()
-        x = torch.empty_like(v)
-        scale = []
-        for j in range(3):
-            s = 30 - int(np.frexp(float(v[:, j].abs().sum()))[1])
-            scale.append(s)
-            x[:, j] = torch.ldexp(v[:, j], torch.tensor(s))  # exact
-        hi = torch.round(x)                              # half to even
-        lo = torch.round((x - hi) * 2.0 ** L) if keep_lo \
-            else torch.zeros_like(x)
-        sl = (slot[rows] - b * f * num_bins).reshape(-1)
-        sums = []
-        for w in (hi, lo):
-            acc = torch.zeros((f * num_bins, 3), dtype=torch.int64)
-            acc.index_add_(0, sl, w.long().repeat_interleave(f, dim=0))
-            worst = max(worst, int(acc.abs().max()))
-            sums.append(acc)
-        t = sums[0] * (1 << L) + sums[1]
-        val = t.to(torch.float32) * torch.tensor(
-            [2.0 ** -(s + L) for s in scale], dtype=torch.float32)
-        out += val
-    return out.view(f, num_bins, 3), worst
+    v = gh.double()
+    Ew = torch.frexp(v.abs().sum(0)).exponent.long()
+    G = 61 - Ew                                         # (3,)
+    S = torch.zeros((grid_x, 3), dtype=torch.float64).index_add_(
+        0, block, v.abs())
+    n = torch.zeros(grid_x, dtype=torch.int64).index_add_(0, block,
+                                                           live.long())
+    L = torch.tensor([31 - (min(int(k), cap) - 1).bit_length() if k else 31
+                      for k in n])                      # 31 - ceil(log2 m)
+    sc = 30 - torch.frexp(S).exponent.long()            # (grid_x, 3)
+    x = torch.ldexp(v, sc[block].double())              # exact
+    hi = torch.round(x)                                 # half to even
+    lo = torch.round((x - hi) * torch.ldexp(torch.ones(p, 1, dtype=torch.float64),
+                                            L[block, None].double())) \
+        if keep_lo else torch.zeros_like(x)
+    chunks = int(chunk.max()) + 1
+    group = block * chunks + chunk
+    idx = (group[:, None] * (f * num_bins) + torch.arange(f) * num_bins
+           + codes.long()).reshape(-1)
+    sums = []
+    for w in (hi, lo):
+        a = torch.zeros((grid_x * chunks * f * num_bins, 3),
+                        dtype=torch.int64)
+        a.index_add_(0, idx, w.long().repeat_interleave(f, dim=0))
+        sums.append(a.view(grid_x, chunks, f * num_bins, 3))
+    worst = max(int(w.abs().max()) for w in sums)
+    Lb = L[:, None, None, None]
+    t = sums[0] * (torch.ones_like(Lb) << Lb) + sums[1]
+    k = G - sc[:, None, None, :] - Lb
+    acc = _shift_round(t, k.expand_as(t)).sum(dim=(0, 1))
+    out = acc.to(torch.float32) * torch.ldexp(torch.ones(3), -G.float())
+    return out.view(f, num_bins, 3), worst, int(acc.abs().max())
 
 
 @pytest.mark.parametrize("grid_x", [1, 7, 64])
@@ -171,52 +208,172 @@ def test_fixed_point_sums_meet_the_dynamic_range_bar(grid_x):
     codes, gh = _dynamic_range_case()
     want = k1.build_histogram_plain(codes, gh, 64)
     mag = k1.build_histogram_plain(codes, gh.abs(), 64)
-    got, worst = _fixed_point_hist(codes, gh, 64, grid_x)
+    got, worst, _ = _fixed_point_hist(codes, gh, 64, grid_x)
     assert worst <= 2**31 - 1
     diff = (got - want).abs()
     assert bool((diff <= 1e-4 * want.abs() + 1e-5 * mag).all()), \
         float((diff / (1e-4 * want.abs() + 1e-5 * mag)).max())
     assert torch.equal(got[..., 2], want[..., 2])
-    hi_only, _ = _fixed_point_hist(codes, gh, 64, grid_x, keep_lo=False)
+    hi_only, _, _ = _fixed_point_hist(codes, gh, 64, grid_x,
+                                      keep_lo=False)
     diff = (hi_only - want).abs()
     assert not bool((diff <= 1e-4 * want.abs() + 1e-5 * mag).all())
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 255, 256, 257, 3788, 65535, 65536])
-def test_fixed_point_widths_cannot_overflow(n):
-    # at every live-row count up to the launcher's cap, neither word of a
-    # slot can leave int32: a slot takes at most one term per live row;
-    # |hi| <= |v| 2^s + 1/2 with sum|v| < 2^E (1 + d), d the relative error
-    # of the kernel's f32 sum of |v| (at most rows/256 terms per thread,
-    # then 5 shuffle and 8 warp additions); |lo| <= 2^(L - 1)
+@pytest.mark.parametrize("case", ["dynamic range", "random 100k"])
+def test_fixed_point_sums_equal_the_f64_plain_at_the_wrappers_grid(
+        case, monkeypatch):
+    # at the grid the wrapper asks for (4 blocks per SM, 132 SMs) the
+    # kernel's sum -- exact to far below an f32 ulp, rounded once -- is
+    # the f64 plain version's on every slot of these inputs: what makes
+    # the card's trees the CPU's
+    if case == "dynamic range":
+        codes, gh = _dynamic_range_case()
+    else:
+        r = np.random.RandomState(3)
+        p = 100_003
+        codes = torch.from_numpy(r.randint(0, 64, size=(p, 28))
+                                 .astype(np.uint8))
+        gh = torch.from_numpy(np.stack([r.randn(p), r.rand(p), np.ones(p)],
+                                       1).astype(np.float32))
+    monkeypatch.setitem(k1._sm_count, 0, 132)
+    grid_x = k1._grid_x(torch.device("cuda", 0), codes.shape[0],
+                        k1._BLOCKS_PER_SM)
+    got, _, _ = _fixed_point_hist(codes, gh, 64, grid_x)
+    assert torch.equal(got, k1.build_histogram_plain(codes, gh, 64))
+
+
+def _random_case(p, f=28, seed=3):
+    r = np.random.RandomState(seed)
+    codes = torch.from_numpy(r.randint(0, 64, size=(p, f)).astype(np.uint8))
+    gh = torch.from_numpy(np.stack([r.randn(p), r.rand(p), np.ones(p)],
+                                   1).astype(np.float32))
+    return codes, gh
+
+
+@pytest.mark.parametrize("grid_x,cap", [(1, 1024), (3, 256), (7, 2048)])
+def test_chunked_walk_equals_the_f64_plain(grid_x, cap):
+    # a block whose walk is longer than the cap flushes its words after
+    # each chunk of at most `cap` rows; the extra flushes round at 2^-61
+    # of the window's sum of |v| and leave the f64 plain version's result
+    # (the cap cut from 2^16 so that a CPU run walks many chunks)
+    for codes, gh in (_dynamic_range_case(), _random_case(30_011)):
+        want = k1.build_histogram_plain(codes, gh, 64)
+        got, worst, _ = _fixed_point_hist(codes, gh, 64, grid_x, cap=cap)
+        assert worst <= 2**31 - 1
+        assert torch.equal(got[..., 2], want[..., 2])
+        assert int((got != want).sum()) <= want.numel() // 1000
+
+
+def _widths_cases():
     cap = _cu_max_rows_per_block()
-    assert n <= cap
-    L = 31 - (n - 1).bit_length()
-    assert n * 2 ** (L - 1) <= 2**31 - 1
-    d = (cap // k1._THREADS + 5 + 8) * 2.0 ** -24
-    assert 2**30 * (1 + d) + n / 2 <= 2**31 - 1
-    # the count lane (0 / 1 weights, sum <= n) scales by s >= 13: integers
-    assert 30 - (n.bit_length()) >= 13
+    return [1, 2, 3, 255, 256, 257, 3788, 65535, 65536, cap - 1, cap,
+            cap + 1, 2 * cap + 3, 10**9 + 7]
+
+
+@pytest.mark.parametrize("n", _widths_cases())
+def test_fixed_point_widths_cannot_overflow(n):
+    # at every live-row count of a block, neither word of a slot can leave
+    # int32: a chunk holds m = min(n, cap) of the block's live rows and a
+    # slot takes at most one term per row; |hi| <= |v| 2^s + 1/2 with
+    # sum|v| < 2^E (1 + d), d the relative error of the kernel's f64 sum of
+    # |v| (under 2^33 terms per thread, then 5 shuffle and 8 warp
+    # additions); |lo| <= 2^(L - 1)
+    cap = _cu_max_rows_per_block()
+    m = min(n, cap)
+    L = 31 - (m - 1).bit_length()
+    assert L >= 31 - (cap - 1).bit_length() >= 11
+    assert m * 2 ** (L - 1) <= 2**31 - 1
+    d = (2**33 + 5 + 8) * 2.0 ** -53
+    assert 2**30 * (1 + d) + m / 2 <= 2**31 - 1
+    # the count lane (0 / 1 weights, S = n): x = 2^s, a multiple of 2^s,
+    # whose lo word is exact while s + L >= 0; up to the cap s >= 30 -
+    # log2(cap) - 1 (13 at 2^16), and s >= 9 at any cap up to 2^20
+    s = 30 - n.bit_length()
+    assert s + L >= 0
+    if n <= cap:
+        assert s >= 30 - cap.bit_length() >= 9
+
+
+@pytest.mark.parametrize("blocks", [528, 1056])
+def test_fixed_point_accumulator_cannot_overflow(blocks):
+    # the int64 accumulator at the cap: every chunk's value is at most 2^G
+    # times its rows' sum of |v| (1 + d) plus its lo words' rounding (at
+    # most m 2^(30 - L) at a shift of 31 - L) and one half; over a window of
+    # fewer than 2^33 rows (under 2^13 full chunks, plus one partial chunk
+    # per block) the slot's sum stays below 2^62
+    cap = _cu_max_rows_per_block()
+    L = 31 - (cap - 1).bit_length()
+    d = (2**33 + 5 + 8) * 2.0 ** -53
+    chunks = 2**33 // cap + blocks
+    assert 2.0**61 * (1 + d) + chunks * (cap * 2.0 ** (30 - L) + 0.5) \
+        < 2.0**62
+    # and the model's own worst slot: every row of the window in one bin,
+    # all of one sign at one size, two chunks per block (cap cut to 256)
+    p = blocks * 2 * 256
+    codes = torch.zeros((p, 1), dtype=torch.uint8)
+    gh = torch.tensor([[3.0, 0.75, 1.0]]).repeat(p, 1)
+    got, worst, top = _fixed_point_hist(codes, gh, 4, blocks, cap=256)
+    assert worst <= 2**31 - 1
+    assert 2**60 <= top < 2**62
+    assert float(got[0, 0, 2]) == p
+    torch.testing.assert_close(got[0, 0, :2].double(),
+                               torch.tensor([3.0 * p, 0.75 * p],
+                                            dtype=torch.float64),
+                               rtol=2**-24, atol=0)
 
 
 @pytest.mark.parametrize("p", [1, 255, 256 * 528, 34_603_008, 34_603_009,
                                10**9 + 7])
 def test_launcher_caps_rows_per_block(p, monkeypatch):
-    # the float kernel's launch (launch_fixed in csrc/histogram.cu) raises
-    # the wrapper's grid to ceil(P / kMaxRowsPerBlock) blocks; with the
-    # grid-stride walk (256-row strides) no block then walks more rows than
-    # the cap the overflow argument above holds to (132 SMs, an H100)
+    # the float kernels' launch (launch_fixed_grid in csrc/histogram.cu)
+    # runs the wrapper's grid cut to the card's resident blocks and refuses
+    # none for its size; a block flushes its words every kMaxRowsPerBlock
+    # rows of its walk (kChunkStrides grid strides of 256 rows), so no
+    # chunk holds more rows than the cap the overflow argument above holds
+    # to, at any grid from 1 block to the wrapper's (132 SMs, an H100)
     cap = _cu_max_rows_per_block()
     assert cap % k1._THREADS == 0
-    with open(_CU) as fh:
-        text = fh.read()
-    assert "(P + kMaxRowsPerBlock - 1) / kMaxRowsPerBlock" in text[
-        text.index("int launch_fixed("):]
+    text = _cu_text()
+    launcher = text[text.index("int launch_fixed_grid("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert "std::min(grid_x, max_resident(kernel, smem))" in launcher
+    assert "kMaxRowsPerBlock" not in launcher.split("{", 1)[1]
+    assert "kChunkStrides = kMaxRowsPerBlock / kThreads" in text
     monkeypatch.setitem(k1._sm_count, 0, 132)
-    g = max(k1._grid_x(torch.device("cuda", 0), p, k1._BLOCKS_PER_SM),
-            -(-p // cap))
-    per_block = k1._THREADS * -(-p // (g * k1._THREADS))
-    assert min(per_block, p) <= cap
+    full = k1._grid_x(torch.device("cuda", 0), p, k1._BLOCKS_PER_SM)
+    for g in {1, max(1, full // 2), full}:
+        strides = -(-p // (g * k1._THREADS))        # a block's walk
+        per_chunk = min(strides, cap // k1._THREADS) * k1._THREADS
+        assert min(per_chunk, p) <= cap
+
+
+@pytest.mark.parametrize("f,num_bins,p", [
+    (28, 64, 1_000_000), (28, 256, 10**9), (200, 256, 30_000_000),
+    (1000, 256, 5_000_000), (4500, 256, 1_000_000), (3, 4096, 1000),
+    (28, 8192, 1000)])
+def test_fixed_launcher_takes_wide_and_long_windows(f, num_bins, p,
+                                                    monkeypatch):
+    # shapes whose grid, with feature tiles along y and at most the cap
+    # per block, could not all be resident at once: the launcher's feature
+    # tile (fixed_feat_tile) fits a block's shared memory, every block walks
+    # every tile, and the scratch the wrapper sizes for its grid_x
+    # (fixed_scratch_words) holds the accumulator and an entry for every
+    # block of any grid the launcher cuts it to
+    tile_bytes, most, warp_bytes = _cu_fixed_tile_constants()
+    t = max(tile_bytes, num_bins * 24) // (num_bins * 24)
+    t = f if t >= f else t - t % 4 if t >= 4 else t
+    assert 1 <= t <= f
+    assert t * num_bins * 24 + warp_bytes <= most
+    text = _cu_text()
+    assert "return fixed_acc_words(F, B) + 4ll * grid_x;" in text
+    assert "for (int f0 = n ? 0 : F; f0 < F; f0 += feat_tile)" in text
+    monkeypatch.setitem(k1._sm_count, 0, 132)
+    grid_x = k1._grid_x(torch.device("cuda", 0), p, k1._BLOCKS_PER_SM)
+    words = f * num_bins * 3 + 4 * grid_x
+    for resident in (1, 264, 528, 660, 1056):
+        gx = min(grid_x, resident)
+        assert f * num_bins * 3 + 4 * gx <= words
 
 
 # ---- the integer kernels' packed slot words, reproduced on the CPU ----

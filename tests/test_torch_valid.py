@@ -439,6 +439,12 @@ def _shared_scores(name, weighted):
         if name in ("cross_entropy", "kldiv"):
             label = np.where(label > 0, 0.2 + 0.7 * r.rand(n),
                              0.3 * r.rand(n))
+    elif name.startswith("multi_"):
+        # 3 classes: (K, N) scores
+        label = r.randint(0, 3, n).astype(np.float64)
+        score = 0.05 + 0.9 * r.rand(3, n)
+        weight = 0.5 + r.rand(n) if weighted else None
+        return label, score, weight
     else:
         label = 0.05 + 2.0 * r.rand(n)
     score = 0.05 + 0.9 * r.rand(n)
@@ -456,7 +462,7 @@ class _Meta:
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("name", sorted(tmetric.METRIC_NAMES))
 def test_metric_matches_jax(name, weighted):
-    assert len(tmetric.METRIC_NAMES) == 17
+    assert len(tmetric.METRIC_NAMES) == 19
     label, score, weight = _shared_scores(name, weighted)
     params = {"alpha": 0.7, "fair_c": 0.8, "tweedie_variance_power": 1.3}
     jm = jmetric.create_metric(name, JConfig(params))
@@ -472,7 +478,7 @@ def test_default_metric_of_each_objective_matches_jax():
     assert tmetric._DEFAULT_FOR_OBJECTIVE == jmetric._DEFAULT_FOR_OBJECTIVE
 
 
-@pytest.mark.parametrize("name", ["multi_logloss", "ndcg"])
+@pytest.mark.parametrize("name", ["ndcg", "map"])
 def test_metrics_of_unported_objectives_raise(name):
     x, y = _task("binary", n=200)
     with pytest.raises(LightGBMError, match="metric=%s" % name):
