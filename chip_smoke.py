@@ -36,6 +36,9 @@ Phases, one JSON line each:
                the left operand: 60,000 rows, the full row count and a
                ragged count, uint8 and 16-bit codes, f32, int8 and int32
                operands, and a GO = 0 descriptor that changes nothing;
+               and categorical descriptors (a row left iff its bin's bit
+               is set) at 60,000 rows, uint8 and 16-bit codes, W = 2 and
+               8 bitset words, every bit set, none and random bits;
   k3           the exact integer histogram kernel vs its plain version,
                bit-exact: packed quantized rows (int8 operand), a child
                window, a ragged tail at 256 bins with an int32 operand,
@@ -54,11 +57,15 @@ Phases, one JSON line each:
                (the window read from the split descriptor), bit-exact or,
                for K1, within K1's bar: the split-key kernel, K4's, K3's
                and K1's window entries at the root and the child windows;
+               the split-key kernel on categorical descriptors over the
+               main path's 8-bit rows and random 16-bit rows, W = 2 and 8
+               bitset words, every bit set, none and random bits;
                then the split key's router entry (the out-of-bag rows'
                leaves from a tree's records), bit-exact: the records of a
                255-leaf tree over the main path's 8-bit codes, random
                records over 4-bit and 16-bit codes, M = 200,000 and a
-               ragged M, k = L - 1 and k = 0;
+               ragged M, k = L - 1 and k = 0, and with half the features
+               categorical (bitset words beside the records, W = 2 and 8);
   train        lightgbm_tpu_torch.train on a Higgs-shaped 1,000,000 x 28
                binary task (num_leaves=255, max_bin=63, learning_rate=0.1,
                min_data_in_leaf=20) for 10 rounds on the compact strategy,
@@ -69,11 +76,11 @@ Phases, one JSON line each:
                bound per tree, host syncs per tree, time, peak memory,
                held-out AUC, a model-text round trip, and the training
                scores against predict on the training rows (apart from
-               those an f32 threshold of predict moves); beside it the
-               same 10 rounds on the host loop (the generic iteration and
-               grow_tree_compact_core, one host sync per split): its time,
-               launches and AUC, which the main path's must be within
-               0.001 of;
+               those an f32 threshold of predict moves); beside it
+               HOST_ROUNDS (3) rounds on the host loop (the generic
+               iteration and grow_tree_compact_core, one host sync per
+               split): its time, launches and AUC, which the main path's
+               model of as many rounds must be within 0.001 of;
   profile      one more float boosting iteration under torch.profiler on
                each loop, the partition kernel's and the split-key kernel's
                launches and device time summed over their kernels (named
@@ -82,11 +89,12 @@ Phases, one JSON line each:
   train_quant  the same data and parameters with quantized_grad (grad_bits
                8): K3 / K1 / K4 launches, time, peak memory, and held-out
                AUC > 0.7 and within 0.005 of the float run's; beside it the
-               host loop, and the generic iteration on the device loop,
-               whose trees and AUC must equal the host loop's (the same
-               trees from the same gradients); one more iteration of each
-               loop profiled, K3's kernels summed (with --parent-src also
-               one host-loop iteration on the parent's two-step);
+               host loop and the generic iteration on the device loop
+               (HOST_ROUNDS rounds each), whose trees and AUC must equal
+               (the same trees from the same gradients); one more
+               iteration of each loop profiled, K3's kernels summed (with
+               --parent-src also one host-loop iteration on the parent's
+               two-step);
   loop         20,000-row trees (31 leaves) of each strategy grown by its
                captured device loop on the card, by the same step run
                eagerly on the CPU (the plain versions) and by its host
@@ -106,10 +114,11 @@ Phases, one JSON line each:
                (the column split key and K2 / K3t replayed 254 times per
                tree): launches per tree and per captured step, host syncs
                per tree (1), capture time, time, steady s per iteration,
-               peak memory and held-out AUC; beside it the same rounds on
-               the masked host loop (grow_tree, one host sync per split),
-               whose float AUC the device loop's must be within 0.001 of;
-               quantized, also the generic iteration on the device loop,
+               peak memory and held-out AUC; beside it HOST_ROUNDS rounds
+               on the masked host loop (grow_tree, one host sync per
+               split), whose float AUC the device loop's model of as many
+               rounds must be within 0.001 of; quantized, also the
+               generic iteration on the device loop (HOST_ROUNDS rounds),
                whose trees must equal the host loop's; one more iteration
                of each loop profiled;
   train_bag    lightgbm_tpu_torch.train with row sampling: the 1M-row task
@@ -149,7 +158,7 @@ Phases, one JSON line each:
                the multiclass ones (regression, regression_l1, huber,
                fair, quantile, mape, poisson, tweedie, gamma,
                cross_entropy, cross_entropy_lambda) on the train phase's
-               rows, 5 rounds each, targets drawn from the generator's
+               rows, 3 rounds each, targets drawn from the generator's
                margin (OBJECTIVE_TARGETS); per objective the iteration
                (fused, or generic with leaf renewal on the host), steady s
                per iteration, host syncs and score fetches per tree, the
@@ -165,8 +174,23 @@ Phases, one JSON line each:
                per tree (1), K1 / K4 window launches per iteration; fails
                unless held-out multi_logloss is below the class prior's and
                the class-0 one-vs-rest AUC > 0.7 (bench.py's gate);
-  reference    small tasks trained on the card and on the CPU (the plain
-               versions): compact float and compact quantized on the device
+  train_cat    bench.py's categorical variant (the last 8 of the 28
+               columns hold 64 categories each, per-category effects on
+               the margin) with those columns as categorical_feature:
+               higgs-1m-cat on the fused iteration of the compact device
+               loop (1 host sync per tree, 1 capture, held-out AUC > 0.7,
+               model-text round trip within 1e-6, training scores equal to
+               predict), the same rows with those columns numerical (the
+               categorical AUC must be higher), the compact host loop for
+               HOST_ROUNDS rounds (AUC within 0.001 of the device loop's
+               model of as many rounds), bagging 0.8 (the router on
+               categorical records, one launch per tree) and the first
+               60,000 rows on the masked device loop, float and quantized
+               (the column entry); profiled, with the categorical scan's
+               sort and gather kernels per split step named;
+  reference    small tasks (20,000 rows, REF_ROUNDS = 3 rounds) trained
+               on the card and on the CPU (the plain versions): compact
+               float and compact quantized on the device
                loop (the fused iteration) and on the host loop, masked
                float and masked quantized on the device loop. Every run
                gives raw scores within 1e-4 and the same trees; quantized
@@ -175,12 +199,14 @@ Phases, one JSON line each:
                Compact quantized may grow other trees only where its
                witness shows stored integers that differ between the
                devices from the same scores. Then bagged (0.7) and GOSS
-               (learning_rate 0.5: 3 sampled trees) runs of each strategy,
+               (learning_rate 0.5: from the third tree sampled) runs of
+               each strategy,
                float and quantized, held to the same trees and raw scores
                within 1e-4, or, where a tied threshold sends out-of-bag
                rows each device's way, within 1e-4 on the other rows (at
                most 2 % so separated). Then every objective of
                train_objectives on compact float, and 3-class multiclass
+               (OBJ_REF_ROUNDS = 2 rounds each)
                on compact and masked float and compact quantized: the same
                trees, raw scores within 1e-5 (fair and gamma, whose leaves
                divide cancelling gradient sums by small hessian sums and
@@ -191,7 +217,12 @@ Phases, one JSON line each:
                exemption); and the two
                card-vs-plain
                float cases that flaked before K1 / K2 summed in a fixed
-               order, 10 runs each, all of which must agree.
+               order, 3 runs each, all of which must agree; then
+               categorical runs (compact float and quantized, masked
+               float, compact bagged) held to the same trees as functions
+               of the training rows (a tied categorical cut may name
+               either side left on each device) and raw scores within
+               1e-4.
 Kernel times: `ms` is the mean over repeated launches between CUDA
 events, the host enqueuing as it goes (on a small launch this reads the
 wrapper's launch rate); `device_ms` puts a sleep kernel in front, which
@@ -230,7 +261,20 @@ SLEEP_CYCLES = 100_000_000
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
           "train_quant", "train_masked", "train_bag", "train_valid",
-          "train_objectives", "train_multiclass", "loop", "reference")
+          "train_objectives", "train_multiclass", "train_cat", "loop",
+          "reference")
+
+# bench.py's categorical variant (BENCH_CAT_FEATURES=8, BENCH_CAT_CARD=64)
+CAT_FEATURES = 8
+CAT_CARD = 64
+# rounds of the host loops beside the device loops (train, train_quant,
+# train_masked, train_cat): the AUC gates compare the device loop's
+# model of as many rounds
+HOST_ROUNDS = 3
+# rounds of the reference phase's card-vs-CPU runs, and of its runs of
+# every objective
+REF_ROUNDS = 3
+OBJ_REF_ROUNDS = 2
 
 
 T0 = time.time()
@@ -256,18 +300,35 @@ def higgs_margin(x, w):
     return x @ w * 0.3 + 0.2 * x[:, 0] * x[:, 1] - 0.1 * x[:, 2] ** 2
 
 
-def make_higgs_like(n, f, seed=17, w=None, n_classes=1):
+def make_higgs_like(n, f, seed=17, w=None, n_classes=1, n_cat=0,
+                    card=CAT_CARD):
     """Seeded Higgs-shaped binary task: informative and noise features,
     moderately separable classes (the repo benchmark's generator,
-    bench.py's make_higgs_like without categorical columns). Pass `w` to
-    draw another sample from the same ground truth. n_classes > 1:
-    bench.py's multiclass variant, the noisy margin's quantiles cut into
-    balanced classes (class 0 = lowest margin), from the same draws."""
+    bench.py's make_higgs_like, draw for draw). Pass `w` to draw another
+    sample from the same ground truth. n_classes > 1: bench.py's
+    multiclass variant, the noisy margin's quantiles cut into balanced
+    classes (class 0 = lowest margin), from the same draws. n_cat > 0:
+    bench.py's categorical variant, the last n_cat columns replaced by
+    categories 0..card-1 with per-category effects randn(card) * 0.5 on
+    the margin; `w` is then the pair (numerical weights, effect tables)
+    it returns."""
     r = np.random.RandomState(seed)
     x = r.randn(n, f).astype(np.float32)
     if w is None:
         w = r.randn(f) * (r.rand(f) > 0.4)
-    noisy = higgs_margin(x, w) + r.randn(n) * 1.5
+        if n_cat:
+            w = (w, [r.randn(card) * 0.5 for _ in range(n_cat)])
+    w_num, tables = w if n_cat else (w, [])
+    if tables:
+        # the categorical columns' Gaussian draws do not reach the label
+        w_num = w_num.copy()
+        w_num[f - len(tables):] = 0.0
+    margin = higgs_margin(x, w_num)
+    for j, table in enumerate(tables):
+        cats = r.randint(0, card, n)
+        x[:, f - len(tables) + j] = cats
+        margin += table[cats]
+    noisy = margin + r.randn(n) * 1.5
     if n_classes > 1:
         edges = np.quantile(noisy, np.linspace(0, 1, n_classes + 1)[1:-1])
         return x, np.searchsorted(edges, noisy).astype(np.float64), w
@@ -533,19 +594,23 @@ def host_loop(torch, generic_only=False):
         mask = self._ones_mask if mask is None else mask
         if self.strategy == "masked":
             gh, scale3 = self.masked_operand(grad, hess, iter_seed)
-            return dl.grow_tree(self.codes_t, gh, mask, self.meta,
-                                scale3=scale3, stats=self.stats,
-                                **self._statics())
-        quant = None
-        if self.quant_bits:
-            data, quant = self.quant_working_buffer(grad, hess,
-                                                    prng_key(iter_seed))
+            out = dl.grow_tree(self.codes_t, gh, mask, self.meta,
+                               scale3=scale3, stats=self.stats,
+                               **self._statics())
         else:
-            data = self.working_buffer(grad, hess)
-        return dl.grow_tree_compact_core(
-            data, torch.empty_like(data), mask, self.meta,
-            c_cols=self.c_cols, item_bits=self.item_bits, quant=quant,
-            stats=self.stats, **self._statics())
+            quant = None
+            if self.quant_bits:
+                data, quant = self.quant_working_buffer(
+                    grad, hess, prng_key(iter_seed))
+            else:
+                data = self.working_buffer(grad, hess)
+            out = dl.grow_tree_compact_core(
+                data, torch.empty_like(data), mask, self.meta,
+                c_cols=self.c_cols, item_bits=self.item_bits, quant=quant,
+                stats=self.stats, **self._statics())
+        # with categorical features, the records' bitsets follow
+        self.last_rec_cat = out[3] if len(out) > 3 else None
+        return out[:3]
 
     GBDT._fused_eligible = lambda self: False
     if not generic_only:
@@ -638,7 +703,21 @@ def main():
                     if isinstance(atomics, dict) else {}
                 int_kernels[name] = dict(
                     info, atoms_add=sass.get("ATOMS.ADD", "not measured"))
+        # the router's records staged per block and pass (csrc/
+        # split_key.cu: kRecChunk, kRouteSmem, a 28-byte Split and a leaf
+        # id per record, 4 bytes per bitset word), beside the card's
+        # shared memory per block
+        props = torch.cuda.get_device_properties(0)
+        staging = {}
+        for n_words in (0, 2, 8, 32):
+            per_rec = 28 + 4 + 4 * n_words
+            chunk = min(256, (48 * 1024) // per_rec)
+            staging["W=%d" % n_words] = {"records_per_pass": chunk,
+                                         "bytes": chunk * per_rec}
+        staging["card_shared_bytes_per_block"] = getattr(
+            props, "shared_memory_per_block", "not measured")
         emit({"phase": "device", "nvidia_smi": smi_line,
+              "router_staging": staging,
               "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": round(build_s, 2),
@@ -787,12 +866,13 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_one(b, k4_kernels=None, k3_kernels=None):
+    def profile_one(b, k4_kernels=None, k3_kernels=None, named=None):
         """One more boosting iteration of booster `b` under torch.profiler:
         wall, device time and busy share, launches, the top kernels, and
         the partition kernel's and K3's (those named k4_kernels and
         k3_kernels, default this tree's) device time and launches
-        summed."""
+        summed; with `named` (a regular expression), every kernel whose
+        name it finds, with its device ms and launches."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -833,14 +913,23 @@ def main():
             "device_launches": sum(e.count for e in kern),
             "top": [{"name": e.key[:90],
                      "device_ms": e.self_device_time_total / 1e3,
-                     "calls": e.count} for e in top]}
+                     "calls": e.count} for e in top],
+            "named": None if named is None else [
+                {"name": e.key[:90],
+                 "device_ms": e.self_device_time_total / 1e3,
+                 "calls": e.count} for e in kern
+                if re.search(named, e.key, re.I)]}
 
-    def host_side(p, dset):
-        """The same training on the host loop, beside the main path."""
-        hb, hl, hs, hp = timed_train(p, dset, loop="host")
+    def host_side(p, dset, xh=None, yh=None):
+        """The same training on the host loop for HOST_ROUNDS rounds,
+        beside the main path (held-out rows xh, yh: default xv, yv)."""
+        xh, yh = (xv, yv) if xh is None else (xh, yh)
+        hb, hl, hs, hp = timed_train(p, dset, loop="host",
+                                     rounds=HOST_ROUNDS)
         # of the timed rounds, before the steady ones
         out = dict(growth(hb, hl, hs), train_s=hs, peak_device_bytes=hp,
-                   launches=hl, valid_auc=auc(yv, hb.predict(xv)))
+                   launches=hl, rounds=HOST_ROUNDS,
+                   valid_auc=auc(yh, hb.predict(xh)))
         if hb._gbdt.learner.strategy == "compact":
             out["k4_path"] = k4_path(hb, hl)
         with host_loop(torch):
@@ -862,6 +951,8 @@ def main():
                        - bst.predict(x, raw_score=True))
         tmoved = f32_threshold_rows(ds._inner, x)
         hbst, host_launches, host = host_side(params, ds)
+        # the main path's model of the host loop's rounds
+        valid_auc_h = auc(yv, bst.predict(xv, num_iteration=HOST_ROUNDS))
         train = dict({"phase": "train", "rows": args.rows, "features": f,
                       "rounds": args.rounds, "params": params,
                       "strategy": bst._gbdt.learner.strategy,
@@ -881,7 +972,7 @@ def main():
                 "their_max_abs": float(np.max(tdiff[tmoved], initial=0.0)),
                 "other_rows_max_abs": float(np.max(tdiff[~tmoved]))},
             "host_loop": host,
-            "auc_minus_host_loop": valid_auc - host["valid_auc"]})
+            "auc_minus_host_loop": valid_auc_h - host["valid_auc"]})
         if "train" in run:
             emit(train)
         if train["strategy"] != "compact":
@@ -900,8 +991,9 @@ def main():
         if not np.all(np.isfinite(pv)) or pv.shape != (len(yv),):
             fail("predictions are not finite or of the wrong shape")
         if valid_auc <= 0.7 or abs(train["auc_minus_host_loop"]) > 0.001:
-            fail("held-out AUC %.5f (want > 0.7 and within 0.001 of the "
-                 "host loop's %.5f)" % (valid_auc, host["valid_auc"]))
+            fail("held-out AUC %.5f (want > 0.7), %.5f at %d rounds (want "
+                 "within 0.001 of the host loop's %.5f)"
+                 % (valid_auc, valid_auc_h, HOST_ROUNDS, host["valid_auc"]))
         if rt_err > 1e-6:
             fail("model-text round trip differs by %g" % rt_err)
         if "profile" in run:
@@ -924,10 +1016,11 @@ def main():
         qhbst, qhost_launches, qhost = host_side(qparams, ds)
         # the generic iteration over the device loop: the host loop's
         # scores, so its trees must be the host loop's
-        qgbst, qglaunches, qg_s, _ = timed_train(qparams, ds, loop="generic")
+        qgbst, qglaunches, qg_s, _ = timed_train(qparams, ds, loop="generic",
+                                                 rounds=HOST_ROUNDS)
         # (the host loop's booster has grown its steady rounds since)
         same_trees = [t.to_string() for t in qgbst._gbdt.models] \
-            == [t.to_string() for t in qhbst._gbdt.models[:args.rounds]]
+            == [t.to_string() for t in qhbst._gbdt.models[:HOST_ROUNDS]]
         qgauc = auc(yv, qgbst.predict(xv))
         train_quant = dict({
             "phase": "train_quant", "rows": args.rows,
@@ -941,7 +1034,8 @@ def main():
             "peak_device_bytes": qpeak, "valid_auc": qauc,
             "float_valid_auc": valid_auc, "auc_diff": qauc - valid_auc,
             "profile": profile_one(qbst), "host_loop": qhost,
-            "auc_minus_host_loop": qauc - qhost["valid_auc"],
+            "auc_minus_host_loop": auc(yv, qbst.predict(
+                xv, num_iteration=HOST_ROUNDS)) - qhost["valid_auc"],
             "generic_on_device_loop": {
                 "train_s": qg_s, "valid_auc": qgauc,
                 "same_trees_as_host_loop": same_trees,
@@ -1006,18 +1100,20 @@ def main():
             with host_loop(torch):
                 mhost["profile"] = profile_one(mhb)
             row["host_loop"] = mhost
-            row["auc_minus_host_loop"] = mauc - mhost["valid_auc"]
+            row["auc_minus_host_loop"] = auc(yv, mb.predict(
+                xv, num_iteration=HOST_ROUNDS)) - mhost["valid_auc"]
             if quant:
                 # the generic iteration over the device loop: the host
                 # loop's scores, so its trees must be the host loop's
-                gb, gl, g_s, _ = timed_train(mp, dsm, loop="generic")
+                gb, gl, g_s, _ = timed_train(mp, dsm, loop="generic",
+                                             rounds=HOST_ROUNDS)
                 gauc = auc(yv, gb.predict(xv))
                 row["generic_on_device_loop"] = {
                     "train_s": g_s, "valid_auc": gauc, "launches": gl,
                     "same_trees_as_host_loop":
                         [t.to_string() for t in gb._gbdt.models]
                         == [t.to_string()
-                            for t in mhb._gbdt.models[:args.rounds]]}
+                            for t in mhb._gbdt.models[:HOST_ROUNDS]]}
                 del gb
             masked_rows.append(row)
             want = "k3t" if quant else "k2"
@@ -1041,8 +1137,10 @@ def main():
             if not np.all(np.isfinite(mpv)) or mauc <= 0.7:
                 problems.append("AUC %.5f" % mauc)
             if not quant and abs(row["auc_minus_host_loop"]) > 0.001:
-                problems.append("AUC %.5f not within 0.001 of the host "
-                                "loop's %.5f" % (mauc, mhost["valid_auc"]))
+                problems.append("AUC at %d rounds not within 0.001 of the "
+                                "host loop's %.5f (%+.5f)" % (
+                                    HOST_ROUNDS, mhost["valid_auc"],
+                                    row["auc_minus_host_loop"]))
             if quant:
                 gen = row["generic_on_device_loop"]
                 if not gen["same_trees_as_host_loop"] \
@@ -1124,7 +1222,7 @@ def main():
     # ---- train_objectives / train_multiclass: the other objectives --------
     if "train_objectives" in run:
         row, problems = objectives_phase(
-            torch, lgb, params, ds, x, xv, w_true, 5, timed_train, growth,
+            torch, lgb, params, ds, x, xv, w_true, 3, timed_train, growth,
             steady_s)
         emit(row)
         if problems:
@@ -1138,6 +1236,14 @@ def main():
             fail("train_multiclass: %s" % "; ".join(problems))
     if need_data:
         del ds
+
+    if "train_cat" in run:
+        row, problems = categorical_phase(
+            torch, lgb, convert, params, args.rows, f, args.rounds,
+            timed_train, growth, steady_s, profile_one, host_side, train)
+        emit(row)
+        if problems:
+            fail("train_cat: %s" % "; ".join(problems))
 
     if "loop" in run:
         loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
@@ -1632,6 +1738,154 @@ def multiclass_phase(torch, lgb, params, ds, rows, f, xv, rounds,
             "runs": runs}, problems
 
 
+def categorical_phase(torch, lgb, convert, params, rows, f, rounds,
+                      timed_train, growth, steady_s, profile_one, host_side,
+                      train):
+    """train_cat: bench.py's categorical variant (the last CAT_FEATURES
+    columns hold CAT_CARD categories each) trained with those columns as
+    categorical_feature. higgs-1m-cat: the fused iteration on the compact
+    device loop (held-out AUC > 0.7, one host sync per tree, one capture,
+    model-text round trip within 1e-6, training scores equal to predict
+    off the f32-threshold rows); beside it the same rows with those
+    columns numerical (the categorical AUC must be higher), the compact
+    host loop for HOST_ROUNDS rounds (AUC within 0.001 of the device
+    loop's model of as many rounds), bagging 0.8 (the router on
+    categorical records, one launch per tree), and the first 60,000 rows
+    on the masked device loop, float and quantized (the column entry).
+    The profile names the split step's sort and gather kernels, the
+    categorical scan's, beside the numerical run's. Returns (row,
+    problems)."""
+    cols = list(range(f - CAT_FEATURES, f))
+    x, y, w = make_higgs_like(rows, f, n_cat=CAT_FEATURES)
+    xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w,
+                                n_cat=CAT_FEATURES)
+    # every key the runs change set in every run (a Booster updates its
+    # Dataset's config with its parameters)
+    pc = dict(params, categorical_feature=cols, bagging_fraction=1.0,
+              bagging_freq=0, quantized_grad=False, grad_bits=8)
+    dset = lgb.Dataset(x, y, params=pc).construct()
+    problems = []
+    sort_gather = r"sort|gather|scatter|index"
+
+    def check_run(name, b, counts, secs, xt, pv, want):
+        """One run's row and its gates: the strategy, the kernels `want`
+        launched, one host sync per tree, AUC > 0.7, finite scores, and
+        the training scores against predict on xt (the f32-threshold
+        rows apart, on the 1M rows)."""
+        lr = b._gbdt.learner
+        row = dict({"case": name, "strategy": lr.strategy,
+                    "captures": lr.stats.captures, "train_s": secs,
+                    "fused": b._gbdt._fused_step is not None,
+                    "launches": counts, "valid_auc": auc(yv, pv),
+                    "trees_with_categorical_nodes": sum(
+                        1 for t in b._gbdt.models if t.num_cat)},
+                   **growth(b, counts, secs))
+        diff = np.abs(b._gbdt.score_updater.score[0].cpu().numpy()
+                      - b.predict(xt, raw_score=True))
+        moved = f32_threshold_rows(b.train_set._inner, xt)
+        row["train_score_vs_predict_max_abs"] = float(diff[~moved].max())
+        bad = []
+        if any(counts[k] <= 0 for k in want):
+            bad.append("%s not launched: %s" % (want, counts))
+        if row["host_syncs_per_tree"] != 1 or not row["fused"]:
+            bad.append("%s host syncs per tree, fused %s"
+                       % (row["host_syncs_per_tree"], row["fused"]))
+        if not np.all(np.isfinite(pv)) or row["valid_auc"] <= 0.7:
+            bad.append("AUC %.5f" % row["valid_auc"])
+        if row["train_score_vs_predict_max_abs"] > 1e-5:
+            bad.append("training scores vs predict %g"
+                       % row["train_score_vs_predict_max_abs"])
+        if not row["trees_with_categorical_nodes"]:
+            bad.append("no categorical node")
+        problems.extend("%s: %s" % (name, p) for p in bad)
+        return row
+
+    # higgs-1m-cat: the main path
+    b, counts, secs, peak = timed_train(pc, dset)
+    pv = b.predict(xv)
+    main = check_run("higgs-1m-cat", b, counts, secs, x, pv,
+                     ("k1_win", "k4_win", "split_key"))
+    back = convert.booster_from_model_string(b.model_to_string())
+    main["model_text_roundtrip_max_abs"] = float(np.max(np.abs(
+        back.predict(xv, raw_score=True) - b.predict(xv, raw_score=True))))
+    # the host loop's rounds of the main path's model, before the steady
+    # rounds grow it
+    auc_h = auc(yv, b.predict(xv, num_iteration=HOST_ROUNDS))
+    main.update(peak_device_bytes=peak, s_per_iter_steady=steady_s(b),
+                profile=profile_one(b, named=sort_gather))
+    if main["captures"] != 1:
+        problems.append("higgs-1m-cat: %d captures" % main["captures"])
+    if main["model_text_roundtrip_max_abs"] > 1e-6:
+        problems.append("model-text round trip %g"
+                        % main["model_text_roundtrip_max_abs"])
+    # the host loop beside it, HOST_ROUNDS rounds
+    hb, _, host = host_side(pc, dset, xv, yv)
+    main["host_loop"] = host
+    main["auc_minus_host_loop"] = auc_h - host["valid_auc"]
+    if abs(main["auc_minus_host_loop"]) > 0.001:
+        problems.append("higgs-1m-cat: AUC at %d rounds %+.5f from the "
+                        "host loop's" % (HOST_ROUNDS,
+                                         main["auc_minus_host_loop"]))
+    del hb, back
+    # the same rows, the categorical columns numerical
+    dnum = lgb.Dataset(x, y, params=params).construct()
+    bn, ncounts, nsecs, _ = timed_train(params, dnum)
+    num = dict({"case": "higgs-1m-cat columns as numerical",
+                "valid_auc": auc(yv, bn.predict(xv)), "train_s": nsecs},
+               **growth(bn, ncounts, nsecs))
+    num.update(s_per_iter_steady=steady_s(bn),
+               profile=profile_one(bn, named=sort_gather))
+    del bn, dnum
+    if not main["valid_auc"] > num["valid_auc"]:
+        problems.append("categorical AUC %.5f not above the numerical "
+                        "treatment's %.5f" % (main["valid_auc"],
+                                              num["valid_auc"]))
+    # the split step's extra kernels (per split step: 254 per tree)
+    steps = 254.0
+    extra = {"device_launches_per_step": (
+        main["profile"]["device_launches"]
+        - num["profile"]["device_launches"]) / steps,
+        "device_ms_per_iteration": main["profile"]["device_ms"]
+        - num["profile"]["device_ms"],
+        "sort_gather_kernels_per_step": {
+            e["name"]: e["calls"] / steps
+            for e in main["profile"]["named"]}}
+    runs = [main, num]
+    # bagging 0.8: the router on categorical records
+    bb, bcounts, bsecs, _ = timed_train(
+        dict(pc, bagging_fraction=0.8, bagging_freq=1), dset)
+    bag = check_run("higgs-1m-cat bagging 0.8", bb, bcounts, bsecs, x,
+                    bb.predict(xv), ("k1_win", "k4_win", "split_key",
+                                     "route"))
+    bag["router_launches_per_tree"] = bcounts["route"] / max(
+        bb._gbdt.learner.stats.trees, 1)
+    if bag["router_launches_per_tree"] != 1:
+        problems.append("bagging: %s router launches per tree"
+                        % bag["router_launches_per_tree"])
+    runs.append(bag)
+    del bb, dset
+    # higgs-60k-masked-cat: the first 60,000 rows on the masked loop
+    dm = lgb.Dataset(x[:60_000], y[:60_000], params=pc).construct()
+    for quant in (False, True):
+        mb, mcounts, msecs, _ = timed_train(dict(pc, quantized_grad=quant),
+                                            dm)
+        runs.append(check_run(
+            "higgs-60k-masked-cat" + (" quantized" if quant else ""), mb,
+            mcounts, msecs, x[:60_000], mb.predict(xv),
+            ("k3t" if quant else "k2", "split_key_col")))
+        runs[-1]["s_per_iter_steady"] = steady_s(mb)
+        if runs[-1]["strategy"] != "masked":
+            problems.append("the 60,000-row run took %s"
+                            % runs[-1]["strategy"])
+        del mb
+    return {"phase": "train_cat", "rows": rows, "rounds": rounds,
+            "categorical_features": cols, "categories": CAT_CARD,
+            "runs": runs, "categorical_scan_extra": extra,
+            "higgs_1m_s_per_iter_steady": (train or {}).get(
+                "s_per_iter_steady", "not measured: train not run")}, \
+        problems
+
+
 def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
                   DeviceTreeLearner, quant_ops, prng_key, parents):
     """The k1, k2, k3 and k4 phases that `run` names, on the main path's
@@ -1713,10 +1967,14 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
     def reps_for(wn):
         return 20 if wn > 500_000 else 50 if wn > 100_000 else 200
 
-    def desc_for(**fields):
-        d = torch.zeros(dsc.SIZE, dtype=torch.int32)
+    def desc_for(words=(), **fields):
+        # words: a categorical split's bitset words (uint32 values)
+        d = torch.zeros(dsc.size(len(words)), dtype=torch.int32)
         for name, v in fields.items():
             d[getattr(dsc, name)] = int(v)
+        if len(words):
+            d[dsc.WORDS:] = torch.from_numpy(np.asarray(
+                words, np.int64).astype(np.uint32).view(np.int32))
         return d.to(dev)
 
     def hist_desc(wn):
@@ -2214,6 +2472,9 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
                                                  key_p, **kw),
                     reps_for(wn), wn * (12 if renew else 8))
         del qprobe, qrows_buf
+        key_rows += split_key_cat_cases(torch, dev, kkey, desc_for,
+                                        window_case, buf, key_root, feat,
+                                        args.rows)
         route_rows_out = router_cases(torch, dev, kkey, probe, g, h,
                                       window_case, args.rows)
         emit({"phase": "k4", "tolerance": "bit-exact",
@@ -2231,6 +2492,68 @@ def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
     return out
 
 
+def split_key_cat_cases(torch, dev, kkey, desc_for, window_case, buf,
+                        key_root, feat, rows):
+    """The split key's packed entry on categorical descriptors against its
+    plain version, bit-exact in keys and the left count: the main path's
+    8-bit rows (feature 0, fields `feat`, read as categorical) and random
+    rows of 16-bit codes, at W = 2 and W = 8 bitset words, every bit set,
+    none and random bits, over all `rows` rows. The byte bound: a code
+    word read and a key written per row, and the words."""
+    out = []
+    d_cols = buf.shape[1]
+    rc = np.random.RandomState(33)
+    rows16 = torch.from_numpy(rc.randint(
+        -2**31, 2**31, size=(rows, d_cols), dtype=np.int64)
+        .astype(np.int32)).to(dev)
+    for bits, rows_buf in ((8, buf), (16, rows16)):
+        other = torch.empty_like(rows_buf)
+        for n_words in (2, 8):
+            for mask, words in cat_bitsets(rc, n_words):
+                if bits == 8:
+                    fld = dict(COL=feat[0], BASE=feat[1], ELIDE=feat[2],
+                               NUMBINS=feat[3], MISSING=feat[4],
+                               DEFAULT=feat[5])
+                else:
+                    fld = dict(COL=rc.randint(0, 2 * (d_cols - 4)),
+                               BASE=rc.randint(0, 9), ELIDE=n_words == 8,
+                               NUMBINS=32 * n_words, MISSING=0,
+                               DEFAULT=rc.randint(0, 32))
+                kd = desc_for(words, GO=1, SRC=0, BEGIN=0, COUNT=rows,
+                              CAT=1, **fld)
+                kw = dict(item_bits=bits, cw=d_cols - 4, renew=False)
+                key_t, key_p = torch.empty_like(key_root), \
+                    torch.empty_like(key_root)
+                kd_t, kd_p = kd.clone(), kd.clone()
+
+                def check():
+                    d1, d2 = kd.clone(), kd.clone()
+                    kkey.split_key(rows_buf, other, d1, key_t, **kw)
+                    kkey.split_key_plain(rows_buf, other, d2, key_p, **kw)
+                    same = torch.equal(key_t, key_p) and torch.equal(d1, d2)
+                    return same, 0.0 if same else float("inf")
+                row = window_case(
+                    out, "categorical, %d-bit codes, W=%d, %s, rows [0, %d) "
+                    "(D=%d)" % (bits, n_words, mask, rows, d_cols), check,
+                    lambda: kkey.split_key(rows_buf, other, kd_t, key_t,
+                                           **kw),
+                    lambda: kkey.split_key_plain(rows_buf, other, kd_p,
+                                                 key_p, **kw),
+                    20, rows * 8 + 4 * n_words)
+                row["left_rows"] = int((key_p == 0).sum())
+        del other
+    return out
+
+
+def cat_bitsets(r, n_words):
+    """(label, n_words uint32 values) bitsets of a categorical split:
+    every bit set, none, and random bits."""
+    return [("all bits set", [0xFFFFFFFF] * n_words),
+            ("all bits clear", [0] * n_words),
+            ("random bits", list(r.randint(0, 2**32, n_words,
+                                           dtype=np.int64)))]
+
+
 def router_cases(torch, dev, kkey, probe, g, h, window_case, rows):
     """The split key's router entry against its plain version, bit-exact
     in every row's leaf: the records of one 255-leaf tree grown by the
@@ -2238,8 +2561,11 @@ def router_cases(torch, dev, kkey, probe, g, h, window_case, rows):
     random records over random packed rows of 4-bit and 16-bit codes (28
     features, EFB bundle columns and plain ones, each missing type); M =
     200,000 rows and a ragged M; k = 0 (every row in leaf 0) and k = L - 1.
-    The byte bound: the rows, the records and the feature table read once,
-    one leaf id written per row."""
+    Then the 8-bit and the 16-bit sets with half the features categorical
+    (bitset words beside the records, W = 2 and 8: every bit set, none,
+    random bits), M = 200,000, k = L - 1. The byte bound: the rows, the
+    records (and their words) and the feature table read once, one leaf id
+    written per row."""
     rec, _, k = probe.grow_compact(g, h, 0)
     sets = [("8-bit codes of the main path, the records of its tree",
              probe.codes_pack, rec, k, probe.meta["t_feature_table"], 8)]
@@ -2264,12 +2590,33 @@ def router_cases(torch, dev, kkey, probe, g, h, window_case, rows):
                      torch.from_numpy(rr).to(dev),
                      torch.tensor(L - 1, dtype=torch.int32, device=dev),
                      table.to(dev), bits))
+    # the 8-bit and 16-bit sets again with half the features categorical
+    # and bitset words beside the records: W = 2 and W = 8, every bit set,
+    # none, and random bits
+    for label, codes, recs, k_full, table, bits in (sets[0], sets[2]):
+        f_cat = torch.from_numpy((np.arange(table.shape[0]) % 2)
+                                 .astype(np.int32)).to(dev)
+        for n_words in (2, 8):
+            for mask, words in cat_bitsets(r, n_words):
+                rw = np.asarray(words, np.int64)[None, :] \
+                    .repeat(recs.shape[0], 0)
+                if mask.startswith("random"):
+                    rw = r.randint(0, 2**32, rw.shape, dtype=np.int64)
+                sets.append((
+                    "%s, half the features categorical, W=%d, %s"
+                    % (label, n_words, mask), codes, recs, k_full, table,
+                    bits, torch.from_numpy(rw.astype(np.uint32)
+                                           .view(np.int32)).to(dev),
+                    f_cat))
     out = []
-    for label, codes, recs, k_full, table, bits in sets:
-        for m in (min(200_000, rows), min(100_003, rows)):
+    for label, codes, recs, k_full, table, bits, *cat in sets:
+        cat_kw = {} if not cat else dict(rec_cat=cat[0], f_cat=cat[1])
+        for m in ((min(200_000, rows),) if cat else
+                  (min(200_000, rows), min(100_003, rows))):
             rws = codes[:m].contiguous()
-            for k in (k_full, torch.zeros_like(k_full)):
-                kw = dict(item_bits=bits)
+            for k in ((k_full,) if cat else
+                      (k_full, torch.zeros_like(k_full))):
+                kw = dict(item_bits=bits, **cat_kw)
 
                 def check():
                     got = kkey.route_rows(rws, recs, k, table, **kw)
@@ -2278,13 +2625,15 @@ def router_cases(torch, dev, kkey, probe, g, h, window_case, rows):
                     return same, 0.0 if same else float(
                         (got - want).abs().max())
                 nbytes = rws.numel() * 4 + recs.numel() * 4 \
-                    + table.numel() * 4 + 4 * m
+                    + table.numel() * 4 + 4 * m \
+                    + sum(t.numel() * 4 for t in cat)
                 row = window_case(
                     out, "%s, M=%d, k=%d" % (label, m, int(k)), check,
                     lambda: kkey.route_rows(rws, recs, k, table, **kw),
                     lambda: kkey.route_rows_plain(rws, recs, k, table, **kw),
                     200, nbytes)
-                row.update(M=m, CW=rws.shape[1], k=int(k), item_bits=bits)
+                row.update(M=m, CW=rws.shape[1], k=int(k), item_bits=bits,
+                           words=int(cat[0].shape[1]) if cat else 0)
     return out
 
 
@@ -2360,6 +2709,47 @@ def split_key_column_cases(torch, dev, k1, kkey, dsc, desc_for, window_case,
                 nbytes = n * (4 + cbytes + ob) + left * ob + (n - left) * 4
                 row["left_rows"] = left
                 row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
+    # categorical descriptors at the masked path's 60,000 rows: uint8 and
+    # 16-bit codes, W = 2 and W = 8 bitset words, every bit set, none and
+    # random bits, an f32 operand
+    n = min(60_000, codes_t_full.shape[1])
+    c8 = codes_t_full[:, :n].contiguous()
+    gh = torch.from_numpy(r.randn(n, 3).astype(np.float32)).to(dev)
+    for codes_t, cbytes in ((c8, 1), ((c8.to(torch.int32) * 3 + 1)
+                                      .to(torch.int16), 2)):
+        for n_words in (2, 8):
+            for mask, words in cat_bitsets(r, n_words):
+                desc = desc_for(words, GO=1, CAT=1, COL=feat[0],
+                                BASE=feat[1] if cbytes == 1 else 1,
+                                ELIDE=feat[2] if cbytes == 1 else 1,
+                                NUMBINS=32 * n_words, MISSING=feat[4],
+                                DEFAULT=feat[5], LEAF=0, NEW_ID=1)
+                leaf0 = torch.zeros(n, dtype=torch.int32, device=dev)
+                got_l, want_l = leaf0.clone(), leaf0.clone()
+                got_g, want_g = torch.empty_like(gh), torch.empty_like(gh)
+
+                def check():
+                    kkey.split_key_column(codes_t, desc, got_l, gh, got_g)
+                    kkey.split_key_column_plain(codes_t, desc, want_l, gh,
+                                                want_g)
+                    same = torch.equal(got_l, want_l) and torch.equal(
+                        got_g.view(torch.int32), want_g.view(torch.int32))
+                    return same, 0.0 if same else float("inf")
+                tl, tg = leaf0.clone(), torch.empty_like(gh)
+                time_desc = desc.clone()
+                time_desc[dsc.NEW_ID] = 0
+                row = window_case(
+                    out, "categorical, (28, %d) codes of %d bytes, W=%d, "
+                    "%s, f32 operand" % (n, cbytes, n_words, mask), check,
+                    lambda: kkey.split_key_column(codes_t, time_desc, tl,
+                                                  gh, tg),
+                    lambda: kkey.split_key_column_plain(
+                        codes_t, time_desc, tl, gh, tg), reps_for(n), 0)
+                left = int((want_l == 0).sum())
+                row["left_rows"] = left
+                row["bound_ms"], row["bound_by"] = bound(
+                    n * (4 + cbytes + 12) + left * 12 + (n - left) * 4
+                    + 4 * n_words, 0)
     return out
 
 
@@ -2544,6 +2934,7 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
     # ---- reference: card vs CPU on small inputs ---------------------------
     xs, ys, w_small = make_higgs_like(20_000, f, seed=99)
     sp = dict(params, num_leaves=31, min_gain_to_split=1e-3)
+    ds_of = rebinned(lgb, xs, ys, sp)
 
     def shape_of(b):
         return [(list(t.split_feature[:t.num_leaves - 1]),
@@ -2556,7 +2947,7 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
         first one's exact root histogram, as the strategy's core builds
         it (quantize with prng_key(0), K3 / K3t on the card, the plain
         versions on the CPU)."""
-        dsr = lgb.Dataset(xs, ys, params=qp).construct()
+        dsr = ds_of(ys).construct()
         lr = DeviceTreeLearner(Config(qp), dsr._inner, strategy=strategy,
                                device=device)
         # binary-logloss gradients at a score with signal, made in numpy
@@ -2621,18 +3012,19 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
         return out
 
     def gradient_witness(card_b, qp, strategy):
-        """From the same f32 scores (the CPU run's after iterations 1..4),
+        """From the same f32 scores (the CPU run's after each iteration
+        before the last of REF_ROUNDS),
         the largest gap in ulps between the card's and the CPU's objective
         gradients and hessians, and the number of rows whose stored (qg|qh)
         integer differs when both are quantized as that iteration's tree
         quantizes them (key prng_key(iteration), the strategy's storage
         bits)."""
-        cpu_b = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=1,
+        cpu_b = lgb.train(qp, ds_of(ys), num_boost_round=1,
                           device="cpu")
         lr = card_b._gbdt.learner
         renew = strategy == "compact" and lr.quant_renew
         out = []
-        for it in range(1, 5):
+        for it in range(1, REF_ROUNDS):
             sc = cpu_b._gbdt.score_updater.score[0].clone()
             gc, hc = cpu_b._gbdt.objective.get_gradients(sc)
             gd, hd = card_b._gbdt.objective.get_gradients(sc.to(dev))
@@ -2668,8 +3060,10 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
     def reference_row(strategy, quant):
         os.environ["LGBM_TPU_STRATEGY"] = strategy
         qp = dict(sp, quantized_grad=quant, grad_bits=8)
-        on_card = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=5)
-        on_cpu = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=5,
+        on_card = lgb.train(qp, ds_of(ys),
+                            num_boost_round=REF_ROUNDS)
+        on_cpu = lgb.train(qp, ds_of(ys),
+                           num_boost_round=REF_ROUNDS,
                            device="cpu")
         row = {"strategy": strategy, "quantized_grad": quant,
                "same_trees": shape_of(on_card) == shape_of(on_cpu),
@@ -2701,6 +3095,13 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
         return row
 
     ref_rows = []
+    # wall seconds of each part of the phase
+    seconds, t_part = {}, time.time()
+
+    def part_done(name):
+        nonlocal t_part
+        seconds[name] = round(time.time() - t_part, 1)
+        t_part = time.time()
     for strategy, quant, growth in (
             ("compact", False, "device loop"),
             ("compact", True, "device loop"),
@@ -2733,8 +3134,8 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
         in the gradients moves the sample); and the card's sampler from the
         CPU's gradients, which must give the CPU's sample bit for bit."""
         from lightgbm_tpu_torch.models import device_learner as dl
-        card_b = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=first)
-        cpu_b = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=first,
+        card_b = lgb.train(qp, ds_of(ys), num_boost_round=first)
+        cpu_b = lgb.train(qp, ds_of(ys), num_boost_round=first,
                           device="cpu")
         gb = cpu_b._gbdt
         top_k, other_k, mult = gb._goss_params()
@@ -2766,6 +3167,7 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
     # own witness shows that the devices' samples differ from the same
     # scores, with its warm-up trees equal and its sampler bit-exact from
     # the same gradients.
+    part_done("strategies")
     goss = {"boosting": "goss", "learning_rate": 0.5}
     for strategy, quant, name, extra in (
             ("compact", False, "bagging", {"bagging_fraction": 0.7,
@@ -2780,8 +3182,10 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
             ("masked", False, "goss", goss), ("masked", True, "goss", goss)):
         os.environ["LGBM_TPU_STRATEGY"] = strategy
         qp = dict(sp, quantized_grad=quant, grad_bits=8, **extra)
-        on_card = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=5)
-        on_cpu = lgb.train(qp, lgb.Dataset(xs, ys), num_boost_round=5,
+        on_card = lgb.train(qp, ds_of(ys),
+                            num_boost_round=REF_ROUNDS)
+        on_cpu = lgb.train(qp, ds_of(ys),
+                           num_boost_round=REF_ROUNDS,
                            device="cpu")
         diff = np.abs(on_card.predict(xs, raw_score=True)
                       - on_cpu.predict(xs, raw_score=True))
@@ -2822,13 +3226,22 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
                          and row["fused_steps"] == (2 if name == "goss"
                                                     else 1))
         ref_rows.append(row)
-    ref_rows += valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of)
+    part_done("sampled")
+    ref_rows += valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of,
+                                     ds_of)
+    part_done("validation")
+    ref_rows += categorical_reference_rows(torch, lgb, params, f)
+    part_done("categorical")
     ref_rows += objective_reference_rows(torch, dev, lgb, sp, xs, w_small,
-                                         shape_of, _quant_prepare, prng_key)
+                                         shape_of, _quant_prepare, prng_key,
+                                         ds_of)
+    part_done("objectives")
     repeats = formerly_flaky_cases(torch, dev, lgb, k1, Config,
                                    DeviceTreeLearner, record_cols)
+    part_done("formerly_flaky")
     os.environ.pop("LGBM_TPU_STRATEGY", None)
-    emit({"phase": "reference", "rows": 20_000, "rounds": 5,
+    emit({"phase": "reference", "rows": 20_000, "rounds": REF_ROUNDS,
+          "seconds": seconds,
           "runs": ref_rows, "formerly_flaky_cases": repeats})
     if not all(rw["ok"] for rw in ref_rows):
         fail("card and CPU runs disagree on the small reference tasks")
@@ -2836,15 +3249,117 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
         fail("a formerly flaky card-vs-plain case disagreed: %s" % repeats)
 
 
+def rebinned(lgb, x, y, params):
+    """ds_of(labels): a Dataset of the rows x binned with the mappers of one
+    Dataset of x and y built here with `params` -- the bins a new Dataset
+    of those rows finds under the same binning parameters, without finding
+    them again (the reference phase trains ~80 runs on one set of rows;
+    binning 20,000 rows on the host takes seconds)."""
+    base = lgb.Dataset(x, y, params=params).construct()
+    return lambda labels: lgb.Dataset(x, labels, reference=base)
+
+
+def categorical_reference_rows(torch, lgb, params, f):
+    """The reference phase's categorical runs, card against CPU: 20,000
+    rows of bench.py's categorical variant (CAT_FEATURES columns of
+    CAT_CARD categories), 31 leaves, REF_ROUNDS rounds: compact float and
+    quantized, masked float, and compact float with bagging 0.7 (the
+    router).
+
+    Held to the same trees as functions of the training rows: per tree,
+    the rows of each leaf on the card are the rows of one leaf on the CPU,
+    and raw training scores within 1e-4. A categorical cut whose leaf has
+    rows in its valid bins only is one partition from either walk
+    direction (k bins left, or the other n - k), with equal gains in exact
+    arithmetic; the split scan's f32 prefix sums run in another order on
+    the card, so each device may call either side left, and the tree then
+    differs by children swapped (other_structure_trees). Under
+    bagging an out-of-bag row in a bin the leaf's bag has no rows of goes
+    right on either side, so a mirrored cut sends it each device's way:
+    raw scores are then held on the rows that reach matching leaves in
+    every tree (at most 2 % of the rows apart)."""
+    from lightgbm_tpu_torch.ops.predict import (predict_leaf_index,
+                                                trees_to_arrays)
+    xs, ys, _ = make_higgs_like(20_000, f, seed=99, n_cat=CAT_FEATURES)
+    sp = dict(params, num_leaves=31, min_gain_to_split=1e-3,
+              categorical_feature=list(range(f - CAT_FEATURES, f)))
+    ds_of = rebinned(lgb, xs, ys, sp)
+    xt = torch.from_numpy(xs.astype(np.float32))
+
+    def leaves(b):
+        return predict_leaf_index(xt, trees_to_arrays(
+            b._gbdt.models, "cpu")).numpy()
+
+    def shape_of(b):
+        return [(list(t.split_feature[:t.num_leaves - 1]),
+                 list(t.left_child[:t.num_leaves - 1]),
+                 list(t.leaf_count[:t.num_leaves]), list(t.cat_threshold))
+                for t in b._gbdt.models]
+
+    rows = []
+    for strategy, quant, extra in (
+            ("compact", False, {}), ("compact", True, {}),
+            ("masked", False, {}),
+            ("compact", False, {"bagging_fraction": 0.7,
+                                "bagging_freq": 1})):
+        os.environ["LGBM_TPU_STRATEGY"] = strategy
+        qp = dict(sp, quantized_grad=quant, grad_bits=8, **extra)
+        on_card = lgb.train(qp, ds_of(ys),
+                            num_boost_round=REF_ROUNDS)
+        on_cpu = lgb.train(qp, ds_of(ys),
+                           num_boost_round=REF_ROUNDS,
+                           device="cpu")
+        la, lb = leaves(on_card), leaves(on_cpu)
+        # a row whose leaf pair is not the one most rows of its card leaf
+        # take is separated; every tree's leaves must pair one to one
+        apart = np.zeros(len(xs), bool)
+        one_to_one = la.shape == lb.shape
+        for t in range(min(la.shape[1], lb.shape[1])):
+            pairs = la[:, t].astype(np.int64) * 4096 + lb[:, t]
+            vals, counts = np.unique(pairs, return_counts=True)
+            best = {}
+            for v, c in zip(vals, counts):
+                a_leaf = v // 4096
+                if c > best.get(a_leaf, (0, 0))[0]:
+                    best[a_leaf] = (c, v)
+            keep = np.array([best[v // 4096][1] for v in pairs]) == pairs
+            apart |= ~keep
+            used = [v for _, v in best.values()]
+            one_to_one &= len({v % 4096 for v in used}) == len(used)
+        diff = np.abs(on_card.predict(xs, raw_score=True)
+                      - on_cpu.predict(xs, raw_score=True))
+        same = [a == b for a, b in zip(shape_of(on_card), shape_of(on_cpu))]
+        row = {"strategy": strategy, "quantized_grad": quant,
+               "growth": "device loop", "categorical": CAT_FEATURES,
+               "settings": extra, "trees": len(same),
+               # split features, children, leaf counts and bitsets equal
+               "same_structure_trees": int(sum(same)),
+               "other_structure_trees": int(len(same) - sum(same)),
+               "rows_apart": int(apart.sum()),
+               "leaves_one_to_one": bool(one_to_one),
+               "max_abs_raw_diff": float(diff.max()),
+               "max_abs_raw_diff_other_rows": float(
+                   diff[~apart].max(initial=0.0)),
+               "raw_tolerance": 1e-4,
+               "categorical_nodes": int(sum(t.num_cat
+                                            for t in on_card._gbdt.models))}
+        allowed = 0.02 if extra else 0.0
+        row["ok"] = bool(row["categorical_nodes"] > 0 and one_to_one
+                         and apart.mean() <= allowed
+                         and row["max_abs_raw_diff_other_rows"] <= 1e-4)
+        rows.append(row)
+    return rows
+
+
 def objective_reference_rows(torch, dev, lgb, sp, xs, w_small, shape_of,
-                             _quant_prepare, prng_key):
+                             _quant_prepare, prng_key, ds_of):
     """The reference phase's objective runs, card against CPU on the
     20,000-row task: every objective of OBJECTIVE_TARGETS on compact float
     (the same trees, raw scores within 1e-5; fair and gamma within
     FAIR_GAMMA_TOL: their leaves divide cancelling gradient sums by small
     hessian sums, which carries the split scan's f32 sums -- added in
     another order on the card, from histograms equal bit for bit -- to
-    ~1.2e-4 after 5 trees; their rows carry the leaf witness, which holds
+    ~1.2e-4 after 5 trees (PERF.md, PR 11); their rows carry the leaf witness, which holds
     the first tree's leaves on each device to the exact f64 -G / H within
     the f32 rounding of the split scan's sums), and
     3-class multiclass on
@@ -2867,8 +3382,10 @@ def objective_reference_rows(torch, dev, lgb, sp, xs, w_small, shape_of,
         os.environ["LGBM_TPU_STRATEGY"] = strategy
         p = dict(sp, objective=objective, quantized_grad=quant, grad_bits=8,
                  num_class=3 if objective == "multiclass" else 1)
-        card = lgb.train(p, lgb.Dataset(xs, y), num_boost_round=5)
-        cpu = lgb.train(p, lgb.Dataset(xs, y), num_boost_round=5,
+        card = lgb.train(p, ds_of(y),
+                         num_boost_round=OBJ_REF_ROUNDS)
+        cpu = lgb.train(p, ds_of(y),
+                        num_boost_round=OBJ_REF_ROUNDS,
                         device="cpu")
         row = {"objective": objective, "strategy": strategy,
                "quantized_grad": quant,
@@ -2881,11 +3398,13 @@ def objective_reference_rows(torch, dev, lgb, sp, xs, w_small, shape_of,
                "raw_tolerance": tol}
         ok = row["max_abs_raw_diff"] <= tol
         if objective in ("fair", "gamma"):
-            row["leaf_witness"] = leaf_witness(torch, dev, lgb, p, xs, y)
+            row["leaf_witness"] = leaf_witness(torch, dev, lgb, p, y,
+                                               ds_of)
             ok = ok and all(w["within"] for w in row["leaf_witness"].values())
         if quant and not row["same_trees"]:
             row["stored_rows_differ"] = multiclass_witness(
-                torch, dev, lgb, p, xs, y, card, _quant_prepare, prng_key)
+                torch, dev, lgb, p, y, card, _quant_prepare, prng_key,
+                ds_of)
             row["other_trees_allowed"] = row["stored_rows_differ"] > 0
             ok = ok and row["other_trees_allowed"]
         else:
@@ -2900,7 +3419,7 @@ def objective_reference_rows(torch, dev, lgb, sp, xs, w_small, shape_of,
 FAIR_GAMMA_TOL = 4e-4
 
 
-def leaf_witness(torch, dev, lgb, p, xs, y):
+def leaf_witness(torch, dev, lgb, p, y, ds_of):
     """The first tree's leaf values on the card and on the CPU against the
     exact ones: -G / H of each leaf's rows in f64 from that device's own
     f32 gradients at the init score, shrunk, plus the init score. A leaf's
@@ -2912,7 +3431,7 @@ def leaf_witness(torch, dev, lgb, p, xs, y):
     scan)."""
     out = {}
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        b = lgb.train(p, lgb.Dataset(xs, y), num_boost_round=1,
+        b = lgb.train(p, ds_of(y), num_boost_round=1,
                       device=device.type)
         gb = b._gbdt
         init = gb.objective.boost_from_score(0)
@@ -2938,17 +3457,17 @@ def leaf_witness(torch, dev, lgb, p, xs, y):
     return out
 
 
-def multiclass_witness(torch, dev, lgb, p, xs, y, card_b, _quant_prepare,
-                       prng_key):
-    """From the CPU run's scores after iterations 1..4, the rows whose
-    stored (qg|qh) integers differ when the card's and the CPU's softmax
-    gradients are quantized as each class's tree quantizes them (key
-    prng_key(iteration * K + class))."""
-    cpu_b = lgb.train(p, lgb.Dataset(xs, y), num_boost_round=1, device="cpu")
+def multiclass_witness(torch, dev, lgb, p, y, card_b, _quant_prepare,
+                       prng_key, ds_of):
+    """From the CPU run's scores after each iteration before the last of
+    OBJ_REF_ROUNDS, the rows whose stored (qg|qh) integers differ when
+    the card's and the CPU's softmax gradients are quantized as each
+    class's tree quantizes them (key prng_key(iteration * K + class))."""
+    cpu_b = lgb.train(p, ds_of(y), num_boost_round=1, device="cpu")
     lr = card_b._gbdt.learner
     k_cls = cpu_b._gbdt.num_tree_per_iteration
     differ = 0
-    for it in range(1, 5):
+    for it in range(1, OBJ_REF_ROUNDS):
         sc = cpu_b._gbdt.score_updater.score.clone()
         gc, hc = cpu_b._gbdt.objective.get_gradients(sc)
         gd, hd = card_b._gbdt.objective.get_gradients(sc.to(dev))
@@ -2964,7 +3483,7 @@ def multiclass_witness(torch, dev, lgb, p, xs, y, card_b, _quant_prepare,
 
 
 def formerly_flaky_cases(torch, dev, lgb, k1, Config, DeviceTreeLearner,
-                         record_cols, runs=10):
+                         record_cols, runs=3):
     """The two card-vs-plain float cases that failed now and then while
     the blocks' f32 partials met in atomic order, each run `runs` times:
     K1 over 100,003 rows of 11 int32 codes of 16 bins against its plain
@@ -3025,7 +3544,7 @@ def formerly_flaky_cases(torch, dev, lgb, k1, Config, DeviceTreeLearner,
     return out
 
 
-def valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of):
+def valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of, ds_of):
     """The reference phase's validation-set runs, card against CPU on the
     20,000-row task: early stopping with a 5,000-row validation set on
     each strategy, a lambda_l2 reset at iteration 2 on each strategy, and a
@@ -3044,7 +3563,7 @@ def valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of):
         os.environ["LGBM_TPU_STRATEGY"] = strategy
         runs = []
         for device in (None, "cpu"):
-            dtr = lgb.Dataset(xs, ys)
+            dtr = ds_of(ys)
             ev = {}
             b = lgb.train(es, dtr, 40, valid_sets=[dtr.create_valid(xv, yv)],
                           valid_names=["valid"], early_stopping_rounds=5,
@@ -3094,7 +3613,7 @@ def valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of):
         runs = []
         for device in (None, "cpu"):
             caps = []
-            b = lgb.train(rp, lgb.Dataset(xs, ys), 5, device=device,
+            b = lgb.train(rp, ds_of(ys), 5, device=device,
                           verbose_eval=False, callbacks=[
                               lgb.reset_parameter(lambda_l2=l2),
                               lambda env: caps.append(
@@ -3115,8 +3634,8 @@ def valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of):
     # cv: three learners capture their loops in turn
     os.environ.pop("LGBM_TPU_STRATEGY", None)
     cp = dict(sp, metric=["binary_logloss", "auc"])
-    card = lgb.cv(cp, lgb.Dataset(xs, ys), 3, nfold=3)
-    cpu = lgb.cv(cp, lgb.Dataset(xs, ys), 3, nfold=3, device="cpu")
+    card = lgb.cv(cp, ds_of(ys), 3, nfold=3)
+    cpu = lgb.cv(cp, ds_of(ys), 3, nfold=3, device="cpu")
     diffs = {k: float(np.max(np.abs(np.array(card[k]) - np.array(cpu[k]))))
              for k in cpu}
     rows.append({"case": "cv 3-fold, 3 rounds", "keys": sorted(card),

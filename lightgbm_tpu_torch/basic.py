@@ -8,7 +8,8 @@ gradients (``quantized_grad``, ``grad_bits``, ``quant_renew``), the
 compact and masked growth strategies, row sampling (``bagging_fraction``
 with ``bagging_freq``, ``pos_bagging_fraction`` / ``neg_bagging_fraction``,
 ``boosting=goss``) and per-tree feature sampling (``feature_fraction``),
-no categorical features; validation sets binned by reference, their
+categorical features (``categorical_feature``: indices, names or the
+``name:`` form); validation sets binned by reference, their
 evaluation with the pointwise metrics, rollback, parameter resets and
 custom objectives (``objective=none``, ``update(fobj=...)``). Every
 parameter outside that slice raises LightGBMError naming its key. Both
@@ -48,8 +49,6 @@ def check_supported(cfg: Config) -> None:
                                                   cfg.objective)
     elif cfg.feature_fraction_bynode < 1.0:
         bad = "feature_fraction_bynode=%g" % cfg.feature_fraction_bynode
-    elif cfg.categorical_feature:
-        bad = "categorical_feature"
     elif cfg.quantized_grad and cfg.tree_learner != "serial":
         bad = "quantized_grad with tree_learner=%s" % cfg.tree_learner
     elif cfg.tree_learner != "serial":
@@ -76,7 +75,7 @@ def check_supported(cfg: Config) -> None:
                             "(GBDT or GOSS with any objective but "
                             "lambdarank, serial learner, float or quantized "
                             "gradients, bagging and feature_fraction but no "
-                            "by-node sampling, no categorical features)"
+                            "by-node sampling)"
                             % bad)
 
 
@@ -85,11 +84,13 @@ class Dataset:
     binning runs on the host; its device views are made on the device of
     the Booster that trains on it (``device``, if given, is the default
     for that Booster). A dataset with a `reference` (a validation set) is
-    binned with the reference's mappers."""
+    binned with the reference's mappers. `categorical_feature`: column
+    indices or names (a name may carry the ``name:`` prefix); "auto"
+    takes the params' ``categorical_feature`` (indices)."""
 
     def __init__(self, data, label=None, reference=None, weight=None,
-                 init_score=None, feature_name="auto", params=None,
-                 device=None):
+                 init_score=None, feature_name="auto",
+                 categorical_feature="auto", params=None, device=None):
         if isinstance(data, str):
             raise LightGBMError("file input is not supported by "
                                 "lightgbm_tpu_torch yet; pass an array")
@@ -99,6 +100,7 @@ class Dataset:
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = copy.deepcopy(params) or {}
         self.device = device
         self._inner: Optional[_InnerDataset] = None
@@ -110,13 +112,26 @@ class Dataset:
         check_supported(cfg)
         names = (list(self.feature_name)
                  if isinstance(self.feature_name, (list, tuple)) else None)
+        cats = None
+        if isinstance(self.categorical_feature, (list, tuple)):
+            # names -> column indices, as the JAX package resolves them
+            cats = []
+            for c in self.categorical_feature:
+                if isinstance(c, str):
+                    c = c[5:] if c.startswith("name:") else c
+                    if names is None or c not in names:
+                        raise LightGBMError("categorical_feature %r not in "
+                                            "features" % c)
+                    cats.append(names.index(c))
+                else:
+                    cats.append(int(c))
         ref_inner = None
         if self.reference is not None:
             ref_inner = self.reference.construct()._inner
         self._inner = _InnerDataset(
             self.data, config=cfg, label=self.label, weight=self.weight,
             init_score=self.init_score, feature_names=names,
-            reference=ref_inner)
+            categorical_feature=cats, reference=ref_inner)
         self.data = None
         return self
 
@@ -145,6 +160,17 @@ class Dataset:
         sub.label, sub.weight, sub.init_score = (md.label, md.weight,
                                                  md.init_score)
         return sub
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Set the categorical columns; the dataset must not be
+        constructed yet (LightGBM's rebinning is not ported)."""
+        if categorical_feature == self.categorical_feature:
+            return self
+        if self._inner is not None:
+            raise LightGBMError("Cannot set categorical feature after the "
+                                "Dataset was constructed")
+        self.categorical_feature = categorical_feature
+        return self
 
     def set_reference(self, reference: "Dataset") -> "Dataset":
         """Bin this dataset with `reference`'s mappers (reference:

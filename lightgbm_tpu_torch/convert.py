@@ -32,4 +32,6 @@ def ensemble_from_arrays(arrays: Mapping[str, Any],
         *(arrays[k] for k in ("split_feature", "threshold", "threshold_bin",
                               "decision_type", "left_child", "right_child",
                               "leaf_value")),
-        max_depth=int(arrays["max_depth"]), device=resolve_device(device))
+        max_depth=int(arrays["max_depth"]), device=resolve_device(device),
+        cat_boundaries=arrays.get("cat_boundaries"),
+        cat_threshold=arrays.get("cat_threshold"))

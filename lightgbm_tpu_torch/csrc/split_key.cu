@@ -36,6 +36,17 @@
 // cannot drift apart). The records and k stay in device memory; each block
 // stages its chunk of records, turned into decisions, in shared memory.
 //
+// Categorical splits (the JAX cat_mask / rec_cat, lightgbm_tpu/models/
+// device_learner.py:409-414 and packed_go_left): a split of a categorical
+// feature sends a row left iff the bit of its logical bin is set in the
+// split's bitset, W int32 words (bin b at bit b % 32 of word b / 32); a
+// bin past the words goes right. The first two entries read the flag and
+// the words from the descriptor (its CAT field and the W words after it;
+// W is a launch argument, 0 for a learner without categorical features);
+// the router reads each record's words from a (max_rec, W) array and the
+// feature's flag from a per-feature array, and stages the words beside
+// the record's decision in shared memory.
+//
 // Everything the first two entries need is read from the split
 // descriptor in device memory (ops/kernels/desc.py: go, the threshold,
 // default_left and the feature's column, base, elide flag, bin count,
@@ -92,21 +103,24 @@ constexpr int kDescDefault = 13;
 constexpr int kDescSideMax = 14;
 constexpr int kDescLeaf = 18;
 constexpr int kDescNewId = 19;
+constexpr int kDescCat = 20;
+constexpr int kDescWords = 21;
 
 // One split's decision, read from the descriptor.
 struct Split {
   int thr, col, base, nb, missing, def;
-  bool dleft, elide;
+  bool dleft, elide, cat;
 };
 
 // A split from its threshold, default-left flag and the feature's six
 // fields (column, EFB base, elide flag, bin count, missing type, default
 // bin), in the order of the descriptor and of the learner's feature table.
 __device__ __forceinline__ Split make_split(int thr, bool dleft,
-                                            const int* feat) {
+                                            const int* feat, bool cat) {
   Split s;
   s.thr = thr;
   s.dleft = dleft;
+  s.cat = cat;
   s.col = feat[0];
   s.base = feat[1];
   s.elide = feat[2] != 0;
@@ -116,19 +130,27 @@ __device__ __forceinline__ Split make_split(int thr, bool dleft,
   return s;
 }
 
-__device__ __forceinline__ Split read_split(const int* desc) {
-  return make_split(desc[kDescThr], desc[kDescDleft] != 0, desc + kDescCol);
+// The descriptor's split; categorical when it has bitset words and its
+// CAT field is set.
+__device__ __forceinline__ Split read_split(const int* desc, int words) {
+  return make_split(desc[kDescThr], desc[kDescDleft] != 0, desc + kDescCol,
+                    words > 0 && desc[kDescCat] != 0);
 }
 
 // The decision of a row from its raw code: a bundle member's codes [base,
 // base + nb - 2] are its non-default bins, anything else is the feature at
-// its default bin; the missing bin goes to the default side, any other
-// bin left iff bin <= thr.
-__device__ __forceinline__ bool goes_left(int bin, const Split& s) {
+// its default bin. A categorical split sends the bin left iff its bit is
+// set in the split's `words` bitset words; a numerical one sends the
+// missing bin to the default side, any other bin left iff bin <= thr.
+__device__ __forceinline__ bool goes_left(int bin, const Split& s,
+                                          const int* words, int n_words) {
   if (s.elide) {
     const int j = bin - s.base;
     bin = (j >= 0 && j < s.nb - 1) ? j + (j >= s.def) : s.def;
   }
+  if (s.cat)
+    return bin >= 0 && (bin >> 5) < n_words &&
+           (((uint32_t)words[bin >> 5] >> (bin & 31)) & 1u);
   const bool is_missing =
       (s.missing == 1 && bin == s.def) || (s.missing == 2 && bin == s.nb - 1);
   return is_missing ? s.dleft : bin <= s.thr;
@@ -138,10 +160,11 @@ template <int kBits, bool kRenew>
 __global__ void __launch_bounds__(kThreads)
 split_key_kernel(const int32_t* __restrict__ buf0,
                  const int32_t* __restrict__ buf1, int* desc,
-                 int32_t* __restrict__ key, int D, int cw) {
+                 int32_t* __restrict__ key, int D, int cw, int n_words) {
   if (!desc[kDescGo]) return;
   const int count = desc[kDescCount];
-  const Split sp = read_split(desc);
+  const Split sp = read_split(desc, n_words);
+  const int* words = desc + kDescWords;
   const int32_t* rows = (desc[kDescSrc] ? buf1 : buf0)
                         + (long long)desc[kDescBegin] * D;
   constexpr int per = 32 / kBits;
@@ -152,8 +175,8 @@ split_key_kernel(const int32_t* __restrict__ buf0,
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < count;
        i += gridDim.x * kThreads) {
     const int32_t* row = rows + (long long)i * D;
-    const bool left =
-        goes_left((int)(((uint32_t)row[word] >> shift) & mask), sp);
+    const bool left = goes_left(
+        (int)(((uint32_t)row[word] >> shift) & mask), sp, words, n_words);
     key[i] = left ? 0 : 1;
     nleft += left;
     if (kRenew) {
@@ -214,16 +237,18 @@ __global__ void __launch_bounds__(kThreads)
 split_key_column_kernel(const CodeT* __restrict__ codes_t, long long n,
                         const int* __restrict__ desc,
                         int32_t* __restrict__ leaf_id,
-                        const OpT* __restrict__ gh, OpT* __restrict__ ghl) {
+                        const OpT* __restrict__ gh, OpT* __restrict__ ghl,
+                        int n_words) {
   if (!desc[kDescGo]) return;
-  const Split sp = read_split(desc);
+  const Split sp = read_split(desc, n_words);
+  const int* words = desc + kDescWords;
   const int leaf = desc[kDescLeaf], new_id = desc[kDescNewId];
   const CodeT* __restrict__ col = codes_t + (long long)sp.col * n;
   for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < n;
        r += (long long)gridDim.x * kThreads) {
     bool left = false;
     if (leaf_id[r] == leaf) {
-      left = goes_left((int)col[r], sp);
+      left = goes_left((int)col[r], sp, words, n_words);
       if (!left) leaf_id[r] = new_id;
     }
     OpT* out = ghl + 3 * r;
@@ -242,28 +267,28 @@ split_key_column_kernel(const CodeT* __restrict__ codes_t, long long n,
 
 template <typename CodeT, typename OpT>
 int launch_column(const void* codes_t, long long n, const int* desc,
-                  int32_t* leaf_id, const void* gh, void* ghl, int grid,
-                  cudaStream_t s) {
+                  int32_t* leaf_id, const void* gh, void* ghl, int n_words,
+                  int grid, cudaStream_t s) {
   split_key_column_kernel<CodeT, OpT><<<grid, kThreads, 0, s>>>(
       static_cast<const CodeT*>(codes_t), n, desc, leaf_id,
-      static_cast<const OpT*>(gh), static_cast<OpT*>(ghl));
+      static_cast<const OpT*>(gh), static_cast<OpT*>(ghl), n_words);
   return (int)cudaGetLastError();
 }
 
 template <typename CodeT>
 int launch_column_op(const void* codes_t, long long n, const int* desc,
                      int32_t* leaf_id, const void* gh, void* ghl,
-                     int op_kind, int grid, cudaStream_t s) {
+                     int op_kind, int n_words, int grid, cudaStream_t s) {
   switch (op_kind) {
     case 0:
       return launch_column<CodeT, float>(codes_t, n, desc, leaf_id, gh, ghl,
-                                         grid, s);
+                                         n_words, grid, s);
     case 1:
       return launch_column<CodeT, int8_t>(codes_t, n, desc, leaf_id, gh,
-                                          ghl, grid, s);
+                                          ghl, n_words, grid, s);
     case 2:
       return launch_column<CodeT, int32_t>(codes_t, n, desc, leaf_id, gh,
-                                           ghl, grid, s);
+                                           ghl, n_words, grid, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -276,37 +301,55 @@ constexpr int kRecFeat = 1;
 constexpr int kRecThr = 2;
 constexpr int kRecDleft = 3;
 constexpr int kFeatFields = 6;
-// records staged per block and pass
+// records staged per block and pass: at most kRecChunk, fewer where the
+// records' bitset words would take the chunk past kRouteSmem bytes of
+// shared memory (Split 28 B + leaf 4 B + 4 W B per record: 8 KB at W = 0,
+// 16 KB at W = 8 (256 bins), 40 KB at W = 32 (1,024 bins))
 constexpr int kRecChunk = 256;
+constexpr int kRouteSmem = 48 * 1024;
+
+__host__ __device__ constexpr int route_rec_bytes(int n_words) {
+  return (int)sizeof(Split) + 4 + 4 * n_words;
+}
 
 // The router: rows (m, cw) packed code words, one row per thread; rec the
 // tree's (max_rec, 13) f32 split records of which the first *k_ptr are
-// real; table (num_features, 6) the feature fields; leaf (m,) written.
+// real; table (num_features, 6) the feature fields; with n_words > 0,
+// rec_cat (max_rec, n_words) the records' bitset words and f_cat
+// (num_features,) the categorical flags; leaf (m,) written. chunk records
+// are staged per pass, in dynamic shared memory.
 template <int kBits>
 __global__ void __launch_bounds__(kThreads)
 route_rows_kernel(const int32_t* __restrict__ rows, long long m, int cw,
                   const float* __restrict__ rec, const int* __restrict__ k_ptr,
                   int max_rec, const int* __restrict__ table,
-                  int num_features, int32_t* __restrict__ leaf_out) {
-  __shared__ Split s_split[kRecChunk];
-  __shared__ int s_leaf[kRecChunk];
+                  int num_features, const int* __restrict__ rec_cat,
+                  int n_words, const int* __restrict__ f_cat, int chunk,
+                  int32_t* __restrict__ leaf_out) {
+  extern __shared__ int smem[];
+  Split* s_split = reinterpret_cast<Split*>(smem);
+  int* s_leaf = smem + chunk * ((int)sizeof(Split) / 4);
+  int* s_words = s_leaf + chunk;
   constexpr int per = 32 / kBits;
   constexpr uint32_t mask = (1u << kBits) - 1u;
   const int k = min(*k_ptr, max_rec);
   const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
   const int32_t* row = rows + (r < m ? r : 0) * (long long)cw;
   int leaf = 0;
-  for (int base = 0; base < k; base += kRecChunk) {
-    const int nc = min(kRecChunk, k - base);
+  for (int base = 0; base < k; base += chunk) {
+    const int nc = min(chunk, k - base);
     __syncthreads();
     for (int j = threadIdx.x; j < nc; j += kThreads) {
       const float* rc = rec + (long long)(base + j) * kRecCols;
       const int feat =
           min(max((int)rc[kRecFeat], 0), num_features - 1);
       s_split[j] = make_split((int)rc[kRecThr], rc[kRecDleft] > 0.5f,
-                              table + feat * kFeatFields);
+                              table + feat * kFeatFields,
+                              n_words > 0 && f_cat[feat] != 0);
       s_leaf[j] = (int)rc[kRecLeaf];
     }
+    for (int j = threadIdx.x; j < nc * n_words; j += kThreads)
+      s_words[j] = rec_cat[(long long)base * n_words + j];
     __syncthreads();
     if (r < m) {
       for (int j = 0; j < nc; ++j) {
@@ -314,7 +357,8 @@ route_rows_kernel(const int32_t* __restrict__ rows, long long m, int cw,
         const Split sp = s_split[j];
         const uint32_t word = (uint32_t)__ldg(row + sp.col / per);
         const int code = (int)((word >> ((sp.col % per) * kBits)) & mask);
-        if (!goes_left(code, sp)) leaf = base + j + 1;
+        if (!goes_left(code, sp, s_words + j * n_words, n_words))
+          leaf = base + j + 1;
       }
     }
   }
@@ -324,23 +368,28 @@ route_rows_kernel(const int32_t* __restrict__ rows, long long m, int cw,
 template <int kBits>
 int launch_route(const int32_t* rows, long long m, int cw, const float* rec,
                  const int* k_ptr, int max_rec, const int* table,
-                 int num_features, int32_t* leaf, cudaStream_t s) {
+                 int num_features, const int* rec_cat, int n_words,
+                 const int* f_cat, int32_t* leaf, cudaStream_t s) {
   const long long grid = (m + kThreads - 1) / kThreads;
-  route_rows_kernel<kBits><<<(unsigned)grid, kThreads, 0, s>>>(
-      rows, m, cw, rec, k_ptr, max_rec, table, num_features, leaf);
+  const int fit = kRouteSmem / route_rec_bytes(n_words);
+  const int chunk = fit < kRecChunk ? fit : kRecChunk;
+  route_rows_kernel<kBits><<<(unsigned)grid, kThreads,
+                             chunk * route_rec_bytes(n_words), s>>>(
+      rows, m, cw, rec, k_ptr, max_rec, table, num_features, rec_cat,
+      n_words, f_cat, chunk, leaf);
   return (int)cudaGetLastError();
 }
 
 template <int kBits>
 int launch_bits(const int32_t* buf0, const int32_t* buf1, int* desc,
-                int32_t* key, int D, int cw, int renew, int grid,
+                int32_t* key, int D, int cw, int renew, int n_words, int grid,
                 cudaStream_t s) {
   if (renew)
-    split_key_kernel<kBits, true><<<grid, kThreads, 0, s>>>(buf0, buf1, desc,
-                                                           key, D, cw);
+    split_key_kernel<kBits, true><<<grid, kThreads, 0, s>>>(
+        buf0, buf1, desc, key, D, cw, n_words);
   else
-    split_key_kernel<kBits, false><<<grid, kThreads, 0, s>>>(buf0, buf1,
-                                                            desc, key, D, cw);
+    split_key_kernel<kBits, false><<<grid, kThreads, 0, s>>>(
+        buf0, buf1, desc, key, D, cw, n_words);
   return (int)cudaGetLastError();
 }
 
@@ -350,21 +399,25 @@ int launch_bits(const int32_t* buf0, const int32_t* buf1, int* desc,
 // descriptor (its go, src, begin, count and feature fields read, its left
 // count and side maxes added to); key: N int32, the window's keys written
 // to key[0, count). item_bits: 4, 8 or 16 bits per code; renew: also the
-// side maxes of word cw. grid: any number of blocks of 256 threads.
+// side maxes of word cw; n_words: the descriptor's bitset words (0: no
+// categorical split). grid: any number of blocks of 256 threads.
 extern "C" int lgbt_split_key_launch(const int32_t* buf0, const int32_t* buf1,
                                      int* desc, int32_t* key, int D, int cw,
-                                     int item_bits, int renew, int grid,
-                                     void* stream) {
-  if (grid < 1 || D < 1 || (renew && (cw < 0 || cw >= D)))
+                                     int item_bits, int renew, int n_words,
+                                     int grid, void* stream) {
+  if (grid < 1 || D < 1 || n_words < 0 || (renew && (cw < 0 || cw >= D)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (item_bits) {
     case 4:
-      return launch_bits<4>(buf0, buf1, desc, key, D, cw, renew, grid, s);
+      return launch_bits<4>(buf0, buf1, desc, key, D, cw, renew, n_words,
+                            grid, s);
     case 8:
-      return launch_bits<8>(buf0, buf1, desc, key, D, cw, renew, grid, s);
+      return launch_bits<8>(buf0, buf1, desc, key, D, cw, renew, n_words,
+                            grid, s);
     case 16:
-      return launch_bits<16>(buf0, buf1, desc, key, D, cw, renew, grid, s);
+      return launch_bits<16>(buf0, buf1, desc, key, D, cw, renew, n_words,
+                             grid, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -374,23 +427,23 @@ extern "C" int lgbt_split_key_launch(const int32_t* buf0, const int32_t* buf1,
 // or 2 (16 bits, read unsigned); desc: the split descriptor (go, the
 // decision's fields, the leaf and the new id read); leaf_id: n int32,
 // rewritten; gh, ghl: (n, 3) row-major operands of op_kind 0 (f32), 1
-// (int8) or 2 (int32), ghl written in full. grid: any number of blocks of
-// 256 threads.
+// (int8) or 2 (int32), ghl written in full; n_words: the descriptor's
+// bitset words. grid: any number of blocks of 256 threads.
 extern "C" int lgbt_split_key_column_launch(const void* codes_t,
                                             int code_bytes, long long n,
                                             const int* desc, int32_t* leaf_id,
                                             const void* gh, void* ghl,
-                                            int op_kind, int grid,
-                                            void* stream) {
-  if (grid < 1 || n < 1) return (int)cudaErrorInvalidValue;
+                                            int op_kind, int n_words,
+                                            int grid, void* stream) {
+  if (grid < 1 || n < 1 || n_words < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (code_bytes) {
     case 1:
       return launch_column_op<uint8_t>(codes_t, n, desc, leaf_id, gh, ghl,
-                                       op_kind, grid, s);
+                                       op_kind, n_words, grid, s);
     case 2:
       return launch_column_op<uint16_t>(codes_t, n, desc, leaf_id, gh, ghl,
-                                        op_kind, grid, s);
+                                        op_kind, n_words, grid, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -399,27 +452,33 @@ extern "C" int lgbt_split_key_column_launch(const void* codes_t,
 // The router. rows: (m, cw) int32 packed code rows, item_bits 4, 8 or 16
 // bits per code; rec: (max_rec, 13) f32 split records in device memory, of
 // which the first *k (an int in device memory) are walked; table:
-// (num_features, 6) int32 feature fields; leaf: m int32, written. The grid
-// is fixed by m: one thread per row.
+// (num_features, 6) int32 feature fields; rec_cat: (max_rec, n_words) int32
+// bitset words and f_cat: (num_features,) int32 categorical flags (both
+// unread when n_words is 0); leaf: m int32, written. The grid is fixed by
+// m: one thread per row.
 extern "C" int lgbt_route_rows_launch(const int32_t* rows, long long m, int cw,
                                       int item_bits, const float* rec,
                                       const int* k, int max_rec,
                                       const int* table, int num_features,
-                                      int32_t* leaf, void* stream) {
-  if (m < 1 || cw < 1 || max_rec < 0 || num_features < 1 ||
+                                      const int* rec_cat, int n_words,
+                                      const int* f_cat, int32_t* leaf,
+                                      void* stream) {
+  if (m < 1 || cw < 1 || max_rec < 0 || num_features < 1 || n_words < 0 ||
+      route_rec_bytes(n_words) > kRouteSmem ||
+      (n_words > 0 && (rec_cat == nullptr || f_cat == nullptr)) ||
       (m + kThreads - 1) / kThreads > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (item_bits) {
     case 4:
       return launch_route<4>(rows, m, cw, rec, k, max_rec, table,
-                             num_features, leaf, s);
+                             num_features, rec_cat, n_words, f_cat, leaf, s);
     case 8:
       return launch_route<8>(rows, m, cw, rec, k, max_rec, table,
-                             num_features, leaf, s);
+                             num_features, rec_cat, n_words, f_cat, leaf, s);
     case 16:
       return launch_route<16>(rows, m, cw, rec, k, max_rec, table,
-                              num_features, leaf, s);
+                              num_features, rec_cat, n_words, f_cat, leaf, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -38,12 +38,6 @@ def _pop_rounds(params: Dict[str, Any], num_boost_round) -> int:
     return int(num_boost_round)
 
 
-def _refuse_categorical(categorical_feature) -> None:
-    if categorical_feature not in ("auto", None) and len(categorical_feature):
-        raise LightGBMError("categorical_feature is not supported by "
-                            "lightgbm_tpu_torch yet")
-
-
 def _sorted_callbacks(cbs):
     """(before-iteration callbacks, after-iteration callbacks), each by
     its order."""
@@ -69,7 +63,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if resume_from is not None:
         raise LightGBMError("resume_from is not supported by "
                             "lightgbm_tpu_torch yet (no checkpoints)")
-    _refuse_categorical(categorical_feature)
+    if categorical_feature != "auto":
+        train_set.set_categorical_feature(categorical_feature)
     params = copy.deepcopy(params or {})
     if fobj is not None:
         params["objective"] = "none"
@@ -251,7 +246,8 @@ def cv(params, train_set, num_boost_round=100, folds=None, nfold=5,
     if init_model is not None:
         raise LightGBMError("cv(init_model=...) is not supported by "
                             "lightgbm_tpu_torch yet")
-    _refuse_categorical(categorical_feature)
+    if categorical_feature != "auto":
+        train_set.set_categorical_feature(categorical_feature)
     params = copy.deepcopy(params or {})
     if fobj is not None:
         params["objective"] = "none"

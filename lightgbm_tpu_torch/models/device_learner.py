@@ -1,8 +1,9 @@
 """Leaf-wise tree learner, in torch: the compact and the masked strategy.
 
-Port of lightgbm_tpu/models/device_learner.py for the serial, dense-pool,
-numerical-feature case of its two single-device strategies, each with
-float or quantized gradients, with the row sampling of bagging and GOSS.
+Port of lightgbm_tpu/models/device_learner.py for the serial, dense-pool
+case of its two single-device strategies, each with float or quantized
+gradients, numerical and categorical features, and the row sampling of
+bagging and GOSS.
 
 **Compact** (``grow_tree_compact_core``, JAX :808). The reference's
 DataPartition (data_partition.hpp:20-205) becomes one packed int32 working
@@ -41,10 +42,10 @@ masked core keeps one ratio per tree.
 ``grow`` and the fused iteration run). As in the JAX package, the whole
 tree grows without a host sync: the state lives in device tensors
 allocated once per learner (``DeviceCarry``, the JAX ``_CarryC`` without
-LRU pool slots and categorical fields; ``MaskedCarry``, the JAX
-``_Carry``), and ``split_step`` / ``masked_split_step`` is the core's
-split body over it, every write gated on the step's ``go``, with the
-bookkeeping both share in ``split_epilogue_device``.
+LRU pool slots; ``MaskedCarry``, the JAX ``_Carry``), and ``split_step``
+/ ``masked_split_step`` is the core's split body over it, every write
+gated on the step's ``go``, with the bookkeeping both share in
+``split_epilogue_device``.
 ``ops/fused.py::SplitLoop`` runs the step num_leaves - 1 times per tree:
 replays of one CUDA graph on the card, eager steps on the CPU. The
 kernels of a step read the split from the split descriptor in device
@@ -78,6 +79,18 @@ the bag's physical counts. The same holds for the generic iteration's
 host bag (``train(..., bag_indices)``), which quantizes grad * w over all
 N rows before the gather, as JAX does; so the port has no two-word gh
 section (the JAX gw = 2 layout).
+
+**Categorical features** (the JAX merged mode): every leaf scan runs the
+numerical search over the numerical features and the categorical one
+(one-hot or sorted k-vs-rest, ops/split.py) over the categorical
+features of the same histograms; the better gain wins, and a categorical
+winner's left bins ride beside its best row as W = ceil(B / 32) int32
+bitset words (the JAX (L, B) f32 masks, packed). A split sends a row left
+iff its logical bin's bit is set: the host loops decode it in torch, the
+device loops through the split descriptor's CAT field and words (the
+split key's packed and column entries), the router from each record's
+words. fetch_tree brings the records' words back in the tree's one copy,
+and replay_tree makes bitset nodes of them.
 """
 from __future__ import annotations
 
@@ -107,7 +120,8 @@ from ..ops.kernels.histogram import (build_histogram_quantized_rows,
 from ..ops.kernels.partition import (stable_partition3,
                                      stable_partition3_window)
 from ..ops.kernels.split_key import route_rows, split_key, split_key_column
-from ..ops.partition import decide_left
+from ..ops.partition import (decide_left, decide_left_categorical,
+                             mask_to_words)
 from ..utils import log
 from ..utils import random as trandom
 from ..utils.envs import strategy_env
@@ -175,29 +189,34 @@ def resolve_strategy(config: Config, dataset: Dataset,
 
 
 def column_go_left(col: torch.Tensor, feat: int, thr: int, dleft: bool,
-                   meta: dict) -> torch.Tensor:
+                   meta: dict,
+                   words: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The split decision over one column's raw codes: unmap feature
-    `feat`'s logical bins (EFB) and compare. The feature's metadata are
-    host arrays in `meta` (f_base, f_elide, f_numbins, f_missing,
-    f_default)."""
+    `feat`'s logical bins (EFB) and compare, or, for a categorical
+    feature, look the bins up in the split's (W,) int32 bitset `words`
+    (the JAX cat_mask). The feature's metadata are host arrays in `meta`
+    (f_base, f_elide, f_numbins, f_missing, f_default, f_categorical)."""
     nb = int(meta["f_numbins"][feat])
     default = int(meta["f_default"][feat])
     fbins = bundle_ops.logical_bins_for_feature(
         col, int(meta["f_base"][feat]), default, nb,
         int(meta["f_elide"][feat]))
+    if words is not None and meta["f_categorical"][feat]:
+        return decide_left_categorical(fbins, words)
     return decide_left(fbins, thr, dleft, int(meta["f_missing"][feat]),
                        default, nb)
 
 
 def packed_go_left(win: torch.Tensor, feat: int, thr: int, dleft: bool,
-                   meta: dict, *, item_bits: int) -> torch.Tensor:
+                   meta: dict, *, item_bits: int,
+                   words: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode feature `feat`'s codes from a packed int32 row window and
-    apply the split decision."""
+    apply the split decision (column_go_left)."""
     per = 32 // item_bits
     col_i = int(meta["f_col"][feat])
     word, sub = col_i // per, col_i % per
     col = (win[:, word] >> (sub * item_bits)) & ((1 << item_bits) - 1)
-    return column_go_left(col, feat, thr, dleft, meta)
+    return column_go_left(col, feat, thr, dleft, meta, words)
 
 
 def partition_window(win: torch.Tensor, key3: torch.Tensor,
@@ -207,28 +226,87 @@ def partition_window(win: torch.Tensor, key3: torch.Tensor,
     return stable_partition3(win, key3, out)
 
 
+def _merge_num_cat(res: split_ops.SplitResult,
+                   cres: split_ops.CatSplitResult, words: int):
+    """Merge each leaf's numerical and categorical candidates (the JAX
+    _merge_num_cat, the in-program SerialTreeLearner._merge_categorical):
+    the categorical one wins only on a strictly greater gain, and then
+    its record has threshold 0 and default_left False. Returns (merged
+    SplitResult, (N, words) int32 bitset of the winner's left bins, all
+    clear where the numerical candidate wins)."""
+    cat_wins = cres.gain > res.gain
+
+    def pick(c, r):
+        return torch.where(cat_wins, c, r)
+
+    merged = split_ops.SplitResult(
+        pick(cres.gain, res.gain), pick(cres.feature, res.feature),
+        torch.where(cat_wins, torch.zeros_like(res.threshold),
+                    res.threshold),
+        res.default_left & ~cat_wins,
+        pick(cres.left_sum_grad, res.left_sum_grad),
+        pick(cres.left_sum_hess, res.left_sum_hess),
+        pick(cres.left_count, res.left_count),
+        pick(cres.right_sum_grad, res.right_sum_grad),
+        pick(cres.right_sum_hess, res.right_sum_hess),
+        pick(cres.right_count, res.right_count),
+        pick(cres.left_output, res.left_output),
+        pick(cres.right_output, res.right_output))
+    return merged, mask_to_words(cres.left_mask & cat_wins[:, None], words)
+
+
 def _tree_helpers(f_numbins, f_missing, f_default, f_monotone, f_penalty,
                   f_elide, hist_idx, *, max_depth, l1, l2, max_delta_step,
-                  min_data_in_leaf, min_sum_hessian, min_gain_to_split):
+                  min_data_in_leaf, min_sum_hessian, min_gain_to_split,
+                  f_categorical=None, cat_statics=None):
     """The split search shared by the root and the children: expand the
     column histograms, scan, pick each leaf's best feature, format best
-    rows (with depth gating)."""
+    rows (with depth gating).
+
+    cat_statics = (cat_l2, cat_smooth, max_cat_threshold,
+    max_cat_to_onehot, min_data_per_group) with the (F,) int32
+    f_categorical switches the scan to the JAX merged mode: the numerical
+    scan over the numerical features and the categorical one over the
+    categorical features, of the same expanded histograms, the better
+    gain winning (_merge_num_cat). scan returns (SplitResult, (N, W)
+    int32 left-bin bitsets, W = ceil(B / 32)); without cat_statics the
+    bitsets are None."""
     scan_kwargs = dict(
         l1=l1, l2=l2, max_delta_step=max_delta_step,
         min_data_in_leaf=min_data_in_leaf, min_sum_hessian=min_sum_hessian,
         min_gain_to_split=min_gain_to_split)
+    has_cat = cat_statics is not None
+    if has_cat:
+        is_cat = f_categorical != 0
+        cat_l2, cat_smooth, max_cat_threshold, max_cat_to_onehot, \
+            min_data_per_group = cat_statics
+        cat_kwargs = dict(
+            scan_kwargs, cat_l2=cat_l2, cat_smooth=cat_smooth,
+            max_cat_threshold=max_cat_threshold,
+            max_cat_to_onehot=max_cat_to_onehot,
+            min_data_per_group=min_data_per_group)
 
     def scan(col_hist, sg, sh, cnt, mn, mx, fmask):
         hist = bundle_ops.expand_column_hist(
             col_hist, torch.stack([sg, sh, cnt], dim=-1), hist_idx,
             f_elide, f_default)
         rel, t, use_m1, prefix = split_ops.per_feature_best(
-            hist, sg, sh, cnt, f_numbins, f_missing, f_default, fmask,
+            hist, sg, sh, cnt, f_numbins, f_missing, f_default,
+            fmask & ~is_cat if has_cat else fmask,
             f_monotone, mn, mx, f_penalty, **scan_kwargs)
         feat = torch.argmax(rel, dim=1)
-        return split_ops.materialize_split(
+        res = split_ops.materialize_split(
             feat, rel, t, use_m1, prefix, sg, sh, cnt, mn, mx,
             l1=l1, l2=l2, max_delta_step=max_delta_step)
+        if not has_cat:
+            return res, None
+        crel, caux = split_ops.per_feature_best_categorical(
+            hist, sg, sh, cnt, f_numbins, f_missing, fmask & is_cat, mn, mx,
+            f_penalty, **cat_kwargs)
+        cres = split_ops.materialize_cat_split(
+            torch.argmax(crel, dim=1), crel, caux, hist, sg, sh, cnt, mn,
+            mx, l1=l1, l2=l2, cat_l2=cat_l2, max_delta_step=max_delta_step)
+        return _merge_num_cat(res, cres, (hist.shape[2] + 31) // 32)
 
     def best_row(res: split_ops.SplitResult, child_depth):
         # child_depth: a host int, or a 0-d device tensor (device loop)
@@ -250,22 +328,25 @@ def _tree_helpers(f_numbins, f_missing, f_default, f_monotone, f_penalty,
 
 
 def search2_simple(scan, best_row):
-    """Both children's scans in one batched pass -> (2, 12) best rows."""
+    """Both children's scans in one batched pass -> (2, 12) best rows and
+    their (2, W) left-bin bitsets (None without categorical features)."""
     def search2(col_hist2, sg2, sh2, cnt2, mn2, mx2, fmask, child_depth):
-        return best_row(scan(col_hist2, sg2, sh2, cnt2, mn2, mx2, fmask),
-                        child_depth)
+        res, words = scan(col_hist2, sg2, sh2, cnt2, mn2, mx2, fmask)
+        return best_row(res, child_depth), words
     return search2
 
 
 def split_epilogue(*, k, l, new_id, row, row_dev, mono_f, leaf_min,
                    leaf_max, depth, rec, best, hist_l, hist_r, fmask,
-                   search2):
+                   search2, best_cat=None, rec_cat=None):
     """The split bookkeeping of the JAX core's split_epilogue: monotone
     constraint propagation (basic mode, serial_tree_learner.cpp:771-852),
     depth update, the split record, and the two children's re-scan.
     `row` is the leaf's best row on the host, `row_dev` the same row on
     the device; leaf_min / leaf_max (L,) stay on the device, `depth` and
-    `rec` on the host. Updates them in place."""
+    `rec` on the host; with categorical features the (L, W) left-bin
+    bitsets best_cat and the records' (L-1, W) rec_cat on the device.
+    Updates them in place."""
     mid = (row_dev[B_LOUT] + row_dev[B_ROUT]) * 0.5
     pmin, pmax = leaf_min[l], leaf_max[l]
     lmin = torch.maximum(pmin, mid) if mono_f < 0 else pmin
@@ -283,11 +364,16 @@ def split_epilogue(*, k, l, new_id, row, row_dev, mono_f, leaf_min,
 
     rec[k, :5] = (l, row[B_FEAT], row[B_THR], row[B_DLEFT], row[B_GAIN])
     rec[k, 5:] = row[B_LSG:]
+    if rec_cat is not None:
+        rec_cat[k] = best_cat[l]
 
-    rows2 = search2(torch.stack([hist_l, hist_r]),
-                    row_dev[B_LSG::3][:2], row_dev[B_LSH::3][:2],
-                    row_dev[B_LCNT::3][:2], mn2, mx2, fmask, child_depth)
+    rows2, words2 = search2(torch.stack([hist_l, hist_r]),
+                            row_dev[B_LSG::3][:2], row_dev[B_LSH::3][:2],
+                            row_dev[B_LCNT::3][:2], mn2, mx2, fmask,
+                            child_depth)
     best[l], best[new_id] = rows2[0], rows2[1]
+    if best_cat is not None:
+        best_cat[l], best_cat[new_id] = words2[0], words2[1]
 
 
 class GrowStats:
@@ -390,7 +476,8 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
                            min_data_in_leaf: int, min_sum_hessian: float,
                            min_gain_to_split: float,
                            quant: Optional[QuantRows] = None,
-                           stats: Optional[GrowStats] = None):
+                           stats: Optional[GrowStats] = None,
+                           cat_statics=None):
     """Grow one tree over the packed working buffer `data` -- codes | gh
     section | row id, int32 -- with `spare` the second buffer of the same
     shape. Both are overwritten. The gh section is three bitcast f32 words
@@ -398,8 +485,11 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
     the histograms and the pool are exact int32 (kernel K3), and under
     leaf re-quantization each split's operand is re-discretized at the
     split leaf's ratio and the parent's pool entry rescaled to it.
+    cat_statics (DeviceTreeLearner._statics) turns on categorical splits.
 
-    Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
+    Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k), and
+    with cat_statics the records' (L-1, W) int32 left-bin bitsets after
+    them."""
     n, d_cols = data.shape
     cw = d_cols - (2 if quant is not None else 4)
     L = num_leaves
@@ -409,7 +499,8 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
         meta["t_monotone"], meta["t_penalty"], meta["t_elide"],
         meta["t_hist_idx"], max_depth=max_depth, l1=l1, l2=l2,
         max_delta_step=max_delta_step, min_data_in_leaf=min_data_in_leaf,
-        min_sum_hessian=min_sum_hessian, min_gain_to_split=min_gain_to_split)
+        min_sum_hessian=min_sum_hessian, min_gain_to_split=min_gain_to_split,
+        f_categorical=meta["t_categorical"], cat_statics=cat_statics)
     search2 = search2_simple(scan, best_row)
     bufs = (data, spare)
     renew = quant is not None and quant.root_max is not None
@@ -448,12 +539,15 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
     totals = for_scan(hist0[0].sum(dim=0), r0)   # (3,): sum_g, sum_h, cnt
     leaf_min = torch.full((L,), -np.inf, dtype=torch.float32, device=dev)
     leaf_max = torch.full((L,), np.inf, dtype=torch.float32, device=dev)
-    row0 = best_row(scan(for_scan(hist0, r0)[None], totals[0:1],
-                         totals[1:2], totals[2:3], leaf_min[:1],
-                         leaf_max[:1], base_mask), 0)
+    res0, cm0 = scan(for_scan(hist0, r0)[None], totals[0:1], totals[1:2],
+                     totals[2:3], leaf_min[:1], leaf_max[:1], base_mask)
     best = torch.full((L, 12), NEG_INF, dtype=torch.float32, device=dev)
     best[:, B_FEAT:] = 0.0
-    best[0] = row0[0]
+    best[0] = best_row(res0, 0)[0]
+    best_cat, rec_cat = _carry_cat(L, 0 if cm0 is None else cm0.shape[1],
+                                   dev)
+    if best_cat is not None:
+        best_cat[0] = cm0[0]
     # the pool keeps the histograms' dtype: on the quantized path parent -
     # child below is exact integer arithmetic
     pool = torch.zeros((L,) + tuple(hist0.shape), dtype=hist0.dtype,
@@ -486,9 +580,10 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
         begin, pcount, src = leaf_begin[l], leaf_phys[l], leaf_buf[l]
         dst = 1 - src
         win = bufs[src][begin:begin + pcount]
-        go_left = packed_go_left(win, feat, int(row[B_THR]),
-                                 bool(row[B_DLEFT] > 0.5), meta,
-                                 item_bits=item_bits)
+        go_left = packed_go_left(
+            win, feat, int(row[B_THR]), bool(row[B_DLEFT] > 0.5), meta,
+            item_bits=item_bits,
+            words=None if best_cat is None else best_cat[l])
         rq = ratios(leafmax[l] if renew else None)
         if renew:
             # each child's max |stored int|, which seeds its ratio
@@ -525,7 +620,7 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
                        leaf_min=leaf_min, leaf_max=leaf_max, depth=depth,
                        rec=rec, best=best, hist_l=for_scan(hist_l, rq),
                        hist_r=for_scan(hist_r, rq), fmask=base_mask,
-                       search2=search2)
+                       search2=search2, best_cat=best_cat, rec_cat=rec_cat)
         if renew:
             scale_of[l] = scale_of[new_id] = torch.stack(rq)
             leafmax[l], leafmax[new_id] = qmax2[0], qmax2[1]
@@ -543,7 +638,9 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
                           data[:, d_cols - 1]).long()
     leaf_id = torch.empty(n, dtype=torch.int64, device=dev)
     leaf_id[row_ids] = pos_leaf
-    return rec, leaf_id, k
+    if rec_cat is None:
+        return rec, leaf_id, k
+    return rec, leaf_id, k, rec_cat.cpu().numpy()
 
 
 def _get(t: torch.Tensor, i1: torch.Tensor) -> torch.Tensor:
@@ -559,14 +656,16 @@ def _put(t: torch.Tensor, i1: torch.Tensor, v: torch.Tensor,
 
 
 def split_epilogue_device(c, *, l1, new1, k1, go, row, mono_f, hist_l,
-                          hist_r, search2) -> None:
+                          hist_r, search2, words_l=None) -> None:
     """The split bookkeeping of every device loop (the JAX split_epilogue,
     which serves every core), over a carry `c` with leaf_min, leaf_max,
-    depth, rec, best and base_mask: the monotone bounds (basic mode), the
-    children's depth, the split record and the two children's re-scan
-    from their f32 histograms hist_l, hist_r. l1, new1, k1: (1,) int64
-    device indices of the leaf, its new sibling and the record; every
-    write gated on the 0-d bool `go`; no host sync."""
+    depth, rec, best and base_mask (and best_cat, rec_cat): the monotone
+    bounds (basic mode), the children's depth, the split record (and
+    words_l, the leaf's (W,) left-bin bitset, as its rec_cat row) and the
+    two children's re-scan from their f32 histograms hist_l, hist_r (and
+    their bitsets into best_cat). l1, new1, k1: (1,) int64 device indices
+    of the leaf, its new sibling and the record; every write gated on the
+    0-d bool `go`; no host sync."""
     mid = (row[B_LOUT] + row[B_ROUT]) * 0.5
     pmin, pmax = _get(c.leaf_min, l1), _get(c.leaf_max, l1)
     lo_mid, hi_mid = torch.maximum(pmin, mid), torch.minimum(pmax, mid)
@@ -585,39 +684,51 @@ def split_epilogue_device(c, *, l1, new1, k1, go, row, mono_f, hist_l,
     _put(c.rec, k1, torch.cat([
         torch.stack([l1[0].float(), row[B_FEAT], row[B_THR], row[B_DLEFT],
                      row[B_GAIN]]), row[B_LSG:]]), go)
-    rows2 = search2(torch.stack([hist_l, hist_r]), row[B_LSG::3][:2],
-                    row[B_LSH::3][:2], row[B_LCNT::3][:2], mn2, mx2,
-                    c.base_mask, child_depth)
+    if words_l is not None:
+        _put(c.rec_cat, k1, words_l, go)
+    rows2, words2 = search2(torch.stack([hist_l, hist_r]),
+                            row[B_LSG::3][:2], row[B_LSH::3][:2],
+                            row[B_LCNT::3][:2], mn2, mx2, c.base_mask,
+                            child_depth)
     _put(c.best, l1, rows2[0], go)
     _put(c.best, new1, rows2[1], go)
+    if words_l is not None:
+        _put(c.best_cat, l1, words2[0], go)
+        _put(c.best_cat, new1, words2[1], go)
 
 
 class DeviceCarry:
     """The compact core's state on the device, allocated once per learner
     at fixed addresses (a captured step replays against them): the JAX
-    _CarryC without the LRU pool's slot fields and the categorical ones.
+    _CarryC without the LRU pool's slot fields.
 
     data, spare   the two (N, D) int32 working buffers; a leaf's rows lie
                   in one of them (leaf_buf), rows [leaf_begin, + leaf_phys)
     key           (N,) int32: the split window's key3 (split-key -> K4)
-    desc          the split descriptor (ops/kernels/desc.py); root_desc
-                  names all rows of data, for the root's histogram
+    desc          the split descriptor (ops/kernels/desc.py) with
+                  cat_words bitset words; root_desc names all rows of
+                  data, for the root's histogram
     k             0-d int32: splits made; best (L, 12), pool (L, C, B, 3),
                   depth, leaf_min / leaf_max, rec (L-1, 13) as in the core
     base_mask     (F,) bool feature sample of the tree
     s_g, s_h      0-d f32 storage scales (quantized); scale_of / leafmax
                   (L, 2) per-leaf ratios and max |stored int| (renew)
+    best_cat      (L, W) int32 left-bin bitset of each leaf's best split
+                  (all clear for a numerical one), rec_cat (L-1, W) the
+                  records'; None when cat_words W is 0 (the JAX best_cat /
+                  rec_cat, bit-packed)
     """
 
     def __init__(self, n: int, d_cols: int, num_leaves: int, pool_shape,
-                 pool_dtype: torch.dtype, num_features: int, device):
+                 pool_dtype: torch.dtype, num_features: int, device,
+                 cat_words: int = 0):
         L = num_leaves
         i32 = dict(dtype=torch.int32, device=device)
         f32 = dict(dtype=torch.float32, device=device)
         self.data = torch.zeros((n, d_cols), **i32)
         self.spare = torch.zeros((n, d_cols), **i32)
         self.key = torch.zeros(n, **i32)
-        self.desc = torch.zeros(dsc.SIZE, **i32)
+        self.desc = torch.zeros(dsc.size(cat_words), **i32)
         self.root_desc = dsc.root(n, device)
         self.k = torch.zeros((), **i32)
         self.best = torch.zeros((L, 12), **f32)
@@ -638,15 +749,37 @@ class DeviceCarry:
         self.leafmax = torch.zeros((L, 2), **f32)
         self.one = torch.ones((), **f32)
         self.zero1 = torch.zeros(1, **i32)
-        # the descriptor's side maxes, and the masked core's fields
-        self.zero_tail = torch.zeros(dsc.SIZE - dsc.SIDE_MAX, **i32)
+        # the descriptor's side maxes and the masked core's fields
+        self.zero_tail = torch.zeros(dsc.CAT - dsc.SIDE_MAX, **i32)
+        self.best_cat, self.rec_cat = _carry_cat(L, cat_words, device)
+
+
+def _carry_cat(num_leaves: int, cat_words: int, device):
+    """The (best_cat (L, W), rec_cat (L-1, W)) int32 bitset stores of a
+    carry or a host loop, zeroed, or (None, None) when W is 0."""
+    if not cat_words:
+        return None, None
+    return (torch.zeros((num_leaves, cat_words), dtype=torch.int32,
+                        device=device),
+            torch.zeros((num_leaves - 1, cat_words), dtype=torch.int32,
+                        device=device))
+
+
+def _desc_cat(c, f_categorical: Optional[torch.Tensor], feat1, words_l):
+    """The descriptor's tail from CAT: the split feature's categorical
+    flag and the leaf's W bitset words; a 0 flag alone without
+    categorical features."""
+    if words_l is None:
+        return [c.zero1]
+    return [f_categorical.index_select(0, feat1), words_l]
 
 
 def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
                f_monotone: torch.Tensor, search2, c_cols: int,
                item_bits: int, col_bins: int, num_leaves: int,
                quant_bits: int = 0, qcap_op: int = 0,
-               renew: bool = False) -> None:
+               renew: bool = False,
+               f_categorical: Optional[torch.Tensor] = None) -> None:
     """One split of the compact core over the device state `c`: the JAX
     core's body with its split_epilogue, at fixed shapes and with no host
     sync. quant_bits > 0: the quantized rows, operand cap qcap_op, leaf
@@ -670,6 +803,7 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
     begin = _get(c.leaf_begin, l1)
     pcount = _get(c.leaf_phys, l1)
     left_small = row[B_LCNT] <= row[B_RCNT]
+    words_l = None if c.best_cat is None else _get(c.best_cat, l1)
 
     # the descriptor: the window and the decision; the left count and the
     # side maxes start at 0 for the split-key kernel to add into
@@ -677,7 +811,8 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
         torch.stack([go.int(), src, begin, pcount]), c.zero1,
         torch.stack([left_small.int(), row[B_THR].int(),
                      (row[B_DLEFT] > 0.5).int()]),
-        _get(meta_table, feat1), c.zero_tail]))
+        _get(meta_table, feat1), c.zero_tail]
+        + _desc_cat(c, f_categorical, feat1, words_l)))
     split_key(c.data, c.spare, c.desc, c.key, item_bits=item_bits, cw=cw,
               renew=renew)
     stable_partition3_window(c.data, c.spare, c.key, c.desc)
@@ -711,7 +846,7 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
         hist_l, hist_r = hist_l.float() * scale3, hist_r.float() * scale3
     split_epilogue_device(c, l1=l1, new1=new1, k1=k1, go=go, row=row,
                           mono_f=_get(f_monotone, feat1), hist_l=hist_l,
-                          hist_r=hist_r, search2=search2)
+                          hist_r=hist_r, search2=search2, words_l=words_l)
     if renew:
         rq2 = torch.stack(rq)
         side = c.desc[dsc.SIDE_MAX:dsc.LEAF].float().view(2, 2)
@@ -753,7 +888,7 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
               max_delta_step: float, min_data_in_leaf: int,
               min_sum_hessian: float, min_gain_to_split: float,
               scale3: Optional[torch.Tensor] = None,
-              stats: Optional[GrowStats] = None):
+              stats: Optional[GrowStats] = None, cat_statics=None):
     """Grow one tree with the masked strategy over column-major codes
     `codes_t` (C, N) and the (N, 3) histogram operand `gh`: f32 [grad,
     hess, 1] (kernel K2), or with `scale3` the integer [qg, qh, 1]
@@ -761,8 +896,11 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
     tree's fixed dequantization scales `scale3`). Each split rewrites the
     device row -> leaf map and builds the left child's histogram over all
     rows, the others' operand zeroed; the right child is parent - left.
+    cat_statics (DeviceTreeLearner._statics) turns on categorical splits.
 
-    Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
+    Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k), and
+    with cat_statics the records' (L-1, W) int32 left-bin bitsets after
+    them."""
     n = codes_t.shape[1]
     L = num_leaves
     dev = codes_t.device
@@ -777,7 +915,8 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
         meta["t_monotone"], meta["t_penalty"], meta["t_elide"],
         meta["t_hist_idx"], max_depth=max_depth, l1=l1, l2=l2,
         max_delta_step=max_delta_step, min_data_in_leaf=min_data_in_leaf,
-        min_sum_hessian=min_sum_hessian, min_gain_to_split=min_gain_to_split)
+        min_sum_hessian=min_sum_hessian, min_gain_to_split=min_gain_to_split,
+        f_categorical=meta["t_categorical"], cat_statics=cat_statics)
     search2 = search2_simple(scan, best_row)
 
     # ---- root ------------------------------------------------------------
@@ -785,12 +924,15 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
     totals = for_scan(hist0[0].sum(dim=0))        # (3,): sum_g, sum_h, cnt
     leaf_min = torch.full((L,), -np.inf, dtype=torch.float32, device=dev)
     leaf_max = torch.full((L,), np.inf, dtype=torch.float32, device=dev)
-    row0 = best_row(scan(for_scan(hist0)[None], totals[0:1], totals[1:2],
-                         totals[2:3], leaf_min[:1], leaf_max[:1],
-                         base_mask), 0)
+    res0, cm0 = scan(for_scan(hist0)[None], totals[0:1], totals[1:2],
+                     totals[2:3], leaf_min[:1], leaf_max[:1], base_mask)
     best = torch.full((L, 12), NEG_INF, dtype=torch.float32, device=dev)
     best[:, B_FEAT:] = 0.0
-    best[0] = row0[0]
+    best[0] = best_row(res0, 0)[0]
+    best_cat, rec_cat = _carry_cat(L, 0 if cm0 is None else cm0.shape[1],
+                                   dev)
+    if best_cat is not None:
+        best_cat[0] = cm0[0]
     pool = torch.zeros((L,) + tuple(hist0.shape), dtype=hist0.dtype,
                        device=dev)
     pool[0] = hist0
@@ -809,8 +951,9 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
         col = codes_t[int(meta["f_col"][feat])].long()
         if codes_t.dtype == torch.int16:
             col = col & 0xFFFF
-        go_left = column_go_left(col, feat, int(row[B_THR]),
-                                 bool(row[B_DLEFT] > 0.5), meta)
+        go_left = column_go_left(
+            col, feat, int(row[B_THR]), bool(row[B_DLEFT] > 0.5), meta,
+            None if best_cat is None else best_cat[l])
         parent = leaf_id == l
         leaf_id = torch.where(parent & ~go_left, new_id, leaf_id)
         ghl = gh * (parent & go_left)[:, None].to(gh.dtype)
@@ -824,23 +967,27 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
                        leaf_min=leaf_min, leaf_max=leaf_max, depth=depth,
                        rec=rec, best=best, hist_l=for_scan(hist_l),
                        hist_r=for_scan(hist_r), fmask=base_mask,
-                       search2=search2)
+                       search2=search2, best_cat=best_cat, rec_cat=rec_cat)
         k += 1
     if stats is not None:
         stats.splits += k
-    return rec, leaf_id, k
+    if rec_cat is None:
+        return rec, leaf_id, k
+    return rec, leaf_id, k, rec_cat.cpu().numpy()
 
 
 class MaskedCarry:
     """The masked core's state on the device, allocated once per learner
-    at fixed addresses (the JAX _Carry without the categorical fields and
-    the by-node key).
+    at fixed addresses (the JAX _Carry without the by-node key).
 
     k             0-d int32: splits made
     leaf_id       (N,) int32 row -> leaf map, rewritten per split
     pool          (L, C, B, 3) f32 (float) or int32 (quantized) histograms
     depth, leaf_min, leaf_max, best (L, 12), rec (L-1, 13) as in the core
-    desc          the split descriptor (ops/kernels/desc.py)
+    desc          the split descriptor (ops/kernels/desc.py) with
+                  cat_words bitset words
+    best_cat, rec_cat  (L, W) and (L-1, W) int32 left-bin bitsets, None
+                  when cat_words W is 0 (as DeviceCarry's)
     gh            (N, 3) the tree's histogram operand: f32 [grad, hess, 1]
                   or int8 / int32 [qg, qh, 1]
     ghl           (N, 3) the left child's operand, of gh's dtype
@@ -851,7 +998,7 @@ class MaskedCarry:
 
     def __init__(self, n: int, num_leaves: int, pool_shape,
                  pool_dtype: torch.dtype, gh_dtype: torch.dtype,
-                 num_features: int, device):
+                 num_features: int, device, cat_words: int = 0):
         L = num_leaves
         i32 = dict(dtype=torch.int32, device=device)
         f32 = dict(dtype=torch.float32, device=device)
@@ -864,7 +1011,7 @@ class MaskedCarry:
         self.leaf_max = torch.zeros(L, **f32)
         self.best = torch.zeros((L, 12), **f32)
         self.rec = torch.zeros((L - 1, 13), **f32)
-        self.desc = torch.zeros(dsc.SIZE, **i32)
+        self.desc = torch.zeros(dsc.size(cat_words), **i32)
         self.gh = torch.zeros((n, 3), dtype=gh_dtype, device=device)
         self.ghl = torch.zeros((n, 3), dtype=gh_dtype, device=device)
         self.base_mask = torch.ones(num_features, dtype=torch.bool,
@@ -872,12 +1019,15 @@ class MaskedCarry:
         self.scale3 = torch.ones(3, **f32)
         self.zero5 = torch.zeros(5, **i32)
         self.zero4 = torch.zeros(4, **i32)
+        self.zero1 = torch.zeros(1, **i32)
+        self.best_cat, self.rec_cat = _carry_cat(L, cat_words, device)
 
 
 def masked_split_step(c: MaskedCarry, codes_t: torch.Tensor, *,
                       meta_table: torch.Tensor, f_monotone: torch.Tensor,
                       search2, col_bins: int, num_leaves: int,
-                      quant: bool) -> None:
+                      quant: bool,
+                      f_categorical: Optional[torch.Tensor] = None) -> None:
     """One split of the masked core over the device state `c`: the JAX
     grow_tree body at fixed shapes and with no host sync. The split key's
     column entry rewrites the split leaf's row -> leaf map and writes the
@@ -897,13 +1047,15 @@ def masked_split_step(c: MaskedCarry, codes_t: torch.Tensor, *,
     k1 = torch.clamp(k, max=L - 2).view(1)
     feat1 = torch.clamp(row[B_FEAT].long(), 0,
                         meta_table.shape[0] - 1).view(1)
+    words_l = None if c.best_cat is None else _get(c.best_cat, l1)
 
     # the descriptor: go, the decision, the leaf and the new id (the
     # window and side-max fields are the compact core's)
     c.desc.copy_(torch.cat([
         go.int().view(1), c.zero5,
         torch.stack([row[B_THR].int(), (row[B_DLEFT] > 0.5).int()]),
-        _get(meta_table, feat1), c.zero4, l1.int(), new1.int()]))
+        _get(meta_table, feat1), c.zero4, l1.int(), new1.int()]
+        + _desc_cat(c, f_categorical, feat1, words_l)))
     split_key_column(codes_t, c.desc, c.leaf_id, c.gh, c.ghl)
     if quant:
         hist_l = build_histogram_quantized_t(codes_t, c.ghl, col_bins)
@@ -916,7 +1068,7 @@ def masked_split_step(c: MaskedCarry, codes_t: torch.Tensor, *,
         hist_l, hist_r = hist_l.float() * c.scale3, hist_r.float() * c.scale3
     split_epilogue_device(c, l1=l1, new1=new1, k1=k1, go=go, row=row,
                           mono_f=_get(f_monotone, feat1), hist_l=hist_l,
-                          hist_r=hist_r, search2=search2)
+                          hist_r=hist_r, search2=search2, words_l=words_l)
     c.k.copy_(c.k + go.int())
 
 
@@ -929,16 +1081,16 @@ class DeviceTreeLearner:
         self.config = config
         self.dataset = dataset
         self.device = torch.device(device)
-        if any(dataset.bin_mappers[f].bin_type == BIN_CATEGORICAL
-               for f in dataset.used_features):
-            raise LightGBMError("categorical features are not supported by "
-                                "this port yet (categorical_feature)")
         self.strategy = resolve_strategy(config, dataset, strategy)
         dev = self.device
-        nb, mt, db, _, mono = dataset.feature_meta_arrays()
+        nb, mt, db, cat, mono = dataset.feature_meta_arrays()
         self.num_features = dataset.num_features
         self.num_bins = int(dataset.max_num_bins)
         self.device_bins = padded_device_bins(self.num_bins)
+        # categorical splits run in the split scan of every core (the JAX
+        # merged mode); each split's left bins ride as W bitset words
+        self.has_cat = bool(np.any(cat))
+        self.cat_words = (self.device_bins + 31) // 32 if self.has_cat else 0
         bundle = dataset.bundle_arrays()
         if bundle is not None:
             host_codes, f_col, f_base, f_elide, hist_idx, col_bins = bundle
@@ -980,7 +1132,8 @@ class DeviceTreeLearner:
         self.meta = {
             "f_numbins": nb, "f_missing": mt, "f_default": db,
             "f_monotone": mono, "f_col": f_col, "f_base": f_base,
-            "f_elide": f_elide,
+            "f_elide": f_elide, "f_categorical": cat,
+            "t_categorical": t(cat, torch.int32),
             "t_numbins": t(nb, torch.int32), "t_missing": t(mt, torch.int32),
             "t_default": t(db, torch.int32),
             "t_monotone": t(mono, torch.int32),
@@ -1037,6 +1190,9 @@ class DeviceTreeLearner:
         # of its tree, grouped at the first leaf_rows call
         self._bag_rows: Optional[np.ndarray] = None
         self._leaf_rows = None
+        # the (L-1, W) int32 left-bin bitsets of the last fetched tree's
+        # records (fetch_tree), None without categorical features
+        self.last_rec_cat: Optional[np.ndarray] = None
         self.stats = GrowStats()
 
     def pack_codes(self, host_codes: np.ndarray) -> np.ndarray:
@@ -1059,7 +1215,14 @@ class DeviceTreeLearner:
 
     def _statics(self):
         cfg = self.config
+        cat_statics = None
+        if self.has_cat:
+            cat_statics = (float(cfg.cat_l2), float(cfg.cat_smooth),
+                           int(cfg.max_cat_threshold),
+                           int(cfg.max_cat_to_onehot),
+                           int(cfg.min_data_per_group))
         return dict(
+            cat_statics=cat_statics,
             num_leaves=int(cfg.num_leaves), col_bins=self.col_device_bins,
             max_depth=int(cfg.max_depth), l1=float(cfg.lambda_l1),
             l2=float(cfg.lambda_l2),
@@ -1164,7 +1327,7 @@ class DeviceTreeLearner:
         self._leaf_rows = None
         if k == 0:
             log.warning("No further splits with positive gain")
-        return self.replay_tree(rec, k)
+        return self.replay_tree(rec, k, self.last_rec_cat)
 
     def leaf_rows(self, leaf: int) -> np.ndarray:
         """The in-bag rows of a leaf of the last tree train() grew, in
@@ -1230,16 +1393,24 @@ class DeviceTreeLearner:
 
     def fetch_tree(self, rec: torch.Tensor, k: torch.Tensor, *flags):
         """The tree's one device->host copy: its records, k and any 0-d
-        `flags`, packed into one tensor. Returns (rec (L-1, 13) f32 numpy,
-        k, flags as floats); counts the sync, the splits and, on the
-        compact strategy, the rows K4's window entry moved (each split's
-        window: its two children)."""
+        `flags`, packed into one tensor, with categorical features also
+        the last grown carry's (L-1, W) record bitsets (bit-cast to f32,
+        into last_rec_cat). Returns (rec (L-1, 13) f32 numpy, k, flags as
+        floats); counts the sync, the splits and, on the compact
+        strategy, the rows K4's window entry moved (each split's window:
+        its two children)."""
         parts = [rec.reshape(-1), k.float().view(1)] \
             + [f.float().view(1) for f in flags]
+        if self.cat_words:
+            parts.append(self._carry.rec_cat.view(torch.float32).reshape(-1))
         host = torch.cat(parts).cpu().numpy()
         self.stats.host_syncs += 1
         m = rec.numel()
         rec_h = host[:m].reshape(rec.shape)
+        if self.cat_words:
+            self.last_rec_cat = host[m + 1 + len(flags):].view(np.int32) \
+                .reshape(rec.shape[0], self.cat_words)
+            host = host[:m + 1 + len(flags)]
         k = int(host[m])
         self.stats.splits += k
         if self.strategy == "compact":
@@ -1279,7 +1450,9 @@ class DeviceTreeLearner:
                 max_delta_step=st["max_delta_step"],
                 min_data_in_leaf=st["min_data_in_leaf"],
                 min_sum_hessian=st["min_sum_hessian"],
-                min_gain_to_split=st["min_gain_to_split"])
+                min_gain_to_split=st["min_gain_to_split"],
+                f_categorical=self.meta["t_categorical"],
+                cat_statics=st["cat_statics"])
             self._scan = (scan, best_row, search2_simple(scan, best_row))
         return self._scan
 
@@ -1322,14 +1495,15 @@ class DeviceTreeLearner:
         d_cols = self.codes_pack.shape[1] + (2 if self.quant_bits else 4)
         c = DeviceCarry(n, d_cols, L, (self.c_cols, st["col_bins"], 3),
                         torch.int32 if self.quant_bits else torch.float32,
-                        self.num_features, self.device)
+                        self.num_features, self.device, self.cat_words)
         # the step holds no reference to the learner (see _capture)
         kw = dict(meta_table=self.meta["t_feature_table"],
                   f_monotone=self.meta["t_monotone"],
                   search2=self._search()[2], c_cols=self.c_cols,
                   item_bits=self.item_bits, col_bins=st["col_bins"],
                   num_leaves=L, quant_bits=self.quant_bits, qcap_op=qcap_op,
-                  renew=bool(self.quant_bits) and self.quant_renew)
+                  renew=bool(self.quant_bits) and self.quant_renew,
+                  f_categorical=self.meta["t_categorical"])
 
         def step():
             split_step(c, **kw)
@@ -1351,12 +1525,16 @@ class DeviceTreeLearner:
         scan, best_row, _ = self._search()
         c.leaf_min.fill_(-np.inf)
         c.leaf_max.fill_(np.inf)
-        row0 = best_row(scan(hist0_s[None], totals[0:1], totals[1:2],
-                             totals[2:3], c.leaf_min[:1], c.leaf_max[:1],
-                             c.base_mask), 0)
+        res0, cm0 = scan(hist0_s[None], totals[0:1], totals[1:2],
+                         totals[2:3], c.leaf_min[:1], c.leaf_max[:1],
+                         c.base_mask)
         c.best.fill_(NEG_INF)
         c.best[:, B_FEAT:] = 0.0
-        c.best[0] = row0[0]
+        c.best[0] = best_row(res0, 0)[0]
+        if c.best_cat is not None:
+            c.best_cat.zero_()
+            c.best_cat[0] = cm0[0]
+            c.rec_cat.zero_()
         c.pool.zero_()
         c.pool[0] = hist0
         c.rec.zero_()
@@ -1425,9 +1603,11 @@ class DeviceTreeLearner:
         if bag_idx is None:
             return c.rec, leaf_map(c), c.k
         leaf_id = leaf_map(c, self.dataset.num_data)
-        routed = route_rows(self.codes_pack.index_select(0, oob_idx), c.rec,
-                            c.k, self.meta["t_feature_table"],
-                            item_bits=self.item_bits)
+        routed = route_rows(
+            self.codes_pack.index_select(0, oob_idx), c.rec, c.k,
+            self.meta["t_feature_table"], item_bits=self.item_bits,
+            rec_cat=c.rec_cat,
+            f_cat=self.meta["t_categorical"] if self.cat_words else None)
         return c.rec, leaf_id.index_copy_(0, oob_idx, routed.long()), c.k
 
     def masked_operand(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -1455,7 +1635,8 @@ class DeviceTreeLearner:
         """The masked core's MaskedCarry and its SplitLoop, made at the
         first tree."""
         if "masked" in self._states:
-            return self._states["masked"]
+            self._carry, self._loop = self._states["masked"]
+            return self._carry, self._loop
         st = self._statics()
         L, n = st["num_leaves"], self.dataset.num_data
         quant = bool(self.quant_bits)
@@ -1463,13 +1644,15 @@ class DeviceTreeLearner:
             n, L, (self.c_cols, st["col_bins"], 3),
             torch.int32 if quant else torch.float32,
             quant_ops.operand_dtype(self.quant_bits) if quant
-            else torch.float32, self.num_features, self.device)
+            else torch.float32, self.num_features, self.device,
+            self.cat_words)
         # the step holds no reference to the learner (see _capture)
         codes_t = self.codes_t
         kw = dict(meta_table=self.meta["t_feature_table"],
                   f_monotone=self.meta["t_monotone"],
                   search2=self._search()[2], col_bins=st["col_bins"],
-                  num_leaves=L, quant=quant)
+                  num_leaves=L, quant=quant,
+                  f_categorical=self.meta["t_categorical"])
 
         def step():
             masked_split_step(c, codes_t, **kw)
@@ -1573,8 +1756,13 @@ class DeviceTreeLearner:
                     torch.isfinite(new_score).all())
         return step
 
-    def replay_tree(self, rec_h, k: int) -> Tree:
-        """Materialize a host Tree from the (L-1, 13) split records."""
+    def replay_tree(self, rec_h, k: int, rec_cat_h=None) -> Tree:
+        """Materialize a host Tree from the (L-1, 13) split records (the
+        JAX replay_tree). rec_cat_h holds the records' (L-1, W) int32
+        left-bin bitsets; a record of a categorical feature replays as a
+        bitset node: its inner bits are the mask's bins, its real bits
+        their categories (bin_2_categorical; bins past it, the overflow
+        and NaN bins, have no category)."""
         ds = self.dataset
         rec_h = np.asarray(rec_h)
         tree = Tree(self.config.num_leaves)
@@ -1583,6 +1771,22 @@ class DeviceTreeLearner:
             inner_f = int(r[R_FEAT])
             real_f = ds.inner_to_real(inner_f)
             mapper = ds.bin_mappers[real_f]
+            if mapper.bin_type == BIN_CATEGORICAL and rec_cat_h is not None:
+                words = np.asarray(rec_cat_h[i]).astype(np.uint32)
+                bins = [w * 32 + b for w in range(len(words))
+                        for b in range(32) if (int(words[w]) >> b) & 1]
+                cats = [mapper.bin_2_categorical[b] for b in bins
+                        if b < len(mapper.bin_2_categorical)]
+                tree.split_categorical(
+                    int(r[R_LEAF]), inner_f, real_f,
+                    [int(w) for w in _make_bitset(bins)],
+                    [int(w) for w in _make_bitset(cats)],
+                    float(r[R_LOUT]), float(r[R_ROUT]),
+                    int(round(float(r[R_LCNT]))),
+                    int(round(float(r[R_RCNT]))),
+                    float(r[R_LSH]), float(r[R_RSH]),
+                    float(r[R_GAIN]), mapper.missing_type)
+                continue
             thr_bin = int(r[R_THR])
             tree.split(
                 int(r[R_LEAF]), inner_f, real_f, thr_bin,
@@ -1594,6 +1798,18 @@ class DeviceTreeLearner:
                 float(r[R_GAIN]), mapper.missing_type,
                 bool(r[R_DLEFT] > 0.5))
         return tree
+
+
+def _make_bitset(values) -> np.ndarray:
+    """uint32 bitset words with the given non-negative values set, as
+    few words as the largest needs (one for none): the JAX package's
+    serial_learner._make_bitset (Common::ConstructBitset)."""
+    if not values:
+        return np.zeros(1, dtype=np.uint32)
+    out = np.zeros(max(values) // 32 + 1, dtype=np.uint32)
+    for v in values:
+        out[v // 32] |= np.uint32(1 << (v % 32))
+    return out
 
 
 __all__: List[str] = ["DeviceTreeLearner", "grow_tree",

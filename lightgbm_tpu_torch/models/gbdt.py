@@ -324,7 +324,7 @@ class GBDT:
         it; True (and nothing appended) when the tree has no split."""
         if k == 0:
             return True
-        tree = self.learner.replay_tree(rec_h, k)
+        tree = self.learner.replay_tree(rec_h, k, self.learner.last_rec_cat)
         tree.apply_shrinkage(self.shrinkage_rate)
         if abs(init_score) > K_EPSILON:
             tree.add_bias(init_score)

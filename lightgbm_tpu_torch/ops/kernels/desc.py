@@ -26,6 +26,11 @@ Fields (int32):
               rows' (leaf re-quantization), maxed in by the split-key kernel
   LEAF        the split leaf (masked core: rows whose leaf id it is split)
   NEW_ID      the right child's leaf id, k + 1 (masked core)
+  CAT         1 when the split feature is categorical: a row goes left
+              iff its logical bin is set in the W bitset words from WORDS
+  WORDS       the categorical split's left-bin bitset, W int32 words (bin
+              b at bit b % 32 of word b // 32); W is the learner's, 0
+              without categorical features (``size(W)`` fields in all)
 """
 from __future__ import annotations
 
@@ -35,14 +40,32 @@ import torch
  NUMBINS, MISSING, DEFAULT, SIDE_MAX) = range(15)
 LEAF = SIDE_MAX + 4
 NEW_ID = LEAF + 1
-SIZE = NEW_ID + 1
+CAT = NEW_ID + 1
+WORDS = CAT + 1
+SIZE = WORDS                  # the descriptor without bitset words
 
 
-def root(n: int, device) -> torch.Tensor:
+def size(words: int) -> int:
+    """The descriptor's length with `words` bitset words."""
+    return SIZE + words
+
+
+def is_desc(desc: torch.Tensor) -> bool:
+    """Whether `desc` has a descriptor's shape: (size(W),) for a W >= 0."""
+    return desc.dim() == 1 and desc.shape[0] >= SIZE
+
+
+def cat_words(desc: torch.Tensor) -> int:
+    """The descriptor's bitset words W, from its length (a kernel wrapper
+    checks the length first)."""
+    return desc.shape[0] - SIZE
+
+
+def root(n: int, device, words: int = 0) -> torch.Tensor:
     """The descriptor whose histogram window is all n rows of buffer 0:
     the root's (a window entry reads buffer 1 - SRC, from row BEGIN, the
     LPHYS rows of a left-small split)."""
-    d = torch.zeros(SIZE, dtype=torch.int32)
+    d = torch.zeros(size(words), dtype=torch.int32)
     d[GO], d[SRC], d[COUNT], d[LPHYS], d[LEFT_SMALL] = 1, 1, n, n, 1
     return d.to(device)
 

@@ -390,9 +390,9 @@ def _window_launch(name: str, counter: str, data, spare, desc, cw, c_cols,
                              "buffers' CUDA device" % name)
     if data.dim() != 2 or data.dtype != torch.int32 \
             or not data.is_contiguous() or spare.shape != data.shape \
-            or desc.shape != (dsc.SIZE,):
-        raise ValueError("%s: want two (N, D) int32 buffers and a (%d,) "
-                         "descriptor" % (name, dsc.SIZE))
+            or not dsc.is_desc(desc):
+        raise ValueError("%s: want two (N, D) int32 buffers and a "
+                         "descriptor of >= %d fields" % (name, dsc.SIZE))
     n, d = data.shape
     lanes = 2 if quant else 4
     if item_bits not in (4, 8, 16) or not 0 <= cw <= d - lanes \

@@ -195,10 +195,10 @@ def stable_partition3_window(data: torch.Tensor, spare: torch.Tensor,
                              "int32 tensors on the buffers' CUDA device")
     if data.dim() != 2 or data.dtype != torch.int32 \
             or not data.is_contiguous() or spare.shape != data.shape \
-            or key3.shape != (data.shape[0],) or desc.shape != (dsc.SIZE,):
+            or key3.shape != (data.shape[0],) or not dsc.is_desc(desc):
         raise ValueError("stable_partition3_window: want two (N, D) int32 "
-                         "buffers, an (N,) key and a (%d,) descriptor"
-                         % dsc.SIZE)
+                         "buffers, an (N,) key and a descriptor of >= %d "
+                         "fields" % dsc.SIZE)
     d = data.shape[1]
     if not tile_rows(d):
         raise ValueError("stable_partition3_window: rows of %d words; the "

@@ -6,7 +6,10 @@ compact core does in XLA around its partition (lightgbm_tpu/models/
 device_learner.py ``packed_go_left`` with ``logical_bins_for_feature`` and
 ``decide_left``, and ``_quant_side_maxes`` under leaf re-quantization): per
 row of the split leaf's window, decode the split feature's code from its
-packed word, unmap its EFB logical bin and decide left or right. It writes
+packed word, unmap its EFB logical bin and decide left or right: by the
+threshold, or for a categorical split (the descriptor's CAT field) by the
+logical bin's bit in the descriptor's bitset words (the JAX ``cat_mask``
+lookup, ``partition_step_categorical``'s semantics). It writes
 key3 (0 = left, 1 = right) for K4, and into the split descriptor
 (ops/kernels/desc.py) the exact count of rows going left and, under
 re-quantization, each side's max |qg| and |qh|.
@@ -24,7 +27,8 @@ tree, for the rows left out of the bag. It stands for the JAX
 ``route_rows_by_rec`` (lightgbm_tpu/models/device_learner.py:2174): each
 packed row walks the tree's split records in order and takes leaf i + 1
 where it sits in record i's leaf and goes right, decoded as the packed
-entry decodes it.
+entry decodes it (a record of a categorical feature by its bitset words,
+the JAX ``rec_cat``).
 
 Each wrapper launches ``csrc/split_key.cu`` for tensors on the card, and
 takes its ``*_plain`` version, the same function in plain PyTorch, for
@@ -35,11 +39,12 @@ count k from device memory.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from .. import bundle as bundle_ops
-from ..partition import decide_left
+from ..partition import decide_left, decide_left_categorical
 from ..quantize import unpack_gh
 from . import build
 from . import desc as dsc
@@ -60,9 +65,13 @@ _CODE_BYTES = {torch.uint8: 1, torch.int16: 2}
 def _decide(col: torch.Tensor, f) -> torch.Tensor:
     """Bool split decision of the raw codes `col` of the split feature's
     column under the descriptor ints `f`: its EFB logical bins, then the
-    numerical decision."""
+    categorical decision (CAT set: the bin's bit in the WORDS) or the
+    numerical one."""
     bins = bundle_ops.logical_bins_for_feature(
         col, f[dsc.BASE], f[dsc.DEFAULT], f[dsc.NUMBINS], f[dsc.ELIDE])
+    if len(f) > dsc.WORDS and f[dsc.CAT]:
+        return decide_left_categorical(bins, torch.tensor(
+            f[dsc.WORDS:], dtype=torch.int32, device=col.device))
     return decide_left(bins, f[dsc.THR], bool(f[dsc.DLEFT]),
                        f[dsc.MISSING], f[dsc.DEFAULT], f[dsc.NUMBINS])
 
@@ -126,17 +135,17 @@ def split_key(data: torch.Tensor, spare: torch.Tensor, desc: torch.Tensor,
     n, d = data.shape
     if data.dtype != torch.int32 or not data.is_contiguous() \
             or spare.shape != data.shape or key.shape != (n,) \
-            or desc.shape != (dsc.SIZE,):
+            or not dsc.is_desc(desc):
         raise ValueError("split_key: want two (N, D) int32 buffers, an (N,) "
-                         "key and a (%d,) descriptor" % dsc.SIZE)
+                         "key and a descriptor of >= %d fields" % dsc.SIZE)
     if item_bits not in (4, 8, 16):
         raise ValueError("split_key: item_bits must be 4, 8 or 16")
     fn = build.load("split_key").lgbt_split_key_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     rc = fn(data.data_ptr(), spare.data_ptr(), desc.data_ptr(),
-            key.data_ptr(), d, cw, item_bits, int(renew),
+            key.data_ptr(), d, cw, item_bits, int(renew), dsc.cat_words(desc),
             _grid_x(data.device, n, _BLOCKS_PER_SM),
             torch.cuda.current_stream(data.device).cuda_stream)
     build.check(rc, "split key kernel launch")
@@ -184,11 +193,12 @@ def split_key_column(codes_t: torch.Tensor, desc: torch.Tensor,
                          "int16 codes, got %s %s" % (codes_t.dtype,
                                                      tuple(codes_t.shape)))
     n = codes_t.shape[1]
-    if desc.dtype != torch.int32 or desc.shape != (dsc.SIZE,) \
+    if desc.dtype != torch.int32 or not dsc.is_desc(desc) \
             or leaf_id.dtype != torch.int32 or leaf_id.shape != (n,) \
             or gh.dtype not in _OP_KIND or ghl.dtype != gh.dtype \
             or gh.shape != (n, 3) or ghl.shape != (n, 3):
-        raise ValueError("split_key_column: want a (%d,) int32 descriptor, "
+        raise ValueError("split_key_column: want an int32 descriptor of "
+                         ">= %d fields, "
                          "an (N,) int32 leaf_id and two (N, 3) operands of "
                          "one dtype (f32, int8 or int32)" % dsc.SIZE)
     if n == 0:
@@ -196,10 +206,10 @@ def split_key_column(codes_t: torch.Tensor, desc: torch.Tensor,
     fn = build.load("split_key").lgbt_split_key_column_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     rc = fn(codes_t.data_ptr(), _CODE_BYTES[codes_t.dtype], n,
             desc.data_ptr(), leaf_id.data_ptr(), gh.data_ptr(),
-            ghl.data_ptr(), _OP_KIND[gh.dtype],
+            ghl.data_ptr(), _OP_KIND[gh.dtype], dsc.cat_words(desc),
             _grid_x(codes_t.device, n, _BLOCKS_PER_SM),
             torch.cuda.current_stream(codes_t.device).cuda_stream)
     build.check(rc, "split key column kernel launch")
@@ -207,33 +217,44 @@ def split_key_column(codes_t: torch.Tensor, desc: torch.Tensor,
 
 
 def route_rows_plain(rows: torch.Tensor, rec: torch.Tensor, k: torch.Tensor,
-                     table: torch.Tensor, *, item_bits: int) -> torch.Tensor:
+                     table: torch.Tensor, *, item_bits: int,
+                     rec_cat: Optional[torch.Tensor] = None,
+                     f_cat: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The router in plain PyTorch: the JAX loop over the first k records,
     each row moved to leaf i + 1 where it is in record i's leaf and goes
     right."""
     leaf = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
-    f = [0] * dsc.SIZE
+    words = 0 if rec_cat is None else rec_cat.shape[1]
+    f = [0] * dsc.size(words)
     for i in range(int(k)):
         r = rec[i].tolist()
         feat = min(max(int(r[_R_FEAT]), 0), table.shape[0] - 1)
         f[dsc.THR], f[dsc.DLEFT] = int(r[_R_THR]), int(r[_R_DLEFT] > 0.5)
         f[dsc.COL:dsc.DEFAULT + 1] = table[feat].tolist()
+        if words:
+            f[dsc.CAT] = int(f_cat[feat])
+            f[dsc.WORDS:] = rec_cat[i].tolist()
         right = (leaf == int(r[_R_LEAF])) & ~_go_left(rows, f, item_bits)
         leaf = torch.where(right, i + 1, leaf)
     return leaf
 
 
 def route_rows(rows: torch.Tensor, rec: torch.Tensor, k: torch.Tensor,
-               table: torch.Tensor, *, item_bits: int) -> torch.Tensor:
+               table: torch.Tensor, *, item_bits: int,
+               rec_cat: Optional[torch.Tensor] = None,
+               f_cat: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M,) int32 leaf of each of the (M, CW) int32 packed code rows
     `rows` under a tree's (L-1, 13) f32 split records `rec`, of which the
     first k (a 0-d int32 tensor, read on the device) are real; `table`
     the (F, 6) int32 feature fields (column, EFB base, elide flag, bin
-    count, missing type, default bin). One launch on a grid fixed by M,
+    count, missing type, default bin). With categorical features,
+    `rec_cat` holds each record's (L-1, W) int32 bitset words and `f_cat`
+    the (F,) int32 categorical flags. One launch on a grid fixed by M,
     counted in ``launches_route``."""
     global launches_route
     if rows.device.type == "cpu":
-        return route_rows_plain(rows, rec, k, table, item_bits=item_bits)
+        return route_rows_plain(rows, rec, k, table, item_bits=item_bits,
+                                rec_cat=rec_cat, f_cat=f_cat)
     m = rows.shape[0] if rows.dim() == 2 else -1
     if rows.dtype != torch.int32 or m < 0 or not rows.is_contiguous() \
             or rec.dtype != torch.float32 or rec.dim() != 2 \
@@ -243,7 +264,16 @@ def route_rows(rows: torch.Tensor, rec: torch.Tensor, k: torch.Tensor,
             or table.shape[1] != 6 or not table.is_contiguous():
         raise ValueError("route_rows: want (M, CW) int32 rows, (L-1, 13) f32 "
                          "records, a 0-d int32 k and an (F, 6) int32 table")
-    for t in (rec, k, table):
+    words = 0 if rec_cat is None else rec_cat.shape[1]
+    if words and (rec_cat.dtype != torch.int32 or rec_cat.dim() != 2
+                  or rec_cat.shape[0] != rec.shape[0]
+                  or not rec_cat.is_contiguous() or f_cat is None
+                  or f_cat.dtype != torch.int32
+                  or f_cat.shape != (table.shape[0],)):
+        raise ValueError("route_rows: want (L-1, W) int32 bitset words "
+                         "beside the records and (F,) int32 categorical "
+                         "flags")
+    for t in (rec, k, table) + ((rec_cat, f_cat) if words else ()):
         if t.device != rows.device:
             raise ValueError("route_rows: want every tensor on the rows' "
                              "CUDA device")
@@ -257,10 +287,12 @@ def route_rows(rows: torch.Tensor, rec: torch.Tensor, k: torch.Tensor,
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     rc = fn(rows.data_ptr(), m, rows.shape[1], item_bits, rec.data_ptr(),
             k.data_ptr(), rec.shape[0], table.data_ptr(), table.shape[0],
-            leaf.data_ptr(),
+            rec_cat.data_ptr() if words else None, words,
+            f_cat.data_ptr() if words else None, leaf.data_ptr(),
             torch.cuda.current_stream(rows.device).cuda_stream)
     build.check(rc, "router kernel launch")
     launches_route += 1

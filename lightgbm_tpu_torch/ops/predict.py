@@ -12,8 +12,11 @@ a dataset's binned codes (DecisionInner, ``predict_binned_tree_values``,
 which the score updaters of validation sets and of a continued model run
 once per tree).
 
-This slice predicts numerical splits only; an ensemble with categorical
-splits is refused.
+Categorical nodes (decision_type bit 0) go left iff the value's bit is
+set in the node's bitset (tree.h CategoricalDecision /
+CategoricalDecisionInner): raw values through cat_boundaries /
+cat_threshold, where a negative, NaN or out-of-range value goes right;
+binned codes through cat_boundaries_inner / cat_threshold_inner.
 """
 from __future__ import annotations
 
@@ -21,8 +24,6 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
-
-from ..utils.log import LightGBMError
 
 MISSING_NONE = 0
 MISSING_ZERO = 1
@@ -39,6 +40,8 @@ class EnsembleArrays(NamedTuple):
     left_child: torch.Tensor      # (T, M) int64
     right_child: torch.Tensor     # (T, M) int64
     leaf_value: torch.Tensor      # (T, L) f32
+    cat_boundaries: torch.Tensor  # (T, C + 2) int64 word offsets
+    cat_threshold: torch.Tensor   # (T, W) int64 bitset words (uint32)
     max_depth: int
 
 
@@ -48,27 +51,28 @@ def _max_depth_steps(depth: int) -> int:
     return max(1, int(np.ceil(max(1, depth) / 8)) * 8)
 
 
-def _refuse_categorical(decision_type) -> None:
-    if np.any(np.asarray(decision_type) & 1):
-        raise LightGBMError("categorical splits are not supported by this "
-                            "port yet (ensemble has a categorical node)")
-
-
 def ensemble_from_numpy(split_feature, threshold, threshold_bin,
                         decision_type, left_child, right_child, leaf_value,
-                        max_depth: int, device) -> EnsembleArrays:
+                        max_depth: int, device, cat_boundaries=None,
+                        cat_threshold=None) -> EnsembleArrays:
     """Device tensors from the numpy form of the padded arrays (the form
-    lightgbm_tpu.ops.predict.trees_to_arrays returns, fetched to host)."""
-    dt = np.asarray(decision_type)
-    _refuse_categorical(dt)
+    lightgbm_tpu.ops.predict.trees_to_arrays returns, fetched to host;
+    its categorical arrays are the real-valued ones, absent: none)."""
+    t_count = np.asarray(split_feature).shape[0]
+    if cat_boundaries is None:
+        cat_boundaries = np.zeros((t_count, 2), np.int64)
+        cat_threshold = np.zeros((t_count, 1), np.int64)
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
 
     return EnsembleArrays(
         t(split_feature, torch.int64), t(threshold, torch.float32),
-        t(threshold_bin, torch.int32), t(dt, torch.int32), t(left_child, torch.int64),
-        t(right_child, torch.int64), t(leaf_value, torch.float32),
+        t(threshold_bin, torch.int32), t(decision_type, torch.int32),
+        t(left_child, torch.int64), t(right_child, torch.int64),
+        t(leaf_value, torch.float32), t(cat_boundaries, torch.int64),
+        # the words as uint32 values, whatever their sign in int32 form
+        t(np.asarray(cat_threshold, np.int64) & 0xFFFFFFFF, torch.int64),
         int(max_depth))
 
 
@@ -96,6 +100,12 @@ def trees_to_arrays(trees: Sequence, device) -> EnsembleArrays:
     lc = pad2(nodes("left_child"), max_nodes, np.int64)
     rc = pad2(nodes("right_child"), max_nodes, np.int64)
     lv = pad2(lambda t: t.leaf_value[: t.num_leaves], max_leaves, np.float64)
+    max_cats = max(t.num_cat for t in trees)
+    max_words = max(max(len(t.cat_threshold), 1) for t in trees)
+    cb = pad2(lambda t: np.asarray(t.cat_boundaries, np.int64),
+              max_cats + 2, np.int64)
+    ct = pad2(lambda t: np.asarray(t.cat_threshold, np.int64), max_words,
+              np.int64)
     # single-leaf trees: node 0 routes to leaf 0 both sides
     for i, tr in enumerate(trees):
         if tr.num_leaves == 1:
@@ -103,7 +113,27 @@ def trees_to_arrays(trees: Sequence, device) -> EnsembleArrays:
             rc[i, 0] = -1
     return ensemble_from_numpy(
         sf, th.astype(np.float32), tb, dtp, lc, rc, lv.astype(np.float32),
-        _max_depth_steps(max(t.depth() for t in trees)), device)
+        _max_depth_steps(max(t.depth() for t in trees)), device, cb, ct)
+
+
+def _in_bitset(v: torch.Tensor, idx: torch.Tensor, bounds: torch.Tensor,
+               words: torch.Tensor) -> torch.Tensor:
+    """Whether int64 value v is set in bitset idx of (bounds, words) --
+    the words bounds[idx] .. bounds[idx + 1] (Common::FindInBitset): a
+    negative value or one past the bitset is not. The arrays are 1-d, or
+    2-d with a leading tree axis that `v` and `idx` index as (N, T)."""
+    if bounds.dim() == 1:
+        bounds, words = bounds[None], words[None]
+        tix = torch.zeros_like(idx)
+    else:
+        tix = torch.arange(bounds.shape[0], device=v.device)[None, :] \
+            .expand_as(idx)
+    nb, nw = bounds.shape[1], words.shape[1]
+    lo = bounds[tix, idx.clamp(0, nb - 1)]
+    hi = bounds[tix, (idx + 1).clamp(0, nb - 1)]
+    wi = torch.div(v, 32, rounding_mode="floor")
+    word = words[tix, (lo + wi).clamp(0, nw - 1)]
+    return (v >= 0) & (wi < hi - lo) & (((word >> (v % 32)) & 1) == 1)
 
 
 def predict_leaf_index(x: torch.Tensor,
@@ -130,7 +160,13 @@ def predict_leaf_index(x: torch.Tensor,
         is_missing = torch.where(
             mt == MISSING_ZERO, torch.abs(fval_n) <= K_ZERO_THRESHOLD,
             (mt == MISSING_NAN) & torch.isnan(fval_n))
-        go_left = torch.where(is_missing, default_left, fval_n <= thr)
+        num_left = torch.where(is_missing, default_left, fval_n <= thr)
+        # categorical on raw int values: NaN -> -1 (goes right); an int32
+        # conversion truncates toward zero, as XLA's does
+        ival = torch.where(is_nan, -1.0, fval.clamp(-2.0**31, 2.0**31 - 128))
+        cat_left = _in_bitset(ival.to(torch.int32).long(), thr.long(),
+                              arrays.cat_boundaries, arrays.cat_threshold)
+        go_left = torch.where((dt & 1) > 0, cat_left, num_left)
         nxt = torch.where(go_left, arrays.left_child[tix, node_c],
                           arrays.right_child[tix, node_c])
         node = torch.where(live, nxt, node)
@@ -161,7 +197,9 @@ def predict_binned_leaf(binned: torch.Tensor, real_to_inner: np.ndarray,
     predict_binned_leaf): at a node of missing type zero a row in the
     feature's default bin is missing, of missing type NaN a row in its
     last bin; a missing row goes the node's default way, any other left
-    when its bin is <= the node's bin threshold. The per-node fields are
+    when its bin is <= the node's bin threshold; at a categorical node
+    left when its bin is set in the node's inner bitset
+    (cat_boundaries_inner / cat_threshold_inner). The per-node fields are
     joined on the host into one (6, M) table (inner column, bin
     threshold, missing bin, default left, children), so that a level is
     a few gathers and selects over the rows; the walk takes the tree's
@@ -174,7 +212,6 @@ def predict_binned_leaf(binned: torch.Tensor, real_to_inner: np.ndarray,
         return torch.zeros(n, dtype=torch.int64, device=dev)
     m = tree.num_leaves - 1
     dt = np.asarray(tree.decision_type[:m], dtype=np.int32)
-    _refuse_categorical(dt)
     col = np.asarray(real_to_inner)[tree.split_feature[:m]]
     mt = (dt >> 2) & 3
     miss = np.where(mt == MISSING_ZERO, np.asarray(f_default)[col],
@@ -182,13 +219,23 @@ def predict_binned_leaf(binned: torch.Tensor, real_to_inner: np.ndarray,
                              np.asarray(f_numbins)[col] - 1, -1))
     table = torch.as_tensor(np.stack([
         col, tree.threshold_in_bin[:m], miss, (dt & 2) > 0,
-        tree.left_child[:m], tree.right_child[:m]]).astype(np.int64),
+        tree.left_child[:m], tree.right_child[:m], dt & 1]).astype(np.int64),
         device=dev)
+    cat = None
+    if tree.num_cat > 0:
+        cat = [torch.as_tensor(np.asarray(a, np.int64) & 0xFFFFFFFF,
+                               device=dev)
+               for a in (tree.cat_boundaries_inner,
+                         tree.cat_threshold_inner)]
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(tree.depth()):
-        at = table.index_select(1, node.clamp(min=0))          # (6, N)
+        at = table.index_select(1, node.clamp(min=0))          # (7, N)
         fbin = torch.gather(binned, 1, at[0:1].T)[:, 0].long()
         go_left = torch.where(fbin == at[2], at[3] > 0, fbin <= at[1])
+        if cat is not None:
+            # a categorical node's bin threshold is its bitset's index
+            go_left = torch.where(at[6] > 0,
+                                  _in_bitset(fbin, at[1], *cat), go_left)
         node = torch.where(node >= 0, torch.where(go_left, at[4], at[5]),
                            node)
     return ~node

@@ -1,6 +1,6 @@
 """Vectorized best-split search over (feature, bin, missing direction).
 
-Port of the numerical part of lightgbm_tpu/ops/split.py to torch
+Port of lightgbm_tpu/ops/split.py to torch
 (reference: src/treelearner/feature_histogram.hpp:91-116 FindBestThreshold
 Numerical and :508-648 FindBestThresholdSequence): a cumsum and a masked
 argmax over the whole (F, B) plane, batched over a leading leaf axis so
@@ -209,3 +209,157 @@ def find_best_split(hist, sum_grad, sum_hess, num_data,
         feat, rel, t, use_m1, prefix, sum_grad, sum_hess, num_data,
         min_constraint, max_constraint, l1=l1, l2=l2,
         max_delta_step=max_delta_step)
+
+
+class CatSplitResult(NamedTuple):
+    """Winning categorical split per leaf: (N,) tensors and the (N, B)
+    bool mask of the bins that go left."""
+    gain: torch.Tensor
+    feature: torch.Tensor
+    left_mask: torch.Tensor
+    left_sum_grad: torch.Tensor
+    left_sum_hess: torch.Tensor
+    left_count: torch.Tensor
+    right_sum_grad: torch.Tensor
+    right_sum_hess: torch.Tensor
+    right_count: torch.Tensor
+    left_output: torch.Tensor
+    right_output: torch.Tensor
+
+
+def per_feature_best_categorical(
+        hist, sum_grad, sum_hess, num_data, feature_num_bins,
+        feature_missing, feature_mask, min_constraint, max_constraint,
+        feature_penalty=None, *, l1: float, l2: float, cat_l2: float,
+        cat_smooth: float, max_delta_step: float, min_data_in_leaf: int,
+        min_sum_hessian: float, min_gain_to_split: float,
+        max_cat_threshold: int, max_cat_to_onehot: int,
+        min_data_per_group: int):
+    """Per-feature categorical best gains, relative to the leaf's
+    min_gain_shift (comparable to per_feature_best's), and what
+    materialize_cat_split needs to build a winner's left-bin mask.
+
+    hist (N, F, B, 3) f32; sums and constraints (N,); feature_* (F,).
+    Returns rel (N, F) and aux."""
+    n, f, b, _ = hist.shape
+    dev = hist.device
+    g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]          # (N, F, B)
+    bgrid = torch.arange(b, device=dev)[None, :]
+    nbins = feature_num_bins.long()[:, None]
+    # used_bin = num_bin - 1 + (missing_type == None): the trailing
+    # overflow / NaN bin is a candidate only for a "full" feature
+    used_bin = nbins - 1 + (feature_missing[:, None] == 0).long()
+    bin_ok = bgrid < used_bin                                    # (F, B)
+    gain_shift = leaf_split_gain(sum_grad, sum_hess, l1, l2, max_delta_step)
+    mgs = (gain_shift + min_gain_to_split)[:, None, None]        # (N, 1, 1)
+    use_onehot = feature_num_bins <= max_cat_to_onehot           # (F,)
+    sg, sh = sum_grad[:, None, None], sum_hess[:, None, None]
+    nd = num_data[:, None, None]
+    mn, mx = min_constraint[:, None, None], max_constraint[:, None, None]
+    neg = hist.new_full((), NEG_INF)
+
+    def gains_for(gl, hl, eff_l2, ok):
+        gains = _split_gains(gl, hl, sg - gl, sh - hl, l1, eff_l2,
+                             max_delta_step, mn, mx, 0)
+        gains = torch.where(ok, gains, neg)
+        return torch.where(gains > mgs, gains, neg)
+
+    # ---- one-hot mode: left = one bin ------------------------------------
+    oh_ok = (bin_ok & (c >= min_data_in_leaf) & (h >= min_sum_hessian)
+             & ((nd - c) >= min_data_in_leaf)
+             & ((sh - h) >= min_sum_hessian))
+    oh_gains = gains_for(g, h, l2, oh_ok)
+    oh_best = oh_gains.max(dim=2).values
+    oh_t = torch.argmax(oh_gains, dim=2)
+
+    # ---- sorted mode -----------------------------------------------------
+    valid_sorted = bin_ok & (c >= cat_smooth)                    # (N, F, B)
+    ctr = torch.where(valid_sorted, g / (h + cat_smooth),
+                      hist.new_full((), float("inf")))
+    order = torch.argsort(ctr, dim=2, stable=True)
+    hs = torch.take_along_dim(hist, order[..., None], dim=2)
+    v_s = torch.take_along_dim(valid_sorted, order, dim=2)
+    n_valid = v_s.sum(dim=2, keepdim=True)                       # (N, F, 1)
+    hs = torch.where(v_s[..., None], hs, hist.new_zeros(()))
+    max_num_cat = torch.clamp((n_valid + 1) // 2, max=max_cat_threshold)
+    pos = torch.arange(b, device=dev)
+    # the backward walk starts at the high-ratio end: flip, then roll the
+    # padded width so the valid entries lead
+    roll_idx = (pos + (b - n_valid)) % b                         # (N, F, B)
+    hr = torch.take_along_dim(torch.flip(hs, [2]), roll_idx[..., None],
+                              dim=2)
+    v_r = torch.take_along_dim(torch.flip(v_s, [2]), roll_idx, dim=2)
+    left2 = torch.cumsum(torch.stack([hs, hr]), dim=3)          # (2,N,F,B,3)
+    gl2, hl2, cl2 = left2[..., 0], left2[..., 1], left2[..., 2]
+    ok2 = (torch.stack([v_s, v_r]) & (pos < max_num_cat)
+           & (cl2 >= min_data_in_leaf) & (hl2 >= min_sum_hessian)
+           & ((nd - cl2) >= max(min_data_in_leaf, min_data_per_group))
+           & ((sh - hl2) >= min_sum_hessian))
+    gains2 = gains_for(gl2, hl2, l2 + cat_l2, ok2)
+    best2 = gains2.max(dim=3).values                             # (2, N, F)
+    ti2 = torch.argmax(gains2, dim=3)
+    use_fwd = best2[0] >= best2[1]
+    sort_best = torch.where(use_fwd, best2[0], best2[1])
+    sort_t = torch.where(use_fwd, ti2[0], ti2[1])
+
+    per_gain = torch.where(use_onehot, oh_best, sort_best)
+    per_gain = torch.where(feature_mask, per_gain, neg)
+    rel = torch.where(per_gain > NEG_INF / 2, per_gain - mgs[:, :, 0], neg)
+    if feature_penalty is not None:
+        rel = torch.where(rel > NEG_INF / 2, rel * feature_penalty, rel)
+    order_r = torch.take_along_dim(torch.flip(order, [2]), roll_idx, dim=2)
+    return rel, (use_onehot, oh_t, sort_t, use_fwd, order, v_s, order_r, v_r)
+
+
+def materialize_cat_split(feat, rel, aux, hist, sum_grad, sum_hess,
+                          num_data, min_constraint, max_constraint, *,
+                          l1, l2, cat_l2, max_delta_step) -> CatSplitResult:
+    """Build the CatSplitResult, with the left-bin mask over the inner
+    bins, for the chosen categorical feature of each leaf."""
+    use_onehot, oh_t, sort_t, use_fwd, order, v_s, order_r, v_r = aux
+    n, _, b, _ = hist.shape
+    i = torch.arange(n, device=hist.device)
+    gain = rel[i, feat]
+    pos_b = torch.arange(b, device=hist.device)[None, :]
+    onehot_mask = pos_b == oh_t[i, feat][:, None]                # (N, B)
+    sel_sorted = pos_b <= sort_t[i, feat][:, None]
+    empty = torch.zeros((n, b), dtype=torch.bool, device=hist.device)
+    fwd_mask = empty.scatter(1, order[i, feat], sel_sorted & v_s[i, feat])
+    bwd_mask = empty.scatter(1, order_r[i, feat], sel_sorted & v_r[i, feat])
+    sorted_mask = torch.where(use_fwd[i, feat][:, None], fwd_mask, bwd_mask)
+    onehot = use_onehot[feat]
+    left_mask = torch.where(onehot[:, None], onehot_mask, sorted_mask)
+
+    hf = hist[i, feat]                                           # (N, B, 3)
+    lsum = torch.where(left_mask[..., None], hf, hist.new_zeros(())).sum(1)
+    lg, lh, lc = lsum[:, 0], lsum[:, 1], lsum[:, 2]
+    rg, rh, rc = sum_grad - lg, sum_hess - lh, num_data - lc
+    w_l2 = torch.where(onehot, hist.new_full((), l2),
+                       hist.new_full((), l2 + cat_l2))
+    lo = torch.minimum(torch.maximum(-_threshold_l1(lg, l1) / (lh + w_l2),
+                                     min_constraint), max_constraint)
+    ro = torch.minimum(torch.maximum(-_threshold_l1(rg, l1) / (rh + w_l2),
+                                     min_constraint), max_constraint)
+    if max_delta_step > 0.0:
+        lo = torch.clamp(lo, -max_delta_step, max_delta_step)
+        ro = torch.clamp(ro, -max_delta_step, max_delta_step)
+    return CatSplitResult(gain, feat, left_mask, lg, lh, lc, rg, rh, rc,
+                          lo, ro)
+
+
+def find_best_split_categorical(hist, sum_grad, sum_hess, num_data,
+                                feature_num_bins, feature_missing,
+                                feature_mask, min_constraint,
+                                max_constraint, **kwargs) -> CatSplitResult:
+    """Best categorical split of each leaf (the host-loop learner's entry
+    point): hist (N, F, B, 3) with (N,) leaf totals and constraints;
+    kwargs are per_feature_best_categorical's settings."""
+    rel, aux = per_feature_best_categorical(
+        hist, sum_grad, sum_hess, num_data, feature_num_bins,
+        feature_missing, feature_mask, min_constraint, max_constraint,
+        **kwargs)
+    return materialize_cat_split(
+        torch.argmax(rel, dim=1), rel, aux, hist, sum_grad, sum_hess,
+        num_data, min_constraint, max_constraint, l1=kwargs["l1"],
+        l2=kwargs["l2"], cat_l2=kwargs["cat_l2"],
+        max_delta_step=kwargs["max_delta_step"])

@@ -167,7 +167,7 @@ def test_split_key_plain_matches_jax(item_bits):
         desc = torch.tensor([1, 1, begin, count, 0, 0, thr, dleft,
                              f_col[feat], f_base[feat], f_elide[feat],
                              f_numbins[feat], f_missing[feat],
-                             f_default[feat], 0, 0, 0, 0, 0, 0],
+                             f_default[feat], 0, 0, 0, 0, 0, 0, 0],
                             dtype=torch.int32)
         assert desc.shape == (dsc.SIZE,)
         key = torch.full((len(data),), -1, dtype=torch.int32)
@@ -277,7 +277,7 @@ def test_descriptor_fields_match_the_sources(source):
              "Dleft": "DLEFT", "Col": "COL", "Base": "BASE",
              "Elide": "ELIDE", "NumBins": "NUMBINS", "Missing": "MISSING",
              "Default": "DEFAULT", "SideMax": "SIDE_MAX", "Leaf": "LEAF",
-             "NewId": "NEW_ID"}
+             "NewId": "NEW_ID", "Cat": "CAT", "Words": "WORDS"}
     assert len(found) >= 4
     for name, value in found:
         assert getattr(dsc, names[name]) == int(value), name

@@ -1623,3 +1623,186 @@ def test_multiclass_card_matches_cpu(cuda_device, strategy, monkeypatch):
     assert got.shape == (20_000, 3)
     np.testing.assert_allclose(got.sum(axis=1), 1.0, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, cpu.predict(x), rtol=1e-4, atol=1e-4)
+
+
+def _cat_desc(device, words, **fields):
+    """A categorical split's descriptor: the fields, CAT = 1 and the
+    bitset words after them."""
+    d = torch.zeros(dsc.size(len(words)), dtype=torch.int32)
+    for name, v in fields.items():
+        d[getattr(dsc, name)] = int(v)
+    d[dsc.CAT] = 1
+    d[dsc.WORDS:] = torch.as_tensor(np.asarray(words, np.int64)
+                                    .astype(np.uint32).view(np.int32))
+    return d.to(device)
+
+
+def _bitsets(r, n_words):
+    """Bitsets of n_words words: every bit set, none, and a random one."""
+    return [np.full(n_words, 0xFFFFFFFF, np.int64),
+            np.zeros(n_words, np.int64),
+            r.randint(0, 2**32, n_words, dtype=np.int64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("item_bits", [8, 16])
+@pytest.mark.parametrize("n_words", [2, 8])
+def test_split_key_categorical_matches_plain(cuda_device, item_bits,
+                                             n_words):
+    # the packed entry with a categorical descriptor: a row goes left iff
+    # its logical bin's bit is set (bins past the words go right), over
+    # an EFB member and a plain feature; key, left count bit-exact
+    n, per = 300_007, 32 // item_bits
+    data, spare = _buffers(cuda_device, n, 9, item_bits)
+    r = np.random.RandomState(item_bits * 10 + n_words)
+    nb = min(32 * n_words, 1 << item_bits)
+    for i, words in enumerate(_bitsets(r, n_words)):
+        for elide in (0, 1):
+            src, begin, count = _WINDOWS[(i + elide) % len(_WINDOWS)]
+            fields = dict(GO=1, SRC=src, BEGIN=begin, COUNT=count,
+                          COL=r.randint(0, 7 * per), BASE=r.randint(0, 5),
+                          ELIDE=elide, NUMBINS=nb, MISSING=2,
+                          DEFAULT=r.randint(0, nb))
+            got_d = _cat_desc(cuda_device, words, **fields)
+            want_d = _cat_desc("cpu", words, **fields)
+            got_k = torch.full((n,), -7, dtype=torch.int32,
+                               device=cuda_device)
+            want_k = got_k.cpu()
+            kkey.split_key(data, spare, got_d, got_k, item_bits=item_bits,
+                           cw=7, renew=True)
+            kkey.split_key_plain(data.cpu(), spare.cpu(), want_d, want_k,
+                                 item_bits=item_bits, cw=7, renew=True)
+            assert torch.equal(got_k.cpu(), want_k)
+            assert torch.equal(got_d.cpu(), want_d)
+            if i == 1:
+                assert int(want_d[dsc.LPHYS]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code_bits", [8, 16])
+@pytest.mark.parametrize("n_words", [2, 8])
+def test_split_key_column_categorical_matches_plain(cuda_device, code_bits,
+                                                    n_words):
+    # the column entry with a categorical descriptor: leaf ids and the
+    # left operand bit for bit
+    r = np.random.RandomState(code_bits + n_words)
+    c, n = 6, 100_003
+    hi = 1 << code_bits
+    codes = r.randint(0, min(hi, 40 * n_words), size=(c, n))
+    codes_t = torch.from_numpy(codes.astype(np.uint8) if code_bits == 8
+                               else codes.astype(np.uint16).view(np.int16)) \
+        .to(cuda_device)
+    leaf0 = torch.from_numpy(r.randint(0, 3, n).astype(np.int32)) \
+        .to(cuda_device)
+    gh = torch.from_numpy(r.randn(n, 3).astype(np.float32)).to(cuda_device)
+    for i, words in enumerate(_bitsets(r, n_words)):
+        for elide in (0, 1):
+            desc = _cat_desc(cuda_device, words, GO=1, COL=r.randint(0, c),
+                             BASE=r.randint(0, 9), ELIDE=elide,
+                             NUMBINS=32 * n_words, MISSING=0,
+                             DEFAULT=r.randint(0, 32), LEAF=i % 3,
+                             NEW_ID=4)
+            got_l, want_l = leaf0.clone(), leaf0.clone()
+            got_g = torch.full_like(gh, 7)
+            want_g = got_g.clone()
+            kkey.split_key_column(codes_t, desc, got_l, gh, got_g)
+            kkey.split_key_column_plain(codes_t, desc, want_l, gh, want_g)
+            assert torch.equal(got_l, want_l)
+            assert torch.equal(got_g.view(torch.int32),
+                               want_g.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("item_bits", [8, 16])
+@pytest.mark.parametrize("n_words", [2, 8, 32])
+def test_route_rows_categorical_matches_plain(cuda_device, item_bits,
+                                              n_words):
+    # the router with categorical records (half the features categorical,
+    # each record's bitset staged beside it): bit-exact; W = 32 (1,024
+    # bins) stages fewer records per pass
+    r = np.random.RandomState(item_bits + n_words)
+    per, m, cw, f, L = 32 // item_bits, 100_003, 7, 28, 255
+    rows = torch.from_numpy(r.randint(-2**31, 2**31, size=(m, cw),
+                                      dtype=np.int64).astype(np.int32))
+    nb = min(32 * n_words, 1 << item_bits)
+    f_numbins = r.randint(3, nb, f)
+    f_elide = np.arange(f) % 3 == 0
+    table = torch.from_numpy(np.stack([
+        r.randint(0, cw * per, f), np.where(f_elide, r.randint(0, 9, f), 0),
+        f_elide, f_numbins, np.arange(f) % 3,
+        r.randint(0, 100, f) % f_numbins], axis=1).astype(np.int32))
+    f_cat = torch.from_numpy((np.arange(f) % 2).astype(np.int32))
+    rec = np.zeros((L - 1, 13), np.float32)
+    feats = r.randint(0, f, L - 1)
+    rec[:, tdl.R_LEAF] = [r.randint(0, i + 1) for i in range(L - 1)]
+    rec[:, tdl.R_FEAT] = feats
+    rec[:, tdl.R_THR] = r.randint(0, f_numbins[feats])
+    rec[:, tdl.R_DLEFT] = r.randint(0, 2, L - 1)
+    words = torch.from_numpy(r.randint(-2**31, 2**31, (L - 1, n_words),
+                                       dtype=np.int64).astype(np.int32))
+    words[:5] = -1                    # every bit set
+    words[5:10] = 0                   # none
+    dev = [t.to(cuda_device) for t in (rows, torch.from_numpy(rec), table,
+                                       words, f_cat)]
+    for k in (0, L - 1):
+        kt = torch.tensor(k, dtype=torch.int32)
+        n0 = kkey.launches_route
+        got = kkey.route_rows(dev[0], dev[1], kt.to(cuda_device), dev[2],
+                              item_bits=item_bits, rec_cat=dev[3],
+                              f_cat=dev[4])
+        torch.cuda.synchronize()
+        assert kkey.launches_route == n0 + 1
+        want = kkey.route_rows_plain(rows, torch.from_numpy(rec), kt, table,
+                                     item_bits=item_bits, rec_cat=words,
+                                     f_cat=f_cat)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,quant", [
+    ("compact", False), ("compact", True), ("masked", False)])
+def test_categorical_training_on_card_matches_cpu(cuda_device, strategy,
+                                                  quant, monkeypatch):
+    # a Higgs-shaped task with 4 categorical columns of 64 categories on
+    # each strategy's device loop: the same trees on the card as on the
+    # CPU as functions of the training rows (per tree, the rows of each
+    # leaf on the card are the rows of one leaf on the CPU), raw scores
+    # within 1e-4. A categorical cut whose leaf has rows in its valid bins
+    # only is one partition from either walk direction (k bins left, or
+    # the other n - k) with equal gains in exact arithmetic, and the split
+    # scan's f32 prefix sums run in another order on the card, so each
+    # device may call either side left: the tree text may then differ by
+    # children swapped
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
+    r = np.random.RandomState(8)
+    n = 20_000
+    x = r.randn(n, 10)
+    cats = r.randint(0, 64, (n, 4))
+    effect = r.randn(4, 64) * 0.5
+    x[:, 6:] = cats
+    margin = x[:, 0] - 0.5 * x[:, 1] + effect[np.arange(4), cats].sum(1)
+    y = (margin + 0.5 * r.randn(n) > 0).astype(np.float64)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "min_gain_to_split": 1e-3, "verbosity": -1,
+              "quantized_grad": quant, "categorical_feature": [6, 7, 8, 9]}
+    n0 = (kkey.launches, kkey.launches_col)
+    card = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
+                      device=cuda_device)
+    assert (kkey.launches > n0[0]) == (strategy == "compact")
+    assert (kkey.launches_col > n0[1]) == (strategy == "masked")
+    cpu = tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=5,
+                     device="cpu")
+
+    from lightgbm_tpu_torch.ops.predict import (predict_leaf_index,
+                                                trees_to_arrays)
+    xt = torch.from_numpy(x.astype(np.float32))
+    la, lb = (predict_leaf_index(xt, trees_to_arrays(b._gbdt.models, "cpu"))
+              .numpy() for b in (card, cpu))
+    assert la.shape == lb.shape
+    for t in range(la.shape[1]):
+        pairs = set(zip(la[:, t].tolist(), lb[:, t].tolist()))
+        assert len(pairs) == len(set(la[:, t])) == len(set(lb[:, t])), t
+    assert any(t.num_cat for t in card._gbdt.models)
+    np.testing.assert_allclose(card.predict(x, raw_score=True),
+                               cpu.predict(x, raw_score=True),
+                               rtol=1e-4, atol=1e-4)
