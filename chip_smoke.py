@@ -92,9 +92,9 @@ Phases, one JSON line each:
                host loop and the generic iteration on the device loop
                (HOST_ROUNDS rounds each), whose trees and AUC must equal
                (the same trees from the same gradients); one more
-               iteration of each loop profiled, K3's kernels summed (with
-               --parent-src also one host-loop iteration on the parent's
-               two-step);
+               device-loop iteration profiled, K3's kernels summed (with
+               --parent-src also one host-loop iteration, and one on the
+               parent's two-step);
   loop         20,000-row trees (31 leaves) of each strategy grown by its
                captured device loop on the card, by the same step run
                eagerly on the CPU (the plain versions) and by its host
@@ -119,8 +119,8 @@ Phases, one JSON line each:
                split), whose float AUC the device loop's model of as many
                rounds must be within 0.001 of; quantized, also the
                generic iteration on the device loop (HOST_ROUNDS rounds),
-               whose trees must equal the host loop's; one more iteration
-               of each loop profiled;
+               whose trees must equal the host loop's; one more
+               device-loop iteration profiled;
   train_bag    lightgbm_tpu_torch.train with row sampling: the 1M-row task
                with bagging_fraction 0.8 (bagging_freq 1), float and
                quantized, and with GOSS (top_rate 0.2, other_rate 0.1; 10
@@ -174,6 +174,18 @@ Phases, one JSON line each:
                per tree (1), K1 / K4 window launches per iteration; fails
                unless held-out multi_logloss is below the class prior's and
                the class-0 one-vs-rest AUC > 0.7 (bench.py's gate);
+  train_boost  the train phase's rows and params with boosting=dart at
+               LightGBM's defaults (drop_rate 0.1, skip_drop 0.5, max_drop
+               50) and with boosting=rf (bagging_fraction 0.8,
+               bagging_freq 1), --rounds rounds each on the generic
+               iteration over the compact device loop: steady s per
+               iteration, host syncs and launches per tree (RF: the
+               router's, one per tree, for the out-of-bag rows), DART's
+               drop sets; fails unless held-out AUC > 0.7, the training
+               scores equal predict(raw_score=True) within 1e-5 off the
+               f32-threshold rows (DART's rescaled trees, RF's running
+               average), the model-text round trip is within 1e-6, 1 host
+               sync per tree, and DART dropped a tree;
   train_cat    bench.py's categorical variant (the last 8 of the 28
                columns hold 64 categories each, per-category effects on
                the margin) with those columns as categorical_feature:
@@ -188,6 +200,24 @@ Phases, one JSON line each:
                60,000 rows on the masked device loop, float and quantized
                (the column entry); profiled, with the categorical scan's
                sort and gather kernels per split step named;
+  train_rank   bench.py's lambdarank scenario: make_ranking_like(50,000
+               queries of 20 documents, 28 features), lambdarank, 255
+               leaves, learning_rate 0.1, max_bin 63, min_data_in_leaf 20,
+               5,000 held-out queries (seed 4242) as a validation set
+               (metric ndcg, eval_at 10), --rounds rounds on the compact
+               strategy's fused iteration, float and quantized (grad_bits
+               8), and the first 3,000 queries (60,000 rows) float on the
+               masked one: steady s per iteration, host syncs and launches
+               per tree, peak device memory, the lambdarank gradient's
+               device ms, launches and working set at the run's scores,
+               the host ndcg's ms per iteration (training and validation),
+               one float iteration profiled, the largest leaf value and
+               training score (quantized: the gap to float's ndcg@10,
+               recorded); fails unless 1 host sync per tree, held-out
+               ndcg@10 above the all-zero scores' on the same queries, the
+               training scores equal predict within 1e-5 (relative to a
+               row's sum of |leaf values| above 1) off the f32-threshold
+               rows and the model-text round trip within 1e-6;
   reference    small tasks (20,000 rows, REF_ROUNDS = 3 rounds) trained
                on the card and on the CPU (the plain versions): compact
                float and compact quantized on the device
@@ -222,7 +252,15 @@ Phases, one JSON line each:
                float, compact bagged) held to the same trees as functions
                of the training rows (a tied categorical cut may name
                either side left on each device) and raw scores within
-               1e-4.
+               1e-4. Then lambdarank on 1,000 queries of 20 documents
+               (compact float, masked float, compact quantized;
+               OBJ_REF_ROUNDS rounds) and DART and RF on the binary task
+               (compact float, REF_ROUNDS rounds): the same trees as
+               functions of the training rows, raw scores within 1e-5
+               (quantized 1e-4, or other scores and trees only where the
+               witness counts stored integers that differ and both devices
+               grow the same trees from the CPU's gradients), DART's drop
+               sets equal.
 Kernel times: `ms` is the mean over repeated launches between CUDA
 events, the host enqueuing as it goes (on a small launch this reads the
 wrapper's launch rate); `device_ms` puts a sleep kernel in front, which
@@ -261,8 +299,8 @@ SLEEP_CYCLES = 100_000_000
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
           "train_quant", "train_masked", "train_bag", "train_valid",
-          "train_objectives", "train_multiclass", "train_cat", "loop",
-          "reference")
+          "train_objectives", "train_multiclass", "train_boost", "train_cat",
+          "train_rank", "loop", "reference")
 
 # bench.py's categorical variant (BENCH_CAT_FEATURES=8, BENCH_CAT_CARD=64)
 CAT_FEATURES = 8
@@ -757,7 +795,7 @@ def main():
     need_float = bool(run & {"train", "profile", "train_quant"})
     need_data = need_float or bool(run & {
         "k1", "k2", "k3", "k4", "train_bag", "train_valid",
-        "train_objectives", "train_multiclass"})
+        "train_objectives", "train_multiclass", "train_boost"})
     t0 = time.time()
     x, y, w_true = make_higgs_like(args.rows, f)
     xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
@@ -1041,8 +1079,9 @@ def main():
                 "same_trees_as_host_loop": same_trees,
                 "launches": qglaunches}})
         with host_loop(torch):
-            qhost["profile"] = profile_one(qhbst)
             if parents:
+                # the host loop beside the parent's (cut 7: only then)
+                qhost["profile"] = profile_one(qhbst)
                 # the parent's path in the host loop: the operand built by
                 # gh_operand_scaled, then K3 on the parent's library
                 with parent_two_step(k1, parents["histogram_wrapper"]):
@@ -1097,8 +1136,6 @@ def main():
                         "peak_device_bytes": mpeak, "valid_auc": mauc,
                         "profile": profile_one(mb)})
             mhb, mhl, mhost = host_side(mp, dsm)
-            with host_loop(torch):
-                mhost["profile"] = profile_one(mhb)
             row["host_loop"] = mhost
             row["auc_minus_host_loop"] = auc(yv, mb.predict(
                 xv, num_iteration=HOST_ROUNDS)) - mhost["valid_auc"]
@@ -1234,6 +1271,13 @@ def main():
         emit(row)
         if problems:
             fail("train_multiclass: %s" % "; ".join(problems))
+    if "train_boost" in run:
+        row, problems = boost_phase(
+            torch, lgb, convert, params, ds, x, xv, yv, args.rounds,
+            reset_counts, read_counts, growth, steady_s)
+        emit(row)
+        if problems:
+            fail("train_boost: %s" % "; ".join(problems))
     if need_data:
         del ds
 
@@ -1244,6 +1288,14 @@ def main():
         emit(row)
         if problems:
             fail("train_cat: %s" % "; ".join(problems))
+
+    if "train_rank" in run:
+        row, problems = rank_phase(torch, lgb, convert, args.rounds,
+                                   reset_counts, read_counts, growth,
+                                   steady_s, profile_one)
+        emit(row)
+        if problems:
+            fail("train_rank: %s" % "; ".join(problems))
 
     if "loop" in run:
         loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
@@ -1884,6 +1936,421 @@ def categorical_phase(torch, lgb, convert, params, rows, f, rounds,
             "higgs_1m_s_per_iter_steady": (train or {}).get(
                 "s_per_iter_steady", "not measured: train not run")}, \
         problems
+
+
+def make_ranking_like(n_queries, docs_per_query, f, seed=17, w=None):
+    """Seeded learning-to-rank task (bench.py's make_ranking_like, draw for
+    draw): query-grouped documents with relevance grades 0..4 from a
+    score that a per-query context shifts; pass `w` to draw a held-out
+    sample from the same ground truth. Returns (x, y, group, w)."""
+    r = np.random.RandomState(seed)
+    n = n_queries * docs_per_query
+    x = r.randn(n, f).astype(np.float32)
+    if w is None:
+        w = r.randn(f) * (r.rand(f) > 0.4)
+    ctx = np.repeat(r.randn(n_queries, 1) * 0.5, docs_per_query, axis=0)
+    score = x @ w * 0.4 + 0.2 * x[:, 0] * x[:, 1] + ctx[:, 0] \
+        + r.randn(n) * 0.8
+    # grade into 0..4 by global quantile so every query mixes grades
+    edges = np.quantile(score, [0.5, 0.75, 0.9, 0.97])
+    y = np.digitize(score, edges).astype(np.float64)
+    group = np.full(n_queries, docs_per_query, dtype=np.int64)
+    return x, y, group, w
+
+
+def device_profile(torch, fn):
+    """fn() once under torch.profiler: its device ms and kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kern) / 1e3,
+            sum(e.count for e in kern))
+
+
+def rank_phase(torch, lgb, convert, rounds, reset_counts, read_counts,
+               growth, steady_s, profile_one):
+    """train_rank: bench.py's lambdarank scenario (make_ranking_like:
+    50,000 queries of 20 documents x 28 features, lambdarank, 255 leaves,
+    learning_rate 0.1, max_bin 63, min_data_in_leaf 20) with 5,000
+    held-out queries as a validation set (metric ndcg, eval_at 10), float
+    and quantized on the compact strategy's fused iteration, and its first
+    3,000 queries (60,000 rows) float on the masked one. Per run: steady s
+    per iteration, host syncs and launches per tree, peak device memory,
+    the lambdarank gradient's device ms, launches and working set, the
+    host ndcg's ms per iteration, held-out ndcg@10 beside the all-zero
+    scores' ndcg@10 of the same queries, the training scores against
+    predict; rank-1m float is profiled. Returns (row, problems)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.metrics import create_metric
+    x, y, g, w = make_ranking_like(50_000, 20, 28)
+    xv, yv, gv, _ = make_ranking_like(5_000, 20, 28, seed=4242, w=w)
+    params = {"objective": "lambdarank", "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 63, "min_data_in_leaf": 20,
+              "metric": ["ndcg"], "eval_at": [10], "quantized_grad": False,
+              "grad_bits": 8, "verbosity": -1}
+    t0 = time.time()
+    ds = lgb.Dataset(x, y, group=g, params=params).construct()
+    data_s = time.time() - t0
+    # the held-out queries' ndcg@10 of all-zero scores (documents in
+    # their given order)
+    meta = Metadata(len(yv))
+    meta.set_label(yv)
+    meta.set_group(gv)
+    zero = create_metric("ndcg", Config(params))
+    zero.init(meta, len(yv))
+    zero_ndcg = zero.eval(np.zeros(len(yv)), None)[0]
+
+    def run(name, p, dset, xt, n_groups, expect):
+        dv = lgb.Dataset(xv, yv, group=gv, reference=dset)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        ev = {}
+        t1 = time.time()
+        b = lgb.train(p, dset, num_boost_round=rounds, valid_sets=[dv],
+                      valid_names=["v"], evals_result=ev, verbose_eval=False)
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        counts = read_counts()
+        peak = int(torch.cuda.max_memory_allocated())
+        gb = b._gbdt
+        score = gb.score_updater.score[0]
+        raw = b.predict(xt, raw_score=True)
+        # within 1e-5 of predict, or within the f32 rounding of adding the
+        # trees in another order where that is larger: 2 * trees * eps *
+        # the sum of the trees' largest |leaf| (the quantized run's leaves
+        # reach 10^3, as the JAX package's do: PERF.md section 7)
+        leaf_sum = sum(float(np.max(np.abs(t.leaf_value[:t.num_leaves])))
+                       for t in gb.models)
+        tol = max(1e-5, 2 * len(gb.models) * float(np.finfo(np.float32).eps)
+                  * leaf_sum)
+        diff = np.abs(score.cpu().numpy() - raw)
+        moved = f32_threshold_rows(dset._inner, xt)
+        text = b.model_to_string()
+        back = convert.booster_from_model_string(text)
+        rt = float(np.max(np.abs(back.predict(xv, raw_score=True)
+                                 - b.predict(xv, raw_score=True))))
+        row = dict({"case": name, "rows": len(xt), "queries": n_groups,
+                    "strategy": gb.learner.strategy,
+                    "quantized_grad": p["quantized_grad"],
+                    "iteration": "fused" if gb._fused_step else "generic",
+                    "launches": counts}, **growth(b, counts, secs))
+        # the gradient alone, at this run's scores: device time behind a
+        # sleep kernel, launches, and the memory it allocates beyond what
+        # is held
+        obj = gb.objective
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        obj.get_gradients(score)
+        torch.cuda.synchronize()
+        grad_peak = int(torch.cuda.max_memory_allocated()) - held
+        grad_ms, grad_launches = device_profile(
+            torch, lambda: obj.get_gradients(score))
+        # the host evaluation of one iteration: each dataset's ndcg
+        t1 = time.perf_counter()
+        b.eval_train()
+        train_eval_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        b.eval_valid()
+        valid_eval_ms = (time.perf_counter() - t1) * 1e3
+        row.update({
+            "train_s": secs, "peak_device_bytes": peak,
+            "valid_ndcg10": ev["v"]["ndcg@10"][-1],
+            "zero_score_ndcg10": zero_ndcg,
+            "valid_ndcg10_history": ev["v"]["ndcg@10"],
+            "gradient": {"device_ms": grad_ms, "launches": grad_launches,
+                         "device_ms_behind_sleep": time_ms(
+                             torch, lambda: obj.get_gradients(score), 5,
+                             hold=True),
+                         "pad_len": obj.pad_len, "chunk_queries": obj._chunk,
+                         "peak_bytes_beyond_held": grad_peak},
+            "host_ndcg_ms_per_iteration": {
+                "training": train_eval_ms, "validation": valid_eval_ms},
+            "model_text_roundtrip_max_abs": rt,
+            "max_abs_leaf_value": max(
+                float(np.max(np.abs(t.leaf_value[:t.num_leaves])))
+                for t in gb.models),
+            "max_abs_training_score": float(np.max(np.abs(raw))),
+            "train_score_vs_predict": {
+                "f32_threshold_rows": int(moved.sum()),
+                "their_max_abs": float(np.max(diff[moved], initial=0.0)),
+                "other_rows_max_abs": float(np.max(diff[~moved])),
+                "tolerance": tol}})
+        problems = []
+        if row["strategy"] != expect[0] or row["iteration"] != "fused":
+            problems.append("took the %s strategy's %s iteration"
+                            % (row["strategy"], row["iteration"]))
+        if row["host_syncs_per_tree"] != 1:
+            problems.append("%s host syncs per tree"
+                            % row["host_syncs_per_tree"])
+        if min(counts[k] for k in expect[1:]) <= 0:
+            problems.append("%s did not launch: %s" % (expect[1:], counts))
+        if not row["valid_ndcg10"] > zero_ndcg:
+            problems.append("held-out ndcg@10 %.5f not above the zero "
+                            "scores' %.5f" % (row["valid_ndcg10"],
+                                              zero_ndcg))
+        if not row["train_score_vs_predict"]["other_rows_max_abs"] <= tol:
+            problems.append("training scores differ from predict by %g"
+                            % row["train_score_vs_predict"][
+                                "other_rows_max_abs"])
+        if rt > 1e-6:
+            problems.append("model-text round trip differs by %g" % rt)
+        return b, row, ["%s: %s" % (name, pr) for pr in problems]
+
+    runs, problems = [], []
+    b, row, pr = run("rank-1m", params, ds, x, len(g),
+                     ("compact", "k1_win", "k4_win", "split_key"))
+    row["s_per_iter_steady"] = steady_s(b)
+    prof = profile_one(b)
+    row["profile"] = prof
+    row["gradient_share_of_iteration_device_ms"] = \
+        row["gradient"]["device_ms"] / prof["device_ms"]
+    runs.append(row)
+    problems += pr
+    del b
+    qp = dict(params, quantized_grad=True)
+    b, row, pr = run("rank-1m-quant", qp, ds, x, len(g),
+                     ("compact", "k3_win", "k4_win", "split_key"))
+    row["s_per_iter_steady"] = steady_s(b)
+    # recorded, not gated: quantized lambdarank grows leaves of 10^2 -
+    # 10^3 and loses ndcg to float in the JAX package as in the port
+    # (tests/rank_quant_witness.py: on the same gradients both store the
+    # same integers and grow the same trees; PERF.md section 6)
+    row["ndcg10_minus_float"] = row["valid_ndcg10"] - runs[0]["valid_ndcg10"]
+    runs.append(row)
+    problems += pr
+    del b, ds
+    dm = lgb.Dataset(x[:60_000], y[:60_000], group=g[:3_000],
+                     params=params).construct()
+    b, row, pr = run("rank-60k-masked", params, dm, x[:60_000],
+                     len(g[:3_000]),
+                     ("masked", "k2", "split_key_col"))
+    row["s_per_iter_steady"] = steady_s(b)
+    runs.append(row)
+    problems += pr
+    del b, dm
+    return {"phase": "train_rank", "rounds": rounds, "params": params,
+            "dataset_s": data_s, "valid_queries": len(gv),
+            "runs": runs}, problems
+
+
+def boost_phase(torch, lgb, convert, params, ds, x, xv, yv, rounds,
+                reset_counts, read_counts, growth, steady_s):
+    """train_boost: the higgs-1m rows and params with boosting=dart at
+    LightGBM's defaults (drop_rate 0.1, skip_drop 0.5, max_drop 50) and
+    with boosting=rf (bagging_fraction 0.8, bagging_freq 1), `rounds`
+    rounds each on the generic iteration over the compact device loop:
+    time, steady s per iteration, host syncs and launches per tree (RF:
+    the router's launches for the out-of-bag rows), DART's drop sets,
+    held-out AUC, model-text round trip, and the training scores against
+    predict (DART's rescaled trees, RF's running average). Returns (row,
+    problems)."""
+    plain = {"objective": "binary", "num_class": 1, "quantized_grad": False,
+             "bagging_fraction": 1.0, "bagging_freq": 0,
+             "pos_bagging_fraction": 1.0, "neg_bagging_fraction": 1.0,
+             "feature_fraction": 1.0, "metric": ["auc"]}
+    cases = (("higgs-1m dart", {"boosting": "dart", "drop_rate": 0.1,
+                                "skip_drop": 0.5, "max_drop": 50}),
+             ("higgs-1m rf", {"boosting": "rf", "bagging_fraction": 0.8,
+                              "bagging_freq": 1}))
+    moved = f32_threshold_rows(ds._inner, x)
+    runs, problems = [], []
+    for name, extra in cases:
+        p = dict(params, **dict(plain, **extra))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        b = lgb.Booster(params=p, train_set=ds)
+        drops = []
+        for _ in range(rounds):
+            b.update()
+            drops.append(list(getattr(b._gbdt, "drop_index", [])))
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        counts = read_counts()
+        gb = b._gbdt
+        diff = np.abs(gb.score_updater.score[0].cpu().numpy()
+                      - b.predict(x, raw_score=True))
+        back = convert.booster_from_model_string(b.model_to_string())
+        rt = float(np.max(np.abs(back.predict(xv, raw_score=True)
+                                 - b.predict(xv, raw_score=True))))
+        vauc = auc(yv, b.predict(xv))
+        trees = max(gb.learner.stats.trees, 1)
+        row = dict({"case": name, "settings": extra, "rounds": rounds,
+                    "strategy": gb.learner.strategy,
+                    "iteration": "fused" if gb._fused_step else "generic",
+                    "launches": counts}, **growth(b, counts, secs))
+        row.update({
+            "train_s": secs,
+            "peak_device_bytes": int(torch.cuda.max_memory_allocated()),
+            "valid_auc": vauc, "model_text_roundtrip_max_abs": rt,
+            "train_score_vs_predict": {
+                "f32_threshold_rows": int(moved.sum()),
+                "their_max_abs": float(np.max(diff[moved], initial=0.0)),
+                "other_rows_max_abs": float(np.max(diff[~moved]))}})
+        if extra["boosting"] == "dart":
+            row["drop_sets"] = drops
+        else:
+            # the out-of-bag rows reach their leaves through the split
+            # key's router (a host bag compacted into its own carry)
+            row["out_of_bag_rows"] = len(x) - int(len(x) * 0.8)
+            row["router_launches_per_tree"] = counts["route"] / trees
+        row["s_per_iter_steady"] = steady_s(b)
+        runs.append(row)
+        bad = []
+        if row["iteration"] != "generic" or row["strategy"] != "compact":
+            bad.append("took the %s strategy's %s iteration"
+                       % (row["strategy"], row["iteration"]))
+        if row["host_syncs_per_tree"] != 1:
+            bad.append("%s host syncs per tree" % row["host_syncs_per_tree"])
+        if not vauc > 0.7:
+            bad.append("held-out AUC %.5f" % vauc)
+        if not row["train_score_vs_predict"]["other_rows_max_abs"] <= 1e-5:
+            bad.append("training scores differ from predict by %g"
+                       % row["train_score_vs_predict"]["other_rows_max_abs"])
+        if rt > 1e-6:
+            bad.append("model-text round trip differs by %g" % rt)
+        if extra["boosting"] == "dart" and not any(drops):
+            bad.append("no tree was dropped")
+        if extra["boosting"] == "rf" and (
+                row["router_launches_per_tree"] != 1
+                or not gb.average_output):
+            bad.append("%s router launches per tree"
+                       % row["router_launches_per_tree"])
+        problems += ["%s: %s" % (name, pr) for pr in bad]
+        del b, back
+    return {"phase": "train_boost", "rows": len(x), "runs": runs}, problems
+
+
+def boosting_reference_rows(torch, dev, lgb, sp, xs, ys, shape_of,
+                            _quant_prepare, prng_key, ds_of):
+    """The reference phase's learning-to-rank and boosting-mode runs, card
+    against CPU: lambdarank on 1,000 queries of 20 rows (make_ranking_like)
+    on compact float, masked float and compact quantized, OBJ_REF_ROUNDS
+    rounds; DART (drop_rate 0.5, skip_drop 0, so that trees drop) and RF
+    (bagging 0.7) on the 20,000-row binary task, compact float, REF_ROUNDS
+    rounds. Held to the same trees as functions of the training rows
+    (shape_of) and raw scores within 1e-5; quantized within 1e-4 and the
+    same trees, unless the witness (multiclass_witness, on the CPU run's
+    scores) finds stored integers that differ between the devices and
+    both devices grow the same trees from the CPU's gradients
+    (fixed_gradient_trees); DART's drop sets equal. Each row carries
+    "ok"."""
+    xr, yr, gr, _ = make_ranking_like(1_000, 20, xs.shape[1], seed=99)
+    rp = dict(sp, objective="lambdarank", metric=["ndcg"], eval_at=[10])
+    base = lgb.Dataset(xr, yr, group=gr, params=rp).construct()
+
+    def rank_ds(_labels):
+        return lgb.Dataset(xr, yr, group=gr, reference=base)
+    cases = [("lambdarank", st, q, rp, rank_ds, xr, OBJ_REF_ROUNDS)
+             for st, q in (("compact", False), ("masked", False),
+                           ("compact", True))]
+    cases += [(b, "compact", False, dict(sp, **extra), ds_of, xs,
+               REF_ROUNDS) for b, extra in (
+                   ("dart", {"boosting": "dart", "drop_rate": 0.5,
+                             "skip_drop": 0.0}),
+                   ("rf", {"boosting": "rf", "bagging_fraction": 0.7,
+                           "bagging_freq": 1}))]
+    rows = []
+    for kind, strategy, quant, p, dset_of, xt, rounds in cases:
+        os.environ["LGBM_TPU_STRATEGY"] = strategy
+        p = dict(p, quantized_grad=quant, grad_bits=8)
+        label = yr if kind == "lambdarank" else ys
+        card = lgb.train(p, dset_of(label), num_boost_round=rounds)
+        cpu = lgb.train(p, dset_of(label), num_boost_round=rounds,
+                        device="cpu")
+        tol = 1e-4 if quant else 1e-5
+        row = {"case": kind, "strategy": strategy, "quantized_grad": quant,
+               "rounds": rounds,
+               "iteration": "fused" if card._gbdt._fused_step
+               else "generic",
+               "same_trees": shape_of(card) == shape_of(cpu),
+               "max_abs_raw_diff": float(np.max(np.abs(
+                   card.predict(xt, raw_score=True)
+                   - cpu.predict(xt, raw_score=True)))),
+               "raw_tolerance": tol}
+        ok = row["max_abs_raw_diff"] <= tol
+        if kind == "dart":
+            row["drop_index_last"] = [card._gbdt.drop_index,
+                                      cpu._gbdt.drop_index]
+            ok = ok and card._gbdt.drop_index == cpu._gbdt.drop_index
+        if quant:
+            # the card's gradients may differ from the CPU's in the last
+            # ulp, and a stored integer then rounds the other way: the
+            # witness counts such rows from the CPU run's scores, and the
+            # grower is held to the same trees from the CPU's gradients
+            row["stored_rows_differ"] = multiclass_witness(
+                torch, dev, lgb, p, label, card, _quant_prepare, prng_key,
+                dset_of, rounds)
+            row["fixed_gradient_trees"] = fixed_gradient_trees(
+                torch, dev, lgb, p, dset_of, label, card, rounds)
+            exempt = row["stored_rows_differ"] > 0 and all(
+                t["equal"] for t in row["fixed_gradient_trees"])
+            row["other_trees_allowed"] = exempt
+            ok = (ok or exempt) and (row["same_trees"] or exempt)
+        else:
+            ok = ok and row["same_trees"]
+        row["ok"] = bool(ok)
+        rows.append(row)
+    return rows
+
+
+# card against CPU for the sums and leaf outputs of quantized lambdarank
+# trees grown from the same gradients: ~3x the gap measured on an H100
+# 80GB HBM3 (3.67e-4 relative, chip_smoke.py reference phase)
+RANK_SCAN_TOL = 1.1e-3
+
+
+def fixed_gradient_trees(torch, dev, lgb, p, dset_of, label, card_b,
+                         rounds):
+    """At the CPU run's scores before each of `rounds` iterations, a tree
+    grown by the card's learner and one by the CPU's from the CPU's
+    gradients (the iteration's quantization key), held by compare_records
+    on the leaf, feature and count columns and the sums and leaf outputs,
+    plus the largest relative gap of the gain. "equal" holds the first
+    two and the sums and outputs within RANK_SCAN_TOL (the split scan
+    sums in another order on the card, and a lambdarank leaf's gradients
+    cancel, as fair's and gamma's do: see FAIR_GAMMA_TOL). Left to the
+    maps are the threshold and the missing direction (where a leaf has no
+    rows in the bins between two thresholds, both make its split and f32
+    rounding picks one on each device; ROADMAP section 3), and recorded
+    only is the gain, a difference of squared sums whose relative gap
+    grows with their cancellation."""
+    from lightgbm_tpu_torch.models.device_learner import (
+        R_FEAT, R_GAIN, R_LCNT, R_LEAF, R_LOUT, R_LSG, R_LSH, R_RCNT,
+        R_ROUT, R_RSG, R_RSH, R_THR)
+    cpu_b = lgb.Booster(params=p, train_set=dset_of(label), device="cpu")
+    ints = [R_LEAF, R_FEAT, R_LCNT, R_RCNT]
+    floats = [R_LSG, R_LSH, R_RSG, R_RSH, R_LOUT, R_ROUT]
+    trees = []
+    for it in range(rounds):
+        g, h = cpu_b._gbdt._compute_gradients()
+        rc, lc, kc = cpu_b._gbdt.learner.grow(g[0], h[0], iter_seed=it)
+        rd, ld, kd = card_b._gbdt.learner.grow(g[0].to(dev), h[0].to(dev),
+                                               iter_seed=it)
+        rc, rd = rc[:kc], rd[:kd]
+        t = compare_records(torch, rd, ld, rc, lc, ints, floats,
+                            RANK_SCAN_TOL)
+        if kc == kd:
+            t.update(gain_max_rel=float(np.max(
+                np.abs(rd[:, R_GAIN] - rc[:, R_GAIN])
+                / np.maximum(np.abs(rc[:, R_GAIN]), 1e-3), initial=0.0)),
+                thresholds_differ=int(np.sum(rc[:, R_THR] != rd[:, R_THR])))
+        t["equal"] = (t["ints_equal"] and t["leaf_ids_equal"]
+                      and t["floats_close"])
+        trees.append(t)
+        cpu_b.update()
+    return trees
 
 
 def kernel_phases(torch, dev, args, run, k1, k4, build, ds, params, Config,
@@ -2753,6 +3220,24 @@ def split_key_column_cases(torch, dev, k1, kkey, dsc, desc_for, window_case,
     return out
 
 
+def compare_records(torch, ra, la, rb, lb, ints, floats, tol):
+    """How two growers' trees differ, b the reference: the split counts,
+    whether the record columns `ints` and the row -> leaf maps are equal,
+    whether the f32 columns `floats` agree to rtol = atol = `tol`, and
+    their largest difference relative to max(|b|, 1e-3)."""
+    same_shape = ra.shape == rb.shape
+    fa, fb = ra[:, floats], rb[:, floats]
+    return {"splits": [len(ra), len(rb)],
+            "ints_equal": bool(same_shape and np.array_equal(
+                ra[:, ints], rb[:, ints])),
+            "leaf_ids_equal": bool(torch.equal(la.cpu(), lb.cpu())),
+            "floats_close": bool(same_shape and np.allclose(
+                fa, fb, rtol=tol, atol=tol)),
+            "max_rel_diff": float(np.max(
+                np.abs(fa - fb) / np.maximum(np.abs(fb), 1e-3)))
+            if same_shape and len(ra) else None}
+
+
 def loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
                count_cols):
     """The loop phase: 20,000-row trees (31 leaves) of each strategy grown
@@ -2806,20 +3291,13 @@ def loop_phase(torch, dev, lgb, params, f, Config, DeviceTreeLearner,
                 rp, lp, kp = cpu.grow(g, h, iter_seed=seed)
                 with host_loop(torch):
                     rh, lh, kh = card.grow(gc, hc, iter_seed=seed)
-                trees.append({
-                    "splits": [kc, kp, kh],
-                    "ints_equal": bool(np.array_equal(rc[:, ints],
-                                                      rp[:, ints])),
-                    "floats_close": bool(np.allclose(
-                        rc[:, floats], rp[:, floats], rtol=1e-4,
-                        atol=1e-4)),
-                    "max_rel_diff": float(np.max(
-                        np.abs(rc[:, floats] - rp[:, floats])
-                        / np.maximum(np.abs(rp[:, floats]), 1e-3))),
-                    "leaf_ids_equal": bool(torch.equal(lc.cpu(), lp)),
-                    "host_loop_records_equal": bool(np.array_equal(rc,
-                                                                   rh)),
-                    "host_loop_leaf_ids_equal": bool(torch.equal(lc, lh))})
+                t = compare_records(torch, rc, lc, rp, lp, ints, floats,
+                                    1e-4)
+                t.update(splits=[kc, kp, kh],
+                         host_loop_records_equal=bool(np.array_equal(rc,
+                                                                     rh)),
+                         host_loop_leaf_ids_equal=bool(torch.equal(lc, lh)))
+                trees.append(t)
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -2891,13 +3369,10 @@ def bag_loop_runs(torch, dev, lgb, params, xs, ys, g, h, Config,
             rc, kc, _ = card.fetch_tree(rc, kc)
             rp, lp, kp = cpu.grow_compact(g, h, seed, bi.cpu(), oi.cpu())
             rp, kp, _ = cpu.fetch_tree(rp, kp)
-            trees.append({
-                "splits": [kc, kp],
-                "bag_rows": int(rp[0, R_LCNT] + rp[0, R_RCNT]),
-                "ints_equal": bool(np.array_equal(rc[:, ints], rp[:, ints])),
-                "floats_close": bool(np.allclose(
-                    rc[:, floats], rp[:, floats], rtol=1e-4, atol=1e-4)),
-                "leaf_ids_equal": bool(torch.equal(lc.cpu(), lp))})
+            t = compare_records(torch, rc, lc, rp, lp, ints, floats, 1e-4)
+            t.update(splits=[kc, kp],
+                     bag_rows=int(rp[0, R_LCNT] + rp[0, R_RCNT]))
+            trees.append(t)
         bi, oi = bag(2)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -2981,35 +3456,21 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
         return trees, root.cpu()
 
     def record_diffs(ta, tb):
-        """How the split records of two growers' trees differ: per tree,
-        the split counts, whether leaf / feature / threshold / counts and
-        the row -> leaf maps are equal, whether the f32 columns agree to
-        rtol = atol = 1e-4, and their largest relative difference. The
-        split scan's f32 prefix sums run in another order on the card,
-        and a gain is a difference of squared sums, so equal integer
-        histograms give f32 columns that differ by up to ~5e-5 relative
-        (measured); 1e-4 is the card-vs-CPU bound of the float runs."""
-        out = []
+        """compare_records of two growers' trees, tree by tree, on the
+        leaf / feature / threshold / count columns and the f32 columns
+        within 1e-4. The split scan's f32 prefix sums run in another
+        order on the card, and a gain is a difference of squared sums, so
+        equal integer histograms give f32 columns that differ by up to
+        ~5e-5 relative (measured); 1e-4 is the card-vs-CPU bound of the
+        float runs."""
         ints = [R_LEAF, R_FEAT, R_THR, R_LCNT, R_RCNT]
         # default_left is left out of the f32 columns: where the leaf has
         # no rows in the feature's missing bin both directions make the
         # same split and f32 rounding picks one (the row -> leaf maps
         # hold the routing)
         floats = [c for c in range(13) if c not in ints and c != R_DLEFT]
-        for (ra, la), (rb, lb) in zip(ta, tb):
-            same_shape = ra.shape == rb.shape
-            fa, fb = ra[:, floats], rb[:, floats]
-            out.append({
-                "splits": [len(ra), len(rb)],
-                "ints_equal": bool(same_shape and np.array_equal(
-                    ra[:, ints], rb[:, ints])),
-                "leaf_ids_equal": bool(torch.equal(la, lb)),
-                "floats_close": bool(same_shape and np.allclose(
-                    fa, fb, rtol=1e-4, atol=1e-4)),
-                "max_rel_diff": float(np.max(
-                    np.abs(fa - fb) / np.maximum(np.abs(fb), 1e-3)))
-                if same_shape and len(ra) else None})
-        return out
+        return [compare_records(torch, ra, la, rb, lb, ints, floats, 1e-4)
+                for (ra, la), (rb, lb) in zip(ta, tb)]
 
     def gradient_witness(card_b, qp, strategy):
         """From the same f32 scores (the CPU run's after each iteration
@@ -3215,7 +3676,10 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
                 first >= 2 and wit["trees_before_equal"]
                 and wit["bag_rows_differ"] > 0
                 and wit["sampler_equal_from_same_gradients"])
-        elif not row["same_trees"] and strategy == "compact" and quant:
+        elif not (row["same_trees"] and ok) and strategy == "compact" \
+                and quant:
+            # other trees, or the same trees whose leaves sum other
+            # stored integers
             wit = gradient_witness(on_card, qp, strategy)
             row["gradient_witness"] = wit
             row["witness_stored_rows_differ"] = sum(
@@ -3236,6 +3700,10 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
                                          shape_of, _quant_prepare, prng_key,
                                          ds_of)
     part_done("objectives")
+    ref_rows += boosting_reference_rows(torch, dev, lgb, sp, xs, ys,
+                                        shape_of, _quant_prepare, prng_key,
+                                        ds_of)
+    part_done("rank_and_boosting")
     repeats = formerly_flaky_cases(torch, dev, lgb, k1, Config,
                                    DeviceTreeLearner, record_cols)
     part_done("formerly_flaky")
@@ -3458,19 +3926,26 @@ def leaf_witness(torch, dev, lgb, p, y, ds_of):
 
 
 def multiclass_witness(torch, dev, lgb, p, y, card_b, _quant_prepare,
-                       prng_key, ds_of):
+                       prng_key, ds_of, rounds=OBJ_REF_ROUNDS):
     """From the CPU run's scores after each iteration before the last of
-    OBJ_REF_ROUNDS, the rows whose stored (qg|qh) integers differ when
-    the card's and the CPU's softmax gradients are quantized as each
-    class's tree quantizes them (key prng_key(iteration * K + class))."""
+    `rounds`, the rows whose stored (qg|qh) integers differ when the
+    card's and the CPU's gradients (softmax, or any one-class objective's)
+    are quantized as each class's tree quantizes them (key
+    prng_key(iteration * K + class))."""
     cpu_b = lgb.train(p, ds_of(y), num_boost_round=1, device="cpu")
     lr = card_b._gbdt.learner
     k_cls = cpu_b._gbdt.num_tree_per_iteration
     differ = 0
-    for it in range(1, OBJ_REF_ROUNDS):
+    for it in range(1, rounds):
         sc = cpu_b._gbdt.score_updater.score.clone()
-        gc, hc = cpu_b._gbdt.objective.get_gradients(sc)
-        gd, hd = card_b._gbdt.objective.get_gradients(sc.to(dev))
+        if k_cls == 1:
+            gc, hc = (t[None] for t in
+                      cpu_b._gbdt.objective.get_gradients(sc[0]))
+            gd, hd = (t[None] for t in
+                      card_b._gbdt.objective.get_gradients(sc[0].to(dev)))
+        else:
+            gc, hc = cpu_b._gbdt.objective.get_gradients(sc)
+            gd, hd = card_b._gbdt.objective.get_gradients(sc.to(dev))
         for c in range(k_cls):
             key = prng_key(it * k_cls + c)
             pc = _quant_prepare(gc[c], hc[c], key, quant_bits=lr.quant_bits,

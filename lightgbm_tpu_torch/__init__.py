@@ -1,6 +1,7 @@
 """lightgbm_tpu_torch: the PyTorch / CUDA port of lightgbm_tpu.
 
-It trains binary and L2-regression GBDT (and GOSS, and custom objectives)
+It trains GBDT, GOSS, DART and random forest with every objective of the
+JAX package (lambdarank over query groups too, and custom objectives)
 on one NVIDIA H100 through the compact and masked growth cores, with
 hand-written Hopper kernels for the histograms and the stable row
 partition, evaluates validation sets with early stopping and callbacks,

@@ -1,19 +1,22 @@
 """User-facing Dataset and Booster of the port.
 
-Port of lightgbm_tpu/basic.py for the slices this package covers: GBDT
-and GOSS with every objective of the JAX package but lambdarank (the
+Port of lightgbm_tpu/basic.py for the slices this package covers: GBDT,
+GOSS, DART and random forest (``boosting=rf``: a bag is mandatory, and
+predict averages the trees) with every objective of the JAX package (the
 pointwise ones, multiclass and multiclassova with ``num_class`` trees per
-iteration: ``predict`` gives (N, K)), serial learner, float or quantized
+iteration: ``predict`` gives (N, K); lambdarank over query groups,
+``group=`` or ``set_group``), serial learner, float or quantized
 gradients (``quantized_grad``, ``grad_bits``, ``quant_renew``), the
 compact and masked growth strategies, row sampling (``bagging_fraction``
 with ``bagging_freq``, ``pos_bagging_fraction`` / ``neg_bagging_fraction``,
 ``boosting=goss``) and per-tree feature sampling (``feature_fraction``),
 categorical features (``categorical_feature``: indices, names or the
 ``name:`` form); validation sets binned by reference, their
-evaluation with the pointwise metrics, rollback, parameter resets and
-custom objectives (``objective=none``, ``update(fobj=...)``). Every
-parameter outside that slice raises LightGBMError naming its key. Both
-classes run on the card unless the caller passes ``device="cpu"``.
+evaluation with the pointwise and ranking metrics (ndcg, map), rollback,
+parameter resets and custom objectives (``objective=none``,
+``update(fobj=...)``). Every parameter outside that slice raises
+LightGBMError naming its key. Both classes run on the card unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ def check_supported(cfg: Config) -> None:
         # greater than 1 for multiclass training"
         raise LightGBMError("objective=%s needs num_class > 1, got %d"
                             % (cfg.objective, cfg.num_class))
-    elif cfg.boosting not in ("gbdt", "gbrt", "plain", "goss"):
+    elif cfg.boosting not in ("gbdt", "gbrt", "plain", "goss", "dart",
+                              "rf"):
         bad = "boosting=%s" % cfg.boosting
     elif cfg.num_class > 1 and not multi:
         bad = "num_class=%d with objective=%s" % (cfg.num_class,
@@ -72,11 +76,10 @@ def check_supported(cfg: Config) -> None:
             bad = "metric=%s" % unknown[0]
     if bad is not None:
         raise LightGBMError("%s is not supported by lightgbm_tpu_torch yet "
-                            "(GBDT or GOSS with any objective but "
-                            "lambdarank, serial learner, float or quantized "
-                            "gradients, bagging and feature_fraction but no "
-                            "by-node sampling)"
-                            % bad)
+                            "(GBDT, GOSS, DART or RF with any objective, "
+                            "serial learner, float or quantized gradients, "
+                            "bagging and feature_fraction but no by-node "
+                            "sampling)" % bad)
 
 
 class Dataset:
@@ -89,7 +92,7 @@ class Dataset:
     takes the params' ``categorical_feature`` (indices)."""
 
     def __init__(self, data, label=None, reference=None, weight=None,
-                 init_score=None, feature_name="auto",
+                 group=None, init_score=None, feature_name="auto",
                  categorical_feature="auto", params=None, device=None):
         if isinstance(data, str):
             raise LightGBMError("file input is not supported by "
@@ -98,6 +101,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -130,7 +134,8 @@ class Dataset:
             ref_inner = self.reference.construct()._inner
         self._inner = _InnerDataset(
             self.data, config=cfg, label=self.label, weight=self.weight,
-            init_score=self.init_score, feature_names=names,
+            group=self.group, init_score=self.init_score,
+            feature_names=names,
             categorical_feature=cats, reference=ref_inner)
         self.data = None
         return self
@@ -139,16 +144,17 @@ class Dataset:
         if self._inner is None:
             self.params.update(params or {})
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         """A validation set binned with this dataset's mappers."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params,
-                       device=self.device)
+                       group=group, init_score=init_score,
+                       params=params or self.params, device=self.device)
 
     def subset(self, used_indices, params=None) -> "Dataset":
         """The dataset of some rows (sorted, as the reference sorts them):
-        this dataset's binning and bundles, the rows' codes and metadata."""
+        this dataset's binning and bundles, the rows' codes and metadata;
+        its groups are the per-query counts of the kept rows."""
         self.construct()
         sub = Dataset.__new__(Dataset)
         sub.__dict__.update(self.__dict__)
@@ -159,6 +165,8 @@ class Dataset:
         md = sub._inner.metadata
         sub.label, sub.weight, sub.init_score = (md.label, md.weight,
                                                  md.init_score)
+        sub.group = (None if md.query_boundaries is None
+                     else np.diff(md.query_boundaries))
         return sub
 
     def set_categorical_feature(self, categorical_feature) -> "Dataset":
@@ -197,14 +205,41 @@ class Dataset:
             self._inner.metadata.set_weight(weight)
         return self
 
+    def set_group(self, group) -> "Dataset":
+        """Per-query row counts, in row order (learning to rank)."""
+        self.group = group
+        if self._inner is not None:
+            self._inner.metadata.set_group(group)
+        return self
+
     def set_init_score(self, init_score) -> "Dataset":
         self.init_score = init_score
         if self._inner is not None:
             self._inner.metadata.set_init_score(init_score)
         return self
 
+    def set_field(self, field_name: str, data) -> "Dataset":
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "group": self.set_group,
+                  "init_score": self.set_init_score}.get(field_name)
+        if setter is None:
+            raise LightGBMError("Unknown field %s" % field_name)
+        return setter(data)
+
+    def get_field(self, field_name: str):
+        md = self.construct()._inner.metadata
+        if field_name == "group":
+            return (None if md.query_boundaries is None
+                    else np.diff(md.query_boundaries))
+        if field_name not in ("label", "weight", "init_score"):
+            raise LightGBMError("Unknown field %s" % field_name)
+        return getattr(md, field_name)
+
     def get_label(self):
-        return self.construct()._inner.metadata.label
+        return self.get_field("label")
+
+    def get_group(self):
+        return self.get_field("group")
 
     def num_data(self) -> int:
         return self.construct()._inner.num_data

@@ -196,18 +196,37 @@ class CVBooster:
 def _make_n_folds(full_data: Dataset, folds, nfold: int, seed: int,
                   stratified: bool, shuffle: bool):
     """[(train rows, test rows)] of each fold: `folds` as given (pairs, or
-    a splitter with a split method), else stratified by label or plain
-    chunks of the rows, shuffled by RandomState(seed)."""
+    a splitter with a split method, which gets each row's query id as
+    `groups`), else whole queries to a fold when the data has query
+    groups, else stratified by label or plain chunks of the rows; queries
+    or rows shuffled by RandomState(seed)."""
     full_data.construct()
     num_data = full_data.num_data()
+    group = full_data.get_group()
     if folds is not None:
         if not hasattr(folds, "__iter__") and hasattr(folds, "split"):
+            groups = (np.repeat(np.arange(len(group)),
+                                np.asarray(group, dtype=np.int64))
+                      if group is not None
+                      else np.zeros(num_data, dtype=np.int64))
             folds = folds.split(X=np.zeros(num_data),
-                                y=full_data.get_label(),
-                                groups=np.zeros(num_data, dtype=np.int64))
+                                y=full_data.get_label(), groups=groups)
         return folds
     rng = np.random.RandomState(seed)
     out = []
+    if group is not None:
+        gidx = np.arange(len(group))
+        if shuffle:
+            rng.shuffle(gidx)
+        bounds = np.concatenate([[0], np.cumsum(group)]).astype(np.int64)
+        for chunk in np.array_split(gidx, nfold):
+            test_rows = np.concatenate(
+                [np.arange(bounds[g], bounds[g + 1]) for g in chunk]) \
+                if len(chunk) else np.array([], dtype=np.int64)
+            mask = np.ones(num_data, dtype=bool)
+            mask[test_rows] = False
+            out.append((np.nonzero(mask)[0], test_rows))
+        return out
     if stratified:
         label = np.asarray(full_data.get_label())
         assign = np.zeros(num_data, dtype=np.int64)

@@ -36,6 +36,21 @@ def resolve_categorical_set(spec, feature_names) -> set:
     return cats
 
 
+def query_slots(query_boundaries, width: Optional[int] = None):
+    """(Q, L) per-query layout of the rows: (idx, mask, counts), where
+    idx[q, i] is row start_q + i while mask[q, i] (i below the query's
+    count) and 0 past its end. L is `width`, by default the longest
+    query's count (at least 1)."""
+    qb = np.asarray(query_boundaries, dtype=np.int64)
+    counts = np.diff(qb)
+    if width is None:
+        width = max(int(counts.max(initial=0)), 1)
+    pos = np.arange(width)
+    mask = pos[None, :] < counts[:, None]
+    idx = np.where(mask, qb[:-1, None] + pos[None, :], 0)
+    return idx, mask, counts
+
+
 class Metadata:
     """Labels, weights, query boundaries, init scores
     (reference: dataset.h:41-250, src/io/metadata.cpp)."""
@@ -44,6 +59,7 @@ class Metadata:
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None
         self.weight: Optional[np.ndarray] = None
+        self.query_boundaries: Optional[np.ndarray] = None
         self.init_score: Optional[np.ndarray] = None
 
     def set_label(self, label) -> None:
@@ -59,11 +75,27 @@ class Metadata:
         log.check(len(weight) == self.num_data, "weight length mismatch")
         self.weight = weight
 
+    def set_group(self, group) -> None:
+        """group = per-query row counts -> cumulative boundaries."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        group = np.asarray(group, dtype=np.int64).reshape(-1)
+        log.check(int(group.sum()) == self.num_data,
+                  "sum of group counts != num_data")
+        self.query_boundaries = np.concatenate(
+            [[0], np.cumsum(group)]).astype(np.int32)
+
     def set_init_score(self, init_score) -> None:
         if init_score is None:
             self.init_score = None
             return
         self.init_score = np.asarray(init_score, dtype=np.float64)
+
+    @property
+    def num_queries(self) -> int:
+        return 0 if self.query_boundaries is None \
+            else len(self.query_boundaries) - 1
 
 
 class Dataset:
@@ -75,7 +107,7 @@ class Dataset:
     """
 
     def __init__(self, data: np.ndarray, config: Optional[Config] = None,
-                 label=None, weight=None, init_score=None,
+                 label=None, weight=None, group=None, init_score=None,
                  feature_names: Optional[List[str]] = None,
                  categorical_feature: Optional[Sequence] = None,
                  reference: Optional["Dataset"] = None,
@@ -88,6 +120,7 @@ class Dataset:
         if label is not None:
             self.metadata.set_label(label)
         self.metadata.set_weight(weight)
+        self.metadata.set_group(group)
         self.metadata.set_init_score(init_score)
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(self.num_total_features)])
@@ -322,16 +355,18 @@ class Dataset:
         Dataset::RealThreshold -> BinMapper::BinToValue)."""
         return self.bin_mappers[self.used_features[inner_feature]].bin_to_value(bin_thr)
 
-    def create_valid(self, data, label=None, weight=None,
+    def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None) -> "Dataset":
         """Validation set binned with this dataset's mappers
         (reference: Dataset::CreateValid / CheckAlign)."""
         return Dataset(data, config=self.config, label=label, weight=weight,
-                       init_score=init_score, reference=self)
+                       group=group, init_score=init_score, reference=self)
 
     def subset(self, rows: np.ndarray) -> "Dataset":
         """The dataset of the given (sorted) rows: the same mappers and
-        bundles, the rows' codes and metadata, a config of its own."""
+        bundles, the rows' codes and metadata, a config of its own. Query
+        groups become the per-query counts of the kept rows, empty
+        queries dropped (group-aware cv folds keep whole queries)."""
         sub = copy.copy(self)
         sub.config = copy.deepcopy(self.config)
         sub.binned = self.binned[rows]
@@ -350,6 +385,11 @@ class Dataset:
             md.init_score = (isc[rows] if isc.size == self.num_data else
                              isc.reshape(-1, self.num_data)[:, rows]
                              .reshape(-1))
+        if src.query_boundaries is not None:
+            qb = np.asarray(src.query_boundaries)
+            qidx = np.searchsorted(qb, rows, side="right") - 1
+            counts = np.bincount(qidx, minlength=len(qb) - 1)
+            md.set_group(counts[counts > 0])
         sub.metadata = md
         sub.reference = self
         sub._cache = {}

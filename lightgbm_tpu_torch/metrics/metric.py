@@ -1,11 +1,11 @@
-"""Evaluation metrics of the port: all but the ranking ones.
+"""Evaluation metrics of the port.
 
 The metrics of lightgbm_tpu/metrics/metric.py (reference:
-src/metric/{regression,binary,multiclass,xentropy}_metric.hpp): l1, l2,
-rmse, quantile, huber, fair, poisson, mape, gamma, gamma_deviance,
+src/metric/{regression,binary,multiclass,xentropy,rank,map}_metric.hpp):
+l1, l2, rmse, quantile, huber, fair, poisson, mape, gamma, gamma_deviance,
 tweedie, binary_logloss, binary_error, auc, multi_logloss, multi_error
-(over (K, N) scores), cross_entropy, cross_entropy_lambda and kldiv. ndcg
-and map wait for lambdarank: basic.check_supported refuses them by name.
+(over (K, N) scores), cross_entropy, cross_entropy_lambda, kldiv, and the
+ranking metrics ndcg and map over a dataset's query groups (``eval_at``).
 Scores come in
 raw; metrics apply the objective's ConvertOutput exactly like the
 reference's Metric::Eval(score, objective) contract.
@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..io.dataset import query_slots
 from ..utils import log
 
 
@@ -270,6 +271,100 @@ class KLDivMetric(Metric):
         return [_weighted_mean(kl, self.weight)]
 
 
+def _query_slots(query_boundaries, values, fill):
+    """(Q, L) per-query layout of the (N,) `values`: row i of query q at
+    [q, i - start], `fill` past each query's end; and the (Q,) counts."""
+    idx, mask, counts = query_slots(query_boundaries)
+    return np.where(mask, np.asarray(values)[idx], fill), counts
+
+
+def _ranked(query_boundaries, score, values):
+    """`values` in each query's order of decreasing score (ties in row
+    order, as a stable sort of -score), padded with 0 past its end; the
+    (Q,) counts; and the (L,) positions."""
+    s, counts = _query_slots(query_boundaries,
+                             np.asarray(score, dtype=np.float64).reshape(-1),
+                             -np.inf)
+    v, _ = _query_slots(query_boundaries, values, 0.0)
+    order = np.argsort(-s, axis=1, kind="stable")
+    return (np.take_along_axis(v, order, axis=1), counts,
+            np.arange(s.shape[1]))
+
+
+class NDCGMetric(Metric):
+    """NDCG at eval_at positions (reference: rank_metric.hpp:19 +
+    dcg_calculator.cpp:42-129), every query weighing 1 as in the JAX
+    package; a query without relevant documents scores 1. The JAX
+    package's per-query loop, over (Q, L) padded arrays."""
+    name = "ndcg"
+    higher_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log.fatal("NDCG metric requires query information")
+        self.eval_at = [int(k) for k in (self.config.eval_at
+                                         or [1, 2, 3, 4, 5])]
+        self.label_gain = np.asarray(self.config.label_gain,
+                                     dtype=np.float64)
+
+    @property
+    def names(self):
+        return [f"ndcg@{k}" for k in self.eval_at]
+
+    def eval(self, score, objective):
+        qb = self.metadata.query_boundaries
+        gains = self.label_gain[self.label.astype(np.int64)]
+        got, counts, pos = _ranked(qb, score, gains)
+        ideal = -np.sort(-_query_slots(qb, gains, 0.0)[0], axis=1)
+        disc = 1.0 / np.log2(pos + 2.0)
+        out = []
+        for k in self.eval_at:
+            top = pos[None, :] < np.minimum(k, counts)[:, None]
+            max_dcg = np.where(top, ideal * disc, 0.0).sum(axis=1)
+            dcg = np.where(top, got * disc, 0.0).sum(axis=1)
+            per_query = np.where(
+                max_dcg <= 0, 1.0,
+                dcg / np.where(max_dcg <= 0, 1.0, max_dcg))
+            out.append(float(per_query.sum() / max(len(counts), 1)))
+        return out
+
+
+class MapMetric(Metric):
+    """Mean average precision at eval_at positions (reference:
+    map_metric.hpp:20): the JAX package's per-query loop over (Q, L)
+    padded arrays."""
+    name = "map"
+    higher_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log.fatal("MAP metric requires query information")
+        self.eval_at = [int(k) for k in (self.config.eval_at
+                                         or [1, 2, 3, 4, 5])]
+
+    @property
+    def names(self):
+        return [f"map@{k}" for k in self.eval_at]
+
+    def eval(self, score, objective):
+        qb = self.metadata.query_boundaries
+        rel = (self.label > 0).astype(np.float64)
+        rel_sorted, counts, pos = _ranked(qb, score, rel)
+        prec = np.cumsum(rel_sorted, axis=1) / (pos + 1.0)
+        n_rel = _query_slots(qb, rel, 0.0)[0].sum(axis=1).astype(np.int64)
+        out = []
+        for k in self.eval_at:
+            kk = np.minimum(k, counts)
+            top = pos[None, :] < kk[:, None]
+            denom = np.minimum(kk, n_rel)
+            denom = np.where(denom == 0, 1, denom)
+            hits = np.where(top, prec * rel_sorted, 0.0).sum(axis=1)
+            out.append(float((hits / denom).sum() / max(len(counts), 1)))
+        return out
+
+
 _CLASSES = {
     "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
     "quantile": QuantileMetric, "huber": HuberMetric, "fair": FairMetric,
@@ -279,6 +374,7 @@ _CLASSES = {
     "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
     "multi_error": MultiErrorMetric, "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric, "kldiv": KLDivMetric,
+    "ndcg": NDCGMetric, "map": MapMetric,
 }
 
 METRIC_NAMES = sorted(_CLASSES)

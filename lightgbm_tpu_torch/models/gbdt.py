@@ -23,7 +23,14 @@ classes, leaf renewal, pos/neg bagging), and takes over an iteration whose fused
 stop bookkeeping). It samples on the host (``_bagging``, with
 ``np.random.RandomState``, and ``GOSS._goss_sample``), as the JAX
 package's generic iteration does. The JAX package's pipelined form of the
-fused iteration is not ported; DART and RF are not ported.
+fused iteration is not ported.
+
+DART and RF (``create_boosting``) run the generic iteration, as in the JAX
+package: DART drops earlier trees on the host (``DART._drop_trees``) and
+rescales them after the new tree (``DART._normalize``); RF grows every
+tree from the gradients at the boost-from-average score on a mandatory
+bag and keeps the training and validation scores the running average of
+its trees, and ``predict_raw`` averages them (``average_output``).
 """
 from __future__ import annotations
 
@@ -83,6 +90,10 @@ class ScoreUpdater:
 
     def add_constant(self, val: float, class_id: int) -> None:
         self._add(class_id, float(val))
+
+    def multiply(self, factor: float, class_id: int) -> None:
+        self._score[class_id] *= factor
+        self._host = None
 
     def add_tree(self, tree: Tree, class_id: int) -> None:
         """Score update by walking `tree` over the dataset's logical binned
@@ -427,7 +438,7 @@ class GBDT:
         (reference gbdt.cpp:453 RollbackOneIter)."""
         if self.iter <= 0:
             return
-        self._ensemble_cache = {}
+        self.invalidate_ensemble_cache()
         per = self.num_tree_per_iteration
         for k in range(per):
             tree = self.models[len(self.models) - per + k]
@@ -471,6 +482,11 @@ class GBDT:
     def current_iteration(self) -> int:
         return len(self.models) // max(self.num_tree_per_iteration, 1)
 
+    def invalidate_ensemble_cache(self) -> None:
+        """Drop the cached ensemble: its key sees the model's length and
+        last tree, not leaf values changed in place (DART's rescaling)."""
+        self._ensemble_cache = {}
+
     def ensemble_arrays(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0):
         """Cached (EnsembleArrays, tree_class, n_models) for the model
@@ -491,7 +507,8 @@ class GBDT:
 
     def predict_raw(self, x, num_iteration: Optional[int] = None,
                     start_iteration: int = 0) -> np.ndarray:
-        """(N, K) raw scores over raw feature values."""
+        """(N, K) raw scores over raw feature values; with average_output
+        (a random forest) the mean over the iterations used."""
         x = np.ascontiguousarray(np.asarray(x, dtype=np.float32))
         if x.ndim == 1:
             x = x.reshape(1, -1)
@@ -502,7 +519,10 @@ class GBDT:
         out = predict_ops.predict_raw_ensemble(
             torch.as_tensor(x, device=self.device), arrays, tc,
             self.num_class)
-        return out.cpu().numpy().astype(np.float64)
+        out = out.cpu().numpy().astype(np.float64)
+        if self.average_output:
+            out /= max(1, n_models // self.num_tree_per_iteration)
+        return out
 
     def predict(self, x, num_iteration=None, raw_score=False,
                 start_iteration=0):
@@ -662,13 +682,199 @@ class GOSS(GBDT):
         return grad * amp[None, :], hess * amp[None, :], idx
 
 
+class DART(GBDT):
+    """Dropout boosting (reference src/boosting/dart.hpp; the JAX package's
+    DART) on the generic iteration. Before each iteration a host
+    RandomState(drop_seed) picks earlier trees to drop (skip_drop,
+    drop_rate, max_drop; uniform_drop, else weighted by each tree's
+    weight) and takes them out of the training scores; the new tree is
+    shrunk by learning_rate / (1 + k) (xgboost_dart_mode: learning_rate /
+    (learning_rate + k)); then each of the k dropped trees is rescaled to
+    k / (k + 1) of its weight (k / (k + learning_rate)) in the model and in
+    the validation scores, and put back into the training scores at that
+    weight. The JAX package's _normalize leaves the dropped trees at
+    another scale than the scores it keeps; the port keeps the reference's
+    weights, so the model predicts its training scores."""
+
+    def __init__(self, config: Config, train_set: Optional[Dataset],
+                 device="cpu"):
+        super().__init__(config, train_set, device=device)
+        self._drop_rng = np.random.RandomState(config.drop_seed
+                                               % (2**31 - 1))
+        self._tree_weights: List[float] = []
+        self._sum_weight = 0.0
+        self.drop_index: List[int] = []
+
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+        drop_index = self._drop_trees()
+        stop = super().train_one_iter(gradients, hessians)
+        if not stop:
+            self._normalize(drop_index)
+        return stop
+
+    def _drop_trees(self) -> List[int]:
+        """The iterations dropped before this one (reference
+        DART::DroppingTrees), taken out of the training scores, and the
+        new tree's shrinkage."""
+        cfg = self.config
+        drop_index: List[int] = []
+        n_iter = self.iter
+        if self._drop_rng.rand() >= cfg.skip_drop and n_iter > 0:
+            drop_rate = cfg.drop_rate
+            if cfg.uniform_drop:
+                if cfg.max_drop > 0:
+                    drop_rate = min(drop_rate, cfg.max_drop / n_iter)
+                for i in range(n_iter):
+                    if self._drop_rng.rand() < drop_rate:
+                        drop_index.append(self.num_init_iteration + i)
+                        if 0 < cfg.max_drop <= len(drop_index):
+                            break
+            else:
+                inv_avg = len(self._tree_weights) \
+                    / max(self._sum_weight, 1e-20)
+                if cfg.max_drop > 0:
+                    drop_rate = min(drop_rate, cfg.max_drop * inv_avg
+                                    / max(self._sum_weight, 1e-20))
+                for i in range(n_iter):
+                    if self._drop_rng.rand() \
+                            < drop_rate * self._tree_weights[i] * inv_avg:
+                        drop_index.append(self.num_init_iteration + i)
+                        if 0 < cfg.max_drop <= len(drop_index):
+                            break
+        per = self.num_tree_per_iteration
+        for i in drop_index:
+            for k in range(per):
+                tree = self.models[i * per + k]
+                tree.apply_shrinkage(-1.0)
+                self.score_updater.add_tree(tree, k)
+        k_drop = len(drop_index)
+        if not cfg.xgboost_dart_mode:
+            self.shrinkage_rate = cfg.learning_rate / (1.0 + k_drop)
+        elif k_drop:
+            self.shrinkage_rate = cfg.learning_rate \
+                / (cfg.learning_rate + k_drop)
+        else:
+            self.shrinkage_rate = cfg.learning_rate
+        self.drop_index = drop_index
+        return drop_index
+
+    def _normalize(self, drop_index: List[int]) -> None:
+        """Rescale the dropped trees (reference DART::Normalize): each holds
+        -w after the drop; the validation scores lose w / (k + 1) of it
+        (xgboost_dart_mode: w * lr / (lr + k)) and the training scores get
+        the rest back, which the tree then holds."""
+        cfg = self.config
+        lr = cfg.learning_rate
+        self.invalidate_ensemble_cache()
+        k = float(len(drop_index))
+        per = self.num_tree_per_iteration
+        for i in drop_index:
+            for c in range(per):
+                tree = self.models[i * per + c]
+                if not cfg.xgboost_dart_mode:
+                    tree.apply_shrinkage(1.0 / (k + 1.0))
+                    for vu in self.valid_updaters:
+                        vu.add_tree(tree, c)
+                    tree.apply_shrinkage(-k)
+                else:
+                    tree.apply_shrinkage(self.shrinkage_rate)
+                    for vu in self.valid_updaters:
+                        vu.add_tree(tree, c)
+                    tree.apply_shrinkage(-k / lr)
+                self.score_updater.add_tree(tree, c)
+            if not cfg.uniform_drop:
+                ti = i - self.num_init_iteration
+                extra = 1.0 if not cfg.xgboost_dart_mode else lr
+                self._sum_weight -= self._tree_weights[ti] / (k + extra)
+                self._tree_weights[ti] *= k / (k + extra)
+        self._tree_weights.append(self.shrinkage_rate)
+        self._sum_weight += self.shrinkage_rate
+
+
+class RF(GBDT):
+    """Random forest (reference src/boosting/rf.hpp; the JAX package's RF)
+    on the generic iteration: a bag every iteration (the config requires
+    one), no shrinkage, every tree grown from the gradients at the
+    boost-from-average score (which, as in the JAX package, is not added
+    to the trees or the scores), leaf renewal from label - that score,
+    and training and validation scores kept the running average of the
+    trees, which predict_raw averages (average_output)."""
+
+    average_output = True
+
+    def __init__(self, config: Config, train_set: Optional[Dataset],
+                 device="cpu"):
+        super().__init__(config, train_set, device=device)
+        self.shrinkage_rate = 1.0
+        if self.objective is None:
+            log.fatal("RF mode does not support custom objective")
+        per = self.num_tree_per_iteration
+        self._rf_init_scores = [self._boost_from_average(k, False)
+                                for k in range(per)]
+        tmp = torch.as_tensor(np.tile(np.asarray(
+            self._rf_init_scores, dtype=np.float32)[:, None],
+            (1, self.num_data)), device=self.device)
+        if self.num_class == 1:
+            g, h = self.objective.get_gradients(tmp[0])
+            self._rf_grad, self._rf_hess = g[None, :], h[None, :]
+        else:
+            self._rf_grad, self._rf_hess = self.objective.get_gradients(tmp)
+
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+        bag_indices = self._bagging(self.iter)
+        prev = self.iter
+        should_continue = False
+        for k in range(self.num_tree_per_iteration):
+            new_tree = Tree(2)
+            if self._class_need_train[k] and self.train_set.num_features > 0:
+                new_tree = self.learner.train(
+                    self._rf_grad[k], self._rf_hess[k], bag_indices,
+                    iter_seed=self.iter * self.num_tree_per_iteration + k)
+            if new_tree.num_leaves > 1:
+                should_continue = True
+                if self.objective.is_renew_tree_output:
+                    self._renew_tree_output_rf(new_tree, k)
+                # the running average: score = (score * t + tree) / (t + 1)
+                if prev > 0:
+                    factor = prev / (prev + 1.0)
+                    self.score_updater.multiply(factor, k)
+                    for vu in self.valid_updaters:
+                        vu.multiply(factor, k)
+                new_tree.apply_shrinkage(1.0 / (prev + 1.0))
+                self._update_score(new_tree, k)
+                new_tree.apply_shrinkage(prev + 1.0)
+            self.models.append(new_tree)
+        if not should_continue:
+            log.warning("Stopped training: no splittable leaves (RF)")
+            if len(self.models) > self.num_tree_per_iteration:
+                del self.models[-self.num_tree_per_iteration:]
+            return True
+        self.iter += 1
+        return False
+
+    def _renew_tree_output_rf(self, tree: Tree, class_id: int) -> None:
+        """The L1 family's leaf re-fit from the residuals label - the
+        boost-from-average score of each leaf's in-bag rows, weighted by
+        the dataset's weights (the JAX package's _renew_tree_output_rf)."""
+        init = self._rf_init_scores[class_id]
+        label = np.asarray(self.train_set.label, dtype=np.float64)
+        weights = self.train_set.metadata.weight
+        for leaf in range(tree.num_leaves):
+            rows = self.learner.leaf_rows(leaf)
+            if len(rows) == 0:
+                continue
+            tree.set_leaf_output(leaf, self.objective.renew_leaf_output(
+                label[rows] - init,
+                weights[rows] if weights is not None else None))
+
+
 def create_boosting(config: Config, train_set: Optional[Dataset],
                     device="cpu") -> GBDT:
     """The boosting engine of config.boosting (reference boosting.cpp:35
-    CreateBoosting): GBDT or GOSS; DART and RF are not ported."""
-    if config.boosting in ("gbdt", "gbrt", "plain"):
-        return GBDT(config, train_set, device=device)
-    if config.boosting == "goss":
-        return GOSS(config, train_set, device=device)
-    raise LightGBMError("boosting=%s is not supported by lightgbm_tpu_torch "
-                        "yet" % config.boosting)
+    CreateBoosting): GBDT, GOSS, DART or RF."""
+    cls = {"gbdt": GBDT, "gbrt": GBDT, "plain": GBDT, "goss": GOSS,
+           "dart": DART, "rf": RF, "random_forest": RF}.get(config.boosting)
+    if cls is None:
+        raise LightGBMError("boosting=%s is not supported by "
+                            "lightgbm_tpu_torch yet" % config.boosting)
+    return cls(config, train_set, device=device)

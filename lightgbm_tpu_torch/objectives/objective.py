@@ -1,8 +1,8 @@
 """Objective functions as torch tensor math.
 
 Port of lightgbm_tpu/objectives/objective.py (reference:
-src/objective/{regression,binary,multiclass,xentropy}_objective.hpp) but
-lambdarank: the same gradients and hessians, boost-from-score, output
+src/objective/{regression,binary,multiclass,xentropy,rank}_objective.hpp):
+the same gradients and hessians, boost-from-score, output
 transform, leaf renewal (regression_l1, quantile, mape: the weighted
 percentile ``_percentile`` in f64 on the host) and model-text string.
 Labels and weights live on the device the objective is initialised for;
@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..io.dataset import query_slots
 from ..utils import log
 
 K_EPSILON = 1e-15
@@ -538,6 +539,137 @@ class _Labels:
         self.weight = weight
 
 
+# elements of one (queries, L, L) pair tensor of lambdarank's gradient: the
+# queries run in chunks of at most this many pair slots (64 MB per f32
+# tensor), so the working set does not grow with the number of queries
+_PAIR_BUDGET = 1 << 24
+
+
+class LambdarankNDCG(Objective):
+    """LambdaRank with NDCG weighting (reference: rank_objective.hpp:23;
+    the JAX package's LambdarankNDCG). Queries are padded into (Q, L)
+    slots, L = max(8, the next power of two of the largest query); the
+    pair loop (rank_objective.hpp:83-190) becomes masked (L, L) tensors per
+    query, with the exact sigmoid in place of the reference's table and
+    every pair of a query (max_position enters only the inverse max DCG),
+    as in the JAX package. The slots, padded labels and gains and the
+    inverse max DCGs are built on the host at init; the gradient is torch
+    ops on the objective's device with no host sync, run over chunks of
+    queries (_PAIR_BUDGET) and gathered back to the rows (each row has one
+    slot)."""
+    name = "lambdarank"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sigmoid = float(config.sigmoid)
+        self.norm = bool(config.lambdamart_norm)
+        self.optimize_pos_at = int(config.max_position)
+        self.label_gain = np.asarray(config.label_gain, dtype=np.float64)
+
+    def init(self, metadata, num_data, device=None):
+        super().init(metadata, num_data, device)
+        qb = metadata.query_boundaries
+        if qb is None:
+            log.fatal("Lambdarank tasks require query information")
+        qb = np.asarray(qb, dtype=np.int64)
+        L = max(8, 1 << (int(np.diff(qb).max()) - 1).bit_length())
+        self.pad_len = L
+        idx, mask, counts = query_slots(qb, L)
+        pos = np.arange(L)
+        labels = np.where(mask, self.label[idx], 0.0)
+        gains = self.label_gain[labels.astype(np.int32)]
+        discounts = 1.0 / np.log2(pos + 2.0)
+        # max DCG at max_position per query (reference
+        # DCGCalculator::CalMaxDCGAtK): the valid gains sorted down
+        top = -np.sort(-np.where(mask, gains, -np.inf), axis=1)
+        keep = pos[None, :] < np.minimum(self.optimize_pos_at,
+                                         counts)[:, None]
+        max_dcg = np.where(keep, top * discounts, 0.0).sum(axis=1)
+        inv_max_dcg = np.where(max_dcg > 0,
+                               1.0 / np.where(max_dcg > 0, max_dcg, 1.0),
+                               0.0)
+
+        def dev(a, dtype):
+            return torch.as_tensor(a, dtype=dtype, device=self.device)
+        self._idx = dev(idx, torch.int64)
+        self._mask = dev(mask, torch.bool)
+        self._labels_pad = dev(labels, torch.float32)
+        self._gains = dev(gains, torch.float32)
+        self._discount = dev(discounts, torch.float32)
+        self._inv_max_dcg = dev(inv_max_dcg, torch.float32)
+        # the sorted slot of a query's last document (its worst score)
+        self._last = dev(np.maximum(counts - 1, 0), torch.int64)
+        # each row's slot q * L + position in the flat (Q * L) layout
+        self._slot = dev(np.repeat(np.arange(len(counts)) * L
+                                   - qb[:-1], counts)
+                         + np.arange(num_data), torch.int64)
+        self._chunk = max(1, _PAIR_BUDGET // (L * L))
+
+    def get_gradients(self, score):
+        q, L = self._idx.shape
+        lam = torch.empty((q, L), dtype=torch.float32, device=score.device)
+        hes = torch.empty_like(lam)
+        for q0 in range(0, q, self._chunk):
+            sl = slice(q0, q0 + self._chunk)
+            self._query_gradients(score, sl, lam[sl], hes[sl])
+        grad = lam.reshape(-1)[self._slot]
+        hess = hes.reshape(-1)[self._slot]
+        return self._apply_weight(grad, hess)
+
+    def _query_gradients(self, score, sl, lam_out, hes_out):
+        """The lambdas and hessians of the queries `sl`, written into
+        their (q, L) document slots."""
+        mask = self._mask[sl]
+        # (fills with Python scalars: a tensor made from a host value
+        # would be a host-to-device copy, which synchronizes)
+        s = score[self._idx[sl]].masked_fill(~mask, float("-inf"))
+        # rank -> document slot; a stable sort keeps tied documents (all
+        # scores are 0 at the first iteration) in document order
+        order = torch.argsort(-s, dim=1, stable=True)
+        s_srt = s.gather(1, order)
+        lbl_srt = self._labels_pad[sl].gather(1, order)
+        gain_srt = self._gains[sl].gather(1, order)
+        valid_srt = mask.gather(1, order)
+        disc = self._discount[None, :] * valid_srt
+        best = s_srt[:, 0]
+        worst = s_srt.gather(1, self._last[sl][:, None])[:, 0]
+        inv_max_dcg = self._inv_max_dcg[sl]
+
+        # pair tensors over rank positions (i = high, j = low); padded
+        # slots hold -inf, so their differences are NaN or inf and every
+        # use is masked by torch.where (0 * NaN is NaN)
+        delta_s = s_srt[:, :, None] - s_srt[:, None, :]
+        pair_ok = (valid_srt[:, :, None] & valid_srt[:, None, :]
+                   & (lbl_srt[:, :, None] > lbl_srt[:, None, :]))
+        dcg_gap = gain_srt[:, :, None] - gain_srt[:, None, :]
+        paired_disc = (disc[:, :, None] - disc[:, None, :]).abs()
+        delta_ndcg = dcg_gap * paired_disc * inv_max_dcg[:, None, None]
+        if self.norm:
+            norm_ok = (best != worst)[:, None, None]
+            delta_ndcg = torch.where(
+                norm_ok, delta_ndcg / (0.01 + delta_s.abs()), delta_ndcg)
+        p = 1.0 / (1.0 + torch.exp(self.sigmoid * delta_s))
+        zero = s.new_zeros(())
+        p_lambda = torch.where(pair_ok, -self.sigmoid * delta_ndcg * p, zero)
+        p_hess = torch.where(
+            pair_ok, self.sigmoid * self.sigmoid * delta_ndcg * p * (1.0 - p),
+            zero)
+
+        lam_srt = p_lambda.sum(dim=2) - p_lambda.sum(dim=1)
+        hes_srt = p_hess.sum(dim=2) + p_hess.sum(dim=1)
+        if self.norm:
+            sum_lambdas = -2.0 * p_lambda.sum(dim=(1, 2))
+            factor = torch.where(
+                sum_lambdas > 0,
+                torch.log2(1.0 + sum_lambdas) / sum_lambdas.clamp_min(1e-20),
+                s.new_ones(()))
+            lam_srt = lam_srt * factor[:, None]
+            hes_srt = hes_srt * factor[:, None]
+        # back to document slots (order is a permutation of each row)
+        lam_out.scatter_(1, order, lam_srt)
+        hes_out.scatter_(1, order, hes_srt)
+
+
 _CLASSES = {
     "regression": RegressionL2,
     "regression_l1": RegressionL1,
@@ -553,6 +685,7 @@ _CLASSES = {
     "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
 }
 
 OBJECTIVE_NAMES = sorted(_CLASSES)

@@ -127,9 +127,12 @@ def storage_bits(grad_bits: int, renew: bool) -> int:
 
 def requant_ratio(leaf_max_q: torch.Tensor, qcap_op: int) -> torch.Tensor:
     """Leaf-local operand ratio from the leaf's max |stored int| (f32);
-    an all-zero leaf gets 1."""
+    an all-zero leaf gets 1. The numerator is a tensor: torch divides a
+    Python number by a tensor as the number times the tensor's
+    reciprocal, which rounds twice and can miss the quotient by an ulp."""
+    qcap = torch.full_like(leaf_max_q, float(qcap_op))
     return torch.where(leaf_max_q > 0.0,
-                       float(qcap_op) / torch.clamp(leaf_max_q, min=1.0),
+                       qcap / torch.clamp(leaf_max_q, min=1.0),
                        torch.ones_like(leaf_max_q))
 
 

@@ -189,15 +189,12 @@ def test_weights_and_init_score_match_jax(monkeypatch):
 
 @pytest.mark.parametrize("key,value", [
     ("objective", "multiclass"), ("feature_fraction_bynode", 0.5),
-    ("boosting", "rf"), ("quantized_grad", True),
-    ("tree_learner", "data"), ("boosting", "dart"),
+    ("forcedsplits_filename", "forced_splits.json"), ("quantized_grad", True),
+    ("tree_learner", "data"), ("on_nonfinite", "raise"),
     ("two_round", True), ("stream_mode", "chunked")])
 def test_out_of_slice_params_raise_naming_the_key(key, value):
     x, y = _task("binary", n=200)
     params = dict(_params("binary"), **{key: value})
-    if value == "rf":
-        # random forest needs bagging
-        params.update(bagging_fraction=0.5, bagging_freq=1)
     if key == "quantized_grad":
         # quantized gradients run on the serial learner only
         params["tree_learner"] = "data"

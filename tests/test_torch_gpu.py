@@ -53,6 +53,17 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+def test_requant_ratio_card_matches_cpu(cuda_device):
+    # the leaf-local re-quantization ratio of every 16-bit leaf max: the
+    # card's f32 quotient is the CPU's, bit for bit
+    m = torch.arange(32768, dtype=torch.float32)
+    for qcap in (127, 7):
+        assert torch.equal(
+            quant_ops.requant_ratio(m.to(cuda_device), qcap).cpu(),
+            quant_ops.requant_ratio(m, qcap))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("num_bins,dtype,f", [
     (64, torch.uint8, 28), (256, torch.uint8, 28), (64, torch.int16, 28),
     (16, torch.int32, 11), (1024, torch.int32, 40)])
@@ -1805,4 +1816,111 @@ def test_categorical_training_on_card_matches_cpu(cuda_device, strategy,
     assert any(t.num_cat for t in card._gbdt.models)
     np.testing.assert_allclose(card.predict(x, raw_score=True),
                                cpu.predict(x, raw_score=True),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _ranking_task(n_queries, seed, sizes=None):
+    """chip_smoke.py's make_ranking_like shape: grades 0..4 from a score
+    shifted per query; `sizes` gives ragged queries (default 20 each)."""
+    r = np.random.RandomState(seed)
+    group = np.asarray(sizes if sizes is not None
+                       else [20] * n_queries, dtype=np.int64)
+    n = int(group.sum())
+    x = r.randn(n, 12).astype(np.float32)
+    s = x[:, 0] - 0.5 * x[:, 1] + 0.3 * x[:, 2] * x[:, 3] \
+        + np.repeat(r.randn(len(group)) * 0.5, group) + 0.8 * r.randn(n)
+    y = np.digitize(s, np.quantile(s, [0.5, 0.75, 0.9, 0.97]))
+    return x, y.astype(np.float64), group
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", [True, False])
+def test_lambdarank_gradients_card_match_cpu(cuda_device, norm,
+                                             monkeypatch):
+    # ragged queries (1 to 40 documents: L = 64), in two chunks of the
+    # pair budget on the card; exp on the card may move a value by an
+    # ulp. The card's gradient makes no host sync.
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import objective as tobj
+    r = np.random.RandomState(5)
+    sizes = r.randint(1, 41, 3000)
+    _, y, group = _ranking_task(0, 6, sizes)
+    n = len(y)
+    meta = Metadata(n)
+    meta.set_label(y)
+    meta.set_weight(0.5 + r.rand(n))
+    meta.set_group(group)
+    cfg = Config({"objective": "lambdarank", "lambdamart_norm": norm})
+    monkeypatch.setattr(tobj, "_PAIR_BUDGET", 2000 * 64 * 64)
+    objs = []
+    for dev in ("cpu", cuda_device):
+        o = tobj.LambdarankNDCG(cfg)
+        o.init(meta, n, dev)
+        objs.append(o)
+    assert objs[1]._chunk == 2000
+    for scale in (0.0, 1.0):
+        score = torch.from_numpy((scale * r.randn(n)).astype(np.float32))
+        want = objs[0].get_gradients(score)
+        score = score.to(cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = objs[1].get_gradients(score)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,quant", [("compact", False),
+                                            ("masked", False),
+                                            ("compact", True)])
+def test_lambdarank_training_card_matches_cpu(cuda_device, strategy, quant,
+                                              monkeypatch):
+    # 1,000 queries of 20 on the fused iteration: one host sync per tree,
+    # the CPU's trees as functions of the training rows
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", strategy)
+    x, y, group = _ranking_task(1000, 7)
+    p = {"objective": "lambdarank", "num_leaves": 15, "max_bin": 63,
+         "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
+         "quantized_grad": quant, "grad_bits": 8, "verbosity": -1}
+    card, cpu = (tlgb.train(p, tlgb.Dataset(x, y, group=group), 4,
+                            device=d) for d in ("cuda", "cpu"))
+    lr = card._gbdt.learner
+    assert card._gbdt._fused_step is not None
+    assert lr.stats.host_syncs == lr.stats.trees == 4
+    assert _shape(card) == _shape(cpu)
+    np.testing.assert_allclose(card.predict(x, raw_score=True),
+                               cpu.predict(x, raw_score=True),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boosting", ["dart", "rf"])
+def test_dart_rf_scores_match_predict_on_card(cuda_device, boosting,
+                                              monkeypatch):
+    # DART's rescaled trees and RF's running average keep the training
+    # scores equal to the model's predictions; the card's trees are the
+    # CPU's
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", "compact")
+    x, y = _valid_task(20_000, 41)
+    p = {"objective": "binary", "boosting": boosting, "num_leaves": 15,
+         "max_bin": 63, "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
+         "drop_rate": 0.5, "skip_drop": 0.0, "bagging_fraction": 0.8,
+         "bagging_freq": 1 if boosting == "rf" else 0, "verbosity": -1}
+    card, cpu = (tlgb.train(p, tlgb.Dataset(x, y), 6, device=d)
+                 for d in ("cuda", "cpu"))
+    if boosting == "dart":
+        assert card._gbdt.drop_index == cpu._gbdt.drop_index
+    else:
+        assert card._gbdt.average_output
+    assert _shape(card) == _shape(cpu)
+    moved = _f32_threshold_rows(card.train_set._inner, x)
+    raw = card.predict(x, raw_score=True)
+    score = card._gbdt.score_updater.score[0].cpu().numpy()
+    np.testing.assert_allclose(raw[~moved], score[~moved], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(raw, cpu.predict(x, raw_score=True),
                                rtol=1e-4, atol=1e-4)

@@ -202,7 +202,8 @@ def test_a_class_without_rows_gets_constant_trees():
 
 
 @pytest.mark.parametrize("params,key", [
-    ({"objective": "lambdarank"}, "objective=lambdarank"),
+    # lambdarank without group: the JAX package's query-information error
+    ({"objective": "lambdarank"}, "require query information"),
     ({"objective": "binary", "num_class": 3}, "num_class=3"),
     ({"objective": "multiclass"}, "num_class"),
     ({"objective": "multiclassova", "num_class": 1}, "num_class")])

@@ -439,6 +439,9 @@ def _shared_scores(name, weighted):
         if name in ("cross_entropy", "kldiv"):
             label = np.where(label > 0, 0.2 + 0.7 * r.rand(n),
                              0.3 * r.rand(n))
+    elif name in ("ndcg", "map"):
+        # relevance grades 0..4
+        label = r.randint(0, 5, n).astype(np.float64)
     elif name.startswith("multi_"):
         # 3 classes: (K, N) scores
         label = r.randint(0, 3, n).astype(np.float64)
@@ -453,22 +456,25 @@ def _shared_scores(name, weighted):
 
 
 class _Meta:
-    def __init__(self, label, weight):
+    def __init__(self, label, weight, query_boundaries=None):
         self.label, self.weight = label, weight
         self.init_score = None
-        self.query_boundaries = None
+        self.query_boundaries = query_boundaries
 
 
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("name", sorted(tmetric.METRIC_NAMES))
 def test_metric_matches_jax(name, weighted):
-    assert len(tmetric.METRIC_NAMES) == 19
+    assert len(tmetric.METRIC_NAMES) == 21
     label, score, weight = _shared_scores(name, weighted)
     params = {"alpha": 0.7, "fair_c": 0.8, "tweedie_variance_power": 1.3}
     jm = jmetric.create_metric(name, JConfig(params))
     tm = tmetric.create_metric(name, TConfig(params))
-    jm.init(_Meta(label, weight), len(label))
-    tm.init(_Meta(label, weight), len(label))
+    # the ranking metrics read query groups: 50 queries of 10 rows
+    qb = (np.arange(0, len(label) + 1, 10, dtype=np.int32)
+          if name in ("ndcg", "map") else None)
+    jm.init(_Meta(label, weight, qb), len(label))
+    tm.init(_Meta(label, weight, qb), len(label))
     assert (tm.names, tm.higher_better) == (jm.names, jm.higher_better)
     np.testing.assert_allclose(tm.eval(score, None), jm.eval(score, None),
                                rtol=1e-12, atol=1e-12)
@@ -480,8 +486,12 @@ def test_default_metric_of_each_objective_matches_jax():
 
 @pytest.mark.parametrize("name", ["ndcg", "map"])
 def test_metrics_of_unported_objectives_raise(name):
+    # the ranking metrics on a dataset without query information raise
+    # the JAX package's error
     x, y = _task("binary", n=200)
-    with pytest.raises(LightGBMError, match="metric=%s" % name):
+    with pytest.raises(LightGBMError,
+                       match="%s metric requires query information"
+                       % name.upper()):
         tlgb.train(_params("binary", metric=[name]), tlgb.Dataset(x, y), 1,
                    device="cpu")
 
