@@ -186,6 +186,30 @@ Phases, one JSON line each:
                f32-threshold rows (DART's rescaled trees, RF's running
                average), the model-text round trip is within 1e-6, 1 host
                sync per tree, and DART dropped a tree;
+  train_learners
+               feature_fraction_bynode 0.5 on the higgs-1m rows (float
+               and quantized, the compact device loop) and on the
+               60,000-row masked task, and histogram_pool_size 2 MB (97 LRU
+               slots for 255 leaves) on higgs-1m, float and quantized,
+               --rounds rounds each on the fused iteration beside the
+               dense pool's run of the same settings (the train /
+               train_quant phases' when they ran, else made here): steady
+               s per iteration, host syncs per tree (1), launches per
+               captured step, the by-node runs' device launches per
+               iteration against the plain run's, LRU misses per tree and
+               the miss pass's launches and device ms per iteration
+               (profiled against the dense run), AUC > 0.7 and, LRU,
+               within 0.001 of the dense pool's; then the host-loop serial
+               learner (HOST_ROUNDS rounds) with a forced-splits JSON in a
+               temporary file (feature 0 at its median at the root,
+               features 1 and 2 at theirs below), float (K1's host-int
+               entry) and quantized (K3's operand entry), and with
+               cegb_penalty_split at rising percentiles (50, 75, 90) of
+               the float run's last tree's gain per row until it prunes:
+               s per iteration, host
+               syncs and launches per tree; fails unless the forced splits
+               top every tree, AUC > 0.7 (not for CEGB, recorded), and
+               CEGB grows fewer leaves;
   train_cat    bench.py's categorical variant (the last 8 of the 28
                columns hold 64 categories each, per-category effects on
                the margin) with those columns as categorical_feature:
@@ -260,7 +284,12 @@ Phases, one JSON line each:
                (quantized 1e-4, or other scores and trees only where the
                witness counts stored integers that differ and both devices
                grow the same trees from the CPU's gradients), DART's drop
-               sets equal.
+               sets equal. Then this slice's learners at 60,000 rows, 15
+               leaves, REF_ROUNDS rounds: by-node sampling on the compact
+               and the masked device loops, the LRU pool (8 slots) on
+               compact quantized, the serial learner float and quantized:
+               the same trees and raw scores within 1e-4 (quantized: or
+               the witness).
 Kernel times: `ms` is the mean over repeated launches between CUDA
 events, the host enqueuing as it goes (on a small launch this reads the
 wrapper's launch rate); `device_ms` puts a sleep kernel in front, which
@@ -299,8 +328,8 @@ SLEEP_CYCLES = 100_000_000
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
           "train_quant", "train_masked", "train_bag", "train_valid",
-          "train_objectives", "train_multiclass", "train_boost", "train_cat",
-          "train_rank", "loop", "reference")
+          "train_objectives", "train_multiclass", "train_boost",
+          "train_learners", "train_cat", "train_rank", "loop", "reference")
 
 # bench.py's categorical variant (BENCH_CAT_FEATURES=8, BENCH_CAT_CARD=64)
 CAT_FEATURES = 8
@@ -634,6 +663,7 @@ def host_loop(torch, generic_only=False):
             gh, scale3 = self.masked_operand(grad, hess, iter_seed)
             out = dl.grow_tree(self.codes_t, gh, mask, self.meta,
                                scale3=scale3, stats=self.stats,
+                               rng_key=prng_key(iter_seed),
                                **self._statics())
         else:
             quant = None
@@ -645,7 +675,8 @@ def host_loop(torch, generic_only=False):
             out = dl.grow_tree_compact_core(
                 data, torch.empty_like(data), mask, self.meta,
                 c_cols=self.c_cols, item_bits=self.item_bits, quant=quant,
-                stats=self.stats, **self._statics())
+                stats=self.stats, rng_key=prng_key(iter_seed),
+                **self._statics())
         # with categorical features, the records' bitsets follow
         self.last_rec_cat = out[3] if len(out) > 3 else None
         return out[:3]
@@ -795,7 +826,8 @@ def main():
     need_float = bool(run & {"train", "profile", "train_quant"})
     need_data = need_float or bool(run & {
         "k1", "k2", "k3", "k4", "train_bag", "train_valid",
-        "train_objectives", "train_multiclass", "train_boost"})
+        "train_objectives", "train_multiclass", "train_boost",
+        "train_learners"})
     t0 = time.time()
     x, y, w_true = make_higgs_like(args.rows, f)
     xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
@@ -882,12 +914,13 @@ def main():
                                      if v and not k.endswith("rows")
                                      and not k.endswith("rows_win")},
                "s_per_iter_in_train": secs / max(b.current_iteration(), 1)}
-        if lr._loop is not None and lr._loop.graph is not None:
+        loop = getattr(lr, "_loop", None)        # none: the serial learner
+        if loop is not None and loop.graph is not None:
             out["captured_step_launches"] = {
                 k.rsplit(".", 2)[-2] + "." + k.rsplit(".", 1)[-1]: v
-                for k, v in lr._loop.launches_per_step.items()}
-            out["replays_per_tree"] = lr._loop.num_steps
-            out["capture_s"] = lr._loop.capture_s
+                for k, v in loop.launches_per_step.items()}
+            out["replays_per_tree"] = loop.num_steps
+            out["capture_s"] = loop.capture_s
         return out
 
     def steady_s(b):
@@ -976,7 +1009,7 @@ def main():
 
     # ---- train: the main path (compact, float) ----------------------------
     launches = qlaunches = host_launches = qhost_launches = None
-    valid_auc = train = None
+    valid_auc = train = prof = train_quant = None
     if need_float:
         bst, launches, train_s, peak = timed_train(params, ds)
         pv = bst.predict(xv)
@@ -1042,7 +1075,8 @@ def main():
                         prof["parent_k4_iteration"] = profile_one(
                             hbst, parent_k4_names)["k4"]
                 prof["host_loop"] = profile_one(hbst)
-            emit(dict(prof, **profile_one(bst)))
+            prof.update(profile_one(bst))
+            emit(prof)
         del bst, back, hbst
 
     # ---- train_quant: the same data with quantized gradients --------------
@@ -1116,7 +1150,7 @@ def main():
     # ---- train_masked: 60,000 rows, float and quantized -------------------
     masked_rows = []
     xm = ym = dsm = None
-    if run & {"train_masked", "train_bag"}:
+    if run & {"train_masked", "train_bag", "train_learners"}:
         xm, ym, _ = make_higgs_like(60_000, f, seed=23, w=w_true)
         dsm = lgb.Dataset(xm, ym, params=params)
         dsm.construct()
@@ -1278,6 +1312,22 @@ def main():
         emit(row)
         if problems:
             fail("train_boost: %s" % "; ".join(problems))
+    learners = None
+    if "train_learners" in run:
+        dense = {}
+        if train is not None and prof is not None:
+            dense["float"] = dict(
+                valid_auc=valid_auc, profile=prof,
+                captured_step_launches=train.get("captured_step_launches"))
+        if train_quant is not None:
+            dense["quant"] = {k: train_quant.get(k) for k in (
+                "valid_auc", "captured_step_launches", "profile")}
+        learners, problems = learners_phase(
+            torch, lgb, params, ds, dsm, x, xv, yv, args.rounds,
+            timed_train, growth, steady_s, profile_one, dense)
+        emit(learners)
+        if problems:
+            fail("train_learners: %s" % "; ".join(problems))
     if need_data:
         del ds
 
@@ -1321,6 +1371,8 @@ def main():
 
         hk = "lightgbm_tpu/ops/pallas/histogram_kernel.py"
         pk = "lightgbm_tpu/ops/pallas/partition_kernel.py:48"
+        serial_k3 = next(rw["launches"]["k3"] for rw in learners["runs"]
+                         if rw["case"] == "higgs-1m-quant serial forced")
         hcu = "lightgbm_tpu_torch/csrc/histogram.cu"
         pcu = "lightgbm_tpu_torch/csrc/partition.cu"
         kr = kernel_rows
@@ -1343,7 +1395,11 @@ def main():
                          "max_abs_err"),
             kernel_entry("K3 integer histogram, packed-row entry", hcu,
                          hk + ":114", qhost_launches["k3"],
-                         kr["k3_rows"] + kr["k3"], "max_abs_err"),
+                         kr["k3_rows"], "max_abs_err"),
+            # the operand form: the serial learner's quantized histograms
+            # (launches from train_learners' quantized serial run)
+            kernel_entry("K3 integer histogram, operand entry", hcu,
+                         hk + ":114", serial_k3, kr["k3"], "max_abs_err"),
             kernel_entry("K3t integer histogram, (F, N) codes", hcu,
                          hk + ":152", masked_rows[1]["launches"]["k3t"],
                          kr["k3t"], "max_abs_err"),
@@ -3704,6 +3760,9 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
                                         shape_of, _quant_prepare, prng_key,
                                         ds_of)
     part_done("rank_and_boosting")
+    ref_rows += learner_reference_rows(torch, dev, lgb, params, f,
+                                       _quant_prepare, quant_ops, prng_key)
+    part_done("learners")
     repeats = formerly_flaky_cases(torch, dev, lgb, k1, Config,
                                    DeviceTreeLearner, record_cols)
     part_done("formerly_flaky")
@@ -3715,6 +3774,308 @@ def reference_phase(torch, dev, lgb, k1, params, f, Config,
         fail("card and CPU runs disagree on the small reference tasks")
     if not all(c["agree"] == c["runs"] for c in repeats):
         fail("a formerly flaky card-vs-plain case disagreed: %s" % repeats)
+
+
+def learners_phase(torch, lgb, params, ds, dsm, x, xv, yv, rounds,
+                   timed_train, growth, steady_s, profile_one, dense=None):
+    """train_learners: per-node feature sampling, the LRU-capped
+    histogram pool and the host-loop serial learner on the train phase's
+    rows. higgs-1m with feature_fraction_bynode 0.5 (float and quantized)
+    and higgs-60k-masked with it (float), on the fused iteration of the
+    device loops; higgs-1m with histogram_pool_size 2 (97 LRU slots of
+    28 x 64 x 12 bytes for 255 leaves), float and quantized, beside the
+    dense pool's run of the same settings; then the serial learner (3
+    rounds, the generic iteration) with a forced-splits JSON (feature 0 at
+    its median at the root, features 1 and 2 at theirs below), float and
+    quantized, and with cegb_penalty_split at the 50th, then 75th, then
+    90th percentile of the gain per row of the float run's last tree's
+    unforced splits, until a run grows fewer leaves. `dense` holds the train / train_quant phases' runs
+    (the same data and params on the dense pool, in this call) by "float"
+    and "quant": their rows stand in for the dense-pool runs. Gates: the
+    device runs' fused iteration at 1 host sync per tree, held-out AUC >
+    0.7 (not for CEGB, which trades it for fewer splits), the LRU runs'
+    AUC within 0.001 of their dense pool's, the forced splits on top of
+    every serial tree, fewer leaves under CEGB. Returns (row,
+    problems)."""
+    import tempfile
+    from lightgbm_tpu_torch.models.device_learner import plan_histogram_pool
+    # every key of the cases set in every run: a Booster writes its
+    # parameters into its Dataset's config, which the next one inherits
+    plain = {"objective": "binary", "num_class": 1, "boosting": "gbdt",
+             "metric": ["binary_logloss"], "quantized_grad": False,
+             "grad_bits": 8, "bagging_fraction": 1.0, "bagging_freq": 0,
+             "pos_bagging_fraction": 1.0, "neg_bagging_fraction": 1.0,
+             "feature_fraction": 1.0, "feature_fraction_bynode": 1.0,
+             "histogram_pool_size": -1.0, "forcedsplits_filename": "",
+             "cegb_tradeoff": 1.0, "cegb_penalty_split": 0.0}
+    quant = {"quantized_grad": True}
+    runs, problems, kept = [], [], {}
+
+    def run(name, extra, dset, n_rounds, profiled=False, steady=True):
+        p = dict(params, **dict(plain, **extra))
+        b, counts, secs, peak = timed_train(p, dset, rounds=n_rounds)
+        lr = b._gbdt.learner
+        row = dict({"case": name, "settings": extra, "rounds": n_rounds,
+                    "learner": type(lr).__name__,
+                    "strategy": getattr(lr, "strategy", None),
+                    "iteration": "fused" if b._gbdt._fused_step
+                    else "generic", "launches": counts},
+                   **growth(b, counts, secs))
+        row.update({"train_s": secs, "peak_device_bytes": peak,
+                    "valid_auc": auc(yv, b.predict(xv))})
+        if profiled:
+            prof = profile_one(b)
+            row["profile"] = {k: prof[k] for k in (
+                "k1", "k3", "device_ms", "device_launches", "wall_ms",
+                "device_busy_share")}
+        if steady:
+            row["s_per_iter_steady"] = steady_s(b)
+        runs.append(row)
+        return b, row
+
+    def check(row, want_learner, want_strategy, auc_gate=True):
+        bad = []
+        if row["learner"] != want_learner or (
+                want_strategy and row["strategy"] != want_strategy):
+            bad.append("took %s (%s)" % (row["learner"], row["strategy"]))
+        if want_learner == "DeviceTreeLearner" and (
+                row["iteration"] != "fused"
+                or row["host_syncs_per_tree"] != 1):
+            bad.append("%s iteration, %s host syncs per tree"
+                       % (row["iteration"], row["host_syncs_per_tree"]))
+        if auc_gate and not row["valid_auc"] > 0.7:
+            bad.append("held-out AUC %.5f" % row["valid_auc"])
+        problems.extend("%s: %s" % (row["case"], b) for b in bad)
+
+    # ---- the dense pool's runs: the LRU runs' and by-node runs' base ----
+    for q in (False, True):
+        name = "higgs-1m%s dense pool" % ("-quant" if q else "")
+        known = (dense or {}).get("quant" if q else "float")
+        if known is not None:
+            kept[name] = dict(known, case=name + " (%s phase)" % (
+                "train_quant" if q else "train"))
+            continue
+        b, row = run(name, quant if q else {}, ds, rounds, profiled=not q)
+        check(row, "DeviceTreeLearner", "compact")
+        kept[name] = row
+        del b
+    # ---- by-node sampling ----------------------------------------------
+    bynode = {"feature_fraction_bynode": 0.5}
+    for name, extra, dset, strategy, base in (
+            ("higgs-1m bynode", bynode, ds, "compact", "higgs-1m dense pool"),
+            ("higgs-1m-quant bynode", dict(bynode, **quant), ds, "compact",
+             "higgs-1m-quant dense pool"),
+            ("higgs-60k-masked bynode", bynode, dsm, "masked", None)):
+        b, row = run(name, extra, dset, rounds, profiled=not extra.get(
+            "quantized_grad") and strategy == "compact")
+        check(row, "DeviceTreeLearner", strategy)
+        row["bynode_k"] = b._gbdt.learner._statics()["bynode_k"]
+        if base:
+            row["dense_pool_captured_step_launches"] = \
+                kept[base].get("captured_step_launches")
+            if "profile" in row:
+                row["device_launches_minus_plain"] = \
+                    row["profile"]["device_launches"] \
+                    - kept[base]["profile"]["device_launches"]
+        if row["bynode_k"] != 14:
+            problems.append("%s: bynode_k %s" % (name, row["bynode_k"]))
+        del b
+    # ---- the LRU-capped pool ------------------------------------------
+    for q in (False, True):
+        name = "higgs-1m%s LRU pool" % ("-quant" if q else "")
+        base = kept["higgs-1m%s dense pool" % ("-quant" if q else "")]
+        b, row = run(name, dict(quant if q else {}, histogram_pool_size=2.0),
+                     ds, rounds, profiled=not q)
+        check(row, "DeviceTreeLearner", "compact")
+        lr = b._gbdt.learner
+        row["plan_slot_bytes_pool_slots"] = list(plan_histogram_pool(
+            lr.config, lr.dataset))
+        row["pool_slots_in_carry"] = int(lr._carry.pool.shape[0])
+        row["misses_per_tree"] = lr.stats.pool_misses / max(lr.stats.trees,
+                                                            1)
+        row["dense_pool_valid_auc"] = base["valid_auc"]
+        row["auc_minus_dense_pool"] = row["valid_auc"] - base["valid_auc"]
+        # the miss pass: a second window launch per step (GO 0 on a hit)
+        key = "histogram.launches_qwin" if q else "histogram.launches_win"
+        row["window_launches_per_step"] = row.get(
+            "captured_step_launches", {}).get(key)
+        if not q:
+            pk1, dk1 = row["profile"]["k1"], base["profile"]["k1"]
+            if isinstance(pk1, dict) and isinstance(dk1, dict):
+                row["miss_pass_per_iteration"] = {
+                    "launches": pk1["launches"] - dk1["launches"],
+                    "device_ms": pk1["device_ms"] - dk1["device_ms"]}
+        if not (lr._carry.pooled and row["pool_slots_in_carry"] < 255
+                and row["misses_per_tree"] > 0
+                and row["window_launches_per_step"] == 2):
+            problems.append("%s: the pool is not LRU-capped (%s slots, %s "
+                            "misses per tree, %s window launches per step)"
+                            % (name, row["pool_slots_in_carry"],
+                               row["misses_per_tree"],
+                               row["window_launches_per_step"]))
+        if abs(row["auc_minus_dense_pool"]) > 0.001:
+            problems.append("%s: AUC %.5f, dense pool %.5f" % (
+                name, row["valid_auc"], base["valid_auc"]))
+        del b
+    # ---- the serial learner: forced splits and CEGB -------------------
+    med = np.median(x[:, :3], axis=0)
+    spec = {"feature": 0, "threshold": float(med[0]),
+            "left": {"feature": 1, "threshold": float(med[1])},
+            "right": {"feature": 2, "threshold": float(med[2])}}
+    fd, path = tempfile.mkstemp(suffix=".json")
+    try:
+        with os.fdopen(fd, "w") as fh:
+            json.dump(spec, fh)
+        forced = {"forcedsplits_filename": path}
+        def serial(name, extra, cegb=False):
+            b, row = run(name, extra, ds, HOST_ROUNDS, steady=False)
+            check(row, "SerialTreeLearner", None, auc_gate=not cegb)
+            trees = b._gbdt.models
+            row["forced_on_top"] = all(
+                list(t.split_feature[:3]) == [0, 1, 2]
+                and t.left_child[0] == 1 and t.right_child[0] == 2
+                for t in trees)
+            row["leaves"] = [int(t.num_leaves) for t in trees]
+            row["s_per_iter"] = row["s_per_iter_in_train"]
+            lp = row["launches_per_tree"]
+            row["k1_host_int_per_tree"] = lp.get("k1", 0)
+            row["k3_operand_per_tree"] = lp.get("k3", 0)
+            if not row["forced_on_top"]:
+                problems.append("%s: the top three nodes are not the "
+                                "forced splits" % name)
+            k_key = "k3" if extra.get("quantized_grad") else "k1"
+            if not lp.get(k_key, 0) > 0:
+                problems.append("%s: no %s launch" % (name, k_key))
+            return trees, row
+
+        trees, plain_row = serial("higgs-1m serial forced", forced)
+        # the gain per row of the last tree's unforced splits, where it is
+        # smallest
+        last = trees[-1]
+        per_row = last.split_gain[3:last.num_leaves - 1] \
+            / last.internal_count[3:last.num_leaves - 1]
+        del trees
+        serial("higgs-1m-quant serial forced", dict(forced, **quant))
+        # CEGB: the split penalty per row at rising percentiles of that
+        # gain per row, until it prunes (leaf-wise growth finds other
+        # leaves while enough candidates keep gain > penalty x rows: at
+        # 200,000 rows the median still grew every leaf, at 70,000 the
+        # 90th percentile left only the forced splits); a fixed cost per
+        # row trades held-out AUC for fewer splits, so the AUC is
+        # recorded, not gated
+        pruned = False
+        for q in (50, 75, 90):
+            pen = float(np.percentile(per_row, q))
+            _, row = serial("higgs-1m serial forced cegb p%d" % q, dict(
+                forced, cegb_tradeoff=1.0, cegb_penalty_split=pen), True)
+            row["penalty_percentile"] = q
+            if sum(row["leaves"]) < sum(plain_row["leaves"]):
+                pruned = True
+                break
+        if not pruned:
+            problems.append("CEGB pruned no split at the 50th-90th "
+                            "percentile penalties")
+    finally:
+        os.unlink(path)
+    return {"phase": "train_learners", "rows": len(x), "runs": runs}, \
+        problems
+
+
+def learner_reference_rows(torch, dev, lgb, params, f, _quant_prepare,
+                           quant_ops, prng_key):
+    """The reference phase's runs of this slice's learners, card against
+    CPU, 60,000 rows, 15 leaves, REF_ROUNDS rounds: by-node sampling on
+    the compact and the masked device loops (threefry is bit-exact on
+    both devices: the same trees), the LRU-capped pool (histogram_pool_size
+    0.15: 8 slots) on the compact device loop, quantized, and the serial
+    learner (LGBM_TPU_HOST_LEARNER=1), float and quantized. Held to the
+    same trees and raw scores within 1e-4; a quantized run may grow other
+    trees only where its witness counts stored integers that differ
+    between the devices from the same scores (the card's and the CPU's
+    objective gradients may differ in the last ulp)."""
+    xs, ys, _ = make_higgs_like(60_000, f, seed=61)
+    sp = dict(params, num_leaves=15, min_gain_to_split=1e-3,
+              min_data_in_leaf=20)
+    ds_of = rebinned(lgb, xs, ys, sp)
+
+    def shape_of(b):
+        return [(list(t.split_feature[:t.num_leaves - 1]),
+                 list(t.left_child[:t.num_leaves - 1]),
+                 list(t.leaf_count[:t.num_leaves]))
+                for t in b._gbdt.models]
+
+    def witness(card_b, qp, serial):
+        """Rows whose stored integer differs when each device's gradients
+        at the CPU run's scores are quantized as that iteration's tree
+        quantizes them."""
+        cpu_b = lgb.train(qp, ds_of(ys), num_boost_round=1, device="cpu")
+        lr = card_b._gbdt.learner
+        cfg = lr.config
+        total = 0
+        for it in range(1, REF_ROUNDS):
+            sc = cpu_b._gbdt.score_updater.score[0].clone()
+            gh = [cpu_b._gbdt.objective.get_gradients(sc),
+                  card_b._gbdt.objective.get_gradients(sc.to(dev))]
+            if serial:
+                key = prng_key((cfg.feature_fraction_seed * 9973 + 2 * it
+                                + 1) % (2**31 - 1))
+                packed = [quant_ops.quantize_gh(g, h, key, grad_bits=8)[0]
+                          for g, h in gh]
+            else:
+                packed = [_quant_prepare(g, h, prng_key(it), quant_bits=8,
+                                         quant_renew=lr.quant_renew)[0]
+                          for g, h in gh]
+            total += int((packed[0] != packed[1].cpu()).sum())
+            cpu_b.update()
+        return total
+
+    rows = []
+    for case, strategy, extra, serial in (
+            ("bynode", "compact", {"feature_fraction_bynode": 0.5}, False),
+            ("bynode", "masked", {"feature_fraction_bynode": 0.5}, False),
+            ("LRU pool, quantized", "compact",
+             {"histogram_pool_size": 0.15, "quantized_grad": True,
+              "grad_bits": 8}, False),
+            ("serial", "compact", {}, True),
+            ("serial, quantized", "compact",
+             {"quantized_grad": True, "grad_bits": 8}, True)):
+        os.environ["LGBM_TPU_STRATEGY"] = strategy
+        if serial:
+            os.environ["LGBM_TPU_HOST_LEARNER"] = "1"
+        try:
+            qp = dict(sp, **extra)
+            on_card = lgb.train(qp, ds_of(ys), num_boost_round=REF_ROUNDS)
+            on_cpu = lgb.train(qp, ds_of(ys), num_boost_round=REF_ROUNDS,
+                               device="cpu")
+            lr = on_card._gbdt.learner
+            row = {"case": case, "strategy": strategy, "rows": len(ys),
+                   "learner": type(lr).__name__,
+                   "learner_on_cpu": type(on_cpu._gbdt.learner).__name__,
+                   "same_trees": shape_of(on_card) == shape_of(on_cpu),
+                   "max_abs_raw_diff": float(np.max(np.abs(
+                       on_card.predict(xs, raw_score=True)
+                       - on_cpu.predict(xs, raw_score=True)))),
+                   "raw_tolerance": 1e-4}
+            ok = row["same_trees"] and row["max_abs_raw_diff"] <= 1e-4
+            pool_ok = True
+            if "histogram_pool_size" in extra:
+                row["pool_slots"] = int(lr._carry.pool.shape[0])
+                row["misses"] = [lr.stats.pool_misses,
+                                 on_cpu._gbdt.learner.stats.pool_misses]
+                pool_ok = row["pool_slots"] == 8 and min(row["misses"]) > 0
+                ok = ok and row["misses"][0] == row["misses"][1]
+            if not ok and extra.get("quantized_grad"):
+                row["witness_stored_rows_differ"] = witness(on_card, qp,
+                                                            serial)
+                row["other_trees_allowed"] = ok = \
+                    row["witness_stored_rows_differ"] > 0
+            want = "SerialTreeLearner" if serial else "DeviceTreeLearner"
+            row["ok"] = bool(ok and pool_ok and row["learner"] == want
+                             and row["learner_on_cpu"] == want)
+            rows.append(row)
+        finally:
+            os.environ.pop("LGBM_TPU_HOST_LEARNER", None)
+    return rows
 
 
 def rebinned(lgb, x, y, params):

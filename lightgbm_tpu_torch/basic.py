@@ -9,7 +9,10 @@ iteration: ``predict`` gives (N, K); lambdarank over query groups,
 gradients (``quantized_grad``, ``grad_bits``, ``quant_renew``), the
 compact and masked growth strategies, row sampling (``bagging_fraction``
 with ``bagging_freq``, ``pos_bagging_fraction`` / ``neg_bagging_fraction``,
-``boosting=goss``) and per-tree feature sampling (``feature_fraction``),
+``boosting=goss``), feature sampling per tree and per node
+(``feature_fraction``, ``feature_fraction_bynode``), a capped histogram
+pool (``histogram_pool_size``), forced splits (``forcedsplits_filename``)
+and the CEGB penalties (the last two on the host-loop learner),
 categorical features (``categorical_feature``: indices, names or the
 ``name:`` form); validation sets binned by reference, their
 evaluation with the pointwise and ranking metrics (ndcg, map), rollback,
@@ -51,20 +54,12 @@ def check_supported(cfg: Config) -> None:
     elif cfg.num_class > 1 and not multi:
         bad = "num_class=%d with objective=%s" % (cfg.num_class,
                                                   cfg.objective)
-    elif cfg.feature_fraction_bynode < 1.0:
-        bad = "feature_fraction_bynode=%g" % cfg.feature_fraction_bynode
     elif cfg.quantized_grad and cfg.tree_learner != "serial":
         bad = "quantized_grad with tree_learner=%s" % cfg.tree_learner
     elif cfg.tree_learner != "serial":
         bad = "tree_learner=%s" % cfg.tree_learner
     elif cfg.stream_mode != "off":
         bad = "stream_mode=%s" % cfg.stream_mode
-    elif cfg.forcedsplits_filename:
-        bad = "forcedsplits_filename"
-    elif cfg.cegb_tradeoff > 0 and (
-            cfg.cegb_penalty_split > 0 or cfg.cegb_penalty_feature_coupled
-            or cfg.cegb_penalty_feature_lazy):
-        bad = "cegb_tradeoff"
     elif cfg.on_nonfinite != "off":
         bad = "on_nonfinite=%s" % cfg.on_nonfinite
     elif cfg.two_round:
@@ -77,9 +72,8 @@ def check_supported(cfg: Config) -> None:
     if bad is not None:
         raise LightGBMError("%s is not supported by lightgbm_tpu_torch yet "
                             "(GBDT, GOSS, DART or RF with any objective, "
-                            "serial learner, float or quantized gradients, "
-                            "bagging and feature_fraction but no by-node "
-                            "sampling)" % bad)
+                            "tree_learner=serial, float or quantized "
+                            "gradients, in-memory data)" % bad)
 
 
 class Dataset:

@@ -1,9 +1,9 @@
 """Leaf-wise tree learner, in torch: the compact and the masked strategy.
 
-Port of lightgbm_tpu/models/device_learner.py for the serial, dense-pool
-case of its two single-device strategies, each with float or quantized
-gradients, numerical and categorical features, and the row sampling of
-bagging and GOSS.
+Port of lightgbm_tpu/models/device_learner.py for the serial case of its
+two single-device strategies, each with float or quantized gradients,
+numerical and categorical features, the row sampling of bagging and GOSS,
+per-node feature sampling, and (compact) the LRU-capped histogram pool.
 
 **Compact** (``grow_tree_compact_core``, JAX :808). The reference's
 DataPartition (data_partition.hpp:20-205) becomes one packed int32 working
@@ -41,8 +41,8 @@ masked core keeps one ratio per tree.
 **Both cores on the device** (``grow_compact`` and ``grow_masked``, what
 ``grow`` and the fused iteration run). As in the JAX package, the whole
 tree grows without a host sync: the state lives in device tensors
-allocated once per learner (``DeviceCarry``, the JAX ``_CarryC`` without
-LRU pool slots; ``MaskedCarry``, the JAX ``_Carry``), and ``split_step``
+allocated once per learner (``DeviceCarry``, the JAX ``_CarryC``;
+``MaskedCarry``, the JAX ``_Carry``), and ``split_step``
 / ``masked_split_step`` is the core's split body over it, every write
 gated on the step's ``go``, with the bookkeeping both share in
 ``split_epilogue_device``.
@@ -148,9 +148,11 @@ def padded_device_bins(raw_bins: int) -> int:
 
 
 def plan_histogram_pool(config: Config, dataset: Dataset):
-    """(slot_bytes, pool_slots) of the histogram pool, the JAX package's
-    budget math; pool_slots == 0 means the dense one-slot-per-leaf pool
-    fits. The port has only the dense pool."""
+    """(slot_bytes, pool_slots): the LRU histogram-pool budget math
+    (reference HistogramPool, feature_histogram.hpp:654-831), the JAX
+    package's. histogram_pool_size is the budget in MB (< 0: none given,
+    then 1 GiB); pool_slots == 0 means the dense one-slot-per-leaf pool
+    fits, else the compact core keeps max(2, pool_slots) LRU slots."""
     if dataset.columns:
         ncols = max(1, len(dataset.columns))
         raw_bins = max(c.num_bins for c in dataset.columns)
@@ -171,21 +173,47 @@ def resolve_strategy(config: Config, dataset: Dataset,
                      forced: Optional[str] = None) -> str:
     """The growth strategy: `forced`, else LGBM_TPU_STRATEGY, else auto --
     compact at 65,536 rows and above, masked below (the JAX rule). The
-    chunk strategy and the LRU-capped histogram pool are refused."""
+    chunk strategy is refused."""
     strat = forced or strategy_env()
     if strat == "auto":
         strat = "compact" if dataset.num_data >= 65536 else "masked"
     if strat not in ("compact", "masked"):
         raise LightGBMError("strategy=%s is not supported by this port yet "
                             "(compact and masked only)" % strat)
-    slot_bytes, pool_slots = plan_histogram_pool(config, dataset)
-    if pool_slots > 0 or slot_bytes * int(config.num_leaves) \
-            > _POOL_BYTE_LIMIT:
-        raise LightGBMError(
-            "num_leaves=%d needs an LRU-capped histogram pool "
-            "(histogram_pool_size), which this port does not have yet"
-            % int(config.num_leaves))
     return strat
+
+
+def pool_size(num_leaves: int, pool_slots: int) -> int:
+    """The compact core's pool slots K: max(2, pool_slots) LRU slots when
+    the plan caps the pool below num_leaves (one slot cannot hold both
+    children of a split), else one per leaf (the JAX core's K)."""
+    if 0 < pool_slots < num_leaves:
+        return max(2, pool_slots)
+    return num_leaves
+
+
+def node_masks(keys: torch.Tensor, base_mask: torch.Tensor,
+               bynode_k: int) -> torch.Tensor:
+    """By-node feature sampling (the JAX _tree_helpers.node_mask): for
+    each (..., 2) int64 key on base_mask's device, bynode_k of the (F,)
+    base mask's features -- u uniform where the base mask is set, inf
+    elsewhere, a sort, the bynode_k-th value, base & (u <= kth). Returns
+    (..., F) bool; no host sync."""
+    u = trandom.uniform_on_device(keys, base_mask.shape[0])
+    u = torch.where(base_mask, u, torch.full_like(u, float("inf")))
+    kth = torch.sort(u, dim=-1).values[..., bynode_k - 1:bynode_k]
+    return base_mask & (u <= kth)
+
+
+def tree_keys(key: torch.Tensor, quantized: bool, device):
+    """The by-node key chain's start from a tree's key (a host key): the
+    quantized cores first split off the quantization's key (the key the
+    JAX _quant_prepare returns), then every core splits (root key, loop
+    key). Both on `device`."""
+    if quantized:
+        key = trandom.split(key)[0]
+    root_key, loop_key = trandom.split(key)
+    return root_key.to(device), loop_key.to(device)
 
 
 def column_go_left(col: torch.Tensor, feat: int, thr: int, dleft: bool,
@@ -338,7 +366,8 @@ def search2_simple(scan, best_row):
 
 def split_epilogue(*, k, l, new_id, row, row_dev, mono_f, leaf_min,
                    leaf_max, depth, rec, best, hist_l, hist_r, fmask,
-                   search2, best_cat=None, rec_cat=None):
+                   search2, best_cat=None, rec_cat=None, key=None,
+                   bynode_k=0):
     """The split bookkeeping of the JAX core's split_epilogue: monotone
     constraint propagation (basic mode, serial_tree_learner.cpp:771-852),
     depth update, the split record, and the two children's re-scan.
@@ -346,7 +375,10 @@ def split_epilogue(*, k, l, new_id, row, row_dev, mono_f, leaf_min,
     the device; leaf_min / leaf_max (L,) stay on the device, `depth` and
     `rec` on the host; with categorical features the (L, W) left-bin
     bitsets best_cat and the records' (L-1, W) rec_cat on the device.
-    Updates them in place."""
+    Updates them in place. With by-node sampling (bynode_k > 0) the
+    by-node key is split as in JAX (key, kl, kr = split(key, 3)) and each
+    child scans its own node_masks draw of `fmask`; returns the next
+    key."""
     mid = (row_dev[B_LOUT] + row_dev[B_ROUT]) * 0.5
     pmin, pmax = leaf_min[l], leaf_max[l]
     lmin = torch.maximum(pmin, mid) if mono_f < 0 else pmin
@@ -367,6 +399,10 @@ def split_epilogue(*, k, l, new_id, row, row_dev, mono_f, leaf_min,
     if rec_cat is not None:
         rec_cat[k] = best_cat[l]
 
+    if bynode_k > 0:
+        keys3 = trandom.split_on_device(key, 3)
+        key = keys3[0]
+        fmask = node_masks(keys3[1:], fmask, bynode_k)
     rows2, words2 = search2(torch.stack([hist_l, hist_r]),
                             row_dev[B_LSG::3][:2], row_dev[B_LSH::3][:2],
                             row_dev[B_LCNT::3][:2], mn2, mx2, fmask,
@@ -374,18 +410,21 @@ def split_epilogue(*, k, l, new_id, row, row_dev, mono_f, leaf_min,
     best[l], best[new_id] = rows2[0], rows2[1]
     if best_cat is not None:
         best_cat[l], best_cat[new_id] = words2[0], words2[1]
+    return key
 
 
 class GrowStats:
     """Counters of the growth loop, summed over the trees a learner grew:
-    device->host syncs, splits and trees; and the carries it made, each
-    with its split loop (on the card, a captured graph)."""
+    device->host syncs, splits and trees; the carries it made, each with
+    its split loop (on the card, a captured graph); and, with an
+    LRU-capped pool, the splits that missed their parent's histogram."""
 
     def __init__(self):
         self.host_syncs = 0
         self.splits = 0
         self.trees = 0
         self.captures = 0
+        self.pool_misses = 0       # LRU pool: splits whose parent was evicted
 
 
 def _next_split(best: torch.Tensor, stats: Optional[GrowStats]):
@@ -477,7 +516,8 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
                            min_gain_to_split: float,
                            quant: Optional[QuantRows] = None,
                            stats: Optional[GrowStats] = None,
-                           cat_statics=None):
+                           cat_statics=None, rng_key=None,
+                           bynode_k: int = 0, pool_slots: int = 0):
     """Grow one tree over the packed working buffer `data` -- codes | gh
     section | row id, int32 -- with `spare` the second buffer of the same
     shape. Both are overwritten. The gh section is three bitcast f32 words
@@ -486,6 +526,13 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
     leaf re-quantization each split's operand is re-discretized at the
     split leaf's ratio and the parent's pool entry rescaled to it.
     cat_statics (DeviceTreeLearner._statics) turns on categorical splits.
+    bynode_k > 0 samples bynode_k features per node from the tree's key
+    rng_key (node_masks, on the JAX key chain: tree_keys, then one split
+    per split). pool_slots > 0 (plan_histogram_pool) caps the pool at
+    pool_size(L, pool_slots) slots with LRU eviction, the JAX core's: a
+    leaf keeps its parent's slot when it is cached; else (a miss) it takes
+    a free slot or the least recently used one, and the sibling is built
+    directly over the larger child's rows instead of parent - smaller.
 
     Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k), and
     with cat_statics the records' (L-1, W) int32 left-bin bitsets after
@@ -505,6 +552,14 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
     bufs = (data, spare)
     renew = quant is not None and quant.root_max is not None
     one = torch.ones((), dtype=torch.float32, device=dev)
+    root_mask = base_mask
+    if bynode_k > 0:
+        root_key, key = tree_keys(rng_key, quant is not None, dev)
+        root_mask = node_masks(root_key, base_mask, bynode_k)
+    else:
+        key = None
+    K = pool_size(L, pool_slots)
+    pooled = K < L
 
     def win_hist(rows: torch.Tensor, r) -> torch.Tensor:
         """K1 (float) or K3 (at ratios r) over a contiguous row slice,
@@ -540,7 +595,7 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
     leaf_min = torch.full((L,), -np.inf, dtype=torch.float32, device=dev)
     leaf_max = torch.full((L,), np.inf, dtype=torch.float32, device=dev)
     res0, cm0 = scan(for_scan(hist0, r0)[None], totals[0:1], totals[1:2],
-                     totals[2:3], leaf_min[:1], leaf_max[:1], base_mask)
+                     totals[2:3], leaf_min[:1], leaf_max[:1], root_mask)
     best = torch.full((L, 12), NEG_INF, dtype=torch.float32, device=dev)
     best[:, B_FEAT:] = 0.0
     best[0] = best_row(res0, 0)[0]
@@ -550,9 +605,25 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
         best_cat[0] = cm0[0]
     # the pool keeps the histograms' dtype: on the quantized path parent -
     # child below is exact integer arithmetic
-    pool = torch.zeros((L,) + tuple(hist0.shape), dtype=hist0.dtype,
+    pool = torch.zeros((K,) + tuple(hist0.shape), dtype=hist0.dtype,
                        device=dev)
     pool[0] = hist0
+    # LRU bookkeeping (the JAX _CarryC's): each leaf's slot (-1: evicted),
+    # each slot's leaf (-1: free) and the step that last wrote it
+    slot_of, slot_owner, slot_last = [-1] * L, [-1] * K, [0] * K
+    slot_of[0] = slot_owner[0] = 0
+
+    def alloc(forbid: int) -> int:
+        """A free slot first, else the least recently used one, never
+        `forbid`; its old leaf loses it."""
+        score = [-1 if slot_owner[i] < 0 else slot_last[i]
+                 for i in range(K)]
+        if forbid >= 0:
+            score[forbid] = 2**31 - 1
+        s_new = int(np.argmin(score))
+        if slot_owner[s_new] >= 0:
+            slot_of[slot_owner[s_new]] = -1
+        return s_new
     if renew:
         # per leaf: the ratio its pool entry was built at, and the max
         # |stored int| over its rows (seeds the ratio of its own split)
@@ -603,24 +674,43 @@ def grow_tree_compact_core(data: torch.Tensor, spare: torch.Tensor,
         left_small = row[B_LCNT] <= row[B_RCNT]
         s_off, s_count = (0, lphys) if left_small else (lphys, rphys)
         hist_small = win_hist(out[s_off:s_off + s_count], rq)
-        parent = pool[l]
-        if renew:
-            # re-express the parent in the split's ratio before the
-            # subtraction (counts pass through exact)
-            parent = quant_ops.rescale_histogram(
-                parent, rq[0] / scale_of[l, 0], rq[1] / scale_of[l, 1])
-        sibling = subtract_histogram(parent, hist_small)
+        slot_l = slot_of[l] if pooled else l
+        if slot_l >= 0:
+            parent = pool[slot_l]
+            if renew:
+                # re-express the parent in the split's ratio before the
+                # subtraction (counts pass through exact)
+                parent = quant_ops.rescale_histogram(
+                    parent, rq[0] / scale_of[l, 0], rq[1] / scale_of[l, 1])
+            sibling = subtract_histogram(parent, hist_small)
+        else:
+            # a miss: the larger child's histogram, built directly
+            o_off, o_count = (lphys, rphys) if left_small else (0, lphys)
+            sibling = win_hist(out[o_off:o_off + o_count], rq)
+            if stats is not None:
+                stats.pool_misses += 1
         hist_l, hist_r = ((hist_small, sibling) if left_small
                           else (sibling, hist_small))
-        pool[l] = hist_l
-        pool[new_id] = hist_r
+        if pooled:
+            if slot_l < 0:
+                slot_l = alloc(-1)
+            slot_of[l], slot_owner[slot_l], slot_last[slot_l] = \
+                slot_l, l, new_id
+            s_r = alloc(slot_l)
+            slot_of[new_id], slot_owner[s_r], slot_last[s_r] = \
+                s_r, new_id, new_id
+        else:
+            s_r = new_id
+        pool[slot_l] = hist_l
+        pool[s_r] = hist_r
 
-        split_epilogue(k=k, l=l, new_id=new_id, row=row, row_dev=row_dev,
-                       mono_f=int(meta["f_monotone"][feat]),
-                       leaf_min=leaf_min, leaf_max=leaf_max, depth=depth,
-                       rec=rec, best=best, hist_l=for_scan(hist_l, rq),
-                       hist_r=for_scan(hist_r, rq), fmask=base_mask,
-                       search2=search2, best_cat=best_cat, rec_cat=rec_cat)
+        key = split_epilogue(
+            k=k, l=l, new_id=new_id, row=row, row_dev=row_dev,
+            mono_f=int(meta["f_monotone"][feat]), leaf_min=leaf_min,
+            leaf_max=leaf_max, depth=depth, rec=rec, best=best,
+            hist_l=for_scan(hist_l, rq), hist_r=for_scan(hist_r, rq),
+            fmask=base_mask, search2=search2, best_cat=best_cat,
+            rec_cat=rec_cat, key=key, bynode_k=bynode_k)
         if renew:
             scale_of[l] = scale_of[new_id] = torch.stack(rq)
             leafmax[l], leafmax[new_id] = qmax2[0], qmax2[1]
@@ -656,16 +746,19 @@ def _put(t: torch.Tensor, i1: torch.Tensor, v: torch.Tensor,
 
 
 def split_epilogue_device(c, *, l1, new1, k1, go, row, mono_f, hist_l,
-                          hist_r, search2, words_l=None) -> None:
+                          hist_r, search2, words_l=None,
+                          bynode_k: int = 0) -> None:
     """The split bookkeeping of every device loop (the JAX split_epilogue,
     which serves every core), over a carry `c` with leaf_min, leaf_max,
     depth, rec, best and base_mask (and best_cat, rec_cat): the monotone
     bounds (basic mode), the children's depth, the split record (and
     words_l, the leaf's (W,) left-bin bitset, as its rec_cat row) and the
     two children's re-scan from their f32 histograms hist_l, hist_r (and
-    their bitsets into best_cat). l1, new1, k1: (1,) int64 device indices
-    of the leaf, its new sibling and the record; every write gated on the
-    0-d bool `go`; no host sync."""
+    their bitsets into best_cat), each child on its own node_masks draw
+    with by-node sampling (bynode_k > 0: the carry's (2,) int64 node_key
+    split as in JAX, the first part kept). l1, new1, k1: (1,) int64 device
+    indices of the leaf, its new sibling and the record; every write
+    gated on the 0-d bool `go`; no host sync."""
     mid = (row[B_LOUT] + row[B_ROUT]) * 0.5
     pmin, pmax = _get(c.leaf_min, l1), _get(c.leaf_max, l1)
     lo_mid, hi_mid = torch.maximum(pmin, mid), torch.minimum(pmax, mid)
@@ -686,9 +779,14 @@ def split_epilogue_device(c, *, l1, new1, k1, go, row, mono_f, hist_l,
                      row[B_GAIN]]), row[B_LSG:]]), go)
     if words_l is not None:
         _put(c.rec_cat, k1, words_l, go)
+    fmask = c.base_mask
+    if bynode_k > 0:
+        keys3 = trandom.split_on_device(c.node_key, 3)
+        c.node_key.copy_(torch.where(go, keys3[0], c.node_key))
+        fmask = node_masks(keys3[1:], fmask, bynode_k)
     rows2, words2 = search2(torch.stack([hist_l, hist_r]),
                             row[B_LSG::3][:2], row[B_LSH::3][:2],
-                            row[B_LCNT::3][:2], mn2, mx2, c.base_mask,
+                            row[B_LCNT::3][:2], mn2, mx2, fmask,
                             child_depth)
     _put(c.best, l1, rows2[0], go)
     _put(c.best, new1, rows2[1], go)
@@ -700,7 +798,7 @@ def split_epilogue_device(c, *, l1, new1, k1, go, row, mono_f, hist_l,
 class DeviceCarry:
     """The compact core's state on the device, allocated once per learner
     at fixed addresses (a captured step replays against them): the JAX
-    _CarryC without the LRU pool's slot fields.
+    _CarryC.
 
     data, spare   the two (N, D) int32 working buffers; a leaf's rows lie
                   in one of them (leaf_buf), rows [leaf_begin, + leaf_phys)
@@ -708,8 +806,16 @@ class DeviceCarry:
     desc          the split descriptor (ops/kernels/desc.py) with
                   cat_words bitset words; root_desc names all rows of
                   data, for the root's histogram
-    k             0-d int32: splits made; best (L, 12), pool (L, C, B, 3),
+    k             0-d int32: splits made; best (L, 12), pool (K, C, B, 3),
                   depth, leaf_min / leaf_max, rec (L-1, 13) as in the core
+    slot_of, slot_owner, slot_last
+                  with an LRU-capped pool (K < L slots): each leaf's slot
+                  (-1: evicted), each slot's leaf (-1: free) and the step
+                  that last wrote it (int32, (L,), (K,), (K,)); misses
+                  0-d int32 the tree's misses so far; miss_desc the
+                  descriptor of the miss pass: the split's larger child
+                  (LEFT_SMALL flipped), GO cleared on a hit
+    node_key      (2,) int64 the by-node key chain (by-node sampling)
     base_mask     (F,) bool feature sample of the tree
     s_g, s_h      0-d f32 storage scales (quantized); scale_of / leafmax
                   (L, 2) per-leaf ratios and max |stored int| (renew)
@@ -721,10 +827,21 @@ class DeviceCarry:
 
     def __init__(self, n: int, d_cols: int, num_leaves: int, pool_shape,
                  pool_dtype: torch.dtype, num_features: int, device,
-                 cat_words: int = 0):
+                 cat_words: int = 0, pool_slots: int = 0):
         L = num_leaves
+        K = pool_size(L, pool_slots)
         i32 = dict(dtype=torch.int32, device=device)
         f32 = dict(dtype=torch.float32, device=device)
+        self.pooled = K < L
+        if self.pooled:
+            self.slot_of = torch.zeros(L, **i32)
+            self.slot_owner = torch.zeros(K, **i32)
+            self.slot_last = torch.zeros(K, **i32)
+            self.misses = torch.zeros((), **i32)
+            self.miss_desc = torch.zeros(dsc.SIZE, **i32)
+            self.zero_rest = torch.zeros(dsc.SIZE - dsc.LEFT_SMALL - 1,
+                                         **i32)
+        self.node_key = torch.zeros(2, dtype=torch.int64, device=device)
         self.data = torch.zeros((n, d_cols), **i32)
         self.spare = torch.zeros((n, d_cols), **i32)
         self.key = torch.zeros(n, **i32)
@@ -732,7 +849,7 @@ class DeviceCarry:
         self.root_desc = dsc.root(n, device)
         self.k = torch.zeros((), **i32)
         self.best = torch.zeros((L, 12), **f32)
-        self.pool = torch.zeros((L,) + tuple(pool_shape), dtype=pool_dtype,
+        self.pool = torch.zeros((K,) + tuple(pool_shape), dtype=pool_dtype,
                                 device=device)
         self.leaf_begin = torch.zeros(L, **i32)
         self.leaf_phys = torch.zeros(L, **i32)
@@ -779,14 +896,25 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
                item_bits: int, col_bins: int, num_leaves: int,
                quant_bits: int = 0, qcap_op: int = 0,
                renew: bool = False,
-               f_categorical: Optional[torch.Tensor] = None) -> None:
+               f_categorical: Optional[torch.Tensor] = None,
+               bynode_k: int = 0) -> None:
     """One split of the compact core over the device state `c`: the JAX
     core's body with its split_epilogue, at fixed shapes and with no host
     sync. quant_bits > 0: the quantized rows, operand cap qcap_op, leaf
-    re-quantization when renew; the scales are the carry's. Every state
-    write is gated on go = (best gain > 1e-10) & (k < L - 1), and the
-    kernels return at once when the descriptor's GO is 0, so a step after
-    the tree stopped changes nothing."""
+    re-quantization when renew; the scales are the carry's. bynode_k > 0:
+    by-node sampling on the carry's key. Every state write is gated on go
+    = (best gain > 1e-10) & (k < L - 1), and the kernels return at once
+    when the descriptor's GO is 0, so a step after the tree stopped
+    changes nothing.
+
+    With an LRU-capped pool (c.pooled) the parent's histogram may have
+    been evicted, a branch the JAX core takes with lax.cond; a captured
+    step cannot branch on the host, so the miss pass launches in every
+    step: K1's or K3's window entry over the miss descriptor, the larger
+    child's rows on a miss, GO 0 on a hit (returns at once; its output is
+    not read). The sibling is then
+    where(hit, parent - smaller, miss pass), and the slot bookkeeping is
+    the JAX core's alloc over the carry's (L,) and (K,) tensors."""
     L = num_leaves
     d_cols = c.data.shape[1]
     cw = d_cols - (2 if quant_bits else 4)
@@ -822,31 +950,52 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
               quant_ops.requant_ratio(lm[1], qcap_op))
     else:
         rq = (c.one, c.one)
-    if quant_bits:
-        hist_small = build_histogram_quantized_window(
-            c.data, c.spare, c.desc, cw, c_cols, item_bits, rq[0], rq[1],
-            qcap_op, quant_bits, col_bins)
-    else:
-        hist_small = build_histogram_window(c.data, c.spare, c.desc, cw,
-                                            c_cols, item_bits, col_bins)
+
+    def win_hist(desc):
+        if quant_bits:
+            return build_histogram_quantized_window(
+                c.data, c.spare, desc, cw, c_cols, item_bits, rq[0], rq[1],
+                qcap_op, quant_bits, col_bins)
+        return build_histogram_window(c.data, c.spare, desc, cw, c_cols,
+                                      item_bits, col_bins)
+
+    hist_small = win_hist(c.desc)
     lphys = c.desc[dsc.LPHYS]
     rphys = pcount - lphys
-    parent = _get(c.pool, l1)
+    if c.pooled:
+        slot_l = _get(c.slot_of, l1)
+        hit = slot_l >= 0
+        parent = _get(c.pool, slot_l.clamp(min=0).long().view(1))
+        # the miss pass: the larger child (LEFT_SMALL flipped)
+        c.miss_desc.copy_(torch.cat([
+            torch.stack([(go & ~hit).int(), src, begin, pcount]),
+            c.desc[dsc.LPHYS:dsc.LPHYS + 1],
+            (~left_small).int().view(1), c.zero_rest]))
+        hist_other = win_hist(c.miss_desc)
+    else:
+        parent = _get(c.pool, l1)
     if renew:
         sc = _get(c.scale_of, l1)
         parent = quant_ops.rescale_histogram(parent, rq[0] / sc[0],
                                              rq[1] / sc[1])
     sibling = subtract_histogram(parent, hist_small)
+    if c.pooled:
+        sibling = torch.where(hit, sibling, hist_other)
     hist_l = torch.where(left_small, hist_small, sibling)
     hist_r = torch.where(left_small, sibling, hist_small)
-    _put(c.pool, l1, hist_l, go)
-    _put(c.pool, new1, hist_r, go)
+    if c.pooled:
+        s_l, s_r = _lru_slots(c, l1, new1, slot_l, hit, go, num_leaves)
+    else:
+        s_l, s_r = l1, new1
+    _put(c.pool, s_l, hist_l, go)
+    _put(c.pool, s_r, hist_r, go)
     if quant_bits:
         scale3 = quant_ops.dequant_scale3(c.s_g * rq[0], c.s_h * rq[1])
         hist_l, hist_r = hist_l.float() * scale3, hist_r.float() * scale3
     split_epilogue_device(c, l1=l1, new1=new1, k1=k1, go=go, row=row,
                           mono_f=_get(f_monotone, feat1), hist_l=hist_l,
-                          hist_r=hist_r, search2=search2, words_l=words_l)
+                          hist_r=hist_r, search2=search2, words_l=words_l,
+                          bynode_k=bynode_k)
     if renew:
         rq2 = torch.stack(rq)
         side = c.desc[dsc.SIDE_MAX:dsc.LEAF].float().view(2, 2)
@@ -860,6 +1009,48 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
     _put(c.leaf_buf, l1, 1 - src, go)
     _put(c.leaf_buf, new1, 1 - src, go)
     c.k.copy_(c.k + go.int())
+
+
+def _lru_alloc(slot_of, owner, last, forbid, want, num_leaves: int):
+    """The JAX core's alloc over (L,) / (K,) int32 tensors: a free slot
+    first, else the least recently used (argmin's first), never `forbid`
+    ((1,) int64 or None); where `want`, the old owner loses the slot.
+    Returns ((1,) int64 slot, new slot_of)."""
+    score = torch.where(owner < 0, -1, last)
+    if forbid is not None:
+        i_k = torch.arange(owner.shape[0], device=owner.device)
+        score = torch.where(i_k == forbid, 2**31 - 1, score)
+    s = torch.argmin(score).view(1)
+    old = _get(owner, s)
+    safe = old.clamp(0, num_leaves - 1).long().view(1)
+    drop = want & (old >= 0)
+    slot_of = slot_of.index_copy(
+        0, safe, torch.where(drop, -1, _get(slot_of, safe)).view(1))
+    return s, slot_of
+
+
+def _lru_slots(c: DeviceCarry, l1, new1, slot_l, hit, go, num_leaves: int):
+    """The split's pool slots, the JAX core's bookkeeping: the leaf keeps
+    its parent's slot on a hit, else allocates; its new sibling always
+    allocates (never the leaf's slot). Both stamped with the step k + 1.
+    The carry's slot tensors and miss count are written where `go`.
+    Returns the (1,) int64 slots (left, right)."""
+    step = (c.k + 1).view(1)
+    s_new, slot_of = _lru_alloc(c.slot_of, c.slot_owner, c.slot_last, None,
+                                ~hit, num_leaves)
+    s_l = torch.where(hit, slot_l.long(), s_new[0]).view(1)
+    slot_of = slot_of.index_copy(0, l1, s_l.int())
+    owner = c.slot_owner.index_copy(0, s_l, l1.int())
+    last = c.slot_last.index_copy(0, s_l, step)
+    s_r, slot_of = _lru_alloc(slot_of, owner, last, s_l, go, num_leaves)
+    slot_of = slot_of.index_copy(0, new1, s_r.int())
+    owner = owner.index_copy(0, s_r, new1.int())
+    last = last.index_copy(0, s_r, step)
+    for t, v in ((c.slot_of, slot_of), (c.slot_owner, owner),
+                 (c.slot_last, last)):
+        t.copy_(torch.where(go, v, t))
+    c.misses.copy_(c.misses + (go & ~hit).int())
+    return s_l, s_r
 
 
 def leaf_map(c: DeviceCarry, n_total: Optional[int] = None) -> torch.Tensor:
@@ -888,7 +1079,8 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
               max_delta_step: float, min_data_in_leaf: int,
               min_sum_hessian: float, min_gain_to_split: float,
               scale3: Optional[torch.Tensor] = None,
-              stats: Optional[GrowStats] = None, cat_statics=None):
+              stats: Optional[GrowStats] = None, cat_statics=None,
+              rng_key=None, bynode_k: int = 0, pool_slots: int = 0):
     """Grow one tree with the masked strategy over column-major codes
     `codes_t` (C, N) and the (N, 3) histogram operand `gh`: f32 [grad,
     hess, 1] (kernel K2), or with `scale3` the integer [qg, qh, 1]
@@ -896,7 +1088,10 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
     tree's fixed dequantization scales `scale3`). Each split rewrites the
     device row -> leaf map and builds the left child's histogram over all
     rows, the others' operand zeroed; the right child is parent - left.
-    cat_statics (DeviceTreeLearner._statics) turns on categorical splits.
+    cat_statics (DeviceTreeLearner._statics) turns on categorical splits,
+    bynode_k > 0 by-node sampling from the tree's key rng_key (as
+    grow_tree_compact_core's). The masked core's pool is dense whatever
+    pool_slots says (the JAX grow_tree's).
 
     Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k), and
     with cat_statics the records' (L-1, W) int32 left-bin bitsets after
@@ -924,8 +1119,12 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
     totals = for_scan(hist0[0].sum(dim=0))        # (3,): sum_g, sum_h, cnt
     leaf_min = torch.full((L,), -np.inf, dtype=torch.float32, device=dev)
     leaf_max = torch.full((L,), np.inf, dtype=torch.float32, device=dev)
+    root_mask, key = base_mask, None
+    if bynode_k > 0:
+        root_key, key = tree_keys(rng_key, scale3 is not None, dev)
+        root_mask = node_masks(root_key, base_mask, bynode_k)
     res0, cm0 = scan(for_scan(hist0)[None], totals[0:1], totals[1:2],
-                     totals[2:3], leaf_min[:1], leaf_max[:1], base_mask)
+                     totals[2:3], leaf_min[:1], leaf_max[:1], root_mask)
     best = torch.full((L, 12), NEG_INF, dtype=torch.float32, device=dev)
     best[:, B_FEAT:] = 0.0
     best[0] = best_row(res0, 0)[0]
@@ -962,12 +1161,13 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
         pool[l] = hist_l
         pool[new_id] = hist_r
 
-        split_epilogue(k=k, l=l, new_id=new_id, row=row, row_dev=row_dev,
-                       mono_f=int(meta["f_monotone"][feat]),
-                       leaf_min=leaf_min, leaf_max=leaf_max, depth=depth,
-                       rec=rec, best=best, hist_l=for_scan(hist_l),
-                       hist_r=for_scan(hist_r), fmask=base_mask,
-                       search2=search2, best_cat=best_cat, rec_cat=rec_cat)
+        key = split_epilogue(
+            k=k, l=l, new_id=new_id, row=row, row_dev=row_dev,
+            mono_f=int(meta["f_monotone"][feat]), leaf_min=leaf_min,
+            leaf_max=leaf_max, depth=depth, rec=rec, best=best,
+            hist_l=for_scan(hist_l), hist_r=for_scan(hist_r),
+            fmask=base_mask, search2=search2, best_cat=best_cat,
+            rec_cat=rec_cat, key=key, bynode_k=bynode_k)
         k += 1
     if stats is not None:
         stats.splits += k
@@ -978,7 +1178,7 @@ def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
 
 class MaskedCarry:
     """The masked core's state on the device, allocated once per learner
-    at fixed addresses (the JAX _Carry without the by-node key).
+    at fixed addresses (the JAX _Carry).
 
     k             0-d int32: splits made
     leaf_id       (N,) int32 row -> leaf map, rewritten per split
@@ -994,6 +1194,7 @@ class MaskedCarry:
     base_mask     (F,) bool feature sample of the tree
     scale3        (3,) f32 the tree's dequantization scales (quantized;
                   the masked core keeps one ratio for the tree)
+    node_key      (2,) int64 the by-node key chain (by-node sampling)
     """
 
     def __init__(self, n: int, num_leaves: int, pool_shape,
@@ -1017,6 +1218,7 @@ class MaskedCarry:
         self.base_mask = torch.ones(num_features, dtype=torch.bool,
                                     device=device)
         self.scale3 = torch.ones(3, **f32)
+        self.node_key = torch.zeros(2, dtype=torch.int64, device=device)
         self.zero5 = torch.zeros(5, **i32)
         self.zero4 = torch.zeros(4, **i32)
         self.zero1 = torch.zeros(1, **i32)
@@ -1027,7 +1229,8 @@ def masked_split_step(c: MaskedCarry, codes_t: torch.Tensor, *,
                       meta_table: torch.Tensor, f_monotone: torch.Tensor,
                       search2, col_bins: int, num_leaves: int,
                       quant: bool,
-                      f_categorical: Optional[torch.Tensor] = None) -> None:
+                      f_categorical: Optional[torch.Tensor] = None,
+                      bynode_k: int = 0) -> None:
     """One split of the masked core over the device state `c`: the JAX
     grow_tree body at fixed shapes and with no host sync. The split key's
     column entry rewrites the split leaf's row -> leaf map and writes the
@@ -1036,7 +1239,8 @@ def masked_split_step(c: MaskedCarry, codes_t: torch.Tensor, *,
     Every state write is gated on go = (best gain > 1e-10) & (k < L - 1),
     and the split key returns at once when the descriptor's GO is 0 (K2 /
     K3t then sum a stale operand that nothing reads), so a step after the
-    tree stopped changes nothing."""
+    tree stopped changes nothing. bynode_k > 0: by-node sampling on the
+    carry's key."""
     L = num_leaves
     l1 = torch.argmax(c.best[:, B_GAIN]).view(1)
     row = _get(c.best, l1)
@@ -1068,7 +1272,8 @@ def masked_split_step(c: MaskedCarry, codes_t: torch.Tensor, *,
         hist_l, hist_r = hist_l.float() * c.scale3, hist_r.float() * c.scale3
     split_epilogue_device(c, l1=l1, new1=new1, k1=k1, go=go, row=row,
                           mono_f=_get(f_monotone, feat1), hist_l=hist_l,
-                          hist_r=hist_r, search2=search2, words_l=words_l)
+                          hist_r=hist_r, search2=search2, words_l=words_l,
+                          bynode_k=bynode_k)
     c.k.copy_(c.k + go.int())
 
 
@@ -1082,6 +1287,9 @@ class DeviceTreeLearner:
         self.dataset = dataset
         self.device = torch.device(device)
         self.strategy = resolve_strategy(config, dataset, strategy)
+        # an LRU-capped pool (compact core) when the dense one would pass
+        # the histogram_pool_size budget
+        _, self.pool_slots = plan_histogram_pool(config, dataset)
         dev = self.device
         nb, mt, db, cat, mono = dataset.feature_meta_arrays()
         self.num_features = dataset.num_features
@@ -1213,8 +1421,34 @@ class DeviceTreeLearner:
         padded[:, :ncol] = host_codes
         return np.ascontiguousarray(padded).view(np.uint32)
 
+    @staticmethod
+    def supports(config: Config, dataset: Dataset,
+                 strategy: Optional[str] = None) -> bool:
+        """Whether this learner trains the configuration (the JAX
+        package's capability check, which create_tree_learner reads): not
+        with forced splits or CEGB penalties, nor when the pool -- K LRU
+        slots on compact, one slot per leaf on masked -- passes 2 GB."""
+        if config.forcedsplits_filename:
+            return False
+        if config.cegb_tradeoff > 0 and (
+                config.cegb_penalty_split > 0
+                or bool(config.cegb_penalty_feature_coupled)
+                or bool(config.cegb_penalty_feature_lazy)):
+            return False
+        slot_bytes, pool_slots = plan_histogram_pool(config, dataset)
+        strat = resolve_strategy(config, dataset, strategy)
+        if strat == "compact" and pool_slots > 0:
+            slots = pool_slots
+        else:
+            slots = int(config.num_leaves)
+        return slots * slot_bytes <= _POOL_BYTE_LIMIT
+
     def _statics(self):
         cfg = self.config
+        bynode_k = 0
+        if 0.0 < cfg.feature_fraction_bynode < 1.0:
+            bynode_k = max(1, int(self.num_features
+                                  * cfg.feature_fraction_bynode))
         cat_statics = None
         if self.has_cat:
             cat_statics = (float(cfg.cat_l2), float(cfg.cat_smooth),
@@ -1229,7 +1463,9 @@ class DeviceTreeLearner:
             max_delta_step=float(cfg.max_delta_step),
             min_data_in_leaf=int(cfg.min_data_in_leaf),
             min_sum_hessian=float(cfg.min_sum_hessian_in_leaf),
-            min_gain_to_split=float(cfg.min_gain_to_split))
+            min_gain_to_split=float(cfg.min_gain_to_split),
+            bynode_k=bynode_k,
+            pool_slots=self.pool_slots if self.strategy == "compact" else 0)
 
     def _feature_mask(self, rng: np.random.RandomState) -> np.ndarray:
         frac = self.config.feature_fraction
@@ -1396,9 +1632,13 @@ class DeviceTreeLearner:
         `flags`, packed into one tensor, with categorical features also
         the last grown carry's (L-1, W) record bitsets (bit-cast to f32,
         into last_rec_cat). Returns (rec (L-1, 13) f32 numpy, k, flags as
-        floats); counts the sync, the splits and, on the compact
+        floats); counts the sync, the splits, with an LRU-capped pool the
+        tree's misses (fetched in the same copy) and, on the compact
         strategy, the rows K4's window entry moved (each split's window:
         its two children)."""
+        pooled = getattr(self._carry, "pooled", False)
+        if pooled:
+            flags = flags + (self._carry.misses,)
         parts = [rec.reshape(-1), k.float().view(1)] \
             + [f.float().view(1) for f in flags]
         if self.cat_words:
@@ -1417,7 +1657,10 @@ class DeviceTreeLearner:
             kpart.rows_win += int(round(float(
                 rec_h[:k, R_LCNT].sum(dtype=np.float64)
                 + rec_h[:k, R_RCNT].sum(dtype=np.float64))))
-        return rec_h, k, [float(v) for v in host[m + 1:]]
+        out = [float(v) for v in host[m + 1:]]
+        if pooled:
+            self.stats.pool_misses += int(out.pop())
+        return rec_h, k, out
 
     def reset_config(self) -> None:
         """Drop what was made from the config's values, after a parameter
@@ -1495,7 +1738,8 @@ class DeviceTreeLearner:
         d_cols = self.codes_pack.shape[1] + (2 if self.quant_bits else 4)
         c = DeviceCarry(n, d_cols, L, (self.c_cols, st["col_bins"], 3),
                         torch.int32 if self.quant_bits else torch.float32,
-                        self.num_features, self.device, self.cat_words)
+                        self.num_features, self.device, self.cat_words,
+                        st["pool_slots"])
         # the step holds no reference to the learner (see _capture)
         kw = dict(meta_table=self.meta["t_feature_table"],
                   f_monotone=self.meta["t_monotone"],
@@ -1503,7 +1747,8 @@ class DeviceTreeLearner:
                   item_bits=self.item_bits, col_bins=st["col_bins"],
                   num_leaves=L, quant_bits=self.quant_bits, qcap_op=qcap_op,
                   renew=bool(self.quant_bits) and self.quant_renew,
-                  f_categorical=self.meta["t_categorical"])
+                  f_categorical=self.meta["t_categorical"],
+                  bynode_k=st["bynode_k"])
 
         def step():
             split_step(c, **kw)
@@ -1519,15 +1764,25 @@ class DeviceTreeLearner:
         else:
             c.base_mask.copy_(mask)
 
-    def _root(self, c, hist0, hist0_s, totals) -> None:
+    def _root(self, c, hist0, hist0_s, totals, iter_seed: int) -> None:
         """The root's best row and pool entry into the carry, and the
-        state every tree starts from."""
+        state every tree starts from: with by-node sampling the root's
+        draw and the carry's key chain from prng_key(iter_seed), with an
+        LRU-capped pool the root in slot 0 and every other slot free."""
         scan, best_row, _ = self._search()
+        bynode_k = self._statics()["bynode_k"]
+        root_mask = c.base_mask
+        if bynode_k > 0:
+            root_key, loop_key = tree_keys(trandom.prng_key(iter_seed),
+                                           bool(self.quant_bits),
+                                           self.device)
+            c.node_key.copy_(loop_key)
+            root_mask = node_masks(root_key, c.base_mask, bynode_k)
         c.leaf_min.fill_(-np.inf)
         c.leaf_max.fill_(np.inf)
         res0, cm0 = scan(hist0_s[None], totals[0:1], totals[1:2],
                          totals[2:3], c.leaf_min[:1], c.leaf_max[:1],
-                         c.base_mask)
+                         root_mask)
         c.best.fill_(NEG_INF)
         c.best[:, B_FEAT:] = 0.0
         c.best[0] = best_row(res0, 0)[0]
@@ -1540,6 +1795,13 @@ class DeviceTreeLearner:
         c.rec.zero_()
         c.k.zero_()
         c.depth.zero_()
+        if getattr(c, "pooled", False):
+            c.slot_of.fill_(-1)
+            c.slot_of[:1].fill_(0)
+            c.slot_owner.fill_(-1)
+            c.slot_owner[:1].fill_(0)
+            c.slot_last.zero_()
+            c.misses.zero_()
 
     def grow_compact(self, grad: torch.Tensor, hess: torch.Tensor,
                      iter_seed: int = 0,
@@ -1593,7 +1855,7 @@ class DeviceTreeLearner:
                 c.data, c.spare, c.root_desc, cw, self.c_cols,
                 self.item_bits, st["col_bins"])
             totals = hist0[0].sum(dim=0)          # (3,): sum_g, sum_h, cnt
-        self._root(c, hist0, hist0_s, totals)
+        self._root(c, hist0, hist0_s, totals, iter_seed)
         c.leaf_begin.zero_()
         c.leaf_buf.zero_()
         c.leaf_phys.zero_()
@@ -1652,7 +1914,8 @@ class DeviceTreeLearner:
                   f_monotone=self.meta["t_monotone"],
                   search2=self._search()[2], col_bins=st["col_bins"],
                   num_leaves=L, quant=quant,
-                  f_categorical=self.meta["t_categorical"])
+                  f_categorical=self.meta["t_categorical"],
+                  bynode_k=st["bynode_k"])
 
         def step():
             masked_split_step(c, codes_t, **kw)
@@ -1683,7 +1946,7 @@ class DeviceTreeLearner:
             hist0 = build_histogram_quantized_t(self.codes_t, c.gh, col_bins)
             hist0_s = hist0.float() * c.scale3
             totals = hist0[0].sum(dim=0).float() * c.scale3
-        self._root(c, hist0, hist0_s, totals)
+        self._root(c, hist0, hist0_s, totals, iter_seed)
         c.leaf_id.zero_()
         loop.run()
         return c.rec, c.leaf_id.long(), c.k

@@ -169,7 +169,8 @@ class GBDT:
         else:
             self.num_class = max(1, cfg.num_class)
         self.num_tree_per_iteration = self.num_class
-        self.learner = DeviceTreeLearner(cfg, train_set, device=self.device)
+        from ..parallel.learners import create_tree_learner
+        self.learner = create_tree_learner(cfg, train_set, self.device)
         self.score_updater = ScoreUpdater(train_set, self.num_class,
                                           self.device)
         self.num_data = train_set.num_data
@@ -275,11 +276,13 @@ class GBDT:
 
     def _fused_eligible(self) -> bool:
         """Whether the single-program device iteration applies: GBDT or
-        GOSS, one tree per iteration that trains, on either strategy (each
-        grows its tree in its device loop), no leaf renewal (its
+        GOSS on the device learner (the host-loop learner runs the generic
+        iteration), one tree per iteration that trains, on either strategy
+        (each grows its tree in its device loop), no leaf renewal (its
         percentiles run on the host) and no pos/neg bagging (its bag is
         drawn on the host), as in the JAX package."""
         return (self.__class__ in (GBDT, GOSS)
+                and isinstance(self.learner, DeviceTreeLearner)
                 and self.objective is not None
                 and not self.objective.is_renew_tree_output
                 and self.num_tree_per_iteration == 1
@@ -403,12 +406,17 @@ class GBDT:
 
     def _update_score(self, tree: Tree, class_id: int) -> None:
         """The training scores from the learner's row -> leaf map (kept for
-        rollback: it routes exactly as the partition did), the validation
-        sets' by walking the tree."""
+        rollback: it routes exactly as the partition did), or by walking
+        the tree when the learner keeps none (the host-loop learner); the
+        validation sets' by walking the tree."""
         leaf_id = self.learner.last_leaf_id
-        self.score_updater.add_tree_by_leaf_id(tree, leaf_id, class_id)
-        self._last_leaf_ids[class_id] = leaf_id
-        self._last_leaf_ids_iter = self.iter
+        if leaf_id is not None:
+            self.score_updater.add_tree_by_leaf_id(tree, leaf_id, class_id)
+            self._last_leaf_ids[class_id] = leaf_id
+            self._last_leaf_ids_iter = self.iter
+        else:
+            self.score_updater.add_tree(tree, class_id)
+            self._last_leaf_ids.pop(class_id, None)
         for vu in self.valid_updaters:
             vu.add_tree(tree, class_id)
 

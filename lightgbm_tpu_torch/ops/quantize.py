@@ -78,6 +78,14 @@ def quantize_gh_core(grad: torch.Tensor, hess: torch.Tensor,
     return pack_gh(qg, qh), s_g, s_h
 
 
+def quantize_gh(grad: torch.Tensor, hess: torch.Tensor, key: torch.Tensor,
+                *, grad_bits: int, stochastic: bool = True):
+    """The top-level entry of quantize_gh_core (the JAX package's jitted
+    wrapper; torch runs the core as it is)."""
+    return quantize_gh_core(grad, hess, key, grad_bits=grad_bits,
+                            stochastic=stochastic)
+
+
 def pack_gh(qg: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
     """(qg << 16) | (qh & 0xffff) as int32. The shift runs in int64 and
     the word is narrowed with its sign, so a negative qg is defined."""

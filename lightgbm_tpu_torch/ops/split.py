@@ -91,16 +91,19 @@ def _split_gains(gl, hl, gr, hr, l1, l2, mds, min_c, max_c, mono):
 def per_feature_best(hist, sum_grad, sum_hess, num_data,
                      feature_num_bins, feature_missing, feature_default_bins,
                      feature_mask, monotone, min_constraint, max_constraint,
-                     feature_penalty=None, *, l1: float, l2: float,
-                     max_delta_step: float, min_data_in_leaf: int,
-                     min_sum_hessian: float, min_gain_to_split: float):
+                     feature_penalty=None, feature_cost=None, *, l1: float,
+                     l2: float, max_delta_step: float,
+                     min_data_in_leaf: int, min_sum_hessian: float,
+                     min_gain_to_split: float):
     """Per-feature best (gain, threshold, default_left) plus the prefix
     tensors that materialize a winner.
 
     hist (N, F, B, 3) f32 [sum_grad, sum_hess, count]; sum_grad, sum_hess,
     num_data, min_constraint, max_constraint (N,) f32; feature_* (F,)
-    int32; feature_mask (F,) bool; feature_penalty (F,) f32 or None.
-    Returns rel (N, F), t (N, F), use_m1 (N, F), (pre, suf)."""
+    int32; feature_mask (F,) bool, or (N, F) with a mask per leaf (by-node
+    sampling); feature_penalty (F,) f32 or None; feature_cost (F,) or
+    (N, F) f32 subtractive CEGB cost (reference cegb DeltaGain terms) or
+    None. Returns rel (N, F), t (N, F), use_m1 (N, F), (pre, suf)."""
     n, f, b, _ = hist.shape
     dev = hist.device
     tgrid = torch.arange(b, device=dev)[None, :]                  # (1, B)
@@ -125,12 +128,14 @@ def per_feature_best(hist, sum_grad, sum_hess, num_data,
     left2 = torch.stack([pre, tot - suf])                         # (2,N,F,B,3)
     right2 = tot[None] - left2
 
-    base_valid = (tgrid < nbins - 1) & feature_mask[:, None] & (nbins > 1)
+    fmask = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+    base_valid = ((tgrid < nbins - 1) & (nbins > 1))[None] \
+        & fmask[:, :, None]                                       # (1|N,F,B)
     zero_skip_t = is_zero & (tgrid == default_b)
     valid2 = torch.stack([base_valid & ~zero_skip_t,
                           base_valid & ~zero_skip_t
-                          & ~(is_nan & (tgrid >= nbins - 2))])    # (2, F, B)
-    ok2 = (valid2[:, None]
+                          & ~(is_nan & (tgrid >= nbins - 2))])  # (2,1|N,F,B)
+    ok2 = (valid2
            & (left2[..., 2] >= min_data_in_leaf)
            & (right2[..., 2] >= min_data_in_leaf)
            & (left2[..., 1] >= min_sum_hessian)
@@ -161,6 +166,8 @@ def per_feature_best(hist, sum_grad, sum_hess, num_data,
     rel = torch.where(live, per_feature_gain - min_gain_shift[:, None], neg)
     if feature_penalty is not None:
         rel = torch.where(rel > NEG_INF / 2, rel * feature_penalty, rel)
+    if feature_cost is not None:
+        rel = torch.where(rel > NEG_INF / 2, rel - feature_cost, rel)
     return rel, per_feature_t, use_m1, (pre, suf)
 
 
@@ -192,16 +199,18 @@ def materialize_split(feat, per_feature_rel, per_feature_t, use_m1, prefix,
 def find_best_split(hist, sum_grad, sum_hess, num_data,
                     feature_num_bins, feature_missing, feature_default_bins,
                     feature_mask, monotone, min_constraint, max_constraint,
-                    feature_penalty=None, *, l1: float, l2: float,
-                    max_delta_step: float, min_data_in_leaf: int,
-                    min_sum_hessian: float,
+                    feature_penalty=None, feature_cost=None, *, l1: float,
+                    l2: float, max_delta_step: float,
+                    min_data_in_leaf: int, min_sum_hessian: float,
                     min_gain_to_split: float) -> SplitResult:
     """Best split of each leaf: hist (N, F, B, 3) with (N,) leaf totals
-    and constraints -> SplitResult of (N,) tensors."""
+    and constraints -> SplitResult of (N,) tensors (the masks, penalty and
+    cost as per_feature_best's)."""
     rel, t, use_m1, prefix = per_feature_best(
         hist, sum_grad, sum_hess, num_data, feature_num_bins,
         feature_missing, feature_default_bins, feature_mask, monotone,
-        min_constraint, max_constraint, feature_penalty, l1=l1, l2=l2,
+        min_constraint, max_constraint, feature_penalty, feature_cost,
+        l1=l1, l2=l2,
         max_delta_step=max_delta_step, min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian=min_sum_hessian, min_gain_to_split=min_gain_to_split)
     feat = torch.argmax(rel, dim=1)
@@ -239,8 +248,8 @@ def per_feature_best_categorical(
     min_gain_shift (comparable to per_feature_best's), and what
     materialize_cat_split needs to build a winner's left-bin mask.
 
-    hist (N, F, B, 3) f32; sums and constraints (N,); feature_* (F,).
-    Returns rel (N, F) and aux."""
+    hist (N, F, B, 3) f32; sums and constraints (N,); feature_* (F,);
+    feature_mask (F,) or (N, F). Returns rel (N, F) and aux."""
     n, f, b, _ = hist.shape
     dev = hist.device
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]          # (N, F, B)

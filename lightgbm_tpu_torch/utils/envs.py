@@ -10,3 +10,9 @@ def strategy_env(default: str = "auto") -> str:
     read by the device learner's resolve_strategy (the JAX package also
     takes chunk, which this port refuses)."""
     return os.environ.get("LGBM_TPU_STRATEGY", default).strip().lower()
+
+
+def host_learner_env() -> bool:
+    """LGBM_TPU_HOST_LEARNER=1: create_tree_learner takes the host-loop
+    SerialTreeLearner whatever the device learner supports."""
+    return os.environ.get("LGBM_TPU_HOST_LEARNER", "0") == "1"

@@ -7,6 +7,11 @@ ops/quantize.py draws the same bits as the JAX package:
 
   * a key is a (2,) int64 tensor of two uint32 words ``[hi, lo]``; keys
     are tiny and stay on the host, the draws are made on any device;
+  * ``split_on_device`` and ``uniform_on_device`` take the key as a
+    tensor on the device of the draw and never read it on the host: the
+    by-node key chain of the device loops lives in their carries and is
+    split inside the captured split step (same bits as ``split`` /
+    ``uniform``);
   * ``prng_key(seed)`` is ``[0, seed mod 2**32]`` (a 32-bit seed);
   * ``split(key, num)`` hashes the counters ``(0, i)``, i < num, and
     stacks each hash pair ``(b1, b2)`` as the i-th key;
@@ -29,9 +34,11 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _MASK
 
 
-def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
     """The Threefry-2x32 block hash (20 rounds) of the counter words
-    (x0, x1) under the key (k0, k1): two int64 tensors of uint32 words."""
+    (x0, x1) under the key (k0, k1): two int64 tensors of uint32 words.
+    The key words are host ints, or int64 tensors that broadcast against
+    the counters (a device key)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -72,5 +79,25 @@ def uniform(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
     """(n,) float32 uniforms in [0, 1) (jax.random.uniform), computed on
     `device` (default: the key's)."""
     b1, b2 = _hash_iota(key, n, device)
+    bits = ((b1 ^ b2) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def split_on_device(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """(num, 2) int64 keys (jax.random.split) of a (2,) int64 key, on the
+    key's device, without reading it on the host."""
+    k = key & _MASK
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(k[0], k[1], torch.zeros_like(lo), lo)
+    return torch.stack([b1, b2], dim=1)
+
+
+def uniform_on_device(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) float32 uniforms in [0, 1) (jax.random.uniform) of (..., 2)
+    int64 keys, one row of n per key, on the keys' device, without reading
+    them on the host."""
+    k = keys & _MASK
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device)
+    b1, b2 = threefry2x32(k[..., 0:1], k[..., 1:2], torch.zeros_like(lo), lo)
     bits = ((b1 ^ b2) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0

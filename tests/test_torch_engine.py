@@ -188,8 +188,8 @@ def test_weights_and_init_score_match_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("objective", "multiclass"), ("feature_fraction_bynode", 0.5),
-    ("forcedsplits_filename", "forced_splits.json"), ("quantized_grad", True),
+    ("objective", "multiclass"), ("tree_learner", "voting"),
+    ("tree_learner", "feature"), ("quantized_grad", True),
     ("tree_learner", "data"), ("on_nonfinite", "raise"),
     ("two_round", True), ("stream_mode", "chunked")])
 def test_out_of_slice_params_raise_naming_the_key(key, value):
