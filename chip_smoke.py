@@ -86,6 +86,29 @@ Phases, one JSON line each:
                launches and device time summed over their kernels (named
                from the libraries' SASS); with --parent-src first one
                host-loop iteration on OLD's partition kernel;
+  booster_api  the train phase's Booster and the 100,000 held-out rows
+               through the Booster and Dataset surface: pred_leaf on the
+               held-out and the training rows (ms, peak device memory;
+               equal to the CPU's walk of the same model text, leaf values
+               summing to the raw score within 1e-5); pred_early_stop at
+               freq 2, margin 2.0 (ms, the share of rows stopped; within
+               1e-5 of the CPU's, the same rows stopped but those whose
+               margin lies within 1e-5 of the bound); pred_contrib on 20
+               rows off the f32 thresholds and the first 3 trees (s per
+               row per tree; each row sums to its raw score within 1e-5);
+               refit on the held-out rows at decay 0.9 (the stats
+               dispatch's device ms, the host finish's ms, AUC before and
+               after; one dispatch, leaves within rtol 1e-5 of the host
+               loop's); the held-out rows as CSV through Dataset(path) and
+               predict(path) (which parser ran, s; codes equal to those
+               of the file's rows as numpy reads them, labels and
+               predictions equal to the array's); pickle and
+               model_from_string round trips (equal predictions), the
+               device bytes before and after free_dataset (must fall);
+               then LGBMClassifier (--rounds estimators, the higgs-1m
+               params) fit on the card, the main path (the device loop's
+               kernels launched), its predict_proba within 1e-6 of the
+               train phase's Booster (K1 / K2 repeat bit for bit);
   train_quant  the same data and parameters with quantized_grad (grad_bits
                8): K3 / K1 / K4 launches, time, peak memory, and held-out
                AUC > 0.7 and within 0.005 of the float run's; beside it the
@@ -327,7 +350,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
-          "train_quant", "train_masked", "train_bag", "train_valid",
+          "booster_api", "train_quant", "train_masked", "train_bag", "train_valid",
           "train_objectives", "train_multiclass", "train_boost",
           "train_learners", "train_cat", "train_rank", "loop", "reference")
 
@@ -823,7 +846,8 @@ def main():
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
               "learning_rate": 0.1, "min_data_in_leaf": 20,
               "verbosity": -1}
-    need_float = bool(run & {"train", "profile", "train_quant"})
+    need_float = bool(run & {"train", "profile", "booster_api",
+                             "train_quant"})
     need_data = need_float or bool(run & {
         "k1", "k2", "k3", "k4", "train_bag", "train_valid",
         "train_objectives", "train_multiclass", "train_boost",
@@ -1077,6 +1101,13 @@ def main():
                 prof["host_loop"] = profile_one(hbst)
             prof.update(profile_one(bst))
             emit(prof)
+        if "booster_api" in run:
+            row, problems = booster_api_phase(
+                torch, lgb, params, ds, bst, x, y, xv, yv, args.rounds,
+                reset_counts, read_counts)
+            emit(row)
+            if problems:
+                fail("booster_api: %s" % "; ".join(problems))
         del bst, back, hbst
 
     # ---- train_quant: the same data with quantized gradients --------------
@@ -1454,6 +1485,257 @@ def f32_threshold_rows(inner, x):
         i = np.minimum(np.searchsorted(hi, col, side="left"), len(hi) - 1)
         out |= (col > lo[i]) & (col <= hi[i])
     return out
+
+
+def booster_api_phase(torch, lgb, params, ds, bst, x, y, xv, yv, rounds,
+                      reset_counts, read_counts):
+    """booster_api: the Booster and Dataset surface on the train phase's
+    Booster (`bst`, higgs-1m, `rounds` rounds on the card) and its 100,000
+    held-out rows. Returns (row, problems); `bst` has freed its dataset on
+    return."""
+    import pickle
+    import tempfile
+
+    from lightgbm_tpu_torch.continual import refit as crefit
+    from lightgbm_tpu_torch.io import parser as io_parser
+
+    problems = []
+    dev = bst.device
+    text = bst.model_to_string()
+    cpu = lgb.Booster(model_str=text, device="cpu")
+
+    def card_ms(fn):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.time() - t1) * 1e3
+
+    # -- pred_leaf: the card's walk against the CPU's, and the leaf sums
+    leaf = {}
+    for name, rows in (("held_out", xv), ("training", x)):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got, ms = card_ms(lambda: bst.predict(rows, pred_leaf=True))
+        peak = int(torch.cuda.max_memory_allocated()) - base
+        want = cpu.predict(rows, pred_leaf=True)
+        unequal = int(np.sum(got != want))
+        vals = np.stack([t.leaf_value[got[:, i]].astype(np.float32)
+                         for i, t in enumerate(bst._gbdt.models)], 1)
+        sums = np.zeros(len(rows), np.float32)
+        for i in range(vals.shape[1]):
+            sums += vals[:, i]
+        raw = bst.predict(rows, raw_score=True)
+        err = float(np.max(np.abs(sums - raw)))
+        leaf[name] = {"rows": len(rows), "trees": got.shape[1], "ms": ms,
+                      "peak_device_bytes_over_base": peak,
+                      "leaves_unequal_to_cpu": unequal,
+                      "leaf_sum_vs_raw_max_abs": err}
+        if unequal or got.shape != (len(rows), bst.num_trees()):
+            problems.append("pred_leaf on the %s rows: %d leaves differ "
+                            "from the CPU's" % (name, unequal))
+        if not err <= 1e-5:
+            problems.append("pred_leaf on the %s rows: the leaf values sum "
+                            "%g off the raw score" % (name, err))
+
+    # -- pred_early_stop (freq 2, margin 2.0) against the CPU
+    kw = dict(raw_score=True, pred_early_stop=True, pred_early_stop_freq=2,
+              pred_early_stop_margin=2.0)
+    got, es_ms = card_ms(lambda: bst.predict(xv, **kw))
+    used = bst._gbdt.last_early_stop_trees
+    want = cpu.predict(xv, **kw)
+    used_cpu = cpu._gbdt.last_early_stop_trees
+    other = np.nonzero(used != used_cpu)[0]
+    same = used == used_cpu
+    es_err = float(np.max(np.abs(got[same] - want[same]), initial=0.0))
+    # a row that stopped on one device only: its margin at the first chunk
+    # where they parted must lie within 1e-5 of the bound
+    near = 0
+    for i in other:
+        its = int(min(used[i], used_cpu[i]))
+        m = 2.0 * abs(float(cpu.predict(xv[i:i + 1], raw_score=True,
+                                        num_iteration=its)[0]))
+        near += abs(m - 2.0) <= 1e-5
+    stopped = float(np.mean(used < bst.num_trees()))
+    early = {"freq": 2, "margin": 2.0, "ms": es_ms,
+             "stopped_share": stopped,
+             "stopped_share_cpu": float(np.mean(used_cpu
+                                                < bst.num_trees())),
+             "rows_stopped_on_one_device": len(other),
+             "of_them_within_1e-5_of_the_bound": int(near),
+             "max_abs_vs_cpu": es_err}
+    if es_err > 1e-5 or near != len(other):
+        problems.append("pred_early_stop: %g off the CPU, %d of %d rows "
+                        "that stopped on one device away from the bound"
+                        % (es_err, len(other) - near, len(other)))
+
+    # -- pred_contrib on 20 held-out rows, the first 3 trees
+    moved = f32_threshold_rows(ds._inner, xv)
+    rows20 = xv[np.nonzero(~moved)[0][:20]]
+    t1 = time.time()
+    contrib = bst.predict(rows20, pred_contrib=True, num_iteration=3)
+    contrib_s = time.time() - t1
+    raw3 = bst.predict(rows20, raw_score=True, num_iteration=3)
+    c_err = float(np.max(np.abs(contrib.sum(axis=1) - raw3)))
+    shap = {"rows": 20, "trees": 3, "s_per_row_per_tree":
+            contrib_s / 60.0, "sum_vs_raw_max_abs": c_err,
+            "f32_threshold_rows_left_out": int(moved.sum())}
+    if not c_err <= 1e-5 or contrib.shape != (20, x.shape[1] + 1):
+        problems.append("pred_contrib: rows sum %g off the raw score"
+                        % c_err)
+
+    # -- refit on the held-out rows at decay 0.9: the device sums against
+    # the host loop
+    refit_params = dict(params)
+    auc_before = auc(yv, bst.predict(xv))
+    dev_b = lgb.Booster(params=refit_params, model_str=text, device=dev)
+    timing = {}
+    stats_fn, apply_fn = crefit.leaf_stats, crefit.apply_leaf_values
+
+    def timed_stats(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        out = stats_fn(*a, **k)
+        e1.record()
+        torch.cuda.synchronize()
+        timing["stats_device_ms"] = e0.elapsed_time(e1)
+        return out
+
+    def timed_apply(*a, **k):
+        t1 = time.time()
+        apply_fn(*a, **k)
+        timing["host_finish_ms"] = (time.time() - t1) * 1e3
+
+    crefit.leaf_stats, crefit.apply_leaf_values = timed_stats, timed_apply
+    n0 = crefit.dispatches
+    try:
+        _, refit_ms = card_ms(lambda: dev_b.refit(xv, yv, decay_rate=0.9))
+    finally:
+        crefit.leaf_stats, crefit.apply_leaf_values = stats_fn, apply_fn
+    dispatches = crefit.dispatches - n0
+    os.environ["LGBM_TPU_HOST_REFIT"] = "1"
+    try:
+        host_b = lgb.Booster(params=refit_params, model_str=text,
+                             device=dev)
+        _, host_ms = card_ms(lambda: host_b.refit(xv, yv, decay_rate=0.9))
+    finally:
+        os.environ.pop("LGBM_TPU_HOST_REFIT")
+    lv = [np.concatenate([t.leaf_value[:t.num_leaves]
+                          for t in b._gbdt.models]) for b in (dev_b, host_b)]
+    rel = float(np.max(np.abs(lv[0] - lv[1])
+                       / np.maximum(np.abs(lv[1]), 1e-12)))
+    refit = dict(timing, decay_rate=0.9, rows=len(xv), dispatches=dispatches,
+                 refit_ms=refit_ms, host_loop_refit_ms=host_ms,
+                 leaf_rel_diff_vs_host_loop=rel,
+                 held_out_auc_before=auc_before,
+                 held_out_auc_after=auc(yv, dev_b.predict(xv)))
+    if rel > 1e-5 or dispatches != 1:
+        problems.append("refit: leaves %g relative off the host loop's, "
+                        "%d stats dispatches" % (rel, dispatches))
+
+    # -- file input: the held-out rows as CSV, read back
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "held_out.csv")
+        t1 = time.time()
+        np.savetxt(path, np.column_stack([yv, xv]), fmt="%.9g",
+                   delimiter=",")
+        write_s = time.time() - t1
+        t1 = time.time()
+        dv = lgb.Dataset(path, reference=ds, params=params).construct()
+        read_s = time.time() - t1
+        parser_used = io_parser.last_parser
+        t1 = time.time()
+        pf = bst.predict(path)
+        predict_file_s = time.time() - t1
+        # the file's rows as numpy reads them (correctly rounded): the
+        # array path of what the file holds
+        t1 = time.time()
+        held = np.loadtxt(path, delimiter=",")
+        loadtxt_s = time.time() - t1
+    da = lgb.Dataset(held[:, 1:], held[:, 0], reference=ds,
+                     params=params).construct()
+    codes_unequal = int(np.sum(dv._inner.binned != da._inner.binned))
+    # 9 significant digits are not the f32 values: a value within ~5e-9
+    # relative of a bin bound may bin on its other side
+    d32 = lgb.Dataset(xv, yv, reference=ds, params=params).construct()
+    codes_vs_f32 = int(np.sum(dv._inner.binned != d32._inner.binned))
+    label_ok = bool(np.array_equal(dv.get_label(), yv))
+    p_err = float(np.max(np.abs(pf - bst.predict(xv))))
+    file_in = {"rows": len(xv), "parser": parser_used,
+               "write_csv_s": write_s, "dataset_s": read_s,
+               "numpy_loadtxt_s": loadtxt_s,
+               "predict_file_s": predict_file_s,
+               "codes_unequal_to_array": codes_unequal,
+               "codes_unequal_to_the_f32_rows": codes_vs_f32,
+               "predict_max_abs_vs_array": p_err}
+    if codes_unequal or not label_ok or p_err != 0.0:
+        problems.append("file input: %d codes differ, label equal %s, "
+                        "predict %g off" % (codes_unequal, label_ok, p_err))
+
+    # -- round trips, then free_dataset
+    want_raw = bst.predict(xv, raw_score=True)
+    rt = {}
+    for name, other in (("pickle", pickle.loads(pickle.dumps(bst))),
+                        ("model_from_string",
+                         lgb.Booster(model_str=text, device=dev))):
+        rt[name + "_max_abs"] = float(np.max(np.abs(
+            other.predict(xv, raw_score=True) - want_raw)))
+        if rt[name + "_max_abs"] != 0.0 or other.device != dev:
+            problems.append("%s round trip: %g off" % (name,
+                                                       rt[name + "_max_abs"]))
+        del other
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = int(torch.cuda.memory_allocated())
+    bst.free_dataset()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = int(torch.cuda.memory_allocated())
+    after = bst.predict(xv, raw_score=True)
+    rt.update(device_bytes_before_free_dataset=mem_before,
+              device_bytes_after_free_dataset=mem_after)
+    if not mem_after < mem_before or not np.array_equal(after, want_raw):
+        problems.append("free_dataset: device bytes %d -> %d, predict "
+                        "after it equal %s" % (
+                            mem_before, mem_after,
+                            np.array_equal(after, want_raw)))
+
+    # -- the classifier on the card: the main path again, from the
+    # estimator, at the higgs-1m params
+    torch.cuda.empty_cache()
+    reset_counts()
+    clf = lgb.LGBMClassifier(
+        n_estimators=rounds, num_leaves=params["num_leaves"],
+        max_bin=params["max_bin"], learning_rate=params["learning_rate"],
+        min_child_samples=params["min_data_in_leaf"], verbosity=-1)
+    _, fit_ms = card_ms(lambda: clf.fit(x, y, verbose=False))
+    counts = read_counts()
+    proba = clf.predict_proba(xv)[:, 1]
+    # bst may have grown more trees since (the steady-state updates)
+    c_diff = float(np.max(np.abs(proba - bst.predict(
+        xv, num_iteration=rounds))))
+    sk = {"fit_s": fit_ms / 1e3, "n_estimators": rounds,
+          "launches": {k: v for k, v in counts.items() if v},
+          "strategy": clf.booster_._gbdt.learner.strategy,
+          "fused": clf.booster_._gbdt._fused_step is not None,
+          "predict_proba_max_abs_vs_train_phase": c_diff,
+          "classes": clf.classes_.tolist()}
+    if c_diff > 1e-6:
+        problems.append("LGBMClassifier: predict_proba %g off the train "
+                        "phase's Booster" % c_diff)
+    if min(counts[k] for k in ("k1_win", "k4_win", "split_key")) <= 0 \
+            or not sk["fused"]:
+        problems.append("LGBMClassifier did not run the device loop's "
+                        "kernels: %s" % counts)
+    del clf, dev_b, host_b, cpu
+    return {"phase": "booster_api", "rows": len(x), "held_out": len(xv),
+            "pred_leaf": leaf, "pred_early_stop": early,
+            "pred_contrib": shap, "refit": refit, "file_input": file_in,
+            "round_trips": rt, "sklearn": sk}, problems
 
 
 def bag_case(torch, name, p, extra, rounds, dset, x_train, base_auc,

@@ -5,8 +5,11 @@ JAX package (lambdarank over query groups too, and custom objectives)
 on one NVIDIA H100 through the compact and masked growth cores, with
 hand-written Hopper kernels for the histograms and the stable row
 partition, evaluates validation sets with early stopping and callbacks,
-cross-validates, and writes and reads model text v2.3.1. It imports
-torch and numpy, never jax nor lightgbm_tpu.
+cross-validates, writes and reads model text v2.3.1, predicts leaf
+indices, TreeSHAP contributions and early-stopped scores, refits leaves
+on new rows, reads CSV / TSV / LibSVM files and pandas frames, and has
+the scikit-learn estimators. It imports torch and numpy, never jax nor
+lightgbm_tpu.
 
     import lightgbm_tpu_torch as lgb
     dtrain = lgb.Dataset(x, y)
@@ -22,8 +25,12 @@ from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
 from .engine import CVBooster, cv, train
+from .sklearn import (LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor,
+                      LightGBMNotFittedError)
 from .utils.log import LightGBMError
 
 __all__ = ["Booster", "Dataset", "train", "cv", "CVBooster",
            "early_stopping", "print_evaluation", "record_evaluation",
-           "reset_parameter", "EarlyStopException", "LightGBMError"]
+           "reset_parameter", "EarlyStopException", "LightGBMError",
+           "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
+           "LightGBMNotFittedError"]

@@ -20,6 +20,14 @@ parameter resets and custom objectives (``objective=none``,
 ``update(fobj=...)``). Every parameter outside that slice raises
 LightGBMError naming its key. Both classes run on the card unless the
 caller passes ``device="cpu"``.
+
+Data comes as an array, a scipy sparse matrix, a pandas frame (category
+columns become their codes; the category lists ride in the model text's
+``pandas_categorical`` trailer) or a text file (CSV / TSV / space /
+LibSVM, with ``.weight`` and ``.query`` side files). The Booster predicts
+leaf indices, TreeSHAP contributions and early-stopped scores, refits
+its leaves on new rows, pickles and copies through its model text, and
+dumps, saves and loads it (io/file_io.py, any registered scheme).
 """
 from __future__ import annotations
 
@@ -30,11 +38,98 @@ import numpy as np
 
 from .config import Config
 from .io.dataset import Dataset as _InnerDataset
+from .io.dataset import Metadata
+from .io.parser import parse_file
 from .metrics import METRIC_NAMES
 from .models.gbdt import GBDT, create_boosting
 from .objectives import OBJECTIVE_NAMES
+from .utils import log
 from .utils.device import resolve_device
 from .utils.log import LightGBMError
+
+# row batch of a sparse (CSR) prediction: the dense form of one batch is
+# the most a predict holds at once (tests shrink it)
+_SPARSE_PREDICT_BATCH = 65536
+
+
+def _data_from_pandas(df, categorical_feature, pandas_categorical):
+    """A frame as an f64 matrix, its category columns as their codes
+    (reference: basic.py:312 _data_from_pandas; the JAX package's
+    basic.py:37-70). A training frame captures the category lists; a
+    validation or predict frame's columns are set to the stored lists
+    first, so that codes agree with training.
+
+    Returns (matrix, feature_names, categorical_feature, pandas_categorical).
+    """
+    cat_cols = [c for c in df.columns if str(df[c].dtype) == "category"]
+    realign = pandas_categorical is not None
+    if not realign:                       # a training frame
+        pandas_categorical = [list(df[c].cat.categories) for c in cat_cols]
+    elif len(cat_cols) != len(pandas_categorical):
+        # also a frame whose categorical column lost its dtype (its raw
+        # values would be read as codes)
+        raise ValueError(
+            "train and valid dataset categorical_feature do not match")
+    if categorical_feature == "auto":
+        # positions, not labels: a column labelled with an int must not be
+        # read as a feature index
+        categorical_feature = [int(df.columns.get_loc(c)) for c in cat_cols]
+    feature_names = [str(c) for c in df.columns]
+    if cat_cols:
+        df = df.copy()
+        if realign:
+            for c, cats in zip(cat_cols, pandas_categorical):
+                df[c] = df[c].cat.set_categories(cats)
+        for c in cat_cols:
+            codes = df[c].cat.codes.values.astype(np.float64)
+            codes[codes == -1] = np.nan    # unseen or missing categories
+            df[c] = codes
+    x = df.astype(np.float64).values
+    return x, feature_names, categorical_feature, pandas_categorical
+
+
+_PANDAS_CAT_PREFIX = "\npandas_categorical:"
+
+
+def _json_default_with_numpy(obj):
+    """numpy scalars as JSON types: int categories must stay ints, or a
+    predict frame's set_categories matches nothing (reference: basic.py
+    json_default_with_numpy); anything else fails at save time."""
+    if isinstance(obj, np.bool_):
+        return bool(obj)
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    raise TypeError(
+        f"pandas category values of type {type(obj).__name__} cannot be "
+        "recorded in the model file; use str/int/float categories")
+
+
+def _dump_pandas_categorical(pandas_categorical) -> str:
+    """The model text's trailer of category lists (reference:
+    basic.py:366)."""
+    import json
+    return _PANDAS_CAT_PREFIX + json.dumps(
+        pandas_categorical, default=_json_default_with_numpy) + "\n"
+
+
+def _split_pandas_categorical(model_str: str):
+    """(model text without the trailer, pandas_categorical or None)."""
+    import json
+    i = model_str.rfind(_PANDAS_CAT_PREFIX)
+    if i < 0:
+        return model_str, None
+    line = model_str[i + len(_PANDAS_CAT_PREFIX):].strip()
+    try:
+        return model_str[:i] + "\n", json.loads(line)
+    except ValueError:
+        return model_str, None
+
+
+def _not_yet(what: str, item: str) -> LightGBMError:
+    return LightGBMError("%s is not supported by lightgbm_tpu_torch yet "
+                         "(ROADMAP.md %s)" % (what, item))
 
 
 def check_supported(cfg: Config) -> None:
@@ -80,17 +175,20 @@ class Dataset:
     """Lazily constructed training data (reference: basic.py:711). The
     binning runs on the host; its device views are made on the device of
     the Booster that trains on it (``device``, if given, is the default
-    for that Booster). A dataset with a `reference` (a validation set) is
+    for that Booster). `data`: an array, a scipy sparse matrix, a pandas
+    frame (category columns become their codes) or the path of a CSV /
+    TSV / space / LibSVM file, whose label is its first column and whose
+    ``<path>.weight`` and ``<path>.query`` side files give weights and
+    query groups. A dataset with a `reference` (a validation set) is
     binned with the reference's mappers. `categorical_feature`: column
     indices or names (a name may carry the ``name:`` prefix); "auto"
-    takes the params' ``categorical_feature`` (indices)."""
+    takes a frame's category columns, or the params'
+    ``categorical_feature`` (indices)."""
 
     def __init__(self, data, label=None, reference=None, weight=None,
-                 group=None, init_score=None, feature_name="auto",
-                 categorical_feature="auto", params=None, device=None):
-        if isinstance(data, str):
-            raise LightGBMError("file input is not supported by "
-                                "lightgbm_tpu_torch yet; pass an array")
+                 group=None, init_score=None, silent=False,
+                 feature_name="auto", categorical_feature="auto",
+                 params=None, free_raw_data=True, device=None):
         self.data = data
         self.label = label
         self.reference = reference
@@ -100,7 +198,9 @@ class Dataset:
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = copy.deepcopy(params) or {}
+        self.free_raw_data = free_raw_data
         self.device = device
+        self.pandas_categorical = None
         self._inner: Optional[_InnerDataset] = None
 
     def construct(self) -> "Dataset":
@@ -108,13 +208,29 @@ class Dataset:
             return self
         cfg = Config(self.params)
         check_supported(cfg)
-        names = (list(self.feature_name)
-                 if isinstance(self.feature_name, (list, tuple)) else None)
+        data, label, names = self.data, self.label, None
+        if isinstance(data, str):
+            data, y, qb = parse_file(data)
+            if label is None and y is not None:
+                label = y
+            if self.group is None and qb is not None:
+                self.group = np.diff(qb)
+            self._load_side_files(self.data)
+        cat_spec = self.categorical_feature
+        if hasattr(data, "columns"):  # pandas: category dtypes -> codes
+            ref_pc = None
+            if self.reference is not None:
+                # the reference's category lists align this frame's codes
+                ref_pc = self.reference.construct().pandas_categorical
+            data, names, cat_spec, self.pandas_categorical = \
+                _data_from_pandas(data, cat_spec, ref_pc)
+        if isinstance(self.feature_name, (list, tuple)):
+            names = list(self.feature_name)
         cats = None
-        if isinstance(self.categorical_feature, (list, tuple)):
+        if isinstance(cat_spec, (list, tuple)):
             # names -> column indices, as the JAX package resolves them
             cats = []
-            for c in self.categorical_feature:
+            for c in cat_spec:
                 if isinstance(c, str):
                     c = c[5:] if c.startswith("name:") else c
                     if names is None or c not in names:
@@ -127,19 +243,32 @@ class Dataset:
         if self.reference is not None:
             ref_inner = self.reference.construct()._inner
         self._inner = _InnerDataset(
-            self.data, config=cfg, label=self.label, weight=self.weight,
+            data, config=cfg, label=label, weight=self.weight,
             group=self.group, init_score=self.init_score,
             feature_names=names,
             categorical_feature=cats, reference=ref_inner)
-        self.data = None
+        if self.free_raw_data and not isinstance(self.data, str):
+            self.data = None
         return self
+
+    def _load_side_files(self, path: str) -> None:
+        """``<path>.weight`` / ``<path>.query`` of a file dataset
+        (reference: Metadata::LoadWeights / LoadQueryBoundaries)."""
+        from .io.file_io import exists, open_file
+        if self.weight is None and exists(path + ".weight"):
+            with open_file(path + ".weight") as f:
+                self.weight = np.loadtxt(f, ndmin=1)
+        if self.group is None and exists(path + ".query"):
+            with open_file(path + ".query") as f:
+                self.group = np.loadtxt(f, ndmin=1).astype(np.int64)
 
     def _update_params(self, params: Dict[str, Any]) -> None:
         if self._inner is None:
             self.params.update(params or {})
 
     def create_valid(self, data, label=None, weight=None, group=None,
-                     init_score=None, params=None) -> "Dataset":
+                     init_score=None, silent=False,
+                     params=None) -> "Dataset":
         """A validation set binned with this dataset's mappers."""
         return Dataset(data, label=label, reference=self, weight=weight,
                        group=group, init_score=init_score,
@@ -163,6 +292,44 @@ class Dataset:
                      else np.diff(md.query_boundaries))
         return sub
 
+    def save_binary(self, filename: str) -> "Dataset":
+        """The binned dataset as an npz (io/dataset.py save_binary; the
+        JAX package reads it, and io.dataset.Dataset.load_binary reads
+        the JAX package's)."""
+        self.construct()._inner.save_binary(filename)
+        return self
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append another dataset's columns at the binned level, without
+        rebinning (reference: Dataset::addFeaturesFrom); the bundles are
+        planned again over all the features."""
+        self.construct()
+        other.construct()
+        if self.num_data() != other.num_data():
+            raise ValueError("datasets must have the same number of rows")
+        a, b = self._inner, other._inner
+        offset = a.num_total_features
+        # an all-trivial dataset holds one dummy zero column: drop dummies
+        # so that the codes stay aligned with used_features
+        a_cols = a.binned if a.used_features else a.binned[:, :0]
+        b_cols = b.binned if b.used_features else b.binned[:, :0]
+        a.bin_mappers = list(a.bin_mappers) + list(b.bin_mappers)
+        a.used_features = list(a.used_features) + [
+            offset + f for f in b.used_features]
+        a.max_num_bins = max(a.max_num_bins, b.max_num_bins)
+        dt = (np.uint16 if max(a_cols.dtype.itemsize,
+                               b_cols.dtype.itemsize) == 2 else np.uint8)
+        merged = np.hstack([a_cols.astype(dt), b_cols.astype(dt)])
+        if merged.shape[1] == 0:
+            merged = np.zeros((a.num_data, 1), dtype=dt)
+        a.binned = merged
+        a.num_total_features += b.num_total_features
+        a.feature_names = list(a.feature_names) + list(b.feature_names)
+        a._cache = {}
+        a.columns = a._plan_bundles()
+        a.bundled = a._encode_bundles() if a.columns else None
+        return self
+
     def set_categorical_feature(self, categorical_feature) -> "Dataset":
         """Set the categorical columns; the dataset must not be
         constructed yet (LightGBM's rebinning is not ported)."""
@@ -173,6 +340,31 @@ class Dataset:
                                 "Dataset was constructed")
         self.categorical_feature = categorical_feature
         return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        """Name the columns (a list as long as the columns); a constructed
+        dataset is renamed in place."""
+        self.feature_name = feature_name
+        if self._inner is not None and isinstance(feature_name,
+                                                  (list, tuple)):
+            if len(feature_name) != self._inner.num_total_features:
+                raise ValueError("Length of feature_name(%d) and num_feature"
+                                 "(%d) don't match"
+                                 % (len(feature_name),
+                                    self._inner.num_total_features))
+            self._inner.feature_names = [str(n) for n in feature_name]
+        return self
+
+    def get_ref_chain(self, ref_limit: int = 100) -> set:
+        """The ids of this dataset and of its chain of references
+        (reference: basic.py:1295)."""
+        head, chain = self, set()
+        while len(chain) < ref_limit and isinstance(head, Dataset):
+            chain.add(id(head))
+            if head.reference is None or id(head.reference) in chain:
+                break
+            head = head.reference
+        return chain
 
     def set_reference(self, reference: "Dataset") -> "Dataset":
         """Bin this dataset with `reference`'s mappers (reference:
@@ -232,8 +424,36 @@ class Dataset:
     def get_label(self):
         return self.get_field("label")
 
+    def get_weight(self):
+        return self.get_field("weight")
+
     def get_group(self):
         return self.get_field("group")
+
+    def get_init_score(self):
+        return self.get_field("init_score")
+
+    def get_data(self):
+        """The raw data the dataset was built from (reference:
+        basic.py:1512); None once free_raw_data dropped it."""
+        if self._inner is None:
+            raise LightGBMError("Cannot get data before construct Dataset")
+        return self.data
+
+    def get_feature_name(self) -> List[str]:
+        return list(self.construct()._inner.feature_names)
+
+    def get_feature_penalty(self):
+        """Per-feature gain penalty (feature_contri), None when unset
+        (reference: basic.py:1476)."""
+        contri = self.construct()._inner.config.feature_contri
+        return np.asarray(contri, dtype=np.float64) if contri else None
+
+    def get_monotone_constraints(self):
+        """Per-feature monotone constraints, None when unset (reference:
+        basic.py:1488)."""
+        mono = self.construct()._inner.config.monotone_constraints
+        return np.asarray(mono, dtype=np.int8) if mono else None
 
     def num_data(self) -> int:
         return self.construct()._inner.num_data
@@ -246,13 +466,17 @@ class Booster:
     """Training / prediction handle (reference: basic.py:1658)."""
 
     def __init__(self, params=None, train_set: Optional[Dataset] = None,
-                 model_file=None, model_str=None, device=None):
+                 model_file=None, model_str=None, silent=False,
+                 device=None):
         self.params = copy.deepcopy(params) or {}
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._train_data_name = "training"
         self.name_valid_sets: List[str] = []
         self.valid_sets: List[Dataset] = []
+        self._attr: Dict[str, str] = {}
+        self.pandas_categorical = None
+        self.train_set: Optional[Dataset] = None
         if device is None and train_set is not None:
             device = train_set.device
         self.device = resolve_device(device)
@@ -261,6 +485,7 @@ class Booster:
                 raise TypeError("Training data should be Dataset instance")
             train_set._update_params(self.params)
             train_set.construct()
+            self.pandas_categorical = train_set.pandas_categorical
             cfg = train_set._inner.config
             cfg.update(self.params)
             check_supported(cfg)
@@ -269,13 +494,50 @@ class Booster:
             self.train_set = train_set
         elif model_file is not None or model_str is not None:
             if model_file is not None:
-                with open(model_file) as f:
-                    model_str = f.read()
-            self._gbdt = GBDT.load_model_from_string(
-                model_str, Config(self.params), device=self.device)
+                from .io.file_io import read_text
+                model_str = read_text(model_file)
+            self.model_from_string(model_str, verbose=False)
         else:
             raise TypeError("need at least one of train_set, model_file, "
                             "model_str")
+
+    # pickling and copying go through the model text (reference: basic.py
+    # Booster.__getstate__ / __deepcopy__): a copy predicts, and continues
+    # as an init_model, without the training state; it keeps the device,
+    # and unpickling where that device is absent raises
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_gbdt"] = None
+        state["train_set"] = None
+        state["valid_sets"] = []
+        state["name_valid_sets"] = []
+        state["_model_str"] = self.model_to_string(num_iteration=-1)
+        return state
+
+    def __setstate__(self, state):
+        model_str = state.pop("_model_str")
+        self.__dict__.update(state)
+        try:
+            self.device = resolve_device(state["device"])
+        except LightGBMError as e:
+            raise LightGBMError(
+                "this Booster was pickled on %s, which this machine lacks "
+                "(%s); rebuild it from its model text with "
+                "Booster(model_str=..., device=\"cpu\")"
+                % (state["device"], e)) from e
+        self.model_from_string(model_str, verbose=False)
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _):
+        out = Booster(params=self.params,
+                      model_str=self.model_to_string(num_iteration=-1),
+                      device=self.device)
+        out.best_iteration = self.best_iteration
+        out.best_score = copy.deepcopy(self.best_score)
+        out._attr = dict(self._attr)
+        return out
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Evaluate `data` every iteration under `name`; it is binned with
@@ -296,6 +558,10 @@ class Booster:
         """One boosting iteration; True when training stopped early. With
         `fobj`, its (grad, hess) at the current training scores drive the
         iteration (reference Booster.update)."""
+        if self._gbdt.train_set is None:
+            raise LightGBMError("this Booster has no training data (it was "
+                                "loaded from model text, or free_dataset "
+                                "dropped it)")
         if fobj is not None:
             grad, hess = fobj(self.__inner_predict_raw(), self.train_set)
             return self.__boost(grad, hess)
@@ -327,8 +593,25 @@ class Booster:
             self._gbdt.learner.reset_config()
         return self
 
+    def save_checkpoint(self, directory: str, keep_last: int = 3,
+                        history=None) -> str:
+        raise _not_yet("save_checkpoint", "item 10 (resilience/)")
+
+    def restore_checkpoint(self, path: str) -> "Booster":
+        raise _not_yet("restore_checkpoint", "item 10 (resilience/)")
+
+    def set_network(self, machines, local_listen_port=12400,
+                    listen_time_out=120, num_machines=1) -> "Booster":
+        raise _not_yet("set_network", "item 9 (multi-GPU)")
+
+    def free_network(self) -> "Booster":
+        raise _not_yet("free_network", "item 9 (multi-GPU)")
+
     def current_iteration(self) -> int:
         return self._gbdt.current_iteration
+
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_tree_per_iteration
 
     def num_trees(self) -> int:
         return self._gbdt.num_trees()
@@ -368,27 +651,209 @@ class Booster:
         return results
 
     def predict(self, data, num_iteration=None, raw_score=False,
-                start_iteration=0):
+                pred_leaf=False, pred_contrib=False, data_has_header=False,
+                is_reshape=True, start_iteration=0, pred_early_stop=False,
+                pred_early_stop_freq=10, pred_early_stop_margin=10.0,
+                **kwargs):
         """Predictions of the first `num_iteration` iterations (None: the
-        best iteration of early stopping, if any, else all)."""
-        if hasattr(data, "values"):
-            data = data.values
+        best iteration of early stopping, if any, else all) from
+        `start_iteration`: scores (raw_score: untransformed), leaf indices
+        (pred_leaf), TreeSHAP contributions (pred_contrib, on the host)
+        or early-stopped scores (pred_early_stop: every
+        pred_early_stop_freq iterations, rows whose margin exceeds
+        pred_early_stop_margin stop). `data`: an array, a scipy sparse
+        matrix (predicted in row batches of _SPARSE_PREDICT_BATCH), a
+        pandas frame (category columns aligned to the training lists) or
+        a data file (data_has_header: its first line is a header)."""
+        x = data
+        if isinstance(data, str):
+            x, _, _ = parse_file(
+                data, has_header=True if data_has_header else None)
+        if hasattr(x, "columns"):
+            x, _, _, _ = _data_from_pandas(x, "auto",
+                                           self.pandas_categorical)
+        elif hasattr(x, "values"):
+            x = x.values
         if num_iteration is None:
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else None)
-        return self._gbdt.predict(np.asarray(data),
-                                  num_iteration=num_iteration,
-                                  raw_score=raw_score,
-                                  start_iteration=start_iteration)
+
+        def run(mat):
+            return self._gbdt.predict(
+                mat, num_iteration=num_iteration, raw_score=raw_score,
+                pred_leaf=pred_leaf, pred_contrib=pred_contrib,
+                start_iteration=start_iteration,
+                pred_early_stop=pred_early_stop,
+                pred_early_stop_freq=pred_early_stop_freq,
+                pred_early_stop_margin=pred_early_stop_margin)
+        try:
+            import scipy.sparse as sp
+            is_sparse = sp.issparse(x)
+        except ImportError:
+            is_sparse = False
+        if is_sparse:
+            # the dense form of one row batch at a time (the reference
+            # walks sparse rows directly, c_api.cpp PredictForCSR)
+            x = x.tocsr()
+            batch = _SPARSE_PREDICT_BATCH
+            parts = [run(np.asarray(x[i:i + batch].todense()))
+                     for i in range(0, max(x.shape[0], 1), batch)]
+            return np.concatenate(parts, axis=0)
+        return run(np.asarray(x))
+
+    def refit(self, data, label, decay_rate=0.9, **kwargs) -> "Booster":
+        """Refit the leaf values on new rows in place (reference
+        Booster.refit; task=refit): each leaf becomes decay_rate x its
+        value + (1 - decay_rate) x the leaf output of the new rows'
+        gradients at a zero score, the structure kept. The rows' leaves
+        come from pred_leaf; the gradients need only the rows' labels."""
+        self.params["refit_decay_rate"] = decay_rate
+        leaf_preds = self.predict(data, pred_leaf=True)
+        md = Metadata(leaf_preds.shape[0])
+        md.set_label(label)
+        self._gbdt.refit_leaves_on(md, leaf_preds, decay_rate)
+        return self
 
     def model_to_string(self, num_iteration=None, start_iteration=0) -> str:
         if num_iteration is None:
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else -1)
-        return self._gbdt.save_model_to_string(start_iteration, num_iteration)
+        s = self._gbdt.save_model_to_string(start_iteration, num_iteration)
+        if self.pandas_categorical:
+            s += _dump_pandas_categorical(self.pandas_categorical)
+        return s
 
     def save_model(self, filename, num_iteration=None,
                    start_iteration=0) -> "Booster":
-        with open(filename, "w") as f:
-            f.write(self.model_to_string(num_iteration, start_iteration))
+        """The model text (with the pandas_categorical trailer) written
+        through io/file_io.py in one write."""
+        from .io.file_io import write_text
+        write_text(filename, self.model_to_string(num_iteration,
+                                                  start_iteration))
+        return self
+
+    def dump_model(self, num_iteration=None, start_iteration=0) -> dict:
+        return self._gbdt.dump_model(num_iteration, start_iteration)
+
+    def model_from_string(self, model_str: str, verbose=True) -> "Booster":
+        """Replace this Booster's model with one read from model text
+        (reference: basic.py:2241), on this Booster's device."""
+        model_str, self.pandas_categorical = _split_pandas_categorical(
+            model_str)
+        self._gbdt = GBDT.load_model_from_string(
+            model_str, Config(self.params), device=self.device)
+        if verbose:
+            log.info("Finished loading model, total used %d iterations",
+                     self._gbdt.current_iteration)
+        return self
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """The output of one leaf (reference: basic.py:2463)."""
+        return float(self._gbdt.models[tree_id].leaf_value[leaf_id])
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style=False):
+        """Histogram of the thresholds that split on `feature` (an index,
+        or a name) (reference: basic.py:2565); a categorical feature is
+        refused. xgboost_style: the (upper edge, count) rows of the
+        non-empty bins, as a pandas frame where pandas is installed."""
+        def add(root):
+            if "split_index" in root:     # not a leaf
+                if feature_names is not None and isinstance(feature, str):
+                    split_feature = feature_names[root["split_feature"]]
+                else:
+                    split_feature = root["split_feature"]
+                if split_feature == feature:
+                    if isinstance(root["threshold"], str):
+                        raise LightGBMError(
+                            "Cannot compute split value histogram for the "
+                            "categorical feature")
+                    values.append(root["threshold"])
+                add(root["left_child"])
+                add(root["right_child"])
+
+        model = self.dump_model()
+        feature_names = model.get("feature_names")
+        values: List[float] = []
+        for tree_info in model["tree_info"]:
+            add(tree_info["tree_structure"])
+
+        if bins is None or isinstance(bins, int) and xgboost_style:
+            n_unique = len(np.unique(values))
+            bins = max(min(n_unique, bins) if bins is not None
+                       else n_unique, 1)
+        hist, bin_edges = np.histogram(values, bins=bins)
+        if xgboost_style:
+            ret = np.column_stack((bin_edges[1:], hist))
+            ret = ret[ret[:, 1] > 0]
+            try:
+                from pandas import DataFrame
+                return DataFrame(ret, columns=["SplitValue", "Count"])
+            except ImportError:
+                return ret
+        return hist, bin_edges
+
+    def attr(self, key: str) -> Optional[str]:
+        """A Booster attribute string (reference: basic.py:2717)."""
+        return self._attr.get(key, None)
+
+    def set_attr(self, **kwargs) -> "Booster":
+        """Set Booster attributes; None deletes (reference: basic.py:2733)."""
+        for key, value in kwargs.items():
+            if value is not None:
+                if not isinstance(value, str):
+                    raise ValueError("Only string values are accepted")
+                self._attr[key] = value
+            else:
+                self._attr.pop(key, None)
+        return self
+
+    def feature_importance(self, importance_type="split",
+                           iteration=None) -> np.ndarray:
+        """Splits per feature (int64), or their total gain (f64)."""
+        imp = self._gbdt.feature_importance(importance_type, iteration)
+        return imp.astype(np.int64) if importance_type == "split" else imp
+
+    def feature_name(self) -> List[str]:
+        return list(self._gbdt.feature_names)
+
+    def num_feature(self) -> int:
+        return self._gbdt.max_feature_idx + 1
+
+    def free_dataset(self) -> "Booster":
+        """Drop the training and validation data (reference:
+        basic.py:1799): the learner with its device copies of the rows,
+        its carries and captured graphs, the fused steps and every score
+        tensor, so the card's memory falls; predict still works, update
+        raises."""
+        self.train_set = None
+        self.valid_sets = []
+        self.name_valid_sets = []
+        g = self._gbdt
+        if g.train_set is not None:
+            # the model text's feature_infos came from the training set
+            g._feature_infos = g.train_set.feature_infos()
+        g.train_set = None
+        g.valid_names, g.valid_updaters, g.valid_metrics = [], [], []
+        g.learner = None
+        g.score_updater = None
+        g._fused_step = None
+        g._last_leaf_ids = {}
+        for attr in ("_rf_grad", "_rf_hess"):
+            if hasattr(g, attr):
+                setattr(g, attr, None)
+        return self
+
+    def shuffle_models(self, start_iteration=0,
+                       end_iteration=-1) -> "Booster":
+        """Shuffle the trees of [start, end) with Python's random module
+        (reference: basic.py shuffle_models); the cached ensemble is
+        dropped."""
+        import random
+        models = self._gbdt.models
+        end = len(models) if end_iteration < 0 else end_iteration
+        seg = models[start_iteration:end]
+        random.shuffle(seg)
+        models[start_iteration:end] = seg
+        self._gbdt.invalidate_ensemble_cache()
         return self

@@ -37,6 +37,39 @@ def _check_double_equal(a: float, b: float) -> bool:
     return b <= upper
 
 
+def _distinct_counts(values: np.ndarray, zero_cnt: int):
+    """Sorted sample values -> (distinct values, counts) as lists, with the
+    implied zero block inserted (reference bin.cpp FindBin): a run of
+    values each within one ulp of the one before (_check_double_equal)
+    is one distinct value, the run's last; zero_cnt zeros go before the
+    first positive value after a negative one, and at the front (or the
+    back) when every value is positive (negative) and zero_cnt > 0. The
+    JAX package walks the values one by one; this is that walk in numpy
+    (tests/test_torch_binning.py holds the two equal)."""
+    n = len(values)
+    if n == 0:
+        return [0.0], [zero_cnt]
+    starts = np.flatnonzero(np.concatenate([
+        [True], values[1:] > np.nextafter(values[:-1], np.inf)]))
+    ends = np.append(starts[1:], n)
+    distinct = values[ends - 1].tolist()
+    counts = (ends - starts).tolist()
+    # a negative run followed by a positive one: the zero block between
+    cross = np.flatnonzero((values[starts[1:] - 1] < 0.0)
+                           & (values[starts[1:]] > 0.0))
+    if len(cross):
+        g = int(cross[0]) + 1
+        distinct.insert(g, 0.0)
+        counts.insert(g, zero_cnt)
+    if values[0] > 0.0 and zero_cnt > 0:
+        distinct.insert(0, 0.0)
+        counts.insert(0, zero_cnt)
+    if values[-1] < 0.0 and zero_cnt > 0:
+        distinct.append(0.0)
+        counts.append(zero_cnt)
+    return distinct, counts
+
+
 def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
                     max_bin: int, total_cnt: int, min_data_in_bin: int) -> List[float]:
     """Greedy equal-count bin boundaries over sorted distinct values.
@@ -75,19 +108,23 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
     lowers: List[float] = [float(distinct_values[0])]
     cur_cnt = 0
     bin_cnt = 0
+    # Python lists: the loop reads one element at a time
+    values_l = np.asarray(distinct_values, dtype=np.float64).tolist()
+    counts_l = np.asarray(counts).astype(np.int64).tolist()
+    is_big = is_big.tolist()
     for i in range(num_distinct - 1):
         if not is_big[i]:
-            rest_sample_cnt -= int(counts[i])
-        cur_cnt += int(counts[i])
+            rest_sample_cnt -= counts_l[i]
+        cur_cnt += counts_l[i]
         need_new = (
             is_big[i]
             or cur_cnt >= mean_bin_size
             or (is_big[i + 1] and cur_cnt >= max(1.0, mean_bin_size * 0.5))
         )
         if need_new:
-            uppers.append(float(distinct_values[i]))
+            uppers.append(values_l[i])
             bin_cnt += 1
-            lowers.append(float(distinct_values[i + 1]))
+            lowers.append(values_l[i + 1])
             if bin_cnt >= max_bin - 1:
                 break
             cur_cnt = 0
@@ -202,30 +239,7 @@ class BinMapper:
         zero_cnt = int(total_sample_cnt - len(values) - na_cnt)
 
         values = np.sort(values, kind="stable")
-        # collapse to distinct values + counts, inserting the implied zero block
-        distinct: List[float] = []
-        counts: List[int] = []
-        if len(values) == 0 or (values[0] > 0.0 and zero_cnt > 0):
-            distinct.append(0.0)
-            counts.append(zero_cnt)
-        if len(values) > 0:
-            distinct.append(float(values[0]))
-            counts.append(1)
-        for i in range(1, len(values)):
-            if not _check_double_equal(values[i - 1], values[i]):
-                if values[i - 1] < 0.0 and values[i] > 0.0:
-                    distinct.append(0.0)
-                    counts.append(zero_cnt)
-                distinct.append(float(values[i]))
-                counts.append(1)
-            else:
-                distinct[-1] = float(values[i])  # keep the larger of the equal pair
-                counts[-1] += 1
-        if len(values) > 0 and values[-1] < 0.0 and zero_cnt > 0:
-            distinct.append(0.0)
-            counts.append(zero_cnt)
-        if not distinct:
-            distinct, counts = [0.0], [max(0, total_sample_cnt)]
+        distinct, counts = _distinct_counts(values, zero_cnt)
         self.min_val = distinct[0]
         self.max_val = distinct[-1]
         dv = np.asarray(distinct)
@@ -344,8 +358,9 @@ class BinMapper:
     def _count_in_bin(self, dv, cnts, na_cnt) -> np.ndarray:
         out = np.zeros(max(self.num_bin, 1), dtype=np.int64)
         if self.bin_type == BIN_NUMERICAL:
-            for v, c in zip(dv, cnts):
-                out[self.value_to_bin(float(v))] += int(c)
+            # dv holds no NaN: value_to_bin of each, as one searchsorted
+            np.add.at(out, self.values_to_bins(dv),
+                      np.asarray(cnts, dtype=np.int64))
             if self.missing_type == MISSING_NAN and self.num_bin >= 1:
                 out[self.num_bin - 1] = na_cnt
         else:

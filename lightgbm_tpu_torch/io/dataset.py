@@ -397,3 +397,57 @@ class Dataset:
 
     def feature_infos(self) -> List[str]:
         return [m.feature_info() for m in self.bin_mappers]
+
+    def save_binary(self, path: str) -> None:
+        """The binned dataset as an npz (the JAX package's layout, so each
+        package reads the other's file; np.savez_compressed adds ".npz"
+        to a path without it): codes, mappers as JSON, used features,
+        names and the metadata (empty arrays for the absent fields)."""
+        import json
+        md = self.metadata
+        np.savez_compressed(
+            path, binned=self.binned,
+            mappers=json.dumps([m.to_dict() for m in self.bin_mappers]),
+            used_features=np.asarray(self.used_features, dtype=np.int64),
+            feature_names=np.asarray(self.feature_names, dtype=object),
+            label=md.label if md.label is not None else np.zeros(0),
+            weight=md.weight if md.weight is not None else np.zeros(0),
+            query_boundaries=(md.query_boundaries
+                              if md.query_boundaries is not None
+                              else np.zeros(0, dtype=np.int32)),
+            init_score=(md.init_score if md.init_score is not None
+                        else np.zeros(0)))
+
+    @classmethod
+    def load_binary(cls, path: str,
+                    params: Optional[Dict[str, Any]] = None) -> "Dataset":
+        """A dataset from save_binary's npz (or the JAX package's); the
+        bundles are planned anew from `params`."""
+        import json
+        z = np.load(path, allow_pickle=True)
+        obj = cls.__new__(cls)
+        obj.config = Config(params or {})
+        obj.binned = z["binned"]
+        obj.num_data = obj.binned.shape[0]
+        obj.bin_mappers = [BinMapper.from_dict(d)
+                           for d in json.loads(str(z["mappers"]))]
+        obj.num_total_features = len(obj.bin_mappers)
+        obj.used_features = [int(i) for i in z["used_features"]]
+        obj.feature_names = [str(s) for s in z["feature_names"]]
+        obj.max_num_bins = max(
+            [obj.bin_mappers[i].num_bin for i in obj.used_features],
+            default=1)
+        obj.metadata = Metadata(obj.num_data)
+        if len(z["label"]):
+            obj.metadata.label = z["label"]
+        if len(z["weight"]):
+            obj.metadata.weight = z["weight"]
+        if len(z["query_boundaries"]):
+            obj.metadata.query_boundaries = z["query_boundaries"]
+        if len(z["init_score"]):
+            obj.metadata.init_score = z["init_score"]
+        obj.reference = None
+        obj._cache = {}
+        obj.columns = obj._plan_bundles()
+        obj.bundled = obj._encode_bundles() if obj.columns else None
+        return obj

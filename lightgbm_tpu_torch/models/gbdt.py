@@ -31,9 +31,19 @@ rescales them after the new tree (``DART._normalize``); RF grows every
 tree from the gradients at the boost-from-average score on a mandatory
 bag and keeps the training and validation scores the running average of
 its trees, and ``predict_raw`` averages them (``average_output``).
+
+Prediction (``predict``) gives raw or converted scores, leaf indices
+(``pred_leaf``), TreeSHAP contributions on the host (``pred_contrib``,
+models/treeshap.py) or scores with prediction early stopping
+(``pred_early_stop``: chunks of freq x K trees summed in f32 on the device
+into f64 host scores, the rows past the margin dropped after each chunk).
+``refit_leaves_on`` refits the leaf values on new data in place
+(continual/refit.py); every in-place leaf edit drops the cached ensemble.
 """
 from __future__ import annotations
 
+import copy
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -43,6 +53,7 @@ from ..config import Config
 from ..io.dataset import Dataset
 from ..metrics import create_metrics
 from ..objectives import create_objective
+from ..objectives.objective import parse_objective_from_model
 from ..ops import predict as predict_ops
 from ..utils import log
 from ..utils.log import LightGBMError
@@ -51,6 +62,16 @@ from .tree import Tree
 
 K_EPSILON = 1e-15
 MODEL_VERSION = "v3"
+
+
+def _threshold_l1_np(s: float, l1: float) -> float:
+    return math.copysign(max(0.0, abs(s) - l1), s)
+
+
+def _rows_f32(x) -> np.ndarray:
+    """Contiguous (N, F) f32 rows (one row from a 1-d input)."""
+    x = np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+    return x.reshape(1, -1) if x.ndim == 1 else x
 
 
 class ScoreUpdater:
@@ -517,9 +538,7 @@ class GBDT:
                     start_iteration: int = 0) -> np.ndarray:
         """(N, K) raw scores over raw feature values; with average_output
         (a random forest) the mean over the iterations used."""
-        x = np.ascontiguousarray(np.asarray(x, dtype=np.float32))
-        if x.ndim == 1:
-            x = x.reshape(1, -1)
+        x = _rows_f32(x)
         arrays, tc, n_models = self.ensemble_arrays(num_iteration,
                                                     start_iteration)
         if not n_models:
@@ -532,9 +551,78 @@ class GBDT:
             out /= max(1, n_models // self.num_tree_per_iteration)
         return out
 
+    def predict_leaf(self, x, num_iteration: Optional[int] = None,
+                     start_iteration: int = 0) -> np.ndarray:
+        """(N, T) int32 leaf index of every row in every tree used, walked
+        on the device in tree chunks, each fetched as it is done."""
+        x = _rows_f32(x)
+        arrays, _, n_models = self.ensemble_arrays(num_iteration,
+                                                   start_iteration)
+        out = np.zeros((x.shape[0], n_models), dtype=np.int32)
+        if not n_models:
+            return out
+        xt = torch.as_tensor(x, device=self.device)
+        for a, b, leaves in predict_ops.predict_leaf_chunks(xt, arrays):
+            out[:, a:b] = leaves.to(torch.int32).cpu().numpy()
+        return out
+
+    def predict_raw_early_stop(self, x, num_iteration=None, freq: int = 10,
+                               margin: float = 10.0,
+                               start_iteration: int = 0) -> np.ndarray:
+        """Raw scores with prediction early stopping (reference:
+        src/boosting/prediction_early_stop.cpp): after every `freq`
+        iterations' trees, rows whose margin exceeds `margin` stop
+        accumulating -- binary 2 |score|, multiclass top1 - top2. Each
+        chunk of freq x K trees (a slice of the cached ensemble, walked to
+        the chunk's own depth) is an f32 sum on the device over the rows
+        still active, added into f64 host scores.
+        ``last_early_stop_trees`` keeps the trees each row summed."""
+        x = _rows_f32(x)
+        models = self._used_models(num_iteration, start_iteration)
+        arrays, tc, n_models = self.ensemble_arrays(num_iteration,
+                                                    start_iteration)
+        n = x.shape[0]
+        scores = np.zeros((n, self.num_class))
+        trees_used = np.zeros(n, dtype=np.int64)
+        xt = torch.as_tensor(x, device=self.device)
+        active = np.arange(n)
+        step = max(1, freq) * self.num_tree_per_iteration
+        for start in range(0, n_models, step):
+            if len(active) == 0:
+                break
+            end = min(start + step, n_models)
+            xa = xt if len(active) == n else xt.index_select(
+                0, torch.as_tensor(active, device=self.device))
+            part = predict_ops.tree_slice(
+                arrays, start, end,
+                depth=max(t.depth() for t in models[start:end]))
+            out = predict_ops.predict_raw_ensemble(xa, part, tc[start:end],
+                                                   self.num_class)
+            scores[active] += out.cpu().numpy()
+            trees_used[active] += end - start
+            if self.num_class == 1:
+                m = 2.0 * np.abs(scores[active, 0])
+            else:
+                srt = np.sort(scores[active], axis=1)
+                m = srt[:, -1] - srt[:, -2]
+            active = active[m <= margin]
+        self.last_early_stop_trees = trees_used
+        return scores
+
     def predict(self, x, num_iteration=None, raw_score=False,
-                start_iteration=0):
-        raw = self.predict_raw(x, num_iteration, start_iteration)
+                pred_leaf=False, pred_contrib=False, start_iteration=0,
+                pred_early_stop=False, pred_early_stop_freq=10,
+                pred_early_stop_margin=10.0):
+        if pred_leaf:
+            return self.predict_leaf(x, num_iteration, start_iteration)
+        if pred_contrib:
+            return self.predict_contrib(x, num_iteration)
+        if pred_early_stop:
+            raw = self.predict_raw_early_stop(
+                x, num_iteration, pred_early_stop_freq,
+                pred_early_stop_margin, start_iteration)
+        else:
+            raw = self.predict_raw(x, num_iteration, start_iteration)
         if raw_score:
             return raw[:, 0] if self.num_class == 1 else raw
         if self.objective is not None:
@@ -543,6 +631,12 @@ class GBDT:
         else:
             out = raw
         return out[:, 0] if self.num_class == 1 else out
+
+    def predict_contrib(self, x, num_iteration=None) -> np.ndarray:
+        """TreeSHAP feature contributions (reference: tree.cpp:669-713
+        PredictContrib), on the host."""
+        from .treeshap import predict_contrib
+        return predict_contrib(self, x, num_iteration)
 
     def _used_models(self, num_iteration, start_iteration=0) -> List[Tree]:
         total_iter = len(self.models) // max(self.num_tree_per_iteration, 1)
@@ -565,6 +659,93 @@ class GBDT:
                 elif tree.split_gain[node] > 0:
                     out[tree.split_feature[node]] += tree.split_gain[node]
         return out
+
+    def refit_leaves(self, leaf_preds: np.ndarray, decay_rate: float) -> None:
+        """Refit leaf values keeping the structure (reference:
+        gbdt.cpp:298-321 RefitTree + FitByExistingTree): new value =
+        decay * old + (1 - decay) * the regularized leaf output of the
+        gradients at this booster's own training scores."""
+        grad, hess = self._compute_gradients()
+        self._refit_leaves_apply(leaf_preds, grad, hess, decay_rate)
+
+    def refit_leaves_on(self, metadata, leaf_preds: np.ndarray,
+                        decay_rate: float) -> None:
+        """Refit on new rows in place: the gradients of the objective at a
+        zero score over `metadata` (io.dataset.Metadata of the new rows;
+        the objective reads nothing else, so the rows need no binning),
+        then one leaf update of this model. The objective is the model's
+        own (a model read from text keeps its objective line) or, without
+        one, the config's."""
+        cfg = self.config
+        if self.objective is not None:
+            obj = parse_objective_from_model(self.objective.to_string(),
+                                             copy.deepcopy(cfg))
+        elif cfg.objective != "none":
+            obj = create_objective(cfg.objective, cfg)
+        else:
+            raise ValueError("refit requires an objective "
+                             "(objective=none has no gradients)")
+        obj.init(metadata, metadata.num_data, self.device)
+        num_class = obj.num_model_per_iteration
+        score = torch.zeros((num_class, metadata.num_data),
+                            dtype=torch.float32, device=self.device)
+        if num_class == 1:
+            g, h = obj.get_gradients(score[0])
+            g, h = g[None, :], h[None, :]
+        else:
+            g, h = obj.get_gradients(score)
+        self._refit_leaves_apply(leaf_preds, g, h, decay_rate,
+                                 num_tree_per_iteration=num_class)
+
+    def _refit_leaves_apply(self, leaf_preds, grad, hess,
+                            decay_rate: float,
+                            num_tree_per_iteration: Optional[int] = None
+                            ) -> None:
+        """The refit's tail: drop the cached ensemble, then the device
+        sums (continual/refit.py) or, with LGBM_TPU_HOST_REFIT=1, the host
+        loop."""
+        per_iter = (num_tree_per_iteration if num_tree_per_iteration
+                    else self.num_tree_per_iteration)
+        self.invalidate_ensemble_cache()
+        from ..continual import refit as continual_refit
+        cfg = self.config
+        if continual_refit.device_refit_enabled():
+            continual_refit.refit_leaves_device(
+                self.models, leaf_preds, grad, hess,
+                lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
+                max_delta_step=cfg.max_delta_step, decay_rate=decay_rate,
+                shrinkage_rate=self.shrinkage_rate,
+                num_tree_per_iteration=per_iter)
+            return
+        self._refit_leaves_host(leaf_preds, grad, hess, decay_rate,
+                                per_iter)
+
+    def _refit_leaves_host(self, leaf_preds, grad, hess,
+                           decay_rate: float,
+                           num_tree_per_iteration: int) -> None:
+        """The host per-leaf loop (the JAX package's), kept as the device
+        sums' oracle: f32 sums of each leaf's rows."""
+        g = grad.cpu().numpy()
+        h = hess.cpu().numpy()
+        cfg = self.config
+        for ti, tree in enumerate(self.models):
+            k = ti % num_tree_per_iteration
+            leaves = leaf_preds[:, ti]
+            for leaf in range(tree.num_leaves):
+                rows = np.nonzero(leaves == leaf)[0]
+                if len(rows) == 0:
+                    continue
+                sg = float(g[k][rows].sum())
+                sh = float(h[k][rows].sum())
+                out = -_threshold_l1_np(sg, cfg.lambda_l1) \
+                    / (sh + cfg.lambda_l2)
+                if cfg.max_delta_step > 0:
+                    out = float(np.clip(out, -cfg.max_delta_step,
+                                        cfg.max_delta_step))
+                old = float(tree.leaf_value[leaf])
+                tree.set_leaf_output(
+                    leaf, decay_rate * old
+                    + (1.0 - decay_rate) * out * self.shrinkage_rate)
 
     # -- model serialization -------------------------------------------
     def save_model_to_string(self, start_iteration: int = 0,
@@ -642,6 +823,42 @@ class GBDT:
         booster.num_init_iteration = (len(booster.models)
                                       // max(booster.num_tree_per_iteration, 1))
         return booster
+
+    @classmethod
+    def load_model(cls, filename: str, config: Optional[Config] = None,
+                   device="cpu") -> "GBDT":
+        from ..io.file_io import read_text
+        return cls.load_model_from_string(read_text(filename), config,
+                                          device=device)
+
+    def save_model(self, filename: str, num_iteration: int = -1,
+                   start_iteration: int = 0) -> None:
+        from ..io.file_io import write_text
+        write_text(filename, self.save_model_to_string(start_iteration,
+                                                       num_iteration))
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> dict:
+        """reference: gbdt_model_text.cpp:28 DumpModel (JSON)."""
+        models = self._used_models(num_iteration, start_iteration)
+        return {
+            "name": "tree",
+            "version": MODEL_VERSION,
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": self.label_idx,
+            "max_feature_idx": self.max_feature_idx,
+            "objective": (self.objective.to_string() if self.objective
+                          else ""),
+            "average_output": self.average_output,
+            "feature_names": list(self.feature_names),
+            "feature_importances": {
+                self.feature_names[i]: float(v)
+                for i, v in enumerate(self.feature_importance("split"))
+                if v > 0},
+            "tree_info": [dict(tree_index=i, **t.to_json())
+                          for i, t in enumerate(models)],
+        }
 
 
 class GOSS(GBDT):

@@ -6,6 +6,11 @@ tensors, and all rows of all trees advance one level per step for a fixed
 number of steps; rows that reached a leaf (negative node) stay put.
 Scores then add up tree by tree in f32, in the JAX package's order.
 
+The raw-value walk goes over the trees in chunks: the (N, T_chunk) int64
+temporaries of one chunk stay under ``WALK_ELEMENTS`` elements (the JAX
+package scans one tree at a time), and the scores still add up tree by
+tree in the same order, so they do not depend on the chunking.
+
 Two threshold spaces, as in the JAX package: real thresholds for raw
 feature values (Decision, ``predict_raw_ensemble``) and bin thresholds for
 a dataset's binned codes (DecisionInner, ``predict_binned_tree_values``,
@@ -20,7 +25,7 @@ binned codes through cat_boundaries_inner / cat_threshold_inner.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +34,10 @@ MISSING_NONE = 0
 MISSING_ZERO = 1
 MISSING_NAN = 2
 K_ZERO_THRESHOLD = 1e-35
+# elements of one (N, T_chunk) temporary of the raw-value walk: 2^25
+# int64 values are 256 MB (at 1M rows and 500 trees the whole walk's
+# would be 4 GB each)
+WALK_ELEMENTS = 1 << 25
 
 
 class EnsembleArrays(NamedTuple):
@@ -136,11 +145,23 @@ def _in_bitset(v: torch.Tensor, idx: torch.Tensor, bounds: torch.Tensor,
     return (v >= 0) & (wi < hi - lo) & (((word >> (v % 32)) & 1) == 1)
 
 
-def predict_leaf_index(x: torch.Tensor,
-                       arrays: EnsembleArrays) -> torch.Tensor:
-    """(N, T) leaf index of every row in every tree over raw f32 values
-    (Decision semantics: NaN maps to 0 unless the node's missing type is
-    NaN; zero-missing treats |x| <= 1e-35 as missing)."""
+def tree_chunks(n: int, t_count: int):
+    """[a, b) ranges of trees, in order, whose N x (b - a) stays under
+    WALK_ELEMENTS (at least one tree each)."""
+    step = max(1, WALK_ELEMENTS // max(n, 1))
+    return [(a, min(a + step, t_count)) for a in range(0, t_count, step)]
+
+
+def tree_slice(arrays: EnsembleArrays, a: int, b: int,
+               depth: Optional[int] = None) -> EnsembleArrays:
+    """Trees [a, b) of `arrays` as views; `depth`, the deepest of those
+    trees, bounds their walk (default: the whole ensemble's bound)."""
+    steps = arrays.max_depth if depth is None else _max_depth_steps(depth)
+    return EnsembleArrays(*(f[a:b] for f in arrays[:-1]), steps)
+
+
+def _walk(x: torch.Tensor, arrays: EnsembleArrays) -> torch.Tensor:
+    """(N, T) leaf index of every row in every tree of `arrays`."""
     n = x.shape[0]
     t_count = arrays.split_feature.shape[0]
     tix = torch.arange(t_count, device=x.device)[None, :]
@@ -173,19 +194,37 @@ def predict_leaf_index(x: torch.Tensor,
     return ~node
 
 
+def predict_leaf_chunks(x: torch.Tensor, arrays: EnsembleArrays):
+    """Yields (a, b, (N, b - a) int64 leaves) over the tree chunks, in
+    order (Decision semantics: NaN maps to 0 unless the node's missing
+    type is NaN; zero-missing treats |x| <= 1e-35 as missing)."""
+    for a, b in tree_chunks(x.shape[0], arrays.split_feature.shape[0]):
+        yield a, b, _walk(x, tree_slice(arrays, a, b))
+
+
+def predict_leaf_index(x: torch.Tensor,
+                       arrays: EnsembleArrays) -> torch.Tensor:
+    """(N, T) leaf index of every row in every tree over raw f32 values,
+    walked in tree chunks."""
+    chunks = list(predict_leaf_chunks(x, arrays))
+    if len(chunks) == 1:
+        return chunks[0][2]
+    return torch.cat([c for _, _, c in chunks], dim=1)
+
+
 def predict_raw_ensemble(x: torch.Tensor, arrays: EnsembleArrays,
                          tree_class: torch.Tensor,
                          num_class: int) -> torch.Tensor:
     """Raw scores (N, num_class) f32: per-class sums of tree outputs,
-    accumulated tree by tree."""
-    leaves = predict_leaf_index(x, arrays)                       # (N, T)
-    tix = torch.arange(leaves.shape[1], device=x.device)[None, :]
-    vals = arrays.leaf_value[tix, leaves]                        # (N, T)
+    accumulated tree by tree, one tree chunk's walk at a time."""
     scores = torch.zeros((x.shape[0], num_class), dtype=torch.float32,
                          device=x.device)
     classes = tree_class.tolist()
-    for t, k in enumerate(classes):
-        scores[:, k] += vals[:, t]
+    for a, b, leaves in predict_leaf_chunks(x, arrays):
+        tix = torch.arange(a, b, device=x.device)[None, :]
+        vals = arrays.leaf_value[tix, leaves]                    # (N, T_c)
+        for t in range(a, b):
+            scores[:, classes[t]] += vals[:, t - a]
     return scores
 
 

@@ -71,3 +71,44 @@ def test_efb_sparse_bundle_arrays_bit_equal():
     for j, t in zip(jb[:5], tb[:5]):
         np.testing.assert_array_equal(np.asarray(j), np.asarray(t))
     assert jb[5] == tb[5]
+
+
+def _edge_sample(case):
+    r = np.random.RandomState(13)
+    one = np.nextafter(1.0, 2.0)
+    if case == "ulp_chains":
+        # runs of values one ulp apart, and a chain of three
+        base = np.round(r.randn(400), 1)
+        return np.concatenate([base, base[:50], np.nextafter(base[:80], 9),
+                               [1.0, one, np.nextafter(one, 2.0)]]), 0
+    if case == "cross_zero_no_zeros":
+        return r.randn(900), 0
+    if case == "cross_zero_with_zeros":
+        return r.randn(700), 300
+    if case == "all_negative":
+        return -r.exponential(size=600), 250
+    if case == "all_positive":
+        return r.exponential(size=600) * 1e-300, 250
+    if case == "signed_zeros":
+        return np.concatenate([[-0.0, 0.0, -0.0], r.randn(200)]), 5
+    if case == "few_distinct":
+        return np.round(r.randn(1000)), 40
+    return np.zeros(0), 1000                                  # empty
+
+
+@pytest.mark.parametrize("case", ["ulp_chains", "cross_zero_no_zeros",
+                                  "cross_zero_with_zeros", "all_negative",
+                                  "all_positive", "signed_zeros",
+                                  "few_distinct", "empty"])
+@pytest.mark.parametrize("max_bin", [7, 63, 255])
+def test_find_bin_edge_cases_bit_equal(case, max_bin):
+    # the distinct-value collapse and the per-bin counts run as numpy in
+    # the port and value by value in the JAX package
+    values, zeros = _edge_sample(case)
+    total = len(values) + zeros
+    jm, tm = jbin.BinMapper(), tbin.BinMapper()
+    jm.find_bin(values, total, max_bin, 3, 1)
+    tm.find_bin(values, total, max_bin, 3, 1)
+    assert jm.to_dict() == tm.to_dict()
+    assert (jm.min_val, jm.max_val, jm.sparse_rate, jm.is_trivial) \
+        == (tm.min_val, tm.max_val, tm.sparse_rate, tm.is_trivial)

@@ -1924,3 +1924,78 @@ def test_dart_rf_scores_match_predict_on_card(cuda_device, boosting,
                                atol=1e-5)
     np.testing.assert_allclose(raw, cpu.predict(x, raw_score=True),
                                rtol=1e-4, atol=1e-4)
+
+
+def _model_text(n=20_000, seed=51, objective="binary"):
+    x, y = _valid_task(n, seed)
+    p = {"objective": objective, "num_leaves": 31, "max_bin": 63,
+         "min_data_in_leaf": 20, "verbosity": -1}
+    if objective == "multiclass":
+        p["num_class"] = 3
+        y = (y + (x[:, 5] > 0.5)).astype(np.float64)
+    return tlgb.train(p, tlgb.Dataset(x, y), 6, device="cpu") \
+        .model_to_string(), x, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_pred_leaf_card_matches_cpu(cuda_device, objective, monkeypatch):
+    # the raw-value walk compares f32 values with f32 thresholds on both
+    # devices: the same leaves, whole and in tree chunks
+    from lightgbm_tpu_torch.ops import predict as tpredict
+    text, x, _ = _model_text(objective=objective)
+    card = tlgb.Booster(model_str=text, device="cuda")
+    cpu = tlgb.Booster(model_str=text, device="cpu")
+    want = cpu.predict(x, pred_leaf=True)
+    assert np.array_equal(card.predict(x, pred_leaf=True), want)
+    card._gbdt.invalidate_ensemble_cache()
+    monkeypatch.setattr(tpredict, "WALK_ELEMENTS", 3 * len(x))
+    assert np.array_equal(card.predict(x, pred_leaf=True), want)
+    assert np.array_equal(card.predict(x, raw_score=True),
+                          cpu.predict(x, raw_score=True))
+    kw = dict(raw_score=True, pred_early_stop=True, pred_early_stop_freq=2,
+              pred_early_stop_margin=1.5)
+    np.testing.assert_allclose(card.predict(x, **kw), cpu.predict(x, **kw),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_sparse_predict_card_matches_cpu(cuda_device, monkeypatch):
+    import scipy.sparse as sp
+    from lightgbm_tpu_torch import basic as tbasic
+    text, x, _ = _model_text()
+    dense = np.where(np.abs(x) < 0.8, 0.0, np.nan_to_num(x))
+    monkeypatch.setattr(tbasic, "_SPARSE_PREDICT_BATCH", 4096)
+    card = tlgb.Booster(model_str=text, device="cuda")
+    cpu = tlgb.Booster(model_str=text, device="cpu")
+    csr = sp.csr_matrix(dense)
+    assert np.array_equal(card.predict(csr, pred_leaf=True),
+                          cpu.predict(dense, pred_leaf=True))
+    assert np.array_equal(card.predict(csr), cpu.predict(dense))
+
+
+@pytest.mark.gpu
+def test_refit_stats_card_match_plain(cuda_device):
+    # one index_add_ on the card against the same sums on the CPU (f64:
+    # the order of the card's atomic adds moves the last digits only)
+    from lightgbm_tpu_torch.continual import refit as trefit
+    r = np.random.RandomState(5)
+    leaves = r.randint(0, 31, size=(50_000, 12)).astype(np.int32)
+    g = r.randn(3, 50_000).astype(np.float32)
+    h = r.rand(3, 50_000).astype(np.float32)
+    n0 = trefit.dispatches
+    got = trefit.leaf_stats(leaves, torch.as_tensor(g, device=cuda_device),
+                            torch.as_tensor(h, device=cuda_device),
+                            num_tree_per_iteration=3, max_leaves=31)
+    assert trefit.dispatches == n0 + 1
+    want = trefit.leaf_stats(leaves, torch.as_tensor(g),
+                             torch.as_tensor(h), num_tree_per_iteration=3,
+                             max_leaves=31)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+    text, x, y = _model_text()
+    card = tlgb.Booster(model_str=text, device="cuda").refit(x, y, 0.9)
+    cpu = tlgb.Booster(model_str=text, device="cpu").refit(x, y, 0.9)
+    for a, b in zip(card._gbdt.models, cpu._gbdt.models):
+        np.testing.assert_allclose(a.leaf_value[:a.num_leaves],
+                                   b.leaf_value[:b.num_leaves], rtol=1e-9,
+                                   atol=1e-12)
