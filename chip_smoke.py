@@ -233,6 +233,32 @@ Phases, one JSON line each:
                syncs and launches per tree; fails unless the forced splits
                top every tree, AUC > 0.7 (not for CEGB, recorded), and
                CEGB grows fewer leaves;
+  train_stream out of core on the higgs-1m rows and params
+               (strategy=chunk, CH = 65,536 rows; its device loop is the
+               compact core's split step, and the chunk core,
+               grow_tree_chunk_core, its host-loop oracle): one tree from
+               exact gradients (multiples of 0.25, unit hessians) whose
+               device-loop records must equal the chunk host loop's and
+               the compact strategy's; strategy=chunk for STREAM_ROUNDS
+               (5) rounds on the fused iteration (steady s per iteration,
+               launches and device ms of a profiled iteration, the
+               launches per split it adds over compact's step; AUC > 0.7
+               and within 0.001 of the compact model of as many rounds);
+               stream_mode=chunked for the same rounds, whose model text
+               must equal the resident chunk strategy's on the same
+               (generic) iteration, with H2D
+               bytes per iteration N x CW x 4, the overlap fraction and
+               stream wait, device_data_bytes and peak device memory
+               beside the resident run's (the streamed peak lower by at
+               least the resident codes' bytes); quantized (grad_bits 8),
+               QUANT_STREAM_ROUNDS (2) rounds streamed against resident,
+               equal model text; stream_mode=goss (boosting=goss,
+               learning_rate 0.5: 3 of the 5 rounds sampled) twice, equal
+               model text, AUC > 0.7, H2D bytes against chunked and the
+               working set's hits (> 0, the router launched); then
+               TWO_ROUND_ROWS (200,000) rows as CSV loaded with
+               two_round=true and in memory (numpy's parse): equal bins
+               and 2 rounds of equal model text, each load's s;
   train_cat    bench.py's categorical variant (the last 8 of the 28
                columns hold 64 categories each, per-category effects on
                the margin) with those columns as categorical_feature:
@@ -352,7 +378,8 @@ SLEEP_CYCLES = 100_000_000
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
           "booster_api", "train_quant", "train_masked", "train_bag", "train_valid",
           "train_objectives", "train_multiclass", "train_boost",
-          "train_learners", "train_cat", "train_rank", "loop", "reference")
+          "train_learners", "train_stream", "train_cat", "train_rank",
+          "loop", "reference")
 
 # bench.py's categorical variant (BENCH_CAT_FEATURES=8, BENCH_CAT_CARD=64)
 CAT_FEATURES = 8
@@ -851,7 +878,7 @@ def main():
     need_data = need_float or bool(run & {
         "k1", "k2", "k3", "k4", "train_bag", "train_valid",
         "train_objectives", "train_multiclass", "train_boost",
-        "train_learners"})
+        "train_learners", "train_stream"})
     t0 = time.time()
     x, y, w_true = make_higgs_like(args.rows, f)
     xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
@@ -1033,7 +1060,7 @@ def main():
 
     # ---- train: the main path (compact, float) ----------------------------
     launches = qlaunches = host_launches = qhost_launches = None
-    valid_auc = train = prof = train_quant = None
+    valid_auc = train = prof = train_quant = compact_auc5 = None
     if need_float:
         bst, launches, train_s, peak = timed_train(params, ds)
         pv = bst.predict(xv)
@@ -1046,8 +1073,10 @@ def main():
                        - bst.predict(x, raw_score=True))
         tmoved = f32_threshold_rows(ds._inner, x)
         hbst, host_launches, host = host_side(params, ds)
-        # the main path's model of the host loop's rounds
+        # the main path's model of the host loop's rounds, and of the
+        # train_stream phase's
         valid_auc_h = auc(yv, bst.predict(xv, num_iteration=HOST_ROUNDS))
+        compact_auc5 = auc(yv, bst.predict(xv, num_iteration=STREAM_ROUNDS))
         train = dict({"phase": "train", "rows": args.rows, "features": f,
                       "rounds": args.rounds, "params": params,
                       "strategy": bst._gbdt.learner.strategy,
@@ -1359,6 +1388,15 @@ def main():
         emit(learners)
         if problems:
             fail("train_learners: %s" % "; ".join(problems))
+    stream_counts = {}
+    if "train_stream" in run:
+        row, problems, stream_counts = stream_phase(
+            torch, dev, lgb, params, ds, x, y, xv, yv, compact_auc5,
+            timed_train,
+            growth, steady_s, profile_one)
+        emit(row)
+        if problems:
+            fail("train_stream: %s" % "; ".join(problems))
     if need_data:
         del ds
 
@@ -1390,15 +1428,19 @@ def main():
 
     # ---- kernels line (a run of every phase) -----------------------------
     if every:
-        def kernel_entry(name, source, replaces, n, rows, err_key):
+        def kernel_entry(name, source, replaces, n, rows, err_key,
+                         stream_key=None):
             r0 = rows[0]
-            return {"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": n,
-                    "max_abs_err": max(rw[err_key] for rw in rows),
-                    "ms": r0["ms"], "device_ms": r0["device_ms"],
-                    "plain_ms": r0["plain_ms"],
-                    "bound_ms": r0["bound_ms"], "bound_by": r0["bound_by"],
-                    "library_ms": r0["library_ms"]}
+            entry = {"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": n,
+                     "max_abs_err": max(rw[err_key] for rw in rows),
+                     "ms": r0["ms"], "device_ms": r0["device_ms"],
+                     "plain_ms": r0["plain_ms"],
+                     "bound_ms": r0["bound_ms"], "bound_by": r0["bound_by"],
+                     "library_ms": r0["library_ms"]}
+            if stream_key is not None and stream_key in stream_counts:
+                entry["train_stream_launches"] = stream_counts[stream_key]
+            return entry
 
         hk = "lightgbm_tpu/ops/pallas/histogram_kernel.py"
         pk = "lightgbm_tpu/ops/pallas/partition_kernel.py:48"
@@ -1411,11 +1453,13 @@ def main():
         # path (the device loop) for the window entries and the split key,
         # the host loop beside it for the host-int entries of K1, K3, K4,
         # the masked strategy's device loop (float, quantized for K3t) for
-        # K2 / K3t and the column split key
+        # K2 / K3t and the column split key. The train_stream phase's
+        # device-loop runs (strategy=chunk, streamed, streamed GOSS) count
+        # apart, in train_stream_launches
         kernels = [
             kernel_entry("K1 histogram, device-window entry", hcu,
                          hk + ":41", launches["k1_win"], kr["k1_win"],
-                         "max_abs_err"),
+                         "max_abs_err", "k1_win"),
             kernel_entry("K1 histogram, host-int entry", hcu, hk + ":41",
                          host_launches["k1"], kr["k1"], "max_abs_err"),
             kernel_entry("K2 histogram, (F, N) codes", hcu, hk + ":73",
@@ -1423,7 +1467,7 @@ def main():
                          "max_abs_err"),
             kernel_entry("K3 integer histogram, device-window entry", hcu,
                          hk + ":114", qlaunches["k3_win"], kr["k3_win"],
-                         "max_abs_err"),
+                         "max_abs_err", "k3_win"),
             kernel_entry("K3 integer histogram, packed-row entry", hcu,
                          hk + ":114", qhost_launches["k3"],
                          kr["k3_rows"], "max_abs_err"),
@@ -1435,14 +1479,15 @@ def main():
                          hk + ":152", masked_rows[1]["launches"]["k3t"],
                          kr["k3t"], "max_abs_err"),
             kernel_entry("K4 stable partition, device-window entry", pcu, pk,
-                         launches["k4_win"], kr["k4_win"], "max_abs_err"),
+                         launches["k4_win"], kr["k4_win"], "max_abs_err",
+                         "k4_win"),
             kernel_entry("K4 stable partition, host-int entry", pcu, pk,
                          host_launches["k4"], kr["k4"], "max_abs_err"),
             # no Pallas kernel: XLA fuses the JAX core's window decode
             kernel_entry("split key", "lightgbm_tpu_torch/csrc/split_key.cu",
                          "lightgbm_tpu/models/device_learner.py:2083",
                          launches["split_key"], kr["split_key"],
-                         "max_abs_err"),
+                         "max_abs_err", "split_key"),
             # the masked core's decode and row update (device_learner.py
             # :402-419), in XLA too
             kernel_entry("split key, column entry",
@@ -1458,13 +1503,329 @@ def main():
                          "lightgbm_tpu_torch/csrc/split_key.cu",
                          "lightgbm_tpu/models/device_learner.py:2174",
                          bag_rows[0]["launches"]["route"], kr["route"],
-                         "max_abs_err")]
+                         "max_abs_err", "route")]
         print(smi_line, flush=True)
         emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+# rounds of the train_stream phase's chunk-core runs (quantized streamed:
+# QUANT_STREAM_ROUNDS), and the rows of its two-round file
+STREAM_ROUNDS = 5
+QUANT_STREAM_ROUNDS = 2
+TWO_ROUND_ROWS = 200_000
+
+
+def trees_text(b):
+    """A booster's model text without its parameters block (a streamed
+    and a resident run differ there alone)."""
+    s = b._gbdt.save_model_to_string(0, -1)
+    head, _, rest = s.partition("\nparameters:")
+    return head + rest.partition("end of parameters")[2]
+
+
+def idle_bytes(torch):
+    """Device bytes allocated once the boosters dropped before are
+    collected (their graphs may sit in reference cycles)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return int(torch.cuda.memory_allocated())
+
+
+@contextlib.contextmanager
+def strategy_env(name):
+    """Inside, LGBM_TPU_STRATEGY is `name` (None: unset)."""
+    old = os.environ.pop("LGBM_TPU_STRATEGY", None)
+    if name is not None:
+        os.environ["LGBM_TPU_STRATEGY"] = name
+    try:
+        yield
+    finally:
+        os.environ.pop("LGBM_TPU_STRATEGY", None)
+        if old is not None:
+            os.environ["LGBM_TPU_STRATEGY"] = old
+
+
+def stream_phase(torch, dev, lgb, params, ds, x, y, xv, yv, compact_auc,
+                 timed_train, growth, steady_s, profile_one):
+    """train_stream: out-of-core training on the higgs-1m rows
+    (strategy=chunk, CH = LGBM_TPU_CHUNK, default 65,536: its device loop
+    is the compact core's, the chunk core its host-loop oracle). (row,
+    problems, counts): counts sums the launches of the phase's device-loop
+    runs (K4, K1 / K3 and the split key, the streamed GOSS router), which
+    the kernels line reports apart from the main path's.
+
+    1. one tree from exact gradients (multiples of 0.25, unit hessians):
+       strategy=chunk's device-loop records against the chunk core's host
+       loop's and the compact strategy's (all equal);
+    2. strategy=chunk, STREAM_ROUNDS rounds on the fused iteration: steady
+       s per iteration, launches and device ms of one profiled iteration,
+       the launches per split it adds over compact's step; AUC > 0.7 and
+       within 0.001 of the compact model of as many rounds (`compact_auc`,
+       the train phase's; None: trained here);
+    3. stream_mode=chunked, the same rounds, against the resident chunk
+       strategy on the same (generic) iteration: equal model text; H2D bytes
+       per iteration (N x CW x 4), overlap and wait, device_data_bytes and
+       the peak device memory of both over what each run found allocated
+       (the streamed peak lower by at least the resident codes' bytes);
+    4. quantized (grad_bits 8), QUANT_STREAM_ROUNDS rounds, streamed
+       against resident: equal model text;
+    5. stream_mode=goss (boosting=goss, learning_rate 0.5: 2 warm-up
+       rounds, then 3 sampled), twice: equal model text, AUC > 0.7, H2D
+       bytes per iteration against chunked, working-set hits;
+    6. TWO_ROUND_ROWS rows written as CSV, loaded with two_round=true and
+       in memory (numpy's parse): equal bins, and 2 rounds of equal model
+       text; each load's s."""
+    import tempfile
+
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models.device_learner import DeviceTreeLearner
+    n = len(y)
+    rounds = STREAM_ROUNDS
+    # every key the earlier phases set on the shared Dataset: a Booster
+    # writes its parameters into its Dataset's config, which the next one
+    # inherits
+    plain = {"objective": "binary", "num_class": 1, "boosting": "gbdt",
+             "metric": ["binary_logloss"], "quantized_grad": False,
+             "grad_bits": 8, "bagging_fraction": 1.0, "bagging_freq": 0,
+             "pos_bagging_fraction": 1.0, "neg_bagging_fraction": 1.0,
+             "feature_fraction": 1.0, "feature_fraction_bynode": 1.0,
+             "histogram_pool_size": -1.0, "forcedsplits_filename": "",
+             "cegb_tradeoff": 1.0, "cegb_penalty_split": 0.0,
+             "stream_mode": "off", "stream_chunk_rows": 0,
+             "two_round": False, "learning_rate": params["learning_rate"]}
+    p0 = dict(params, **plain)
+    problems = []
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def auc_of(b):
+        return auc(yv, b.predict(xv))
+
+    row = {"phase": "train_stream", "rows": n, "rounds": rounds}
+
+    # ---- 1. exact gradients: device loop, host loop, compact ----------
+    r = np.random.RandomState(7)
+    g = torch.from_numpy((r.randint(-8, 9, n) * 0.25).astype(np.float32)
+                         ).to(dev)
+    h = torch.ones(n, device=dev)
+    cfg = Config(p0)
+    lc = DeviceTreeLearner(cfg, ds._inner, strategy="chunk", device=dev)
+    lp = DeviceTreeLearner(cfg, ds._inner, strategy="compact", device=dev)
+    rec, leaf, k = lc.grow(g, h)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    hrec, hleaf, hk = lc.chunk_host_loop(g, h)[:3]
+    torch.cuda.synchronize()
+    host_s = time.time() - t1
+    prec, pleaf, pk = lp.grow(g, h)
+    step_c = {kk.rsplit(".", 2)[-2] + "." + kk.rsplit(".", 1)[-1]: v
+              for kk, v in lc._loop.launches_per_step.items()}
+    step_p = {kk.rsplit(".", 2)[-2] + "." + kk.rsplit(".", 1)[-1]: v
+              for kk, v in lp._loop.launches_per_step.items()}
+    exact = {"splits": k, "chunk_rows": lc.chunk_rows,
+             "chunks_max": -(-n // lc.chunk_rows),
+             "host_loop_s": host_s,
+             "device_vs_host_loop_equal": bool(
+                 k == hk and np.array_equal(rec, hrec)
+                 and torch.equal(leaf, hleaf)),
+             "chunk_vs_compact_equal": bool(
+                 k == pk and np.array_equal(rec, prec)
+                 and torch.equal(leaf, pleaf)),
+             "captured_step_launches": step_c,
+             "compact_step_launches": step_p,
+             "kernel_launches_added_per_split":
+                 sum(step_c.values()) - sum(step_p.values())}
+    row["exact_gradients"] = exact
+    if not exact["device_vs_host_loop_equal"]:
+        problems.append("exact gradients: the chunk strategy's device-loop "
+                        "records differ from the chunk core's host loop's")
+    if not exact["chunk_vs_compact_equal"]:
+        problems.append("exact gradients: the chunk strategy's records "
+                        "differ from the compact strategy's")
+    del lc, lp, g, h
+
+    with strategy_env("chunk"):
+        # ---- 2. strategy=chunk on the fused iteration -----------------
+        cb, c_counts, c_s, c_peak = timed_train(p0, ds, rounds=rounds)
+        add(c_counts)
+        c_auc = auc_of(cb)
+        if compact_auc is None:
+            with strategy_env(None):
+                pb, _, _, _ = timed_train(p0, ds, rounds=rounds)
+                compact_auc = auc_of(pb)
+                del pb
+        chunk = dict({"strategy": cb._gbdt.learner.strategy,
+                      "iteration": "fused" if cb._gbdt._fused_step
+                      else "generic", "launches": c_counts},
+                     **growth(cb, c_counts, c_s))
+        chunk.update(train_s=c_s, peak_device_bytes=c_peak, valid_auc=c_auc,
+                     compact_valid_auc=compact_auc,
+                     auc_minus_compact=c_auc - compact_auc,
+                     s_per_iter_steady=steady_s(cb),
+                     profile=profile_one(cb))
+        row["chunk"] = chunk
+        if chunk["strategy"] != "chunk" or chunk["iteration"] != "fused":
+            problems.append("strategy=chunk took %s on the %s iteration"
+                            % (chunk["strategy"], chunk["iteration"]))
+        if not c_auc > 0.7 or abs(c_auc - compact_auc) > 0.001:
+            problems.append("chunk AUC %.5f (want > 0.7, within 0.001 of "
+                            "compact's %.5f)" % (c_auc, compact_auc))
+        if chunk["host_syncs_per_tree"] != 1:
+            problems.append("chunk: %s host syncs per tree"
+                            % chunk["host_syncs_per_tree"])
+        if min(c_counts[kk] for kk in ("k4_win", "k1_win", "split_key")) \
+                <= 0:
+            problems.append("chunk: its kernels did not launch: %s"
+                            % c_counts)
+        del cb
+
+        # ---- 3. stream_mode=chunked against the resident chunk run ----
+        # each peak over what was allocated before its run, the other
+        # run's booster freed
+        base_r = idle_bytes(torch)
+        rb, r_counts, r_s, r_peak = timed_train(p0, ds, loop="generic",
+                                                rounds=rounds)
+        res_bytes = rb._gbdt.learner.device_data_bytes()
+        codes_bytes = int(rb._gbdt.learner.codes_pack.numel() * 4)
+        r_text, r_peak = trees_text(rb), r_peak - base_r
+        del rb
+        base_s = idle_bytes(torch)
+        sb, s_counts, s_s, s_peak = timed_train(
+            dict(p0, stream_mode="chunked"), ds, rounds=rounds)
+        s_peak -= base_s
+        add(s_counts)
+        sl = sb._gbdt.learner
+        shard = sl._shard
+        h2d = shard.h2d_bytes / max(sb.current_iteration(), 1)
+        want_h2d = n * sl.code_words * 4
+        streamed = dict({"iteration": "fused" if sb._gbdt._fused_step
+                         else "generic", "launches": s_counts},
+                        **growth(sb, s_counts, s_s))
+        streamed.update(
+            train_s=s_s, s_per_iter=s_s / rounds,
+            resident_s_per_iter=r_s / rounds,
+            h2d_bytes_per_iter=h2d, want_h2d_bytes_per_iter=want_h2d,
+            overlap_fraction=shard.overlap_fraction(),
+            stream_wait_s=shard.wait_seconds,
+            stream_pass_s=shard.stream_seconds,
+            device_data_bytes=sl.device_data_bytes(),
+            resident_device_data_bytes=res_bytes,
+            peak_device_bytes_over_base=s_peak,
+            resident_peak_device_bytes_over_base=r_peak,
+            base_device_bytes=base_s, resident_base_device_bytes=base_r,
+            resident_codes_bytes=codes_bytes,
+            peak_saved_bytes=r_peak - s_peak,
+            valid_auc=auc_of(sb),
+            model_text_equal=trees_text(sb) == r_text)
+        row["stream_chunked"] = streamed
+        if not streamed["model_text_equal"]:
+            problems.append("stream_mode=chunked grew other trees than the "
+                            "resident chunk run")
+        if h2d != want_h2d:
+            problems.append("streamed %s H2D bytes per iteration, want %d"
+                            % (h2d, want_h2d))
+        if r_peak - s_peak < codes_bytes:
+            problems.append("the streamed peak %d is not below the "
+                            "resident %d by the codes' %d bytes"
+                            % (s_peak, r_peak, codes_bytes))
+        if streamed["device_data_bytes"]["mode"] != "streamed":
+            problems.append("the streamed learner holds resident rows")
+        del sb
+
+        # ---- 4. quantized, streamed against resident ------------------
+        q = dict(p0, quantized_grad=True)
+        qr, _, qr_s, _ = timed_train(q, ds, loop="generic",
+                                     rounds=QUANT_STREAM_ROUNDS)
+        qs, q_counts, qs_s, _ = timed_train(
+            dict(q, stream_mode="chunked"), ds, rounds=QUANT_STREAM_ROUNDS)
+        add(q_counts)
+        row["stream_quantized"] = {
+            "rounds": QUANT_STREAM_ROUNDS, "grad_bits": 8,
+            "s_per_iter": qs_s / QUANT_STREAM_ROUNDS,
+            "resident_s_per_iter": qr_s / QUANT_STREAM_ROUNDS,
+            "launches": q_counts,
+            "model_text_equal": trees_text(qs) == trees_text(qr)}
+        if not row["stream_quantized"]["model_text_equal"]:
+            problems.append("quantized streamed trees differ from the "
+                            "resident chunk run's")
+        if q_counts["k3_win"] <= 0:
+            problems.append("the quantized streamed run did not launch K3's "
+                            "window entry")
+        del qr, qs
+
+    # ---- 5. stream_mode=goss ------------------------------------------
+    gp = dict(p0, boosting="goss", stream_mode="goss", learning_rate=0.5,
+              top_rate=0.2, other_rate=0.1)
+    runs = []
+    for _ in range(2):
+        gb, g_counts, g_s, g_peak = timed_train(gp, ds, rounds=rounds)
+        add(g_counts)
+        gl = gb._gbdt.learner
+        runs.append((gb, g_counts, g_s, g_peak, gl._shard, gl.stream_ws_hits))
+    gb, g_counts, g_s, g_peak, gshard, hits = runs[0]
+    g_auc = auc_of(gb)
+    goss = dict({"settings": {"learning_rate": 0.5, "top_rate": 0.2,
+                              "other_rate": 0.1},
+                 "launches": g_counts}, **growth(gb, g_counts, g_s))
+    goss.update(
+        train_s=g_s, s_per_iter=g_s / rounds, peak_device_bytes=g_peak,
+        valid_auc=g_auc,
+        h2d_bytes_per_iter=gshard.h2d_bytes / rounds,
+        h2d_vs_chunked=gshard.h2d_bytes / rounds / max(h2d, 1),
+        working_set_rows=int(gshard.working_set()[0].size),
+        working_set_hits=hits, overlap_fraction=gshard.overlap_fraction(),
+        router_launches=g_counts["route"],
+        model_text_equal_run_to_run=trees_text(runs[0][0])
+        == trees_text(runs[1][0]))
+    row["stream_goss"] = goss
+    if not g_auc > 0.7:
+        problems.append("streamed GOSS AUC %.5f" % g_auc)
+    if not goss["model_text_equal_run_to_run"]:
+        problems.append("two streamed GOSS runs grew other trees")
+    if hits <= 0 or g_counts["route"] <= 0:
+        problems.append("streamed GOSS: %d working-set hits, %d router "
+                        "launches" % (hits, g_counts["route"]))
+    del runs, gb
+
+    # ---- 6. two-round loading -----------------------------------------
+    m = TWO_ROUND_ROWS
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.csv")
+        t1 = time.time()
+        np.savetxt(path, np.column_stack([y[:m], x[:m]]), fmt="%.9g",
+                   delimiter=",")
+        write_s = time.time() - t1
+        p2 = dict(p0)
+        t1 = time.time()
+        two = lgb.Dataset(path, params=dict(p2, two_round=True)).construct()
+        two_s = time.time() - t1
+        t1 = time.time()
+        rows = np.loadtxt(path, delimiter=",")
+        mem = lgb.Dataset(rows[:, 1:], rows[:, 0], params=p2).construct()
+        mem_s = time.time() - t1
+        same_bins = bool(
+            np.array_equal(two._inner.binned, mem._inner.binned)
+            and two._inner.feature_infos() == mem._inner.feature_infos())
+        b_two = lgb.train(dict(p2, two_round=True), two, num_boost_round=2)
+        b_mem = lgb.train(p2, mem, num_boost_round=2)
+        row["two_round"] = {
+            "rows": m, "csv_write_s": write_s, "two_round_load_s": two_s,
+            "in_memory_load_s": mem_s, "bins_equal": same_bins,
+            "model_text_equal": trees_text(b_two) == trees_text(b_mem)}
+        if not same_bins or not row["two_round"]["model_text_equal"]:
+            problems.append("two_round: bins equal %s, model text equal %s"
+                            % (same_bins, row["two_round"]["model_text_equal"]))
+        del two, mem, b_two, b_mem
+    return row, problems, counts
 
 
 def f32_threshold_rows(inner, x):

@@ -151,14 +151,13 @@ def check_supported(cfg: Config) -> None:
                                                   cfg.objective)
     elif cfg.quantized_grad and cfg.tree_learner != "serial":
         bad = "quantized_grad with tree_learner=%s" % cfg.tree_learner
+    elif cfg.stream_mode != "off" and cfg.tree_learner != "serial":
+        bad = "stream_mode=%s with tree_learner=%s" % (cfg.stream_mode,
+                                                       cfg.tree_learner)
     elif cfg.tree_learner != "serial":
         bad = "tree_learner=%s" % cfg.tree_learner
-    elif cfg.stream_mode != "off":
-        bad = "stream_mode=%s" % cfg.stream_mode
     elif cfg.on_nonfinite != "off":
         bad = "on_nonfinite=%s" % cfg.on_nonfinite
-    elif cfg.two_round:
-        bad = "two_round"
     else:
         unknown = [m for m in cfg.metric
                    if m not in METRIC_NAMES + ["none"]]
@@ -168,7 +167,7 @@ def check_supported(cfg: Config) -> None:
         raise LightGBMError("%s is not supported by lightgbm_tpu_torch yet "
                             "(GBDT, GOSS, DART or RF with any objective, "
                             "tree_learner=serial, float or quantized "
-                            "gradients, in-memory data)" % bad)
+                            "gradients, resident or streamed rows)" % bad)
 
 
 class Dataset:
@@ -209,6 +208,26 @@ class Dataset:
         cfg = Config(self.params)
         check_supported(cfg)
         data, label, names = self.data, self.label, None
+        if isinstance(data, str) and cfg.two_round \
+                and self.reference is None:
+            # out of core: two sequential passes over the file, no float
+            # matrix (io/two_round.py; reference dataset_loader.cpp:168)
+            from .io.two_round import load_two_round
+            cats = self.categorical_feature
+            inner, _ = load_two_round(
+                data, cfg, categorical_feature=(
+                    cats if isinstance(cats, (list, tuple)) else None))
+            self._load_side_files(data)
+            for field, value in (("label", self.label),
+                                 ("weight", self.weight),
+                                 ("group", self.group),
+                                 ("init_score", self.init_score)):
+                if value is not None:
+                    getattr(inner.metadata, "set_" + field)(value)
+            if isinstance(self.feature_name, (list, tuple)):
+                inner.feature_names = list(self.feature_name)
+            self._inner = inner
+            return self
         if isinstance(data, str):
             data, y, qb = parse_file(data)
             if label is None and y is not None:

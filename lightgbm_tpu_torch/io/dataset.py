@@ -14,6 +14,7 @@ import numpy as np
 
 from ..config import Config
 from ..utils import log
+from ..utils.log import LightGBMError
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN,
                       MISSING_NONE, MISSING_ZERO, BinMapper,
                       load_forced_bounds, mapper_from_sample_column,
@@ -158,6 +159,54 @@ class Dataset:
         self.bundled = self._encode_bundles() if self.columns else None
         # derived arrays, built on first use
         self._cache: Dict[str, Any] = {}
+
+    @classmethod
+    def from_binned(cls, binned: np.ndarray, bin_mappers, config,
+                    label=None, weight=None, group=None, init_score=None,
+                    feature_names=None, row_shard=None) -> "Dataset":
+        """A Dataset from an already-binned code matrix and its mappers
+        (the JAX package's from_binned): the two-round loader's entry
+        (io/two_round.py bins chunks of the file straight into `binned`;
+        the float matrix never exists). `binned` holds the non-trivial
+        features' columns, in mapper order. A rank-partitioned block
+        (`row_shard`) waits for the multi-GPU slice and raises."""
+        if row_shard is not None:
+            raise LightGBMError(
+                "Dataset.from_binned(row_shard=...) is not supported by "
+                "lightgbm_tpu_torch yet: row-sharded datasets come with "
+                "the multi-GPU slice (ROADMAP.md item 4)")
+        self = cls.__new__(cls)
+        self.config = config
+        self.num_data = int(binned.shape[0])
+        self.num_total_features = len(bin_mappers)
+        self.metadata = Metadata(self.num_data)
+        if label is not None:
+            self.metadata.set_label(label)
+        self.metadata.set_weight(weight)
+        self.metadata.set_group(group)
+        self.metadata.set_init_score(init_score)
+        self.feature_names = (list(feature_names) if feature_names else
+                              [f"Column_{i}"
+                               for i in range(self.num_total_features)])
+        self.reference = None
+        self.bin_mappers = list(bin_mappers)
+        self.used_features = [i for i, m in enumerate(self.bin_mappers)
+                              if not m.is_trivial]
+        if not self.used_features:
+            log.warning("All features are trivial (constant); "
+                        "nothing to train on")
+        self.max_num_bins = max(
+            [self.bin_mappers[i].num_bin for i in self.used_features],
+            default=1)
+        if binned.shape[1] != max(len(self.used_features), 1):
+            raise LightGBMError("binned width %d must match the %d "
+                                "non-trivial features"
+                                % (binned.shape[1], len(self.used_features)))
+        self.binned = binned
+        self.columns = self._plan_bundles()
+        self.bundled = self._encode_bundles() if self.columns else None
+        self._cache: Dict[str, Any] = {}
+        return self
 
     # ------------------------------------------------------------------
     @staticmethod

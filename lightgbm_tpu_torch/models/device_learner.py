@@ -1,9 +1,10 @@
-"""Leaf-wise tree learner, in torch: the compact and the masked strategy.
+"""Leaf-wise tree learner, in torch: the compact, masked and chunk strategies.
 
 Port of lightgbm_tpu/models/device_learner.py for the serial case of its
-two single-device strategies, each with float or quantized gradients,
+three single-device strategies, each with float or quantized gradients,
 numerical and categorical features, the row sampling of bagging and GOSS,
-per-node feature sampling, and (compact) the LRU-capped histogram pool.
+per-node feature sampling, (compact) the LRU-capped histogram pool, and
+(chunk) rows streamed from the host.
 
 **Compact** (``grow_tree_compact_core``, JAX :808). The reference's
 DataPartition (data_partition.hpp:20-205) becomes one packed int32 working
@@ -57,10 +58,28 @@ and K2 / K3t walk all N rows, as the JAX body does. The tree's split
 records, its split count k and the row -> leaf map stay on the device;
 the caller fetches records and k in one copy.
 
-``grow_tree_compact_core`` and ``grow_tree`` are the same cores as host
-loops (one host sync per split, to read the chosen leaf's best row and
-slice each window with host ints). They are kept as the oracles the
-device loops' records are held against, and no parameter reaches them.
+**Chunk** (``grow_tree_chunk_core``, JAX :1413; ``strategy=chunk``).
+The compact core's rows in one working buffer data0 of N + CH rows, every
+leaf's rows kept in it: a split runs over the leaf's CH-row chunks (K4 on
+each chunk, its rows past the leaf's end at key 2; the chunks' lefts and
+rights then placed, stably, after each other), and the smaller child's
+histogram sums its per-chunk histograms. JAX needs the chunks for its
+fixed shapes; here K4's device-window entry takes any row count on a grid
+fixed by D, so the chunk core's final layout (the stable partition of the
+whole leaf) is the compact core's split in one launch. ``strategy=chunk``
+therefore runs the compact core's device loop, and the chunk core is the
+host loop the tests and chip_smoke hold it to (equal records). Under
+``stream_mode`` (chunked or goss, always ``strategy=chunk``) the learner
+keeps no device copy of the rows, and each tree's working buffer is
+assembled from the host wire store (io/stream.py): every row in order, or
+a bag's rows compacted, GOSS's pinned working set gathered on the device;
+the out-of-bag rows stream through the router.
+
+``grow_tree_compact_core``, ``grow_tree`` and ``grow_tree_chunk_core``
+are the cores as host loops (one host sync per split, to read the chosen
+leaf's best row and slice each window with host ints; the chunk loop one
+more per chunk). They are kept as the oracles the device loops' records
+are held against, and no parameter reaches them.
 
 ``make_fused_step`` ports the JAX single-program boosting iteration:
 gradients, the row sample, the working rows or operand, the tree, its
@@ -107,7 +126,8 @@ from ..ops import bundle as bundle_ops
 from ..ops import quantize as quant_ops
 from ..ops import split as split_ops
 from ..ops.fused import SplitLoop, leaf_values_from_rec
-from ..ops.histogram import build_histogram, subtract_histogram
+from ..ops.histogram import (accumulate_histogram, build_histogram,
+                             subtract_histogram)
 from ..ops.kernels import desc as dsc
 from ..ops.kernels import histogram as khist
 from ..ops.kernels import partition as kpart
@@ -124,7 +144,8 @@ from ..ops.partition import (decide_left, decide_left_categorical,
                              mask_to_words)
 from ..utils import log
 from ..utils import random as trandom
-from ..utils.envs import strategy_env
+from ..io.stream import DeviceDataShard
+from ..utils.envs import chunk_fuse_hist_env, chunk_rows_env, strategy_env
 from ..utils.log import LightGBMError
 from .tree import Tree
 
@@ -171,15 +192,38 @@ def plan_histogram_pool(config: Config, dataset: Dataset):
 
 def resolve_strategy(config: Config, dataset: Dataset,
                      forced: Optional[str] = None) -> str:
-    """The growth strategy: `forced`, else LGBM_TPU_STRATEGY, else auto --
-    compact at 65,536 rows and above, masked below (the JAX rule). The
-    chunk strategy is refused."""
+    """The growth strategy (the JAX package's rule, shared by __init__ and
+    supports): `forced`, else LGBM_TPU_STRATEGY, else auto -- compact at
+    65,536 rows and above, masked below. chunk needs the dense histogram
+    pool: under an LRU-capped pool it falls back to compact here without
+    a word (supports probes this; __init__ logs the fallback once). With
+    stream_mode chunked or goss the result is always chunk, and the
+    masked strategy or an LRU-capped pool raises."""
     strat = forced or strategy_env()
+    stream = str(getattr(config, "stream_mode", "off") or "off")
+    if stream in ("chunked", "goss"):
+        if strat == "masked":
+            raise LightGBMError(
+                "stream_mode=%s requires the chunk growth core; the "
+                "masked strategy has no chunk seam (unset "
+                "LGBM_TPU_STRATEGY=masked or turn streaming off)"
+                % stream)
+        _, pool_slots = plan_histogram_pool(config, dataset)
+        if pool_slots > 0:
+            raise LightGBMError(
+                "stream_mode=%s needs the dense histogram pool but "
+                "num_leaves=%d exceeds the histogram_pool_size budget "
+                "(LRU pool has no chunk seam); raise "
+                "histogram_pool_size or reduce num_leaves"
+                % (stream, int(config.num_leaves)))
+        return "chunk"
     if strat == "auto":
         strat = "compact" if dataset.num_data >= 65536 else "masked"
-    if strat not in ("compact", "masked"):
-        raise LightGBMError("strategy=%s is not supported by this port yet "
-                            "(compact and masked only)" % strat)
+    if strat not in ("compact", "masked", "chunk"):
+        raise LightGBMError("strategy=%s is not a growth strategy (auto, "
+                            "compact, masked or chunk)" % strat)
+    if strat == "chunk" and plan_histogram_pool(config, dataset)[1] > 0:
+        strat = "compact"
     return strat
 
 
@@ -1073,6 +1117,234 @@ def leaf_map(c: DeviceCarry, n_total: Optional[int] = None) -> torch.Tensor:
                        device=c.data.device).scatter_(0, row_ids, pos_leaf)
 
 
+def grow_tree_chunk_core(data: torch.Tensor, base_mask: torch.Tensor,
+                         meta: dict, *, c_cols: int, item_bits: int,
+                         num_leaves: int, col_bins: int, chunk_rows: int,
+                         max_depth: int, l1: float, l2: float,
+                         max_delta_step: float, min_data_in_leaf: int,
+                         min_sum_hessian: float, min_gain_to_split: float,
+                         fuse_hist: bool = True,
+                         quant: Optional[QuantRows] = None,
+                         stats: Optional[GrowStats] = None,
+                         cat_statics=None, rng_key=None, bynode_k: int = 0,
+                         data_prebuilt: bool = False):
+    """Grow one tree with the chunk core (JAX ``grow_tree_chunk_core``,
+    serial) over the working buffer `data` = data0: (N + CH, D) int32,
+    packed codes | gh section | row id, the compact core's row layout
+    (three bitcast f32 gh words, or with `quant` one (qg << 16 | qh)
+    word), then CH = chunk_rows zero pad rows. It is overwritten, and a
+    scratch buffer of its shape is made here. Every leaf's rows stay in
+    `data`, rows [begin, begin + p); a split of a p-row leaf runs over
+    ceil(p / CH) chunks of CH rows:
+
+      pass B, for each chunk: its rows' sides (key 0 left, 1 right, 2 for
+        the rows past the leaf's end), a stable three-way partition of the
+        chunk (K4), its lefts merged forward into `data` at begin + lrun
+        (exactly its lc rows, so later chunks' rows are kept) and its
+        rights staged at the chunk's own place in the scratch buffer;
+      pass C, for each chunk: its staged rights placed at begin + lphys +
+        roff[i] (exactly its rcnt[i] rows), roff the exclusive scan of the
+        chunks' right counts;
+    and the smaller child's histogram is the f32 (float) or int32 sum of
+    its per-chunk histograms, accumulated in the move passes (fuse_hist:
+    chunk i's lefts in pass B, or its rights in pass C) or, fuse_hist off,
+    in a pass of its own over the moved child in CH-row chunks. The
+    sibling is parent - child (a dense pool, as in JAX). The row -> leaf
+    map is the final position -> leaf map scattered over the row ids.
+
+    The root's float histogram is one build over data0[:N], so a streamed
+    buffer and a resident one give the same root bits; the quantized
+    root, exact in int32, accumulates chunk-wise with data_prebuilt (the
+    JAX streaming entry) and is one build otherwise. Leaf
+    re-quantization, categorical splits and by-node sampling are the
+    compact core's (grow_tree_compact_core). This host loop is the oracle
+    the device loop of strategy=chunk (the compact core's) is held to.
+
+    Returns (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k), and
+    with cat_statics the records' (L-1, W) int32 left-bin bitsets after
+    them."""
+    CH = int(chunk_rows)
+    n = data.shape[0] - CH
+    d_cols = data.shape[1]
+    cw = d_cols - (2 if quant is not None else 4)
+    L = num_leaves
+    dev = data.device
+    scratch = torch.zeros_like(data)
+    scan, best_row = _tree_helpers(
+        meta["t_numbins"], meta["t_missing"], meta["t_default"],
+        meta["t_monotone"], meta["t_penalty"], meta["t_elide"],
+        meta["t_hist_idx"], max_depth=max_depth, l1=l1, l2=l2,
+        max_delta_step=max_delta_step, min_data_in_leaf=min_data_in_leaf,
+        min_sum_hessian=min_sum_hessian, min_gain_to_split=min_gain_to_split,
+        f_categorical=meta["t_categorical"], cat_statics=cat_statics)
+    search2 = search2_simple(scan, best_row)
+    renew = quant is not None and quant.root_max is not None
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    root_mask, key = base_mask, None
+    if bynode_k > 0:
+        root_key, key = tree_keys(rng_key, quant is not None, dev)
+        root_mask = node_masks(root_key, base_mask, bynode_k)
+    hist_dtype = torch.float32 if quant is None else torch.int32
+
+    def ratios(leaf_max_q):
+        if not renew:
+            return one, one
+        return (quant_ops.requant_ratio(leaf_max_q[0], quant.qcap_op),
+                quant_ops.requant_ratio(leaf_max_q[1], quant.qcap_op))
+
+    def chunk_hist(acc: torch.Tensor, rows: torch.Tensor, r) -> torch.Tensor:
+        """acc plus the histogram of a contiguous row slice: K1 over its
+        f32 gh words, or K3 over its words re-quantized at ratios r."""
+        codes = packed_codes(rows, cw, c_cols, item_bits)
+        if quant is None:
+            gh = rows.view(torch.float32)[:, cw:cw + 3]
+        else:
+            gh = quant_ops.gh_operand_scaled(rows[:, cw], None, quant.bits,
+                                             quant.qcap_op, r[0], r[1])
+        return accumulate_histogram(acc, codes, gh, col_bins)
+
+    def for_scan(h: torch.Tensor, r) -> torch.Tensor:
+        if quant is None:
+            return h
+        return h.float() * quant_ops.dequant_scale3(quant.s_g * r[0],
+                                                    quant.s_h * r[1])
+
+    def zeros() -> torch.Tensor:
+        return torch.zeros((c_cols, col_bins, 3), dtype=hist_dtype,
+                           device=dev)
+
+    # ---- root ------------------------------------------------------------
+    r0 = ratios(quant.root_max if renew else None)
+    if quant is not None and data_prebuilt:
+        hist0 = zeros()
+        for s in range(0, n, CH):
+            hist0 = chunk_hist(hist0, data[s:min(n, s + CH)], r0)
+    elif quant is not None:
+        hist0 = build_histogram_quantized_rows(
+            data[:n], cw, c_cols, item_bits, r0[0], r0[1], quant.qcap_op,
+            quant.bits, col_bins)
+    else:
+        hist0 = build_histogram(packed_codes(data[:n], cw, c_cols, item_bits),
+                                data[:n].view(torch.float32)[:, cw:cw + 3],
+                                col_bins)
+    totals = for_scan(hist0[0].sum(dim=0), r0)   # (3,): sum_g, sum_h, cnt
+    leaf_min = torch.full((L,), -np.inf, dtype=torch.float32, device=dev)
+    leaf_max = torch.full((L,), np.inf, dtype=torch.float32, device=dev)
+    res0, cm0 = scan(for_scan(hist0, r0)[None], totals[0:1], totals[1:2],
+                     totals[2:3], leaf_min[:1], leaf_max[:1], root_mask)
+    best = torch.full((L, 12), NEG_INF, dtype=torch.float32, device=dev)
+    best[:, B_FEAT:] = 0.0
+    best[0] = best_row(res0, 0)[0]
+    best_cat, rec_cat = _carry_cat(L, 0 if cm0 is None else cm0.shape[1],
+                                   dev)
+    if best_cat is not None:
+        best_cat[0] = cm0[0]
+    pool = torch.zeros((L,) + tuple(hist0.shape), dtype=hist_dtype,
+                       device=dev)
+    pool[0] = hist0
+    if renew:
+        scale_of = torch.ones((L, 2), dtype=torch.float32, device=dev)
+        scale_of[0] = torch.stack(r0)
+        leafmax = torch.zeros((L, 2), dtype=torch.float32, device=dev)
+        leafmax[0] = quant.root_max
+    rec = np.zeros((L - 1, 13), dtype=np.float32)
+    depth = [0] * L
+    leaf_begin = [0] * L
+    leaf_phys = [0] * L
+    leaf_phys[0] = n
+    pos_leaf = torch.zeros(n + CH, dtype=torch.int64, device=dev)
+
+    k = 0
+    while k < L - 1:
+        nxt = _next_split(best, stats)
+        if nxt is None:
+            break
+        l, row, row_dev = nxt
+        new_id = k + 1
+        feat = int(row[B_FEAT])
+        begin, p = leaf_begin[l], leaf_phys[l]
+        nch = -(-p // CH)
+        words = None if best_cat is None else best_cat[l]
+        rq = ratios(leafmax[l] if renew else None)
+        left_small = bool(row[B_LCNT] <= row[B_RCNT])
+        hist_small = zeros()
+        qmax = torch.zeros(4, dtype=torch.int32, device=dev)
+
+        # pass B: each chunk's lefts forward into data, rights staged
+        lrun, rcnt = 0, []
+        for i in range(nch):
+            start = begin + i * CH
+            vc = min(CH, p - i * CH)
+            win = data[start:start + CH].clone()
+            gl = packed_go_left(win[:vc], feat, int(row[B_THR]),
+                                bool(row[B_DLEFT] > 0.5), meta,
+                                item_bits=item_bits, words=words)
+            if renew:
+                qmax = torch.maximum(qmax, kkey.side_maxes(win[:vc], gl, cw))
+            key3 = torch.full((CH,), 2, dtype=torch.int32, device=dev)
+            key3[:vc] = (~gl).to(torch.int32)
+            win_s = stable_partition3(win, key3)
+            lc = int(gl.sum())
+            if stats is not None:
+                stats.host_syncs += 1
+            data[begin + lrun:begin + lrun + lc] = win_s[:lc]
+            scratch[start:start + vc - lc] = win_s[lc:vc]
+            if fuse_hist and left_small:
+                hist_small = chunk_hist(hist_small, win_s[:lc], rq)
+            lrun += lc
+            rcnt.append(vc - lc)
+        lphys = lrun
+        rphys = p - lphys
+
+        # pass C: the staged rights after the left block
+        roff = 0
+        for i in range(nch):
+            seg = scratch[begin + i * CH:begin + i * CH + rcnt[i]]
+            data[begin + lphys + roff:begin + lphys + roff + rcnt[i]] = seg
+            if fuse_hist and not left_small:
+                hist_small = chunk_hist(hist_small, seg, rq)
+            roff += rcnt[i]
+        if not fuse_hist:
+            # the smaller child over its moved rows, CH rows at a time
+            sb, sc = (begin, lphys) if left_small else (begin + lphys, rphys)
+            for s in range(0, sc, CH):
+                hist_small = chunk_hist(
+                    hist_small, data[sb + s:sb + min(sc, s + CH)], rq)
+
+        parent = pool[l]
+        if renew:
+            parent = quant_ops.rescale_histogram(
+                parent, rq[0] / scale_of[l, 0], rq[1] / scale_of[l, 1])
+        sibling = subtract_histogram(parent, hist_small)
+        hist_l, hist_r = ((hist_small, sibling) if left_small
+                          else (sibling, hist_small))
+        pool[l] = hist_l
+        pool[new_id] = hist_r
+        key = split_epilogue(
+            k=k, l=l, new_id=new_id, row=row, row_dev=row_dev,
+            mono_f=int(meta["f_monotone"][feat]), leaf_min=leaf_min,
+            leaf_max=leaf_max, depth=depth, rec=rec, best=best,
+            hist_l=for_scan(hist_l, rq), hist_r=for_scan(hist_r, rq),
+            fmask=base_mask, search2=search2, best_cat=best_cat,
+            rec_cat=rec_cat, key=key, bynode_k=bynode_k)
+        if renew:
+            scale_of[l] = scale_of[new_id] = torch.stack(rq)
+            side = qmax.float().view(2, 2)
+            leafmax[l], leafmax[new_id] = side[0], side[1]
+        leaf_begin[new_id] = begin + lphys
+        leaf_phys[l], leaf_phys[new_id] = lphys, rphys
+        pos_leaf[begin + lphys:begin + p] = new_id
+        k += 1
+    if stats is not None:
+        stats.splits += k
+
+    leaf_id = torch.empty(n, dtype=torch.int64, device=dev)
+    leaf_id[data[:n, d_cols - 1].long()] = pos_leaf[:n]
+    if rec_cat is None:
+        return rec, leaf_id, k
+    return rec, leaf_id, k, rec_cat.cpu().numpy()
+
+
 def grow_tree(codes_t: torch.Tensor, gh: torch.Tensor,
               base_mask: torch.Tensor, meta: dict, *, num_leaves: int,
               col_bins: int, max_depth: int, l1: float, l2: float,
@@ -1286,7 +1558,20 @@ class DeviceTreeLearner:
         self.config = config
         self.dataset = dataset
         self.device = torch.device(device)
+        requested = strategy or strategy_env()
         self.strategy = resolve_strategy(config, dataset, strategy)
+        if requested == "chunk" and self.strategy != "chunk":
+            log.warning("chunk strategy needs the dense histogram pool; "
+                        "using compact (LRU-capped) instead")
+        # out of core: the packed rows stay on the host (io/stream.py) and
+        # each tree's working buffer is assembled from streamed chunks
+        self.stream_mode = str(getattr(config, "stream_mode", "off")
+                               or "off")
+        # the chunk core's rows per chunk (CH) and its fused histogram
+        self.chunk_rows = chunk_rows_env()
+        self.fuse_hist = chunk_fuse_hist_env()
+        self._shard: Optional[DeviceDataShard] = None
+        self._stream_top_hint: Optional[np.ndarray] = None
         # an LRU-capped pool (compact core) when the dense one would pass
         # the histogram_pool_size budget
         _, self.pool_slots = plan_histogram_pool(config, dataset)
@@ -1360,7 +1645,7 @@ class DeviceTreeLearner:
         self.quant_renew = bool(config.quant_renew)
         self.codes_pack: Optional[torch.Tensor] = None
         self.codes_t: Optional[torch.Tensor] = None
-        if self.strategy == "compact":
+        if self.strategy in ("compact", "chunk"):
             if dataset.columns:
                 declared_bins = max(c.num_bins for c in dataset.columns)
             else:
@@ -1372,7 +1657,18 @@ class DeviceTreeLearner:
             else:
                 self.item_bits = 8
             packed = self.pack_codes(host_codes)
-            self.codes_pack = torch.from_numpy(packed.view(np.int32)).to(dev)
+            self.code_words = packed.shape[1]
+            if self.stream_mode != "off":
+                # no device copy of the rows: the host wire store and its
+                # double-buffered chunk pipeline
+                self._shard = DeviceDataShard(
+                    packed, item_bits=self.item_bits, c_cols=self.c_cols,
+                    chunk_rows=int(getattr(config, "stream_chunk_rows", 0)
+                                   or 0),
+                    core_chunk_rows=self.chunk_rows, device=dev)
+            else:
+                self.codes_pack = torch.from_numpy(
+                    packed.view(np.int32)).to(dev)
             self._row_ids = torch.arange(dataset.num_data, dtype=torch.int32,
                                          device=dev)
         else:
@@ -1402,6 +1698,8 @@ class DeviceTreeLearner:
         # records (fetch_tree), None without categorical features
         self.last_rec_cat: Optional[np.ndarray] = None
         self.stats = GrowStats()
+        # streamed GOSS bags: rows taken from the pinned working set
+        self.stream_ws_hits = 0
 
     def pack_codes(self, host_codes: np.ndarray) -> np.ndarray:
         """Bit-pack (N, C) column codes into u32 words for the compact
@@ -1479,10 +1777,13 @@ class DeviceTreeLearner:
 
     def _rows_of(self, bag_idx: Optional[torch.Tensor]):
         """The working rows' packed codes and row ids: every row's, or
-        those of the bag's rows, gathered in bag order (original ids)."""
+        those of the bag's rows, gathered in bag order (original ids).
+        Streaming holds no codes on the device: None (the assembly
+        streams them in)."""
         if bag_idx is None:
             return self.codes_pack, self._row_ids
-        return (self.codes_pack.index_select(0, bag_idx),
+        return (None if self.codes_pack is None
+                else self.codes_pack.index_select(0, bag_idx),
                 bag_idx.to(torch.int32))
 
     def working_buffer(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -1498,11 +1799,12 @@ class DeviceTreeLearner:
         if bag_idx is not None:
             grad, hess = grad.index_select(0, bag_idx), \
                 hess.index_select(0, bag_idx)
-        n, cw = codes.shape
+        n, cw = ids.shape[0], self.code_words
         if out is None:
             out = torch.empty((n, cw + 4), dtype=torch.int32,
                               device=grad.device)
-        out[:, :cw] = codes
+        if codes is not None:
+            out[:, :cw] = codes
         f = out.view(torch.float32)
         f[:, cw] = grad
         f[:, cw + 1] = hess
@@ -1527,7 +1829,7 @@ class DeviceTreeLearner:
         layout). Every working row counts, so no weight word (the JAX
         gw = 1 layout)."""
         codes, ids = self._rows_of(bag_idx)
-        n, cw = codes.shape
+        n, cw = ids.shape[0], self.code_words
         kw = dict(quant_bits=self.quant_bits, quant_renew=self.quant_renew)
         if bag_idx is not None and n_total is not None:
             w = torch.zeros_like(grad).index_fill_(0, bag_idx, 1.0)
@@ -1542,7 +1844,8 @@ class DeviceTreeLearner:
         if out is None:
             out = torch.empty((n, cw + 2), dtype=torch.int32,
                               device=grad.device)
-        out[:, :cw] = codes
+        if codes is not None:
+            out[:, :cw] = codes
         out[:, cw] = packed
         out[:, cw + 1] = ids
         return out, QuantRows(self.quant_bits,
@@ -1633,9 +1936,9 @@ class DeviceTreeLearner:
         the last grown carry's (L-1, W) record bitsets (bit-cast to f32,
         into last_rec_cat). Returns (rec (L-1, 13) f32 numpy, k, flags as
         floats); counts the sync, the splits, with an LRU-capped pool the
-        tree's misses (fetched in the same copy) and, on the compact
-        strategy, the rows K4's window entry moved (each split's window:
-        its two children)."""
+        tree's misses (fetched in the same copy) and, on the compact and
+        chunk strategies, the rows K4's window entry moved (each split's
+        window: its two children)."""
         pooled = getattr(self._carry, "pooled", False)
         if pooled:
             flags = flags + (self._carry.misses,)
@@ -1653,7 +1956,7 @@ class DeviceTreeLearner:
             host = host[:m + 1 + len(flags)]
         k = int(host[m])
         self.stats.splits += k
-        if self.strategy == "compact":
+        if self.strategy in ("compact", "chunk"):
             kpart.rows_win += int(round(float(
                 rec_h[:k, R_LCNT].sum(dtype=np.float64)
                 + rec_h[:k, R_RCNT].sum(dtype=np.float64))))
@@ -1735,7 +2038,7 @@ class DeviceTreeLearner:
         if hit is not None:
             self._carry, self._loop = hit
             return hit
-        d_cols = self.codes_pack.shape[1] + (2 if self.quant_bits else 4)
+        d_cols = self.code_words + (2 if self.quant_bits else 4)
         c = DeviceCarry(n, d_cols, L, (self.c_cols, st["col_bins"], 3),
                         torch.int32 if self.quant_bits else torch.float32,
                         self.num_features, self.device, self.cat_words,
@@ -1815,9 +2118,12 @@ class DeviceTreeLearner:
         bag's carry (the JAX package's bag compaction), and the router
         gives the out-of-bag rows their leaf from the records; n_total is
         where the quantization runs (quant_working_buffer: None, the
-        gathered rows; N, every row before the gather). Returns the
-        carry's (L-1, 13) f32 records and 0-d int32 k (valid until the
-        next tree) and the (N,) int64 leaf_id."""
+        gathered rows; N, every row before the gather). Streaming (the
+        chunk strategy under stream_mode) writes the same buffer's codes
+        from the host wire store (_stream_assemble) and routes the
+        out-of-bag rows over rows streamed from it. Returns the carry's
+        (L-1, 13) f32 records and 0-d int32 k (valid until the next tree)
+        and the (N,) int64 leaf_id."""
         grad, hess = grad.float(), hess.float()
         rows = None if bag_idx is None else bag_idx.shape[0]
         qcap_op = None
@@ -1826,11 +2132,17 @@ class DeviceTreeLearner:
         c, loop = self._device_state(rows, qcap_op)
         st = self._statics()
         self._set_base_mask(c, iter_seed)
-        cw = self.codes_pack.shape[1]
+        cw = self.code_words
         if self.quant_bits:
             _, quant = self.quant_working_buffer(
                 grad, hess, trandom.prng_key(iter_seed), out=c.data,
                 bag_idx=bag_idx, n_total=n_total)
+        else:
+            self.working_buffer(grad, hess, out=c.data, bag_idx=bag_idx)
+        if self._shard is not None:
+            self._stream_assemble(
+                c, None if bag_idx is None else bag_idx.cpu().numpy())
+        if self.quant_bits:
             c.s_g.copy_(quant.s_g)
             c.s_h.copy_(quant.s_h)
             renew = quant.root_max is not None
@@ -1850,7 +2162,6 @@ class DeviceTreeLearner:
                 c.scale_of[0] = torch.stack(r0)
                 c.leafmax[0] = quant.root_max
         else:
-            self.working_buffer(grad, hess, out=c.data, bag_idx=bag_idx)
             hist0 = hist0_s = build_histogram_window(
                 c.data, c.spare, c.root_desc, cw, self.c_cols,
                 self.item_bits, st["col_bins"])
@@ -1863,14 +2174,165 @@ class DeviceTreeLearner:
         c.leaf_phys[:1].fill_(c.data.shape[0])
         loop.run()
         if bag_idx is None:
-            return c.rec, leaf_map(c), c.k
-        leaf_id = leaf_map(c, self.dataset.num_data)
-        routed = route_rows(
-            self.codes_pack.index_select(0, oob_idx), c.rec, c.k,
-            self.meta["t_feature_table"], item_bits=self.item_bits,
-            rec_cat=c.rec_cat,
-            f_cat=self.meta["t_categorical"] if self.cat_words else None)
-        return c.rec, leaf_id.index_copy_(0, oob_idx, routed.long()), c.k
+            leaf_id = leaf_map(c)
+        else:
+            leaf_id = leaf_map(c, self.dataset.num_data).index_copy_(
+                0, oob_idx, self._route_oob(c, oob_idx).long())
+        if self._shard is not None:
+            self._shard.release_buffer("data0")
+        return c.rec, leaf_id, c.k
+
+    def chunk_host_loop(self, grad: torch.Tensor, hess: torch.Tensor,
+                        iter_seed: int = 0):
+        """The chunk core's host loop (grow_tree_chunk_core, the oracle)
+        on this learner's rows and settings, every row, over a data0 of N +
+        CH rows built as grow_compact builds its working buffer (its codes
+        streamed from the wire store when streaming: the JAX streaming
+        entry, data_prebuilt). Returns what grow_tree_chunk_core
+        returns."""
+        grad, hess = grad.float(), hess.float()
+        n, CH = self.dataset.num_data, self.chunk_rows
+        cw = self.code_words
+        data0 = torch.zeros((n + CH, cw + (2 if self.quant_bits else 4)),
+                            dtype=torch.int32, device=self.device)
+        quant = None
+        key = trandom.prng_key(iter_seed)
+        if self.quant_bits:
+            _, quant = self.quant_working_buffer(grad, hess, key,
+                                                 out=data0[:n])
+        else:
+            self.working_buffer(grad, hess, out=data0[:n])
+        if self._shard is not None:
+            for s, cnt, chunk in self._shard.iter_chunks():
+                data0[s:s + cnt, :cw].copy_(chunk)
+        st = self._statics()
+        del st["pool_slots"]
+        mask = self._base_mask(iter_seed)
+        return grow_tree_chunk_core(
+            data0, self._ones_mask if mask is None else mask, self.meta,
+            c_cols=self.c_cols, item_bits=self.item_bits,
+            chunk_rows=CH, fuse_hist=self.fuse_hist, quant=quant,
+            rng_key=key, data_prebuilt=self._shard is not None, **st)
+
+    def _route_oob(self, c, oob_idx: torch.Tensor) -> torch.Tensor:
+        """The out-of-bag rows' leaves from the carry's records (the
+        router entry): over their resident codes, or, streaming, over
+        their rows streamed from the wire store chunk by chunk."""
+        kw = dict(item_bits=self.item_bits, rec_cat=c.rec_cat,
+                  f_cat=self.meta["t_categorical"] if self.cat_words
+                  else None)
+        if self._shard is None:
+            return route_rows(self.codes_pack.index_select(0, oob_idx),
+                              c.rec, c.k, self.meta["t_feature_table"], **kw)
+        return self._stream_full_leaf_id(c, oob_idx, **kw)
+
+    # -- out-of-core streaming (io/stream.py) --------------------------
+    def _stream_assemble(self, c, idx: Optional[np.ndarray]) -> None:
+        """Write the code words of the carry's working buffer from the
+        host wire store; its gh words and row ids are already there. Every row
+        (no bag, stream_mode chunked, or GOSS's warm-up): the wire's
+        chunks in order, pure data movement, so the tree is the resident
+        one. A bag (sorted host row ids `idx`): the bag's rows, compacted;
+        under stream_mode=goss the rows of the pinned working set are
+        gathered on the device without a transfer and the rest stream,
+        then the next working set (stream_note_top) is pinned from the
+        assembled buffer before the tree reorders it."""
+        shard = self._shard
+        codes = c.data.narrow(1, 0, self.code_words)
+        shard.track_buffer("data0", int(c.data.numel() * 4))
+        if idx is None:
+            for s, cnt, chunk in shard.iter_chunks():
+                codes[s:s + cnt].copy_(chunk)
+            return
+        dev = c.data.device
+        miss_pos = np.arange(idx.size, dtype=np.int64)
+        ws_ids, ws_rows = shard.working_set()
+        if ws_ids.size:
+            hit = np.isin(idx, ws_ids.astype(np.int64), assume_unique=True)
+            hit_pos = np.flatnonzero(hit)
+            miss_pos = np.flatnonzero(~hit)
+            if hit_pos.size:
+                cache_pos = np.searchsorted(ws_ids, idx[hit_pos])
+                codes.index_copy_(
+                    0, torch.as_tensor(hit_pos, device=dev),
+                    ws_rows.index_select(
+                        0, torch.as_tensor(cache_pos, device=dev)))
+            self.stream_ws_hits += int(hit_pos.size)
+        if miss_pos.size:
+            for s, cnt, chunk in shard.iter_chunks(row_ids=idx[miss_pos]):
+                codes.index_copy_(
+                    0, torch.as_tensor(miss_pos[s:s + cnt], device=dev),
+                    chunk)
+        self._stream_refresh_ws(c, idx)
+
+    def _stream_refresh_ws(self, c, idx: np.ndarray) -> None:
+        """Pin the booster's top-gradient hint as the next working set,
+        its code rows gathered from the assembled buffer (no transfer)."""
+        top, self._stream_top_hint = self._stream_top_hint, None
+        if top is None or not top.size:
+            return
+        top = np.sort(np.asarray(top).astype(np.int64))
+        top = top[np.isin(top, idx, assume_unique=True)]
+        if not top.size:
+            return
+        pos = torch.as_tensor(np.searchsorted(idx, top),
+                              device=c.data.device)
+        self._shard.pin_working_set(
+            top.astype(np.int32),
+            c.data.narrow(1, 0, self.code_words).index_select(0, pos))
+
+    def _stream_full_leaf_id(self, c, oob_idx: torch.Tensor,
+                             **kw) -> torch.Tensor:
+        """The out-of-bag rows' leaves of a streamed bag's tree: their
+        rows stream from the wire store and the router maps each chunk
+        from the records (the reference's out-of-bag
+        AddPredictionToScore)."""
+        oob = oob_idx.cpu().numpy()
+        out = torch.empty(oob.size, dtype=torch.int32, device=c.data.device)
+        for s, cnt, chunk in self._shard.iter_chunks(row_ids=oob):
+            out[s:s + cnt] = route_rows(chunk, c.rec, c.k,
+                                        self.meta["t_feature_table"], **kw)
+        return out
+
+    def stream_note_top(self, top_ids) -> None:
+        """The booster's GOSS hook: the row ids of this iteration's top
+        |g * h| rows (capped by goss_working_set), the working set to pin
+        for the next. Nothing unless this learner streams."""
+        if self._shard is None:
+            return
+        self._stream_top_hint = np.asarray(top_ids).astype(np.int64)
+
+    def stream_state(self):
+        """The streaming state to checkpoint (None when not streaming)."""
+        if self._shard is None:
+            return None
+        return self._shard.stream_state()
+
+    def load_stream_state(self, st) -> None:
+        if self._shard is not None and st:
+            self._shard.load_stream_state(st)
+
+    def device_data_bytes(self) -> dict:
+        """Device bytes of the row data this learner holds, the streamed
+        against resident quantity (the JAX package's): streamed, the
+        shard's high-water mark (the working buffer, the chunks in flight,
+        the working set); resident, the code buffers plus, on the compact
+        and chunk strategies, the working buffer of N rows that lives
+        beside them while a tree grows. Both are O(N): streaming saves the
+        resident codes (N x CW x 4 bytes) less the chunks in flight. The
+        buffers both modes share (the spare buffer, the pool) are left
+        out."""
+        if self._shard is not None:
+            return {"mode": "streamed",
+                    "bytes": int(max(self._shard.peak_bytes,
+                                     self._shard.live_bytes()))}
+        total = sum(int(a.numel() * a.element_size())
+                    for a in (self.codes_t, self.codes_pack)
+                    if a is not None)
+        if self.codes_pack is not None:
+            total += self.dataset.num_data \
+                * (self.code_words + (2 if self.quant_bits else 4)) * 4
+        return {"mode": "resident", "bytes": int(total)}
 
     def masked_operand(self, grad: torch.Tensor, hess: torch.Tensor,
                        iter_seed: int = 0,
@@ -1983,7 +2445,7 @@ class DeviceTreeLearner:
         else:
             bag_on = cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
             bag_k = max(1, int(n * cfg.bagging_fraction))
-        compact = self.strategy == "compact"
+        compact = self.strategy in ("compact", "chunk")
         bag_compact = compact and bag_on and bag_k < n
 
         def step(score_row: torch.Tensor, iter_seed: int, shrinkage: float,
@@ -2076,5 +2538,6 @@ def _make_bitset(values) -> np.ndarray:
 
 
 __all__: List[str] = ["DeviceTreeLearner", "grow_tree",
-                      "grow_tree_compact_core", "resolve_strategy",
+                      "grow_tree_chunk_core", "grow_tree_compact_core",
+                      "resolve_strategy",
                       "padded_device_bins"]

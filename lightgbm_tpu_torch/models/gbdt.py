@@ -301,7 +301,11 @@ class GBDT:
         iteration), one tree per iteration that trains, on either strategy
         (each grows its tree in its device loop), no leaf renewal (its
         percentiles run on the host) and no pos/neg bagging (its bag is
-        drawn on the host), as in the JAX package."""
+        drawn on the host), and not under stream_mode (the streamed
+        assembly is a host loop of transfers per tree, with no seam in the
+        fused step), as in the JAX package."""
+        if getattr(self.config, "stream_mode", "off") != "off":
+            return False
         return (self.__class__ in (GBDT, GOSS)
                 and isinstance(self.learner, DeviceTreeLearner)
                 and self.objective is not None
@@ -575,8 +579,12 @@ class GBDT:
         accumulating -- binary 2 |score|, multiclass top1 - top2. Each
         chunk of freq x K trees (a slice of the cached ensemble, walked to
         the chunk's own depth) is an f32 sum on the device over the rows
-        still active, added into f64 host scores.
-        ``last_early_stop_trees`` keeps the trees each row summed."""
+        still active, added into f64 host scores. The margin test reads
+        the running sums, as LightGBM's PredictRaw applies it; with
+        average_output (a random forest) each row's sum is then divided by
+        the iterations that row summed, so a row that never stops equals
+        predict_raw. ``last_early_stop_trees`` keeps the trees each row
+        summed."""
         x = _rows_f32(x)
         models = self._used_models(num_iteration, start_iteration)
         arrays, tc, n_models = self.ensemble_arrays(num_iteration,
@@ -607,6 +615,9 @@ class GBDT:
                 m = srt[:, -1] - srt[:, -2]
             active = active[m <= margin]
         self.last_early_stop_trees = trees_used
+        if self.average_output:
+            scores /= np.maximum(
+                1, trees_used // self.num_tree_per_iteration)[:, None]
         return scores
 
     def predict(self, x, num_iteration=None, raw_score=False,
@@ -892,6 +903,13 @@ class GOSS(GBDT):
         sampled = self._bag_rng.choice(len(rest), min(other_k, len(rest)),
                                        replace=False)
         other_idx = rest[sampled]
+        if hasattr(self.learner, "stream_note_top"):
+            # streaming keeps the top rows on the device for the next
+            # iteration: at most goss_working_set of them (0: all)
+            ws_k = int(getattr(self.config, "goss_working_set", 0) or 0)
+            ws_k = top_k if ws_k <= 0 else min(ws_k, top_k)
+            self.learner.stream_note_top(
+                np.sort(top_idx[:ws_k]).astype(np.int32))
         idx = np.sort(np.concatenate([top_idx, other_idx])).astype(np.int32)
         return idx, other_idx, multiply
 

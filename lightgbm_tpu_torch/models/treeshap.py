@@ -153,7 +153,9 @@ def _expected_value(tree) -> float:
 
 def predict_contrib(booster, x, num_iteration=None) -> np.ndarray:
     """(N, (F+1)*K) SHAP values; the last column of each class's block is
-    the expected value."""
+    the expected value. An averaged model's (a random forest's) values,
+    the expected value included, are divided by the iterations used, so
+    each row's sum is its predict_raw score."""
     x = np.asarray(x, dtype=np.float64)
     if x.ndim == 1:
         x = x.reshape(1, -1)
@@ -178,4 +180,6 @@ def predict_contrib(booster, x, num_iteration=None) -> np.ndarray:
             phi[nf] += expected
             _tree_shap(tree, x[i], phi, 0, 0, p, 0, 1.0, 1.0, -1)
             out[i, base:base + nf + 1] += phi
+    if booster.average_output and models:
+        out /= max(1, len(models) // booster.num_tree_per_iteration)
     return out

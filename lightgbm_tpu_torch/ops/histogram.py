@@ -6,10 +6,11 @@ On the card every (P, F) histogram is built by kernel K1 (float) or K3
 (exact int32, quantized gradients) of ops/kernels/histogram.py; a tensor on
 the CPU takes the kernels' plain versions. The JAX package's one-hot
 contraction and its chunk ladder exist for the TPU's MXU and have no
-counterpart here. ``gather_and_build`` / ``gather_and_build_quantized``
-serve the host-loop learner (models/serial_learner.py): a leaf's rows
-gathered from the permutation buffer, then K1's host-int entry or K3's
-operand entry over them.
+counterpart here. ``accumulate_histogram`` adds a chunk's histogram into a
+running total (the chunk core). ``gather_and_build`` /
+``gather_and_build_quantized`` serve the host-loop learner
+(models/serial_learner.py): a leaf's rows gathered from the permutation
+buffer, then K1's host-int entry or K3's operand entry over them.
 """
 from __future__ import annotations
 
@@ -31,6 +32,20 @@ def build_histogram_quantized(binned_rows: torch.Tensor, ghq: torch.Tensor,
     -> (F, B, 3) int32 exact [sum_qg, sum_qh, count]. Rows that must not
     count carry ghq == 0."""
     return _khist.build_histogram_quantized(binned_rows, ghq, num_bins)
+
+
+def accumulate_histogram(acc: torch.Tensor, binned_rows: torch.Tensor,
+                         gh: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """One row chunk's histogram added into the running (F, B, 3) total
+    `acc` (the JAX package's streamed-accumulation seam, which the chunk
+    core's chunk passes and its streamed quantized root use). The
+    accumulator's dtype picks the kernel: int32 takes the exact quantized
+    one (K3, `gh` the integer [qg, qh, valid] operand), f32 the float one
+    (K1). Integer totals do not depend on the chunking; float totals only
+    through the order of the f32 additions."""
+    if acc.dtype == torch.int32:
+        return acc + build_histogram_quantized(binned_rows, gh, num_bins)
+    return acc + build_histogram(binned_rows, gh, num_bins)
 
 
 def subtract_histogram(parent: torch.Tensor,

@@ -6,9 +6,8 @@ import os
 
 
 def strategy_env(default: str = "auto") -> str:
-    """LGBM_TPU_STRATEGY: auto | masked | compact -- the growth strategy
-    read by the device learner's resolve_strategy (the JAX package also
-    takes chunk, which this port refuses)."""
+    """LGBM_TPU_STRATEGY: auto | masked | compact | chunk -- the growth
+    strategy read by the device learner's resolve_strategy."""
     return os.environ.get("LGBM_TPU_STRATEGY", default).strip().lower()
 
 
@@ -23,3 +22,18 @@ def host_refit_env() -> bool:
     host loop (GBDT._refit_leaves_host, the oracle) instead of one
     index_add_ on the device."""
     return os.environ.get("LGBM_TPU_HOST_REFIT", "0") == "1"
+
+
+def chunk_rows_env() -> int:
+    """LGBM_TPU_CHUNK: the chunk core's rows per chunk (CH), floored at
+    8,192; default 65,536 (the JAX package's)."""
+    return max(8192, int(os.environ.get("LGBM_TPU_CHUNK", "65536")))
+
+
+def chunk_fuse_hist_env() -> bool:
+    """False when LGBM_TPU_CHUNK_NO_FUSE_HIST is 1 / true / yes / on (the
+    JAX package's flag): the chunk core then builds the smaller child's
+    histogram in a pass of its own after the move, not inside the move
+    passes."""
+    return os.environ.get("LGBM_TPU_CHUNK_NO_FUSE_HIST", "0").strip() \
+        .lower() not in ("1", "true", "yes", "on")

@@ -191,12 +191,13 @@ def test_weights_and_init_score_match_jax(monkeypatch):
     ("objective", "multiclass"), ("tree_learner", "voting"),
     ("tree_learner", "feature"), ("quantized_grad", True),
     ("tree_learner", "data"), ("on_nonfinite", "raise"),
-    ("two_round", True), ("stream_mode", "chunked")])
+    ("stream_mode", "chunked")])
 def test_out_of_slice_params_raise_naming_the_key(key, value):
     x, y = _task("binary", n=200)
     params = dict(_params("binary"), **{key: value})
-    if key == "quantized_grad":
-        # quantized gradients run on the serial learner only
+    if key in ("quantized_grad", "stream_mode"):
+        # quantized gradients and streaming run on the serial learner
+        # only (streamed data-parallel waits for the multi-GPU slice)
         params["tree_learner"] = "data"
     with pytest.raises(LightGBMError, match=key):
         tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=1,

@@ -1999,3 +1999,68 @@ def test_refit_stats_card_match_plain(cuda_device):
         np.testing.assert_allclose(a.leaf_value[:a.num_leaves],
                                    b.leaf_value[:b.num_leaves], rtol=1e-9,
                                    atol=1e-12)
+
+
+# ---- out of core: the shard's pipeline and the chunk core on the card ------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("subset", [False, True])
+def test_shard_chunks_on_card_equal_the_wire(cuda_device, subset):
+    # pinned host store, side copy stream, two device buffers: every chunk
+    # is the wire's rows, whatever the caller does with the one before
+    from lightgbm_tpu_torch.io.stream import DeviceDataShard
+    r = np.random.RandomState(5)
+    wire = r.randint(0, 2**32, (70_001, 7), dtype=np.uint64) \
+        .astype(np.uint32)
+    sh = DeviceDataShard(wire, item_bits=8, c_cols=28, chunk_rows=8192,
+                         device=cuda_device)
+    assert sh.wire.is_pinned()
+    ids = np.sort(r.choice(len(wire), 30_000, replace=False)) if subset \
+        else None
+    want = wire if ids is None else wire[ids]
+    got = torch.empty((len(want), 7), dtype=torch.int32, device=cuda_device)
+    for s, cnt, chunk in sh.iter_chunks(row_ids=ids):
+        assert chunk.device.type == "cuda"
+        got[s:s + cnt] = chunk * 1          # work on the compute stream
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want)
+    assert sh.h2d_bytes == want.nbytes and sh.cursor == -(-len(want) // 8192)
+    assert 0.0 <= sh.overlap_fraction() <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_chunk_tree_on_card_equals_cpu(cuda_device, quant, monkeypatch):
+    # exact gradients (multiples of 0.25, unit hessians): strategy=chunk's
+    # device loop on the card (the compact core's, one K4 launch per
+    # split) grows the chunk core's host loop records, bit for bit, and
+    # the CPU's tree: float records equal; quantized (whose split scan reads
+    # dequantized f32 sums, rounded on each device) the leaf, feature and
+    # count columns and every row's leaf equal, the outputs within 1e-4
+    # (test_bag_carry_captured_tree_matches_cpu's bar)
+    monkeypatch.setenv("LGBM_TPU_CHUNK", "8192")
+    params = {"quantized_grad": quant, "grad_bits": 8}
+    lr, _ = _compact_learner(cuda_device, 70_000, params, strategy="chunk")
+    cpu, _ = _compact_learner("cpu", 70_000, params, strategy="chunk")
+    r = np.random.RandomState(4)
+    g = torch.from_numpy((r.randint(-8, 9, 70_000) * 0.25)
+                         .astype(np.float32))
+    h = torch.ones(70_000)
+    rec, leaf, k = lr.grow(g.to(cuda_device), h.to(cuda_device))
+    crec, cleaf, ck = cpu.grow(g, h)
+    hrec, hleaf, hk = lr.chunk_host_loop(g.to(cuda_device),
+                                         h.to(cuda_device))[:3]
+    assert k == ck == hk == 30
+    np.testing.assert_array_equal(rec, hrec)
+    assert torch.equal(leaf, hleaf) and torch.equal(leaf.cpu(), cleaf)
+    if quant:
+        ints = [tdl.R_LEAF, tdl.R_FEAT, tdl.R_LCNT, tdl.R_RCNT]
+        np.testing.assert_array_equal(rec[:, ints], crec[:, ints])
+        np.testing.assert_allclose(rec[:, [tdl.R_LOUT, tdl.R_ROUT]],
+                                   crec[:, [tdl.R_LOUT, tdl.R_ROUT]],
+                                   rtol=1e-4, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(rec, crec)
+    step = lr._loop.launches_per_step
+    assert step["lightgbm_tpu_torch.ops.kernels.partition.launches_win"] \
+        == 1

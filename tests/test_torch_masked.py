@@ -113,7 +113,9 @@ def test_auto_picks_masked_below_65536_rows(monkeypatch):
     monkeypatch.setenv("LGBM_TPU_STRATEGY", "compact")
     assert tdl.resolve_strategy(cfg, ds) == "compact"
     monkeypatch.setenv("LGBM_TPU_STRATEGY", "chunk")
-    with pytest.raises(tdl.LightGBMError, match="chunk"):
+    assert tdl.resolve_strategy(cfg, ds) == "chunk"
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", "sideways")
+    with pytest.raises(tdl.LightGBMError, match="sideways"):
         tdl.resolve_strategy(cfg, ds)
 
 

@@ -141,3 +141,82 @@ def test_chunked_walk_is_bit_equal(models, monkeypatch):
     assert len(tpredict.tree_chunks(len(xq), tb.num_trees())) > 2
     assert np.array_equal(tb.predict(xq, raw_score=True), raw)
     assert np.array_equal(tb.predict(xq, pred_leaf=True), leaves)
+
+
+# ---- a random forest: averaged early stop and contributions -------------
+
+RF_ROUNDS = 4
+
+
+@pytest.fixture(scope="module")
+def rf_models():
+    """A binary random forest (bagging 0.7, 4 iterations of 7 leaves,
+    2,000 x 6 rows from seed 3) trained in the JAX package, read by both
+    packages, and its first 300 rows."""
+    r = np.random.RandomState(3)
+    x = r.randn(2000, 6)
+    y = ((1.5 * x[:, 0] - x[:, 1] + 0.5 * r.randn(2000)) > 0) \
+        .astype(np.float64)
+    params = {"objective": "binary", "boosting": "rf", "num_leaves": 7,
+              "bagging_fraction": 0.7, "bagging_freq": 1,
+              "min_data_in_leaf": 20, "verbosity": -1}
+    text = jlgb.train(params, jlgb.Dataset(x, y), RF_ROUNDS,
+                      verbose_eval=False).model_to_string()
+    assert "average_output" in text
+    return (jlgb.Booster(model_str=text),
+            tlgb.Booster(model_str=text, device="cpu"), x[:300])
+
+
+def _rf_f32_tree_scores(tb, xq):
+    """(N, T) each tree's f32 leaf value of each row, in f64: what the
+    walk adds per tree."""
+    leaves = tb.predict(xq, pred_leaf=True)
+    return np.stack([np.float32(t.leaf_value[leaves[:, i]])
+                     for i, t in enumerate(tb._gbdt.models)],
+                    axis=1).astype(np.float64)
+
+
+def test_rf_early_stop_without_stops_is_averaged(rf_models):
+    jb, tb, xq = rf_models
+    kw = dict(raw_score=True, pred_early_stop=True,
+              pred_early_stop_freq=10, pred_early_stop_margin=1e9)
+    got = tb.predict(xq, **kw)
+    assert (tb._gbdt.last_early_stop_trees == RF_ROUNDS).all()
+    raw = tb.predict(xq, raw_score=True)
+    assert np.max(np.abs(got - raw)) <= 1e-9
+    # the JAX package sums the trees (ROADMAP.md section 3): its output
+    # divided by the iterations
+    assert np.max(np.abs(got - jb.predict(xq, **kw) / RF_ROUNDS)) <= 1e-9
+
+
+def test_rf_early_stop_that_stops_matches_a_loop_over_the_trees(rf_models):
+    jb, tb, xq = rf_models
+    got = tb.predict(xq, raw_score=True, pred_early_stop=True,
+                     pred_early_stop_freq=1, pred_early_stop_margin=2.0)
+    per_tree = _rf_f32_tree_scores(tb, xq)
+    want = np.zeros(len(xq))
+    for i in range(len(xq)):
+        s, used = 0.0, 0
+        for v in per_tree[i]:
+            s += v
+            used += 1
+            if 2.0 * abs(s) > 2.0:
+                break
+        want[i] = s / used
+    assert (tb._gbdt.last_early_stop_trees < RF_ROUNDS).any()
+    assert np.max(np.abs(got - want)) <= 1e-9
+
+
+def test_rf_contributions_sum_to_the_averaged_score(rf_models):
+    jb, tb, xq = rf_models
+    got = tb.predict(xq[:60], pred_contrib=True)
+    # each row sums to the f64 mean of its leaves' values, and to the
+    # raw score within its f32 rounding (the walk sums in f32)
+    leaves = tb.predict(xq[:60], pred_leaf=True)
+    mean = np.mean([t.leaf_value[leaves[:, i]]
+                    for i, t in enumerate(tb._gbdt.models)], axis=0)
+    assert np.max(np.abs(got.sum(axis=1) - mean)) <= 1e-9
+    raw = tb.predict(xq[:60], raw_score=True)
+    assert np.max(np.abs(got.sum(axis=1) - raw)) <= 1e-6
+    want = jb.predict(xq[:60], pred_contrib=True) / RF_ROUNDS
+    assert np.max(np.abs(got - want)) <= 1e-9
