@@ -259,6 +259,27 @@ Phases, one JSON line each:
                TWO_ROUND_ROWS (200,000) rows as CSV loaded with
                two_round=true and in memory (numpy's parse): equal bins
                and 2 rounds of equal model text, each load's s;
+  resilience   checkpoints, resume, the sentries and telemetry on the
+               higgs-1m rows and params, RES_ROUNDS (10) rounds: the same
+               run with bagging 0.8 twice, equal model text (determinism);
+               a child process (the Dataset from save_binary) checkpoints
+               every 5 rounds and dies by kill_rank@iter=7 (exit 137),
+               the resume here to 10 rounds writes the uninterrupted
+               model text; a preempt@iter=4 child exits 76 and
+               num_boost_round=None finishes its emergency checkpoint,
+               equal too; quantized (grad_bits 8) in one process, equal;
+               the checkpoint's bytes, save and restore ms;
+               nan_grad@iter=3,frac=0.01 under raise (names iteration 3),
+               skip_iter (9 trees) and rollback (AUC > 0.7 and within
+               0.005 of the clean run); a NaN put into the training
+               scores trips the fused iteration's guard (nothing
+               committed, 1 host sync); telemetry off, summary and trace:
+               steady s per iteration (recorded), 1 host sync per tree and
+               equal model text in every mode, the phase shares, the
+               trace's spans, and a torch.profiler trace under
+               LGBM_TPU_XLA_TRACE naming K1's and K4's kernels. Its
+               launches count apart from the main path's
+               (resilience_launches in the kernels line);
   train_cat    bench.py's categorical variant (the last 8 of the 28
                columns hold 64 categories each, per-category effects on
                the margin) with those columns as categorical_feature:
@@ -363,6 +384,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -378,8 +400,8 @@ SLEEP_CYCLES = 100_000_000
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
           "booster_api", "train_quant", "train_masked", "train_bag", "train_valid",
           "train_objectives", "train_multiclass", "train_boost",
-          "train_learners", "train_stream", "train_cat", "train_rank",
-          "loop", "reference")
+          "train_learners", "train_stream", "resilience", "train_cat",
+          "train_rank", "loop", "reference")
 
 # bench.py's categorical variant (BENCH_CAT_FEATURES=8, BENCH_CAT_CARD=64)
 CAT_FEATURES = 8
@@ -878,7 +900,7 @@ def main():
     need_data = need_float or bool(run & {
         "k1", "k2", "k3", "k4", "train_bag", "train_valid",
         "train_objectives", "train_multiclass", "train_boost",
-        "train_learners", "train_stream"})
+        "train_learners", "train_stream", "resilience"})
     t0 = time.time()
     x, y, w_true = make_higgs_like(args.rows, f)
     xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
@@ -1397,6 +1419,16 @@ def main():
         emit(row)
         if problems:
             fail("train_stream: %s" % "; ".join(problems))
+    res_counts = {}
+    if "resilience" in run:
+        row, problems, res_counts = resilience_phase(
+            torch, lgb, params, ds, yv, xv,
+            None if valid_auc is None else (valid_auc, args.rounds),
+            reset_counts, read_counts, {"K1": r"hist_fixed",
+                                    "K4": r"partition"})
+        emit(row)
+        if problems:
+            fail("resilience: %s" % "; ".join(problems))
     if need_data:
         del ds
 
@@ -1440,6 +1472,8 @@ def main():
                      "library_ms": r0["library_ms"]}
             if stream_key is not None and stream_key in stream_counts:
                 entry["train_stream_launches"] = stream_counts[stream_key]
+            if stream_key is not None and stream_key in res_counts:
+                entry["resilience_launches"] = res_counts[stream_key]
             return entry
 
         hk = "lightgbm_tpu/ops/pallas/histogram_kernel.py"
@@ -1455,7 +1489,8 @@ def main():
         # the masked strategy's device loop (float, quantized for K3t) for
         # K2 / K3t and the column split key. The train_stream phase's
         # device-loop runs (strategy=chunk, streamed, streamed GOSS) count
-        # apart, in train_stream_launches
+        # apart, in train_stream_launches, and the resilience phase's runs
+        # (checkpointed, resumed, guarded, traced) in resilience_launches
         kernels = [
             kernel_entry("K1 histogram, device-window entry", hcu,
                          hk + ":41", launches["k1_win"], kr["k1_win"],
@@ -1517,6 +1552,472 @@ def main():
 STREAM_ROUNDS = 5
 QUANT_STREAM_ROUNDS = 2
 TWO_ROUND_ROWS = 200_000
+
+
+# rounds of the resilience phase's runs; the kill and the preemption land
+# at these iterations, the periodic checkpoints every RES_CKPT_FREQ
+RES_ROUNDS = 10
+RES_CKPT_FREQ = 5
+RES_KILL_AT = 7
+RES_PREEMPT_AT = 4
+RES_NAN_AT = 3
+# the telemetry modes' runs: rounds before the steady iterations, the
+# steady iterations per mode (interleaved), and the generic iterations
+# under torch's sync debug mode per mode
+RES_MODE_ROUNDS = 5
+RES_STEADY_ITERS = 24
+RES_SYNC_ITERS = 4
+
+_RES_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.callback import checkpoint
+from lightgbm_tpu_torch.io.dataset import Dataset as Inner
+params = {params!r}
+ds = lgb.Dataset({binary!r}, params=params)
+ds._inner = Inner.load_binary({binary!r}, params)
+lgb.train(params, ds, num_boost_round={rounds},
+          callbacks=[checkpoint({directory!r}, checkpoint_freq={freq})])
+"""
+
+
+def resilience_phase(torch, lgb, params, ds, yv, xv, fused,
+                     reset_counts, read_counts, kernel_names):
+    """resilience: checkpoints, resume, the sentries and telemetry on the
+    higgs-1m rows and params, RES_ROUNDS rounds. (row, problems, counts):
+    counts sums the launches of the phase's runs, which the kernels line
+    reports apart from the main path's.
+
+    1. the same float run with bagging 0.8 twice: equal model text (the
+       determinism that kill-and-resume stands on; on a difference one
+       more run under torch.use_deterministic_algorithms(True) names the
+       op, and the phase fails);
+    2. kill and resume: a child process (the Dataset from save_binary)
+       checkpoints every RES_CKPT_FREQ rounds and dies at RES_KILL_AT
+       (kill_rank, exit 137); this process resumes it to RES_ROUNDS:
+       model text equal to step 1's; a second child under preempt@iter=
+       RES_PREEMPT_AT exits 76 with an emergency checkpoint that records
+       target_rounds, and num_boost_round=None finishes it, equal too;
+       the same in one process for quantized gradients (grad_bits 8);
+    3. the checkpoint's bytes, save ms and restore ms at 1M rows;
+    4. nan_grad@iter=RES_NAN_AT,frac=0.01: raise names the iteration,
+       skip_iter leaves RES_ROUNDS - 1 trees; rollback leaves RES_ROUNDS
+       - 1 trees (it redoes the iteration before the fault), its AUC
+       > 0.7 and within 0.005 of a clean run of as many rounds on the
+       same generic iteration, its trees before the fault with the clean
+       run's leaves for every held-out row (the share of equal leaves per
+       tree recorded), and its gap to the train phase's fused run
+       (`fused`: (AUC, rounds), or None) recorded beside; a NaN put into
+       the training scores trips the fused iteration's guard (skip_iter:
+       nothing committed, the tree's one fetch the only sync);
+    5. telemetry off, summary and trace, one Booster each of
+       RES_MODE_ROUNDS rounds, then RES_STEADY_ITERS steady iterations
+       each with the modes interleaved: s per iteration (median, p10,
+       p90, min, max; recorded), host syncs per tree (1) and model text
+       (equal across the modes), the phase shares, the trace's span
+       count; the generic iteration RES_SYNC_ITERS times per mode after
+       a warm-up, the modes interleaved, under torch's sync debug mode:
+       as many synchronizing calls in each mode (at least 1 per
+       iteration), 1 learner sync per tree, the gradient norms in every
+       summary / trace record; then one iteration under
+       LGBM_TPU_XLA_TRACE, whose torch.profiler trace must name K1's and
+       K4's kernels."""
+    import shutil
+    import tempfile
+
+    from lightgbm_tpu_torch import telemetry
+    from lightgbm_tpu_torch.callback import checkpoint
+    from lightgbm_tpu_torch.resilience import faults
+    from lightgbm_tpu_torch.resilience.checkpoint import find_checkpoint
+    from lightgbm_tpu_torch.resilience.sentries import NonFiniteError
+
+    # every key the earlier phases set on the shared Dataset (a Booster
+    # writes its parameters into its Dataset's config)
+    plain = {"objective": "binary", "num_class": 1, "boosting": "gbdt",
+             "metric": ["binary_logloss"], "quantized_grad": False,
+             "grad_bits": 8, "bagging_fraction": 1.0, "bagging_freq": 0,
+             "pos_bagging_fraction": 1.0, "neg_bagging_fraction": 1.0,
+             "feature_fraction": 1.0, "feature_fraction_bynode": 1.0,
+             "histogram_pool_size": -1.0, "forcedsplits_filename": "",
+             "cegb_tradeoff": 1.0, "cegb_penalty_split": 0.0,
+             "stream_mode": "off", "stream_chunk_rows": 0,
+             "two_round": False, "on_nonfinite": "off",
+             "learning_rate": params["learning_rate"]}
+    p0 = dict(params, **plain)
+    pbag = dict(p0, bagging_fraction=0.8, bagging_freq=1)
+    pq = dict(pbag, quantized_grad=True)
+    rounds = RES_ROUNDS
+    problems, counts = [], {}
+    row = {"phase": "resilience", "rows": ds.num_data(), "rounds": rounds}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_res_")
+    os.environ.pop("LGBM_TPU_STRATEGY", None)
+    telemetry.set_mode("off")
+    faults.clear()
+
+    def train(p, n, **kw):
+        reset_counts()
+        b = lgb.train(p, ds, num_boost_round=n, **kw)
+        for k, v in read_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        return b
+
+    children = {}
+    t_phase = time.time()
+    try:
+        # ---- 2a. the children start first: they share the card -------
+        t1 = time.time()
+        binary = os.path.join(tmp, "higgs.bin.npz")
+        ds.save_binary(binary)
+        row["save_binary_s"] = time.time() - t1
+        here = os.path.dirname(os.path.abspath(__file__))
+        for name, spec in (("kill", "kill_rank@iter=%d" % RES_KILL_AT),
+                           ("preempt", "preempt@iter=%d" % RES_PREEMPT_AT)):
+            d = os.path.join(tmp, name)
+            code = _RES_CHILD.format(
+                root=here, params=pbag, binary=binary, rounds=rounds,
+                directory=d, freq=(RES_CKPT_FREQ if name == "kill"
+                                   else 1000))
+            env = dict(os.environ, LGBM_TPU_FAULT_SPEC=spec,
+                       LGBM_TPU_NO_SIGNAL_HANDLERS="1")
+            children[name] = (d, time.time(), subprocess.Popen(
+                [sys.executable, "-c", code], env=env, cwd=here,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+        # ---- 1. determinism ------------------------------------------
+        a = train(pbag, rounds)
+        text_a = a.model_to_string()
+        b = train(pbag, rounds)
+        same = b.model_to_string() == text_a
+        row["determinism"] = {"bagging_fraction": 0.8, "equal": same}
+        del b
+        if not same:
+            problems.append("two equal runs wrote other model text")
+            torch.use_deterministic_algorithms(True)
+            try:
+                train(pbag, 1)
+                row["determinism"]["diagnostic"] = "no nondeterministic op"
+            except RuntimeError as e:
+                row["determinism"]["diagnostic"] = str(e)[:500]
+            finally:
+                torch.use_deterministic_algorithms(False)
+
+        # ---- 2b. kill and preempt: the children's ends ----------------
+        ends = {}
+        for name, (d, t0, proc) in children.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            ends[name] = {"exit_code": proc.returncode,
+                          "s": time.time() - t0,
+                          "stderr_tail": err[-600:]}
+        children.clear()
+        kill = ends["kill"]
+        try:
+            kdata = find_checkpoint(os.path.join(tmp, "kill"))
+            kill["checkpoint_iteration"] = kdata.iteration
+            t1 = time.time()
+            kb = train(pbag, rounds, resume_from=os.path.join(tmp, "kill"))
+            kill["resume_s"] = time.time() - t1
+            kill["equal_to_uninterrupted"] = kb.model_to_string() == text_a
+            kill["iterations"] = kb.current_iteration()
+            del kb
+        except Exception as e:          # noqa: BLE001 - reported below
+            kill["error"] = repr(e)[:300]
+        if kill["exit_code"] != 137 or not kill.get(
+                "equal_to_uninterrupted") \
+                or kill.get("checkpoint_iteration") != RES_CKPT_FREQ:
+            problems.append("kill and resume: %s" % {
+                k: v for k, v in kill.items() if k != "stderr_tail"})
+        pre = ends["preempt"]
+        try:
+            pdata = find_checkpoint(os.path.join(tmp, "preempt"))
+            pre.update(checkpoint_iteration=pdata.iteration,
+                       target_rounds=pdata.meta.get("target_rounds"),
+                       preempted=pdata.meta.get("preempted"))
+            pb = train(pbag, None, resume_from=os.path.join(tmp, "preempt"))
+            pre["iterations"] = pb.current_iteration()
+            pre["equal_to_uninterrupted"] = pb.model_to_string() == text_a
+            del pb
+        except Exception as e:          # noqa: BLE001 - reported below
+            pre["error"] = repr(e)[:300]
+        if pre["exit_code"] != 76 or pre.get("target_rounds") != rounds \
+                or pre.get("checkpoint_iteration") != RES_PREEMPT_AT \
+                or pre.get("iterations") != rounds \
+                or not pre.get("equal_to_uninterrupted"):
+            problems.append("preempt and resume: %s" % {
+                k: v for k, v in pre.items() if k != "stderr_tail"})
+        row["kill_resume"] = kill
+        row["preempt_resume"] = pre
+
+        # quantized, in one process
+        qd = os.path.join(tmp, "quant")
+        qfull = train(pq, rounds).model_to_string()
+        train(pq, RES_CKPT_FREQ,
+              callbacks=[checkpoint(qd, checkpoint_freq=RES_CKPT_FREQ)])
+        qb = train(pq, rounds, resume_from=qd)
+        row["quant_resume"] = {"grad_bits": 8, "equal_to_uninterrupted":
+                               qb.model_to_string() == qfull}
+        del qb
+        if not row["quant_resume"]["equal_to_uninterrupted"]:
+            problems.append("quantized resume wrote other model text")
+
+        # ---- 3. the checkpoint's cost at 1M rows ----------------------
+        torch.cuda.synchronize()
+        t1 = time.time()
+        path = a.save_checkpoint(os.path.join(tmp, "cost"))
+        save_ms = (time.time() - t1) * 1e3
+        fresh = lgb.Booster(params=pbag, train_set=ds)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        fresh.restore_checkpoint(path)
+        torch.cuda.synchronize()
+        row["checkpoint"] = {"bytes": os.path.getsize(path),
+                             "save_ms": save_ms,
+                             "restore_ms": (time.time() - t1) * 1e3,
+                             "restored_equal": fresh.model_to_string()
+                             == text_a}
+        if not row["checkpoint"]["restored_equal"]:
+            problems.append("a restored checkpoint writes other model text")
+        del fresh, a
+
+        # ---- 4. the sentries ------------------------------------------
+        spec = "nan_grad@iter=%d,frac=0.01" % RES_NAN_AT
+        sent = {"spec": spec}
+        faults.install(spec)
+        try:
+            train(dict(p0, on_nonfinite="raise"), rounds)
+            sent["raise"] = "did not raise"
+        except NonFiniteError as e:
+            sent["raise"] = str(e)
+        if "iteration %d" % RES_NAN_AT not in sent["raise"]:
+            problems.append("raise: %s" % sent["raise"])
+        plan = faults.install(spec)
+        sb = train(dict(p0, on_nonfinite="skip_iter"), rounds)
+        sent["skip_iter_trees"] = sb.num_trees()
+        sent["skip_iter_events"] = list(plan.events)
+        del sb
+        if sent["skip_iter_trees"] != rounds - 1:
+            problems.append("skip_iter left %d trees"
+                            % sent["skip_iter_trees"])
+        # rollback redoes iteration RES_NAN_AT - 1 at the call of
+        # RES_NAN_AT, so `rounds` calls grow rounds - 1 trees, as in the
+        # JAX package; it runs the generic iteration (a gradient fault
+        # turns the fused one off), and so does its clean run here: a plan
+        # whose fault lands past the run, the same policy
+        faults.install(spec)
+        rb = train(dict(p0, on_nonfinite="rollback"), rounds)
+        faults.install("nan_grad@iter=%d" % (10 * rounds))
+        cb = train(dict(p0, on_nonfinite="rollback"), rounds - 1)
+        faults.clear()
+        rpred, cpred = rb.predict(xv), cb.predict(xv)
+        rleaf = rb.predict(xv, pred_leaf=True)
+        cleaf = cb.predict(xv, pred_leaf=True)
+        same_leaf = ([float(np.mean(rleaf[:, t] == cleaf[:, t]))
+                      for t in range(rleaf.shape[1])]
+                     if rleaf.shape == cleaf.shape else [])
+        sent.update(rollback_auc=auc(yv, rpred), clean_auc=auc(yv, cpred),
+                    clean_rounds=rounds - 1, rollback_trees=rb.num_trees(),
+                    same_leaf_share_by_tree=same_leaf)
+        if fused is not None:
+            sent.update(fused_clean_auc=fused[0], fused_clean_rounds=fused[1],
+                        rollback_minus_fused_clean=sent["rollback_auc"]
+                        - fused[0])
+        del rb, cb
+        if sent["rollback_trees"] != rounds - 1:
+            problems.append("rollback left %d trees" % sent["rollback_trees"])
+        if not np.all(np.isfinite(rpred)) or sent["rollback_auc"] <= 0.7 \
+                or abs(sent["rollback_auc"] - sent["clean_auc"]) > 0.005:
+            problems.append("rollback AUC %.5f against clean %.5f"
+                            % (sent["rollback_auc"], sent["clean_auc"]))
+        # the trees before the fault grow from the same scores: the same
+        # leaves for every row
+        if same_leaf[:RES_NAN_AT - 1] != [1.0] * (RES_NAN_AT - 1):
+            problems.append("rollback's trees before the fault differ from "
+                            "the clean run's: %s" % same_leaf)
+        # the fused iteration's guard, tripped by a NaN in the scores
+        gb = train(dict(p0, on_nonfinite="skip_iter"), 3)
+        g = gb._gbdt
+        fused = g._fused_step is not None
+        g.score_updater.score[0, 5] = float("nan")
+        text0, it0, syncs0 = gb.model_to_string(), g.iter, \
+            g.learner.stats.host_syncs
+        s0 = g.score_updater.score.clone()
+        gb.update()
+        guard = {"fused": fused, "committed_nothing": bool(
+            gb.model_to_string() == text0 and g.iter == it0 + 1
+            and torch.equal(torch.isnan(s0), torch.isnan(
+                g.score_updater.score))
+            and torch.equal(torch.nan_to_num(s0),
+                            torch.nan_to_num(g.score_updater.score))),
+            "host_syncs": g.learner.stats.host_syncs - syncs0}
+        sent["fused_guard"] = guard
+        del gb, g, s0
+        if not (guard["fused"] and guard["committed_nothing"]
+                and guard["host_syncs"] == 1):
+            problems.append("the fused guard: %s" % guard)
+        row["sentries"] = sent
+
+        # ---- 5. telemetry ---------------------------------------------
+        # one Booster per mode, RES_MODE_ROUNDS rounds; then
+        # RES_STEADY_ITERS steady iterations each, the modes interleaved
+        names = ("off", "summary", "trace")
+        modes, boosters, texts = {}, {}, {}
+        for mode in names:
+            telemetry.set_mode(mode)
+            telemetry.reset()
+            boosters[mode] = train(p0, RES_MODE_ROUNDS)
+            modes[mode] = {}
+            if mode != "off":
+                # the run's iterations (the first one's capture included)
+                # and the eval outside them, against the iterations' wall
+                bd = telemetry.phase_breakdown()
+                modes[mode]["run_phase_share_of_wall"] = {
+                    k: v["secs"] / bd["wall_s"]
+                    for k, v in bd["phases"].items()}
+        telemetry.set_mode("off")
+        telemetry.reset()
+        times = {mode: [] for mode in names}
+        for _ in range(RES_STEADY_ITERS):
+            for mode in names:
+                telemetry.set_mode(mode)
+                torch.cuda.synchronize()
+                t1 = time.time()
+                boosters[mode].update()
+                torch.cuda.synchronize()
+                times[mode].append(time.time() - t1)
+        telemetry.set_mode("off")
+        # the steady summary and trace iterations together
+        bd = telemetry.phase_breakdown()
+        row["telemetry_steady_phase_share_of_wall"] = {
+            k: v["secs"] / bd["wall_s"] for k, v in bd["phases"].items()} \
+            if bd["wall_s"] else {}
+        row["telemetry_steady_coverage"] = bd["coverage"]
+        row["telemetry_counters"] = telemetry.counters.snapshot()
+        tp = telemetry.dump_trace(os.path.join(tmp, "trace.json"))
+        with open(tp) as fh:
+            modes["trace"]["trace_spans"] = sum(
+                1 for e in json.load(fh)["traceEvents"] if e.get("ph") == "X")
+        for mode in names:
+            lr = boosters[mode]._gbdt.learner
+            ts = np.asarray(times[mode])
+            modes[mode].update(
+                steady_iters=len(ts), s_per_iter_steady=float(np.median(ts)),
+                s_per_iter_p10=float(np.percentile(ts, 10)),
+                s_per_iter_p90=float(np.percentile(ts, 90)),
+                s_per_iter_min=float(ts.min()), s_per_iter_max=float(ts.max()),
+                host_syncs_per_tree=lr.stats.host_syncs
+                / max(lr.stats.trees, 1))
+            texts[mode] = boosters[mode].model_to_string()
+        boosters.clear()
+        for mode in ("summary", "trace"):
+            modes[mode]["overhead_vs_off"] = (
+                modes[mode]["s_per_iter_steady"]
+                / modes["off"]["s_per_iter_steady"] - 1.0)
+        # the generic iteration by mode (a plan whose gradient fault lands
+        # past the run keeps the fused one off), one Booster each, the
+        # modes interleaved: synchronizing CUDA calls per iteration, as
+        # torch's sync debug mode reports them, must not rise with
+        # telemetry on (summary and trace reduce the gradient norms for the
+        # flight recorder); the first round warms up, uncounted
+        faults.install("nan_grad@iter=%d" % (10 * rounds))
+        for mode in names:
+            telemetry.set_mode(mode)
+            boosters[mode] = train(p0, 2)
+        telemetry.set_mode("off")
+        telemetry.reset()
+        calls = {mode: [] for mode in names}
+        sites = {mode: {} for mode in names}
+        syncs0 = {}
+        for i in range(RES_SYNC_ITERS + 1):
+            if i == 1:
+                telemetry.reset()
+                syncs0 = {mode: (boosters[mode]._gbdt.learner.stats.host_syncs,
+                                 boosters[mode]._gbdt.learner.stats.trees)
+                          for mode in names}
+            for mode in names:
+                telemetry.set_mode(mode)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        boosters[mode].update()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                telemetry.set_mode("off")
+                hits = [w for w in caught
+                        if "synchronizing" in str(w.message)]
+                if i:
+                    calls[mode].append(len(hits))
+                    for w in hits:
+                        site = "%s:%d" % (os.path.basename(w.filename),
+                                          w.lineno)
+                        sites[mode][site] = sites[mode].get(site, 0) + 1
+        with_norms = sum("grad_norms" in r
+                         for r in telemetry.events.events("iteration"))
+        for mode in names:
+            lr = boosters[mode]._gbdt.learner
+            s0, t0 = syncs0[mode]
+            modes[mode]["generic"] = {
+                "sync_calls_by_iter": calls[mode], "sync_sites": sites[mode],
+                "learner_syncs_per_tree": (lr.stats.host_syncs - s0)
+                / max(lr.stats.trees - t0, 1)}
+        boosters.clear()
+        faults.clear()
+        telemetry.reset()
+        row["telemetry"] = modes
+        if any(m["host_syncs_per_tree"] != 1 for m in modes.values()):
+            problems.append("host syncs per tree by mode: %s" % {
+                k: v["host_syncs_per_tree"] for k, v in modes.items()})
+        gen = {k: v["generic"] for k, v in modes.items()}
+        row["telemetry_generic_records_with_grad_norms"] = with_norms
+        if min(calls["off"]) < 1 \
+                or len({sum(c) for c in calls.values()}) != 1 \
+                or any(g["learner_syncs_per_tree"] != 1
+                       for g in gen.values()) \
+                or with_norms != 2 * RES_SYNC_ITERS:
+            problems.append("the generic iteration's syncs by mode: %s, "
+                            "%d records with gradient norms"
+                            % (gen, with_norms))
+        if len(set(texts.values())) != 1:
+            problems.append("the telemetry modes wrote other model text")
+        if not modes["trace"].get("trace_spans"):
+            problems.append("the trace holds no span")
+        # one iteration under LGBM_TPU_XLA_TRACE: torch.profiler's trace
+        os.environ["LGBM_TPU_XLA_TRACE"] = os.path.join(tmp, "prof")
+        try:
+            telemetry.set_mode("trace")
+            train(p0, 1)
+            telemetry.dump_trace(os.path.join(tmp, "trace1.json"))
+            prof = telemetry.device_trace_path()
+            telemetry.set_mode("off")
+            size = os.path.getsize(prof) if prof else 0
+            with open(prof) as fh:
+                names = {e.get("name", "") for e in json.load(fh)[
+                    "traceEvents"] if e.get("cat") == "kernel"}
+            found = {kn: sorted(n[:60] for n in names
+                                if re.search(pat, n))[:3]
+                     for kn, pat in kernel_names.items()}
+            row["device_trace"] = {"bytes": size,
+                                   "kernel_names": len(names),
+                                   "found": found}
+            if not all(found.values()):
+                problems.append("the torch.profiler trace lacks %s"
+                                % [k for k, v in found.items() if not v])
+        finally:
+            os.environ.pop("LGBM_TPU_XLA_TRACE", None)
+            telemetry.set_mode("off")
+    finally:
+        for _, _, proc in children.values():
+            proc.kill()
+            proc.communicate()
+        faults.clear()
+        telemetry.set_mode("off")
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["phase_s"] = time.time() - t_phase
+    return row, problems, counts
 
 
 def trees_text(b):

@@ -8,7 +8,9 @@ partition, evaluates validation sets with early stopping and callbacks,
 cross-validates, writes and reads model text v2.3.1, predicts leaf
 indices, TreeSHAP contributions and early-stopped scores, refits leaves
 on new rows, reads CSV / TSV / LibSVM files and pandas frames, and has
-the scikit-learn estimators. It imports torch and numpy, never jax nor
+the scikit-learn estimators. Training checkpoints and resumes (the JAX
+package's checkpoint format), guards against non-finite values, injects
+faults for tests, exits cleanly on preemption, and records telemetry. It imports torch and numpy, never jax nor
 lightgbm_tpu.
 
     import lightgbm_tpu_torch as lgb
@@ -21,9 +23,10 @@ lightgbm_tpu.
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions on the CPU instead.
 """
+from . import telemetry
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
-                       record_evaluation, reset_parameter)
+                       record_evaluation, record_telemetry, reset_parameter)
 from .engine import CVBooster, cv, train
 from .sklearn import (LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor,
                       LightGBMNotFittedError)
@@ -31,6 +34,7 @@ from .utils.log import LightGBMError
 
 __all__ = ["Booster", "Dataset", "train", "cv", "CVBooster",
            "early_stopping", "print_evaluation", "record_evaluation",
-           "reset_parameter", "EarlyStopException", "LightGBMError",
+           "reset_parameter", "record_telemetry", "telemetry",
+           "EarlyStopException", "LightGBMError",
            "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
            "LightGBMNotFittedError"]

@@ -156,8 +156,6 @@ def check_supported(cfg: Config) -> None:
                                                        cfg.tree_learner)
     elif cfg.tree_learner != "serial":
         bad = "tree_learner=%s" % cfg.tree_learner
-    elif cfg.on_nonfinite != "off":
-        bad = "on_nonfinite=%s" % cfg.on_nonfinite
     else:
         unknown = [m for m in cfg.metric
                    if m not in METRIC_NAMES + ["none"]]
@@ -614,10 +612,24 @@ class Booster:
 
     def save_checkpoint(self, directory: str, keep_last: int = 3,
                         history=None) -> str:
-        raise _not_yet("save_checkpoint", "item 10 (resilience/)")
+        """Write a full training checkpoint -- the trees PLUS the live
+        training state (scores, bagging RNG, iteration counter, DART's
+        weights, the stream state) -- into `directory` with
+        keep-last-`keep_last` rotation; returns the path. Unlike
+        save_model, a checkpoint resumes training bit for bit, in this
+        package or the JAX one (the same file format)."""
+        from .resilience.checkpoint import CheckpointManager
+        return CheckpointManager(directory, keep_last).save(
+            self, history=history)
 
     def restore_checkpoint(self, path: str) -> "Booster":
-        raise _not_yet("restore_checkpoint", "item 10 (resilience/)")
+        """Restore the model and training state from a checkpoint file (or
+        the newest valid one in a directory) into this booster, which must
+        have been constructed with the same training and validation
+        datasets and parameters as the checkpointed run."""
+        from .resilience.checkpoint import restore_checkpoint
+        restore_checkpoint(self, path)
+        return self
 
     def set_network(self, machines, local_listen_port=12400,
                     listen_time_out=120, num_machines=1) -> "Booster":

@@ -3,7 +3,8 @@
 Port of lightgbm_tpu/callback.py: callables taking a CallbackEnv
 namedtuple, ordered by an ``order`` attribute (``before_iteration`` ones
 run before the update), raising EarlyStopException to halt training.
-``checkpoint`` and ``record_telemetry`` are not ported yet and raise.
+``record_telemetry`` logs the recorder's phases, ``checkpoint`` writes
+full training checkpoints (resilience/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -11,7 +12,6 @@ import collections
 from typing import Callable, List
 
 from .utils import log
-from .utils.log import LightGBMError
 
 
 class EarlyStopException(Exception):
@@ -97,18 +97,74 @@ def reset_parameter(**kwargs) -> Callable:
 
 
 def record_telemetry(period: int = 1) -> Callable:
-    """Not ported yet: the telemetry recorder comes with the resilience /
-    telemetry slice."""
-    raise LightGBMError("record_telemetry is not supported by "
-                        "lightgbm_tpu_torch yet")
+    """Log each iteration's telemetry phase summary (one line per `period`
+    iterations). Needs ``telemetry=summary`` or ``trace`` — with telemetry
+    off nothing is recorded and the callback stays silent.
+
+    Runs at order 15: after print_evaluation (10), before
+    record_evaluation (20), so the phase line lands next to the metric
+    line of the same iteration."""
+    from .telemetry import recorder as _recorder
+
+    def _callback(env: CallbackEnv) -> None:
+        if period <= 0 or (env.iteration + 1) % period != 0:
+            return
+        info = _recorder.last_iteration()
+        if info is None:
+            return
+        phases = " ".join(
+            f"{name}={secs * 1e3:.1f}ms"
+            for name, secs in sorted(info["phases"].items()))
+        log.info("[%d]\ttelemetry wall=%.1fms %s", env.iteration + 1,
+                 info["wall_s"] * 1e3, phases)
+    _callback.order = 15
+    return _callback
 
 
 def checkpoint(directory: str, checkpoint_freq: int = 1, keep_last: int = 3,
                prefix: str = "ckpt") -> Callable:
-    """Not ported yet: training checkpoints come with the resilience /
-    telemetry slice."""
-    raise LightGBMError("checkpoint is not supported by lightgbm_tpu_torch "
-                        "yet")
+    """Write a full training checkpoint every `checkpoint_freq`
+    iterations (atomic file, checksum manifest, keep-last-`keep_last`
+    rotation — see resilience/checkpoint.py). The callback accumulates
+    the run's eval history so a resumed run (engine.train
+    ``resume_from=``) restores `evals_result` and early-stopping state;
+    on resume the engine re-seeds that history.
+
+    Runs at order 25: after record_evaluation (20) and the loss-spike
+    guard (22), before early stopping (30), so the iteration that trips
+    early stopping is still captured.
+    """
+    if checkpoint_freq <= 0:
+        raise ValueError("checkpoint_freq must be positive")
+    history: List = []
+    state = {"mgr": None}
+
+    def _callback(env: CallbackEnv) -> None:
+        if env.evaluation_result_list:
+            history.append([env.iteration,
+                            [[r[0], r[1], float(r[2]), bool(r[3])]
+                             for r in env.evaluation_result_list]])
+        if (env.iteration + 1) % checkpoint_freq == 0:
+            if state["mgr"] is None:
+                from .resilience.checkpoint import CheckpointManager
+                state["mgr"] = CheckpointManager(directory, keep_last,
+                                                 prefix)
+            # target_rounds rides every checkpoint so a preempted process
+            # can resume with num_boost_round=None and still finish the
+            # run's ORIGINAL budget
+            path = state["mgr"].save(
+                env.model, history=history,
+                extra_meta={"target_rounds": int(env.end_iteration)})
+            from .telemetry import events as telem_events
+            telem_events.emit("checkpoint", iteration=env.iteration,
+                              path=path)
+            log.debug("checkpoint written: %s", path)
+    _callback.order = 25
+    _callback._ckpt_history = history
+    # graceful preemption writes its emergency checkpoint here
+    # (engine._preempt_exit finds it by attribute)
+    _callback._ckpt_dir = directory
+    return _callback
 
 
 def early_stopping(stopping_rounds: int, first_metric_only: bool = False,

@@ -4,8 +4,13 @@ Port of lightgbm_tpu/engine.py (reference: python-package/lightgbm/
 engine.py:18 train, :373 cv): validation sets, callbacks (evaluation
 printing and recording, parameter resets, early stopping), custom
 objectives and metrics, continued training from ``init_model``, and
-k-fold cross-validation. The JAX package's telemetry, fault, supervisor
-and preemption seams are not ported; ``resume_from`` raises.
+k-fold cross-validation; full-state resume from a checkpoint
+(``resume_from``), the fault layer's kill / preempt / delay sites at each
+iteration boundary, graceful preemption (an emergency checkpoint, then
+exit code 76), the watchdogs' armed loss guard, and the telemetry
+recorder's ``eval`` phase and flight-recorder metrics. The JAX package's
+supervisor, epoch-fenced retry and rank-failure recovery belong to its
+multi-process layer and are not ported.
 
 As in the JAX package, whenever a metric is configured (binary's default
 binary_logloss counts) the training set is evaluated every iteration too,
@@ -21,7 +26,10 @@ from typing import Any, Dict, List
 import numpy as np
 
 from . import callback as callback_mod
+from . import telemetry
 from .basic import Booster, Dataset
+from .telemetry import recorder as telem
+from .utils import log
 from .utils.log import LightGBMError
 
 __all__ = ["train", "cv", "CVBooster"]
@@ -31,11 +39,11 @@ _ROUND_KEYS = ("num_boost_round", "num_iterations", "num_iteration",
                "n_estimators")
 
 
-def _pop_rounds(params: Dict[str, Any], num_boost_round) -> int:
+def _pop_rounds(params: Dict[str, Any], num_boost_round):
     for key in _ROUND_KEYS:
         if key in params:
             num_boost_round = params.pop(key)
-    return int(num_boost_round)
+    return None if num_boost_round is None else int(num_boost_round)
 
 
 def _sorted_callbacks(cbs):
@@ -59,16 +67,29 @@ def train(params: Dict[str, Any], train_set: Dataset,
     returns the gradients and hessians of a custom objective at the raw
     training scores; `feval(preds, dataset)` returns (name, value,
     higher_better) or a list of them; `init_model` (a model file, such
-    as the JAX package writes, or a Booster) is continued."""
-    if resume_from is not None:
-        raise LightGBMError("resume_from is not supported by "
-                            "lightgbm_tpu_torch yet (no checkpoints)")
+    as the JAX package writes, or a Booster) is continued.
+
+    `resume_from` continues an interrupted run from a full checkpoint (a
+    file written by callback.checkpoint / Booster.save_checkpoint, by
+    either package, or a directory of rotated ones — the newest valid
+    file is used). When resuming, `num_boost_round` is the TOTAL
+    iteration count of the run (the value the interrupted run was
+    started with), and the checkpointed eval history re-seeds
+    `evals_result` and the early-stopping state so `best_iteration`
+    matches an uninterrupted run. ``num_boost_round=None`` (resume only)
+    finishes the budget the checkpoint records (``target_rounds``, which
+    the checkpoint callback and the emergency checkpoint of a preempted
+    run, exit code 76, stamp into the manifest)."""
     if categorical_feature != "auto":
         train_set.set_categorical_feature(categorical_feature)
     params = copy.deepcopy(params or {})
     if fobj is not None:
         params["objective"] = "none"
     num_boost_round = _pop_rounds(params, num_boost_round)
+    if num_boost_round is None and resume_from is None:
+        raise ValueError("num_boost_round=None is only meaningful with "
+                         "resume_from (the checkpoint records the "
+                         "original target)")
     if early_stopping_rounds is None:
         for key in ("early_stopping_round", "early_stopping_rounds"):
             if key in params:
@@ -100,47 +121,175 @@ def train(params: Dict[str, Any], train_set: Dataset,
         cbs.add(callback_mod.print_evaluation())
     elif isinstance(verbose_eval, int) and verbose_eval:
         cbs.add(callback_mod.print_evaluation(verbose_eval))
+    es_cb = None
     if early_stopping_rounds is not None and early_stopping_rounds > 0:
-        cbs.add(callback_mod.early_stopping(
+        es_cb = callback_mod.early_stopping(
             early_stopping_rounds, first_metric_only,
-            verbose=bool(verbose_eval)))
+            verbose=bool(verbose_eval))
+        cbs.add(es_cb)
     if learning_rates is not None:
         cbs.add(callback_mod.reset_parameter(learning_rate=learning_rates))
     if evals_result is not None:
         cbs.add(callback_mod.record_evaluation(evals_result))
+    if telemetry.watchdogs.loss_guard_requested() \
+            and not any(hasattr(c, "_spike_state") for c in cbs):
+        # arm_loss_guard=1 in LGBM_TPU_WATCHDOGS: the watchdogs observe,
+        # the armed guard acts (rolls a loss spike back at order 22)
+        from .resilience import loss_spike_guard
+        cbs.add(loss_spike_guard())
     cbs_before, cbs_after = _sorted_callbacks(cbs)
 
-    begin_iteration = booster.current_iteration()
-    end_iteration = begin_iteration + num_boost_round
+    begin_iteration = init_iteration = booster.current_iteration()
+    if resume_from is not None:
+        from .resilience.checkpoint import (CheckpointData,
+                                            find_checkpoint,
+                                            restore_checkpoint)
+        data = (resume_from if isinstance(resume_from, CheckpointData)
+                else find_checkpoint(resume_from))
+        restore_checkpoint(booster, data)
+        init_iteration = booster.current_iteration()
+        if num_boost_round is None:
+            target = (data.meta or {}).get("target_rounds")
+            if target is None:
+                raise ValueError(
+                    "num_boost_round=None but the checkpoint at %r does "
+                    "not record target_rounds; pass the run's original "
+                    "total explicitly" % (resume_from,))
+            num_boost_round = int(target)
+        # resume finishes the ORIGINAL run: num_boost_round is the total
+        begin_iteration, end_iteration = 0, num_boost_round
+        replayed = _replay_history(
+            booster, params, data.history or [], evals_result, es_cb,
+            end_iteration, cbs)
+        if replayed is not None:      # stopping point predates checkpoint
+            return replayed
+    else:
+        end_iteration = init_iteration + num_boost_round
+
+    from .resilience import faults, preempt
     evaluation_result_list: List = []
-    for i in range(begin_iteration, end_iteration):
-        for cb in cbs_before:
-            cb(callback_mod.CallbackEnv(
-                model=booster, params=params, iteration=i,
-                begin_iteration=begin_iteration,
-                end_iteration=end_iteration, evaluation_result_list=None))
-        stop = booster.update(fobj=fobj)
-        evaluation_result_list = []
-        if has_valid or booster._gbdt.train_metrics:
-            evaluation_result_list = (booster.eval_train(feval)
-                                      + booster.eval_valid(feval))
-        try:
-            for cb in cbs_after:
+    try:
+        for i in range(init_iteration, end_iteration):
+            # chaos boundary (kill_rank@iter= / preempt@iter=): one
+            # attribute read per iteration, nothing on the device path
+            faults.kill_point(i)
+            faults.set_epoch(i)
+            if preempt.group_requested():
+                # never returns: emergency checkpoint + SystemExit(76)
+                _preempt_exit(booster, cbs, i, end_iteration)
+            for cb in cbs_before:
                 cb(callback_mod.CallbackEnv(
                     model=booster, params=params, iteration=i,
                     begin_iteration=begin_iteration,
                     end_iteration=end_iteration,
-                    evaluation_result_list=evaluation_result_list))
-        except callback_mod.EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            evaluation_result_list = e.best_score
-            break
-        if stop:
-            break
+                    evaluation_result_list=None))
+            stop = booster.update(fobj=fobj)
+            evaluation_result_list = []
+            if has_valid or booster._gbdt.train_metrics:
+                # outside the iteration bracket: eval cost lands in the
+                # run totals, not in any iteration's wall
+                with telem.phase("eval"):
+                    evaluation_result_list = (booster.eval_train(feval)
+                                              + booster.eval_valid(feval))
+            # per-iteration pure-delay fault site (delay_ms clause)
+            faults.sleep_point("train_iter")
+            telemetry.events.attach_metrics(evaluation_result_list)
+            try:
+                for cb in cbs_after:
+                    cb(callback_mod.CallbackEnv(
+                        model=booster, params=params, iteration=i,
+                        begin_iteration=begin_iteration,
+                        end_iteration=end_iteration,
+                        evaluation_result_list=evaluation_result_list))
+            except callback_mod.EarlyStopException as e:
+                booster.best_iteration = e.best_iteration + 1
+                evaluation_result_list = e.best_score
+                break
+            if stop:
+                break
+    finally:
+        faults.set_epoch(-1)
+        # the last staged iteration record (metrics attached) must land in
+        # the JSONL even when a callback raises
+        telemetry.events.flush()
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for item in evaluation_result_list:
         booster.best_score[item[0]][item[1]] = item[2]
     return booster
+
+
+def _preempt_exit(booster, cbs, iteration, end_iteration):
+    """Graceful-preemption exit: write an emergency checkpoint at this
+    iteration boundary and leave with the contract exit code 76
+    (resilience/preempt.py). The checkpoint stamps ``target_rounds`` so
+    ``num_boost_round=None`` continues to the round count the ORIGINAL
+    run was asked for. It goes to the checkpoint callback's directory,
+    else ``LGBM_TPU_PREEMPT_DIR``, else ``preempt.ckpt`` in the working
+    directory. SystemExit is a BaseException: the telemetry flush in
+    train()'s finally still runs."""
+    from .resilience import preempt
+    from .resilience.checkpoint import CheckpointManager
+    ckpt_dir = next((getattr(cb, "_ckpt_dir") for cb in cbs
+                     if getattr(cb, "_ckpt_dir", None)), None) \
+        or os.environ.get("LGBM_TPU_PREEMPT_DIR", "").strip() \
+        or "preempt.ckpt"
+    history = next((getattr(cb, "_ckpt_history") for cb in cbs
+                    if getattr(cb, "_ckpt_history", None) is not None),
+                   None)
+    path = CheckpointManager(ckpt_dir).save(
+        booster, history=history,
+        extra_meta={"target_rounds": int(end_iteration),
+                    "preempted": True,
+                    "preempt_reason": preempt.reason()})
+    telemetry.events.emit("preempt", phase="exit", iteration=int(iteration),
+                          path=path, exit_code=preempt.PREEMPT_EXIT_CODE)
+    telemetry.events.flush()
+    telemetry.bundle.maybe_capture("preempt", iteration=int(iteration),
+                                   why=preempt.reason())
+    log.warning("preempted (%s): emergency checkpoint at iteration %d -> "
+                "%s; exiting %d (resume continues to round %d)",
+                preempt.reason(), iteration, path,
+                preempt.PREEMPT_EXIT_CODE, end_iteration)
+    raise SystemExit(preempt.PREEMPT_EXIT_CODE)
+
+
+def _replay_history(booster, params, history, evals_result, es_cb,
+                    end_iteration, cbs):
+    """Re-seed engine-level state from a checkpoint's eval history:
+    prefill `evals_result`, re-seed any checkpoint() callbacks' rolling
+    history, and replay past evaluations through the early-stopping
+    callback so its best-score/best-iteration counters match the
+    uninterrupted run exactly. Returns the finished booster when replay
+    shows the stopping condition was already met at the checkpoint,
+    else None."""
+    records = [(int(it), [(r[0], r[1], float(r[2]), bool(r[3]))
+                          for r in results]) for it, results in history]
+    if evals_result is not None and records:
+        evals_result.clear()
+        for _, results in records:
+            for dname, mname, val, _hb in results:
+                evals_result.setdefault(dname, collections.OrderedDict())
+                evals_result[dname].setdefault(mname, []).append(val)
+    for cb in cbs:
+        seed = getattr(cb, "_ckpt_history", None)
+        if seed is not None:
+            seed[:] = [[it, [list(r) for r in results]]
+                       for it, results in records]
+    if es_cb is not None:
+        for it, results in records:
+            try:
+                es_cb(callback_mod.CallbackEnv(
+                    model=booster, params=params, iteration=it,
+                    begin_iteration=0, end_iteration=end_iteration,
+                    evaluation_result_list=results))
+            except callback_mod.EarlyStopException as e:
+                booster.best_iteration = e.best_iteration + 1
+                booster.best_score = collections.defaultdict(
+                    collections.OrderedDict)
+                for item in e.best_score:
+                    booster.best_score[item[0]][item[1]] = item[2]
+                return booster
+    return None
 
 
 def _load_init_model(booster: Booster, init_model) -> None:

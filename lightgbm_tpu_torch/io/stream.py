@@ -37,6 +37,8 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import counters as telem_counters
+
 __all__ = ["DeviceDataShard", "derive_stream_chunk_rows"]
 
 
@@ -117,6 +119,11 @@ class DeviceDataShard:
         return max(0.0, 1.0 - self.wait_seconds / self.stream_seconds)
 
     # -- the double-buffered pipeline ----------------------------------
+    def _count_h2d(self, nbytes: int) -> None:
+        self.h2d_bytes += nbytes
+        if telem_counters.is_active():
+            telem_counters.incr("transfer_h2d_bytes", nbytes)
+
     def _host_rows(self, s: int, e: int, row_ids, staging):
         """Wire rows [s, e) (of `row_ids` when given) as a host tensor: a
         slice of the wire, or the rows gathered into `staging`."""
@@ -152,7 +159,7 @@ class DeviceDataShard:
                 for i in range(nch):
                     s, e = i * sc, min(n, (i + 1) * sc)
                     chunk = self._host_rows(s, e, row_ids, None).clone()
-                    self.h2d_bytes += int(chunk.numel() * 4)
+                    self._count_h2d(int(chunk.numel() * 4))
                     yield s, e - s, chunk
                 self.cursor += nch
             finally:
@@ -203,7 +210,7 @@ class DeviceDataShard:
                 self.wait_seconds += time.perf_counter() - t0
                 compute.wait_event(copied[slot])
                 dev.record_stream(compute)
-                self.h2d_bytes += cnt * self.code_words * 4
+                self._count_h2d(cnt * self.code_words * 4)
                 yield s, cnt, dev
                 free[slot].record(compute)
                 pend = nxt
@@ -225,7 +232,7 @@ class DeviceDataShard:
             host = self.wire.index_select(
                 0, torch.from_numpy(ids.astype(np.int64)))
             rows = host.to(self.device)
-            self.h2d_bytes += int(host.numel() * 4)
+            self._count_h2d(int(host.numel() * 4))
         self.ws_ids = ids
         self._ws_rows = rows if ids.size else None
         if ids.size:

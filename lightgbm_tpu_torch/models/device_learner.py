@@ -119,6 +119,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import Dataset
@@ -140,6 +141,8 @@ from ..ops.kernels.histogram import (build_histogram_quantized_rows,
 from ..ops.kernels.partition import (stable_partition3,
                                      stable_partition3_window)
 from ..ops.kernels.split_key import route_rows, split_key, split_key_column
+from ..telemetry import counters as telem_counters
+from ..telemetry import recorder as telem
 from ..ops.partition import (decide_left, decide_left_categorical,
                              mask_to_words)
 from ..utils import log
@@ -1859,6 +1862,7 @@ class DeviceTreeLearner:
         ints; None: every row), as the JAX package's train; the row ->
         leaf map of every row, bagged or not, in last_leaf_id."""
         rec, leaf_id, k = self.grow(grad, hess, iter_seed, bag_indices)
+        telemetry.note_grow_dispatches(1.0, trees=1.0)
         self.stats.trees += 1
         self.last_leaf_id = leaf_id
         self._bag_rows = None if bag_indices is None \
@@ -1866,7 +1870,8 @@ class DeviceTreeLearner:
         self._leaf_rows = None
         if k == 0:
             log.warning("No further splits with positive gain")
-        return self.replay_tree(rec, k, self.last_rec_cat)
+        with telem.phase("tree_replay"):
+            return self.replay_tree(rec, k, self.last_rec_cat)
 
     def leaf_rows(self, leaf: int) -> np.ndarray:
         """The in-bag rows of a leaf of the last tree train() grew, in
@@ -1909,25 +1914,27 @@ class DeviceTreeLearner:
         bag and routes the other rows by the records, its quantization
         over all N rows; the masked strategy weights its operand. Returns
         (rec (L-1, 13) f32 numpy, leaf_id (N,) int64 tensor, k)."""
-        grad, hess = grad.float(), hess.float()
-        n = self.dataset.num_data
-        inbag = None
-        if bag_indices is not None:
-            inbag = np.zeros(n, dtype=bool)
-            inbag[np.asarray(bag_indices, dtype=np.int64)] = True
-        if self.strategy == "masked":
-            w = None if inbag is None else torch.as_tensor(
-                inbag.astype(np.float32), device=grad.device)
-            rec, leaf_id, k = self.grow_masked(grad, hess, iter_seed, w)
-        elif inbag is None or inbag.all():
-            rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed)
-        else:
-            bag_idx, oob_idx = (torch.as_tensor(np.flatnonzero(m),
-                                                device=grad.device)
-                                for m in (inbag, ~inbag))
-            rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed,
-                                                bag_idx, oob_idx, n_total=n)
-        rec_h, k, _ = self.fetch_tree(rec, k)
+        with telem.phase("grow_dispatch"):
+            grad, hess = grad.float(), hess.float()
+            n = self.dataset.num_data
+            inbag = None
+            if bag_indices is not None:
+                inbag = np.zeros(n, dtype=bool)
+                inbag[np.asarray(bag_indices, dtype=np.int64)] = True
+            if self.strategy == "masked":
+                w = None if inbag is None else torch.as_tensor(
+                    inbag.astype(np.float32), device=grad.device)
+                rec, leaf_id, k = self.grow_masked(grad, hess, iter_seed, w)
+            elif inbag is None or inbag.all():
+                rec, leaf_id, k = self.grow_compact(grad, hess, iter_seed)
+            else:
+                bag_idx, oob_idx = (torch.as_tensor(np.flatnonzero(m),
+                                                    device=grad.device)
+                                    for m in (inbag, ~inbag))
+                rec, leaf_id, k = self.grow_compact(
+                    grad, hess, iter_seed, bag_idx, oob_idx, n_total=n)
+        with telem.phase("host_sync"):
+            rec_h, k, _ = self.fetch_tree(rec, k)
         return rec_h, leaf_id, k
 
     def fetch_tree(self, rec: torch.Tensor, k: torch.Tensor, *flags):
@@ -1948,6 +1955,8 @@ class DeviceTreeLearner:
             parts.append(self._carry.rec_cat.view(torch.float32).reshape(-1))
         host = torch.cat(parts).cpu().numpy()
         self.stats.host_syncs += 1
+        if telem_counters.is_active():
+            telem_counters.incr("transfer_d2h_bytes", host.nbytes)
         m = rec.numel()
         rec_h = host[:m].reshape(rec.shape)
         if self.cat_words:

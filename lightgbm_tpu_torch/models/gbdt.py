@@ -39,6 +39,18 @@ models/treeshap.py) or scores with prediction early stopping
 into f64 host scores, the rows past the margin dropped after each chunk).
 ``refit_leaves_on`` refits the leaf values on new data in place
 (continual/refit.py); every in-place leaf edit drops the cached ensemble.
+
+Robustness and telemetry (the JAX package's seams): ``_compute_gradients``
+is the fault-injection boundary (resilience/faults.py; a plan that poisons
+gradients keeps the iteration generic); ``on_nonfinite`` guards each
+iteration -- the generic one by one isfinite reduction over the gradient
+pair (``_guard_gradients``) and a host check of the new tree's leaves
+(``_guard_tree``), the fused one by the finite flag that already rides in
+the tree's one fetch, read before anything of the iteration is committed.
+``capture_state`` / ``restore_state`` carry everything beyond the model
+text that a resumed run needs to continue bit for bit
+(resilience/checkpoint.py). Each iteration is bracketed for the telemetry
+recorder and, with events on, assembled into a flight-recorder record.
 """
 from __future__ import annotations
 
@@ -49,12 +61,17 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import Config
 from ..io.dataset import Dataset
 from ..metrics import create_metrics
 from ..objectives import create_objective
 from ..objectives.objective import parse_objective_from_model
 from ..ops import predict as predict_ops
+from ..ops import quantize as quantize_ops
+from ..resilience import faults
+from ..telemetry import counters as telem_counters
+from ..telemetry import recorder as telem
 from ..utils import log
 from ..utils.log import LightGBMError
 from .device_learner import DeviceTreeLearner
@@ -66,6 +83,48 @@ MODEL_VERSION = "v3"
 
 def _threshold_l1_np(s: float, l1: float) -> float:
     return math.copysign(max(0.0, abs(s) - l1), s)
+
+
+def _grad_norm_start(grad, hess):
+    """Start the flight recorder's L2/max summary of the iteration's
+    gradient pair: (sum g^2, max |g|, sum h^2) reduced in f64 on the
+    pair's device, the three scalars copied to pinned host memory behind
+    the stream. `_grad_norm_read` reads them after the iteration's tree
+    fetch, which has waited for that stream already, so the summary adds
+    no host sync. Callers gate on telemetry.events.enabled()."""
+    g, h = grad.detach().double(), hess.detach().double()
+    vals = torch.stack([g.square().sum(),
+                        g.abs().max() if g.numel() else g.new_zeros(()),
+                        h.square().sum()])
+    if vals.device.type != "cuda":
+        return vals, None
+    host = torch.empty(3, dtype=torch.float64, pin_memory=True)
+    host.copy_(vals, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _grad_norm_read(pending) -> dict:
+    host, done = pending
+    if done is not None and not done.query():
+        done.synchronize()   # the iteration fetched no tree
+    ss, mx, hs = host.tolist()
+    return {"grad_l2": math.sqrt(ss), "grad_max_abs": mx,
+            "hess_l2": math.sqrt(hs)}
+
+
+def _copy_scores(updater, arr) -> None:
+    """Write stored (K, N) f32 scores into `updater`'s score tensor in
+    place (its address kept) and drop its host copy."""
+    src = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+    dst = updater.score
+    if tuple(dst.shape) != tuple(src.shape):
+        raise LightGBMError("checkpoint scores of shape %s do not fit the "
+                            "booster's %s" % (tuple(src.shape),
+                                              tuple(dst.shape)))
+    dst.copy_(src)
+    updater.score = dst
 
 
 def _rows_f32(x) -> np.ndarray:
@@ -152,6 +211,9 @@ class ScoreUpdater:
         if self._host is None:
             self._host = self._score.cpu().numpy().astype(np.float64)
             self.fetches += 1
+            if telem_counters.is_active():
+                telem_counters.incr("transfer_d2h_bytes",
+                                    self._score.numel() * 4)
         return self._host
 
 
@@ -175,12 +237,22 @@ class GBDT:
         self.valid_metrics: List[List] = []
         self.train_metrics: List = []
         self.label_idx = 0
+        self.best_iteration = 0
         self._ensemble_cache: Dict = {}
+        self._sentry_retrying = False
+        self._ev_grad_norms = None
         if train_set is not None:
             self._init_train(train_set)
 
     def _init_train(self, train_set: Dataset) -> None:
         cfg = self.config
+        telemetry.configure(getattr(cfg, "telemetry", "off"),
+                            explicit="telemetry" in getattr(cfg, "raw", {}))
+        # the resolved config rides along in any postmortem bundle (a dict
+        # assignment -- free when bundling is off)
+        telemetry.bundle.set_context(
+            "config", {str(k): str(v)
+                       for k, v in sorted(getattr(cfg, "raw", {}).items())})
         # None for a custom objective: the caller passes the gradients
         self.objective = create_objective(cfg.objective, cfg)
         if self.objective is not None:
@@ -247,22 +319,148 @@ class GBDT:
 
     def _compute_gradients(self):
         """objective->GetGradients over the (K, N) score tensor: (K, N)
-        gradients and hessians (a one-class objective sees the (N,)
-        row)."""
+        gradients and hessians (a one-class objective sees the (N,) row).
+        This is the gradient fault-injection boundary
+        (resilience/faults.py): an active plan may poison the pair, which
+        the sentries must then catch."""
         score = self.score_updater.score
         if self.num_class > 1:
-            return self.objective.get_gradients(score)
-        g, h = self.objective.get_gradients(score[0])
-        return g[None, :], h[None, :]
+            g, h = self.objective.get_gradients(score)
+        else:
+            g, h = self.objective.get_gradients(score[0])
+            g, h = g[None, :], h[None, :]
+        plan = faults.active_plan()
+        if plan is not None:
+            g, h = plan.inject_gradients(g, h, self.iter)
+        return g, h
+
+    # -- non-finite sentries (resilience/sentries.py) -------------------
+    def _sentry_enabled(self) -> bool:
+        return getattr(self.config, "on_nonfinite", "off") \
+            not in ("off", "", "none")
+
+    def _apply_nonfinite_policy(self, what: str) -> str:
+        """Host-side policy dispatch once a guard trips. Returns 'skip'
+        (drop the iteration) or 'retry' (previous iteration rolled back,
+        recompute and go again); policy 'raise' raises."""
+        from ..resilience.sentries import NonFiniteError
+        pol = self.config.on_nonfinite
+        if pol == "raise":
+            raise NonFiniteError(
+                f"non-finite {what} detected at iteration {self.iter}; "
+                "set on_nonfinite=skip_iter/rollback to continue instead")
+        # only roll back when a previous iteration remains afterwards:
+        # rolling back to an EMPTY model would replay boost-from-average
+        # with shifted bias bookkeeping
+        if pol == "rollback" and self.iter > 0 \
+                and len(self.models) > self.num_tree_per_iteration:
+            log.warning("non-finite %s at iteration %d: rolling back one "
+                        "iteration", what, self.iter)
+            telemetry.events.emit("rollback", iteration=self.iter,
+                                  what=what, reason="non_finite")
+            self.rollback_one_iter()
+            return "retry"
+        log.warning("non-finite %s at iteration %d: skipping iteration",
+                    what, self.iter)
+        telemetry.events.emit("skip_iter", iteration=self.iter, what=what,
+                              reason="non_finite")
+        return "skip"
+
+    def _guard_gradients(self, grad, hess, recompute=None):
+        """One isfinite reduction over (grad, hess) (one host bool);
+        returns the (possibly recomputed) pair, or None when the iteration
+        should be skipped. `recompute` re-derives the pair after a
+        rollback (None for a custom objective's gradients, which cannot be
+        recomputed here)."""
+        if not self._sentry_enabled():
+            return grad, hess
+        from ..resilience import sentries
+        for _ in range(2):
+            if sentries.all_finite(grad, hess):
+                return grad, hess
+            act = self._apply_nonfinite_policy("gradients/hessians")
+            if act != "retry" or recompute is None:
+                return None
+            grad, hess = recompute()
+        raise sentries.NonFiniteError(
+            f"non-finite gradients persist at iteration {self.iter} "
+            "after rollback")
+
+    def _guard_tree(self, tree) -> bool:
+        """Host check over the new tree's leaf outputs. True = usable;
+        False = drop the tree (policy skip/rollback); raises on 'raise'."""
+        if not self._sentry_enabled() or tree.num_leaves <= 1:
+            return True
+        vals = np.asarray(tree.leaf_value[:tree.num_leaves],
+                          dtype=np.float64)
+        if np.isfinite(vals).all():
+            return True
+        from ..resilience.sentries import NonFiniteError
+        if self.config.on_nonfinite == "raise":
+            raise NonFiniteError(
+                f"non-finite leaf outputs at iteration {self.iter}")
+        log.warning("non-finite leaf outputs at iteration %d: dropping "
+                    "tree", self.iter)
+        return False
 
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration; True when training should stop (no tree
         with more than one leaf was produced). External (K * N,)
         gradients and hessians (a custom objective's) take the generic
-        iteration."""
-        if gradients is None and hessians is None and self._fused_eligible():
-            return self._train_one_iter_fused()
-        return self._train_one_iter_generic(gradients, hessians)
+        iteration. The iteration is one recorder bracket; with events on,
+        one flight-recorder record."""
+        ev_on = telemetry.events.enabled()
+        if ev_on:
+            coll0 = (telem_counters.get("collective_dispatches"),
+                     telem_counters.get("collective_retries"))
+            self._ev_grad_norms = None
+        with telem.iteration(self.iter):
+            if gradients is None and hessians is None \
+                    and self._fused_eligible():
+                stop = self._train_one_iter_fused()
+            else:
+                stop = self._train_one_iter_generic(gradients, hessians)
+        if ev_on:
+            self._emit_iteration_event(stop, coll0)
+        return stop
+
+    def _emit_iteration_event(self, stop: bool, coll0) -> None:
+        """Assemble this iteration's flight-recorder record: recorder
+        phases, grad/hess norms (generic iteration), the quantization
+        plan, the stream's overlap, peak and H2D bytes, and collective
+        deltas. Events-gated -- the off path never reaches here."""
+        rec: Dict = {}
+        last = telem.last_iteration()
+        if last is not None:
+            rec.update(last)
+        else:
+            rec["iteration"] = self.iter - (0 if stop else 1)
+        if stop:
+            rec["stop"] = True
+        if self._ev_grad_norms is not None:
+            rec["grad_norms"] = _grad_norm_read(self._ev_grad_norms)
+        cfg = self.config
+        if getattr(cfg, "quantized_grad", False):
+            renew = bool(getattr(cfg, "quant_renew", False))
+            rec["quant"] = {
+                "grad_bits": int(cfg.grad_bits), "renew": renew,
+                "storage_bits": quantize_ops.storage_bits(
+                    int(cfg.grad_bits), renew)}
+        shard = getattr(self.learner, "_shard", None)
+        if shard is not None:
+            overlap = shard.overlap_fraction()
+            rec["stream"] = {
+                "overlap_fraction": (None if overlap is None
+                                     else round(overlap, 4)),
+                "peak_bytes": int(getattr(shard, "peak_bytes", 0)),
+                "h2d_bytes": int(getattr(shard, "h2d_bytes", 0))}
+        d0, r0 = coll0
+        dispatches = telem_counters.get("collective_dispatches") - d0
+        retries = telem_counters.get("collective_retries") - r0
+        if dispatches or retries:
+            rec["collectives"] = {"dispatches": int(dispatches),
+                                  "retries": int(retries)}
+        telemetry.record_iteration(rec)
 
     def _bagging(self, iteration: int) -> Optional[np.ndarray]:
         """The generic iteration's row sample on the host (reference
@@ -303,8 +501,13 @@ class GBDT:
         percentiles run on the host) and no pos/neg bagging (its bag is
         drawn on the host), and not under stream_mode (the streamed
         assembly is a host loop of transfers per tree, with no seam in the
-        fused step), as in the JAX package."""
+        fused step), nor while a fault plan poisons gradients (they inject
+        at the host boundary, _compute_gradients), as in the JAX
+        package."""
         if getattr(self.config, "stream_mode", "off") != "off":
+            return False
+        plan = faults.active_plan()
+        if plan is not None and plan.has_gradient_faults:
             return False
         return (self.__class__ in (GBDT, GOSS)
                 and isinstance(self.learner, DeviceTreeLearner)
@@ -330,9 +533,16 @@ class GBDT:
         the JAX package's: bagging_seed + iter // bagging_freq (a bag kept
         for bagging_freq iterations), + iter under GOSS. The validation
         sets get the tree with that score as its bias, at
-        materialization."""
+        materialization.
+
+        With on_nonfinite set, the policy is decided from the finite flag
+        of the same fetch before anything is committed: skip_iter commits
+        no tree and no training or validation score (iter advances),
+        rollback takes the previous iteration back and redoes this one
+        once; a second failure raises."""
         cfg = self.config
-        init_score = self._boost_from_average(0, False)
+        with telem.phase("boost_avg"):
+            init_score = self._boost_from_average(0, False)
         goss_params = self._fused_goss()
         if self._fused_step is None:
             self._fused_step = {}
@@ -344,16 +554,43 @@ class GBDT:
                 bagging=not isinstance(self, GOSS))
         freq = 1 if goss_params is not None else max(cfg.bagging_freq, 1)
         bag_seed = (cfg.bagging_seed + self.iter // freq) % (2**31 - 1)
-        new_score, rec, leaf_id, k, finite = self._fused_step[fkey](
-            self.score_updater.score[0], self.iter, self.shrinkage_rate,
-            init_score, bag_seed)
-        rec_h, k, (finite,) = self.learner.fetch_tree(rec, k, finite)
-        if self._materialize_one(rec_h, k, leaf_id, init_score):
+        with telem.phase("grow_dispatch"):
+            new_score, rec, leaf_id, k, finite = self._fused_step[fkey](
+                self.score_updater.score[0], self.iter, self.shrinkage_rate,
+                init_score, bag_seed)
+        telemetry.note_grow_dispatches(1.0, trees=1.0)
+        with telem.phase("host_sync"):
+            rec_h, k, (finite,) = self.learner.fetch_tree(rec, k, finite)
+        act = None
+        if self._sentry_enabled():
+            # the flag came in the tree's one fetch: deciding adds no sync
+            with telem.phase("sentry"):
+                if not finite and self._sentry_retrying:
+                    from ..resilience.sentries import NonFiniteError
+                    raise NonFiniteError(
+                        "non-finite fused iteration outputs persist at "
+                        "iteration %d after rollback" % self.iter)
+                if not finite:
+                    act = self._apply_nonfinite_policy(
+                        "fused iteration outputs")
+        if act is not None:
+            if act == "retry":
+                self._sentry_retrying = True
+                try:
+                    return self._train_one_iter_fused()
+                finally:
+                    self._sentry_retrying = False
+            self.iter += 1      # skip: nothing committed
+            return False
+        with telem.phase("tree_replay"):
+            stopped = self._materialize_one(rec_h, k, leaf_id, init_score)
+        if stopped:
             return self._train_one_iter_generic()
         if not finite:
             log.warning("Non-finite training scores after iteration %d",
                         self.iter)
-        self.score_updater.score = new_score[None]
+        with telem.phase("score_update"):
+            self.score_updater.score = new_score[None]
         self.iter += 1
         return False
 
@@ -378,23 +615,38 @@ class GBDT:
 
     def _train_one_iter_generic(self, gradients=None, hessians=None) -> bool:
         k_trees, n = self.num_tree_per_iteration, self.num_data
-        if gradients is None or hessians is None:
-            init_scores = [self._boost_from_average(k, True)
-                           for k in range(k_trees)]
-            grad, hess = self._compute_gradients()
-        else:
-            init_scores = [0.0] * k_trees
-            grad, hess = (torch.as_tensor(np.asarray(
-                a, dtype=np.float32).reshape(k_trees, n), device=self.device)
-                for a in (gradients, hessians))
-        grad, hess, bag_indices = self._sample(grad, hess)
+        with telem.phase("gradient"):
+            if gradients is None or hessians is None:
+                init_scores = [self._boost_from_average(k, True)
+                               for k in range(k_trees)]
+                grad, hess = self._compute_gradients()
+            else:
+                init_scores = [0.0] * k_trees
+                grad, hess = (torch.as_tensor(np.asarray(
+                    a, dtype=np.float32).reshape(k_trees, n),
+                    device=self.device) for a in (gradients, hessians))
+            guarded = self._guard_gradients(
+                grad, hess,
+                self._compute_gradients if gradients is None else None)
+        if guarded is None:
+            self.iter += 1   # skipped: seeds keep moving, no tree / score
+            return False
+        grad, hess = guarded
+        if telemetry.events.enabled():
+            self._ev_grad_norms = _grad_norm_start(grad, hess)
+        with telem.phase("bagging"):
+            grad, hess, bag_indices = self._sample(grad, hess)
         should_continue = False
+        sentry_dropped = False
         for k in range(self.num_tree_per_iteration):
             new_tree = Tree(2)
             if self._class_need_train[k] and self.train_set.num_features > 0:
                 new_tree = self.learner.train(
                     grad[k], hess[k], bag_indices,
                     iter_seed=self.iter * self.num_tree_per_iteration + k)
+                if not self._guard_tree(new_tree):
+                    new_tree = Tree(2)
+                    sentry_dropped = True
             if new_tree.num_leaves > 1:
                 should_continue = True
                 if (self.objective is not None
@@ -416,6 +668,13 @@ class GBDT:
             self.models.append(new_tree)
 
         if not should_continue:
+            if sentry_dropped and \
+                    len(self.models) > self.num_tree_per_iteration:
+                # every tree of this iteration was dropped by the sentry:
+                # a skipped iteration, not the end of training
+                del self.models[-self.num_tree_per_iteration:]
+                self.iter += 1
+                return False
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
             if len(self.models) > self.num_tree_per_iteration:
@@ -434,6 +693,10 @@ class GBDT:
         rollback: it routes exactly as the partition did), or by walking
         the tree when the learner keeps none (the host-loop learner); the
         validation sets' by walking the tree."""
+        with telem.phase("score_update"):
+            self._update_score_inner(tree, class_id)
+
+    def _update_score_inner(self, tree: Tree, class_id: int) -> None:
         leaf_id = self.learner.last_leaf_id
         if leaf_id is not None:
             self.score_updater.add_tree_by_leaf_id(tree, leaf_id, class_id)
@@ -487,6 +750,85 @@ class GBDT:
         self._last_leaf_ids.clear()
         del self.models[-per:]
         self.iter -= 1
+
+    # -- training-state capture / restore (resilience/checkpoint.py) -----
+    def capture_state(self) -> Dict:
+        """Live training state beyond the model text: everything a resumed
+        run needs to continue bit for bit (the JAX package's keys, so a
+        checkpoint moves between the packages). The scores come back as
+        (K, N) f32 host arrays (one fetch per dataset)."""
+        if getattr(self, "_bag_rng", None) is None:
+            log.fatal("checkpointing requires a booster constructed with "
+                      "a train_set (model-only boosters have no training "
+                      "state; use save_model instead)")
+        st: Dict = {
+            "iter": int(self.iter),
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "best_iteration": int(self.best_iteration),
+            "num_init_iteration": int(self.num_init_iteration),
+            "bag_rng": self._bag_rng.get_state(),
+            "bag_indices": (None if self._bag_indices is None
+                            else np.asarray(self._bag_indices)),
+            "train_score": self.score_updater.score.cpu().numpy().copy(),
+            "valid_scores": [vu.score.cpu().numpy().copy()
+                             for vu in self.valid_updaters],
+        }
+        if isinstance(self, DART):
+            st["dart"] = {"tree_weights": list(self._tree_weights),
+                          "sum_weight": float(self._sum_weight),
+                          "drop_rng": self._drop_rng.get_state()}
+        stream = getattr(self.learner, "stream_state", lambda: None)()
+        if stream is not None:
+            st["stream"] = stream
+        return st
+
+    def restore_state(self, st: Dict) -> None:
+        """Inverse of capture_state, applied after the model trees have
+        been restored. Scores come back bit for bit from the stored f32
+        arrays, copied into the score tensors in place (NOT replayed
+        through the trees: a replay re-associates the float adds and the
+        boost-from-average constant). The learner's stream state goes to
+        its shard, which exists from the learner's construction, so a
+        restore before the first tree takes effect at that tree."""
+        if getattr(self, "_bag_rng", None) is None:
+            log.fatal("restoring a checkpoint requires a booster "
+                      "constructed with a train_set")
+        self.iter = int(st["iter"])
+        self.shrinkage_rate = float(st["shrinkage_rate"])
+        self.best_iteration = int(st["best_iteration"])
+        self.num_init_iteration = int(st["num_init_iteration"])
+        self._bag_rng.set_state(st["bag_rng"])
+        self._bag_indices = (None if st.get("bag_indices") is None
+                             else np.asarray(st["bag_indices"],
+                                             dtype=np.int32))
+        if st.get("train_score") is not None:
+            _copy_scores(self.score_updater, st["train_score"])
+        vs = st.get("valid_scores") or []
+        if vs and len(vs) == len(self.valid_updaters):
+            for vu, arr in zip(self.valid_updaters, vs):
+                _copy_scores(vu, arr)
+        elif self.valid_updaters:
+            log.warning(
+                "checkpoint carries %d valid-set scores, booster has %d "
+                "valid sets: rebuilding scores by tree replay", len(vs),
+                len(self.valid_updaters))
+            per = max(self.num_tree_per_iteration, 1)
+            for vu in self.valid_updaters:
+                vu.score = torch.zeros_like(vu.score)
+                for it in range(len(self.models) // per):
+                    for k in range(per):
+                        vu.add_tree(self.models[it * per + k], k)
+        if "dart" in st and isinstance(self, DART):
+            d = st["dart"]
+            self._tree_weights = list(d["tree_weights"])
+            self._sum_weight = float(d["sum_weight"])
+            self._drop_rng.set_state(d["drop_rng"])
+        if st.get("stream") is not None and hasattr(
+                self.learner, "load_stream_state"):
+            self.learner.load_stream_state(st["stream"])
+        self._last_leaf_ids.clear()
+        self._last_leaf_ids_iter = -1
+        self.invalidate_ensemble_cache()
 
     # ------------------------------------------------------------------
     def eval_metrics(self, only: Optional[str] = None):

@@ -46,6 +46,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..telemetry import counters as telem_counters
 from . import quantize as quant_ops
 from . import split as split_ops
 from .histogram import (build_histogram, build_histogram_quantized,
@@ -104,6 +105,7 @@ class SplitLoop:
         self.graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
+        telem_counters.note_capture(self.capture_s)
 
     def run(self) -> None:
         """num_steps steps, in order, with no host sync between them."""

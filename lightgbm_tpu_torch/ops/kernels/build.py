@@ -18,7 +18,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable
+
+from ...telemetry import counters as telem_counters
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -60,6 +63,7 @@ def build_all(names: Iterable[str] = SOURCES,
     output ("cached" for a library that already exists). verbose adds
     ``-Xptxas -v`` (registers, shared memory and spills per kernel)."""
     os.makedirs(build_dir(), exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     out: Dict[str, str] = {}
     for name in names:
@@ -83,6 +87,9 @@ def build_all(names: Iterable[str] = SOURCES,
         out[name] = text
     if failed:
         raise RuntimeError("\n".join(failed))
+    if procs:
+        telem_counters.note_kernel_build(len(procs),
+                                         time.perf_counter() - t0)
     return out
 
 

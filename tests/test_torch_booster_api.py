@@ -95,8 +95,6 @@ def test_every_public_method_of_the_jax_classes():
 
 
 @pytest.mark.parametrize("method,args,item", [
-    ("save_checkpoint", ("ckpt",), "item 10"),
-    ("restore_checkpoint", ("ckpt",), "item 10"),
     ("set_network", ("127.0.0.1:12400",), "item 9"),
     ("free_network", (), "item 9")])
 def test_later_slices_raise_naming_their_item(port_booster, method, args,

@@ -190,8 +190,7 @@ def test_weights_and_init_score_match_jax(monkeypatch):
 @pytest.mark.parametrize("key,value", [
     ("objective", "multiclass"), ("tree_learner", "voting"),
     ("tree_learner", "feature"), ("quantized_grad", True),
-    ("tree_learner", "data"), ("on_nonfinite", "raise"),
-    ("stream_mode", "chunked")])
+    ("tree_learner", "data"), ("stream_mode", "chunked")])
 def test_out_of_slice_params_raise_naming_the_key(key, value):
     x, y = _task("binary", n=200)
     params = dict(_params("binary"), **{key: value})

@@ -2064,3 +2064,49 @@ def test_chunk_tree_on_card_equals_cpu(cuda_device, quant, monkeypatch):
     step = lr._loop.launches_per_step
     assert step["lightgbm_tpu_torch.ops.kernels.partition.launches_win"] \
         == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_resume_on_card_equals_uninterrupted(cuda_device, quant, tmp_path,
+                                             monkeypatch):
+    # a 70,000-row compact run (bagging 0.8: the router too) checkpointed
+    # at iteration 4 and resumed to 8 on the card writes the uninterrupted
+    # run's model text, byte for byte: every device op on the path gives
+    # the same bits run to run, and the scores come back from the stored
+    # f32 arrays
+    from lightgbm_tpu_torch.callback import checkpoint
+    monkeypatch.delenv("LGBM_TPU_STRATEGY", raising=False)
+    r = np.random.RandomState(8)
+    x = r.randn(70_000, 10)
+    y = (x[:, 0] - x[:, 1] + 0.5 * r.randn(70_000) > 0).astype(np.float64)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "bagging_fraction": 0.8, "bagging_freq": 1,
+              "quantized_grad": quant, "grad_bits": 8, "verbosity": -1}
+    full = tlgb.train(dict(params), tlgb.Dataset(x, y), 8)
+    tlgb.train(dict(params), tlgb.Dataset(x, y), 4,
+               callbacks=[checkpoint(str(tmp_path), checkpoint_freq=4)])
+    resumed = tlgb.train(dict(params), tlgb.Dataset(x, y), 8,
+                         resume_from=str(tmp_path))
+    assert resumed._gbdt.device.type == "cuda"
+    assert resumed._gbdt.learner.strategy == "compact"
+    assert resumed.model_to_string() == full.model_to_string()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec,iteration", [
+    ("nan_grad@iter=3,frac=0.01", 3), ("inf_grad@p=0.5;seed=5", 2)])
+def test_fault_plan_poisons_the_same_rows_on_card(cuda_device, spec,
+                                                  iteration):
+    from lightgbm_tpu_torch.resilience import faults
+    g = torch.from_numpy(np.random.RandomState(1).randn(1, 100_000)
+                         .astype(np.float32))
+    h = torch.ones_like(g)
+    card, host = faults.FaultPlan(spec), faults.FaultPlan(spec)
+    for it in range(iteration + 1):
+        gc_, _ = card.inject_gradients(g.to(cuda_device),
+                                       h.to(cuda_device), it)
+        gh_, _ = host.inject_gradients(g, h, it)
+    assert gc_.device.type == "cuda"
+    assert torch.equal(~torch.isfinite(gc_.cpu()), ~torch.isfinite(gh_))
+    assert card.events == host.events and card.events
