@@ -109,6 +109,30 @@ Phases, one JSON line each:
                params) fit on the card, the main path (the device loop's
                kernels launched), its predict_proba within 1e-6 of the
                train phase's Booster (K1 / K2 repeat bit for bit);
+  serve        online serving on the card: a SERVE_ROUNDS (100) round
+               model of the train phase's data and params (100 trees pad
+               to 128) in a ModelRegistry warmed at 1, 16, 256 and 4096
+               rows (each entry's build ms); PredictorCache.predict within
+               1e-6 of Booster.predict on the 100,000 held-out rows in
+               slices of 4096, and on the first 2,048 / 512 in slices of
+               16, 100, 256 / 1, 7; no entry built by requests of 1..256
+               rows, nor by the swap to the model's refit (decay 0.9 on
+               the held-out rows, the same family key), which answers
+               with its own predictions; p50 / p99 ms, rows per s and
+               device kernels and copies per flush (torch.profiler over
+               20 calls) at 1, 16, 256 and 4096 rows; the HTTP server
+               (max_batch 256, max_delay_ms 2) under 8 keep-alive clients
+               for 10 s at 1 and at 64 rows per request (requests per s,
+               p50 / p99 from the client and from /stats, rows per flush,
+               no entry built, /healthz 200, /metrics, /drain); the canary
+               router at weight 0.2 over 1,000 un-versioned requests (the
+               canary answers exactly 200, every answer its version's
+               prediction), a forced promotion and demotion in
+               /router/audit, shadow mode (the stable answers, the canary
+               gets every mirrored copy); `python -m lightgbm_tpu_torch
+               task=serve` as a subprocess: one /predict equal to the
+               in-process answer, /drain, exit 0 on SIGINT; no hand kernel
+               launched on the serving path;
   train_quant  the same data and parameters with quantized_grad (grad_bits
                8): K3 / K1 / K4 launches, time, peak memory, and held-out
                AUC > 0.7 and within 0.005 of the float run's; beside it the
@@ -398,7 +422,8 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000
 
 PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
-          "booster_api", "train_quant", "train_masked", "train_bag", "train_valid",
+          "booster_api", "serve", "train_quant", "train_masked",
+          "train_bag", "train_valid",
           "train_objectives", "train_multiclass", "train_boost",
           "train_learners", "train_stream", "resilience", "train_cat",
           "train_rank", "loop", "reference")
@@ -898,7 +923,7 @@ def main():
     need_float = bool(run & {"train", "profile", "booster_api",
                              "train_quant"})
     need_data = need_float or bool(run & {
-        "k1", "k2", "k3", "k4", "train_bag", "train_valid",
+        "k1", "k2", "k3", "k4", "serve", "train_bag", "train_valid",
         "train_objectives", "train_multiclass", "train_boost",
         "train_learners", "train_stream", "resilience"})
     t0 = time.time()
@@ -1160,6 +1185,14 @@ def main():
             if problems:
                 fail("booster_api: %s" % "; ".join(problems))
         del bst, back, hbst
+
+    # ---- serve: online serving of a higgs-1m model --------------------------
+    if "serve" in run:
+        row, problems = serve_phase(torch, lgb, params, ds, xv, yv,
+                                    reset_counts, read_counts)
+        emit(row)
+        if problems:
+            fail("serve: %s" % "; ".join(problems))
 
     # ---- train_quant: the same data with quantized gradients --------------
     if "train_quant" in run:
@@ -2347,6 +2380,441 @@ def f32_threshold_rows(inner, x):
         i = np.minimum(np.searchsorted(hi, col, side="left"), len(hi) - 1)
         out |= (col > lo[i]) & (col <= hi[i])
     return out
+
+
+# ---- serve: online serving on the card ------------------------------------
+# rounds of the served higgs-1m model (bench.py's 500 cut to fit the time
+# limit: 100 trees pad to 128); the buckets the registry warms
+SERVE_ROUNDS = 100
+SERVE_WARM = (1, 16, 256, 4096)
+# the parity slices: (rows, slice size) of the 100,000 held-out rows
+SERVE_PARITY = ((100_000, 4096), (2048, 16), (2048, 100), (2048, 256),
+                (512, 1), (512, 7))
+SERVE_LAT_CALLS = 200
+SERVE_PROFILE_CALLS = 20
+SERVE_HTTP_S = 10.0
+SERVE_CLIENTS = 8
+SERVE_CANARY_REQUESTS = 1000
+SERVE_CANARY_WEIGHT = 0.2
+SERVE_SHADOW_REQUESTS = 50
+
+
+def _pcts(samples_s):
+    a = np.sort(np.asarray(samples_s, dtype=np.float64)) * 1e3
+    if not len(a):
+        return {"p50_ms": None, "p99_ms": None}
+    return {"p50_ms": float(a[min(len(a) - 1, int(0.50 * len(a)))]),
+            "p99_ms": float(a[min(len(a) - 1, int(0.99 * len(a)))])}
+
+
+def _http(port, method, path, payload=None, timeout=60):
+    """(status, parsed JSON or text) of one request to 127.0.0.1:port."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        body = None if payload is None else json.dumps(payload)
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        try:
+            return resp.status, json.loads(data)
+        except ValueError:
+            return resp.status, data.decode()
+    finally:
+        conn.close()
+
+
+def _http_load(port, rows, seconds, clients):
+    """`clients` threads, each on one keep-alive connection, POST
+    /predict with `rows` until `seconds` pass: (requests, errors, client
+    latencies in s, wall s)."""
+    import http.client
+    import threading
+    body = json.dumps({"rows": rows})
+    lats, errors, lock = [], [0], threading.Lock()
+    start = threading.Barrier(clients + 1)
+    stop_at = [0.0]
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        mine, bad = [], 0
+        start.wait()
+        while time.perf_counter() < stop_at[0]:
+            t1 = time.perf_counter()
+            conn.request("POST", "/predict", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            mine.append(time.perf_counter() - t1)
+            bad += resp.status != 200
+        conn.close()
+        with lock:
+            lats.extend(mine)
+            errors[0] += bad
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(clients)]
+    for t in threads:
+        t.start()
+    stop_at[0] = time.perf_counter() + seconds
+    t0 = time.perf_counter()
+    start.wait()
+    for t in threads:
+        t.join(timeout=seconds + 120)
+    return len(lats), errors[0], lats, time.perf_counter() - t0
+
+
+def serve_phase(torch, lgb, params, ds, xv, yv, reset_counts, read_counts):
+    """serve: online serving of a SERVE_ROUNDS-round higgs-1m model on the
+    card -- the registry warmed at SERVE_WARM, parity against
+    Booster.predict, no entry built after warm-up or on the swap to the
+    model's refit, in-process latency per bucket and launches per flush,
+    the HTTP server under 8 clients, the canary router and shadow mode,
+    and `python -m lightgbm_tpu_torch task=serve` as a subprocess.
+    Returns (row, problems)."""
+    import signal
+    import socket
+    import tempfile
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.serving import (ModelRegistry, PredictorCache,
+                                            ServingApp, make_http_server)
+
+    problems = []
+    row = {"phase": "serve", "rounds": SERVE_ROUNDS,
+           "warm_buckets": list(SERVE_WARM)}
+    t0 = time.time()
+    bst = lgb.train(params, ds, num_boost_round=SERVE_ROUNDS)
+    torch.cuda.synchronize()
+    row["train_s"] = time.time() - t0
+    text = bst.model_to_string()
+    ref = bst.predict(xv)
+    reset_counts()         # the serving path: no hand kernel launches
+    marks = [("model", time.time())]
+
+    # -- the CLI: `python -m lightgbm_tpu_torch task=serve` on the card, as
+    # a subprocess; started first, so its start-up overlaps the sections
+    # below (its warm-up runs beside the parity checks, which time nothing)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    path = os.path.join(tmp, "model.txt")
+    with open(path, "w") as fh:
+        fh.write(text)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        cli_port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    # PYTHONFAULTHANDLER: a crash of the server prints every thread's
+    # stack into its log, which a failure below reports
+    env = dict(os.environ, PYTHONFAULTHANDLER="1", PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t_cli = time.time()
+    log_path = os.path.join(tmp, "serve.log")
+    log_fh = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
+         "input_model=" + path, "serve_port=%d" % cli_port],
+        cwd=root, env=env, stdout=log_fh, stderr=subprocess.STDOUT)
+    try:
+        # -- load and warm ----------------------------------------------------
+        reg = ModelRegistry(PredictorCache(max_batch_rows=4096),
+                            warm_buckets=SERVE_WARM)
+        t1 = time.time()
+        reg.load(text, version="v1")
+        row["load_and_warm_s"] = time.time() - t1
+        m = reg.get("v1")
+        row["entries"] = [{"bucket": b, "build_ms": e.build_s * 1e3}
+                          for _, b, e in reg.predictor.entries()]
+        row["model"] = {"trees": m.n_trees,
+                        "padded_trees": int(m.arrays.split_feature.shape[0]),
+                        "padded_nodes": int(m.arrays.split_feature.shape[1]),
+                        "padded_leaves": int(m.arrays.leaf_value.shape[1]),
+                        "depth_steps": m.max_depth,
+                        "deepest_tree": max(t.depth() for t in
+                                            bst._gbdt.models),
+                        "device": m.device_key}
+        if m.arrays.split_feature.shape[0] != 128:
+            problems.append("the padded ensemble has %d trees, want 128"
+                            % m.arrays.split_feature.shape[0])
+        if m.device_key != "cuda:0":
+            problems.append("the model sits on %s" % m.device_key)
+
+        # -- parity: PredictorCache.predict against Booster.predict -----------
+        parity = {}
+        for rows, step in SERVE_PARITY:
+            worst = 0.0
+            for i in range(0, rows, step):
+                out = reg.predictor.predict(m, xv[i:i + step])
+                if not np.all(np.isfinite(out)) or out.shape != (
+                        len(xv[i:i + step]), 1):
+                    problems.append("slice %d:%d not finite or of shape %s"
+                                    % (i, i + step, out.shape))
+                    break
+                worst = max(worst, float(np.max(np.abs(out[:, 0]
+                                                       - ref[i:i + step]))))
+            parity["%d rows by %d" % (rows, step)] = worst
+            if worst > 1e-6:
+                problems.append("predictor vs Booster.predict: %g over %d "
+                                "rows in slices of %d (want <= 1e-6)"
+                                % (worst, rows, step))
+        row["parity_max_abs"] = parity
+        marks.append(("parity", time.time()))
+
+        # -- no entry after warm-up; the swap to the refit model builds none --
+        builds = reg.predictor.compile_count
+        for n in range(1, 257):
+            reg.predictor.predict(m, xv[:n])
+        row["builds_after_warmup"] = reg.predictor.compile_count - builds
+        if row["builds_after_warmup"]:
+            problems.append("%d entries built by requests of 1..256 rows "
+                            "after warm-up" % row["builds_after_warmup"])
+        refit = lgb.Booster(model_str=text)
+        t1 = time.time()
+        refit.refit(xv, yv, decay_rate=0.9)
+        row["refit_s"] = time.time() - t1
+        ref2 = refit.predict(xv)
+        reg.load(refit.model_to_string(), version="refit", warm=False)
+        m2 = reg.get("refit")
+        same = (reg.predictor.family(m2, xv.shape[1], False)
+                == reg.predictor.family(m, xv.shape[1], False))
+        swap_err = 0.0
+        for i in range(0, 8192, 4096):
+            out = reg.predictor.predict(m2, xv[i:i + 4096])
+            swap_err = max(swap_err, float(np.max(np.abs(out[:, 0]
+                                                         - ref2[i:i + 4096]))))
+        row["swap"] = {"same_family": same,
+                       "builds": reg.predictor.compile_count - builds,
+                       "max_abs_vs_refit_predict": swap_err,
+                       "max_abs_refit_minus_v1": float(np.max(np.abs(
+                           ref2[:8192] - ref[:8192])))}
+        if not same or row["swap"]["builds"] or swap_err > 1e-6 \
+                or row["swap"]["max_abs_refit_minus_v1"] < 1e-4:
+            problems.append("swap to the refit model: %s" % row["swap"])
+        marks.append(("sweep_and_swap", time.time()))
+
+        # -- in-process latency per bucket, launches per flush ----------------
+        lat = {}
+        for b in SERVE_WARM:
+            xs = xv[:b]
+            reg.predictor.predict(m, xs)
+            times = []
+            for _ in range(SERVE_LAT_CALLS):
+                t1 = time.perf_counter()
+                reg.predictor.predict(m, xs)
+                times.append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            # device activity only, read from the raw kineto events: the
+            # host ops' events, and building the profiler's function
+            # events, would cost tens of seconds at ~2,000 kernels a flush
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(SERVE_PROFILE_CALLS):
+                    reg.predictor.predict(m, xs)
+                torch.cuda.synchronize()
+            dev = [(e.name(), e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
+            copies = [d for d in dev
+                      if d[0].startswith(("Memcpy", "Memset"))]
+            names = {}
+            for name, _ in dev:
+                names[name[:60]] = names.get(name[:60], 0) + 1
+            per = float(SERVE_PROFILE_CALLS)
+            lat[b] = dict(_pcts(times), rows_per_s=b * len(times) / sum(times),
+                          mean_ms=1e3 * sum(times) / len(times),
+                          kernels_per_flush=(len(dev) - len(copies)) / per,
+                          copies_per_flush=len(copies) / per,
+                          device_ms_per_flush=sum(d[1] for d in dev) / 1e6
+                          / per,
+                          top=[{"name": k, "calls": v / per} for k, v in
+                               sorted(names.items(), key=lambda kv: -kv[1])
+                               [:5]])
+        row["in_process"] = lat
+        marks.append(("in_process", time.time()))
+
+        # -- HTTP: 8 clients for SERVE_HTTP_S s at 1 row, then at 64 rows -----
+        http = {}
+        for rows in (1, 64):
+            app = ServingApp(reg, max_batch=256, max_delay_ms=2.0)
+            httpd = make_http_server(app, port=0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            port = httpd.server_address[1]
+            try:
+                builds = reg.predictor.compile_count
+                n, errs, lats, wall = _http_load(
+                    port, xv[:rows].tolist(), SERVE_HTTP_S, SERVE_CLIENTS)
+                code_h, health = _http(port, "GET", "/healthz")
+                code_s, stats = _http(port, "GET", "/stats")
+                code_m, metrics = _http(port, "GET", "/metrics")
+                lines = [ln for ln in str(metrics).splitlines()
+                         if ln.startswith(("lgbm_tpu_serve_batches_total",
+                                           "lgbm_tpu_serve_rows_total",
+                                           "lgbm_tpu_serve_requests_total",
+                                           "lgbm_tpu_serve_compiles_total",
+                                           "lgbm_tpu_predictor_cache_hits"))]
+                code_d, drained = _http(port, "POST", "/drain", {})
+                c = stats["counters"]
+                http["%d_row" % rows] = {
+                    "requests": n, "errors": errs, "wall_s": wall,
+                    "requests_per_s": n / wall, "rows_per_s": n * rows / wall,
+                    "client": _pcts(lats),
+                    "stats_request": {k: stats["latency"]["serve_request"][k]
+                                      for k in ("p50_ms", "p99_ms", "count")},
+                    "stats_batch_exec_p50_ms":
+                        stats["latency"]["serve_batch_exec"]["p50_ms"],
+                    "rows_per_flush": c["serve_rows"] / max(
+                        c["serve_batches"], 1),
+                    "flushes": c["serve_batches"],
+                    "builds_during_load": reg.predictor.compile_count - builds,
+                    "healthz": code_h, "metrics": lines,
+                    "drain": [code_d, drained.get("status")]}
+                h = http["%d_row" % rows]
+                if errs or not n or h["builds_during_load"] or code_h != 200 \
+                        or code_s != 200 or len(lines) < 4 or code_d != 200 \
+                        or drained.get("status") != "draining":
+                    problems.append("HTTP at %d rows: %s" % (rows, h))
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                app.close()
+        row["http"] = http
+        marks.append(("http", time.time()))
+
+        # -- canary and shadow ------------------------------------------------
+        app = ServingApp(reg, max_batch=256, max_delay_ms=2.0)
+        # no auto-promotion within the run
+        app.router.min_requests = 10 * SERVE_CANARY_REQUESTS
+        httpd = make_http_server(app, port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        port = httpd.server_address[1]
+        try:
+            app.router_action({"action": "stable", "version": "v1"})
+            app.router_action({"action": "deploy", "version": "refit",
+                               "weight": SERVE_CANARY_WEIGHT})
+            answers = [None] * SERVE_CANARY_REQUESTS
+            nxt, lock = [0], threading.Lock()
+
+            def canary_client():
+                while True:
+                    with lock:
+                        i = nxt[0]
+                        nxt[0] += 1
+                    if i >= SERVE_CANARY_REQUESTS:
+                        return
+                    out = app.predict({"rows": xv[i:i + 1].tolist()})
+                    answers[i] = (out["version"], out["predictions"][0])
+
+            threads = [threading.Thread(target=canary_client, daemon=True)
+                       for _ in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            versions = [a[0] if a else None for a in answers]
+            want = {"v1": ref, "refit": ref2}
+            wrong = sum(1 for i, a in enumerate(answers) if a is None
+                        or abs(a[1] - want[a[0]][i]) > 1e-6)
+            canary = {"requests": SERVE_CANARY_REQUESTS,
+                      "weight": SERVE_CANARY_WEIGHT,
+                      "answered_by_canary": versions.count("refit"),
+                      "answered_by_stable": versions.count("v1"),
+                      "wrong_answers": wrong}
+            app.router_action({"action": "promote"})
+            app.router_action({"action": "deploy", "version": "v1",
+                               "weight": SERVE_CANARY_WEIGHT})
+            app.router_action({"action": "demote", "reason": "chip_smoke"})
+            code_a, audit = _http(port, "GET", "/router/audit")
+            actions = [d["action"] for d in audit.get("decisions", [])]
+            canary["audit"] = actions
+            # shadow: the canary sees mirrored copies and answers none
+            app.router_action({"action": "deploy", "version": "v1",
+                               "shadow": True})
+            shadow_versions = [app.predict({"rows": xv[i:i + 1].tolist()})
+                               ["version"]
+                               for i in range(SERVE_SHADOW_REQUESTS)]
+            deadline = time.time() + 30
+            while time.time() < deadline:
+                mirrored = (app.stats.snapshot()["versions"].get("v1") or {}) \
+                    .get("requests", 0) - versions.count("v1")
+                if mirrored >= SERVE_SHADOW_REQUESTS:
+                    break
+                time.sleep(0.05)
+            canary["shadow"] = {
+                "requests": SERVE_SHADOW_REQUESTS,
+                "answered_by": sorted(set(shadow_versions)),
+                "mirrored": app.stats.get("serve_shadow_mirrored"),
+                "shadow_version_requests": mirrored}
+            row["canary"] = canary
+            if canary["answered_by_canary"] != int(
+                    SERVE_CANARY_REQUESTS * SERVE_CANARY_WEIGHT) or wrong \
+                    or code_a != 200 or "promote" not in actions \
+                    or "demote" not in actions \
+                    or canary["shadow"]["answered_by"] != ["refit"] \
+                    or canary["shadow"]["mirrored"] != SERVE_SHADOW_REQUESTS \
+                    or mirrored < SERVE_SHADOW_REQUESTS:
+                problems.append("canary / shadow: %s" % canary)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            app.close()
+        row["cache_info"] = reg.predictor.cache_info()
+        marks.append(("canary_shadow", time.time()))
+
+        # -- the CLI: the task=serve subprocess started above -----------------
+        cli = {}
+        try:
+            while time.time() - t_cli < 180 and proc.poll() is None:
+                try:
+                    if _http(cli_port, "GET", "/healthz",
+                             timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.25)
+            cli["ready_s"] = time.time() - t_cli
+            code_p, out = _http(cli_port, "POST", "/predict",
+                                {"rows": xv[:5].tolist()})
+            inproc = reg.predictor.predict(m, xv[:5])[:, 0]
+            cli["predict"] = code_p
+            cli["max_abs_vs_in_process"] = float(np.max(np.abs(
+                np.asarray(out["predictions"]) - inproc))) \
+                if code_p == 200 else None
+            code_d, drained = _http(cli_port, "POST", "/drain", {})
+            cli["drain"] = [code_d, drained.get("status")]
+            proc.send_signal(signal.SIGINT)
+            cli["exit"] = proc.wait(timeout=60)
+        except Exception as e:   # noqa: BLE001 — reported as a problem below
+            cli["error"] = repr(e)
+        row["cli"] = cli
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log_fh.close()
+        with open(log_path) as fh:
+            log_tail = fh.read()[-2000:]
+        shutil.rmtree(tmp, ignore_errors=True)
+    cli = row["cli"]
+    if cli.get("predict") != 200 or cli.get("max_abs_vs_in_process") is None \
+            or cli["max_abs_vs_in_process"] > 1e-6 \
+            or cli.get("drain") != [200, "draining"] or cli.get("exit") != 0:
+        problems.append("task=serve subprocess: %s; its log: %s"
+                        % (cli, log_tail))
+    counts = read_counts()
+    row["hand_kernel_launches"] = {k: v for k, v in counts.items()
+                                   if not k.endswith("rows")
+                                   and not k.endswith("rows_win")}
+    if any(row["hand_kernel_launches"].values()):
+        problems.append("the serving path launched hand kernels: %s"
+                        % row["hand_kernel_launches"])
+    marks.append(("cli", time.time()))
+    row["section_s"] = dict(
+        [("train_predict", marks[0][1] - t0)]
+        + [(b[0], b[1] - a[1]) for a, b in zip(marks, marks[1:])])
+    row["phase_s"] = time.time() - t0
+    return row, problems
 
 
 def booster_api_phase(torch, lgb, params, ds, bst, x, y, xv, yv, rounds,

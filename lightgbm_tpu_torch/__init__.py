@@ -10,8 +10,11 @@ indices, TreeSHAP contributions and early-stopped scores, refits leaves
 on new rows, reads CSV / TSV / LibSVM files and pandas frames, and has
 the scikit-learn estimators. Training checkpoints and resumes (the JAX
 package's checkpoint format), guards against non-finite values, injects
-faults for tests, exits cleanly on preemption, and records telemetry. It imports torch and numpy, never jax nor
-lightgbm_tpu.
+faults for tests, exits cleanly on preemption, and records telemetry.
+It serves models online (`serving`: a bucketed predictor cache,
+registry, micro-batcher and HTTP server; `fleet`: the canary router and
+placement; `python -m lightgbm_tpu_torch task=serve`). It imports torch
+and numpy, never jax nor lightgbm_tpu.
 
     import lightgbm_tpu_torch as lgb
     dtrain = lgb.Dataset(x, y)

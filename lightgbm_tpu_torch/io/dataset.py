@@ -174,7 +174,7 @@ class Dataset:
             raise LightGBMError(
                 "Dataset.from_binned(row_shard=...) is not supported by "
                 "lightgbm_tpu_torch yet: row-sharded datasets come with "
-                "the multi-GPU slice (ROADMAP.md item 4)")
+                "the multi-GPU slice (ROADMAP.md item 5)")
         self = cls.__new__(cls)
         self.config = config
         self.num_data = int(binned.shape[0])

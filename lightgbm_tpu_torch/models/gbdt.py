@@ -751,6 +751,29 @@ class GBDT:
         del self.models[-per:]
         self.iter -= 1
 
+    # -- serving drift baseline (serving/drift.py) ------------------------
+    def drift_baseline(self) -> Optional[Dict]:
+        """Training-time drift baseline for serving: per-feature bin
+        occupancy over the train set plus the *converted* train-score
+        distribution (the transform serving applies by default, so served
+        predictions compare directly). Cached after the first call; None
+        for a booster without a train set. One fetch of the (K, N) scores,
+        converted on the device. The CLI writes it to a
+        ``<model>.drift.json`` sidecar; the model text never changes."""
+        if getattr(self, "train_set", None) is None \
+                or getattr(self, "score_updater", None) is None:
+            return None
+        cached = getattr(self, "_drift_baseline", None)
+        if cached is not None:
+            return cached
+        from ..serving import drift as serve_drift
+        raw = self.score_updater.score
+        if self.objective is not None:
+            raw = self.objective.convert_output(raw)
+        self._drift_baseline = serve_drift.compute_baseline(
+            self.train_set, scores=raw.cpu().numpy())
+        return self._drift_baseline
+
     # -- training-state capture / restore (resilience/checkpoint.py) -----
     def capture_state(self) -> Dict:
         """Live training state beyond the model text: everything a resumed
@@ -863,21 +886,30 @@ class GBDT:
         self._ensemble_cache = {}
 
     def ensemble_arrays(self, num_iteration: Optional[int] = None,
-                        start_iteration: int = 0):
+                        start_iteration: int = 0, bucket: bool = False):
         """Cached (EnsembleArrays, tree_class, n_models) for the model
-        slice; keyed on the model length and last tree, so growth misses."""
+        slice; keyed on the model length and last tree, so growth misses.
+        bucket=True pads every axis to a power of two (the serving
+        predictor's shapes, `trees_to_arrays`); tree_class is a host
+        tensor either way, padding trees mapped to class 0."""
         models = self._used_models(num_iteration, start_iteration)
         if not models:
             return None, None, 0
         key = (len(self.models), id(self.models[-1]), start_iteration,
-               len(models))
+               len(models), bucket)
         hit = self._ensemble_cache.get(key)
         if hit is None:
-            arrays = predict_ops.trees_to_arrays(models, self.device)
-            tc = torch.as_tensor(
-                np.arange(len(models)) % self.num_tree_per_iteration)
+            arrays = predict_ops.trees_to_arrays(models, self.device,
+                                                 bucket=bucket)
+            tc = predict_ops.padded_tree_class(
+                arrays, np.arange(len(models)) % self.num_tree_per_iteration)
             hit = (arrays, tc, len(models))
-            self._ensemble_cache = {key: hit}
+            # one slice per form (bucketed or not): a stale slice's
+            # device tensors go with it
+            self._ensemble_cache = {k: v for k, v in
+                                    self._ensemble_cache.items()
+                                    if k[-1] != bucket}
+            self._ensemble_cache[key] = hit
         return hit
 
     def predict_raw(self, x, num_iteration: Optional[int] = None,

@@ -85,12 +85,30 @@ def ensemble_from_numpy(split_feature, threshold, threshold_bin,
         int(max_depth))
 
 
-def trees_to_arrays(trees: Sequence, device) -> EnsembleArrays:
-    """Tensorize host Trees into padded ensemble arrays (no bucketing:
-    the port has no compiled program whose shape would key on them)."""
-    t_count = len(trees)
-    max_nodes = max(max(t.num_leaves - 1, 1) for t in trees)
-    max_leaves = max(t.num_leaves for t in trees)
+def _bucket_up(v: int) -> int:
+    """Next power of two: the shape buckets of a served ensemble, so that
+    models of one padded shape share their predictor cache entries."""
+    out = 1
+    while out < v:
+        out *= 2
+    return out
+
+
+def trees_to_arrays(trees: Sequence, device,
+                    bucket: bool = False) -> EnsembleArrays:
+    """Tensorize host Trees into padded ensemble arrays.
+
+    bucket=True pads every shape axis (trees, nodes, leaves, categorical
+    widths) up to the next power of two, as the JAX package does for its
+    compiled programs: padding trees are single-leaf trees of value 0, so
+    summed scores are unchanged, and a retrained model of the same padded
+    shape keys the same serving entries. Leaf-index prediction must not
+    bucket (its output has one column per tree)."""
+    t_real = len(trees)
+    bk = _bucket_up if bucket else (lambda v: v)
+    t_count = bk(t_real)
+    max_nodes = bk(max(max(t.num_leaves - 1, 1) for t in trees))
+    max_leaves = bk(max(t.num_leaves for t in trees))
 
     def pad2(get, width, dt):
         out = np.zeros((t_count, width), dtype=dt)
@@ -109,20 +127,32 @@ def trees_to_arrays(trees: Sequence, device) -> EnsembleArrays:
     lc = pad2(nodes("left_child"), max_nodes, np.int64)
     rc = pad2(nodes("right_child"), max_nodes, np.int64)
     lv = pad2(lambda t: t.leaf_value[: t.num_leaves], max_leaves, np.float64)
-    max_cats = max(t.num_cat for t in trees)
-    max_words = max(max(len(t.cat_threshold), 1) for t in trees)
+    max_cats = bk(max(t.num_cat for t in trees))
+    max_words = bk(max(max(len(t.cat_threshold), 1) for t in trees))
     cb = pad2(lambda t: np.asarray(t.cat_boundaries, np.int64),
               max_cats + 2, np.int64)
     ct = pad2(lambda t: np.asarray(t.cat_threshold, np.int64), max_words,
               np.int64)
-    # single-leaf trees: node 0 routes to leaf 0 both sides
-    for i, tr in enumerate(trees):
-        if tr.num_leaves == 1:
+    # single-leaf trees, and the bucket's padding trees after the real
+    # ones: node 0 routes to leaf 0 both sides
+    for i in range(t_count):
+        if i >= t_real or trees[i].num_leaves == 1:
             lc[i, 0] = -1
             rc[i, 0] = -1
     return ensemble_from_numpy(
         sf, th.astype(np.float32), tb, dtp, lc, rc, lv.astype(np.float32),
         _max_depth_steps(max(t.depth() for t in trees)), device, cb, ct)
+
+
+def padded_tree_class(arrays: EnsembleArrays, classes) -> torch.Tensor:
+    """(T_pad,) int64 tree -> class map on the host: real trees take
+    `classes`, bucket-padding trees class 0 (their leaf value is 0). It
+    stays on the host because the walk reads it as Python ints per tree,
+    which from a device tensor would be a sync per call."""
+    tc = torch.zeros(arrays.split_feature.shape[0], dtype=torch.int64)
+    classes = torch.as_tensor(np.asarray(classes, dtype=np.int64))
+    tc[:len(classes)] = classes
+    return tc
 
 
 def _in_bitset(v: torch.Tensor, idx: torch.Tensor, bounds: torch.Tensor,

@@ -33,7 +33,7 @@ def create_tree_learner(config: Config, dataset: Dataset, device="cpu"):
             "stream_mode=%s with tree_learner=%s has no streaming path in "
             "lightgbm_tpu_torch: streaming runs on the serial learner "
             "(streamed data-parallel comes with the multi-GPU slice, "
-            "ROADMAP.md item 4)" % (stream, name))
+            "ROADMAP.md item 5)" % (stream, name))
     if name != "serial":
         raise LightGBMError("tree_learner=%s is not supported by "
                             "lightgbm_tpu_torch yet (serial only)" % name)

@@ -191,10 +191,50 @@ def phase_breakdown() -> dict:
     return recorder.phase_breakdown()
 
 
-def prometheus_text() -> str:
-    """Prometheus text of the process counters and gauges (the serving
-    stack's `/metrics` extras wait for the serving port)."""
-    return counters.prometheus_text()
+def prometheus_text(serving_snapshot=None, cache_info=None,
+                    slo=None, drift=None) -> str:
+    """Prometheus text for the serving `/metrics` endpoint: process
+    counters + the serving stack's counters/latency histograms
+    (per-version series labeled `{version="..."}`) + predictor cache
+    gauges + SLO burn-rate gauges (fast/slow window p99, error rate,
+    burning flags) + drift-monitor gauges. With no argument, the process
+    counters and gauges alone."""
+    extra_counters, latency, extra_gauges = {}, {}, {}
+    if serving_snapshot:
+        extra_counters.update(serving_snapshot.get("counters") or {})
+        latency.update(serving_snapshot.get("latency") or {})
+        for ver, vs in (serving_snapshot.get("versions") or {}).items():
+            label = f'{{version="{ver}"}}'
+            extra_counters[f"serve_version_requests{label}"] = \
+                vs.get("requests", 0)
+            extra_counters[f"serve_version_errors{label}"] = \
+                vs.get("errors", 0)
+            if vs.get("latency"):
+                latency[f"serve_version_request{label}"] = vs["latency"]
+    if cache_info:
+        extra_gauges.update({f"predictor_cache_{k}": v
+                             for k, v in cache_info.items()})
+    if slo:
+        extra_gauges["serve_slo_p99_ms"] = slo.get("slo_p99_ms", 0.0)
+        extra_gauges["serve_slo_error_rate"] = \
+            slo.get("slo_error_rate", 0.0)
+        for win in ("fast", "slow"):
+            ws = slo.get(win) or {}
+            label = f'{{window="{win}"}}'
+            extra_gauges[f"serve_slo_window_p99_ms{label}"] = \
+                ws.get("p99_ms", 0.0)
+            extra_gauges[f"serve_slo_window_error_rate{label}"] = \
+                ws.get("error_rate", 0.0)
+            extra_gauges[f"serve_slo_window_burning{label}"] = \
+                1.0 if ws.get("burning") else 0.0
+    if drift:
+        extra_gauges["serve_drift_fires"] = drift.get("fires", 0)
+        worst = max(drift.get("psi", {}).values(), default=0.0)
+        extra_gauges["serve_drift_psi_worst"] = worst
+        extra_gauges["serve_drift_psi_threshold"] = \
+            drift.get("threshold", 0.0)
+    return counters.prometheus_text(extra_counters or None, latency or None,
+                                    extra_gauges or None)
 
 
 def record_iteration(rec: dict) -> None:

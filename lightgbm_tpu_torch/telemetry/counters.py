@@ -26,7 +26,8 @@ port compiles nothing per shape; its one-off costs are the captures and
 the builds above.
 
 Prometheus text exposition (`prometheus_text`) renders all of it plus
-caller-supplied extras.
+caller-supplied extras; the serving `/metrics` endpoint is a thin wrapper
+over it.
 """
 from __future__ import annotations
 
@@ -148,8 +149,11 @@ def _split_labels(name: str):
 
 
 def prometheus_text(extra_counters: Optional[Dict] = None,
+                    latency: Optional[Dict[str, dict]] = None,
                     extra_gauges: Optional[Dict] = None) -> str:
-    """Render everything as Prometheus text format (version 0.0.4)."""
+    """Render everything as Prometheus text format (version 0.0.4).
+    `latency` takes serving-stats histogram snapshots ({name: {count,
+    mean_ms, p50_ms, p95_ms, p99_ms}}) and renders them as summaries."""
     snap = snapshot()
     lines: List[str] = []
     typed = set()                    # families already TYPE-declared:
@@ -172,4 +176,19 @@ def prometheus_text(extra_counters: Optional[Dict] = None,
     merged_gauges.update(extra_gauges or {})
     for key in sorted(merged_gauges):
         emit(key, "gauge", merged_gauges[key])
+    for key in sorted(latency or {}):
+        hist = latency[key]
+        family, labels = _split_labels(key)
+        mname = _metric_name(family) + "_seconds"
+        if mname not in typed:
+            typed.add(mname)
+            lines.append(f"# TYPE {mname} summary")
+        for quantile, field in (("0.5", "p50_ms"), ("0.95", "p95_ms"),
+                                ("0.99", "p99_ms")):
+            qlabels = (labels[:-1] + f',quantile="{quantile}"}}' if labels
+                       else f'{{quantile="{quantile}"}}')
+            lines.append(f'{mname}{qlabels} {hist[field] / 1e3}')
+        total_s = hist["mean_ms"] * hist["count"] / 1e3
+        lines.append(f"{mname}_sum{labels} {total_s}")
+        lines.append(f"{mname}_count{labels} {hist['count']}")
     return "\n".join(lines) + "\n"

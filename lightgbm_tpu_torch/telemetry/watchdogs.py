@@ -1,6 +1,5 @@
 """Watchdogs: trailing-window anomaly monitors over iteration records
-(port of lightgbm_tpu/telemetry/watchdogs.py, without serving's drift
-monitor).
+(port of lightgbm_tpu/telemetry/watchdogs.py).
 
 Three monitors watch the flight-recorder iteration stream (events.py)
 and emit `kind="watchdog"` warning events when a fresh iteration breaks
@@ -13,6 +12,14 @@ from its own trailing baseline:
 * **grad_spike** — gradient L2 norm > `grad_spike` x trailing median
   (generic-iteration runs only; the fused step keeps gradients on the
   device).
+
+A fourth, serving-side monitor rides the same fire path: **drift_psi**
+— `serving/drift.DriftMonitor` computes PSI between served-traffic
+windows and the training baseline and calls `fire_drift` when a
+feature or the score distribution exceeds the `drift_psi` threshold
+(default 0.2, overridable like the factors above). Routing drift
+through the watchdog layer means the canary router's watchdog-fire
+demotion gate sees it for free.
 
 Baselines are medians over a bounded trailing window; nothing fires
 until `MIN_SAMPLES` healthy iterations exist, so warm-up and capture
@@ -38,10 +45,11 @@ from typing import Dict, Optional
 
 from . import counters, events
 
-__all__ = ["configure", "observe", "fired", "loss_guard_requested",
-           "reset"]
+__all__ = ["configure", "observe", "fired", "fire_drift",
+           "drift_threshold", "loss_guard_requested", "reset"]
 
-DEFAULTS = {"slow_iter": 3.0, "overlap": 0.5, "grad_spike": 10.0}
+DEFAULTS = {"slow_iter": 3.0, "overlap": 0.5, "grad_spike": 10.0,
+            "drift_psi": 0.2}
 WINDOW = 32
 MIN_SAMPLES = 5
 
@@ -106,6 +114,38 @@ def _fire(monitor: str, iteration, value: float, baseline: float,
     from . import bundle
     bundle.maybe_capture("watchdog_" + monitor, monitor=monitor,
                          iteration=iteration)
+
+
+def drift_threshold() -> float:
+    """The PSI threshold serving's DriftMonitor defaults to (the
+    `drift_psi` knob; the `drift_psi_threshold` param overrides it
+    per monitor)."""
+    cfg = _config()
+    if cfg.get("off"):
+        return DEFAULTS["drift_psi"]
+    return float(cfg.get("drift_psi", DEFAULTS["drift_psi"]))
+
+
+def fire_drift(where: str, value: float, threshold: float,
+               version=None) -> bool:
+    """Serving-side drift fire (DriftMonitor calls this when a PSI
+    crosses the threshold). Lands in `watchdog_fires` + a watchdog
+    event like the training monitors — which is what the canary
+    router's demotion gate watches. Returns False (no fire) while
+    watchdogs are configured off."""
+    cfg = _config()
+    if cfg.get("off"):
+        return False
+    _fired["drift_psi"] = _fired.get("drift_psi", 0) + 1
+    counters.incr("watchdog_fires")
+    events.emit("watchdog", monitor="drift_psi", where=where,
+                version=version, value=round(float(value), 6),
+                baseline=round(float(threshold), 6),
+                factor=1.0)
+    from . import bundle
+    bundle.maybe_capture("watchdog_drift_psi", where=where,
+                         version=version)
+    return True
 
 
 def observe(rec: dict) -> None:

@@ -2110,3 +2110,108 @@ def test_fault_plan_poisons_the_same_rows_on_card(cuda_device, spec,
     assert gc_.device.type == "cuda"
     assert torch.equal(~torch.isfinite(gc_.cpu()), ~torch.isfinite(gh_))
     assert card.events == host.events and card.events
+
+
+# ---------------------------------------------------------------------------
+# online serving on the card
+
+def _serve_model(objective="binary", seed=7, rounds=8):
+    r = np.random.RandomState(seed)
+    x = r.randn(2000, 8)
+    x[r.rand(2000) < 0.03, 3] = np.nan
+    m = 1.5 * x[:, 0] - x[:, 1] + 0.5 * np.nan_to_num(x[:, 3]) * x[:, 2]
+    noisy = m + 0.5 * r.randn(2000)
+    params = {"objective": objective, "num_leaves": 31, "max_bin": 63,
+              "verbosity": -1}
+    if objective == "multiclass":
+        params["num_class"] = 3
+        y = np.digitize(noisy, [-0.7, 0.7]).astype(float)
+    else:
+        y = (noisy > 0).astype(float)
+    bst = tlgb.train(params, tlgb.Dataset(x, y), rounds, device="cpu")
+    return bst, x, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_serving_predictor_on_card_matches_cpu_walk(cuda_device, objective):
+    from lightgbm_tpu_torch.serving import ModelRegistry
+    bst, x, _ = _serve_model(objective)
+    text = bst.model_to_string()
+    card = ModelRegistry(warm_buckets=(1, 16))
+    card.load(text)
+    host = ModelRegistry(warm_buckets=(1,), device="cpu")
+    host.load(text)
+    assert card.get().device_key == "cuda:0"
+    assert card.get().arrays.split_feature.device.type == "cuda"
+    assert card.get().tree_class.device.type == "cpu"
+    for raw in (False, True):
+        for n in (1, 5, 16, 33, 300, 4096):
+            got = card.predictor.predict(card.get(), x[:n], raw_score=raw)
+            want = host.predictor.predict(host.get(), x[:n], raw_score=raw)
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_serving_no_new_entry_after_warmup_on_card(cuda_device):
+    from lightgbm_tpu_torch.serving import ModelRegistry
+    bst, x, y = _serve_model()
+    reg = ModelRegistry(warm_buckets=(1, 16, 256))
+    reg.load(bst.model_to_string())
+    builds = reg.predictor.compile_count
+    assert builds == 3
+    for n in range(1, 257, 7):
+        reg.predictor.predict(reg.get(), x[:n])
+    assert reg.predictor.compile_count == builds
+    refit = tlgb.Booster(model_str=bst.model_to_string(), device="cpu")
+    refit.refit(x[:500], y[:500], decay_rate=0.9)
+    reg.load(refit.model_to_string(), version="refit", warm=False)
+    assert reg.get("refit").shape_sig == reg.get("v1").shape_sig
+    out = reg.predictor.predict(reg.get("refit"), x[:100])
+    assert reg.predictor.compile_count == builds
+    np.testing.assert_allclose(out[:, 0], refit.predict(x[:100]),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_placement_ordinal_past_device_count_raises(cuda_device):
+    from lightgbm_tpu_torch.fleet import PlacementPlan
+    from lightgbm_tpu_torch.serving import ModelRegistry
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    count = torch.cuda.device_count()
+    plan = PlacementPlan("v9=%d" % count)
+    with pytest.raises(LightGBMError, match="ordinal %d" % count):
+        plan.assign("v9")
+    assert plan.assign("v1") == torch.device("cuda", 0)
+    bst, _, _ = _serve_model(rounds=2)
+    reg = ModelRegistry(warm_buckets=(1,), placement=PlacementPlan(
+        "v9=%d" % count))
+    with pytest.raises(LightGBMError, match="ordinal %d" % count):
+        reg.load(bst, version="v9")
+
+
+@pytest.mark.gpu
+def test_cli_serve_without_cpu_key_runs_on_card(cuda_device, tmp_path):
+    import json
+    import urllib.request
+    from lightgbm_tpu_torch.cli import _serve
+    bst, x, _ = _serve_model(rounds=4)
+    path = str(tmp_path / "model.txt")
+    bst.save_model(path)
+    httpd = _serve({"task": "serve", "input_model": path,
+                    "serve_port": "0", "serve_warm_buckets": "4"},
+                   block=False)
+    try:
+        assert httpd.app.registry.get().device_key.startswith("cuda")
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/predict" % httpd.server_address[1],
+            data=json.dumps({"rows": x[:3].tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            out = json.loads(resp.read())
+        np.testing.assert_allclose(out["predictions"], bst.predict(x[:3]),
+                                   rtol=0, atol=1e-6)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.app.close()

@@ -65,3 +65,38 @@ def test_entry_points_refuse_to_run_without_a_card():
                    tlgb.Dataset(x, y), num_boost_round=1)
     with pytest.raises(LightGBMError, match="CUDA"):
         tlgb.Booster(model_str="tree\n")
+
+
+def test_serving_fleet_and_cli_pull_in_neither_jax_nor_lightgbm_tpu():
+    code = ("import sys, lightgbm_tpu_torch.serving, "
+            "lightgbm_tpu_torch.fleet, lightgbm_tpu_torch.cli; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'lightgbm_tpu.')) or "
+            "m == 'lightgbm_tpu']; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_serving_refuses_to_run_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; nothing to refuse")
+    from lightgbm_tpu_torch.cli import run
+    from lightgbm_tpu_torch.serving import ModelRegistry, ServingApp
+    x = np.random.RandomState(0).randn(200, 3)
+    y = (x[:, 0] > 0).astype(float)
+    bst = tlgb.train({"objective": "binary", "verbosity": -1},
+                     tlgb.Dataset(x, y), num_boost_round=1, device="cpu")
+    model = str(tmp_path / "model.txt")
+    bst.save_model(model)
+    with pytest.raises(LightGBMError, match="CUDA"):
+        ServingApp()
+    with pytest.raises(LightGBMError, match="CUDA"):
+        ModelRegistry().load(bst)
+    with pytest.raises(LightGBMError, match="CUDA"):
+        run(["task=serve", "input_model=" + model, "serve_port=0"])
+    # the schema's default device_type (cpu) is not a request for the CPU
+    with pytest.raises(LightGBMError, match="CUDA"):
+        run(["task=predict", "input_model=" + model,
+             "data=" + model + ".csv"])
