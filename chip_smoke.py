@@ -118,15 +118,16 @@ Phases, one JSON line each:
                16, 100, 256 / 1, 7; no entry built by requests of 1..256
                rows, nor by the swap to the model's refit (decay 0.9 on
                the held-out rows, the same family key), which answers
-               with its own predictions; p50 / p99 ms, rows per s and
-               device kernels and copies per flush (torch.profiler over
-               20 calls) at 1, 16, 256 and 4096 rows; the HTTP server
-               (max_batch 256, max_delay_ms 2) under 8 keep-alive clients
-               for 10 s at 1 and at 64 rows per request (requests per s,
+               with its own predictions; p50 / p99 ms over 100 calls, rows
+               per s and device kernels and copies per flush
+               (torch.profiler over 20 calls) at 1, 16, 256 and 4096 rows;
+               the HTTP server (max_batch 256, max_delay_ms 2) under 8
+               keep-alive clients for 5 s at 1 and at 64 rows per request
+               (requests per s,
                p50 / p99 from the client and from /stats, rows per flush,
                no entry built, /healthz 200, /metrics, /drain); the canary
-               router at weight 0.2 over 1,000 un-versioned requests (the
-               canary answers exactly 200, every answer its version's
+               router at weight 0.2 over 500 un-versioned requests (the
+               canary answers exactly 100, every answer its version's
                prediction), a forced promotion and demotion in
                /router/audit, shadow mode (the stable answers, the canary
                gets every mirrored copy); `python -m lightgbm_tpu_torch
@@ -384,6 +385,35 @@ Phases, one JSON line each:
                compact quantized, the serial learner float and quantized:
                the same trees and raw scores within 1e-4 (quantized: or
                the witness).
+  fleet        the fleet and the continual loop on the card (the last
+               phase on the 1M-row Dataset: it appends rows to it), after
+               resilience in a full call: the serve phase's
+               model (or FLEET_ROUNDS = 20 rounds when serve is not in the
+               call) with its .drift.json and .transform.json sidecars;
+               two `task=serve` replicas following a fleet manifest
+               (weights 1 and 3, serve_export_cache=auto, replica A
+               publishing its router's transitions), a `task=gateway` on
+               the manifest and `task=continual` as subprocesses, started
+               first; in process, a ServingApp on the card driven by
+               ContinualLoop.step() with a fake clock (policy auto):
+               drifted traffic fires drift_psi, episode 1 refits, labelled
+               POST /feedback promotes it, a second fire escalates to
+               appending 100,000 drifted rows and a 10-round continuation
+               from the stable model, whose K1 / K4 / split-key launches
+               are counted and whose model text must equal
+               engine.train(init_model=stable) run directly; the events
+               in the JAX package's order; then 2,048 held-out rows
+               through the gateway as JSON (within 1e-6 of
+               Booster.predict) and as CSV (equal to the JSON answers),
+               400 one-row requests split exactly 100 / 300, a canary
+               rollout through the manifest (each rev applied once, the
+               promotion on A reaching B within two polls, both audit
+               logs), a rolling restart of B under traffic (out of the
+               rotation by its manifest weight, drained, stopped,
+               restarted on the same entry cache: 0 client errors, the
+               retries counted, hits = models x warm buckets, 0 entries
+               built; time to ready beside a restart on a fresh cache),
+               and `task=continual` answering /healthz and exiting 0;
 Kernel times: `ms` is the mean over repeated launches between CUDA
 events, the host enqueuing as it goes (on a small launch this reads the
 wrapper's launch rate); `device_ms` puts a sleep kernel in front, which
@@ -425,8 +455,8 @@ PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
           "booster_api", "serve", "train_quant", "train_masked",
           "train_bag", "train_valid",
           "train_objectives", "train_multiclass", "train_boost",
-          "train_learners", "train_stream", "resilience", "train_cat",
-          "train_rank", "loop", "reference")
+          "train_learners", "train_stream", "resilience", "fleet",
+          "train_cat", "train_rank", "loop", "reference")
 
 # bench.py's categorical variant (BENCH_CAT_FEATURES=8, BENCH_CAT_CARD=64)
 CAT_FEATURES = 8
@@ -925,7 +955,7 @@ def main():
     need_data = need_float or bool(run & {
         "k1", "k2", "k3", "k4", "serve", "train_bag", "train_valid",
         "train_objectives", "train_multiclass", "train_boost",
-        "train_learners", "train_stream", "resilience"})
+        "train_learners", "train_stream", "resilience", "fleet"})
     t0 = time.time()
     x, y, w_true = make_higgs_like(args.rows, f)
     xv, yv, _ = make_higgs_like(100_000, f, seed=4242, w=w_true)
@@ -1187,12 +1217,19 @@ def main():
         del bst, back, hbst
 
     # ---- serve: online serving of a higgs-1m model --------------------------
+    fleet_src = None
     if "serve" in run:
-        row, problems = serve_phase(torch, lgb, params, ds, xv, yv,
-                                    reset_counts, read_counts)
+        row, problems, sbst = serve_phase(torch, lgb, params, ds, xv, yv,
+                                          reset_counts, read_counts)
         emit(row)
         if problems:
             fail("serve: %s" % "; ".join(problems))
+        if "fleet" in run:
+            # the fleet phase serves this model (and its training
+            # baseline, which needs the Booster's training scores)
+            fleet_src = (sbst.model_to_string(),
+                         sbst._gbdt.drift_baseline())
+        del sbst
 
     # ---- train_quant: the same data with quantized gradients --------------
     if "train_quant" in run:
@@ -1462,6 +1499,16 @@ def main():
         emit(row)
         if problems:
             fail("resilience: %s" % "; ".join(problems))
+    # ---- fleet: the last phase on ds, as its continual episode appends
+    # rows to it ------------------------------------------------------------
+    fleet_counts = {}
+    if "fleet" in run:
+        row, problems, fleet_counts = fleet_phase(
+            torch, lgb, params, ds, xv, yv, w_true, fleet_src, reset_counts,
+            read_counts)
+        emit(row)
+        if problems:
+            fail("fleet: %s" % "; ".join(problems))
     if need_data:
         del ds
 
@@ -1507,6 +1554,8 @@ def main():
                 entry["train_stream_launches"] = stream_counts[stream_key]
             if stream_key is not None and stream_key in res_counts:
                 entry["resilience_launches"] = res_counts[stream_key]
+            if stream_key is not None and stream_key in fleet_counts:
+                entry["fleet_launches"] = fleet_counts[stream_key]
             return entry
 
         hk = "lightgbm_tpu/ops/pallas/histogram_kernel.py"
@@ -2390,11 +2439,11 @@ SERVE_WARM = (1, 16, 256, 4096)
 # the parity slices: (rows, slice size) of the 100,000 held-out rows
 SERVE_PARITY = ((100_000, 4096), (2048, 16), (2048, 100), (2048, 256),
                 (512, 1), (512, 7))
-SERVE_LAT_CALLS = 200
+SERVE_LAT_CALLS = 100
 SERVE_PROFILE_CALLS = 20
-SERVE_HTTP_S = 10.0
+SERVE_HTTP_S = 5.0
 SERVE_CLIENTS = 8
-SERVE_CANARY_REQUESTS = 1000
+SERVE_CANARY_REQUESTS = 500
 SERVE_CANARY_WEIGHT = 0.2
 SERVE_SHADOW_REQUESTS = 50
 
@@ -2472,7 +2521,7 @@ def serve_phase(torch, lgb, params, ds, xv, yv, reset_counts, read_counts):
     model's refit, in-process latency per bucket and launches per flush,
     the HTTP server under 8 clients, the canary router and shadow mode,
     and `python -m lightgbm_tpu_torch task=serve` as a subprocess.
-    Returns (row, problems)."""
+    Returns (row, problems, the served Booster)."""
     import signal
     import socket
     import tempfile
@@ -2814,7 +2863,623 @@ def serve_phase(torch, lgb, params, ds, xv, yv, reset_counts, read_counts):
         [("train_predict", marks[0][1] - t0)]
         + [(b[0], b[1] - a[1]) for a, b in zip(marks, marks[1:])])
     row["phase_s"] = time.time() - t0
-    return row, problems
+    return row, problems, bst
+
+
+# ---- fleet: the fleet and the continual loop on the card -------------------
+# rounds of the fleet's model when the serve phase did not run in the call
+FLEET_ROUNDS = 20
+FLEET_WARM = (1, 16, 256)
+# the manifest's replica weights (A, B) and the gateway's one-row requests
+FLEET_WEIGHTS = (1.0, 3.0)
+FLEET_SPLIT_REQUESTS = 400
+FLEET_PARITY_ROWS = 2048
+FLEET_POLL_S = 0.5
+FLEET_CANARY_WEIGHT = 0.2
+# the continual episode: the appended rows, the top-up rounds, the drifted
+# traffic per fire (one drift window), the canary's requests and labels
+FLEET_APPEND_ROWS = 100_000
+FLEET_TOPUP_ROUNDS = 10
+FLEET_DRIFT_ROWS = 512
+FLEET_CANARY_REQUESTS = 100
+FLEET_FEEDBACK_ROWS = 256
+
+
+def drifted_rows(n, f, w, seed, shift=1.0):
+    """Rows of the higgs-1m ground truth w whose first four features are
+    shifted by `shift` (covariate drift), with their labels."""
+    r = np.random.RandomState(seed)
+    x = r.randn(n, f).astype(np.float32)
+    x[:, :4] += shift
+    noisy = higgs_margin(x, w) + r.randn(n) * 1.5
+    return x, (noisy > 0).astype(np.float64)
+
+
+def _wait_ready(port, proc, t0, limit=240):
+    """Seconds from t0 until 127.0.0.1:port answers /healthz with 200,
+    or None when the process died or the limit passed."""
+    while time.time() - t0 < limit and proc.poll() is None:
+        try:
+            if _http(port, "GET", "/healthz", timeout=5)[0] == 200:
+                return time.time() - t0
+        except OSError:
+            pass
+        time.sleep(0.1)
+    return None
+
+
+def _metric(text, name):
+    for ln in str(text).splitlines():
+        if ln.startswith(name + " "):
+            return float(ln.split()[-1])
+    return 0.0
+
+
+def _post_raw(port, path, body, content_type, timeout=60):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": content_type})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def fleet_phase(torch, lgb, params, ds, xv, yv, w, src, reset_counts,
+                read_counts):
+    """fleet: two `task=serve` replicas following a fleet manifest with
+    the persistent entry cache, a `task=gateway` over them, a canary
+    rollout through the manifest, a rolling restart under traffic, an
+    in-process continual episode (drift -> refit -> promote, drift again
+    -> 100,000 appended rows and a 10-round continuation -> promote) and
+    `task=continual` as a subprocess. `src`: the serve phase's (model
+    text, drift baseline), or None (train FLEET_ROUNDS rounds here).
+    Appends rows to `ds`. Returns (row, problems, the continuation's
+    launch counts)."""
+    import signal
+    import socket
+    import tempfile
+    import threading
+
+    from lightgbm_tpu_torch import telemetry
+    from lightgbm_tpu_torch.continual.loop import ContinualLoop
+    from lightgbm_tpu_torch.continual.update import (append_rows,
+                                                     continue_training)
+    from lightgbm_tpu_torch.fleet import ManifestPublisher, load_manifest
+    from lightgbm_tpu_torch.serving import (DriftMonitor, ModelRegistry,
+                                            PredictorCache, ServingApp,
+                                            make_http_server)
+    from lightgbm_tpu_torch.serving.drift import save_baseline
+    from lightgbm_tpu_torch.serving.transforms import (capture_transform,
+                                                       save_transform)
+    from lightgbm_tpu_torch.telemetry import watchdogs
+
+    problems = []
+    row = {"phase": "fleet", "warm_buckets": list(FLEET_WARM),
+           "weights": list(FLEET_WEIGHTS)}
+    t0 = time.time()
+    marks = []
+    f = xv.shape[1]
+    if src is None:
+        bst = lgb.train(params, ds, num_boost_round=FLEET_ROUNDS)
+        src = (bst.model_to_string(), bst._gbdt.drift_baseline())
+        del bst
+        row["model"] = "trained here, %d rounds" % FLEET_ROUNDS
+    else:
+        row["model"] = "the serve phase's"
+    text, baseline = src
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    v1 = os.path.join(tmp, "v1.txt")
+    with open(v1, "w") as fh:
+        fh.write(text)
+    save_baseline(baseline, v1 + ".drift.json")
+    save_transform(capture_transform(ds), v1 + ".transform.json")
+    manifest = os.path.join(tmp, "fleet_manifest.json")
+    ports = []
+    for _ in range(4):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    pa, pb, pg, pc = ports
+    urls = ["http://127.0.0.1:%d" % p for p in (pa, pb)]
+    pub = ManifestPublisher(manifest)
+    pub.seed({"v1": v1}, stable="v1",
+             replicas=[{"url": u, "weight": wt}
+                       for u, wt in zip(urls, FLEET_WEIGHTS)])
+    # the continual subprocess's data= file (re-read at every retrain;
+    # this smoke only starts and stops it)
+    data_csv = os.path.join(tmp, "extract.csv")
+    np.savetxt(data_csv, np.column_stack([yv[:1000], xv[:1000]]),
+               delimiter=",", fmt="%.7g")
+    marks.append(("files", time.time()))
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONFAULTHANDLER="1", PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs, logs = {}, {}
+
+    def spawn(name, args):
+        log_path = os.path.join(tmp, "%s.log" % name)
+        if name in logs:
+            logs[name][1].close()
+        fh = open(log_path, "a")
+        fh.write("---- %s\n" % " ".join(args))
+        fh.flush()
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch"] + args, cwd=root,
+            env=env, stdout=fh, stderr=subprocess.STDOUT), time.time())
+        logs[name] = (log_path, fh)
+
+    def replica(port, cache="auto", publish=False):
+        return (["task=serve", "serve_manifest=" + manifest,
+                 "serve_export_cache=" + cache, "serve_port=%d" % port,
+                 "serve_manifest_poll_s=%g" % FLEET_POLL_S,
+                 "serve_warm_buckets=" + ",".join(map(str, FLEET_WARM))]
+                + (["serve_manifest_publish=1"] if publish else []))
+
+    def stop(name):
+        proc = procs[name][0]
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+        try:
+            return proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            return proc.wait(timeout=30)
+
+    # the subprocesses first, so their start-up overlaps the in-process
+    # continual episode below
+    spawn("A", replica(pa, publish=True))
+    spawn("B", replica(pb))
+    spawn("gateway", ["task=gateway", "gateway_manifest=" + manifest,
+                      "gateway_port=%d" % pg, "gateway_retries=2",
+                      "gateway_backoff_ms=10",
+                      "gateway_health_period_s=%g" % FLEET_POLL_S])
+    spawn("continual", ["task=continual", "input_model=" + v1,
+                        "data=" + data_csv, "serve_port=%d" % pc,
+                        "serve_warm_buckets=1", "continual_poll_s=1"])
+    retrain_log, tails = {}, {}
+
+    def wait_for(pred, limit=30):
+        t1 = time.time()
+        while time.time() - t1 < limit:
+            if pred():
+                return time.time() - t1
+            time.sleep(0.02)
+        return None
+
+    try:
+        # -- the continual episode, in process on the card ------------------
+        ep = {}
+        telemetry.events.enable(True)
+        telemetry.events.reset()
+        watchdogs.reset()
+        reg = ModelRegistry(PredictorCache(max_batch_rows=4096),
+                            warm_buckets=(1, 256))
+        app = ServingApp(reg, drift=DriftMonitor(baseline, min_interval_s=0),
+                         max_batch=256, max_delay_ms=1.0)
+        httpd = make_http_server(app, port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        app_port = httpd.server_address[1]
+        # the gate promotes on labels: 20 canary requests, then 256
+        # labels per version through POST /feedback (the canary's
+        # latency is not what this episode judges)
+        app.router.min_requests = FLEET_CANARY_REQUESTS // 5
+        app.router.feedback_min_labels = FLEET_FEEDBACK_ROWS
+        app.router.p99_ratio = 100.0
+        reg.load(text, version="base")
+        app.router.set_stable("base")
+        rows_before = ds.num_data()
+        x_new, y_new = drifted_rows(FLEET_APPEND_ROWS, f, w, seed=606)
+
+        def retrain(action):
+            stable_text = reg.get(app.router.stable).gbdt \
+                .save_model_to_string(num_iteration=-1)
+            prev = lgb.Booster(model_str=stable_text)
+            t1 = time.time()
+            if action == "refit":
+                out = prev.refit(x_new[:FLEET_APPEND_ROWS // 10],
+                                 y_new[:FLEET_APPEND_ROWS // 10],
+                                 decay_rate=0.9)
+                torch.cuda.synchronize()
+                retrain_log["refit_s"] = time.time() - t1
+                return out
+            append_rows(ds, x_new, y_new)
+            retrain_log["append_s"] = time.time() - t1
+            retrain_log["stable_text"] = stable_text
+            torch.cuda.synchronize()
+            reset_counts()
+            t1 = time.time()
+            out = continue_training(prev, ds, FLEET_TOPUP_ROUNDS,
+                                    params=params)
+            torch.cuda.synchronize()
+            retrain_log["continue_s"] = time.time() - t1
+            retrain_log["counts"] = read_counts()
+            return out
+
+        clock = [0.0]
+        loop = ContinualLoop(reg, app.router, retrain, policy="auto",
+                             cooldown_s=30.0,
+                             canary_weight=FLEET_CANARY_WEIGHT,
+                             checkpoint_dir=os.path.join(tmp, "ckpt"),
+                             time_fn=lambda: clock[0])
+
+        def episode(n, now, seed):
+            te = time.time()
+            xd, _ = drifted_rows(FLEET_DRIFT_ROWS, f, w, seed=seed)
+            for i in range(0, FLEET_DRIFT_ROWS, 128):
+                app.predict({"rows": xd[i:i + 128].tolist()})
+            app.drift.check_now()
+            fires = watchdogs.fired().get("drift_psi", 0)
+            clock[0] = now
+            step = loop.step()
+            canary = app.router.canary
+            xc, _ = drifted_rows(FLEET_CANARY_REQUESTS, f, w,
+                                 seed=seed + 1)
+            answered = [app.predict({"rows": xc[i:i + 1].tolist()})
+                        ["version"] for i in range(FLEET_CANARY_REQUESTS)]
+            held = app.router.canary == canary
+            xf, yf = drifted_rows(FLEET_FEEDBACK_ROWS, f, w, seed=seed + 2)
+            auc_of = {}
+            for v in (app.router.stable, canary):
+                # scored beside the app, so the drift monitor sees only
+                # the traffic above
+                scores = reg.predictor.predict(reg.get(v), xf)[:, 0] \
+                    .tolist()
+                auc_of[v] = auc(yf, np.asarray(scores))
+                code, _ = _http(app_port, "POST", "/feedback",
+                                {"version": v, "labels": yf.tolist(),
+                                 "scores": scores})
+                if code != 200:
+                    problems.append("POST /feedback answered %d" % code)
+            outcome = loop.step()
+            ep[n] = {"fires": fires, "step": step, "canary": canary,
+                     "canary_answers": answered.count(canary),
+                     "held_before_labels": held,
+                     "feedback_auc": auc_of, "outcome": outcome,
+                     "stable_after": app.router.stable,
+                     "episode_s": time.time() - te}
+
+        episode(1, 100.0, 700)
+        episode(2, 160.0, 800)
+        events = [(e["kind"], e.get("action"))
+                  for e in telemetry.events.events()
+                  if e["kind"].startswith("continual_")
+                  and e["kind"] != "continual_append"]
+        telemetry.events.enable(False)
+        want_events = [ev for a in ("refit", "continue") for ev in (
+            ("continual_fire", a), ("continual_retrain", a),
+            ("continual_deploy", None), ("continual_promote", a))]
+        # the continuation against engine.train run directly on the same
+        # appended rows from the same stable model
+        counts = retrain_log.get("counts", {})
+        cont = reg.get(ep[2]["canary"]).gbdt.save_model_to_string(
+            num_iteration=-1) if ep[2]["canary"] else ""
+        t1 = time.time()
+        direct = lgb.train(params, ds, FLEET_TOPUP_ROUNDS,
+                           init_model=lgb.Booster(
+                               model_str=retrain_log.get("stable_text", "")))
+        torch.cuda.synchronize()
+        direct_s = time.time() - t1
+        direct_text = direct._gbdt.save_model_to_string(num_iteration=-1)
+        del direct
+        ckpts = sorted(os.listdir(os.path.join(tmp, "ckpt"))) \
+            if os.path.isdir(os.path.join(tmp, "ckpt")) else []
+        row["continual"] = {
+            "episodes": ep, "events": [list(e) for e in events],
+            "refit_s": retrain_log.get("refit_s"),
+            "append_s": retrain_log.get("append_s"),
+            "rows_after_append": ds.num_data(),
+            "continue_s": retrain_log.get("continue_s"),
+            "s_per_topup_iteration": (retrain_log.get("continue_s") or 0)
+            / FLEET_TOPUP_ROUNDS,
+            "direct_train_s": direct_s,
+            "launches": {k: counts.get(k) for k in (
+                "k1_win", "k4_win", "split_key", "k1", "k4")},
+            "text_equal_to_direct": cont == direct_text,
+            "checkpoints": ckpts}
+        c = row["continual"]
+        if [e for e in events] != want_events:
+            problems.append("continual events %s, want %s"
+                            % (events, want_events))
+        for n, action in ((1, "refit"), (2, "continue")):
+            e = ep[n]
+            if e["fires"] != n or e["step"] != "deployed" \
+                    or e["outcome"] != "promoted" \
+                    or e["stable_after"] != e["canary"] \
+                    or not e["held_before_labels"] \
+                    or e["canary_answers"] != int(
+                        FLEET_CANARY_REQUESTS * FLEET_CANARY_WEIGHT):
+                problems.append("continual episode %d (%s): %s"
+                                % (n, action, e))
+        if not counts.get("k1_win") or not counts.get("k4_win") \
+                or not counts.get("split_key"):
+            problems.append("the continuation launched K1 %s, K4 %s, the "
+                            "split key %s" % (counts.get("k1_win"),
+                                              counts.get("k4_win"),
+                                              counts.get("split_key")))
+        if not c["text_equal_to_direct"]:
+            problems.append("the continuation's model text differs from "
+                            "engine.train(init_model=stable) run directly")
+        if c["rows_after_append"] != rows_before + FLEET_APPEND_ROWS \
+                or len([n for n in ckpts if n.endswith(".txt")]) != 2:
+            problems.append("continual rows %d, checkpoints %s"
+                            % (c["rows_after_append"], ckpts))
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+        watchdogs.reset()
+        marks.append(("continual", time.time()))
+
+        # -- every subprocess ready ------------------------------------------
+        ready = {}
+        for name, port in (("A", pa), ("B", pb), ("continual", pc)):
+            ready[name] = _wait_ready(port, procs[name][0], procs[name][1])
+        t_gw = procs["gateway"][1]
+        while time.time() - t_gw < 120 and procs["gateway"][0].poll() is None:
+            try:
+                if _http(pg, "GET", "/gateway", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        ready["gateway"] = time.time() - t_gw
+        row["ready_s"] = ready
+        if None in ready.values():
+            raise RuntimeError("a subprocess did not come up: %s" % ready)
+        # the gateway's health sweep has seen both replicas up (one that
+        # it found unreachable during start-up is ejected until then)
+        if wait_for(lambda: all(r["healthy"] for r in _http(
+                pg, "GET", "/stats")[1]["replicas"])) is None:
+            raise RuntimeError("the gateway never saw both replicas "
+                               "healthy")
+        marks.append(("ready", time.time()))
+
+        # -- the gateway: parity, CSV through the edge transform, the split --
+        ref = lgb.Booster(model_str=text).predict(xv[:FLEET_PARITY_ROWS])
+        got_json, got_csv = [], []
+        for i in range(0, FLEET_PARITY_ROWS, 256):
+            rows = xv[i:i + 256]
+            code, out = _http(pg, "POST", "/predict",
+                              {"rows": rows.tolist()})
+            got_json.extend(out["predictions"] if code == 200 else
+                            [np.nan] * len(rows))
+            csv = "\n".join(",".join("%.9g" % v for v in r) for r in rows)
+            code, out = _post_raw(pg, "/predict", csv.encode(), "text/csv")
+            got_csv.extend(out["predictions"] if code == 200 else
+                           [np.nan] * len(rows))
+        got_json, got_csv = np.asarray(got_json), np.asarray(got_csv)
+        gw = {"parity_max_abs": float(np.max(np.abs(got_json - ref))),
+              "csv_equal_json": bool(np.array_equal(got_csv, got_json))}
+        if not gw["parity_max_abs"] <= 1e-6 or not gw["csv_equal_json"]:
+            problems.append("gateway parity: %s" % gw)
+        _, before = _http(pg, "GET", "/stats")
+        picks0 = {r["url"]: r["picks"] for r in before["replicas"]}
+        lats, errs, nxt, lock = [], [0], [0], threading.Lock()
+
+        def split_client():
+            mine, bad = [], 0
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if i >= FLEET_SPLIT_REQUESTS:
+                    break
+                t1 = time.perf_counter()
+                code, _ = _http(pg, "POST", "/predict",
+                                {"rows": xv[i:i + 1].tolist()})
+                mine.append(time.perf_counter() - t1)
+                bad += code != 200
+            with lock:
+                lats.extend(mine)
+                errs[0] += bad
+
+        threads = [threading.Thread(target=split_client, daemon=True)
+                   for _ in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        _, after = _http(pg, "GET", "/stats")
+        split = {r["url"]: r["picks"] - picks0.get(r["url"], 0)
+                 for r in after["replicas"]}
+        gw["split"] = [split.get(u) for u in urls]
+        gw["split_errors"] = errs[0]
+        gw["one_row"] = _pcts(lats)
+        row["gateway"] = gw
+        want_split = [int(FLEET_SPLIT_REQUESTS * wt / sum(FLEET_WEIGHTS))
+                      for wt in FLEET_WEIGHTS]
+        if gw["split"] != want_split or errs[0]:
+            problems.append("gateway split %s, %d errors (want %s)"
+                            % (gw["split"], errs[0], want_split))
+        marks.append(("gateway", time.time()))
+
+        # -- the rollout through the manifest --------------------------------
+        x_ref, y_ref = x_new[:FLEET_APPEND_ROWS], y_new[:FLEET_APPEND_ROWS]
+        v2 = os.path.join(tmp, "v2.txt")
+        lgb.Booster(model_str=text).refit(x_ref, y_ref, decay_rate=0.9) \
+            .save_model(v2)
+        roll = {}
+
+        def router_of(port):
+            return _http(port, "GET", "/router")[1]
+
+        def canary_v2(m):
+            m["models"]["v2"] = v2
+            m["canary"] = {"version": "v2", "weight": FLEET_CANARY_WEIGHT,
+                           "shadow": False}
+
+        # one rev: the model's file and its canary slot
+        t1 = time.time()
+        pub.update(canary_v2)
+        roll["rev_published"] = load_manifest(manifest)["rev"]
+        roll["canary_convergence_s"] = wait_for(
+            lambda: all(router_of(p)["canary"] == "v2" for p in (pa, pb)))
+        code, _ = _http(pa, "POST", "/router", {"action": "promote"})
+        t1 = time.time()
+        reached = wait_for(lambda: router_of(pb)["stable"] == "v2")
+        roll["promote_reached_b_s"] = reached
+        roll["manifest_after_promote"] = {
+            k: load_manifest(manifest)[k] for k in ("rev", "stable",
+                                                     "canary")}
+        revs = roll["manifest_after_promote"]["rev"]
+        # A's follower applies its own publication at its next poll
+        roll["last_rev_applied_s"] = wait_for(lambda: all(
+            _metric(_http(p, "GET", "/metrics")[1],
+                    "lgbm_tpu_manifest_rev") == revs for p in (pa, pb)))
+        applies = {}
+        for name, port in (("A", pa), ("B", pb)):
+            metrics = _http(port, "GET", "/metrics")[1]
+            audit = _http(port, "GET", "/router/audit")[1]
+            applies[name] = {
+                "manifest_applies": _metric(
+                    metrics, "lgbm_tpu_manifest_applies_total"),
+                "manifest_rev": _metric(metrics, "lgbm_tpu_manifest_rev"),
+                "audit": [d["action"] for d in audit["decisions"]]}
+        roll["replicas"] = applies
+        row["rollout"] = roll
+        for name, a in applies.items():
+            if a["manifest_applies"] != revs or a["manifest_rev"] != revs \
+                    or a["audit"][-2:] != ["deploy", "promote"]:
+                problems.append("replica %s after the rollout: %s (want %d "
+                                "applies, one per rev)" % (name, a, revs))
+        if code != 200 or roll["canary_convergence_s"] is None \
+                or roll["manifest_after_promote"]["stable"] != "v2" \
+                or reached is None or reached > 2 * FLEET_POLL_S:
+            problems.append("rollout: %s" % roll)
+        marks.append(("rollout", time.time()))
+
+        # -- rolling restart of B under traffic ------------------------------
+        rs = {}
+        stop_traffic = threading.Event()
+        tally = {"ok": 0, "errors": 0}
+
+        def traffic(seed):
+            r = np.random.RandomState(seed)
+            while not stop_traffic.is_set():
+                i = int(r.randint(0, len(xv)))
+                try:
+                    code, _ = _http(pg, "POST", "/predict",
+                                    {"rows": xv[i:i + 1].tolist()})
+                except OSError:
+                    code = None
+                with lock:
+                    tally["ok" if code == 200 else "errors"] += 1
+
+        def gw_replica(url):
+            return next(r for r in _http(pg, "GET", "/stats")[1]["replicas"]
+                        if r["url"] == url)
+
+        def set_weight(url, weight):
+            def fn(m):
+                for r in m["replicas"]:
+                    if r["url"] == url:
+                        r["weight"] = weight
+            pub.update(fn)
+
+        retries0 = _http(pg, "GET", "/stats")[1]["counters"][
+            "gateway_retries"]
+        threads = [threading.Thread(target=traffic, args=(s,), daemon=True)
+                   for s in range(4)]
+        for t in threads:
+            t.start()
+        # out of rotation first (the gateway re-reads the manifest every
+        # sweep), then drained, stopped and restarted on the same cache
+        set_weight(urls[1], 0.0)
+        wait_for(lambda: gw_replica(urls[1])["weight"] == 0.0)
+        last = [gw_replica(urls[1])["picks"]]
+
+        def b_idle():
+            time.sleep(1.0)
+            now = gw_replica(urls[1])["picks"]
+            idle, last[0] = now == last[0], now
+            return idle
+        wait_for(b_idle)
+        code, drained = _http(pb, "POST", "/drain", {})
+        rs["drain"] = [code, drained.get("status")]
+        rs["b_exit"] = stop("B")
+        set_weight(urls[1], FLEET_WEIGHTS[1])
+        spawn("B", replica(pb))
+        rs["ready_with_cache_s"] = _wait_ready(pb, procs["B"][0],
+                                               procs["B"][1])
+        wait_for(lambda: gw_replica(urls[1])["healthy"])
+        picks_b = gw_replica(urls[1])["picks"]
+        wait_for(lambda: gw_replica(urls[1])["picks"] >= picks_b + 20)
+        stop_traffic.set()
+        for t in threads:
+            t.join(timeout=60)
+        st = _http(pb, "GET", "/stats")[1]
+        metrics = _http(pb, "GET", "/metrics")[1]
+        models = len(st["models"])
+        rs.update({
+            "client_ok": tally["ok"], "client_errors": tally["errors"],
+            "gateway_retries": _http(pg, "GET", "/stats")[1]["counters"][
+                "gateway_retries"] - retries0,
+            "b_models": models,
+            "export_cache_hits": _metric(
+                metrics, "lgbm_tpu_export_cache_hits_total"),
+            "export_cache_misses": _metric(
+                metrics, "lgbm_tpu_export_cache_misses_total"),
+            "b_entries_built": st["predictor_cache"]["compiles"],
+            "b_entries": st["predictor_cache"]["entries"],
+            "b_requests_after_restart": gw_replica(urls[1])["picks"]
+            - picks_b})
+        want_hits = models * len(FLEET_WARM)
+        if rs["client_errors"] or rs["b_exit"] != 0 \
+                or rs["drain"] != [200, "draining"] \
+                or rs["export_cache_hits"] != want_hits \
+                or rs["export_cache_misses"] or rs["b_entries_built"] \
+                or rs["b_requests_after_restart"] < 20 \
+                or rs["ready_with_cache_s"] is None:
+            problems.append("rolling restart: %s (want %d hits)"
+                            % (rs, want_hits))
+        # the same restart on a fresh cache directory: time to ready only
+        rs["b_exit_2"] = stop("B")
+        spawn("B", replica(pb, cache=os.path.join(tmp, "fresh.xcache")))
+        rs["ready_without_cache_s"] = _wait_ready(pb, procs["B"][0],
+                                                  procs["B"][1])
+        st = _http(pb, "GET", "/stats")[1]
+        rs["fresh_entries_built"] = st["predictor_cache"]["compiles"]
+        row["restart"] = rs
+        if rs["ready_without_cache_s"] is None \
+                or not rs["fresh_entries_built"]:
+            problems.append("restart without the cache: %s" % rs)
+        marks.append(("restart", time.time()))
+
+        # -- task=continual: answers, exits 0 on SIGINT ----------------------
+        code, health = _http(pc, "GET", "/healthz")
+        row["cli_continual"] = {"healthz": code, "exit": stop("continual")}
+        if code != 200 or row["cli_continual"]["exit"] != 0:
+            problems.append("task=continual: %s" % row["cli_continual"])
+    except Exception as e:   # noqa: BLE001 — reported as a problem below
+        import traceback
+        problems.append("fleet phase raised %r: %s"
+                        % (e, traceback.format_exc()[-1500:]))
+    finally:
+        exits = {name: stop(name) for name in list(procs)}
+        row["exits"] = exits
+        for name, (log_path, fh) in logs.items():
+            fh.close()
+            with open(log_path) as fh2:
+                log_text = fh2.read()
+            tails[name] = log_text[-1500:]
+            bad = [ln for ln in log_text.splitlines()
+                   if "[Warning] manifest:" in ln or "Traceback" in ln]
+            if bad:
+                problems.append("%s logged %s; its log: %s"
+                                % (name, bad[:3], tails[name]))
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(v != 0 for v in row["exits"].values()):
+        problems.append("subprocess exits %s; logs: %s"
+                        % (row["exits"], tails))
+    marks.append(("stop", time.time()))
+    row["section_s"] = dict(
+        [("files", marks[0][1] - t0)]
+        + [(b[0], b[1] - a[1]) for a, b in zip(marks, marks[1:])])
+    row["phase_s"] = time.time() - t0
+    return row, problems, retrain_log.get("counts", {})
 
 
 def booster_api_phase(torch, lgb, params, ds, bst, x, y, xv, yv, rounds,

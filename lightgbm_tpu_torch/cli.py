@@ -1,5 +1,5 @@
 """Command-line application: train / predict / refit / convert_model /
-serve (port of lightgbm_tpu/cli.py).
+serve / gateway / continual (port of lightgbm_tpu/cli.py).
 
 Equivalent of the reference CLI (reference: src/main.cpp,
 src/application/application.cpp:30-261). Usage matches the reference:
@@ -14,16 +14,22 @@ server on a saved model:
     python -m lightgbm_tpu_torch task=serve input_model=model.txt \\
         serve_port=8080
 
-Every task runs on the card. ``device_type=cpu`` (or its alias
-``device=cpu``) on the command line or in the config file runs it on the
-CPU instead; the schema's default ``device_type`` (``cpu``, LightGBM's
-own) is not read as that request, so a command line without the key
-needs a card and raises without one.
+`task=gateway` is the fleet's HTTP front over ``task=serve`` replicas
+(``gateway_manifest=`` or ``gateway_replicas=``); `task=continual` wraps
+an embedded ``task=serve`` in the drift -> retrain -> canary -> promote
+loop (``data=`` re-read at every retrain). A replica follows a fleet
+manifest with ``serve_manifest=`` and keeps its warm entries across a
+restart with ``serve_export_cache=auto``.
 
-Not ported yet, each refused naming its item in ROADMAP.md: the
-persistent predictor-entry cache (``serve_export_cache``), fleet
-manifests (``serve_manifest``), ``task=gateway``, ``task=continual``,
-and multi-process training (``num_machines > 1``, ``LGBM_TPU_REJOIN``).
+Every task that runs a model runs it on the card. ``device_type=cpu``
+(or its alias ``device=cpu``) on the command line or in the config file
+runs it on the CPU instead; the schema's default ``device_type``
+(``cpu``, LightGBM's own) is not read as that request, so a command line
+without the key needs a card and raises without one. The gateway holds
+no model and touches no device.
+
+Not ported yet, refused naming its item in ROADMAP.md: multi-process
+training (``num_machines > 1``, ``LGBM_TPU_REJOIN``).
 """
 from __future__ import annotations
 
@@ -96,9 +102,11 @@ def run(argv=None) -> int:
         _serve(params)
         return 0
     if task == "gateway":
-        raise _not_yet("task=gateway", "the rest of fleet/")
+        _gateway(params)
+        return 0
     if task == "continual":
-        raise _not_yet("task=continual", "continual/{loop,update}")
+        _continual(params)
+        return 0
     cfg = Config(params)
     if cfg.task in ("train", "refit"):
         _train(params, cfg)
@@ -336,31 +344,42 @@ def _serve(params: Dict[str, str], block: bool = True):
     Options (all `serve_*` to stay clear of the training namespace):
     serve_host, serve_port, serve_max_batch, serve_max_delay_ms,
     serve_queue_rows, serve_timeout_ms, serve_warm_buckets (csv),
-    serve_placement (``auto`` or ``version=ordinal,...`` CUDA pins),
-    serve_predictor_cache_entries (LRU bound, 0 = unbounded),
-    serve_slo_p99_ms / serve_slo_error_rate (burn-rate SLOs — either
-    non-zero arms the monitor), serve_trace_sample (request-trace
-    sampling rate; env LGBM_TPU_TRACE_SAMPLE wins when set),
-    drift_psi_threshold (PSI alarm level when the model ships a
-    ``.drift.json`` baseline sidecar), serve_shed (``auto`` arms the
-    brownout load shedder whenever an SLO monitor is armed; 1/0 force),
-    feedback_min_labels / feedback_auc_epsilon (the router's labelled
-    feedback gate). serve_export_cache and serve_manifest raise (not
-    ported). The model runs on the card unless ``device_type=cpu``.
+    serve_export_cache (``auto``/``1`` or an explicit directory -- keep
+    the warm entries' specs next to the model, so a restart installs
+    them instead of building them), serve_placement (``auto`` or
+    ``version=ordinal,...`` CUDA pins), serve_predictor_cache_entries
+    (LRU bound, 0 = unbounded), serve_slo_p99_ms / serve_slo_error_rate
+    (burn-rate SLOs -- either non-zero arms the monitor),
+    serve_trace_sample (request-trace sampling rate; env
+    LGBM_TPU_TRACE_SAMPLE wins when set), drift_psi_threshold (PSI alarm
+    level when the model ships a ``.drift.json`` baseline sidecar),
+    serve_shed (``auto`` arms the brownout load shedder whenever an SLO
+    monitor is armed; 1/0 force), feedback_min_labels /
+    feedback_auc_epsilon (the router's labelled feedback gate),
+    serve_manifest (fleet manifest path to poll and converge on -- may
+    replace input_model entirely: the replica loads whatever the
+    manifest deploys), serve_manifest_poll_s (poll period),
+    serve_manifest_publish (bind this replica's router transitions back
+    into the manifest -- exactly one replica per fleet should). The
+    model runs on the card unless ``device_type=cpu``.
     """
     from .serving import (ModelRegistry, PredictorCache, ServingApp,
                           run_http_server)
     device = cli_device(params)
-    cache_opt = str(params.get("serve_export_cache", "")).strip()
-    if cache_opt and cache_opt.lower() not in ("0", "false", "off"):
-        raise _not_yet("serve_export_cache", "the rest of fleet/")
-    if str(params.get("serve_manifest", "")).strip():
-        raise _not_yet("serve_manifest", "the rest of fleet/")
     model_file = params.get("input_model") or params.get("model")
-    if not model_file:
-        log.fatal("task=serve requires input_model")
+    manifest_path = str(params.get("serve_manifest", "")).strip() or None
+    if not model_file and not manifest_path:
+        log.fatal("task=serve requires input_model or serve_manifest")
     warm = [int(v) for v in
             str(params.get("serve_warm_buckets", "1,16,256")).split(",") if v]
+    export_cache = None
+    cache_opt = str(params.get("serve_export_cache", "")).strip()
+    if cache_opt and cache_opt.lower() not in ("0", "false", "off"):
+        from .fleet import ExportCache, cache_dir_for_model
+        cache_dir = (cache_dir_for_model(model_file or manifest_path)
+                     if cache_opt.lower() in ("1", "true", "on", "auto")
+                     else cache_opt)
+        export_cache = ExportCache(cache_dir)
     placement = None
     place_opt = str(params.get("serve_placement", "")).strip()
     if place_opt and place_opt.lower() not in ("0", "false", "off"):
@@ -370,7 +389,8 @@ def _serve(params: Dict[str, str], block: bool = True):
     max_entries = int(params.get("serve_predictor_cache_entries", 0)) or None
     registry = ModelRegistry(
         predictor=PredictorCache(max_entries=max_entries),
-        warm_buckets=warm, placement=placement, device=device)
+        warm_buckets=warm, export_cache=export_cache, placement=placement,
+        device=device)
     slo = None
     slo_p99 = float(params.get("serve_slo_p99_ms", 0.0) or 0.0)
     slo_err = float(params.get("serve_slo_error_rate", 0.0) or 0.0)
@@ -404,35 +424,190 @@ def _serve(params: Dict[str, str], block: bool = True):
         app.router.feedback_auc_epsilon = float(
             params.get("feedback_auc_epsilon", 0.02))
     t0 = time.time()
-    version = registry.load(model_file)
-    app.router.set_stable(version)
-    baseline = registry.drift_baselines.get(version)
-    if baseline is not None:
-        from .serving.drift import DriftMonitor
-        thr = params.get("drift_psi_threshold")
-        app.drift = DriftMonitor(
-            baseline, threshold=(float(thr) if thr is not None else None))
-        log.info("Drift monitor armed (threshold %.3f, %d features)",
-                 app.drift.threshold, len(baseline.get("features", [])))
-    log.info("Loaded + warmed model %s on %s in %.3f seconds (buckets %s)",
-             version, registry.get(version).device_key, time.time() - t0,
-             warm)
+    if model_file:
+        version = registry.load(model_file)
+        app.router.set_stable(version)
+        baseline = registry.drift_baselines.get(version)
+        if baseline is not None:
+            from .serving.drift import DriftMonitor
+            thr = params.get("drift_psi_threshold")
+            app.drift = DriftMonitor(
+                baseline,
+                threshold=(float(thr) if thr is not None else None))
+            log.info("Drift monitor armed (threshold %.3f, %d features)",
+                     app.drift.threshold,
+                     len(baseline.get("features", [])))
+        log.info("Loaded + warmed model %s on %s in %.3f seconds (buckets "
+                 "%s%s)", version, registry.get(version).device_key,
+                 time.time() - t0, warm,
+                 ", export cache %s" % export_cache.last_restore
+                 if export_cache else "")
+    follower = None
+    if manifest_path:
+        from .fleet.manifest import ManifestFollower, ManifestPublisher
+        follower = ManifestFollower(
+            app, manifest_path,
+            poll_s=float(params.get("serve_manifest_poll_s", 0.5)))
+        # converge BEFORE binding the port, so /healthz only reports ok
+        # once the manifest's models are loaded and warmed -- and before
+        # binding the publisher, so the initial convergence doesn't
+        # republish its own state
+        follower.poll_once()
+        pub_opt = str(params.get("serve_manifest_publish", "")).lower()
+        if pub_opt in ("1", "true", "on"):
+            ManifestPublisher(manifest_path).bind_router(app.router,
+                                                         registry)
+        follower.start()
+        log.info("Manifest follower armed on %s (rev %d, stable %s%s)",
+                 manifest_path, follower._applied_rev, app.router.stable,
+                 ", export cache %s" % export_cache.last_restore
+                 if export_cache else "")
+    if app.router.stable is None and registry.latest is None:
+        log.fatal("task=serve: no model from input_model or manifest")
     httpd = run_http_server(
         app, host=params.get("serve_host", "127.0.0.1"),
         port=int(params.get("serve_port", 8080)), background=not block)
     if block:
-        # stopped (SIGINT), drained, the batcher joined and the socket
-        # closed: leave without the interpreter's finalization. There a
-        # daemon thread still inside a torch call is ended by
-        # pthread_exit, which aborts the process ("terminate called
-        # without an active exception": one stop in 34 on the card) and
-        # turns a clean stop into exit code -6
-        import atexit
-        atexit._run_exitfuncs()
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(0)
+        if follower is not None:
+            follower.stop()
+        _exit_clean()
+    httpd.follower = follower
     return httpd
+
+
+def _exit_clean() -> None:
+    """Stopped (SIGINT), drained, the worker threads joined and the
+    socket closed: leave without the interpreter's finalization. There a
+    daemon thread still inside a torch call is ended by pthread_exit,
+    which aborts the process ("terminate called without an active
+    exception": one stop in 34 on the card) and turns a clean stop into
+    exit code -6."""
+    import atexit
+    atexit._run_exitfuncs()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _gateway(params: Dict[str, str], block: bool = True):
+    """task=gateway: the fleet HTTP front over N task=serve replicas
+    (either package's). It holds no model and touches no device.
+
+    Options (all ``gateway_*``): gateway_host, gateway_port,
+    gateway_manifest (fleet manifest supplying the replica set, model
+    sources and the edge-transform sidecar), gateway_replicas
+    (comma-separated base URLs when running without a manifest),
+    gateway_retries, gateway_backoff_ms, gateway_eject_s,
+    gateway_health_period_s, gateway_timeout_ms, gateway_transform
+    (explicit ``.transform.json`` path for raw CSV/JSON ingestion),
+    gateway_hedge_ms (tail-latency hedging: duplicate a /predict to a
+    second replica after this many ms without an answer; 0 = off).
+    """
+    from .fleet.gateway import FleetGateway, run_gateway_server
+    replicas = [u for u in
+                str(params.get("gateway_replicas", "")).split(",") if u]
+    manifest = str(params.get("gateway_manifest", "")).strip() or None
+    if not replicas and not manifest:
+        log.fatal("task=gateway requires gateway_replicas or "
+                  "gateway_manifest")
+    transform = None
+    tpath = params.get("gateway_transform")
+    if tpath:
+        from .serving.transforms import EdgeTransform, load_transform
+        spec = load_transform(tpath)
+        if spec is None:
+            log.fatal("gateway_transform %s is not an edge-transform "
+                      "sidecar", tpath)
+        transform = EdgeTransform(spec)
+    gateway = FleetGateway(
+        replicas=replicas, manifest_path=manifest, transform=transform,
+        retries=int(params.get("gateway_retries", 1)),
+        backoff_s=float(params.get("gateway_backoff_ms", 50.0)) / 1e3,
+        eject_s=float(params.get("gateway_eject_s", 2.0)),
+        health_period_s=float(params.get("gateway_health_period_s", 0.5)),
+        timeout_s=float(params.get("gateway_timeout_ms", 10000.0)) / 1e3,
+        hedge_s=float(params.get("gateway_hedge_ms", 0.0)) / 1e3)
+    return run_gateway_server(
+        gateway, host=params.get("gateway_host", "127.0.0.1"),
+        port=int(params.get("gateway_port", 8088)),
+        background=not block)
+
+
+def _continual(params: Dict[str, str], block: bool = True):
+    """task=continual: the closed loop drift -> retrain -> canary ->
+    audited promote, wrapped around an embedded ``task=serve``.
+
+    All ``serve_*`` options apply (the drift monitor needs the model's
+    ``.drift.json`` sidecar to arm -- train writes it). Loop options:
+    ``data=<file>`` (the refreshed training extract, RE-READ at every
+    retrain so an operator pipeline can keep it current),
+    ``continual_policy`` (refit/continue/auto), ``continual_cooldown_s``,
+    ``continual_topup_rounds``, ``continual_canary_weight``,
+    ``refit_decay_rate``, ``feedback_min_labels`` /
+    ``feedback_auc_epsilon`` (labelled-feedback promotion gate),
+    ``continual_checkpoint_dir`` (persist every retrained model + drift
+    sidecar), ``continual_poll_s``. Retraining runs on the card unless
+    ``device_type=cpu``.
+    """
+    from .continual.loop import ContinualLoop
+    from .continual.update import continue_training
+    data_path = str(params.get("data", "")).strip()
+    if not data_path:
+        log.fatal("task=continual requires data=<file> — the refreshed "
+                  "training extract re-read at every retrain")
+    policy = str(params.get("continual_policy", "auto")).strip() or "auto"
+    if policy not in ("refit", "continue", "auto"):
+        log.fatal("continual_policy must be one of refit/continue/auto, "
+                  "got %s", policy)
+    device = cli_device(params)
+    httpd = _serve(params, block=False)
+    app = httpd.app
+    decay = float(params.get("refit_decay_rate", 0.9))
+    topup = int(params.get("continual_topup_rounds", 10))
+
+    def retrain(action: str) -> Booster:
+        # start from the version traffic trusts NOW (router stable),
+        # via model text so the served tensors are never mutated while
+        # they are still taking traffic
+        stable = app.router.stable or app.registry.latest
+        prev = Booster(model_str=app.registry.get(stable).gbdt
+                       .save_model_to_string(num_iteration=-1),
+                       device=device)
+        x, y, _ = _load_matrix(data_path)
+        if action == "refit":
+            return prev.refit(x, y, decay_rate=decay)
+        return continue_training(prev, Dataset(x, label=y, device=device),
+                                 num_boost_round=topup)
+
+    loop = ContinualLoop(
+        app.registry, app.router, retrain, policy=policy,
+        cooldown_s=float(params.get("continual_cooldown_s", 30.0)),
+        canary_weight=float(params.get("continual_canary_weight", 0.2)),
+        poll_s=float(params.get("continual_poll_s", 1.0)),
+        checkpoint_dir=(str(params.get("continual_checkpoint_dir", ""))
+                        .strip() or None))
+    loop.start()
+    log.info("continual loop armed (policy %s, cooldown %.1fs, data %s)",
+             policy, loop.cooldown_s, data_path)
+    if not block:
+        return httpd, loop
+    # the serve thread is already running (block=False serve above);
+    # park here until the operator stops the process
+    import threading
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        loop.stop()
+        if httpd.follower is not None:
+            httpd.follower.stop()
+        httpd.shutdown()
+        app.drain()
+        httpd.server_close()
+        app.close()
+    # the loop's thread may have been inside a torch call
+    _exit_clean()
 
 
 def _convert_model(params: Dict[str, str], cfg: Config) -> None:

@@ -10,7 +10,10 @@ update under the lock. Old versions stay queryable until `unload()`.
 
 Models load on the registry's device: the card unless ``device="cpu"``
 (without a card the constructor raises); a placement plan overrides it
-per version. Model text written by either package loads.
+per version. Model text written by either package loads. With an
+`export_cache` (fleet.ExportCache) a load restores the model's cached
+entries before its warm-up and saves them after it, so a restarted
+replica installs the entries it had warm instead of building them.
 """
 from __future__ import annotations
 
@@ -21,7 +24,6 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 from ..utils import log
-from ..utils.log import LightGBMError
 from ..utils.timer import timer
 from .predictor import PredictorCache, PreparedModel, _concrete
 
@@ -32,13 +34,6 @@ class ModelNotFound(KeyError):
     pass
 
 
-def export_cache_refused() -> LightGBMError:
-    return LightGBMError(
-        "a persistent predictor-entry cache (export_cache, "
-        "serve_export_cache) is not supported by lightgbm_tpu_torch yet "
-        "(ROADMAP.md section 1, the rest of fleet/)")
-
-
 class ModelRegistry:
     """Holds live model versions and the shared predictor cache."""
 
@@ -46,15 +41,14 @@ class ModelRegistry:
                  warm_buckets: Sequence[int] = DEFAULT_WARM_BUCKETS,
                  warm_raw_score: Sequence[bool] = (False,),
                  export_cache=None, placement=None, device=None):
-        if export_cache is not None:
-            raise export_cache_refused()
         self.device = _concrete(device)
         self.predictor = predictor or PredictorCache()
         self.warm_buckets = tuple(warm_buckets)
         self.warm_raw_score = tuple(warm_raw_score)
-        # fleet hook: a fleet.PlacementPlan pins versions to distinct
-        # cards (None: every version on `device`); the export cache is
-        # refused above
+        # fleet hooks: a fleet.ExportCache persists which entries were
+        # warm; a fleet.PlacementPlan pins versions to distinct cards
+        # (None: every version on `device`)
+        self.export_cache = export_cache
         self.placement = placement
         self._lock = threading.RLock()
         self._models: Dict[str, PreparedModel] = {}
@@ -92,14 +86,25 @@ class ModelRegistry:
                       if self.placement is not None else self.device)
             prepared = PreparedModel(gbdt, ver, num_iteration,
                                      device=device)
+            restored = {}
+            if self.export_cache is not None:
+                # install the cached entries BEFORE warm-up: a full
+                # restore turns the warm loop below into pure hits (no
+                # entry built) -- the fleet restart property
+                restored = self.export_cache.restore(
+                    prepared, self.predictor, self.warm_buckets,
+                    self.warm_raw_score)
             if warm:
                 for raw in self.warm_raw_score:
                     for b in self.warm_buckets:
                         self.predictor.warm(prepared, b, raw_score=raw)
                 telem_events.emit(
                     "serve_warmup", version=ver,
-                    buckets=list(self.warm_buckets), restored=0,
+                    buckets=list(self.warm_buckets),
+                    restored=restored.get("restored", 0),
                     warm_s=round(time.monotonic() - t0, 6))
+            if self.export_cache is not None:
+                self.export_cache.save(prepared, self.predictor)
         baseline = self._discover_drift_baseline(source)
         with self._lock:
             previous = self._latest

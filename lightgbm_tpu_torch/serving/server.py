@@ -240,6 +240,8 @@ class ServingApp:
         snap["models"] = self.registry.versions()
         snap["router"] = self.router.snapshot()
         snap["feedback"] = self.feedback.snapshot()
+        if self.registry.export_cache is not None:
+            snap["export_cache"] = self.registry.export_cache.info()
         if self.slo is not None:
             snap["slo"] = self.slo.snapshot()
         if self.drift is not None:

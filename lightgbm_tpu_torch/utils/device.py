@@ -23,3 +23,19 @@ def resolve_device(device=None) -> torch.device:
         raise LightGBMError("device must be 'cuda' or 'cpu', got %r"
                             % (device,))
     return dev
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """Whether `exc` came from the card (out of memory, a failed launch or
+    copy, an illegal address, no card at all): the faults a control loop
+    must raise, where it logs a bad model file and carries on."""
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    text = str(exc)
+    if isinstance(exc, LightGBMError):
+        return "no CUDA device" in text
+    return isinstance(exc, RuntimeError) and ("CUDA" in text
+                                              or "cuda" in text)

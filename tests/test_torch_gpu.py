@@ -2215,3 +2215,92 @@ def test_cli_serve_without_cpu_key_runs_on_card(cuda_device, tmp_path):
         httpd.shutdown()
         httpd.server_close()
         httpd.app.close()
+
+
+# ---------------------------------------------------------------------------
+# the fleet and the continual loop on the card
+
+@pytest.mark.gpu
+def test_export_cache_restart_on_card_builds_no_entry(cuda_device,
+                                                      tmp_path):
+    from lightgbm_tpu_torch.fleet import ExportCache
+    from lightgbm_tpu_torch.serving import ModelRegistry
+    bst, x, _ = _serve_model()
+    path = str(tmp_path / "model.txt")
+    bst.save_model(path)
+    first = ModelRegistry(warm_buckets=(1, 16, 256),
+                          export_cache=ExportCache(path + ".xcache"))
+    first.load(path, version="v1")
+    assert first.predictor.compile_count == 3
+    again = ModelRegistry(warm_buckets=(1, 16, 256),
+                          export_cache=ExportCache(path + ".xcache"))
+    again.load(path, version="v1")
+    assert again.export_cache.last_restore == {"restored": 3, "rebuilt": 0,
+                                               "missed": 0}
+    m = again.get("v1")
+    assert m.device_key == "cuda:0"
+    host = ModelRegistry(warm_buckets=(1,), device="cpu")
+    host.load(path)
+    for n in (1, 7, 16, 100, 256):
+        got = again.predictor.predict(m, x[:n])
+        want = host.predictor.predict(host.get(), x[:n])
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert again.predictor.compile_count == 0
+
+
+@pytest.mark.gpu
+def test_continuation_on_card_has_the_cpus_structure(cuda_device,
+                                                     monkeypatch):
+    from lightgbm_tpu_torch.continual import update
+    monkeypatch.setenv("LGBM_TPU_STRATEGY", "compact")
+    r = np.random.RandomState(11)
+    x = r.randn(24_000, 8)
+    y = (1.5 * x[:, 0] - x[:, 1] + 0.5 * r.randn(24_000) > 0).astype(float)
+    xn = r.randn(4_000, 8) + 0.5
+    yn = (1.5 * xn[:, 0] - xn[:, 1] + 0.5 * r.randn(4_000) > 0
+          ).astype(float)
+    params = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
+              "min_data_in_leaf": 20, "min_gain_to_split": 1e-3,
+              "verbosity": -1}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ds = tlgb.Dataset(x, y, device=dev)
+        b = tlgb.train(params, ds, 3)
+        update.append_rows(ds, xn, yn, booster=b)
+        k1.launches_win = k4.launches_win = 0
+        c = update.continue_training(b, ds, 2)
+        out[dev] = (c, k1.launches_win, k4.launches_win)
+    card, host = out["cuda"][0], out["cpu"][0]
+    assert card.device.type == "cuda" and out["cuda"][1] > 0 \
+        and out["cuda"][2] > 0
+
+    def structure(b):
+        return [(list(t.split_feature[:t.num_leaves - 1]),
+                 list(t.left_child[:t.num_leaves - 1]),
+                 list(t.leaf_count[:t.num_leaves])) for t in b._gbdt.models]
+    assert structure(card) == structure(host)
+    xa = np.vstack([x, xn])
+    np.testing.assert_allclose(card.predict(xa), host.predict(xa), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_manifest_follower_loads_onto_the_card(cuda_device, tmp_path):
+    from lightgbm_tpu_torch.fleet import ManifestFollower, ManifestPublisher
+    from lightgbm_tpu_torch.serving import ServingApp
+    bst, x, _ = _serve_model(rounds=4)
+    path = str(tmp_path / "model.txt")
+    bst.save_model(path)
+    mpath = str(tmp_path / "manifest.json")
+    ManifestPublisher(mpath).seed({"v1": path}, stable="v1")
+    app = ServingApp(max_batch=16, start=False)
+    try:
+        assert ManifestFollower(app, mpath).poll_once() is True
+        assert app.router.stable == "v1"
+        m = app.registry.get("v1")
+        assert m.device_key == "cuda:0"
+        np.testing.assert_allclose(
+            app.registry.predictor.predict(m, x[:9])[:, 0],
+            bst.predict(x[:9]), rtol=0, atol=1e-6)
+    finally:
+        app.close()

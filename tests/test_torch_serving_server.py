@@ -5,8 +5,9 @@ Both packages serve the same JAX-written model text over HTTP on
 endpoint of the JAX server's docstring, and each answer's status and JSON
 keys (nested, counters and versions included) must equal the JAX app's,
 with predictions within 1e-6. Then `task=serve` in process, `task=train`'s
-sidecars against the JAX CLI's, and the paths this package refuses (each
-names its item in ROADMAP.md).
+sidecars against the JAX CLI's, the fleet and continual paths on the CPU
+(the export cache, manifests, `task=gateway`, `task=continual`), and the
+path this package still refuses (naming its item in ROADMAP.md).
 """
 import json
 import os
@@ -295,40 +296,119 @@ def test_cli_train_sidecars_equal_the_jax_clis(tmp_path):
                                rtol=1e-5, atol=1e-6)
 
 
-def _refusals(tmp_path):
+def test_refused_paths_name_their_slice(tmp_path, monkeypatch):
+    from lightgbm_tpu_torch.cli import run
+    monkeypatch.delenv("LGBM_TPU_REJOIN", raising=False)
+    with pytest.raises(LightGBMError, match=r"ROADMAP\.md section 1"):
+        run(["task=train", "data=x.csv", "num_machines=2",
+             "device_type=cpu"])
+
+
+def _stop_serve(httpd):
+    httpd.shutdown()
+    httpd.server_close()
+    httpd.app.close()
+    if getattr(httpd, "follower", None) is not None:
+        httpd.follower.stop()
+
+
+def _lifted(tmp_path, what):
+    """Each path the port refused until the fleet and continual slice,
+    run on the CPU."""
     from lightgbm_tpu_torch import fleet
-    from lightgbm_tpu_torch.cli import _serve, run
+    from lightgbm_tpu_torch.cli import _continual, _gateway, _serve, run
     model = str(tmp_path / "m.txt")
     with open(model, "w") as f:
         f.write(_text(7, rounds=2))
     serve = {"task": "serve", "input_model": model, "device_type": "cpu",
-             "serve_port": "0"}
-    return {
-        "gateway": lambda: run(["task=gateway"]),
-        "continual": lambda: run(["task=continual", "data=x.csv"]),
-        "export_cache": lambda: _serve(dict(serve, serve_export_cache="1"),
-                                       block=False),
-        "manifest": lambda: _serve(dict(serve, serve_manifest="m.json"),
-                                   block=False),
-        "num_machines": lambda: run([
-            "task=train", "data=x.csv", "num_machines=2",
-            "device_type=cpu"]),
-        "registry_export_cache": lambda: tserving.ModelRegistry(
-            export_cache=object(), device="cpu"),
-        "fleet_ExportCache": lambda: fleet.ExportCache,
-        "fleet_FleetGateway": lambda: fleet.FleetGateway,
-        "fleet_ManifestFollower": lambda: fleet.ManifestFollower,
-    }
+             "serve_port": "0", "serve_warm_buckets": "4"}
+    x, y = _data(seed=3)
+    if what == "gateway":
+        httpd = _serve(serve, block=False)
+        url = "http://127.0.0.1:%d" % httpd.server_address[1]
+        gw = _gateway({"task": "gateway", "gateway_replicas": url,
+                       "gateway_port": "0"}, block=False)
+        try:
+            base = "http://127.0.0.1:%d" % gw.server_address[1]
+            code, out, _ = _call(base, "POST", "/predict",
+                                 {"rows": x[:3].tolist()})
+            assert code == 200
+            np.testing.assert_allclose(
+                out["predictions"],
+                jlgb.Booster(model_str=_text(7, rounds=2)).predict(x[:3]),
+                atol=1e-6)
+        finally:
+            gw.shutdown()
+            gw.server_close()
+            gw.gateway.stop()
+            _stop_serve(httpd)
+    elif what == "continual":
+        with pytest.raises(LightGBMError,
+                           match="task=continual requires data=<file>"):
+            run(["task=continual", "device_type=cpu"])
+        data = str(tmp_path / "train.csv")
+        np.savetxt(data, np.column_stack([y, x]), delimiter=",",
+                   fmt="%.6f")
+        httpd, loop = _continual(dict(serve, task="continual", data=data,
+                                      continual_poll_s="60"), block=False)
+        try:
+            base = "http://127.0.0.1:%d" % httpd.server_address[1]
+            assert _call(base, "GET", "/healthz")[0] == 200
+            assert loop.step() == "wait"        # no drift fire yet
+            assert loop.snapshot()["policy"] == "auto"
+        finally:
+            loop.stop()
+            _stop_serve(httpd)
+    elif what == "export_cache":
+        httpd = _serve(dict(serve, serve_export_cache="auto"), block=False)
+        _stop_serve(httpd)
+        assert fleet.ExportCache(model + ".xcache").info()["entries"] == 1
+        again = _serve(dict(serve, serve_export_cache="auto"), block=False)
+        try:
+            assert again.app.registry.predictor.cache_info() \
+                ["compiles"] == 0
+        finally:
+            _stop_serve(again)
+    elif what == "manifest":
+        mpath = str(tmp_path / "manifest.json")
+        fleet.ManifestPublisher(mpath).seed({"v1": model}, stable="v1")
+        m = dict(serve, serve_manifest=mpath)
+        del m["input_model"]
+        httpd = _serve(m, block=False)
+        try:
+            assert httpd.app.router.stable == "v1"
+            assert httpd.app.registry.versions()[0]["device"] == "cpu"
+        finally:
+            _stop_serve(httpd)
+    elif what == "registry_export_cache":
+        reg = tserving.ModelRegistry(
+            export_cache=fleet.ExportCache(str(tmp_path / "c")),
+            warm_buckets=(1, 8), device="cpu")
+        reg.load(model)
+        assert reg.export_cache.info()["entries"] == 2
+    elif what == "fleet_ExportCache":
+        assert fleet.ExportCache(str(tmp_path / "none")).info() \
+            ["entries"] == 0
+    elif what == "fleet_FleetGateway":
+        gw = fleet.FleetGateway(replicas=["http://a", "http://b"])
+        # equal weights: ties go to the larger url, as in the JAX package
+        assert [gw.pick().url for _ in range(4)] == [
+            "http://b", "http://a", "http://b", "http://a"]
+    elif what == "fleet_ManifestFollower":
+        app = tserving.ServingApp(device="cpu", start=False)
+        try:
+            assert fleet.ManifestFollower(
+                app, str(tmp_path / "no.json")).poll_once() is False
+        finally:
+            app.close()
 
 
 @pytest.mark.parametrize("what", [
-    "gateway", "continual", "export_cache", "manifest", "num_machines",
+    "gateway", "continual", "export_cache", "manifest",
     "registry_export_cache", "fleet_ExportCache", "fleet_FleetGateway",
     "fleet_ManifestFollower"])
-def test_refused_paths_name_their_slice(tmp_path, what, monkeypatch):
-    monkeypatch.delenv("LGBM_TPU_REJOIN", raising=False)
-    with pytest.raises(LightGBMError, match=r"ROADMAP\.md section 1"):
-        _refusals(tmp_path)[what]()
+def test_lifted_paths_run_on_the_cpu(tmp_path, what):
+    _lifted(tmp_path, what)
 
 
 def test_cli_device_key(monkeypatch):
