@@ -414,6 +414,38 @@ Phases, one JSON line each:
                retries counted, hits = models x warm buckets, 0 entries
                built; time to ready beside a restart on a fresh cache),
                and `task=continual` answering /healthz and exiting 0;
+  capi         the C ABI on the card: lib_lightgbm_tpu_torch.so (g++,
+               built at first use) driven by ctypes in this process on the
+               higgs-1m rows and params, --rounds rounds
+               (DatasetCreateFromMat, SetField, BoosterCreate,
+               UpdateOneIter, GetEval, PredictForMat on the 100,000
+               held-out rows, SaveModelToString): model text byte-equal
+               to engine.train's with the same params in the same call,
+               predictions within 1e-6 of Booster.predict, K1's and K4's
+               window entries and the split key launched (their counts go
+               into the kernels line as capi_launches);
+  dp           tree_learner=data: (a) world size 1 under NCCL in this
+               process (a TCP store on localhost), --rounds rounds on the
+               same rows: model text byte-equal to the serial compact run
+               (the capi phase's engine.train) but for its tree_learner
+               line, one host sync per tree, the split step captured as a
+               CUDA graph with its all-reduce inside, collectives and
+               their bytes per tree, one all-reduce's time (CUDA events)
+               and s per iteration beside the serial run's, K1 / K4 /
+               split-key launches into the kernels line as dp_launches;
+               (b) two ranks on the one card as subprocesses under gloo on
+               CUDA tensors (psum mode, uncaptured), DP_GLOO_ROUNDS rounds,
+               each rank 500,000 rows: byte-equal model text, trees equal
+               to the serial run's structurally as
+               tests/test_parallel.py's assert_trees_structurally_equal
+               holds them (split feature and counts; f32 gains within 1e-4
+               relative, 2e-5 where a threshold differs), each model's
+               partitions summed again in f64 giving gains within 2e-5
+               relative of each other (the witness that the f32 gains
+               part by rounding: each model's f32 gap to its own f64
+               gains is reported), held-out AUC > 0.7 and within 0.001
+               of the serial run's of as many rounds, s per iteration and
+               the all-reduce's time per tree;
 Kernel times: `ms` is the mean over repeated launches between CUDA
 events, the host enqueuing as it goes (on a small launch this reads the
 wrapper's launch rate); `device_ms` puts a sleep kernel in front, which
@@ -437,6 +469,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -456,7 +489,7 @@ PHASES = ("device", "k1", "k2", "k3", "k4", "train", "profile",
           "train_bag", "train_valid",
           "train_objectives", "train_multiclass", "train_boost",
           "train_learners", "train_stream", "resilience", "fleet",
-          "train_cat", "train_rank", "loop", "reference")
+          "capi", "dp", "train_cat", "train_rank", "loop", "reference")
 
 # bench.py's categorical variant (BENCH_CAT_FEATURES=8, BENCH_CAT_CARD=64)
 CAT_FEATURES = 8
@@ -1511,6 +1544,31 @@ def main():
             fail("fleet: %s" % "; ".join(problems))
     if need_data:
         del ds
+    # ---- the C ABI and data-parallel training, on the raw higgs-1m rows
+    capi_counts, dp_counts, serial_ref = {}, {}, None
+    if "capi" in run:
+        row, problems, capi_counts, serial_ref = capi_phase(
+            torch, lgb, params, x, y, xv, yv, args.rounds, reset_counts,
+            read_counts)
+        emit(row)
+        if problems:
+            fail("capi: %s" % "; ".join(problems))
+    if "dp" in run:
+        if serial_ref is None:
+            sds = lgb.Dataset(x, y, params=dict(params))
+            sds.construct()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            sb = lgb.train(dict(params), sds, args.rounds)
+            torch.cuda.synchronize()
+            serial_ref = (sb, sds, (time.time() - t1) / args.rounds)
+        row, problems, dp_counts = dp_phase(
+            torch, lgb, params, args.rows, xv, yv, args.rounds, serial_ref,
+            reset_counts, read_counts)
+        emit(row)
+        if problems:
+            fail("dp: %s" % "; ".join(problems))
+    serial_ref = None
 
     if "train_cat" in run:
         row, problems = categorical_phase(
@@ -1556,6 +1614,10 @@ def main():
                 entry["resilience_launches"] = res_counts[stream_key]
             if stream_key is not None and stream_key in fleet_counts:
                 entry["fleet_launches"] = fleet_counts[stream_key]
+            if stream_key is not None and stream_key in capi_counts:
+                entry["capi_launches"] = capi_counts[stream_key]
+            if stream_key is not None and stream_key in dp_counts:
+                entry["dp_launches"] = dp_counts[stream_key]
             return entry
 
         hk = "lightgbm_tpu/ops/pallas/histogram_kernel.py"
@@ -6756,6 +6818,460 @@ def valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of, ds_of):
                  "ok": bool(sorted(card) == sorted(cpu)
                             and max(diffs.values()) <= 1e-4)})
     return rows
+
+
+# rounds of the dp phase's two-rank run (gloo, on one card) and its
+# collective timing repeats
+DP_GLOO_ROUNDS = 5
+DP_COLL_REPS = 200
+
+_DP_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+os.environ["LGBM_TPU_DP_REDUCE"] = "psum"
+import torch
+import chip_smoke
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.distributed import bootstrap
+from lightgbm_tpu_torch.parallel import network
+rank, port, rows, rounds, out = (int(sys.argv[2]), sys.argv[3],
+                                 int(sys.argv[4]), int(sys.argv[5]),
+                                 sys.argv[6])
+params = json.loads(sys.argv[7])
+bootstrap.initialize("127.0.0.1:" + port, 2, rank)
+x, y, _ = chip_smoke.make_higgs_like(rows, 28)
+ds = lgb.Dataset(x, y, params=params)
+ds.construct()
+bootstrap.barrier("data")
+torch.cuda.synchronize()
+t0 = time.time()
+b = lgb.train(dict(params, tree_learner="data"), ds, rounds)
+torch.cuda.synchronize()
+secs = time.time() - t0
+lr = b._gbdt.learner
+coll = network.collectives
+# the collective of the split step: one all-reduce of a (C, B, 3) f32
+# histogram over gloo, timed between syncs
+h = torch.zeros((lr.c_cols, lr.col_device_bins, 3), device=lr.device)
+for _ in range(3):
+    network.all_reduce(h)
+torch.cuda.synchronize()
+t1 = time.time()
+for _ in range(50):
+    network.all_reduce(h)
+torch.cuda.synchronize()
+coll_ms = (time.time() - t1) / 50 * 1e3
+with open(out, "w") as f:
+    f.write(b.model_to_string())
+# the split gains at f32 precision (the text keeps 6 digits)
+with open(out + ".gains.json", "w") as f:
+    json.dump([t.split_gain[:t.num_leaves - 1].tolist()
+               for t in b._gbdt.models], f)
+print(json.dumps({"rank": rank, "rows": list(lr.row_block),
+                  "train_s": secs, "trees": lr.stats.trees,
+                  "host_syncs": lr.stats.host_syncs,
+                  "captured": lr._loop.graph is not None,
+                  "collectives": coll, "collective_ms": coll_ms,
+                  "backend": bootstrap.cuda_backend()}), flush=True)
+bootstrap.shutdown()
+"""
+
+
+def capi_phase(torch, lgb, params, x, y, xv, yv, rounds, reset_counts,
+               read_counts):
+    """The C ABI on the card: the higgs-1m rows trained through
+    lib_lightgbm_tpu_torch.so by ctypes in this process (DatasetCreateFromMat
+    -> SetField -> BoosterCreate -> UpdateOneIter x rounds -> GetEval ->
+    PredictForMat on the held-out rows -> SaveModelToString), held against
+    engine.train with the same params in this call: byte-equal model text,
+    predictions within 1e-6. Returns (row, problems, the launches of K1's
+    and K4's window entries and the split key in the ABI's run, the
+    reference booster with its dataset and s per iteration)."""
+    from lightgbm_tpu_torch.ops.kernels import build
+    problems = []
+    t0 = time.time()
+    lib = ctypes.CDLL(build.capi_library())
+    build_s = time.time() - t0
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
+
+    def check(rc, what):
+        if rc != 0:
+            fail("capi: %s: %s" % (what, lib.LGBM_GetLastError().decode()))
+    pstr = " ".join("%s=%s" % kv for kv in params.items()).encode()
+    xf = np.ascontiguousarray(x, dtype=np.float64)
+    n, f = xf.shape
+    ds, bst = ctypes.c_void_p(), ctypes.c_void_p()
+    t0 = time.time()
+    check(lib.LGBM_DatasetCreateFromMat(
+        xf.ctypes.data_as(ctypes.c_void_p), 1, n, f, 1, pstr, None,
+        ctypes.byref(ds)), "DatasetCreateFromMat")
+    yl = np.ascontiguousarray(y, dtype=np.float32)
+    check(lib.LGBM_DatasetSetField(ds, b"label", yl.ctypes.data_as(
+        ctypes.c_void_p), n, 0), "SetField")
+    data_s = time.time() - t0
+    del xf
+    check(lib.LGBM_BoosterCreate(ds, pstr, ctypes.byref(bst)),
+          "BoosterCreate")
+    reset_counts()
+    fin = ctypes.c_int()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(rounds):
+        check(lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)),
+              "UpdateOneIter")
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    counts = read_counts()
+    cnt = ctypes.c_int()
+    check(lib.LGBM_BoosterGetEvalCounts(bst, ctypes.byref(cnt)),
+          "GetEvalCounts")
+    ev = (ctypes.c_double * max(cnt.value, 1))()
+    out_len = ctypes.c_int()
+    check(lib.LGBM_BoosterGetEval(bst, 0, ctypes.byref(out_len), ev),
+          "GetEval")
+    xvf = np.ascontiguousarray(xv, dtype=np.float64)
+    pred = np.zeros(xv.shape[0])
+    olen = ctypes.c_int64()
+    check(lib.LGBM_BoosterPredictForMat(
+        bst, xvf.ctypes.data_as(ctypes.c_void_p), 1, xv.shape[0], f, 1, 0,
+        -1, b"", ctypes.byref(olen),
+        pred.ctypes.data_as(ctypes.POINTER(ctypes.c_double))),
+        "PredictForMat")
+    check(lib.LGBM_BoosterSaveModelToString(bst, 0, -1, 0,
+                                            ctypes.byref(olen), None),
+          "SaveModelToString")
+    buf = ctypes.create_string_buffer(olen.value)
+    check(lib.LGBM_BoosterSaveModelToString(bst, 0, -1, olen.value,
+                                            ctypes.byref(olen), buf),
+          "SaveModelToString")
+    text = buf.value.decode()
+    check(lib.LGBM_BoosterFree(bst), "BoosterFree")
+    check(lib.LGBM_DatasetFree(ds), "DatasetFree")
+
+    # engine.train with the same params, in this call
+    ref_ds = lgb.Dataset(x, y, params=dict(params))
+    ref_ds.construct()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = lgb.train(dict(params), ref_ds, rounds)
+    torch.cuda.synchronize()
+    ref_s = (time.time() - t0) / rounds
+    want = ref.predict(xv)
+    err = float(np.abs(pred - want).max())
+    equal = text == ref.model_to_string()
+    if not equal:
+        problems.append("the C ABI's model text differs from engine.train's")
+    if not err <= 1e-6:
+        problems.append("C ABI predictions off Booster.predict by %g" % err)
+    if ref._gbdt.device.type != "cuda":
+        problems.append("engine.train did not run on the card")
+    launched = {k: counts[k] for k in ("k1_win", "k4_win", "split_key")}
+    if not all(launched.values()):
+        problems.append("the C ABI's run launched no %s" % [
+            k for k, v in launched.items() if not v])
+    want_eval = [v for _, _, v, _ in ref.eval_train()]
+    row = {"phase": "capi", "rows": n, "rounds": rounds,
+           "capi_build_s": build_s, "capi_data_s": data_s,
+           "capi_s_per_iter": train_s / rounds,
+           "engine_s_per_iter": ref_s, "model_text_equal": equal,
+           "model_bytes": len(text),
+           "eval": list(ev[:out_len.value]), "engine_eval": want_eval,
+           "predict_max_abs_err": err, "held_out_auc": auc(yv, pred),
+           "capi_launches": launched}
+    return row, problems, launched, (ref, ref_ds, ref_s)
+
+
+def _strip_learner(text):
+    """Model text without its [tree_learner: ...] parameter line."""
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith("[tree_learner"))
+
+
+def _structural_diff(a, b, n_trees, band=1e-4, tie_band=2e-5):
+    """(first difference, largest relative gain gap, nodes whose bin
+    thresholds differ) between the first n_trees trees of two GBDTs, as
+    tests/test_parallel.py's assert_trees_structurally_equal holds them:
+    the same split feature and counts at every node, gains within `band`
+    relative (histograms summed in another order round apart), and a node
+    whose threshold differs only on a tie, its gains within `tie_band`
+    (ROADMAP.md section 3). The first difference is None when equal."""
+    worst, moved, first = 0.0, 0, None
+    for ti in range(n_trees):
+        ta, tb = a.models[ti], b.models[ti]
+        if ta.num_leaves != tb.num_leaves:
+            return ("tree %d: %d vs %d leaves" % (ti, ta.num_leaves,
+                                                  tb.num_leaves),
+                    worst, moved)
+        for i in range(ta.num_leaves - 1):
+            if int(ta.split_feature[i]) != int(tb.split_feature[i]) or \
+                    int(ta.internal_count[i]) != int(tb.internal_count[i]):
+                return ("tree %d node %d: feature / count" % (ti, i),
+                        worst, moved)
+            ga, gb = float(ta.split_gain[i]), float(tb.split_gain[i])
+            rel = abs(ga - gb) / max(1.0, abs(ga))
+            worst = max(worst, rel)
+            tie = float(ta.threshold[i]) != float(tb.threshold[i])
+            moved += tie
+            if first is None and rel > (tie_band if tie else band):
+                first = "tree %d node %d: gain %r vs %r%s" % (
+                    ti, i, ga, gb, " (threshold differs)" if tie else "")
+    return first, worst, moved
+
+
+def _f64_gains(gbdt, inner, label, n_trees, l2=0.0, min_gain=0.0):
+    """The split gains of a binary model's first n_trees trees summed in
+    f64: each tree's partition of the training rows (routed on their bin
+    codes), gradients from f64 scores (the init score, then the model's
+    own leaf values, the first tree's holding the init score). Per tree,
+    (f64 gains, f64 counts) by node; the counts hold the routing to the
+    model's own."""
+    from lightgbm_tpu_torch.models.tree import (K_CATEGORICAL_MASK,
+                                                K_DEFAULT_LEFT_MASK,
+                                                MISSING_NAN, MISSING_ZERO)
+    codes = inner.binned
+    n = codes.shape[0]
+    mappers = [inner.bin_mappers[f] for f in inner.used_features]
+    last_bin = np.array([m.num_bin - 1 for m in mappers])
+    default_bin = np.array([m.default_bin for m in mappers])
+    sign = np.where(label > 0, 1.0, -1.0)
+    p = float(np.mean(label > 0))
+    score = np.full(n, np.log(p / (1.0 - p)))
+    out = []
+    for t in gbdt.models[:n_trees]:
+        r = -sign / (1.0 + np.exp(sign * score))
+        g, h = r, np.abs(r) * (1.0 - np.abs(r))
+        dt = t.decision_type.astype(np.int64)
+        if np.any(dt[:t.num_leaves - 1] & K_CATEGORICAL_MASK):
+            raise ValueError("_f64_gains routes numerical splits only")
+        node = np.zeros(n, dtype=np.int64)     # >= 0 internal, < 0 ~leaf
+        live = np.arange(n)
+        while live.size:
+            nd = node[live]
+            f = t.split_feature_inner[nd]
+            c = codes[live, f].astype(np.int64)
+            mt = (dt[nd] >> 2) & 3
+            missing = ((mt == MISSING_NAN) & (c == last_bin[f])) \
+                | ((mt == MISSING_ZERO) & (c == default_bin[f]))
+            left = np.where(missing, (dt[nd] & K_DEFAULT_LEFT_MASK) > 0,
+                            c <= t.threshold_in_bin[nd])
+            nxt = np.where(left, t.left_child[nd], t.right_child[nd])
+            node[live] = nxt
+            live = live[nxt >= 0]
+        leaf = ~node
+        k = t.num_leaves
+        sums = {~j: (s_g, s_h, s_c) for j, (s_g, s_h, s_c) in enumerate(zip(
+            np.bincount(leaf, g, k), np.bincount(leaf, h, k),
+            np.bincount(leaf, minlength=k)))}
+        gains, counts = np.zeros(k - 1), np.zeros(k - 1, dtype=np.int64)
+        for i in range(k - 2, -1, -1):   # children after their parent
+            gl, hl, cl = sums[t.left_child[i]]
+            gr, hr, cr = sums[t.right_child[i]]
+            sums[i] = (gl + gr, hl + hr, cl + cr)
+            gains[i] = (gl * gl / (hl + l2) + gr * gr / (hr + l2)
+                        - (gl + gr) ** 2 / (hl + hr + l2) - min_gain)
+            counts[i] = cl + cr
+        out.append((gains, counts))
+        # the first tree's leaf values carry the init score
+        score = t.leaf_value[leaf] + (score if out[1:] else 0.0)
+    return out
+
+
+def _f64_witness(ser, dp, inner, label, n_trees, cfg):
+    """Where the f32 split gains of two models of the same partitions
+    part: each model's gains summed in f64 (_f64_gains), the largest
+    relative gap between the two models' f64 gains, each model's largest
+    f32 gap to its own f64 gains, and, at the node where the f32 gains
+    part most, the four gains."""
+    both = [_f64_gains(m, inner, label, n_trees, cfg.lambda_l2,
+                       cfg.min_gain_to_split) for m in (ser, dp)]
+    rel = lambda a, b: abs(a - b) / max(1.0, abs(b))    # noqa: E731
+    row = {"f64_gap": 0.0, "serial_f32_vs_f64": 0.0, "dp_f32_vs_f64": 0.0,
+           "routing_counts_equal": True, "at_widest_f32_gap": None}
+    widest = -1.0
+    for ti in range(n_trees):
+        ts, td = ser.models[ti], dp.models[ti]
+        (es, cs), (ed, cd) = both[0][ti], both[1][ti]
+        row["routing_counts_equal"] &= bool(
+            np.array_equal(cs, ts.internal_count[:len(cs)])
+            and np.array_equal(cd, td.internal_count[:len(cd)]))
+        for i in range(len(es)):
+            fs, fd = float(ts.split_gain[i]), float(td.split_gain[i])
+            row["f64_gap"] = max(row["f64_gap"], rel(ed[i], es[i]))
+            row["serial_f32_vs_f64"] = max(row["serial_f32_vs_f64"],
+                                           rel(fs, es[i]))
+            row["dp_f32_vs_f64"] = max(row["dp_f32_vs_f64"], rel(fd, ed[i]))
+            if rel(fd, fs) > widest:
+                widest = rel(fd, fs)
+                row["at_widest_f32_gap"] = {
+                    "tree": ti, "node": i, "f32_gap": widest,
+                    "serial_f32": fs, "serial_f64": float(es[i]),
+                    "dp_f32": fd, "dp_f64": float(ed[i])}
+    return row
+
+
+def dp_phase(torch, lgb, params, rows, xv, yv, rounds, serial,
+             reset_counts, read_counts):
+    """tree_learner=data on the card: (a) world size 1 under NCCL in this
+    process (a TCP store on localhost) on the capi phase's dataset,
+    byte-equal to the serial compact run of the same call (`serial`:
+    booster, dataset, s per iteration) at one host sync per tree, the
+    split step captured with its collective inside; (b) two ranks as
+    subprocesses under gloo on CUDA tensors, psum mode, DP_GLOO_ROUNDS
+    rounds on `rows` rows (each rank half), byte-equal between the ranks,
+    structurally equal to the serial run's first trees, held-out AUC > 0.7
+    and within 0.001 of the serial run's. Returns (row, problems, the
+    launches of K1's and K4's window entries and the split key in (a))."""
+    import socket
+    from lightgbm_tpu_torch.distributed import bootstrap
+    from lightgbm_tpu_torch.parallel import network
+    problems = []
+    ser, ser_ds, ser_s = serial
+
+    def free_port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    # ---- (a) world size 1, NCCL, captured ---------------------------------
+    bootstrap.initialize("127.0.0.1:%d" % free_port(), 1, 0)
+    backend = bootstrap.cuda_backend()
+    reset_counts()
+    network.collectives = network.collective_bytes = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b = lgb.train(dict(params, tree_learner="data"), ser_ds, rounds)
+    torch.cuda.synchronize()
+    dp_s = (time.time() - t0) / rounds
+    counts = read_counts()
+    equal = _strip_learner(b.model_to_string()) \
+        == _strip_learner(ser.model_to_string())
+    lr = b._gbdt.learner
+    trees = max(lr.stats.trees, 1)
+    syncs_per_tree = lr.stats.host_syncs / trees
+    coll_per_tree = network.collectives / trees
+    bytes_per_tree = network.collective_bytes / trees
+    step = {k.rsplit(".", 1)[-1]: v
+            for k, v in (lr._loop.launches_per_step or {}).items()}
+    h = torch.zeros((lr.c_cols, lr.col_device_bins, 3), device=lr.device)
+    coll_ms = time_ms(torch, lambda: network.all_reduce(h), DP_COLL_REPS)
+    coll_dev_ms = time_ms(torch, lambda: network.all_reduce(h),
+                          DP_COLL_REPS, hold=True)
+    # steady iterations, the serial and the data-parallel booster in turn
+    steady = {"serial": [], "dp": []}
+    for _ in range(3):
+        for name, bb in (("serial", ser), ("dp", b)):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            bb.update()
+            torch.cuda.synchronize()
+            steady[name].append(time.time() - t1)
+    if backend != "nccl":
+        problems.append("world size 1 ran on %s, not NCCL" % backend)
+    if not equal:
+        problems.append("world-size-1 data-parallel model text differs "
+                        "from the serial compact run's")
+    if syncs_per_tree != 1:
+        problems.append("%g host syncs per tree" % syncs_per_tree)
+    if lr._loop.graph is None or step.get("collectives", 0) < 1:
+        problems.append("the split step was not captured with its "
+                        "collective inside (%s)" % step)
+    launched = {k: counts[k] for k in ("k1_win", "k4_win", "split_key")}
+    if not all(launched.values()):
+        problems.append("the data-parallel run launched no %s" % [
+            k for k, v in launched.items() if not v])
+    bootstrap.shutdown()
+    a_row = {"backend": backend, "s_per_iter": dp_s,
+             "serial_s_per_iter": ser_s, "model_text_equal": equal,
+             "host_syncs_per_tree": syncs_per_tree, "captured_step": step,
+             "collectives_per_tree": coll_per_tree,
+             "collective_bytes_per_tree": bytes_per_tree,
+             "steady_s_per_iter": float(np.median(steady["dp"])),
+             "serial_steady_s_per_iter": float(np.median(steady["serial"])),
+             "collective_ms": coll_ms, "collective_device_ms": coll_dev_ms,
+             "collective_device_ms_per_tree": coll_dev_ms * coll_per_tree,
+             "dp_launches": launched}
+
+    # ---- (b) two ranks on the one card, gloo, uncaptured ------------------
+    tmp = tempfile.mkdtemp(prefix="dp_phase_")
+    port = str(free_port())
+    here = os.path.dirname(os.path.abspath(__file__))
+    outs = [os.path.join(tmp, "model%d.txt" % r) for r in range(2)]
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DP_CHILD, here, str(r), port, str(rows),
+         str(DP_GLOO_ROUNDS), outs[r], json.dumps(params)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                fail("dp: a gloo rank exited %d:\n%s" % (p.returncode,
+                                                          err[-3000:]))
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.time() - t0
+    texts = [open(o).read() for o in outs]
+    with open(outs[0] + ".gains.json") as f:
+        gains = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    gb = lgb.Booster(model_str=texts[0])
+    for t, gt in zip(gb._gbdt.models, gains):
+        t.split_gain[:len(gt)] = gt
+        t.rebin_inner(ser_ds._inner)
+    g_auc = auc(yv, gb.predict(xv))
+    s_auc = auc(yv, ser.predict(xv, num_iteration=DP_GLOO_ROUNDS))
+    diff, gain_rel, moved = _structural_diff(ser._gbdt, gb._gbdt,
+                                             DP_GLOO_ROUNDS)
+    # the witness of the f32 gains' gap: the same partitions summed in f64
+    t0 = time.time()
+    witness = None
+    if diff is None:
+        witness = _f64_witness(ser._gbdt, gb._gbdt, ser_ds._inner,
+                               np.asarray(ser_ds._inner.metadata.label),
+                               DP_GLOO_ROUNDS, ser._gbdt.config)
+        witness["s"] = time.time() - t0
+        if not witness["routing_counts_equal"]:
+            problems.append("the f64 witness routed other counts than the "
+                            "models record")
+        if not witness["f64_gap"] <= 2e-5:
+            problems.append("gloo and serial gains part by %g in f64"
+                            % witness["f64_gap"])
+    if texts[0] != texts[1]:
+        problems.append("the two gloo ranks wrote different model text")
+    if diff is not None:
+        problems.append("gloo trees differ from serial: %s" % diff)
+    if not (g_auc > 0.7 and abs(g_auc - s_auc) <= 1e-3):
+        problems.append("gloo AUC %.6f vs serial %.6f" % (g_auc, s_auc))
+    if any(r["captured"] for r in results) or \
+            any(r["backend"] != "gloo" for r in results):
+        problems.append("a gloo rank captured its step or ran on %s"
+                        % [r["backend"] for r in results])
+    r0 = results[0]
+    b_row = {"ranks": [r["rows"] for r in results],
+             "s_per_iter": [r["train_s"] / DP_GLOO_ROUNDS for r in results],
+             "host_syncs_per_tree": r0["host_syncs"] / max(r0["trees"], 1),
+             "collectives_per_tree": r0["collectives"] / max(r0["trees"], 1),
+             "collective_ms": [r["collective_ms"] for r in results],
+             "collective_ms_per_tree": r0["collective_ms"]
+             * r0["collectives"] / max(r0["trees"], 1),
+             "model_text_equal": texts[0] == texts[1],
+             "structural_diff_from_serial": diff,
+             "max_gain_rel_diff_from_serial": gain_rel,
+             "nodes_with_other_threshold": moved, "f64_witness": witness,
+             "held_out_auc": g_auc,
+             "serial_held_out_auc": s_auc, "wall_s": wall}
+    row = {"phase": "dp", "rows": rows, "rounds": rounds,
+           "world_1_nccl": a_row, "two_ranks_gloo": b_row}
+    return row, problems, launched
 
 
 if __name__ == "__main__":

@@ -13,8 +13,11 @@ package's checkpoint format), guards against non-finite values, injects
 faults for tests, exits cleanly on preemption, and records telemetry.
 It serves models online (`serving`: a bucketed predictor cache,
 registry, micro-batcher and HTTP server; `fleet`: the canary router and
-placement; `python -m lightgbm_tpu_torch task=serve`). It imports torch
-and numpy, never jax nor lightgbm_tpu.
+placement; `python -m lightgbm_tpu_torch task=serve`). It trains
+data-parallel across processes (``tree_learner=data`` on
+torch.distributed), has the C ABI of the JAX package (`capi_impl`, the
+shim `csrc/c_api.cpp`) and its plotting helpers (`plotting`). It imports
+torch and numpy, never jax nor lightgbm_tpu.
 
     import lightgbm_tpu_torch as lgb
     dtrain = lgb.Dataset(x, y)

@@ -5,7 +5,9 @@ GOSS, DART and random forest (``boosting=rf``: a bag is mandatory, and
 predict averages the trees) with every objective of the JAX package (the
 pointwise ones, multiclass and multiclassova with ``num_class`` trees per
 iteration: ``predict`` gives (N, K); lambdarank over query groups,
-``group=`` or ``set_group``), serial learner, float or quantized
+``group=`` or ``set_group``), the serial learner or the data-parallel one
+across processes (``tree_learner=data``: float gradients, no row
+sampling; ``set_network`` joins the process group), float or quantized
 gradients (``quantized_grad``, ``grad_bits``, ``quant_renew``), the
 compact and masked growth strategies, row sampling (``bagging_fraction``
 with ``bagging_freq``, ``pos_bagging_fraction`` / ``neg_bagging_fraction``,
@@ -149,14 +151,14 @@ def check_supported(cfg: Config) -> None:
     elif cfg.num_class > 1 and not multi:
         bad = "num_class=%d with objective=%s" % (cfg.num_class,
                                                   cfg.objective)
-    elif cfg.quantized_grad and cfg.tree_learner != "serial":
-        bad = "quantized_grad with tree_learner=%s" % cfg.tree_learner
-    elif cfg.stream_mode != "off" and cfg.tree_learner != "serial":
-        bad = "stream_mode=%s with tree_learner=%s" % (cfg.stream_mode,
-                                                       cfg.tree_learner)
+    elif cfg.tree_learner in ("data", "data_parallel"):
+        _check_data_parallel(cfg)
     elif cfg.tree_learner != "serial":
-        bad = "tree_learner=%s" % cfg.tree_learner
-    else:
+        raise _not_yet("tree_learner=%s" % cfg.tree_learner,
+                       "section 1, item 5 (%s)" % (
+                           "voting" if "voting" in cfg.tree_learner
+                           else "feature-parallel"))
+    if bad is None:
         unknown = [m for m in cfg.metric
                    if m not in METRIC_NAMES + ["none"]]
         if unknown:
@@ -164,8 +166,34 @@ def check_supported(cfg: Config) -> None:
     if bad is not None:
         raise LightGBMError("%s is not supported by lightgbm_tpu_torch yet "
                             "(GBDT, GOSS, DART or RF with any objective, "
-                            "tree_learner=serial, float or quantized "
-                            "gradients, resident or streamed rows)" % bad)
+                            "tree_learner=serial or data, float or "
+                            "quantized gradients, resident or streamed "
+                            "rows)" % bad)
+
+
+def _check_data_parallel(cfg: Config) -> None:
+    """tree_learner=data trains with float gradients, without row
+    sampling, on resident rows replicated on every process; the rest of
+    ROADMAP.md section 1, item 5 raises naming its part."""
+    learner = "tree_learner=%s" % cfg.tree_learner
+    if cfg.quantized_grad:
+        what, part = "quantized_grad with " + learner, \
+            "quantized data-parallel"
+    elif cfg.boosting in ("goss", "rf") or (
+            cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0) \
+            or cfg.pos_bagging_fraction < 1.0 \
+            or cfg.neg_bagging_fraction < 1.0:
+        what, part = "bagging or GOSS (boosting=%s) with %s" % (
+            cfg.boosting, learner), "bagging and GOSS on data-parallel"
+    elif cfg.stream_mode != "off":
+        what, part = "stream_mode=%s with %s" % (cfg.stream_mode, learner), \
+            "streamed data-parallel"
+    elif getattr(cfg, "dist_shard_mode", "replicated") != "replicated":
+        what, part = "dist_shard_mode=%s" % cfg.dist_shard_mode, \
+            "rows mode"
+    else:
+        return
+    raise _not_yet(what, "section 1, item 5 (%s)" % part)
 
 
 class Dataset:
@@ -633,10 +661,17 @@ class Booster:
 
     def set_network(self, machines, local_listen_port=12400,
                     listen_time_out=120, num_machines=1) -> "Booster":
-        raise _not_yet("set_network", "item 9 (multi-GPU)")
+        """Join the process group of `machines` ('host:port,...'; rank by
+        this host's place in the list, the LGBM_TPU_* env trio wins):
+        parallel/network.py over torch.distributed."""
+        from .parallel import network
+        network.init_from_params(machines, local_listen_port, num_machines)
+        return self
 
     def free_network(self) -> "Booster":
-        raise _not_yet("free_network", "item 9 (multi-GPU)")
+        from .parallel import network
+        network.free()
+        return self
 
     def current_iteration(self) -> int:
         return self._gbdt.current_iteration

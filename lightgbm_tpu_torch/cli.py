@@ -28,8 +28,15 @@ runs it on the CPU instead; the schema's default ``device_type``
 without the key needs a card and raises without one. The gateway holds
 no model and touches no device.
 
-Not ported yet, refused naming its item in ROADMAP.md: multi-process
-training (``num_machines > 1``, ``LGBM_TPU_REJOIN``).
+Data-parallel training runs one process per device: ``num_machines=N
+tree_learner=data`` with ``machines=host:port,...`` (or
+``machine_list_filename``, or the LGBM_TPU_COORDINATOR /
+_NUM_PROCESSES / _PROCESS_ID trio) joins the process group
+(parallel/network.py); every rank reads the whole data file and trains
+the same model, and rank 0 writes the model and its sidecars. Not ported
+yet, refused naming its item in ROADMAP.md: elastic rejoin
+(``LGBM_TPU_REJOIN``) and the supervised bring-up (``dist_heartbeat_ms >
+0``).
 """
 from __future__ import annotations
 
@@ -109,7 +116,12 @@ def run(argv=None) -> int:
         return 0
     cfg = Config(params)
     if cfg.task in ("train", "refit"):
-        _train(params, cfg)
+        try:
+            _train(params, cfg)
+        finally:
+            if cfg.num_machines > 1:
+                from .parallel import network
+                network.free()
     elif cfg.task in ("predict",):
         _predict(params, cfg)
     elif cfg.task == "convert_model":
@@ -127,19 +139,29 @@ _NUM_ITER_ALIASES = ("num_iterations", "num_iteration", "n_iter",
                      "num_boost_round", "n_estimators")
 
 
-def _check_single_process(cfg: Config) -> None:
-    """The port trains in one process on one card: a replacement process
-    (LGBM_TPU_REJOIN) or a machine list is the multi-GPU slice's."""
+def _init_network(cfg: Config) -> None:
+    """Join the process group of a multi-machine run (num_machines > 1);
+    a replacement process (LGBM_TPU_REJOIN) is a later slice's."""
     if os.environ.get("LGBM_TPU_REJOIN", "") == "1":
         raise _not_yet("LGBM_TPU_REJOIN (elastic rejoin)",
-                       "slice 5, multi-GPU")
+                       "item 5, multi-GPU elastic rejoin")
     if cfg.num_machines > 1:
-        raise _not_yet("num_machines=%d (distributed training)"
-                       % cfg.num_machines, "slice 5, multi-GPU")
+        from .parallel import network
+        machines = cfg.machines
+        if not machines and cfg.machine_list_filename:
+            with open(cfg.machine_list_filename) as f:
+                machines = ",".join(
+                    line.strip().replace(" ", ":") for line in f
+                    if line.strip())
+        network.init_from_params(machines, cfg.local_listen_port,
+                                 cfg.num_machines,
+                                 machine_rank=cfg.machine_rank,
+                                 coordinator=cfg.coordinator,
+                                 supervise=cfg.dist_heartbeat_ms > 0)
 
 
 def _train(params: Dict[str, str], cfg: Config) -> None:
-    _check_single_process(cfg)
+    _init_network(cfg)
     device = cli_device(params)
     # graceful preemption: SIGTERM/SIGINT arms a flag that the boosting
     # loop checks at the next iteration boundary (emergency checkpoint,
@@ -258,12 +280,17 @@ def _train(params: Dict[str, str], cfg: Config) -> None:
             telemetry.dump_trace(trace_path)
             log.info("telemetry trace written to %s", trace_path)
     # drift baseline: a sidecar so serving can judge served traffic
-    # against the training data
+    # against the training data (computed on every rank: the score fetch
+    # of a data-parallel run is a collective)
     baseline = None
     try:
         baseline = booster._gbdt.drift_baseline()
     except Exception as exc:   # noqa: BLE001 — baseline is best-effort
         log.warning("drift baseline capture failed: %s", exc)
+    from .distributed import bootstrap
+    if bootstrap.rank() != 0:
+        log.info("rank %d: model output is rank-0 work", bootstrap.rank())
+        return
     booster.save_model(cfg.output_model)
     log.info("Model saved to %s", cfg.output_model)
     if baseline:
@@ -288,7 +315,10 @@ def _write_snapshot(booster: Booster, cfg: Config, iteration: int) -> None:
     to the newest `snapshot_keep` files."""
     import glob
     import re
+    from .distributed import bootstrap
     from .resilience.checkpoint import atomic_write_text
+    if bootstrap.rank() != 0:     # snapshots are rank-0 work, as the model
+        return
     atomic_write_text(f"{cfg.output_model}.snapshot_iter_{iteration}",
                       booster.model_to_string(num_iteration=-1))
     snaps = []

@@ -169,12 +169,14 @@ class Dataset:
         (io/two_round.py bins chunks of the file straight into `binned`;
         the float matrix never exists). `binned` holds the non-trivial
         features' columns, in mapper order. A rank-partitioned block
-        (`row_shard`) waits for the multi-GPU slice and raises."""
+        (`row_shard`, dist_shard_mode=rows) waits for a later part of
+        the multi-GPU slice and raises."""
         if row_shard is not None:
             raise LightGBMError(
                 "Dataset.from_binned(row_shard=...) is not supported by "
                 "lightgbm_tpu_torch yet: row-sharded datasets come with "
-                "the multi-GPU slice (ROADMAP.md item 5)")
+                "the multi-GPU slice's rows mode (ROADMAP.md section 1, "
+                "item 5)")
         self = cls.__new__(cls)
         self.config = config
         self.num_data = int(binned.shape[0])

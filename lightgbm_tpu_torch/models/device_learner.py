@@ -944,10 +944,13 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
                quant_bits: int = 0, qcap_op: int = 0,
                renew: bool = False,
                f_categorical: Optional[torch.Tensor] = None,
-               bynode_k: int = 0) -> None:
+               bynode_k: int = 0, reduce_hist=None) -> None:
     """One split of the compact core over the device state `c`: the JAX
     core's body with its split_epilogue, at fixed shapes and with no host
-    sync. quant_bits > 0: the quantized rows, operand cap qcap_op, leaf
+    sync. reduce_hist (the data-parallel learner's): the cross-rank
+    reduction of the smaller child's local histogram and of the miss
+    pass, the JAX core's psum or psum_scatter under axis_name; None: one
+    process. quant_bits > 0: the quantized rows, operand cap qcap_op, leaf
     re-quantization when renew; the scales are the carry's. bynode_k > 0:
     by-node sampling on the carry's key. Every state write is gated on go
     = (best gain > 1e-10) & (k < L - 1), and the kernels return at once
@@ -1007,6 +1010,8 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
                                       item_bits, col_bins)
 
     hist_small = win_hist(c.desc)
+    if reduce_hist is not None:
+        hist_small = reduce_hist(hist_small)
     lphys = c.desc[dsc.LPHYS]
     rphys = pcount - lphys
     if c.pooled:
@@ -1019,6 +1024,8 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
             c.desc[dsc.LPHYS:dsc.LPHYS + 1],
             (~left_small).int().view(1), c.zero_rest]))
         hist_other = win_hist(c.miss_desc)
+        if reduce_hist is not None:
+            hist_other = reduce_hist(hist_other)
     else:
         parent = _get(c.pool, l1)
     if renew:
@@ -1991,6 +1998,36 @@ class DeviceTreeLearner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- the seams the data-parallel learner (parallel/learners.py)
+    # overrides: one process's rows, its collectives, its capture --------
+    def num_rows(self) -> int:
+        """Working rows of an unbagged tree: every row of the dataset."""
+        return self.dataset.num_data
+
+    def pool_cols(self) -> int:
+        """Columns of a pool entry: every column."""
+        return self.c_cols
+
+    def reduce_hist(self):
+        """The cross-process reduction of a child's histogram in the split
+        step: None (one process)."""
+        return None
+
+    def reduce_root(self, hist0: torch.Tensor):
+        """(the root's histogram as the pool keeps it, its (3,) totals
+        sum_g, sum_h, count)."""
+        return hist0, hist0[0].sum(dim=0)
+
+    def step_counters(self) -> tuple:
+        """(module, attribute) counters a captured step adds per replay
+        beyond the kernels' launches."""
+        return ()
+
+    def capturable(self) -> bool:
+        """Whether the split step is captured as a CUDA graph: on the
+        card."""
+        return self.device.type == "cuda"
+
     def _search(self):
         """The split scan of this learner's settings: (scan, best_row,
         search2), made once (until reset_config)."""
@@ -2019,8 +2056,9 @@ class DeviceTreeLearner:
         collector. Every carry stays alive with its graph: a graph freed
         while another is captured breaks that capture."""
         L = int(self.config.num_leaves)
-        loop = SplitLoop(step, L - 1, self.device, counters)
-        if self.device.type == "cuda":
+        loop = SplitLoop(step, L - 1, self.device, counters,
+                         capture=self.capturable())
+        if loop.capture_step:
             c.k.fill_(L - 1)
             loop.capture()
         self.stats.captures += 1
@@ -2038,7 +2076,7 @@ class DeviceTreeLearner:
         (cap from N) have carries of their own."""
         st = self._statics()
         L = st["num_leaves"]
-        n = self.dataset.num_data if rows is None else rows
+        n = self.num_rows() if rows is None else rows
         if not self.quant_bits:
             qcap_op = 0
         elif qcap_op is None:
@@ -2048,7 +2086,7 @@ class DeviceTreeLearner:
             self._carry, self._loop = hit
             return hit
         d_cols = self.code_words + (2 if self.quant_bits else 4)
-        c = DeviceCarry(n, d_cols, L, (self.c_cols, st["col_bins"], 3),
+        c = DeviceCarry(n, d_cols, L, (self.pool_cols(), st["col_bins"], 3),
                         torch.int32 if self.quant_bits else torch.float32,
                         self.num_features, self.device, self.cat_words,
                         st["pool_slots"])
@@ -2060,14 +2098,15 @@ class DeviceTreeLearner:
                   num_leaves=L, quant_bits=self.quant_bits, qcap_op=qcap_op,
                   renew=bool(self.quant_bits) and self.quant_renew,
                   f_categorical=self.meta["t_categorical"],
-                  bynode_k=st["bynode_k"])
+                  bynode_k=st["bynode_k"], reduce_hist=self.reduce_hist())
 
         def step():
             split_step(c, **kw)
 
         return self._capture((n, qcap_op), c, step, (
             (kkey, "launches"), (kpart, "launches_win"),
-            (khist, "launches_win"), (khist, "launches_qwin")))
+            (khist, "launches_win"), (khist, "launches_qwin"))
+            + self.step_counters())
 
     def _set_base_mask(self, c, iter_seed: int) -> None:
         mask = self._base_mask(iter_seed)
@@ -2081,7 +2120,7 @@ class DeviceTreeLearner:
         state every tree starts from: with by-node sampling the root's
         draw and the carry's key chain from prng_key(iter_seed), with an
         LRU-capped pool the root in slot 0 and every other slot free."""
-        scan, best_row, _ = self._search()
+        search2 = self._search()[2]
         bynode_k = self._statics()["bynode_k"]
         root_mask = c.base_mask
         if bynode_k > 0:
@@ -2092,12 +2131,12 @@ class DeviceTreeLearner:
             root_mask = node_masks(root_key, c.base_mask, bynode_k)
         c.leaf_min.fill_(-np.inf)
         c.leaf_max.fill_(np.inf)
-        res0, cm0 = scan(hist0_s[None], totals[0:1], totals[1:2],
-                         totals[2:3], c.leaf_min[:1], c.leaf_max[:1],
-                         root_mask)
+        row0, cm0 = search2(hist0_s[None], totals[0:1], totals[1:2],
+                            totals[2:3], c.leaf_min[:1], c.leaf_max[:1],
+                            root_mask, 0)
         c.best.fill_(NEG_INF)
         c.best[:, B_FEAT:] = 0.0
-        c.best[0] = best_row(res0, 0)[0]
+        c.best[0] = row0[0]
         if c.best_cat is not None:
             c.best_cat.zero_()
             c.best_cat[0] = cm0[0]
@@ -2171,10 +2210,10 @@ class DeviceTreeLearner:
                 c.scale_of[0] = torch.stack(r0)
                 c.leafmax[0] = quant.root_max
         else:
-            hist0 = hist0_s = build_histogram_window(
+            hist0, totals = self.reduce_root(build_histogram_window(
                 c.data, c.spare, c.root_desc, cw, self.c_cols,
-                self.item_bits, st["col_bins"])
-            totals = hist0[0].sum(dim=0)          # (3,): sum_g, sum_h, cnt
+                self.item_bits, st["col_bins"]))
+            hist0_s = hist0
         self._root(c, hist0, hist0_s, totals, iter_seed)
         c.leaf_begin.zero_()
         c.leaf_buf.zero_()

@@ -40,6 +40,15 @@ into f64 host scores, the rows past the margin dropped after each chunk).
 ``refit_leaves_on`` refits the leaf values on new data in place
 (continual/refit.py); every in-place leaf edit drops the cached ensemble.
 
+Data-parallel training (``tree_learner=data``, the learner of
+parallel/learners.py): each process holds the whole Dataset (replicated
+ingest) and keeps the scores and computes the gradients of its own row
+block only (the learner's ``row_block``), from an objective over those
+rows; the boost-from-average score comes from an objective over all the
+labels. The training scores' host copy (metrics, a custom objective's
+input, GetPredict) gathers the blocks of every rank, so the metrics are
+those of all rows. Leaf renewal and query groups are refused there.
+
 Robustness and telemetry (the JAX package's seams): ``_compute_gradients``
 is the fault-injection boundary (resilience/faults.py; a plan that poisons
 gradients keeps the iteration generic); ``on_nonfinite`` guards each
@@ -56,7 +65,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,7 +148,8 @@ class ScoreUpdater:
     fetched once per score version (every change of the scores drops it,
     so a multi-metric eval of one iteration fetches once)."""
 
-    def __init__(self, dataset: Dataset, num_class: int, device):
+    def __init__(self, dataset: Dataset, num_class: int, device,
+                 rows: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         n = dataset.num_data
         init = np.zeros((num_class, n), dtype=np.float32)
@@ -150,6 +160,11 @@ class ScoreUpdater:
                 init = s.reshape(num_class, n)
             else:
                 init = np.tile(s.reshape(1, n), (num_class, 1))
+        # rows: a data-parallel rank's block [begin, end) -- its scores
+        # are those rows' only, and host_scores gathers every rank's
+        self.rows = rows
+        if rows is not None:
+            init = np.ascontiguousarray(init[:, rows[0]:rows[1]])
         self._score = torch.as_tensor(init, device=device)
         self._host: Optional[np.ndarray] = None
         self._binned: Optional[torch.Tensor] = None
@@ -185,6 +200,8 @@ class ScoreUpdater:
         ds = self.dataset
         if self._binned is None:
             codes = np.asarray(ds.binned)
+            if self.rows is not None:
+                codes = codes[self.rows[0]:self.rows[1]]
             if codes.dtype != np.uint8:
                 codes = codes.astype(np.int32)
             self._binned = torch.from_numpy(codes).to(self._score.device)
@@ -207,9 +224,18 @@ class ScoreUpdater:
         self._add(class_id, leaf_vals[leaf_id.clamp(0, tree.num_leaves - 1)])
 
     def host_scores(self) -> np.ndarray:
-        """The f64 host copy of the scores (read-only)."""
+        """The f64 host copy of the scores (read-only); a data-parallel
+        rank's holds every rank's block, gathered in rank order (a
+        collective: every rank calls it at the same point)."""
         if self._host is None:
             self._host = self._score.cpu().numpy().astype(np.float64)
+            if self.rows is not None:
+                from ..io.distributed import _allgather_host_bytes
+                blocks = _allgather_host_bytes(self._host.tobytes())
+                k = self._host.shape[0]
+                self._host = np.concatenate(
+                    [np.frombuffer(b, dtype=np.float64).reshape(k, -1)
+                     for b in blocks], axis=1)
             self.fetches += 1
             if telem_counters.is_active():
                 telem_counters.incr("transfer_d2h_bytes",
@@ -232,6 +258,8 @@ class GBDT:
         self.num_init_iteration = 0
         self.shrinkage_rate = config.learning_rate
         self.objective = None
+        self.init_objective = None
+        self.row_block = None
         self.valid_names: List[str] = []
         self.valid_updaters: List[ScoreUpdater] = []
         self.valid_metrics: List[List] = []
@@ -253,20 +281,35 @@ class GBDT:
         telemetry.bundle.set_context(
             "config", {str(k): str(v)
                        for k, v in sorted(getattr(cfg, "raw", {}).items())})
-        # None for a custom objective: the caller passes the gradients
+        from ..parallel.learners import (DeviceDataParallelTreeLearner,
+                                         create_tree_learner)
+        self.learner = create_tree_learner(cfg, train_set, self.device)
+        # a data-parallel rank's rows (None: every row)
+        if isinstance(self.learner, DeviceDataParallelTreeLearner):
+            self.row_block = self.learner.row_block
+        # None for a custom objective: the caller passes the gradients.
+        # The objective is set up on every label; a data-parallel rank
+        # computes its block's gradients with it cut to the block, which
+        # keeps what it drew from every label (the label weights, which
+        # classes train). The init objective (boost from average) is the
+        # uncut one.
         self.objective = create_objective(cfg.objective, cfg)
+        self.init_objective = self.objective
         if self.objective is not None:
+            if self.row_block is not None:
+                self._check_data_parallel()
             self.objective.init(train_set.metadata, train_set.num_data,
                                 self.device)
+            if self.row_block is not None:
+                self.objective = self.objective.row_block(*self.row_block)
             self.num_class = self.objective.num_model_per_iteration
         else:
             self.num_class = max(1, cfg.num_class)
         self.num_tree_per_iteration = self.num_class
-        from ..parallel.learners import create_tree_learner
-        self.learner = create_tree_learner(cfg, train_set, self.device)
         self.score_updater = ScoreUpdater(train_set, self.num_class,
-                                          self.device)
-        self.num_data = train_set.num_data
+                                          self.device, rows=self.row_block)
+        self.num_data = (train_set.num_data if self.row_block is None
+                         else self.row_block[1] - self.row_block[0])
         self.train_metrics = create_metrics(cfg.metric, cfg, cfg.objective)
         for m in self.train_metrics:
             m.init(train_set.metadata, train_set.num_data)
@@ -282,6 +325,27 @@ class GBDT:
         self._last_leaf_ids_iter = -1
         # the fused steps, by whether they sample by GOSS
         self._fused_step: Optional[Dict[bool, object]] = None
+
+    def _check_data_parallel(self) -> None:
+        """Refuse what the data-parallel iteration does not do yet."""
+        if self.objective.is_renew_tree_output:
+            raise LightGBMError(
+                "objective=%s (leaf renewal) with tree_learner=data is not "
+                "supported by lightgbm_tpu_torch yet (ROADMAP.md section 1,"
+                " item 5)" % self.config.objective)
+        if self.train_set.metadata.query_boundaries is not None:
+            raise LightGBMError(
+                "query groups with tree_learner=data are not supported by "
+                "lightgbm_tpu_torch yet (ROADMAP.md section 1, item 5)")
+
+    def _local_rows(self, arr: np.ndarray, k_trees: int) -> np.ndarray:
+        """(K, rows) of external (K * N,) gradients: this rank's block
+        under data-parallel training (the caller passes every row's)."""
+        a = np.array(arr, dtype=np.float32)     # a copy: may be read-only
+        if self.row_block is None:
+            return a.reshape(k_trees, self.num_data)
+        lo, hi = self.row_block
+        return a.reshape(k_trees, -1)[:, lo:hi]
 
     def add_valid(self, valid_set: Dataset, name: str) -> None:
         """Evaluate `valid_set` (binned by the training set's mappers) every
@@ -307,7 +371,7 @@ class GBDT:
             return 0.0
         if not (cfg.boost_from_average or self.train_set.num_features == 0):
             return 0.0
-        init_score = self.objective.boost_from_score(class_id)
+        init_score = self.init_objective.boost_from_score(class_id)
         if abs(init_score) > K_EPSILON:
             if update_scorer:
                 self.score_updater.add_constant(init_score, class_id)
@@ -622,9 +686,9 @@ class GBDT:
                 grad, hess = self._compute_gradients()
             else:
                 init_scores = [0.0] * k_trees
-                grad, hess = (torch.as_tensor(np.asarray(
-                    a, dtype=np.float32).reshape(k_trees, n),
-                    device=self.device) for a in (gradients, hessians))
+                grad, hess = (torch.as_tensor(
+                    self._local_rows(a, k_trees), device=self.device)
+                    for a in (gradients, hessians))
             guarded = self._guard_gradients(
                 grad, hess,
                 self._compute_gradients if gradients is None else None)
@@ -657,7 +721,7 @@ class GBDT:
                 if abs(init_scores[k]) > K_EPSILON:
                     new_tree.add_bias(init_scores[k])
             elif len(self.models) < self.num_tree_per_iteration:
-                output = (self.objective.boost_from_score(k)
+                output = (self.init_objective.boost_from_score(k)
                           if not self._class_need_train[k]
                           and self.objective is not None
                           else init_scores[k])
@@ -768,6 +832,10 @@ class GBDT:
             return cached
         from ..serving import drift as serve_drift
         raw = self.score_updater.score
+        if self.row_block is not None:
+            # every rank's rows (a collective on every rank)
+            raw = torch.as_tensor(self.score_updater.host_scores(),
+                                  dtype=torch.float32, device=raw.device)
         if self.objective is not None:
             raw = self.objective.convert_output(raw)
         self._drift_baseline = serve_drift.compute_baseline(

@@ -14,6 +14,7 @@ than the division XLA makes.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -93,6 +94,24 @@ class Objective:
         self.weight = metadata.weight
         self._label_dev = self._to_dev(self.label)
         self._weight_dev = self._to_dev(self.weight)
+
+    def row_block(self, lo: int, hi: int) -> "Objective":
+        """This objective on rows [lo, hi) of those it was set up on: its
+        per-row arrays sliced, while what it drew from every label (the
+        label weights, the class counts, which classes train) stays. A
+        data-parallel rank computes its block's gradients with it."""
+        out = copy.copy(self)
+        for key, val in vars(self).items():
+            if isinstance(val, (torch.Tensor, np.ndarray)) and val.ndim \
+                    and val.shape[-1] == self.num_data:
+                part = val[..., lo:hi]
+                setattr(out, key, part.contiguous()
+                        if isinstance(part, torch.Tensor) else part.copy())
+            elif isinstance(val, list) and val and all(
+                    isinstance(o, Objective) for o in val):
+                setattr(out, key, [o.row_block(lo, hi) for o in val])
+        out.num_data = hi - lo
+        return out
 
     def _to_dev(self, x):
         if x is None:
@@ -486,6 +505,11 @@ class MulticlassSoftmax(Objective):
 
     def convert_output(self, scores):
         return _softmax(scores)
+
+    def row_block(self, lo, hi):
+        out = super().row_block(lo, hi)
+        out._class_probs = self._class_probs      # per class, not per row
+        return out
 
     def class_need_train(self, class_id):
         p = self._class_probs[class_id]

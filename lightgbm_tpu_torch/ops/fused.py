@@ -60,7 +60,8 @@ R_LEAF, R_LOUT, R_ROUT = 0, 11, 12      # split-record columns read here
 class SplitLoop:
     """Runs `step` num_steps times per tree on `device`.
 
-    On the card ``capture`` must come first, once: it runs one eager step
+    On the card ``capture`` must come first, once (unless the loop was
+    made with capture=False, whose steps run eagerly): it runs one eager step
     with the caller's state idle (every write gated off), which loads the
     kernels' libraries and fills the wrappers' caches outside the capture,
     then captures the step. A wrapper counts its launch while the step is
@@ -69,10 +70,14 @@ class SplitLoop:
     adds the captured step's launches."""
 
     def __init__(self, step: Callable[[], None], num_steps: int,
-                 device: torch.device, counters: Sequence[Tuple[object, str]]):
+                 device: torch.device, counters: Sequence[Tuple[object, str]],
+                 capture: bool = True):
         self.step = step
         self.num_steps = num_steps
         self.device = torch.device(device)
+        # capture=False keeps the card's steps eager (a step whose
+        # collective runs on gloo cannot be captured)
+        self.capture_step = capture and self.device.type == "cuda"
         self.counters = tuple(counters)
         self.graph = None
         self.launches_per_step: Dict[str, int] = {}
@@ -108,8 +113,9 @@ class SplitLoop:
         telem_counters.note_capture(self.capture_s)
 
     def run(self) -> None:
-        """num_steps steps, in order, with no host sync between them."""
-        if self.device.type != "cuda":
+        """num_steps steps, in order, with no host sync between them
+        (eager steps on the CPU or uncaptured: none of their own)."""
+        if not self.capture_step:
             for _ in range(self.num_steps):
                 self.step()
             return

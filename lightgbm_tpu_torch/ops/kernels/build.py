@@ -9,6 +9,10 @@ for all of them, so a cold start costs the slowest single build.
 Libraries go to ``lightgbm_tpu_torch/_build/`` (``LGBM_TORCH_BUILD_DIR``
 overrides it), named by a hash of the source and flags, so an edited source
 is rebuilt and an unchanged one is reused.
+
+``capi_library`` builds the port's C ABI shim (``csrc/c_api.cpp``, host
+code) with ``g++`` into ``_build/lib_lightgbm_tpu_torch.so``, the fixed name
+external bindings link, with the source's hash beside it.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 from typing import Dict, Iterable
@@ -109,3 +114,44 @@ def load(name: str) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError("%s failed: CUDA error %d" % (what, rc))
+
+
+CAPI_NAME = "lib_lightgbm_tpu_torch.so"
+CAPI_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-shared"]
+
+
+def capi_library() -> str:
+    """Path of the port's C ABI library, built by g++ when it is missing
+    or its source changed. It is compiled against Python.h alone, not
+    linked with libpython: loaded into a running interpreter (ctypes, or
+    a binding library loaded by one), its Python symbols resolve against
+    that interpreter, so no python3-config --embed or libpython is
+    needed."""
+    src = os.path.join(CSRC, "c_api.cpp")
+    with open(src, "rb") as f:
+        text = f.read()
+    with open(os.path.join(CSRC, "c_api.h"), "rb") as f:
+        text += f.read()
+    digest = hashlib.sha256(text + " ".join(CAPI_FLAGS).encode()) \
+        .hexdigest()[:12]
+    target = os.path.join(build_dir(), CAPI_NAME)
+    stamp = target + ".sha"
+    with _lock:
+        if os.path.exists(target) and os.path.exists(stamp):
+            with open(stamp) as f:
+                if f.read().strip() == digest:
+                    return target
+        os.makedirs(build_dir(), exist_ok=True)
+        cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+        tmp = "%s.tmp%d" % (target, os.getpid())
+        cmd = [cxx] + CAPI_FLAGS + [
+            "-I" + sysconfig.get_paths()["include"], "-I" + CSRC,
+            "-o", tmp, src, "-lpthread"]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("g++ failed for c_api.cpp:\n%s" % proc.stdout)
+        os.replace(tmp, target)
+        with open(stamp, "w") as f:
+            f.write(digest)
+    return target

@@ -168,6 +168,17 @@ class CheckpointData:
         return int(self.meta.get("iteration", 0))
 
 
+def _refuse_data_parallel(gbdt) -> None:
+    """A data-parallel run keeps each rank's scores only: its checkpoints
+    (rank-0 writes, a resume broadcast) are a later slice's."""
+    if getattr(gbdt, "row_block", None) is not None:
+        from ..utils.log import LightGBMError
+        raise LightGBMError(
+            "checkpoints of a tree_learner=data run are not supported by "
+            "lightgbm_tpu_torch yet (ROADMAP.md section 1, item 5: "
+            "distributed/checkpoint.py)")
+
+
 def capture(booster, history: Optional[list] = None,
             extra_meta: Optional[Dict[str, Any]] = None
             ) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
@@ -181,6 +192,7 @@ def capture(booster, history: Optional[list] = None,
     an emergency checkpoint. Reserved keys (format/version/iteration/
     checksums) cannot be overridden."""
     gbdt = _gbdt_of(booster)
+    _refuse_data_parallel(gbdt)
     st = gbdt.capture_state()
     model_text = gbdt.save_model_to_string(0, -1)
     arrays: Dict[str, np.ndarray] = {"model_text": np.array(model_text)}
@@ -306,6 +318,7 @@ def restore_checkpoint(booster, data) -> None:
     wholesale (each tree re-binned over this training set's mappers when
     it is first walked), scores come back bit-exact from the stored
     arrays, and RNG state resumes mid-stream."""
+    _refuse_data_parallel(_gbdt_of(booster))
     if isinstance(data, str):
         data = find_checkpoint(data)
     gbdt = _gbdt_of(booster)

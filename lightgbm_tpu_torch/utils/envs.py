@@ -37,3 +37,17 @@ def chunk_fuse_hist_env() -> bool:
     passes."""
     return os.environ.get("LGBM_TPU_CHUNK_NO_FUSE_HIST", "0").strip() \
         .lower() not in ("1", "true", "yes", "on")
+
+
+def capi_device_env() -> str:
+    """LGBM_TPU_DEVICE_TYPE: cpu | cuda -- the device of the C ABI's model
+    file and model string loads, which carry no parameter string; unset:
+    the card."""
+    return os.environ.get("LGBM_TPU_DEVICE_TYPE", "").strip().lower()
+
+
+def dp_reduce_mode_env() -> str:
+    """LGBM_TPU_DP_REDUCE: 'scatter' (the reference's comm pattern, the
+    default) or 'psum' (replicated histograms) for the data-parallel
+    device learner (the JAX package's knob)."""
+    return os.environ.get("LGBM_TPU_DP_REDUCE", "scatter").strip().lower()

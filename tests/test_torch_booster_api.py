@@ -95,13 +95,19 @@ def test_every_public_method_of_the_jax_classes():
 
 
 @pytest.mark.parametrize("method,args,item", [
-    ("set_network", ("127.0.0.1:12400",), "item 9"),
-    ("free_network", (), "item 9")])
+    ("save_checkpoint", ("ckpt",), "section 1, item 5"),
+    ("restore_checkpoint", ("ckpt",), "section 1, item 5")])
 def test_later_slices_raise_naming_their_item(port_booster, method, args,
-                                              item):
-    b, _, _ = port_booster
+                                              item, tmp_path):
+    # set_network / free_network run since the data-parallel slice
+    # (tests/test_torch_parallel.py); a data-parallel run's checkpoints
+    # are a later part of it
+    _, _, x = port_booster
+    b = tlgb.train({"objective": "binary", "tree_learner": "data",
+                    "verbosity": -1}, tlgb.Dataset(x, (x[:, 0] > 0) * 1.0),
+                   num_boost_round=1, device="cpu")
     with pytest.raises(LightGBMError, match="ROADMAP.md %s" % item):
-        getattr(b, method)(*args)
+        getattr(b, method)(str(tmp_path / args[0]))
 
 
 def test_pickle_and_copies_predict_the_same(port_booster):

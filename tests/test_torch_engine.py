@@ -196,8 +196,12 @@ def test_out_of_slice_params_raise_naming_the_key(key, value):
     params = dict(_params("binary"), **{key: value})
     if key in ("quantized_grad", "stream_mode"):
         # quantized gradients and streaming run on the serial learner
-        # only (streamed data-parallel waits for the multi-GPU slice)
+        # only (quantized and streamed data-parallel wait for later parts
+        # of the multi-GPU slice)
         params["tree_learner"] = "data"
+    if (key, value) == ("tree_learner", "data"):
+        # the data-parallel learner trains without row sampling for now
+        params.update(bagging_freq=1, bagging_fraction=0.5)
     with pytest.raises(LightGBMError, match=key):
         tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=1,
                    device="cpu")

@@ -2304,3 +2304,88 @@ def test_manifest_follower_loads_onto_the_card(cuda_device, tmp_path):
             bst.predict(x[:9]), rtol=0, atol=1e-6)
     finally:
         app.close()
+
+
+@pytest.mark.gpu
+def test_capi_trains_on_the_card(cuda_device, monkeypatch):
+    # the C ABI with no device key trains on the card; its model text is
+    # the Booster's of the same params, and its predictions equal
+    import ctypes
+    monkeypatch.delenv("LGBM_TPU_DEVICE_TYPE", raising=False)
+    lib = ctypes.CDLL(build.capi_library())
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
+    r = np.random.RandomState(3)
+    x = np.ascontiguousarray(r.randn(70_000, 6))
+    y = (x[:, 0] + 0.5 * r.randn(70_000) > 0).astype(np.float32)
+    ds, bst = ctypes.c_void_p(), ctypes.c_void_p()
+    assert lib.LGBM_DatasetCreateFromMat(
+        x.ctypes.data_as(ctypes.c_void_p), 1, 70_000, 6, 1, b"max_bin=63",
+        None, ctypes.byref(ds)) == 0, lib.LGBM_GetLastError()
+    assert lib.LGBM_DatasetSetField(
+        ds, b"label", y.ctypes.data_as(ctypes.c_void_p), 70_000, 0) == 0
+    params = {"objective": "binary", "num_leaves": "31", "verbosity": "-1"}
+    assert lib.LGBM_BoosterCreate(ds, " ".join(
+        "%s=%s" % kv for kv in params.items()).encode(),
+        ctypes.byref(bst)) == 0, lib.LGBM_GetLastError()
+    fin = ctypes.c_int()
+    for _ in range(3):
+        assert lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)) == 0
+    n = ctypes.c_int64()
+    assert lib.LGBM_BoosterSaveModelToString(bst, 0, -1, 0, ctypes.byref(n),
+                                             None) == 0
+    buf = ctypes.create_string_buffer(n.value)
+    assert lib.LGBM_BoosterSaveModelToString(bst, 0, -1, n.value,
+                                             ctypes.byref(n), buf) == 0
+    pred = np.zeros(1000)
+    assert lib.LGBM_BoosterPredictForMat(
+        bst, x.ctypes.data_as(ctypes.c_void_p), 1, 1000, 6, 1, 0, -1, b"",
+        ctypes.byref(n), pred.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_double))) == 0
+    ref = tlgb.train(dict(params), tlgb.Dataset(x, y, params={
+        "max_bin": "63"}), 3)
+    assert ref._gbdt.device.type == "cuda"
+    assert buf.value.decode() == ref.model_to_string()
+    np.testing.assert_allclose(pred, ref.predict(x[:1000]), atol=1e-6)
+    assert lib.LGBM_BoosterFree(bst) == 0
+    assert lib.LGBM_DatasetFree(ds) == 0
+
+
+@pytest.mark.gpu
+def test_data_parallel_world_size_one_nccl_equals_serial(cuda_device):
+    # tree_learner=data at world size 1 under NCCL: the serial compact
+    # trees byte for byte, the collective captured in the split step, one
+    # host sync per tree
+    import socket
+    from lightgbm_tpu_torch.distributed import bootstrap
+    from lightgbm_tpu_torch.parallel import network
+    r = np.random.RandomState(5)
+    x = r.randn(70_000, 6)
+    y = (x[:, 0] + 0.5 * r.randn(70_000) > 0).astype(float)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    bootstrap.initialize("127.0.0.1:%d" % port, 1, 0)
+    try:
+        assert bootstrap.cuda_backend() == "nccl"
+        p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+        ds = tlgb.Dataset(x, y)
+        os.environ["LGBM_TPU_STRATEGY"] = "compact"
+        try:
+            serial = tlgb.train(p, ds, 3)
+        finally:
+            os.environ.pop("LGBM_TPU_STRATEGY")
+        dp = tlgb.train(dict(p, tree_learner="data"), ds, 3)
+        lr = dp._gbdt.learner
+        assert lr._loop.graph is not None
+        assert lr._loop.launches_per_step[
+            "lightgbm_tpu_torch.parallel.network.collectives"] == 1
+        assert lr.stats.host_syncs == lr.stats.trees == 3
+
+        def trees(b):
+            return [ln for ln in b.model_to_string().splitlines()
+                    if not ln.startswith("[tree_learner")]
+        assert trees(dp) == trees(serial)
+        assert network.collectives > 0
+    finally:
+        bootstrap.shutdown()

@@ -100,3 +100,91 @@ def test_serving_refuses_to_run_without_a_card(tmp_path):
     with pytest.raises(LightGBMError, match="CUDA"):
         run(["task=predict", "input_model=" + model,
              "data=" + model + ".csv"])
+
+
+def test_capi_plotting_and_distributed_pull_in_neither_jax_nor_lightgbm_tpu():
+    # nor matplotlib or graphviz: plotting imports them inside its
+    # functions
+    code = ("import sys, lightgbm_tpu_torch.capi_impl, "
+            "lightgbm_tpu_torch.plotting, lightgbm_tpu_torch.distributed, "
+            "lightgbm_tpu_torch.parallel.network, "
+            "lightgbm_tpu_torch.parallel.mesh, "
+            "lightgbm_tpu_torch.parallel.learners, "
+            "lightgbm_tpu_torch.io.distributed; "
+            "bad = [m for m in sys.modules if m in ('jax', 'lightgbm_tpu', "
+            "'matplotlib', 'graphviz') or m.startswith(('jax.', 'jaxlib', "
+            "'lightgbm_tpu.'))]; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_capi_and_data_parallel_refuse_to_run_without_a_card(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; nothing to refuse")
+    import ctypes
+    from lightgbm_tpu_torch.ops.kernels.build import capi_library
+    monkeypatch.delenv("LGBM_TPU_DEVICE_TYPE", raising=False)
+    x = np.random.RandomState(0).randn(100, 3)
+    y = (x[:, 0] > 0).astype(float)
+    with pytest.raises(LightGBMError, match="CUDA"):
+        tlgb.train({"objective": "binary", "tree_learner": "data",
+                    "verbosity": -1}, tlgb.Dataset(x, y), num_boost_round=1)
+    lib = ctypes.CDLL(capi_library())
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
+    xf = np.ascontiguousarray(x)
+    ds, bst = ctypes.c_void_p(), ctypes.c_void_p()
+    assert lib.LGBM_DatasetCreateFromMat(
+        xf.ctypes.data_as(ctypes.c_void_p), 1, 100, 3, 1, b"", None,
+        ctypes.byref(ds)) == 0
+    yl = y.astype(np.float32)
+    assert lib.LGBM_DatasetSetField(
+        ds, b"label", yl.ctypes.data_as(ctypes.c_void_p), 100, 0) == 0
+    # no device key and no LGBM_TPU_DEVICE_TYPE: the card, which is absent
+    assert lib.LGBM_BoosterCreate(ds, b"objective=binary",
+                                  ctypes.byref(bst)) != 0
+    assert b"CUDA" in lib.LGBM_GetLastError()
+    it = ctypes.c_int()
+    assert lib.LGBM_BoosterLoadModelFromString(
+        b"tree\n", ctypes.byref(it), ctypes.byref(bst)) != 0
+    assert b"CUDA" in lib.LGBM_GetLastError()
+    assert lib.LGBM_BoosterCreate(ds, b"objective=binary device_type=cpu",
+                                  ctypes.byref(bst)) == 0
+    assert lib.LGBM_DatasetFree(ds) == 0
+
+
+def test_capi_device_env_moves_only_model_loads(monkeypatch):
+    # LGBM_TPU_DEVICE_TYPE=cpu reaches the model file and string loads
+    # alone: a BoosterCreate whose parameter string names no device still
+    # trains on the card
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; nothing to refuse")
+    import ctypes
+    from lightgbm_tpu_torch.ops.kernels.build import capi_library
+    monkeypatch.setenv("LGBM_TPU_DEVICE_TYPE", "cpu")
+    x = np.random.RandomState(1).randn(100, 3)
+    y = (x[:, 0] > 0).astype(float)
+    lib = ctypes.CDLL(capi_library())
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
+    xf = np.ascontiguousarray(x)
+    ds, bst = ctypes.c_void_p(), ctypes.c_void_p()
+    assert lib.LGBM_DatasetCreateFromMat(
+        xf.ctypes.data_as(ctypes.c_void_p), 1, 100, 3, 1, b"", None,
+        ctypes.byref(ds)) == 0
+    yl = y.astype(np.float32)
+    assert lib.LGBM_DatasetSetField(
+        ds, b"label", yl.ctypes.data_as(ctypes.c_void_p), 100, 0) == 0
+    assert lib.LGBM_BoosterCreate(ds, b"objective=binary",
+                                  ctypes.byref(bst)) != 0
+    assert b"CUDA" in lib.LGBM_GetLastError()
+    text = tlgb.train({"objective": "binary", "verbosity": -1},
+                      tlgb.Dataset(x, y), num_boost_round=2,
+                      device="cpu").model_to_string()
+    it = ctypes.c_int()
+    assert lib.LGBM_BoosterLoadModelFromString(
+        text.encode(), ctypes.byref(it), ctypes.byref(bst)) == 0, \
+        lib.LGBM_GetLastError()
+    assert it.value == 2
+    assert lib.LGBM_BoosterFree(bst) == 0
+    assert lib.LGBM_DatasetFree(ds) == 0

@@ -299,9 +299,11 @@ def test_cli_train_sidecars_equal_the_jax_clis(tmp_path):
 def test_refused_paths_name_their_slice(tmp_path, monkeypatch):
     from lightgbm_tpu_torch.cli import run
     monkeypatch.delenv("LGBM_TPU_REJOIN", raising=False)
+    # num_machines > 1 trains data-parallel since the multi-GPU slice
+    # (tests/test_torch_parallel.py); its supervised bring-up is refused
     with pytest.raises(LightGBMError, match=r"ROADMAP\.md section 1"):
         run(["task=train", "data=x.csv", "num_machines=2",
-             "device_type=cpu"])
+             "dist_heartbeat_ms=100", "device_type=cpu"])
 
 
 def _stop_serve(httpd):
