@@ -445,7 +445,27 @@ Phases, one JSON line each:
                part by rounding: each model's f32 gap to its own f64
                gains is reported), held-out AUC > 0.7 and within 0.001
                of the serial run's of as many rounds, s per iteration and
-               the all-reduce's time per tree;
+               the all-reduce's time per tree. Then every mode beside the
+               float one (DP_MODES: quantized, bagging 0.8, GOSS, RF,
+               regression_l1): (a) at world size 1, DP_MODE_ROUNDS rounds
+               each on the 1M rows beside its serial run, one host sync
+               per tree (two with leaf renewal), the step captured with
+               its collectives, K3's window entry (quantized) or K1's,
+               K4's, the split key and (sampled) the router launched
+               (the quantized, bagged and GOSS runs' launches add to
+               dp_launches), held-out AUC > 0.7 and within 0.005 of the
+               serial run's (l1: below the constant model's), and
+               lambdarank on DP_RANK_QUERIES queries of 20 (ndcg@10 above
+               the all-zero scores', one sync per tree, the score
+               gather's ms); (b) the modes but RF on two gloo ranks in one
+               subprocess pair, DP_GLOO_MODE_ROUNDS rounds on
+               DP_GLOO_MODE_ROWS rows: byte-equal ranks, AUC > 0.7, the
+               wire's bytes per tree (the quantized lanes are int32);
+               (c) two CLI ranks on those rows, preempt@iter=2 on rank 1:
+               both exit 76, one checkpoint, by rank 0, and resume=auto
+               gives the uninterrupted run's model text (its first two
+               pairs run beside (b)'s gloo pairs, whose timings they
+               load);
 Kernel times: `ms` is the mean over repeated launches between CUDA
 events, the host enqueuing as it goes (on a small launch this reads the
 wrapper's launch rate); `device_ms` puts a sleep kernel in front, which
@@ -461,6 +481,7 @@ The script needs the lightgbm_tpu_torch package beside it and a CUDA
 card; it imports nothing of JAX.
 """
 import argparse
+import collections
 import contextlib
 import ctypes
 import json
@@ -1095,7 +1116,6 @@ def main():
         return float(np.median(times))
 
     # ---- profile one more iteration ---------------------------------------
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def profile_one(b, k4_kernels=None, k3_kernels=None, named=None):
@@ -1106,16 +1126,14 @@ def main():
         summed; with `named` (a regular expression), every kernel whose
         name it finds, with its device ms and launches."""
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only (kernels, copies): the host ops' events
+        # slow the iteration down and cost seconds to read back
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.time()
             b.update()
             torch.cuda.synchronize()
             wall = time.time() - t1
-        # device-side events only (kernels, copies): an operator's own
-        # entry repeats the time of the kernels it launched
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        kern = device_events(prof)
         total_us = sum(e.self_device_time_total for e in kern)
         top = sorted(kern, key=lambda e: e.self_device_time_total,
                      reverse=True)[:10]
@@ -1564,7 +1582,7 @@ def main():
             serial_ref = (sb, sds, (time.time() - t1) / args.rounds)
         row, problems, dp_counts = dp_phase(
             torch, lgb, params, args.rows, xv, yv, args.rounds, serial_ref,
-            reset_counts, read_counts)
+            reset_counts, read_counts, (x, w_true))
         emit(row)
         if problems:
             fail("dp: %s" % "; ".join(problems))
@@ -2501,7 +2519,7 @@ SERVE_WARM = (1, 16, 256, 4096)
 # the parity slices: (rows, slice size) of the 100,000 held-out rows
 SERVE_PARITY = ((100_000, 4096), (2048, 16), (2048, 100), (2048, 256),
                 (512, 1), (512, 7))
-SERVE_LAT_CALLS = 100
+SERVE_LAT_CALLS = 50
 SERVE_PROFILE_CALLS = 20
 SERVE_HTTP_S = 5.0
 SERVE_CLIENTS = 8
@@ -3869,7 +3887,6 @@ def train_valid_phase(torch, lgb, params, ds, xv, yv, rounds, train,
     """The train_valid phase: the main path with the held-out rows as a
     validation set, evaluated every iteration, under early stopping;
     (row, problems)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from lightgbm_tpu_torch.models.gbdt import ScoreUpdater
     # every sampling key set: the Dataset's config keeps what earlier
@@ -3961,15 +3978,13 @@ def train_valid_phase(torch, lgb, params, ds, xv, yv, rounds, train,
     fresh.add_tree(gb.models[0], 0)
     torch.cuda.synchronize()
     trees = gb.models[1:]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.time()
         for t in trees:
             fresh.add_tree(t, 0)
         torch.cuda.synchronize()
         wall = time.time() - t1
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_events(prof)
     row["valid_update_per_tree"] = {
         "device_ms": sum(e.self_device_time_total for e in kern)
         / 1e3 / len(trees),
@@ -4353,16 +4368,36 @@ def make_ranking_like(n_queries, docs_per_query, f, seed=17, w=None):
     return x, y, group, w
 
 
+def device_events(prof):
+    """A finished profile's device events (kernels, copies, memsets) by
+    name, as key_averages() sums them: (key, self_device_time_total in
+    us, count) each, read from the raw kineto events. key_averages()
+    first builds a Python object for every event, 5-8 s for one 1M-row
+    iteration's 78,000 launches."""
+    from torch.autograd import DeviceType
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        a = agg.setdefault(e.name(), [0, 0])
+        a[0] += e.duration_ns()
+        a[1] += 1
+    return [DeviceEvents(k, ns / 1e3, n) for k, (ns, n) in agg.items()]
+
+
+DeviceEvents = collections.namedtuple(
+    "DeviceEvents", "key self_device_time_total count")
+
+
 def device_profile(torch, fn):
     """fn() once under torch.profiler: its device ms and kernel launches."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_events(prof)
     return (sum(e.self_device_time_total for e in kern) / 1e3,
             sum(e.count for e in kern))
 
@@ -6822,7 +6857,7 @@ def valid_reference_rows(lgb, sp, xs, ys, w_small, shape_of, ds_of):
 
 # rounds of the dp phase's two-rank run (gloo, on one card) and its
 # collective timing repeats
-DP_GLOO_ROUNDS = 5
+DP_GLOO_ROUNDS = 2
 DP_COLL_REPS = 200
 
 _DP_CHILD = r"""
@@ -6876,6 +6911,412 @@ print(json.dumps({"rank": rank, "rows": list(lr.row_block),
                   "backend": bootstrap.cuda_backend()}), flush=True)
 bootstrap.shutdown()
 """
+
+
+# the dp phase's sampled, quantized and renewing modes (beside the float
+# run): at world size 1 each runs DP_MODE_ROUNDS rounds on the 1M rows
+# with its serial run of the same params; the two gloo ranks run each
+# DP_GLOO_MODE_ROUNDS rounds on DP_GLOO_MODE_ROWS rows; GOSS samples after
+# its warm-up of int(1 / learning_rate) iterations, hence 1.0
+DP_MODES = (
+    ("quantized", {"quantized_grad": True, "grad_bits": 8}),
+    ("bagging", {"bagging_fraction": 0.8, "bagging_freq": 1}),
+    ("goss", {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
+              "learning_rate": 1.0}),
+    ("rf", {"boosting": "rf", "bagging_fraction": 0.8, "bagging_freq": 1}),
+    ("regression_l1", {"objective": "regression_l1"}))
+# every mode's run states these keys, as a Booster writes its params into
+# its Dataset's config and a later run on the same Dataset would keep them
+DP_MODE_BASE = {"quantized_grad": False, "bagging_fraction": 1.0,
+                "bagging_freq": 0, "boosting": "gbdt"}
+DP_MODE_ROUNDS = 5
+DP_GLOO_MODE_ROWS = 200_000
+DP_GLOO_MODE_ROUNDS = 2
+# the checkpoint-and-vote case: CLI ranks on the gloo modes' rows
+DP_CKPT_ROUNDS = 3
+DP_RANK_QUERIES = 10_000
+
+_DP_MODES_CHILD = r"""
+import hashlib, json, os, sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.distributed import bootstrap
+from lightgbm_tpu_torch.parallel import network
+rank, port, rows, rounds = (int(sys.argv[2]), sys.argv[3], int(sys.argv[4]),
+                            int(sys.argv[5]))
+params = json.loads(sys.argv[6])
+modes = json.loads(sys.argv[7])
+bootstrap.initialize("127.0.0.1:" + port, 2, rank)
+x, y, w = chip_smoke.make_higgs_like(rows, 28)
+xv, yv, _ = chip_smoke.make_higgs_like(20_000, 28, seed=4242, w=w)
+r = np.random.RandomState(31)
+yl = chip_smoke.objective_targets("noisy", chip_smoke.higgs_margin(x, w), r)
+yvl = chip_smoke.objective_targets("noisy", chip_smoke.higgs_margin(xv, w),
+                                   r)
+ds = lgb.Dataset(x, y, params=params)
+ds.construct()
+bootstrap.barrier("data")
+out = []
+for name, extra in modes:
+    l1 = extra.get("objective") == "regression_l1"
+    ds.set_label(yl if l1 else y)
+    p = dict(params, tree_learner="data", **chip_smoke.DP_MODE_BASE)
+    p.update(extra)
+    network.collectives = network.collective_bytes = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b = lgb.train(p, ds, rounds)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    lr = b._gbdt.learner
+    trees = max(lr.stats.trees, 1)
+    row = {"mode": name, "rank": rank, "rows": list(lr.row_block),
+           "s_per_iter": secs / rounds,
+           "sha256": hashlib.sha256(b.model_to_string().encode())
+           .hexdigest(), "trees": lr.stats.trees,
+           "host_syncs_per_tree": lr.stats.host_syncs / trees,
+           "collectives_per_tree": network.collectives / trees,
+           "wire_bytes_per_tree": network.collective_bytes / trees,
+           "scatter_cols": lr.scatter_cols,
+           "backend": bootstrap.cuda_backend()}
+    if l1:
+        t1 = time.perf_counter()
+        lm = lr._leaf_id_host()
+        row["leaf_map"] = {"bytes_per_rank": int(lm.nbytes) // 2,
+                           "host_ms": (time.perf_counter() - t1) * 1e3}
+        row["held_out"] = chip_smoke.held_out_metric(b, xv, yvl)
+    else:
+        row["held_out_auc"] = chip_smoke.auc(yv, b.predict(xv))
+    out.append(row)
+    del b, lr
+print(json.dumps(out), flush=True)
+bootstrap.shutdown()
+"""
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _start_pair(argv_of, env_of=None):
+    """Rank 0's and rank 1's processes, started."""
+    return [subprocess.Popen(argv_of(r), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             env=None if env_of is None else env_of(r))
+            for r in range(2)]
+
+
+def _wait_pair(procs, timeout=600):
+    """The pair to its end: (exit codes, stdouts, stderrs); both are
+    killed on the way out."""
+    outs, errs = [], []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            outs.append(o)
+            errs.append(e)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [p.returncode for p in procs], outs, errs
+
+
+def _run_pair(argv_of, env_of=None, timeout=600):
+    """Two processes to their end: (exit codes, stdouts, stderrs)."""
+    return _wait_pair(_start_pair(argv_of, env_of), timeout)
+
+
+def dp_modes_world1(torch, lgb, params, ds, x, w, xv, yv, reset_counts,
+                    read_counts):
+    """The dp phase's (a) modes, at world size 1 under NCCL (the group is
+    up): each DP_MODES entry DP_MODE_ROUNDS rounds on the capi phase's
+    Dataset `ds` (regression_l1 on OBJECTIVE_TARGETS' regression target
+    of the same rows, its label put back after), beside its serial run of
+    the same params. Gates: one host sync per tree (two with leaf
+    renewal), the split step captured with its collectives inside, K3's
+    window entry (quantized) or K1's, K4's and the split key launched
+    (the router too where bagged), held-out AUC > 0.7 and within 0.005 of
+    the serial run's (regression_l1: held-out l1 below the constant
+    model's). Then lambdarank on make_ranking_like's DP_RANK_QUERIES
+    queries of 20: ndcg@10 of the held-out queries above the all-zero
+    scores', one sync per tree, and the score gather's time. Returns
+    (rows, problems, the quantized, bagged and GOSS runs' launches by
+    kernel)."""
+    import gc
+    from lightgbm_tpu_torch.parallel import network
+    problems, rows = [], []
+    launched = {k: 0 for k in ("k1_win", "k3_win", "k4_win", "split_key",
+                               "route")}
+    y_bin = ds.get_label()
+    r = np.random.RandomState(31)
+    y_l1 = objective_targets("noisy", higgs_margin(x, w), r)
+    yv_l1 = objective_targets("noisy", higgs_margin(xv, w), r)
+    for name, extra in DP_MODES:
+        l1 = extra.get("objective") == "regression_l1"
+        ds.set_label(y_l1 if l1 else y_bin)
+        p = dict(params, **DP_MODE_BASE)
+        p.update(extra)
+        reset_counts()
+        network.collectives = network.collective_bytes = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        b = lgb.train(dict(p, tree_learner="data"), ds, DP_MODE_ROUNDS)
+        torch.cuda.synchronize()
+        dp_s = (time.time() - t0) / DP_MODE_ROUNDS
+        counts = read_counts()
+        gb, lr = b._gbdt, b._gbdt.learner
+        trees = max(lr.stats.trees, 1)
+        step = {k.rsplit(".", 1)[-1]: v
+                for k, v in (lr._loop.launches_per_step or {}).items()}
+        row = {"mode": name, "s_per_iter": dp_s,
+               "iteration": "fused" if gb._fused_step else "generic",
+               "host_syncs_per_tree": lr.stats.host_syncs / trees,
+               "collectives_per_tree": network.collectives / trees,
+               "collective_bytes_per_tree": network.collective_bytes / trees,
+               "captured_step": step,
+               "launches": {k: counts[k] for k in launched}}
+        want_syncs = 2 if l1 else 1
+        if row["host_syncs_per_tree"] != want_syncs:
+            problems.append("%s: %g host syncs per tree" % (
+                name, row["host_syncs_per_tree"]))
+        if lr._loop.graph is None or step.get("collectives", 0) < 1:
+            problems.append("%s: the split step was not captured with its "
+                            "collectives inside (%s)" % (name, step))
+        need = ["k3_win" if extra.get("quantized_grad") else "k1_win",
+                "k4_win", "split_key"]
+        if name in ("bagging", "goss", "rf"):
+            need.append("route")
+        if not all(counts[k] > 0 for k in need):
+            problems.append("%s launched no %s" % (
+                name, [k for k in need if counts[k] <= 0]))
+        if name in ("quantized", "bagging", "goss"):
+            for k in launched:
+                launched[k] += counts[k]
+        if l1:
+            # leaf renewal's global leaf map: fetched and gathered from
+            # every rank (here one) once per tree
+            t1 = time.perf_counter()
+            lm = lr._leaf_id_host()
+            row["leaf_map"] = {"bytes_per_rank": int(lm.nbytes),
+                               "host_ms": (time.perf_counter() - t1) * 1e3}
+            metric, got, const = held_out_metric(b, xv, yv_l1)
+            row["held_out"] = {metric: got, "constant_model": const}
+            if not got < const:
+                problems.append("regression_l1: held-out %s %g not below "
+                                "the constant model's %g"
+                                % (metric, got, const))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            sb = lgb.train(dict(p, tree_learner="serial"), ds,
+                           DP_MODE_ROUNDS)
+            torch.cuda.synchronize()
+            row["serial_s_per_iter"] = (time.time() - t0) / DP_MODE_ROUNDS
+            got, want = auc(yv, b.predict(xv)), auc(yv, sb.predict(xv))
+            row["held_out_auc"], row["serial_held_out_auc"] = got, want
+            if not (got > 0.7 and abs(got - want) <= 0.005):
+                problems.append("%s: held-out AUC %.6f against serial %.6f"
+                                % (name, got, want))
+            del sb
+        rows.append(row)
+        del b, gb, lr
+        gc.collect()
+        torch.cuda.empty_cache()
+    ds.set_label(y_bin)
+
+    # ---- lambdarank: every rank's scores gathered for the gradient -------
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.metrics import create_metric
+    xr, yr, gr, wr = make_ranking_like(DP_RANK_QUERIES, 20, 28)
+    xrv, yrv, grv, _ = make_ranking_like(1_000, 20, 28, seed=4242, w=wr)
+    rp = {"objective": "lambdarank", "num_leaves": 255, "learning_rate": 0.1,
+          "max_bin": 63, "min_data_in_leaf": 20, "eval_at": [10],
+          "verbosity": -1}
+    rds = lgb.Dataset(xr, yr, group=gr, params=rp).construct()
+    meta = Metadata(len(yrv))
+    meta.set_label(yrv)
+    meta.set_group(grv)
+    ndcg = create_metric("ndcg", Config(rp))
+    ndcg.init(meta, len(yrv))
+    reset_counts()
+    network.collectives = network.collective_bytes = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b = lgb.train(dict(rp, tree_learner="data"), rds, DP_MODE_ROUNDS)
+    torch.cuda.synchronize()
+    rank_s = (time.time() - t0) / DP_MODE_ROUNDS
+    gb, lr = b._gbdt, b._gbdt.learner
+    trees = max(lr.stats.trees, 1)
+    obj, score = gb.objective, gb.score_updater.score[0]
+    got = ndcg.eval(b.predict(xrv, raw_score=True), None)[0]
+    zero = ndcg.eval(np.zeros(len(yrv)), None)[0]
+    c0 = network.collective_bytes
+    obj._gathered(score)
+    rank_row = {"mode": "lambdarank", "rows": len(yr),
+                "queries": DP_RANK_QUERIES, "s_per_iter": rank_s,
+                "iteration": "fused" if gb._fused_step else "generic",
+                "host_syncs_per_tree": lr.stats.host_syncs / trees,
+                "held_out_ndcg10": got, "zero_score_ndcg10": zero,
+                "gather_bytes": network.collective_bytes - c0,
+                "gather_ms": time_ms(torch, lambda: obj._gathered(score),
+                                     20),
+                "gather_device_ms": time_ms(
+                    torch, lambda: obj._gathered(score), 20, hold=True)}
+    if rank_row["host_syncs_per_tree"] != 1:
+        problems.append("lambdarank: %g host syncs per tree"
+                        % rank_row["host_syncs_per_tree"])
+    if not got > zero:
+        problems.append("lambdarank: held-out ndcg@10 %g not above the "
+                        "all-zero scores' %g" % (got, zero))
+    rows.append(rank_row)
+    del b, gb, lr, obj
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, problems, launched
+
+
+def dp_modes_gloo(lgb, params):
+    """The dp phase's (b) modes: two ranks on the one card under gloo, in
+    one subprocess pair, each DP_MODES entry but RF DP_GLOO_MODE_ROUNDS
+    rounds on DP_GLOO_MODE_ROWS rows (each rank half). Gates: the ranks'
+    model text byte-equal, held-out AUC > 0.7 (regression_l1: held-out l1
+    below the constant model's). Returns (rows, problems)."""
+    problems = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    modes = [m for m in DP_MODES if m[0] != "rf"]
+    port = str(_free_port())
+    rcs, outs, errs = _run_pair(lambda r: [
+        sys.executable, "-c", _DP_MODES_CHILD, here, str(r), port,
+        str(DP_GLOO_MODE_ROWS), str(DP_GLOO_MODE_ROUNDS), json.dumps(params),
+        json.dumps(modes)])
+    for rc, e in zip(rcs, errs):
+        if rc != 0:
+            fail("dp: a gloo modes rank exited %d:\n%s" % (rc, e[-3000:]))
+    res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    rows = []
+    for a, b in zip(*res):
+        row = dict(a)
+        row.pop("rank")
+        row["s_per_iter"] = [a["s_per_iter"], b["s_per_iter"]]
+        row["rows"] = [a["rows"], b["rows"]]
+        row["model_text_equal"] = a["sha256"] == b["sha256"]
+        row.pop("sha256")
+        if not row["model_text_equal"]:
+            problems.append("gloo %s: the ranks wrote different model text"
+                            % a["mode"])
+        if "held_out" in a:
+            metric, got, const = a["held_out"]
+            if not got < const:
+                problems.append("gloo %s: held-out %s %g not below the "
+                                "constant model's %g" % (a["mode"], metric,
+                                                         got, const))
+        elif not a["held_out_auc"] > 0.7:
+            problems.append("gloo %s: held-out AUC %.6f" % (
+                a["mode"], a["held_out_auc"]))
+        if a["backend"] != "gloo":
+            problems.append("gloo %s ran on %s" % (a["mode"], a["backend"]))
+        rows.append(row)
+    return rows, problems
+
+
+def dp_checkpoint_start(params):
+    """The dp phase's (c), first half: rank-0 checkpoints and the
+    preemption vote on the card. Two ranks of `python -m
+    lightgbm_tpu_torch task=train tree_learner=data num_machines=2` on
+    DP_GLOO_MODE_ROWS rows written as CSV: an uninterrupted run of
+    DP_CKPT_ROUNDS rounds and, at the same time, a run with
+    preempt@iter=2 armed on rank 1 alone, both started here and left
+    running (they overlap the gloo pairs of (b), whose timings they
+    load). Returns the state dp_checkpoint_finish takes."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dp_ckpt_")
+    t0 = time.time()
+    x, y, _ = make_higgs_like(DP_GLOO_MODE_ROWS, 28)
+    data = os.path.join(tmp, "train.csv")
+    np.savetxt(data, np.column_stack([y, x]), delimiter=",", fmt="%.6g")
+    st = {"tmp": tmp, "csv_s": time.time() - t0, "t0": time.time()}
+    args = ["%s=%s" % kv for kv in params.items()]
+
+    def start(tag, faults=("", ""), extra=()):
+        port = str(_free_port())
+        models = [os.path.join(tmp, tag, "rank%d" % r, "model.txt")
+                  for r in range(2)]
+        for m in models:
+            os.makedirs(os.path.dirname(m), exist_ok=True)
+
+        def env(r):
+            return dict(os.environ, PYTHONPATH=here,
+                        LGBM_TPU_COORDINATOR="127.0.0.1:" + port,
+                        LGBM_TPU_NUM_PROCESSES="2",
+                        LGBM_TPU_PROCESS_ID=str(r),
+                        LGBM_TPU_FAULT_SPEC=faults[r])
+        return _start_pair(lambda r: [
+            sys.executable, "-m", "lightgbm_tpu_torch", "task=train",
+            "data=" + data, "num_iterations=%d" % DP_CKPT_ROUNDS,
+            "tree_learner=data", "num_machines=2",
+            "output_model=" + models[r]] + args + list(extra), env), models
+    st["start"] = start
+    st["full"] = start("full")
+    st["preempt"] = start("preempt", faults=("", "preempt@iter=2"))
+    return st
+
+
+def dp_checkpoint_finish(st):
+    """The dp phase's (c), second half: both ranks of the preempted run
+    exit 76, rank 0 wrote the one checkpoint (rank 1's directory stays
+    empty); the resume=auto relaunch's model text (before its parameters)
+    must be byte-equal to the uninterrupted run's. Returns (row,
+    problems)."""
+    problems = []
+
+    def model(path):
+        with open(path) as f:
+            text = f.read()
+        return text[:text.index("\nparameters:")]
+    full_procs, full = st["full"]
+    rcs, _, errs = _wait_pair(full_procs)
+    if rcs != [0, 0]:
+        fail("dp: the uninterrupted CLI ranks exited %s:\n%s" % (
+            rcs, errs[0][-2000:] + errs[1][-2000:]))
+    pre_procs, models = st["preempt"]
+    rcs_p, _, errs = _wait_pair(pre_procs)
+    pair_s = time.time() - st["t0"]
+    ckdir = models[0] + ".ckpt"
+    ckpts = sorted(os.listdir(ckdir)) if os.path.isdir(ckdir) else []
+    rank1_dir = os.path.exists(models[1] + ".ckpt")
+    t1 = time.time()
+    res_procs, _ = st["start"]("preempt", extra=["resume=auto"])
+    rcs_r, _, errs_r = _wait_pair(res_procs)
+    res_s = time.time() - t1
+    equal = rcs_r == [0, 0] and model(models[0]) == model(full[0])
+    shutil.rmtree(st["tmp"], ignore_errors=True)
+    if rcs_p != [76, 76]:
+        problems.append("preempt@iter=2 on rank 1: the ranks exited %s "
+                        "(want 76, 76): %s" % (rcs_p, errs[1][-1500:]))
+    if len(ckpts) != 1 or rank1_dir:
+        problems.append("checkpoints %s on rank 0, rank 1's directory %s"
+                        % (ckpts, "exists" if rank1_dir else "absent"))
+    if not equal:
+        problems.append("the resumed run's model text differs from the "
+                        "uninterrupted run's (exit codes %s): %s"
+                        % (rcs_r, errs_r[0][-1500:]))
+    row = {"rows": DP_GLOO_MODE_ROWS, "rounds": DP_CKPT_ROUNDS,
+           "preempt_exit_codes": rcs_p, "rank0_checkpoints": ckpts,
+           "rank1_checkpoint_dir": rank1_dir, "resumed_model_equal": equal,
+           "csv_s": st["csv_s"], "uninterrupted_and_preempted_s": pair_s,
+           "resumed_s": res_s}
+    return row, problems
 
 
 def capi_phase(torch, lgb, params, x, y, xv, yv, rounds, reset_counts,
@@ -7111,32 +7552,30 @@ def _f64_witness(ser, dp, inner, label, n_trees, cfg):
 
 
 def dp_phase(torch, lgb, params, rows, xv, yv, rounds, serial,
-             reset_counts, read_counts):
+             reset_counts, read_counts, data):
     """tree_learner=data on the card: (a) world size 1 under NCCL in this
     process (a TCP store on localhost) on the capi phase's dataset,
     byte-equal to the serial compact run of the same call (`serial`:
     booster, dataset, s per iteration) at one host sync per tree, the
-    split step captured with its collective inside; (b) two ranks as
+    split step captured with its collective inside, then the sampled,
+    quantized and renewing modes and lambdarank (dp_modes_world1; `data`:
+    the raw rows and the generator's ground truth); (b) two ranks as
     subprocesses under gloo on CUDA tensors, psum mode, DP_GLOO_ROUNDS
     rounds on `rows` rows (each rank half), byte-equal between the ranks,
     structurally equal to the serial run's first trees, held-out AUC > 0.7
-    and within 0.001 of the serial run's. Returns (row, problems, the
-    launches of K1's and K4's window entries and the split key in (a))."""
-    import socket
+    and within 0.001 of the serial run's, then the modes in one more pair
+    (dp_modes_gloo); (c) rank-0 checkpoints and the preemption vote
+    through the CLI (dp_checkpoint_start, its first two CLI pairs running
+    beside (b)'s, then dp_checkpoint_finish). Returns (row, problems, the
+    launches of K1's, K3's and K4's window entries, the split key and the
+    router in (a)'s float, quantized, bagged and GOSS runs)."""
     from lightgbm_tpu_torch.distributed import bootstrap
     from lightgbm_tpu_torch.parallel import network
     problems = []
     ser, ser_ds, ser_s = serial
 
-    def free_port():
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-        s.close()
-        return port
-
     # ---- (a) world size 1, NCCL, captured ---------------------------------
-    bootstrap.initialize("127.0.0.1:%d" % free_port(), 1, 0)
+    bootstrap.initialize("127.0.0.1:%d" % _free_port(), 1, 0)
     backend = bootstrap.cuda_backend()
     reset_counts()
     network.collectives = network.collective_bytes = 0
@@ -7182,6 +7621,15 @@ def dp_phase(torch, lgb, params, rows, xv, yv, rounds, serial,
     if not all(launched.values()):
         problems.append("the data-parallel run launched no %s" % [
             k for k, v in launched.items() if not v])
+    float_launched = dict(launched)
+    t_modes = time.time()
+    mode_rows, mode_problems, mode_launched = dp_modes_world1(
+        torch, lgb, params, ser_ds, data[0], data[1], xv, yv, reset_counts,
+        read_counts)
+    modes_s = time.time() - t_modes
+    problems += mode_problems
+    launched = {k: float_launched.get(k, counts[k]) + v
+                for k, v in mode_launched.items()}
     bootstrap.shutdown()
     a_row = {"backend": backend, "s_per_iter": dp_s,
              "serial_s_per_iter": ser_s, "model_text_equal": equal,
@@ -7192,32 +7640,26 @@ def dp_phase(torch, lgb, params, rows, xv, yv, rounds, serial,
              "serial_steady_s_per_iter": float(np.median(steady["serial"])),
              "collective_ms": coll_ms, "collective_device_ms": coll_dev_ms,
              "collective_device_ms_per_tree": coll_dev_ms * coll_per_tree,
-             "dp_launches": launched}
+             "dp_launches": float_launched, "modes": mode_rows,
+             "modes_s": modes_s}
+
+    # ---- (c) starts: its CLI pairs run beside (b)'s gloo pairs ----------
+    t_ckpt = time.time()
+    ckpt = dp_checkpoint_start(params)
 
     # ---- (b) two ranks on the one card, gloo, uncaptured ------------------
     tmp = tempfile.mkdtemp(prefix="dp_phase_")
-    port = str(free_port())
+    port = str(_free_port())
     here = os.path.dirname(os.path.abspath(__file__))
     outs = [os.path.join(tmp, "model%d.txt" % r) for r in range(2)]
     t0 = time.time()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _DP_CHILD, here, str(r), port, str(rows),
-         str(DP_GLOO_ROUNDS), outs[r], json.dumps(params)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
-    results = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=600)
-            if p.returncode != 0:
-                fail("dp: a gloo rank exited %d:\n%s" % (p.returncode,
-                                                          err[-3000:]))
-            results.append(json.loads(out.strip().splitlines()[-1]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    rcs, stdouts, errs = _run_pair(lambda r: [
+        sys.executable, "-c", _DP_CHILD, here, str(r), port, str(rows),
+        str(DP_GLOO_ROUNDS), outs[r], json.dumps(params)])
+    for rc, err in zip(rcs, errs):
+        if rc != 0:
+            fail("dp: a gloo rank exited %d:\n%s" % (rc, err[-3000:]))
+    results = [json.loads(o.strip().splitlines()[-1]) for o in stdouts]
     wall = time.time() - t0
     texts = [open(o).read() for o in outs]
     with open(outs[0] + ".gains.json") as f:
@@ -7269,8 +7711,17 @@ def dp_phase(torch, lgb, params, rows, xv, yv, rounds, serial,
              "nodes_with_other_threshold": moved, "f64_witness": witness,
              "held_out_auc": g_auc,
              "serial_held_out_auc": s_auc, "wall_s": wall}
+    t1 = time.time()
+    gloo_rows, gloo_problems = dp_modes_gloo(lgb, params)
+    problems += gloo_problems
+    b_row["modes"] = gloo_rows
+    b_row["modes_s"] = time.time() - t1
+    c_row, c_problems = dp_checkpoint_finish(ckpt)
+    problems += c_problems
+    c_row["s_from_start"] = time.time() - t_ckpt
     row = {"phase": "dp", "rows": rows, "rounds": rounds,
-           "world_1_nccl": a_row, "two_ranks_gloo": b_row}
+           "world_1_nccl": a_row, "two_ranks_gloo": b_row,
+           "checkpoint_vote": c_row}
     return row, problems, launched
 
 

@@ -172,20 +172,12 @@ def check_supported(cfg: Config) -> None:
 
 
 def _check_data_parallel(cfg: Config) -> None:
-    """tree_learner=data trains with float gradients, without row
-    sampling, on resident rows replicated on every process; the rest of
-    ROADMAP.md section 1, item 5 raises naming its part."""
+    """tree_learner=data trains every mode of the single-card device
+    learner (float or quantized gradients, bagging, GOSS, RF, DART, leaf
+    renewal, query groups) on resident rows replicated on every process;
+    the rest of ROADMAP.md section 1, item 5 raises naming its part."""
     learner = "tree_learner=%s" % cfg.tree_learner
-    if cfg.quantized_grad:
-        what, part = "quantized_grad with " + learner, \
-            "quantized data-parallel"
-    elif cfg.boosting in ("goss", "rf") or (
-            cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0) \
-            or cfg.pos_bagging_fraction < 1.0 \
-            or cfg.neg_bagging_fraction < 1.0:
-        what, part = "bagging or GOSS (boosting=%s) with %s" % (
-            cfg.boosting, learner), "bagging and GOSS on data-parallel"
-    elif cfg.stream_mode != "off":
+    if cfg.stream_mode != "off":
         what, part = "stream_mode=%s with %s" % (cfg.stream_mode, learner), \
             "streamed data-parallel"
     elif getattr(cfg, "dist_shard_mode", "replicated") != "replicated":

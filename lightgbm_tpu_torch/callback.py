@@ -146,9 +146,12 @@ def checkpoint(directory: str, checkpoint_freq: int = 1, keep_last: int = 3,
                              for r in env.evaluation_result_list]])
         if (env.iteration + 1) % checkpoint_freq == 0:
             if state["mgr"] is None:
-                from .resilience.checkpoint import CheckpointManager
-                state["mgr"] = CheckpointManager(directory, keep_last,
-                                                 prefix)
+                # rank 0 writes after every rank's capture (one process:
+                # the plain CheckpointManager)
+                from .distributed.checkpoint import (
+                    DistributedCheckpointManager)
+                state["mgr"] = DistributedCheckpointManager(
+                    directory, keep_last, prefix)
             # target_rounds rides every checkpoint so a preempted process
             # can resume with num_boost_round=None and still finish the
             # run's ORIGINAL budget

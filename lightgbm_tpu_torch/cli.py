@@ -166,9 +166,9 @@ def _train(params: Dict[str, str], cfg: Config) -> None:
     # graceful preemption: SIGTERM/SIGINT arms a flag that the boosting
     # loop checks at the next iteration boundary (emergency checkpoint,
     # exit code 76; resilience/preempt.py)
+    from .distributed.checkpoint import (DistributedCheckpointManager,
+                                         restore_for_resume)
     from .resilience import faults, preempt
-    from .resilience.checkpoint import (CheckpointManager, find_checkpoint,
-                                        restore_checkpoint)
     preempt.install_handlers()
     if not cfg.data:
         log.fatal("No training data: set data=<file>")
@@ -196,17 +196,19 @@ def _train(params: Dict[str, str], cfg: Config) -> None:
     resume_meta = None
     if cfg.resume:
         # resume=auto resumes from the run's own checkpoint directory;
-        # any other value is a checkpoint file or directory path
+        # any other value is a checkpoint file or directory path. Across
+        # ranks rank 0 reads it and broadcasts the bytes
         src = (ckpt_dir if str(cfg.resume).lower() in ("auto", "true", "1")
                else cfg.resume)
-        data = find_checkpoint(src)
-        restore_checkpoint(booster, data)
+        data = restore_for_resume(booster, src)
         resume_meta = data.meta or {}
         log.info("Resumed training at iteration %d",
                  booster.current_iteration())
     mgr = None
     if cfg.checkpoint_freq > 0:
-        mgr = CheckpointManager(ckpt_dir, keep_last=cfg.snapshot_keep)
+        # rank 0 writes, every rank meets at the barrier after a save
+        mgr = DistributedCheckpointManager(ckpt_dir,
+                                           keep_last=cfg.snapshot_keep)
     num_iters = cfg.num_iterations
     if resume_meta is not None and resume_meta.get("target_rounds") \
             and not any(k in params for k in _NUM_ITER_ALIASES):
@@ -225,11 +227,13 @@ def _train(params: Dict[str, str], cfg: Config) -> None:
         at THIS iteration boundary, stamp target_rounds, and leave with
         the contract exit code 76."""
         from . import telemetry
-        m = mgr or CheckpointManager(ckpt_dir, keep_last=cfg.snapshot_keep)
+        m = mgr or DistributedCheckpointManager(
+            ckpt_dir, keep_last=cfg.snapshot_keep)
         path = m.save(booster,
                       extra_meta={"target_rounds": int(num_iters),
                                   "preempted": True,
-                                  "preempt_reason": preempt.reason()})
+                                  "preempt_reason": preempt.reason()},
+                      allow_rejoin=False) or ckpt_dir
         telemetry.events.emit("preempt", phase="exit", iteration=int(it),
                               path=path, exit_code=preempt.PREEMPT_EXIT_CODE)
         telemetry.events.flush()

@@ -11,20 +11,34 @@ Port of lightgbm_tpu/distributed/ for the data-parallel slice:
   the compact binned blocks are all-gathered so every process holds the
   same full `Dataset` (``dist_shard_mode=replicated``).
 
-Not ported yet (ROADMAP.md section 1, item 5): ``dist_shard_mode=rows``,
-`checkpoint` (rank-0 writes, resume broadcast) and `supervisor`.
-One process passes through every entry point unchanged.
+* `checkpoint` -- the rank-0 checkpoint topology: every rank captures
+  (the scores of every rank gathered), rank 0 writes, a barrier; a
+  resume is read by rank 0 and broadcast to every rank
+  (``DistributedCheckpointManager``, ``restore_for_resume``).
+
+A data-parallel run (``tree_learner=data``, parallel/learners.py) trains
+every mode the single-card device learner trains: float or quantized
+gradients, bagging, GOSS, RF, DART, leaf renewal, query groups; it
+checkpoints through rank 0, resumes on every rank, and exits 76 on every
+rank when one is preempted (resilience/preempt.py's vote).
+
+Not ported yet, each raising naming ROADMAP.md section 1, item 5:
+feature-parallel and voting learners, ``dist_shard_mode=rows``, streamed
+data-parallel, the host-loop data-parallel learner, `supervisor` (the
+supervised bring-up, elastic rejoin and rank-failure recovery) and the
+telemetry aggregation across ranks. One process passes through every
+entry point unchanged.
 """
 from __future__ import annotations
 
-from . import bootstrap, ingest
+from . import bootstrap, checkpoint, ingest
 from .bootstrap import (barrier, initialize, initialize_from_config,
                         initialize_from_env, is_distributed, process_count,
                         rank, resolve_rank, shutdown)
 from .ingest import load_sharded, shard_row_block, wrap_train_set
 
 __all__ = [
-    "bootstrap", "ingest",
+    "bootstrap", "checkpoint", "ingest",
     "barrier", "initialize", "initialize_from_config", "initialize_from_env",
     "is_distributed", "process_count", "rank", "resolve_rank", "shutdown",
     "load_sharded", "shard_row_block", "wrap_train_set",

@@ -8,9 +8,12 @@ k-fold cross-validation; full-state resume from a checkpoint
 (``resume_from``), the fault layer's kill / preempt / delay sites at each
 iteration boundary, graceful preemption (an emergency checkpoint, then
 exit code 76), the watchdogs' armed loss guard, and the telemetry
-recorder's ``eval`` phase and flight-recorder metrics. The JAX package's
-supervisor, epoch-fenced retry and rank-failure recovery belong to its
-multi-process layer and are not ported.
+recorder's ``eval`` phase and flight-recorder metrics. Across ranks (a
+data-parallel run) the resume and the checkpoints go through
+distributed/checkpoint.py (rank 0 reads and broadcasts, rank 0 writes
+after a collective capture) and the preemption flag is voted on at each
+boundary (resilience/preempt.py), so every rank exits 76 together. The
+JAX package's supervisor and rank-failure recovery are not ported.
 
 As in the JAX package, whenever a metric is configured (binary's default
 binary_logloss counts) the training set is evaluated every iteration too,
@@ -141,12 +144,9 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
     begin_iteration = init_iteration = booster.current_iteration()
     if resume_from is not None:
-        from .resilience.checkpoint import (CheckpointData,
-                                            find_checkpoint,
-                                            restore_checkpoint)
-        data = (resume_from if isinstance(resume_from, CheckpointData)
-                else find_checkpoint(resume_from))
-        restore_checkpoint(booster, data)
+        # rank 0 reads and broadcasts under a group; one process restores
+        from .distributed.checkpoint import restore_for_resume
+        data = restore_for_resume(booster, resume_from)
         init_iteration = booster.current_iteration()
         if num_boost_round is None:
             target = (data.meta or {}).get("target_rounds")
@@ -168,6 +168,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
     from .resilience import faults, preempt
     evaluation_result_list: List = []
+    # whether the ranks vote on preemption, agreed once (a collective)
+    preempt.resolve_group_sync()
     try:
         for i in range(init_iteration, end_iteration):
             # chaos boundary (kill_rank@iter= / preempt@iter=): one
@@ -225,10 +227,11 @@ def _preempt_exit(booster, cbs, iteration, end_iteration):
     ``num_boost_round=None`` continues to the round count the ORIGINAL
     run was asked for. It goes to the checkpoint callback's directory,
     else ``LGBM_TPU_PREEMPT_DIR``, else ``preempt.ckpt`` in the working
-    directory. SystemExit is a BaseException: the telemetry flush in
-    train()'s finally still runs."""
+    directory. Across ranks every rank captures and rank 0 writes
+    (distributed/checkpoint.py), and every rank exits. SystemExit is a
+    BaseException: the telemetry flush in train()'s finally still runs."""
+    from .distributed.checkpoint import DistributedCheckpointManager
     from .resilience import preempt
-    from .resilience.checkpoint import CheckpointManager
     ckpt_dir = next((getattr(cb, "_ckpt_dir") for cb in cbs
                      if getattr(cb, "_ckpt_dir", None)), None) \
         or os.environ.get("LGBM_TPU_PREEMPT_DIR", "").strip() \
@@ -236,11 +239,12 @@ def _preempt_exit(booster, cbs, iteration, end_iteration):
     history = next((getattr(cb, "_ckpt_history") for cb in cbs
                     if getattr(cb, "_ckpt_history", None) is not None),
                    None)
-    path = CheckpointManager(ckpt_dir).save(
+    path = DistributedCheckpointManager(ckpt_dir).save(
         booster, history=history,
         extra_meta={"target_rounds": int(end_iteration),
                     "preempted": True,
-                    "preempt_reason": preempt.reason()})
+                    "preempt_reason": preempt.reason()},
+        allow_rejoin=False)
     telemetry.events.emit("preempt", phase="exit", iteration=int(iteration),
                           path=path, exit_code=preempt.PREEMPT_EXIT_CODE)
     telemetry.events.flush()

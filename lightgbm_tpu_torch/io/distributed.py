@@ -108,6 +108,15 @@ def _allgather_host_bytes(payload: bytes) -> List[bytes]:
     return _deframe_chunks(chunks, epoch)
 
 
+
+def allgather_host_array(arr: np.ndarray) -> np.ndarray:
+    """Every rank's `arr` (one dtype, the same leading shape) joined along
+    the last axis in rank order, over ``_allgather_host_bytes``."""
+    lead = arr.shape[:-1]
+    return np.concatenate(
+        [np.frombuffer(b, dtype=arr.dtype).reshape(lead + (-1,))
+         for b in _allgather_host_bytes(arr.tobytes())], axis=-1)
+
 def distributed_find_bins(local_data: np.ndarray, config: Config,
                           categorical: Optional[Sequence[int]] = None,
                           forced_bounds=None) -> List[BinMapper]:

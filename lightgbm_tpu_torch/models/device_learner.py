@@ -944,13 +944,19 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
                quant_bits: int = 0, qcap_op: int = 0,
                renew: bool = False,
                f_categorical: Optional[torch.Tensor] = None,
-               bynode_k: int = 0, reduce_hist=None) -> None:
+               bynode_k: int = 0, reduce_hist=None,
+               reduce_max=None) -> None:
     """One split of the compact core over the device state `c`: the JAX
     core's body with its split_epilogue, at fixed shapes and with no host
     sync. reduce_hist (the data-parallel learner's): the cross-rank
     reduction of the smaller child's local histogram and of the miss
-    pass, the JAX core's psum or psum_scatter under axis_name; None: one
-    process. quant_bits > 0: the quantized rows, operand cap qcap_op, leaf
+    pass, the JAX core's psum or psum_scatter under axis_name, called as
+    reduce_hist(hist, leaf_count, qh_total) with the child's global count
+    from the record and, quantized, its hessian sum in the split's integer
+    units (what the scatter mode rebuilds the count lane from); None: one
+    process. reduce_max (data-parallel, leaf re-quantization): the
+    cross-rank max of the children's side maxes, the JAX pmax.
+    quant_bits > 0: the quantized rows, operand cap qcap_op, leaf
     re-quantization when renew; the scales are the carry's. bynode_k > 0:
     by-node sampling on the carry's key. Every state write is gated on go
     = (best gain > 1e-10) & (k < L - 1), and the kernels return at once
@@ -1011,7 +1017,11 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
 
     hist_small = win_hist(c.desc)
     if reduce_hist is not None:
-        hist_small = reduce_hist(hist_small)
+        s_cnt = torch.where(left_small, row[B_LCNT], row[B_RCNT])
+        qh_unit = c.s_h * rq[1] if quant_bits else None
+        s_qh = (torch.where(left_small, row[B_LSH], row[B_RSH]) * qh_unit
+                if quant_bits else None)
+        hist_small = reduce_hist(hist_small, s_cnt, s_qh)
     lphys = c.desc[dsc.LPHYS]
     rphys = pcount - lphys
     if c.pooled:
@@ -1025,7 +1035,10 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
             (~left_small).int().view(1), c.zero_rest]))
         hist_other = win_hist(c.miss_desc)
         if reduce_hist is not None:
-            hist_other = reduce_hist(hist_other)
+            hist_other = reduce_hist(
+                hist_other, row[B_LCNT] + row[B_RCNT] - s_cnt,
+                (row[B_LSH] + row[B_RSH]) * qh_unit - s_qh
+                if quant_bits else None)
     else:
         parent = _get(c.pool, l1)
     if renew:
@@ -1053,6 +1066,8 @@ def split_step(c: DeviceCarry, *, meta_table: torch.Tensor,
     if renew:
         rq2 = torch.stack(rq)
         side = c.desc[dsc.SIDE_MAX:dsc.LEAF].float().view(2, 2)
+        if reduce_max is not None:
+            side = reduce_max(side)
         _put(c.scale_of, l1, rq2, go)
         _put(c.scale_of, new1, rq2, go)
         _put(c.leafmax, l1, side[0], go)
@@ -1107,24 +1122,42 @@ def _lru_slots(c: DeviceCarry, l1, new1, slot_l, hit, go, num_leaves: int):
     return s_l, s_r
 
 
-def leaf_map(c: DeviceCarry, n_total: Optional[int] = None) -> torch.Tensor:
+def leaf_map(c: DeviceCarry, n_total: Optional[int] = None,
+             live: Optional[torch.Tensor] = None,
+             base: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(n_total,) int64 row -> leaf map of the grown tree, from the
     leaves' windows (begin, rows, buffer) with fixed-shape ops: each
     position's leaf and buffer in window order, then scattered onto the
     row ids of the final column (leaves not made have no rows). n_total
     (default: the carry's rows) is the row count of the ids; a bag
     carry's rows hold the original ids of the bag, and the entries of the
-    rows outside it are left for the caller to write."""
+    rows outside it are left for the caller to write. With `live` (a
+    (1,) int32 tensor) the tree grew on the buffer's first live rows
+    alone: their leaves are written over `base`, the (n_total,) int64
+    leaves of every row, and the positions past them write nothing."""
     n, d_cols = c.data.shape
     order = torch.argsort(c.leaf_begin, stable=True)
     rows = c.leaf_phys.index_select(0, order).long()
+    bufs = c.leaf_buf.index_select(0, order)
+    if live is not None:
+        # the positions past the live rows: one more run, of no leaf
+        order = torch.cat([order, order.new_zeros(1)])
+        rows = torch.cat([rows, n - live.long().view(1)])
+        bufs = torch.cat([bufs, bufs.new_zeros(1)])
     pos_leaf = torch.repeat_interleave(order, rows, output_size=n)
-    pos_buf = torch.repeat_interleave(c.leaf_buf.index_select(0, order),
-                                      rows, output_size=n)
+    pos_buf = torch.repeat_interleave(bufs, rows, output_size=n)
     row_ids = torch.where(pos_buf == 1, c.spare[:, d_cols - 1],
                           c.data[:, d_cols - 1]).long()
-    return torch.empty(n if n_total is None else n_total, dtype=torch.int64,
-                       device=c.data.device).scatter_(0, row_ids, pos_leaf)
+    size = n if n_total is None else n_total
+    if live is None:
+        return torch.empty(size, dtype=torch.int64,
+                           device=c.data.device).scatter_(0, row_ids,
+                                                          pos_leaf)
+    # the dead positions scatter onto one slot past the end
+    pos = torch.arange(n, device=c.data.device)
+    row_ids = torch.where(pos < live.long(), row_ids, size)
+    return torch.cat([base, base.new_zeros(1)]).scatter_(
+        0, row_ids, pos_leaf)[:size]
 
 
 def grow_tree_chunk_core(data: torch.Tensor, base_mask: torch.Tensor,
@@ -1887,7 +1920,7 @@ class DeviceTreeLearner:
         The first call after a tree fetches its leaf map once (one host
         sync, counted) and groups the rows by leaf."""
         if self._leaf_rows is None:
-            leaf_id = self.last_leaf_id.cpu().numpy()
+            leaf_id = self._leaf_id_host()
             self.stats.host_syncs += 1
             rows = np.arange(len(leaf_id)) if self._bag_rows is None \
                 else self._bag_rows
@@ -1901,6 +1934,10 @@ class DeviceTreeLearner:
             self._leaf_rows = (rows[order], bounds)
         rows, bounds = self._leaf_rows
         return rows[bounds[leaf]:bounds[leaf + 1]]
+
+    def _leaf_id_host(self) -> np.ndarray:
+        """The last tree's row -> leaf map of every row, on the host."""
+        return self.last_leaf_id.cpu().numpy()
 
     def _base_mask(self, iter_seed: int) -> torch.Tensor:
         """The tree's feature sample from the host RandomState, as in the
@@ -2015,8 +2052,14 @@ class DeviceTreeLearner:
 
     def reduce_root(self, hist0: torch.Tensor):
         """(the root's histogram as the pool keeps it, its (3,) totals
-        sum_g, sum_h, count)."""
+        sum_g, sum_h, count, in the histogram's dtype: integer units on
+        the quantized path)."""
         return hist0, hist0[0].sum(dim=0)
+
+    def reduce_max(self):
+        """The cross-process max of the split step's side maxes: None
+        (one process)."""
+        return None
 
     def step_counters(self) -> tuple:
         """(module, attribute) counters a captured step adds per replay
@@ -2098,7 +2141,8 @@ class DeviceTreeLearner:
                   num_leaves=L, quant_bits=self.quant_bits, qcap_op=qcap_op,
                   renew=bool(self.quant_bits) and self.quant_renew,
                   f_categorical=self.meta["t_categorical"],
-                  bynode_k=st["bynode_k"], reduce_hist=self.reduce_hist())
+                  bynode_k=st["bynode_k"], reduce_hist=self.reduce_hist(),
+                  reduce_max=self.reduce_max())
 
         def step():
             split_step(c, **kw)
@@ -2178,9 +2222,8 @@ class DeviceTreeLearner:
         if self.quant_bits and rows is not None:
             qcap_op = quant_ops.quant_max(self.quant_bits, n_total or rows)
         c, loop = self._device_state(rows, qcap_op)
-        st = self._statics()
         self._set_base_mask(c, iter_seed)
-        cw = self.code_words
+        quant = None
         if self.quant_bits:
             _, quant = self.quant_working_buffer(
                 grad, hess, trandom.prng_key(iter_seed), out=c.data,
@@ -2190,20 +2233,43 @@ class DeviceTreeLearner:
         if self._shard is not None:
             self._stream_assemble(
                 c, None if bag_idx is None else bag_idx.cpu().numpy())
-        if self.quant_bits:
+        self._grow_tree(c, loop, quant, iter_seed)
+        if bag_idx is None:
+            leaf_id = leaf_map(c)
+        else:
+            leaf_id = leaf_map(c, self.dataset.num_data).index_copy_(
+                0, oob_idx, self._route_oob(c, oob_idx).long())
+        if self._shard is not None:
+            self._shard.release_buffer("data0")
+        return c.rec, leaf_id, c.k
+
+    def _grow_tree(self, c, loop, quant: Optional[QuantRows],
+                   iter_seed: int, live: Optional[torch.Tensor] = None
+                   ) -> None:
+        """The tree over the carry's filled working buffer: the root's
+        histogram (K1's or K3's window entry over the root descriptor,
+        reduce_root), the root's state, then the split loop. With `live`
+        (a (1,) int32 tensor) the tree grows on the buffer's first live
+        rows alone, the rest of it unread."""
+        st = self._statics()
+        cw = self.code_words
+        if live is not None:
+            for f in (dsc.COUNT, dsc.LPHYS):
+                c.root_desc[f:f + 1].copy_(live)
+        if quant is not None:
             c.s_g.copy_(quant.s_g)
             c.s_h.copy_(quant.s_h)
             renew = quant.root_max is not None
             r0 = ((quant_ops.requant_ratio(quant.root_max[0], quant.qcap_op),
                    quant_ops.requant_ratio(quant.root_max[1], quant.qcap_op))
                   if renew else (c.one, c.one))
-            hist0 = build_histogram_quantized_window(
+            hist0, tot_q = self.reduce_root(build_histogram_quantized_window(
                 c.data, c.spare, c.root_desc, cw, self.c_cols,
                 self.item_bits, r0[0], r0[1], quant.qcap_op, quant.bits,
-                st["col_bins"])
+                st["col_bins"]))
             scale3 = quant_ops.dequant_scale3(c.s_g * r0[0], c.s_h * r0[1])
             hist0_s = hist0.float() * scale3
-            totals = hist0[0].sum(dim=0).float() * scale3
+            totals = tot_q.float() * scale3
             c.scale_of.fill_(1.0)
             c.leafmax.zero_()
             if renew:
@@ -2218,17 +2284,13 @@ class DeviceTreeLearner:
         c.leaf_begin.zero_()
         c.leaf_buf.zero_()
         c.leaf_phys.zero_()
-        # (a fill: `t[0] = n` on the card copies n from the host, a sync)
-        c.leaf_phys[:1].fill_(c.data.shape[0])
-        loop.run()
-        if bag_idx is None:
-            leaf_id = leaf_map(c)
+        if live is None:
+            # (a fill: `t[0] = n` on the card copies n from the host, a
+            # sync)
+            c.leaf_phys[:1].fill_(c.data.shape[0])
         else:
-            leaf_id = leaf_map(c, self.dataset.num_data).index_copy_(
-                0, oob_idx, self._route_oob(c, oob_idx).long())
-        if self._shard is not None:
-            self._shard.release_buffer("data0")
-        return c.rec, leaf_id, c.k
+            c.leaf_phys[:1].copy_(live)
+        loop.run()
 
     def chunk_host_loop(self, grad: torch.Tensor, hess: torch.Tensor,
                         iter_seed: int = 0):

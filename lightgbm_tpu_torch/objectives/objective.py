@@ -576,11 +576,14 @@ class LambdarankNDCG(Objective):
     pair loop (rank_objective.hpp:83-190) becomes masked (L, L) tensors per
     query, with the exact sigmoid in place of the reference's table and
     every pair of a query (max_position enters only the inverse max DCG),
-    as in the JAX package. The slots, padded labels and gains and the
-    inverse max DCGs are built on the host at init; the gradient is torch
-    ops on the objective's device with no host sync, run over chunks of
-    queries (_PAIR_BUDGET) and gathered back to the rows (each row has one
-    slot)."""
+    as in the JAX package. A data-parallel rank's objective (row_block)
+    gathers every rank's scores, computes the whole gradient and keeps
+    its block's rows: a rank's ceil block of rows may cut a query in two,
+    and a query's gradient needs all its documents. The slots, padded
+    labels and gains and the inverse max DCGs are built on the host at
+    init; the gradient is torch ops on the objective's device with no host
+    sync, run over chunks of queries (_PAIR_BUDGET) and gathered back to
+    the rows (each row has one slot)."""
     name = "lambdarank"
 
     def __init__(self, config):
@@ -629,7 +632,37 @@ class LambdarankNDCG(Objective):
                          + np.arange(num_data), torch.int64)
         self._chunk = max(1, _PAIR_BUDGET // (L * L))
 
+    def row_block(self, lo: int, hi: int) -> "LambdarankNDCG":
+        """This objective on a data-parallel rank's rows [lo, hi): the
+        query slots stay every row's (get_gradients gathers the scores)."""
+        out = copy.copy(self)
+        out._block = (lo, hi)
+        out.num_data = hi - lo
+        return out
+
+    def _gathered(self, score: torch.Tensor) -> torch.Tensor:
+        """Every row's scores from this rank's block: each rank's block,
+        padded to ceil(N / W) rows, all-gathered in rank order (the
+        parallel/network.py collective, counted there)."""
+        from ..distributed import bootstrap
+        from ..parallel import network
+        n = self._slot.shape[0]
+        if not bootstrap.is_initialized():
+            return score
+        local_n = -(-n // bootstrap.process_count())
+        pad = local_n - score.shape[0]
+        if pad:
+            score = torch.cat([score, score.new_zeros(pad)])
+        return network.all_gather(score).reshape(-1)[:n]
+
     def get_gradients(self, score):
+        block = getattr(self, "_block", None)
+        if block is not None:
+            grad, hess = self._full_gradients(self._gathered(score))
+            return grad[block[0]:block[1]], hess[block[0]:block[1]]
+        return self._full_gradients(score)
+
+    def _full_gradients(self, score):
         q, L = self._idx.shape
         lam = torch.empty((q, L), dtype=torch.float32, device=score.device)
         hes = torch.empty_like(lam)

@@ -91,9 +91,11 @@ def side_maxes(win: torch.Tensor, go_left: torch.Tensor,
     rows, of the (qg << 16 | qh) word at cw (0 for a side without rows)."""
     qg, qh = unpack_gh(win[:, cw])
     a = torch.stack([qg.abs(), qh.abs()], dim=1)
-    zero = torch.zeros((), dtype=a.dtype, device=win.device)
-    left = torch.where(go_left[:, None], a, zero).amax(dim=0)
-    right = torch.where(go_left[:, None], zero, a).amax(dim=0)
+    # a zero row first: a rank's window may hold no rows
+    zero = a.new_zeros((1, 2))
+    left = torch.cat([zero, torch.where(go_left[:, None], a, zero)])
+    right = torch.cat([zero, torch.where(go_left[:, None], zero, a)])
+    left, right = left.amax(dim=0), right.amax(dim=0)
     return torch.cat([left, right]).to(torch.int32)
 
 

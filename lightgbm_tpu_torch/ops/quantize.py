@@ -1,6 +1,6 @@
 """Gradient/hessian quantization for integer histogram construction.
 
-Port of lightgbm_tpu/ops/quantize.py (single device). Per iteration the
+Port of lightgbm_tpu/ops/quantize.py. Per iteration the
 gradients and hessians are scaled onto [-qmax, qmax] and rounded
 stochastically, q = floor(x * s + u) with u ~ U[0, 1) drawn by the
 threefry port (utils/random.py), so the integers are the JAX package's
@@ -17,8 +17,15 @@ the scan dequantizes with s * r. See the JAX module for the reasoning.
 
 Overflow safety: ``quant_max`` caps qmax * N at 2**30, so per-bin int32
 sums cannot overflow.
+
+Data-parallel ranks (``quantize_gh_pmax``) quantize against the scales of
+the whole group -- the max-abs over every rank, the cap from the global
+row count -- with the rounding noise of fold_in(key, rank), as the JAX
+package's shard_map program does.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -84,6 +91,47 @@ def quantize_gh(grad: torch.Tensor, hess: torch.Tensor, key: torch.Tensor,
     wrapper; torch runs the core as it is)."""
     return quantize_gh_core(grad, hess, key, grad_bits=grad_bits,
                             stochastic=stochastic)
+
+
+def quantize_gh_pmax(grad: torch.Tensor, hess: torch.Tensor,
+                     key: torch.Tensor, *, grad_bits: int, n_total: int,
+                     rank: Optional[int] = None, reduce_max=None,
+                     stochastic: bool = True):
+    """One data-parallel rank's discretization (the JAX quantize_gh_pmax
+    under shard_map): the max-abs of grad and hess taken over every rank
+    by `reduce_max` (in place on a (2,) f32 tensor: the group's pmax;
+    None: this rank's alone), the cap quant_max(grad_bits, n_total) from
+    the global row count, and with `rank` the rounding key fold_in(key,
+    rank), so each rank draws its own noise. Returns (packed (N,) int32,
+    s_g, s_h)."""
+    qcap = quant_max(grad_bits, max(int(n_total), grad.shape[0]))
+    m = torch.stack([torch.max(torch.abs(grad)), torch.max(torch.abs(hess))])
+    if reduce_max is not None:
+        m = reduce_max(m)
+    if rank is not None:
+        key = trandom.fold_in(key, rank)
+    q = torch.full((), float(qcap), dtype=torch.float32, device=grad.device)
+    s_g = q / (m[0] + _EPS)
+    s_h = q / (m[1] + _EPS)
+    kg, kh = trandom.split(key)
+    qg = torch.clamp(_round_fused(grad, s_g, kg, stochastic), -qcap, qcap) \
+        .to(torch.int32)
+    qh = torch.clamp(_round_fused(hess, s_h, kh, stochastic), -qcap, qcap) \
+        .to(torch.int32)
+    return pack_gh(qg, qh), s_g, s_h
+
+
+def _round_fused(x: torch.Tensor, s: torch.Tensor, key: torch.Tensor,
+                 stochastic: bool) -> torch.Tensor:
+    """floor(x * s + u) with x * s + u rounded to f32 once, as a fused
+    multiply-add rounds it: the JAX package's shard_map program contracts
+    the product and the noise into one FMA (XLA), which near an integer
+    floors otherwise than two roundings. The product of two f32 is exact
+    in f64."""
+    if not stochastic:
+        return torch.round(x * s)
+    u = trandom.uniform(key, x.shape[0], device=x.device)
+    return torch.floor((x.double() * s.double() + u.double()).float())
 
 
 def pack_gh(qg: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:

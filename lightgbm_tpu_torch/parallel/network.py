@@ -87,12 +87,19 @@ def _gloo_for(t: torch.Tensor) -> bool:
     return t.device.type != "cuda" or bootstrap.cuda_backend() == "gloo"
 
 
-def all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` over the ranks, in place; returns it."""
+def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """Reduce `t` over the ranks in place, by `op` ("sum" or "max": the
+    JAX package's psum and pmax); returns it."""
     import torch.distributed as dist
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     _count(t)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    dist.all_reduce(t, op=red)
     return t
+
+
+def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
+    """The maximum of `t` over the ranks, in place (the JAX pmax)."""
+    return all_reduce(t, op="max")
 
 
 def reduce_scatter(t: torch.Tensor, axis: int = 0) -> torch.Tensor:

@@ -104,11 +104,15 @@ def write_checkpoint_file(path: str, meta: Dict[str, Any],
     atomic_write_bytes(path, header + payload)
 
 
-def read_checkpoint_file(path: str) -> Tuple[Dict[str, Any], Any]:
-    if not os.path.isfile(path):
-        raise CheckpointError(f"no checkpoint at {path}")
-    with open(path, "rb") as f:
-        blob = f.read()
+def read_checkpoint_file(path: str, blob: Optional[bytes] = None
+                         ) -> Tuple[Dict[str, Any], Any]:
+    """(manifest, npz) of the checkpoint at `path`, or of its bytes `blob`
+    (a resume broadcast: `path` then only names it in errors)."""
+    if blob is None:
+        if not os.path.isfile(path):
+            raise CheckpointError(f"no checkpoint at {path}")
+        with open(path, "rb") as f:
+            blob = f.read()
     if not blob.startswith(MAGIC):
         raise CheckpointError(f"{path}: not a lightgbm_tpu checkpoint")
     try:
@@ -168,17 +172,6 @@ class CheckpointData:
         return int(self.meta.get("iteration", 0))
 
 
-def _refuse_data_parallel(gbdt) -> None:
-    """A data-parallel run keeps each rank's scores only: its checkpoints
-    (rank-0 writes, a resume broadcast) are a later slice's."""
-    if getattr(gbdt, "row_block", None) is not None:
-        from ..utils.log import LightGBMError
-        raise LightGBMError(
-            "checkpoints of a tree_learner=data run are not supported by "
-            "lightgbm_tpu_torch yet (ROADMAP.md section 1, item 5: "
-            "distributed/checkpoint.py)")
-
-
 def capture(booster, history: Optional[list] = None,
             extra_meta: Optional[Dict[str, Any]] = None
             ) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
@@ -190,9 +183,13 @@ def capture(booster, history: Optional[list] = None,
     run's original round budget (``target_rounds``) so a resume after
     preemption finishes the right count, or ``preempted=True`` marking
     an emergency checkpoint. Reserved keys (format/version/iteration/
-    checksums) cannot be overridden."""
+    checksums) cannot be overridden.
+
+    A data-parallel booster's capture is a collective: its training
+    scores are gathered from every rank (every rank calls it), so the
+    file holds the global scores, the JAX package's format; a restore
+    cuts them to the rank's block (GBDT.restore_state)."""
     gbdt = _gbdt_of(booster)
-    _refuse_data_parallel(gbdt)
     st = gbdt.capture_state()
     model_text = gbdt.save_model_to_string(0, -1)
     arrays: Dict[str, np.ndarray] = {"model_text": np.array(model_text)}
@@ -264,8 +261,9 @@ def save_checkpoint(path: str, booster, history: Optional[list] = None,
     return path
 
 
-def load_checkpoint(path: str) -> CheckpointData:
-    manifest, npz = read_checkpoint_file(path)
+def load_checkpoint(path: str, blob: Optional[bytes] = None
+                    ) -> CheckpointData:
+    manifest, npz = read_checkpoint_file(path, blob)
     if manifest.get("format") != FORMAT:
         raise CheckpointError(f"{path}: unknown format "
                               f"{manifest.get('format')!r}")
@@ -318,7 +316,6 @@ def restore_checkpoint(booster, data) -> None:
     wholesale (each tree re-binned over this training set's mappers when
     it is first walked), scores come back bit-exact from the stored
     arrays, and RNG state resumes mid-stream."""
-    _refuse_data_parallel(_gbdt_of(booster))
     if isinstance(data, str):
         data = find_checkpoint(data)
     gbdt = _gbdt_of(booster)

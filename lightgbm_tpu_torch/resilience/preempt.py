@@ -1,5 +1,5 @@
 """Graceful preemption: SIGTERM/SIGINT -> checkpoint -> exit 76 (port of
-lightgbm_tpu/resilience/preempt.py, one process).
+lightgbm_tpu/resilience/preempt.py).
 
 Cloud fleets evict hosts with a SIGTERM and a short grace window. The
 stock outcome is the worst one: training dies mid-iteration and the run
@@ -22,10 +22,15 @@ The emergency checkpoint records the run's original round target
 (``target_rounds`` in the manifest) so a resume finishes the right
 budget without the operator restating it.
 
-With one process there is no vote: ``resolve_group_sync`` is false and
-``group_requested`` is the local flag. The JAX package's vote across
-ranks (one byte per rank per iteration over its host allgather, and the
-state that decides whether it runs) waits for the port's multi-GPU layer.
+Across ranks (a data-parallel run) the ranks vote: at each iteration
+boundary every rank sends one byte, its flag, over the host all-gather
+lane (io/distributed.py), and all of them checkpoint at the same boundary
+and exit 76 when any one was preempted. Whether the vote runs is agreed
+once, at the training loop's entry (``resolve_group_sync``: every rank
+must be armed -- handlers installed or ``LGBM_TPU_PREEMPT_SYNC=1``), so an
+asymmetric arming cannot leave some ranks waiting in the per-iteration
+all-gather. With one process there is no vote: ``group_requested`` is the
+local flag.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from ..telemetry import events as telem_events
 from ..utils import log
 
 __all__ = ["PREEMPT_EXIT_CODE", "install_handlers", "arm", "requested",
-           "reason", "clear", "resolve_group_sync",
+           "reason", "clear", "sync_enabled", "resolve_group_sync",
            "group_requested"]
 
 # exit-code contract: the process wrote a durable emergency checkpoint and
@@ -49,6 +54,8 @@ PREEMPT_EXIT_CODE = 76
 _requested = threading.Event()
 _installed = False
 _reason = ""
+# the group's decision whether the vote runs (resolve_group_sync)
+_group_sync = False
 
 
 def _on_signal(signum, frame) -> None:   # pragma: no cover - signal ctx
@@ -111,19 +118,62 @@ def reason() -> str:
 
 
 def clear() -> None:
-    """Reset the flag (tests; a resumed process starts clean anyway)."""
-    global _reason
+    """Reset the flag and the group's vote decision (tests; a resumed
+    process starts clean anyway)."""
+    global _reason, _group_sync
     _requested.clear()
     _reason = ""
+    _group_sync = False
+
+
+def sync_enabled() -> bool:
+    """This process's own arming of the vote: handlers installed, or
+    ``LGBM_TPU_PREEMPT_SYNC=1``. The group decides from every rank's
+    (resolve_group_sync), never from this alone: install_handlers
+    declines off the main thread, so arming can differ between ranks."""
+    return _installed or os.environ.get("LGBM_TPU_PREEMPT_SYNC", "") == "1"
 
 
 def resolve_group_sync() -> bool:
-    """Whether the per-iteration preempt vote across ranks runs: never
-    with one process."""
-    return False
+    """Agree once, collectively, whether the per-iteration vote runs:
+    called at the training loop's entry, which every rank reaches
+    together. Each rank sends its sync_enabled() byte; the vote runs only
+    when every rank is armed (a mismatch disables it everywhere, with a
+    warning, rather than leaving the armed ranks in the per-iteration
+    all-gather). One process: False, there is no vote."""
+    global _group_sync
+    from ..distributed import bootstrap
+    if not bootstrap.is_distributed():
+        _group_sync = False
+        return _group_sync
+    from ..io.distributed import _allgather_host_bytes
+    votes = _allgather_host_bytes(b"\x01" if sync_enabled() else b"\x00")
+    armed = [v[:1] == b"\x01" for v in votes]
+    _group_sync = all(armed)
+    if not _group_sync and any(armed):
+        unarmed = [i for i, a in enumerate(armed) if not a]
+        telem_events.emit("preempt", phase="vote_disabled",
+                          unarmed_ranks=unarmed)
+        log.warning("preempt vote disabled: arming is asymmetric (rank(s) "
+                    "%s un-armed)", unarmed)
+    return _group_sync
 
 
 def group_requested() -> bool:
-    """True when the preemption flag is set (one process: the local flag,
-    one Event read)."""
-    return _requested.is_set()
+    """True when any rank has the preemption flag set. One process, or
+    with the vote off: the local flag (one Event read). Under the vote:
+    each rank's byte over the host all-gather lane (framed with the
+    iteration epoch, so a desynced rank fails typed), and a rank that
+    learns of a peer's preemption arms its own flag ("peer")."""
+    local = _requested.is_set()
+    if not _group_sync:
+        return local
+    from ..distributed import bootstrap
+    if not bootstrap.is_distributed():
+        return local
+    from ..io.distributed import _allgather_host_bytes
+    votes = _allgather_host_bytes(b"\x01" if local else b"\x00")
+    hit = any(v[:1] == b"\x01" for v in votes)
+    if hit and not local:
+        arm("peer")
+    return hit

@@ -15,6 +15,9 @@ ops/quantize.py draws the same bits as the JAX package:
   * ``prng_key(seed)`` is ``[0, seed mod 2**32]`` (a 32-bit seed);
   * ``split(key, num)`` hashes the counters ``(0, i)``, i < num, and
     stacks each hash pair ``(b1, b2)`` as the i-th key;
+  * ``fold_in(key, data)`` is the hash pair of the counter ``(0, data)``
+    (so the ``data``-th key of a split, for a 32-bit ``data``): the
+    data-parallel learner's per-rank draws;
   * ``uniform(key, n)`` hashes the counters ``(0, i)``, i < n, takes the
     bits ``b1 ^ b2``, keeps their top 23 as the mantissa of a float in
     [1, 2) and subtracts 1.
@@ -73,6 +76,15 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """(num, 2) int64 keys (jax.random.split)."""
     b1, b2 = _hash_iota(key, num)
     return torch.stack([b1, b2], dim=1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """(2,) int64 key of `key` and a 32-bit integer (jax.random.fold_in):
+    the threefry hash of the counter (0, data)."""
+    k0, k1 = _words(key)
+    lo = torch.tensor([int(data) & _MASK], dtype=torch.int64)
+    b1, b2 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+    return torch.cat([b1, b2]).to(key.device)
 
 
 def uniform(key: torch.Tensor, n: int, device=None) -> torch.Tensor:

@@ -99,15 +99,26 @@ def test_every_public_method_of_the_jax_classes():
     ("restore_checkpoint", ("ckpt",), "section 1, item 5")])
 def test_later_slices_raise_naming_their_item(port_booster, method, args,
                                               item, tmp_path):
-    # set_network / free_network run since the data-parallel slice
-    # (tests/test_torch_parallel.py); a data-parallel run's checkpoints
-    # are a later part of it
+    # a data-parallel booster checkpoints and restores (rank 0's file:
+    # tests/test_torch_parallel_resume.py); the parts of the multi-GPU
+    # item still to come raise naming it
     _, _, x = port_booster
-    b = tlgb.train({"objective": "binary", "tree_learner": "data",
-                    "verbosity": -1}, tlgb.Dataset(x, (x[:, 0] > 0) * 1.0),
-                   num_boost_round=1, device="cpu")
+    y = (x[:, 0] > 0) * 1.0
+    params = {"objective": "binary", "tree_learner": "data",
+              "verbosity": -1}
+    b = tlgb.train(dict(params), tlgb.Dataset(x, y), num_boost_round=1,
+                   device="cpu")
+    path = str(tmp_path / args[0])
+    b.save_checkpoint(path)
+    want = b.model_to_string()
+    if method == "restore_checkpoint":
+        getattr(b, method)(path)
+        assert b.model_to_string() == want
+    later = ({"tree_learner": "voting"} if method == "save_checkpoint"
+             else {"stream_mode": "chunked"})
     with pytest.raises(LightGBMError, match="ROADMAP.md %s" % item):
-        getattr(b, method)(str(tmp_path / args[0]))
+        tlgb.train(dict(params, **later), tlgb.Dataset(x, y),
+                   num_boost_round=1, device="cpu")
 
 
 def test_pickle_and_copies_predict_the_same(port_booster):

@@ -194,15 +194,18 @@ def test_weights_and_init_score_match_jax(monkeypatch):
 def test_out_of_slice_params_raise_naming_the_key(key, value):
     x, y = _task("binary", n=200)
     params = dict(_params("binary"), **{key: value})
+    named = key
     if key in ("quantized_grad", "stream_mode"):
-        # quantized gradients and streaming run on the serial learner
-        # only (quantized and streamed data-parallel wait for later parts
-        # of the multi-GPU slice)
+        # streaming runs on the serial learner only (streamed
+        # data-parallel waits for a later part of the multi-GPU slice)
         params["tree_learner"] = "data"
-    if (key, value) == ("tree_learner", "data"):
-        # the data-parallel learner trains without row sampling for now
-        params.update(bagging_freq=1, bagging_fraction=0.5)
-    with pytest.raises(LightGBMError, match=key):
+    if (key, value) in (("quantized_grad", True), ("tree_learner", "data")):
+        # quantized and sampled data-parallel runs train; streamed rows
+        # under them are still refused, naming the stream
+        params.update(bagging_freq=1, bagging_fraction=0.5,
+                      stream_mode="chunked")
+        named = "stream_mode"
+    with pytest.raises(LightGBMError, match=named):
         tlgb.train(params, tlgb.Dataset(x, y), num_boost_round=1,
                    device="cpu")
 

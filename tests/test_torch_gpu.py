@@ -2350,6 +2350,53 @@ def test_capi_trains_on_the_card(cuda_device, monkeypatch):
     assert lib.LGBM_DatasetFree(ds) == 0
 
 
+_DP_MODES = {"quantized": {"quantized_grad": True, "grad_bits": 8},
+             "bagging": {"bagging_fraction": 0.8, "bagging_freq": 1},
+             "goss": {"boosting": "goss", "learning_rate": 0.5}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(_DP_MODES))
+def test_data_parallel_world_size_one_modes_captured(cuda_device, mode):
+    # quantized, bagged and GOSS data-parallel at world size 1 under
+    # NCCL: the fused iteration at one host sync per tree, the split step
+    # captured with its collectives inside, K3's window entry (quantized)
+    # or K1's launched, and the router for each sampled tree's other rows
+    import socket
+    from lightgbm_tpu_torch.distributed import bootstrap
+    r = np.random.RandomState(5)
+    x = r.randn(70_000, 6)
+    y = (x[:, 0] + 0.5 * r.randn(70_000) > 0).astype(float)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    bootstrap.initialize("127.0.0.1:%d" % port, 1, 0)
+    try:
+        k1.launches_win = k1.launches_qwin = kkey.launches_route = 0
+        rounds = 4
+        dp = tlgb.train(dict({"objective": "binary", "num_leaves": 31,
+                              "verbosity": -1, "tree_learner": "data"},
+                             **_DP_MODES[mode]), tlgb.Dataset(x, y), rounds)
+        lr = dp._gbdt.learner
+        assert dp._gbdt._fused_step is not None
+        assert lr._loop.graph is not None
+        assert lr._loop.launches_per_step[
+            "lightgbm_tpu_torch.parallel.network.collectives"] >= 1
+        assert lr.stats.host_syncs == lr.stats.trees == rounds
+        if mode == "quantized":
+            assert k1.launches_qwin > 0 and k1.launches_win == 0
+        else:
+            assert k1.launches_win > 0 and k1.launches_qwin == 0
+            # GOSS samples after its warm-up of int(1 / 0.5) iterations
+            assert kkey.launches_route == (rounds if mode == "bagging"
+                                           else rounds - 2)
+        del dp, lr
+        gc.collect()
+    finally:
+        bootstrap.shutdown()
+
+
 @pytest.mark.gpu
 def test_data_parallel_world_size_one_nccl_equals_serial(cuda_device):
     # tree_learner=data at world size 1 under NCCL: the serial compact
